@@ -1,0 +1,265 @@
+"""Device-resident columnar data model over torch tensors.
+
+Counterpart of presto_tpu/block.py (Column, StringColumn, Int128Column,
+Batch and the host <-> device staging helpers), with plain dataclasses
+in place of JAX pytrees and an explicit `device` on every staging call:
+`None` means CUDA, and a CUDA device that is not there raises.
+
+* A `Column` is a flat value tensor plus a bool null mask.
+* A `StringColumn` is a padded `(N, L)` uint8 matrix plus lengths.
+* An `Int128Column` is a long decimal as two int64 lanes: `hi` and `lo`.
+  The reference's `lo` lane is uint64; torch has no unsigned 64-bit
+  shifts or compares, so `lo` holds the same bits as an int64 pattern
+  (int128.py does the unsigned arithmetic on those patterns).
+* A `Batch` is equal-capacity columns plus an `active` row mask: rows
+  past the live count, and rows a filter dropped, are inactive.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from . import types as T
+
+__all__ = ["Column", "StringColumn", "Int128Column", "Batch", "Block",
+           "torch_dtype", "resolve_device", "from_numpy", "batch_from_numpy",
+           "to_numpy", "gather_block"]
+
+_TORCH_DTYPES = {
+    np.dtype(np.bool_): torch.bool,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+}
+
+
+def torch_dtype(dt) -> torch.dtype:
+    return _TORCH_DTYPES[np.dtype(dt)]
+
+
+@dataclasses.dataclass
+class Column:
+    """Fixed-width column: `values` (N,), `nulls` (N,) bool (True = NULL).
+    Value slots under a null are unspecified but finite."""
+    values: torch.Tensor
+    nulls: torch.Tensor
+    type: T.Type
+
+    def __len__(self):
+        return self.values.shape[0]
+
+
+@dataclasses.dataclass
+class StringColumn:
+    """Padded strings: `chars` (N, L) uint8 with zeros past each row's
+    length, `lengths` (N,) int32, `nulls` (N,) bool."""
+    chars: torch.Tensor
+    lengths: torch.Tensor
+    nulls: torch.Tensor
+    type: T.Type
+
+    def __len__(self):
+        return self.chars.shape[0]
+
+    @property
+    def max_len(self) -> int:
+        return self.chars.shape[1]
+
+
+@dataclasses.dataclass
+class Int128Column:
+    """Long decimal lanes: value = hi * 2^64 + lo (two's complement),
+    `lo` held as the int64 bit pattern of the unsigned low word."""
+    hi: torch.Tensor
+    lo: torch.Tensor
+    nulls: torch.Tensor
+    type: T.Type
+
+    def __len__(self):
+        return self.hi.shape[0]
+
+
+Block = Union[Column, StringColumn, Int128Column]
+
+
+@dataclasses.dataclass
+class Batch:
+    """Equal-capacity columns and the active-row mask every op honours."""
+    columns: Tuple[Block, ...]
+    active: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.active.shape[0]
+
+    @property
+    def num_columns(self) -> int:
+        return len(self.columns)
+
+    def column(self, i: int) -> Block:
+        return self.columns[i]
+
+    def with_active(self, active: torch.Tensor) -> "Batch":
+        return Batch(self.columns, active)
+
+
+# --------------------------------------------------------------------------
+# Host <-> device staging
+# --------------------------------------------------------------------------
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means CUDA; a CUDA device that is not there raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return dev
+
+
+def _pad_cast(arr: np.ndarray, capacity: int, dt, fill=0) -> np.ndarray:
+    """Allocate the (capacity, ...) staging buffer at the target dtype
+    once and slice-assign into it (one host copy, not cast-then-pad)."""
+    dt = np.dtype(dt)
+    n = arr.shape[0]
+    if n == capacity and arr.dtype == dt:
+        return arr
+    out = np.full((capacity,) + arr.shape[1:], fill, dtype=dt)
+    out[:n] = arr
+    return out
+
+
+def _put(arr: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _encode_strings(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Object array of str/None -> ((n, w) uint8 chars, (n,) int32
+    lengths), UTF-8, None as the empty string. ASCII text takes a
+    vectorized path through numpy's fixed-width unicode (whose trailing
+    NULs are padding, as in any staged chars matrix); anything
+    else encodes row by row."""
+    n = values.shape[0]
+    if n == 0:
+        return np.zeros((0, 1), np.uint8), np.zeros(0, np.int32)
+    text = np.where(np.equal(values, None), "", values).astype(str)
+    codes = text.view(np.uint32).reshape(n, -1)
+    if not (codes >= 128).any():
+        chars = codes.astype(np.uint8)
+        nonzero = chars != 0
+        lengths = np.where(nonzero.any(axis=1),
+                           chars.shape[1] - np.argmax(nonzero[:, ::-1],
+                                                      axis=1),
+                           0).astype(np.int32)
+        return chars, lengths
+    encoded = [b"" if v is None else str(v).encode("utf-8") for v in values]
+    max_len = max((len(b) for b in encoded), default=1) or 1
+    chars = np.zeros((n, max_len), dtype=np.uint8)
+    lengths = np.zeros(n, dtype=np.int32)
+    for i, b in enumerate(encoded):
+        chars[i, :len(b)] = np.frombuffer(b, dtype=np.uint8)
+        lengths[i] = len(b)
+    return chars, lengths
+
+
+def from_numpy(ty: T.Type, values: np.ndarray,
+               nulls: Optional[np.ndarray] = None,
+               capacity: Optional[int] = None, physical_dtype=None,
+               device=None) -> Block:
+    """Stage one host column on `device` (None: CUDA). Strings arrive as an object
+    array of str, long decimals as Python ints or any int64-safe array.
+    `physical_dtype` stages a fixed-width column at a narrower
+    range-proven lane (plan/widths.py); the logical `ty` is unchanged
+    and compute sites widen first."""
+    device = resolve_device(device)
+    n = values.shape[0]
+    capacity = capacity or n
+    if nulls is None:
+        if values.dtype == object:
+            nulls = np.array([v is None for v in values], dtype=bool)
+        else:
+            nulls = np.zeros(n, dtype=bool)
+    nulls_t = _put(_pad_cast(np.asarray(nulls, dtype=bool), capacity, bool,
+                             fill=True), device)
+    if ty.is_string:
+        chars, lengths = _encode_strings(values)
+        return StringColumn(_put(_pad_cast(chars, capacity, np.uint8), device),
+                            _put(_pad_cast(lengths, capacity, np.int32),
+                                 device),
+                            nulls_t, ty)
+    if ty.is_decimal and not ty.is_short_decimal:
+        from .int128 import python_to_int128
+        if values.dtype == object:
+            hi, lo = python_to_int128(list(values))
+        else:
+            v = np.asarray(values, dtype=np.int64)
+            hi, lo = v >> 63, v
+        return Int128Column(_put(_pad_cast(hi, capacity, np.int64), device),
+                            _put(_pad_cast(lo, capacity, np.int64), device),
+                            nulls_t, ty)
+    dt = np.dtype(physical_dtype) if physical_dtype is not None \
+        else ty.to_dtype()
+    return Column(_put(_pad_cast(values, capacity, dt), device), nulls_t, ty)
+
+
+def batch_from_numpy(types: Sequence[T.Type], arrays: Sequence[np.ndarray],
+                     nulls: Optional[Sequence[Optional[np.ndarray]]] = None,
+                     capacity: Optional[int] = None, physical_dtypes=None,
+                     device=None) -> Batch:
+    """Stage equal-length host columns as one Batch on `device` (None:
+    CUDA); rows past the live count are inactive."""
+    device = resolve_device(device)
+    n = arrays[0].shape[0]
+    capacity = capacity or n
+    nulls = nulls or [None] * len(arrays)
+    physical_dtypes = physical_dtypes or [None] * len(arrays)
+    cols = tuple(from_numpy(t, a, m, capacity, physical_dtype=p,
+                            device=device)
+                 for t, a, m, p in zip(types, arrays, nulls,
+                                       physical_dtypes))
+    active = np.zeros(capacity, dtype=bool)
+    active[:n] = True
+    return Batch(cols, _put(active, device))
+
+
+def to_numpy(block: Block) -> Tuple[np.ndarray, np.ndarray]:
+    """Fetch (values, nulls) to the host. Strings come back as an object
+    array of str, long decimals as an object array of Python ints."""
+    nulls = block.nulls.cpu().numpy()
+    if isinstance(block, StringColumn):
+        chars = block.chars.cpu().numpy()
+        lengths = block.lengths.cpu().numpy()
+        vals = np.array([chars[i, :lengths[i]].tobytes().decode("utf-8",
+                                                                "replace")
+                         for i in range(chars.shape[0])], dtype=object)
+        return vals, nulls
+    if isinstance(block, Int128Column):
+        from .int128 import int128_to_python
+        return int128_to_python(block.hi.cpu().numpy(),
+                                block.lo.cpu().numpy()), nulls
+    return block.values.cpu().numpy(), nulls
+
+
+def gather_block(b: Block, idx: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None) -> Block:
+    """Row gather for every Block kind. `valid=None` is a pure
+    permutation; with a mask, invalid output rows become NULL (and
+    empty, for strings)."""
+    nulls = b.nulls[idx]
+    if valid is not None:
+        nulls = torch.where(valid, nulls, True)
+    if isinstance(b, StringColumn):
+        lengths = b.lengths[idx]
+        if valid is not None:
+            lengths = torch.where(valid, lengths, 0)
+        return StringColumn(b.chars[idx], lengths, nulls, b.type)
+    if isinstance(b, Int128Column):
+        return Int128Column(b.hi[idx], b.lo[idx], nulls, b.type)
+    return Column(b.values[idx], nulls, b.type)

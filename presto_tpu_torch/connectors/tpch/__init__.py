@@ -1,0 +1,8 @@
+"""The TPC-H connector: deterministic generated tables (lineitem)."""
+
+from .generator import (TPCH_SCHEMA, column_type, generate_columns,
+                        table_row_count)
+from .stats import column_range
+
+__all__ = ["TPCH_SCHEMA", "table_row_count", "generate_columns",
+           "column_type", "column_range"]

@@ -1,0 +1,214 @@
+"""Deterministic columnar TPC-H data generator (lineitem).
+
+The port's own copy of presto_tpu/connectors/tpch/generator.py, trimmed
+to the `lineitem` table that TPC-H q1 and q6 scan. Every value is a
+pure function of (table, column, global row index, scale factor)
+through a crc32-salted splitmix64 hash, so any split of the table
+generates identically in any process; the arrays equal the reference's
+element for element (the tests hold them so).
+
+Decimals are scaled int64 (cents); dates are int32 days since epoch;
+char/varchar columns are object arrays of str.
+"""
+
+from __future__ import annotations
+
+import zlib
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ... import types as T
+
+# ---------------------------------------------------------------------------
+# Schema (TPC-H spec 1.4; types as Presto's tpch connector exposes them)
+# ---------------------------------------------------------------------------
+
+_D122 = T.decimal(12, 2)
+
+TPCH_SCHEMA: Dict[str, List[Tuple[str, T.Type]]] = {
+    "lineitem": [
+        ("orderkey", T.BIGINT), ("partkey", T.BIGINT), ("suppkey", T.BIGINT),
+        ("linenumber", T.INTEGER), ("quantity", _D122),
+        ("extendedprice", _D122), ("discount", _D122), ("tax", _D122),
+        ("returnflag", T.char(1)), ("linestatus", T.char(1)),
+        ("shipdate", T.DATE), ("commitdate", T.DATE), ("receiptdate", T.DATE),
+        ("shipinstruct", T.varchar(25)), ("shipmode", T.varchar(10)),
+        ("comment", T.varchar(44)),
+    ],
+}
+
+_BASE_ROWS = {
+    "lineitem": 6_000_000, "orders": 1_500_000, "customer": 150_000,
+    "part": 200_000, "supplier": 10_000, "partsupp": 800_000,
+    "nation": 25, "region": 5,
+}
+
+LINES_PER_ORDER = 4  # fixed fan-out: lineitem row i belongs to order i//4 + 1
+
+# date epochs (days since 1970-01-01)
+_D = np.datetime64("1970-01-01")
+_EPOCH_1992 = int((np.datetime64("1992-01-01") - _D).astype(int))
+_ORDERDATE_RANGE = 2405  # spec: orders span 1992-01-01 .. 1998-08-02 (ENDDATE - 151 days)
+_CUTOFF_1995_06_17 = int((np.datetime64("1995-06-17") - _D).astype(int))
+
+_INSTRUCTS = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
+_MODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
+_COMMENT_WORDS = ["carefully", "quickly", "furiously", "slyly", "blithely",
+                  "final", "special", "pending", "regular", "express",
+                  "deposits", "requests", "packages", "accounts", "ideas",
+                  "theodolites", "dependencies", "instructions", "foxes",
+                  "platelets", "sleep", "nag", "haggle", "wake", "cajole",
+                  "above the", "among the", "across the", "beneath"]
+
+
+def table_row_count(table: str, sf: float) -> int:
+    if table in ("nation", "region"):
+        return _BASE_ROWS[table]
+    return int(_BASE_ROWS[table] * sf)
+
+
+def column_type(table: str, column: str) -> T.Type:
+    for name, ty in TPCH_SCHEMA[table]:
+        if name == column:
+            return ty
+    raise KeyError(f"{table}.{column}")
+
+
+# ---------------------------------------------------------------------------
+# splitmix64: the stateless per-row hash
+# ---------------------------------------------------------------------------
+
+_M1 = np.uint64(0xBF58476D1CE4E5B9)
+_M2 = np.uint64(0x94D049BB133111EB)
+_GOLDEN = np.uint64(0x9E3779B97F4A7C15)
+
+
+def _splitmix64(x: np.ndarray) -> np.ndarray:
+    with np.errstate(over="ignore"):
+        z = (x + _GOLDEN).astype(np.uint64)
+        z = np.bitwise_xor(z, z >> np.uint64(30)) * _M1
+        z = np.bitwise_xor(z, z >> np.uint64(27)) * _M2
+        return np.bitwise_xor(z, z >> np.uint64(31))
+
+
+def _h(table: str, column: str, idx: np.ndarray) -> np.ndarray:
+    """64-bit hash of global row index, salted by table.column. The salt
+    uses crc32 (not Python's randomized str hash) so values are identical
+    across processes and hosts."""
+    seed = _splitmix64(np.uint64(zlib.crc32(f"{table}.{column}".encode())))
+    with np.errstate(over="ignore"):
+        return _splitmix64(idx.astype(np.uint64) * _GOLDEN + seed)
+
+
+def _uniform(table, column, idx, lo, hi):
+    """Integers uniform in [lo, hi] (inclusive). Offset added in int64 so
+    negative bounds (acctbal) don't overflow uint64 arithmetic."""
+    return (_h(table, column, idx) % np.uint64(hi - lo + 1)).astype(np.int64) + lo
+
+
+def _strings(values: Sequence[str]) -> np.ndarray:
+    return np.array(values, dtype=object)
+
+
+def _pick(table, column, idx, choices: Sequence[str]) -> np.ndarray:
+    codes = (_h(table, column, idx) % np.uint64(len(choices))).astype(np.int64)
+    return _strings(choices)[codes]
+
+
+def _comment(table, idx, nwords=4, max_chars: Optional[int] = None) -> np.ndarray:
+    parts = [_pick(table, f"comment{k}", idx, _COMMENT_WORDS) for k in range(nwords)]
+    out = parts[0].astype(str)
+    for p in parts[1:]:
+        out = np.char.add(np.char.add(out, " "), p.astype(str))
+    if max_chars is not None:
+        out = out.astype(f"<U{max_chars}")  # dbgen-style truncation to the declared width
+    return out.astype(object)
+
+
+# ---------------------------------------------------------------------------
+# Column generators.  idx is the global row index vector.
+# ---------------------------------------------------------------------------
+
+def _orders_orderdate(idx: np.ndarray) -> np.ndarray:
+    return (_EPOCH_1992
+            + _uniform("orders", "orderdate", idx, 0, _ORDERDATE_RANGE)).astype(np.int32)
+
+
+def _retail_price(pkey: np.ndarray) -> np.ndarray:
+    """part.retailprice in cents; lineitem.extendedprice = quantity * this."""
+    return (90000 + (pkey % 200001) + 100 * (pkey % 1000)).astype(np.int64)
+
+
+def _gen_lineitem(column: str, idx: np.ndarray, sf: float) -> np.ndarray:
+    n_part = table_row_count("part", sf)
+    n_supp = table_row_count("supplier", sf)
+    okey = idx // LINES_PER_ORDER  # 0-based order row index
+    if column == "orderkey":
+        return (okey + 1).astype(np.int64)
+    if column == "linenumber":
+        return (idx % LINES_PER_ORDER + 1).astype(np.int32)
+    if column == "partkey":
+        return _uniform("lineitem", "partkey", idx, 1, n_part)
+    if column == "suppkey":
+        # spec ties suppkey to partkey's eligible suppliers; uniform is fine here
+        return _uniform("lineitem", "suppkey", idx, 1, n_supp)
+    if column == "quantity":
+        return _uniform("lineitem", "quantity", idx, 1, 50) * 100
+    if column == "extendedprice":
+        qty = _uniform("lineitem", "quantity", idx, 1, 50)
+        pkey = _uniform("lineitem", "partkey", idx, 1, n_part)
+        return (qty * _retail_price(pkey)).astype(np.int64)
+    if column == "discount":
+        return _uniform("lineitem", "discount", idx, 0, 10)  # 0.00..0.10
+    if column == "tax":
+        return _uniform("lineitem", "tax", idx, 0, 8)
+    if column in ("shipdate", "commitdate", "receiptdate", "returnflag",
+                  "linestatus"):
+        odate = _orders_orderdate(okey)
+        ship = odate + _uniform("lineitem", "shipdate", idx, 1, 121).astype(np.int32)
+        if column == "shipdate":
+            return ship.astype(np.int32)
+        if column == "commitdate":
+            return (odate + _uniform("lineitem", "commitdate", idx, 30, 90)).astype(np.int32)
+        receipt = ship + _uniform("lineitem", "receiptdate", idx, 1, 30).astype(np.int32)
+        if column == "receiptdate":
+            return receipt.astype(np.int32)
+        if column == "returnflag":
+            ra = _pick("lineitem", "returnflag", idx, ["R", "A"])
+            return np.where(receipt <= _CUTOFF_1995_06_17, ra, "N").astype(object)
+        if column == "linestatus":
+            return np.where(ship > _CUTOFF_1995_06_17, "O", "F").astype(object)
+    if column == "shipinstruct":
+        return _pick("lineitem", "shipinstruct", idx, _INSTRUCTS)
+    if column == "shipmode":
+        return _pick("lineitem", "shipmode", idx, _MODES)
+    if column == "comment":
+        return _comment("lineitem", idx, 3)
+    raise KeyError(f"lineitem.{column}")
+
+
+_GENERATORS = {"lineitem": _gen_lineitem}
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+def generate_columns(table: str, sf: float, columns: Sequence[str],
+                     start: int = 0, count: Optional[int] = None
+                     ) -> Dict[str, np.ndarray]:
+    """Generate host columns for rows [start, start+count) of `table`."""
+    gen = _GENERATORS.get(table)
+    if gen is None:
+        raise NotImplementedError(
+            f"tpch.{table} is not ported yet (ROADMAP queue 1 item 8: the "
+            "tables of config 2)")
+    total = table_row_count(table, sf)
+    if count is None:
+        count = total - start
+    if not (0 <= start and start + count <= total):
+        raise ValueError(f"rows [{start}, {start + count}) outside "
+                         f"tpch.{table} of {total} rows")
+    idx = np.arange(start, start + count, dtype=np.int64)
+    return {c: gen(c, idx, sf) for c in columns}

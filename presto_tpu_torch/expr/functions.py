@@ -1,0 +1,289 @@
+"""Scalar function registry: the functions TPC-H q1 and q6 reach.
+
+Counterpart of presto_tpu/expr/functions.py, trimmed to comparisons of
+integers, dates and decimals and to decimal add/subtract/multiply/
+divide. A function is a name plus an implementation
+`(ret_type, *blocks) -> Block`; the compiler computes the default null
+mask (OR of argument nulls) and a function only overrides it through
+`null_fn`.
+
+Decimal rules are Presto's: add/subtract rescale to the result scale,
+multiply adds scales, divide rescales the dividend and rounds half away
+from zero. Short decimals (precision <= 18) are int64 lanes; long
+decimals compute in exact 128-bit (hi, lo) lanes (int128.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Union
+
+import torch
+
+from .. import int128 as I128
+from .. import types as T
+from ..block import Column, Int128Column, StringColumn
+
+Block = Union[Column, StringColumn, Int128Column]
+
+__all__ = ["ScalarFunction", "REGISTRY", "register", "lookup",
+           "rescale_decimal"]
+
+
+@dataclasses.dataclass
+class ScalarFunction:
+    name: str
+    fn: Callable
+    null_fn: Optional[Callable] = None
+
+
+REGISTRY: Dict[str, ScalarFunction] = {}
+
+
+def register(name: str, null_fn=None):
+    def deco(fn):
+        REGISTRY[name] = ScalarFunction(name, fn, null_fn)
+        return fn
+    return deco
+
+
+def lookup(name: str) -> ScalarFunction:
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise NotImplementedError(
+            f"scalar function {name!r} is not ported yet (ROADMAP queue 1 "
+            "item 10: breadth)") from None
+
+
+def _default_nulls(*blocks: Block):
+    nulls = None
+    for b in blocks:
+        nulls = b.nulls if nulls is None else (nulls | b.nulls)
+    return nulls
+
+
+def _col(ret_type: T.Type, values, *args: Block) -> Column:
+    return Column(values, _default_nulls(*args), ret_type)
+
+
+_POW10 = [10 ** i for i in range(19)]
+
+
+def rescale_decimal(values, from_scale: int, to_scale: int):
+    """Exact int64 rescale, rounding half away from zero on downscale."""
+    if to_scale == from_scale:
+        return values
+    if to_scale > from_scale:
+        return values * _POW10[to_scale - from_scale]
+    f = _POW10[from_scale - to_scale]
+    half = f // 2
+    return torch.where(values >= 0, (values + half) // f,
+                       -((-values + half) // f))
+
+
+def _scale_of(ty: T.Type) -> int:
+    return ty.scale if ty.is_decimal else 0
+
+
+def _any128(*blocks) -> bool:
+    return any(isinstance(b, Int128Column) for b in blocks)
+
+
+def _needs128(ret: T.Type, *blocks) -> bool:
+    """A long-decimal result or any 128-bit argument takes the exact
+    128-bit path."""
+    return (ret.is_decimal and not ret.is_short_decimal) or _any128(*blocks)
+
+
+def _as128(b) -> tuple:
+    """(hi, lo) lanes of a numeric block at its own scale."""
+    if isinstance(b, Int128Column):
+        return b.hi, b.lo
+    return I128.from_int64(b.values)
+
+
+def _as128_at_scale(b, to_scale: int) -> tuple:
+    s = _scale_of(b.type)
+    hi, lo = _as128(b)
+    if to_scale > s:
+        hi, lo = I128.rescale128_up(hi, lo, 10 ** (to_scale - s))
+    elif to_scale < s:
+        raise NotImplementedError("long-decimal downscale (ROADMAP queue 1 "
+                                  "item 10: breadth)")
+    return hi, lo
+
+
+def _promote(ret_type: T.Type, *blocks: Column):
+    """Bring short decimal and integer args to the result's scale, as
+    int64 lanes."""
+    out = []
+    for b in blocks:
+        if isinstance(b, Int128Column):
+            raise NotImplementedError(
+                f"long-decimal lanes cannot promote to {ret_type} (ROADMAP "
+                "queue 1 item 10: breadth)")
+        if ret_type.is_floating or b.type.is_floating:
+            raise NotImplementedError(
+                f"floating-point arithmetic ({b.type} -> {ret_type}) is not "
+                "ported yet (ROADMAP queue 1 item 10: breadth)")
+        v = b.values.to(torch.int64)
+        if ret_type.is_decimal:
+            v = rescale_decimal(v, _scale_of(b.type), ret_type.scale)
+        elif b.type.is_decimal:
+            v = rescale_decimal(v, b.type.scale, 0)
+        out.append(v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# arithmetic
+# ---------------------------------------------------------------------------
+
+@register("add")
+def _add(ret, a, b):
+    if ret.is_decimal and _needs128(ret, a, b):
+        ah, al = _as128_at_scale(a, ret.scale)
+        bh, bl = _as128_at_scale(b, ret.scale)
+        hi, lo = I128.add128(ah, al, bh, bl)
+        return Int128Column(hi, lo, _default_nulls(a, b), ret)
+    x, y = _promote(ret, a, b)
+    return _col(ret, x + y, a, b)
+
+
+@register("subtract")
+def _subtract(ret, a, b):
+    if ret.is_decimal and _needs128(ret, a, b):
+        ah, al = _as128_at_scale(a, ret.scale)
+        bh, bl = _as128_at_scale(b, ret.scale)
+        hi, lo = I128.add128(ah, al, *I128.neg128(bh, bl))
+        return Int128Column(hi, lo, _default_nulls(a, b), ret)
+    x, y = _promote(ret, a, b)
+    return _col(ret, x - y, a, b)
+
+
+@register("multiply")
+def _multiply(ret, a, b):
+    if ret.is_decimal:
+        if _scale_of(a.type) + _scale_of(b.type) != ret.scale:
+            raise ValueError(f"decimal multiply scales: {a.type} x {b.type}"
+                             f" -> {ret}")
+        if _needs128(ret, a, b):
+            if not _any128(a, b):
+                hi, lo = I128.mul_i64_i64_128(a.values, b.values)
+            else:
+                ah, al = _as128(a)
+                bh, bl = _as128(b)
+                hi, lo = I128.mul128(ah, al, bh, bl)
+            return Int128Column(hi, lo, _default_nulls(a, b), ret)
+        return _col(ret, a.values.to(torch.int64) * b.values.to(torch.int64),
+                    a, b)
+    x, y = _promote(ret, a, b)
+    return _col(ret, x * y, a, b)
+
+
+def _zero_lanes(b):
+    if isinstance(b, Int128Column):
+        return (b.hi == 0) & (b.lo == 0)
+    return b.values == 0
+
+
+def _div_nulls(ret, a, b):
+    return _default_nulls(a, b) | (_zero_lanes(b) & ~b.nulls)
+
+
+@register("divide", null_fn=_div_nulls)
+def _divide(ret, a, b):
+    """Division by zero yields NULL (the reference raises; a device
+    kernel cannot)."""
+    nulls = _div_nulls(ret, a, b)
+    if ret.is_decimal and (_needs128(ret, a, b) or
+                           _scale_of(b.type) + ret.scale - _scale_of(a.type)
+                           > 18):
+        return _divide128(ret, a, b, nulls)
+    if not ret.is_decimal:
+        raise NotImplementedError(
+            f"{ret} division is not ported yet (ROADMAP queue 1 item 10: "
+            "breadth)")
+    sa, sb = _scale_of(a.type), _scale_of(b.type)
+    num = a.values.to(torch.int64) * _POW10[ret.scale + sb - sa]
+    den = torch.where(b.values == 0, 1, b.values.to(torch.int64))
+    neg = (num < 0) != (den < 0)
+    an, ad = num.abs(), den.abs()
+    q = (2 * an + ad) // (2 * ad)
+    return Column(torch.where(neg, -q, q), nulls, ret)
+
+
+def _divide128(ret, a, b, nulls):
+    """Exact long-decimal division, rounding half away from zero. The
+    divisor must fit 64-bit lanes (|b| < 2^63)."""
+    sa, sb = _scale_of(a.type), _scale_of(b.type)
+    ah, al = _as128(a)
+    factor = 10 ** (ret.scale + sb - sa)
+    if factor > 1:
+        ah, al = I128.rescale128_up(ah, al, factor)
+    if isinstance(b, Int128Column):
+        bv = b.lo
+        bneg = b.hi < 0
+    else:
+        bv = b.values.to(torch.int64)
+        bneg = bv < 0
+    bv = torch.where(bneg, -bv, bv)
+    bv = torch.where(bv == 0, 1, bv)
+    aneg = ah < 0
+    mh, ml = I128.neg128(ah, al)
+    mh = torch.where(aneg, mh, ah)
+    ml = torch.where(aneg, ml, al)
+    qh, ql, rem = I128.divmod128_by_u64(mh, ml, bv)
+    half_up = I128._uge(2 * rem, bv).to(torch.int64)
+    qh2, ql2 = I128.add128(qh, ql, torch.zeros_like(qh), half_up)
+    neg = aneg != bneg
+    nh, nl = I128.neg128(qh2, ql2)
+    return Int128Column(torch.where(neg, nh, qh2), torch.where(neg, nl, ql2),
+                        nulls, ret)
+
+
+# ---------------------------------------------------------------------------
+# comparisons
+# ---------------------------------------------------------------------------
+
+def _cmp_values(a: Block, b: Block):
+    """int64 lanes of two fixed-point operands at one scale."""
+    if any(isinstance(x, StringColumn) or x.type.is_floating
+           or x.type.base in ("timestamp", "timestamp with time zone")
+           for x in (a, b)):
+        raise NotImplementedError(
+            f"comparing {a.type} with {b.type} is not ported yet (ROADMAP "
+            "queue 1 item 10: breadth)")
+    sa, sb = _scale_of(a.type), _scale_of(b.type)
+    s = max(sa, sb)
+    return (rescale_decimal(a.values.to(torch.int64), sa, s),
+            rescale_decimal(b.values.to(torch.int64), sb, s))
+
+
+def _binary_cmp(op):
+    def fn(ret, a, b):
+        if _any128(a, b):
+            s = max(_scale_of(a.type), _scale_of(b.type))
+            ah, al = _as128_at_scale(a, s)
+            bh, bl = _as128_at_scale(b, s)
+            lt, eq = I128.cmp128(ah, al, bh, bl)
+            v = {"eq": eq, "ne": ~eq, "lt": lt, "le": lt | eq,
+                 "gt": ~(lt | eq), "ge": ~lt}[op]
+            return _col(ret, v, a, b)
+        x, y = _cmp_values(a, b)
+        v = {"eq": x == y, "ne": x != y, "lt": x < y,
+             "le": x <= y, "gt": x > y, "ge": x >= y}[op]
+        return _col(ret, v, a, b)
+    return fn
+
+
+for _opname, _presto in [("eq", "$operator$equal"),
+                         ("ne", "$operator$not_equal"),
+                         ("lt", "$operator$less_than"),
+                         ("le", "$operator$less_than_or_equal"),
+                         ("gt", "$operator$greater_than"),
+                         ("ge", "$operator$greater_than_or_equal")]:
+    _f = _binary_cmp(_opname)
+    REGISTRY[_opname] = ScalarFunction(_opname, _f)
+    REGISTRY[_presto] = ScalarFunction(_presto, _f)

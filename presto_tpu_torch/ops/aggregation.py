@@ -1,0 +1,314 @@
+"""Grouped aggregation for small group tables: the HashAggregationOperator
+analog.
+
+Counterpart of the small-table path of presto_tpu/ops/aggregation.py
+(max_groups <= 64, the TPC-H q1 shape) and of its keyless one-slot
+path (q6). No hash table and no scatter:
+
+1. group ids by first-occurrence extraction (`_group_ids_small`): each
+   round takes the first unresolved row and resolves every row with
+   equal key words, at most max_groups rounds;
+2. every integer accumulator of every aggregate joins one request pool
+   (`_SegSumPool`). Values split into limbs that are stacked into one
+   (n, L) matrix, and ONE launch of the limb_partial_sums kernel
+   (ops/kernels.py) sums all of them per tile and group;
+   `_fused_limb_sums` adds the tiles in int64 and recombines the limbs
+   into exact int64 totals;
+3. decimal sums are 128-bit: 13-bit limbs whose exact totals recombine
+   into (hi, lo) once per group (`_sum128`).
+
+The reference collects requests in a first trace and serves them in a
+second, which XLA's dead-code elimination makes free. PyTorch runs
+eagerly, so here each aggregate hands the pool its requests and returns
+closures that build its state columns once the pool has computed.
+
+Limb forms (an argument, not a knob): "narrow" stages 8-bit limbs as
+int16 (the default: fewer bytes for the kernel to read), "wide" stages
+13-bit limbs as float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+
+from .. import types as T
+from ..block import Batch, Block, Column, Int128Column, gather_block
+from ..expr.functions import lookup
+from ..int128 import (combine_limb_totals_128, limbs13_of_128,
+                      limbs13_of_i64, limbs_of_i64)
+from . import kernels as K
+from .keys import key_words
+
+__all__ = ["AggSpec", "GroupByResult", "group_by", "finalize_states",
+           "SMALL_G", "LIMB_FORMS"]
+
+SMALL_G = 64  # the largest group table this port handles
+LIMB_FORMS = ("narrow", "wide")
+
+@dataclasses.dataclass(frozen=True)
+class AggSpec:
+    """One aggregate: `name(input_channel)` -> a column of `output_type`.
+    input_channel is None for count(*)."""
+    name: str
+    input_channel: Optional[int]
+    output_type: T.Type
+
+
+@dataclasses.dataclass
+class GroupByResult:
+    """Dense group table: one row per group (keys, then aggregate
+    states), active for slots < num_groups. `overflow` is True when the
+    distinct keys exceeded max_groups; the caller reruns bigger."""
+    batch: Batch
+    num_groups: torch.Tensor
+    overflow: torch.Tensor
+
+
+def _group_ids(key_cols: Sequence[Block], active: torch.Tensor,
+               max_groups: int):
+    """(ids int32, perm_first, num_groups, overflow); perm_first[g] is a
+    row of group g, used to gather the key values."""
+    n = active.shape[0]
+    words = key_words(key_cols)
+    dev = active.device
+    if not words:  # global aggregation: every row is group 0
+        return (torch.zeros(n, dtype=torch.int32, device=dev),
+                torch.zeros(max_groups, dtype=torch.int64, device=dev),
+                active.any().to(torch.int32),
+                torch.zeros((), dtype=torch.bool, device=dev))
+    return _group_ids_small(words, active, max_groups)
+
+
+def _group_ids_small(words, active: torch.Tensor, max_groups: int):
+    """First-occurrence extraction. The reference's while-loop exits
+    once every active row is resolved, which needs a host read of a
+    device flag per round; here all max_groups rounds run with no host
+    sync, a round with nothing left to resolve changing nothing.
+    Active rows still unresolved after the last round mean more than
+    max_groups distinct keys: overflow (they park in the last slot)."""
+    n = active.shape[0]
+    dev = active.device
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    ids = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    first = torch.zeros(max_groups, dtype=torch.int64, device=dev)
+    num_groups = torch.zeros((), dtype=torch.int32, device=dev)
+    for g in range(max_groups):
+        unres = active & (ids < 0)
+        i = torch.where(unres, rows, n).min()
+        found = i < n
+        i_safe = i.clamp(0, max(n - 1, 0)).reshape(1)
+        match = unres
+        for w in words:
+            match = match & (w == w.index_select(0, i_safe))
+        ids = ids.masked_fill(match, g)
+        first[g] = torch.where(found, i_safe[0], 0)
+        num_groups = num_groups + found.to(torch.int32)
+    overflow = (active & (ids < 0)).any()
+    ids = torch.where(active & (ids >= 0), ids, max_groups - 1)
+    return ids, first, num_groups, overflow
+
+
+def _fused_limb_sums(ids: torch.Tensor, requests, max_groups: int,
+                     limb_form: str = "narrow") -> List[torch.Tensor]:
+    """Every integer seg-sum of `requests` (list of (contrib, value_bits))
+    through ONE limb_partial_sums launch -> list of (G,) exact int64
+    totals. Per-tile partials are exact in float32 and are added in
+    int64; limb totals recombine by shifts."""
+    if limb_form not in LIMB_FORMS:
+        raise ValueError(f"limb_form must be one of {LIMB_FORMS}")
+    narrow = limb_form == "narrow"
+    limb_bits = 8 if narrow else 13
+    stage_dt = torch.int16 if narrow else torch.float32
+    limb_cols = []
+    spans = []
+    for contrib, value_bits in requests:
+        nl = max(-(-int(value_bits) // limb_bits), 1)
+        x = contrib.to(torch.int64)
+        spans.append((len(limb_cols), nl))
+        limb_cols.extend(limbs_of_i64(x, limb_bits, nl) if nl > 1 else [x])
+    lm = torch.stack([l.to(stage_dt) for l in limb_cols], dim=1)
+    part = K.limb_partial_sums(ids.to(torch.int32), lm, max_groups)
+    tot = part.to(torch.int64).sum(dim=0)  # (G, L)
+    # limb weights 2^(limb_bits * k), made on the device (no host copy)
+    shifts = limb_bits * torch.arange(max(nl for _, nl in spans),
+                                      dtype=torch.int64, device=tot.device)
+    weights = torch.ones_like(shifts) << shifts
+    return [(tot[:, start:start + nl] * weights[:nl]).sum(dim=1)
+            for start, nl in spans]
+
+
+class _SegSumPool:
+    """Batches every integer per-group sum of one group_by call. `add`
+    queues a request and returns its handle; `compute` runs them all
+    (one fused kernel launch for 1 < G <= 64, a plain reduction per
+    request for the single group of a global aggregation); `result`
+    then reads a handle's (G,) int64 totals."""
+
+    def __init__(self, ids: torch.Tensor, max_groups: int, limb_form: str):
+        self.ids = ids
+        self.g = max_groups
+        self.limb_form = limb_form
+        self.requests: List[Tuple[torch.Tensor, int]] = []
+        self.results: Optional[List[torch.Tensor]] = None
+
+    def add(self, contrib: torch.Tensor, value_bits: int) -> int:
+        self.requests.append((contrib, value_bits))
+        return len(self.requests) - 1
+
+    def compute(self) -> None:
+        if self.g == 1:
+            self.results = [c.to(torch.int64).sum().reshape(1)
+                            for c, _ in self.requests]
+        elif self.requests:
+            self.results = _fused_limb_sums(self.ids, self.requests, self.g,
+                                            self.limb_form)
+        else:
+            self.results = []
+        self.requests = []
+
+    def result(self, handle: int) -> torch.Tensor:
+        return self.results[handle]
+
+
+def _seg_add(pool: _SegSumPool, contrib: torch.Tensor,
+             value_bits: int = 64) -> int:
+    """Queue a per-group sum of `contrib` (dead rows already zero)."""
+    return pool.add(contrib, value_bits)
+
+
+def _seg_count(pool: _SegSumPool, flags: torch.Tensor) -> int:
+    """Queue a per-group count of True flags."""
+    return pool.add(flags, 1)
+
+
+def _lane_bits(values: torch.Tensor) -> int:
+    """Proven bit width of a value lane: its physical dtype's width
+    (narrowed lanes are themselves a proof of the value range)."""
+    if values.dtype == torch.bool:
+        return 1
+    return values.element_size() * 8
+
+
+def _nlimbs13(values: torch.Tensor) -> int:
+    return max(-(-_lane_bits(values) // 13), 1)
+
+
+def _sum128(pool: _SegSumPool, col: Block, live: torch.Tensor) -> List[int]:
+    """Queue the 13-bit limbs of an exact per-group 128-bit sum; the
+    totals recombine with combine_limb_totals_128."""
+    if isinstance(col, Int128Column):
+        limbs = limbs13_of_128(col.hi, col.lo)
+    else:
+        limbs = limbs13_of_i64(col.values, _nlimbs13(col.values))
+    return [_seg_add(pool, torch.where(live, l, 0), value_bits=13)
+            for l in limbs]
+
+
+def _sum_type(in_ty: T.Type) -> T.Type:
+    return T.decimal(38, in_ty.scale) if in_ty.is_decimal else T.BIGINT
+
+
+StateBuilder = Callable[[], Block]
+
+
+def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
+                 pool: _SegSumPool) -> List[StateBuilder]:
+    """Queue one aggregate's sums and return a builder per state column
+    (avg has two: sum and count), called after pool.compute()."""
+    g = pool.g
+    no_nulls = torch.zeros(g, dtype=torch.bool, device=active.device)
+    name = spec.name
+    if name == "count_star":
+        h = _seg_count(pool, active)
+        return [lambda: Column(pool.result(h), no_nulls, T.BIGINT)]
+    if name not in ("count", "sum", "avg"):
+        raise NotImplementedError(
+            f"aggregate {spec.name} is not ported yet (ROADMAP queue 1 "
+            "item 9: large-G aggregation and the other aggregates)")
+    live = active & ~col.nulls
+    hn = _seg_count(pool, live)
+
+    def count() -> Block:
+        return Column(pool.result(hn), no_nulls, T.BIGINT)
+
+    if name == "count":
+        return [count]
+    sum_ty = spec.output_type if name == "sum" else _sum_type(col.type)
+    if isinstance(col, Int128Column) or col.type.is_decimal:
+        hs = _sum128(pool, col, live)
+
+        def total() -> Block:
+            hi, lo = combine_limb_totals_128(
+                torch.stack([pool.result(h) for h in hs], dim=-1))
+            return Int128Column(hi, lo, pool.result(hn) == 0, sum_ty)
+    elif col.type.is_integral:
+        v = col.values
+        h = _seg_add(pool, torch.where(live, v.to(torch.int64), 0),
+                     value_bits=_lane_bits(v))
+
+        def total() -> Block:
+            return Column(pool.result(h), pool.result(hn) == 0, sum_ty)
+    else:
+        raise NotImplementedError(
+            f"{spec.name} over {col.type} is not ported yet (ROADMAP queue 1 "
+            "item 10: breadth)")
+    return [total] if name == "sum" else [total, count]
+
+
+def group_by(batch: Batch, key_channels: Sequence[int],
+             aggs: Sequence[AggSpec], max_groups: int,
+             limb_form: str = "narrow") -> GroupByResult:
+    """Grouped aggregation over one batch -> dense group table. A global
+    aggregation (no keys) always yields exactly one group, even over
+    zero input rows."""
+    if not key_channels:
+        max_groups = 1
+    elif max_groups > SMALL_G:
+        raise NotImplementedError(
+            f"max_groups {max_groups} > {SMALL_G} needs the large-G "
+            "aggregation (ROADMAP queue 1 item 9)")
+    keys = [batch.column(c) for c in key_channels]
+    ids, perm_first, num_groups, overflow = _group_ids(keys, batch.active,
+                                                       max_groups)
+    if not key_channels:
+        num_groups = torch.clamp(num_groups, min=1)
+    slot = torch.arange(max_groups, device=batch.active.device)
+    slot_active = slot < torch.clamp(num_groups, max=max_groups)
+    out_cols: List[Block] = [gather_block(k, perm_first, slot_active)
+                             for k in keys]
+    pool = _SegSumPool(ids, max_groups, limb_form)
+    builders = []
+    for spec in aggs:
+        col = None if spec.input_channel is None \
+            else batch.column(spec.input_channel)
+        builders.extend(_acc_columns(spec, col, batch.active, pool))
+    pool.compute()
+    out_cols.extend(build() for build in builders)
+    return GroupByResult(Batch(tuple(out_cols), slot_active), num_groups,
+                         overflow)
+
+
+def state_width(spec: AggSpec) -> int:
+    return 2 if spec.name == "avg" else 1
+
+
+def finalize_states(table: Batch, num_keys: int, aggs: Sequence[AggSpec]
+                    ) -> Batch:
+    """State table (keys..., states...) -> one column per aggregate:
+    avg divides sum by count with the registered decimal `divide`
+    (exact, half away from zero); the other states pass through."""
+    cols: List[Block] = list(table.columns[:num_keys])
+    ch = num_keys
+    for spec in aggs:
+        w = state_width(spec)
+        states = table.columns[ch:ch + w]
+        ch += w
+        if spec.name == "avg":
+            cols.append(lookup("divide").fn(spec.output_type, states[0],
+                                            states[1]))
+        else:
+            cols.append(states[0])
+    return Batch(tuple(cols), table.active)

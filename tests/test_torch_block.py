@@ -1,0 +1,144 @@
+"""The port's columnar staging and TPC-H generator against presto_tpu's.
+
+Same numpy inputs through presto_tpu.block and presto_tpu_torch.block;
+every value, null and dtype must match exactly.
+"""
+
+import numpy as np
+import pytest
+
+import presto_tpu  # noqa: F401  (enables jax x64 before any jnp array)
+from presto_tpu import block as RB
+from presto_tpu import types as RT
+from presto_tpu.connectors import tpch as rtpch
+from presto_tpu.queries.tpch_queries import Q1_COLUMNS, Q6_COLUMNS
+
+from presto_tpu_torch import block as PB
+from presto_tpu_torch import types as PT
+from presto_tpu_torch.connectors import tpch as ptpch
+
+
+def _cases():
+    big = [(1 << 100) + 7, -(1 << 100) - 3, 0, None, (1 << 63), -(1 << 63) - 1]
+    return [
+        ("bigint", np.array([1, -(1 << 63), (1 << 63) - 1, 0, 5, 9],
+                            np.int64),
+         np.array([0, 0, 0, 1, 0, 0], bool), None),
+        ("integer", np.array([3, -(1 << 31), (1 << 31) - 1, 0, 1, 2],
+                             np.int32), None, None),
+        ("date", np.array([10471, 8036, 0, -1, 20000, 1], np.int32),
+         None, "int16"),
+        ("decimal(12, 2)", np.array([12345, -1, 0, 5000, 100, 999999],
+                                    np.int64), None, "int32"),
+        ("decimal(38, 2)", np.array(big, dtype=object), None, None),
+        ("varchar", np.array(["a", None, "xyz", "", "héllo", "A"],
+                             dtype=object), None, None),
+        ("char(1)", np.array(["A", "N", "R", "A", "N", "F"], dtype=object),
+         None, None),
+        ("boolean", np.array([True, False, True, True, False, False]),
+         None, None),
+        ("double", np.array([0.5, -1.25, 1e300, -0.0, 3.0, 7.0]), None,
+         None),
+    ]
+
+
+def _same(ref, port):
+    (rv, rn), (pv, pn) = ref, port
+    assert rv.dtype == pv.dtype, (rv.dtype, pv.dtype)
+    assert np.array_equal(rn, pn)
+    assert rv.shape == pv.shape
+    assert all(a == b or (a != a and b != b) for a, b in zip(rv, pv))
+
+
+@pytest.mark.parametrize("case", _cases(), ids=lambda c: c[0])
+def test_round_trip_matches_reference(case):
+    sig, values, nulls, phys = case
+    rty, pty = RT.parse_type(sig), PT.parse_type(sig)
+    n = [nulls] if nulls is not None else None
+    ref = RB.batch_from_numpy([rty], [values], nulls=n, capacity=8,
+                              physical_dtypes=[phys])
+    port = PB.batch_from_numpy([pty], [values], nulls=n, capacity=8,
+                               physical_dtypes=[phys], device="cpu")
+    assert np.array_equal(np.asarray(ref.active), port.active.numpy())
+    _same(RB.to_numpy(ref.columns[0]), PB.to_numpy(port.columns[0]))
+
+
+@pytest.mark.parametrize("phys,edges", [
+    ("int16", [(1 << 15) - 1, -(1 << 15), 0, 1]),
+    ("int32", [(1 << 31) - 1, -(1 << 31), (1 << 15), -(1 << 15) - 1]),
+    ("int8", [127, -128, 0, -1]),
+])
+def test_narrow_lanes_hold_their_edges(phys, edges):
+    vals = np.array(edges, np.int64)
+    ref = RB.from_numpy(RT.BIGINT, vals, physical_dtype=phys)
+    port = PB.from_numpy(PT.BIGINT, vals, physical_dtype=phys, device="cpu")
+    assert str(port.values.dtype) == f"torch.{phys}"
+    _same(RB.to_numpy(ref), PB.to_numpy(port))
+    assert PB.to_numpy(port)[0].tolist() == edges
+
+
+def test_int128_lanes_round_trip_through_reference_staging():
+    """A long decimal fetched from the reference (Python ints) stages in
+    the port with the same hi/lo bits."""
+    vals = np.array([(1 << 64) - 1, -(1 << 64), 1, -1, (1 << 126)],
+                    dtype=object)
+    ref = RB.from_numpy(RT.decimal(38, 0), vals)
+    rv, _ = RB.to_numpy(ref)
+    port = PB.from_numpy(PT.decimal(38, 0), rv, device="cpu")
+    assert np.array_equal(np.asarray(ref.hi), port.hi.numpy())
+    assert np.array_equal(np.asarray(ref.lo).view(np.int64),
+                          port.lo.numpy())
+
+
+def test_gather_block_masks_invalid_rows():
+    vals = np.array(["ab", "c", "def"], dtype=object)
+    col = PB.from_numpy(PT.varchar(), vals, device="cpu")
+    import torch
+    out = PB.gather_block(col, torch.tensor([2, 0, 1]),
+                          torch.tensor([True, False, True]))
+    v, n = PB.to_numpy(out)
+    assert list(n) == [False, True, False]
+    assert list(v) == ["def", "", "c"]
+
+
+@pytest.mark.parametrize("columns", [Q1_COLUMNS, Q6_COLUMNS,
+                                     [c for c, _ in
+                                      rtpch.TPCH_SCHEMA["lineitem"]]],
+                         ids=["q1", "q6", "all"])
+def test_generator_equals_reference(columns):
+    ref = rtpch.generate_columns("lineitem", 0.01, columns)
+    port = ptpch.generate_columns("lineitem", 0.01, columns)
+    for c in columns:
+        assert ref[c].dtype == port[c].dtype, c
+        assert np.array_equal(ref[c], port[c]), c
+        assert str(rtpch.column_type("lineitem", c)) == \
+            str(ptpch.column_type("lineitem", c))
+
+
+def test_generator_split_and_stats_match_reference():
+    from presto_tpu.connectors.tpch import column_range as rrange
+    ref = rtpch.generate_columns("lineitem", 0.01, Q1_COLUMNS, start=1000,
+                                 count=777)
+    port = ptpch.generate_columns("lineitem", 0.01, Q1_COLUMNS, start=1000,
+                                  count=777)
+    for c in Q1_COLUMNS:
+        assert np.array_equal(ref[c], port[c])
+    for c, _ in rtpch.TPCH_SCHEMA["lineitem"]:
+        assert rrange("lineitem", c, 0.01) == \
+            ptpch.column_range("lineitem", c, 0.01), c
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ptpch.generate_columns("orders", 0.01, ["orderkey"])
+
+
+@pytest.mark.parametrize("stage", ["from_numpy", "batch_from_numpy"])
+def test_staging_defaults_to_cuda_and_never_falls_back(monkeypatch, stage):
+    """With no `device`, staging targets CUDA; without a card it raises
+    instead of leaving the columns on the CPU."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    vals = np.array([1, 2, 3], np.int64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if stage == "from_numpy":
+            PB.from_numpy(PT.BIGINT, vals)
+        else:
+            PB.batch_from_numpy([PT.BIGINT], [vals])

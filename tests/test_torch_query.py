@@ -1,0 +1,138 @@
+"""TPC-H q1 and q6 end to end through the port on the CPU, against
+presto_tpu.exec.run_query on the same plan.
+
+Plans are built with the reference's nodes and handed to the port as
+the plan-fragment JSON (presto_tpu.plan.nodes.to_json ->
+presto_tpu_torch.plan.from_json), so both packages run the same plan.
+Rows must be equal exactly.
+"""
+
+import pytest
+import torch
+
+import presto_tpu  # noqa: F401  (enables jax x64 before any jnp array)
+from presto_tpu import types as RT
+from presto_tpu.connectors import tpch as rtpch
+from presto_tpu.exec import run_query as ref_run_query
+from presto_tpu.expr import call, const, input_ref, special
+from presto_tpu.ops.aggregation import AggSpec
+from presto_tpu.plan import nodes as RN
+from presto_tpu.queries.tpch_queries import Q1_COLUMNS, Q6_COLUMNS
+
+import presto_tpu_torch
+from presto_tpu_torch.exec import run_query
+from presto_tpu_torch.plan import from_json
+
+SF = 0.01
+D2 = RT.decimal(12, 2)
+
+
+def _scan(cols):
+    return RN.TableScanNode("tpch", "lineitem", cols,
+                            [rtpch.column_type("lineitem", c) for c in cols])
+
+
+def q1_plan(max_groups=16):
+    qty, price = input_ref(2, D2), input_ref(3, D2)
+    disc, tax = input_ref(4, D2), input_ref(5, D2)
+    one = const(100, D2)
+    filt = RN.FilterNode(_scan(Q1_COLUMNS),
+                         call("le", RT.BOOLEAN, input_ref(6, RT.DATE),
+                              const("1998-09-02", RT.DATE)))
+    disc_price = call("multiply", RT.decimal(24, 4), price,
+                      call("subtract", D2, one, disc))
+    charge = call("multiply", RT.decimal(36, 6), disc_price,
+                  call("add", D2, one, tax))
+    proj = RN.ProjectNode(filt, [input_ref(0, RT.char(1)),
+                                 input_ref(1, RT.char(1)), qty, price,
+                                 disc_price, charge, disc])
+    aggs = [AggSpec("sum", 2, RT.decimal(38, 2)),
+            AggSpec("sum", 3, RT.decimal(38, 2)),
+            AggSpec("sum", 4, RT.decimal(38, 4)),
+            AggSpec("sum", 5, RT.decimal(38, 6)),
+            AggSpec("avg", 2, D2), AggSpec("avg", 3, D2),
+            AggSpec("avg", 6, D2), AggSpec("count_star", None, RT.BIGINT)]
+    agg = RN.AggregationNode(proj, [0, 1], aggs, max_groups=max_groups)
+    return RN.OutputNode(RN.SortNode(agg, [(0, False, True),
+                                           (1, False, True)]),
+                         ["returnflag", "linestatus", "sum_qty",
+                          "sum_base_price", "sum_disc_price", "sum_charge",
+                          "avg_qty", "avg_price", "avg_disc", "count_order"])
+
+
+def q6_plan():
+    ship = input_ref(0, RT.DATE)
+    disc, qty, price = input_ref(1, D2), input_ref(2, D2), input_ref(3, D2)
+    filt = RN.FilterNode(_scan(Q6_COLUMNS), special(
+        "AND", RT.BOOLEAN,
+        call("ge", RT.BOOLEAN, ship, const("1994-01-01", RT.DATE)),
+        call("lt", RT.BOOLEAN, ship, const("1995-01-01", RT.DATE)),
+        special("BETWEEN", RT.BOOLEAN, disc, const(5, D2), const(7, D2)),
+        call("lt", RT.BOOLEAN, qty, const(2400, D2))))
+    proj = RN.ProjectNode(filt, [call("multiply", RT.decimal(24, 4), price,
+                                      disc)])
+    agg = RN.AggregationNode(proj, [], [AggSpec("sum", 0,
+                                                RT.decimal(38, 4))])
+    return RN.OutputNode(agg, ["revenue"])
+
+
+def _port(plan_json, **kw):
+    return run_query(from_json(plan_json), sf=SF, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("form", ["narrow", "wide"])
+@pytest.mark.parametrize("make", [q1_plan, q6_plan], ids=["q1", "q6"])
+def test_hand_built_plan_matches_reference(make, form):
+    want = ref_run_query(make(), sf=SF)
+    got = _port(RN.to_json(make()), limb_form=form)
+    assert got.names == want.names
+    assert got.canonical_rows() == want.canonical_rows()
+    assert [str(t) for t in got.types] == [str(t) for t in want.types]
+
+
+def test_sql_planned_q1_matches_reference():
+    """q1 planned by the reference's SQL front door and shipped as the
+    plan-fragment JSON (narrow widths and max_groups included)."""
+    import bench
+    from presto_tpu.exec.runner import prepare_plan
+    from presto_tpu.sql import plan_sql
+    prepared = prepare_plan(plan_sql(bench.TPCH_Q1), sf=SF)
+    plan = from_json(RN.to_json(prepared))
+    assert plan.source.source.max_groups == 16
+    assert plan.source.source.source.source.source.physical_dtypes
+    want = ref_run_query(prepared, sf=SF, prepared=True)
+    got = run_query(plan, sf=SF, device="cpu")
+    assert got.rows() == want.rows()
+    assert got.canonical_rows() == want.canonical_rows()
+
+
+def test_overflow_reruns_with_more_groups():
+    """max_groups=2 under q1's four groups: the ladder doubles to 4."""
+    want = ref_run_query(q1_plan(), sf=SF)
+    got = _port(RN.to_json(q1_plan(max_groups=2)))
+    assert got.canonical_rows() == want.canonical_rows()
+
+
+def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        presto_tpu_torch.run_query(from_json(RN.to_json(q6_plan())), sf=SF)
+
+
+def test_out_of_slice_plans_raise_naming_the_roadmap():
+    join = RN.JoinNode(_scan(["orderkey"]), _scan(["orderkey"]), [0], [0])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        from_json(RN.to_json(join))
+    topn = RN.TopNNode(_scan(["orderkey"]), [(0, False, True)], 5)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        from_json(RN.to_json(topn))
+    big = RN.to_json(q1_plan(max_groups=1 << 10))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        _port(big)
+    partial = RN.to_json(q1_plan())
+    partial["source"]["source"]["step"] = "PARTIAL"
+    with pytest.raises(NotImplementedError, match="item 9"):
+        _port(partial)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        run_query(from_json(RN.to_json(q6_plan())), sf=SF, device="cpu",
+                  mesh=object())
