@@ -2,15 +2,25 @@
 
     python3 chip_smoke.py [--seed N] [--out PATH]
 
-Builds the port's CUDA kernels from the sources in this checkout,
-holds each against its plain PyTorch version at the shapes of the main
-path, then runs TPC-H q1 and q6 at scale factor 1 (6,000,000 lineitem
-rows) through `presto_tpu_torch.exec.run_query` on the card and checks
-their rows exactly against numpy oracles written here. Prints one JSON
-line per kernel table, the card's name and power limit, and as its last
-line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
-when there is no CUDA device, when the package is missing, or when any
-phase fails.
+Builds the port's CUDA kernels from the sources in this checkout (one
+nvcc per source, started together) and holds each against its plain
+PyTorch version at the shapes of its path:
+
+* limb_partial_sums at TPC-H q1's shapes, then q1 and q6 at scale
+  factor 1 (6,000,000 lineitem rows) through
+  `presto_tpu_torch.exec.run_query`;
+* contains_bytes bit for bit on SF1 lineitem.comment, SF10 part.type
+  and edge cases, then its path: `expr.functions.contains_pattern`
+  over the staged comment and type columns, checked against `_like`;
+* TPC-H q3 and q14 at scale factor 10 (60,000,000 lineitem rows;
+  joins, sorted group-by, top-N, LIKE, CASE) through `run_query`.
+
+Every query's rows are checked against a numpy oracle written here.
+Host tables are generated once per process and cached here. Prints a
+JSON line per query, one JSON line with the kernel table, the card's
+name and power limit, and as its last line {"ok": true, "device":
+{...}}. Exits non-zero, printing no result, when there is no CUDA
+device, when the package is missing, or when any phase fails.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import warnings
 import numpy as np
 
 SF = 1.0
+SF_JOIN = 10.0  # q3 and q14: BASELINE config 2
 Q1_CUTOFF = "1998-09-02"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 WARMUP = 3
@@ -112,6 +123,99 @@ def q6_plan():
     return OutputNode(agg, ["revenue"])
 
 
+Q3_DATE = "1995-03-15"
+Q14_FROM, Q14_TO = "1995-09-01", "1995-10-01"
+
+
+def q3_plan():
+    """TPC-H q3 in the shape presto_tpu's prepare_plan(plan_sql(q3))
+    gives it: lineitem probes orders, that result probes customer, then
+    a sorted group-by on (orderkey, orderdate, shippriority) and a top 10
+    by revenue desc, orderdate."""
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.connectors import tpch
+    from presto_tpu_torch.expr import call, const, input_ref
+    from presto_tpu_torch.ops.aggregation import AggSpec
+    from presto_tpu_torch.plan import (AggregationNode, FilterNode, JoinNode,
+                                       OutputNode, ProjectNode,
+                                       TableScanNode, TopNNode)
+
+    def scan(table, cols):
+        return TableScanNode("tpch", table, cols,
+                             [tpch.column_type(table, c) for c in cols])
+
+    d2, d4 = T.decimal(12, 2), T.decimal(38, 4)
+    day = const(_days(Q3_DATE), T.DATE)
+    cust = FilterNode(scan("customer", ["custkey", "mktsegment"]),
+                      call("eq", T.BOOLEAN, input_ref(1, T.varchar(10)),
+                           const("BUILDING", T.varchar(8))))
+    orders = FilterNode(scan("orders", ["orderdate", "shippriority",
+                                        "custkey", "orderkey"]),
+                        call("lt", T.BOOLEAN, input_ref(0, T.DATE), day))
+    line = FilterNode(scan("lineitem", ["orderkey", "extendedprice",
+                                        "discount", "shipdate"]),
+                      call("gt", T.BOOLEAN, input_ref(3, T.DATE), day))
+    j1 = JoinNode(line, orders, [0], [3], "inner", "partitioned", [0, 1, 2])
+    j2 = JoinNode(j1, cust, [6], [0], "inner", "partitioned", [])
+    revenue = call("multiply", d4, input_ref(1, d2),
+                   call("subtract", T.decimal(38, 2), const(1, T.BIGINT),
+                        input_ref(2, d2)))
+    proj = ProjectNode(j2, [input_ref(0, T.BIGINT), input_ref(4, T.DATE),
+                            input_ref(5, T.INTEGER), revenue])
+    agg = AggregationNode(proj, [0, 1, 2], [AggSpec("sum", 3, d4)])
+    order = ProjectNode(agg, [input_ref(0, T.BIGINT), input_ref(3, d4),
+                              input_ref(1, T.DATE), input_ref(2, T.INTEGER),
+                              input_ref(1, T.DATE)])
+    top = TopNNode(order, [(1, True, True), (4, False, True)], 10)
+    out = ProjectNode(top, [input_ref(0, T.BIGINT), input_ref(1, d4),
+                            input_ref(2, T.DATE), input_ref(3, T.INTEGER)])
+    return OutputNode(out, ["orderkey", "revenue", "orderdate",
+                            "shippriority"])
+
+
+def q14_plan():
+    """TPC-H q14 in the shape presto_tpu's prepare_plan(plan_sql(q14))
+    gives it: lineitem probes part, CASE WHEN type LIKE 'PROMO%', two
+    keyless 128-bit sums and a division to double."""
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.connectors import tpch
+    from presto_tpu_torch.expr import call, const, input_ref, special
+    from presto_tpu_torch.ops.aggregation import AggSpec
+    from presto_tpu_torch.plan import (AggregationNode, FilterNode, JoinNode,
+                                       OutputNode, ProjectNode,
+                                       TableScanNode)
+
+    def scan(table, cols):
+        return TableScanNode("tpch", table, cols,
+                             [tpch.column_type(table, c) for c in cols])
+
+    d2, d4 = T.decimal(12, 2), T.decimal(38, 4)
+    ship = input_ref(3, T.DATE)
+    line = FilterNode(
+        scan("lineitem", ["extendedprice", "discount", "partkey",
+                          "shipdate"]),
+        special("AND", T.BOOLEAN,
+                call("ge", T.BOOLEAN, ship, const(_days(Q14_FROM), T.DATE)),
+                call("lt", T.BOOLEAN, ship, const(_days(Q14_TO), T.DATE))))
+    join = JoinNode(line, scan("part", ["type", "partkey"]), [2], [1],
+                    "inner", "partitioned", [0])
+    revenue = call("multiply", d4, input_ref(0, d2),
+                   call("subtract", T.decimal(38, 2), const(1, T.BIGINT),
+                        input_ref(1, d2)))
+    promo = call("like", T.BOOLEAN, input_ref(4, T.varchar(25)),
+                 const("PROMO%", T.varchar(6)))
+    case = special("SWITCH", d4, const(True, T.BOOLEAN),
+                   special("WHEN", d4, promo, revenue),
+                   call("cast", d4, const(0, T.BIGINT)))
+    agg = AggregationNode(ProjectNode(join, [case, revenue]), [],
+                          [AggSpec("sum", 0, d4), AggSpec("sum", 1, d4)])
+    ratio = call("divide", T.DOUBLE,
+                 call("multiply", T.decimal(38, 6),
+                      const(10000, T.decimal(38, 2)), input_ref(0, d4)),
+                 input_ref(1, d4))
+    return OutputNode(ProjectNode(agg, [ratio]), ["promo_revenue"])
+
+
 # ---------------------------------------------------------------------------
 # numpy oracles (independent of the engine's code)
 # ---------------------------------------------------------------------------
@@ -122,7 +226,8 @@ def _avg(s: int, c: int) -> int:
     return q if s >= 0 else -q
 
 
-def numpy_q1(cols):
+def numpy_q1(t):
+    cols = t["lineitem"]
     m = cols["shipdate"] <= _days(Q1_CUTOFF)
     rf, ls = cols["returnflag"][m], cols["linestatus"][m]
     qty = cols["quantity"][m]
@@ -143,11 +248,58 @@ def numpy_q1(cols):
     return rows
 
 
-def numpy_q6(cols):
+def numpy_q6(t):
+    cols = t["lineitem"]
     ship, disc = cols["shipdate"], cols["discount"]
     m = ((ship >= _days("1994-01-01")) & (ship < _days("1995-01-01"))
          & (disc >= 5) & (disc <= 7) & (cols["quantity"] < 2400))
     return [(int((cols["extendedprice"][m] * disc[m]).sum()),)]
+
+
+def numpy_q3(t):
+    """Top 10 orders by revenue: BUILDING customers, orders before and
+    lineitems shipped after 1995-03-15. Keys are dense (key = row + 1);
+    revenue ties break by orderdate, then by orderkey, as the engine's
+    stable top-N over its key-ordered group table does."""
+    day = _days(Q3_DATE)
+    li, od, cu = t["lineitem"], t["orders"], t["customer"]
+    building = np.concatenate([[False], cu["mktsegment"] == "BUILDING"])
+    o_ok = (od["orderdate"] < day) & building[od["custkey"]]
+    ok = (li["shipdate"] > day) & o_ok[li["orderkey"] - 1]
+    okey = li["orderkey"][ok]
+    rev = li["extendedprice"][ok] * (100 - li["discount"][ok])
+    order = np.argsort(okey, kind="stable")
+    okey, rev = okey[order], rev[order]
+    first = np.flatnonzero(np.r_[True, okey[1:] != okey[:-1]])
+    keys, sums = okey[first], np.add.reduceat(rev, first)
+    date = od["orderdate"][keys - 1]
+    top = np.lexsort((keys, date, -sums))[:10]
+    return [(int(keys[i]), int(sums[i]), int(date[i]),
+             int(od["shippriority"][keys[i] - 1])) for i in top]
+
+
+def _to_f64(v: int, scale: int) -> float:
+    """A long decimal to double as both packages convert it: through
+    its magnitude's 64-bit words, each rounded once."""
+    m = abs(v)
+    f = float(m >> 64) * 2.0 ** 64 + float(m & ((1 << 64) - 1))
+    return (-f if v < 0 else f) / 10 ** scale
+
+
+def numpy_q14(t):
+    """100 * promo revenue / revenue for lineitems shipped in 1995-09,
+    computed exactly in integers and converted to double as the engine
+    converts decimal(38, 6) / decimal(38, 4)."""
+    li, part = t["lineitem"], t["part"]
+    ship = li["shipdate"]
+    ok = (ship >= _days(Q14_FROM)) & (ship < _days(Q14_TO))
+    rev = li["extendedprice"][ok] * (100 - li["discount"][ok])
+    promo = np.char.startswith(part["type"].astype(str), "PROMO")
+    is_promo = promo[li["partkey"][ok] - 1]
+    s_promo, s_all = int(rev[is_promo].sum()), int(rev.sum())
+    if s_all == 0:
+        return [(None,)]
+    return [(_to_f64(10000 * s_promo, 6) / _to_f64(s_all, 4),)]
 
 
 def _plain_rows(res):
@@ -197,7 +349,10 @@ def wall_ms(fn, repeats=QUERY_REPEATS):
 # ---------------------------------------------------------------------------
 
 def phase_environment():
+    """Print the toolchain and the card; build every kernel, one nvcc per
+    source, all started together. Returns the build seconds."""
     import torch
+    from concurrent.futures import ThreadPoolExecutor
     from presto_tpu_torch.ops import kernels as K
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -206,11 +361,14 @@ def phase_environment():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    so = K.build_library("limb_partial_sums")
+    with ThreadPoolExecutor(len(K.KERNELS)) as pool:
+        built = list(pool.map(K.build_library, K.KERNELS))
     build_s = time.perf_counter() - t0
-    print(f"built {os.path.basename(so)} in {build_s:.1f} s")
-    with open(so[:-3] + ".log") as f:
-        print(f.read().strip())
+    for so in built:
+        print(f"built {os.path.basename(so)}")
+        with open(so[:-3] + ".log") as f:
+            print(f.read().strip())
+    print(f"kernels built in {build_s:.1f} s")
     return build_s
 
 
@@ -334,10 +492,52 @@ def _count_syncs(fn):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def phase_query(name, plan_fn, oracle, columns, limb_forms):
-    """Run one query at SF1 through run_query on the card, once per limb
-    form; check the rows exactly against the oracle and count kernel
-    launches; then time it."""
+# host tables: generated once per process (the package generates them
+# on every run_query; here the connector's entry point reads this cache)
+_HOST = {}
+GEN_S = {}
+
+
+def host_columns(table, sf, columns):
+    """{column: host array} of tpch `table` at `sf`, each column
+    generated once per process; seconds per table go to GEN_S."""
+    from presto_tpu_torch.connectors.tpch import generator
+    cache = _HOST.setdefault((table, sf), {})
+    missing = [c for c in columns if c not in cache]
+    if missing:
+        t0 = time.perf_counter()
+        cache.update(generator.generate_columns(table, sf, missing))
+        key = f"{table}@sf{sf:g}"
+        GEN_S[key] = GEN_S.get(key, 0.0) + time.perf_counter() - t0
+    return {c: cache[c] for c in columns}
+
+
+def install_host_cache():
+    from presto_tpu_torch.connectors import tpch
+    from presto_tpu_torch.connectors.tpch import generator
+
+    def cached(table, sf, columns, start=0, count=None):
+        if start or count is not None:
+            return generator.generate_columns(table, sf, columns, start,
+                                              count)
+        return host_columns(table, sf, columns)
+
+    tpch.generate_columns = cached
+
+
+def _staged_bytes(batches):
+    import torch
+    return sum(t.numel() * t.element_size()
+               for b in batches for col in b.columns
+               for t in vars(col).values() if isinstance(t, torch.Tensor)) \
+        + sum(b.active.numel() for b in batches)
+
+
+def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",)):
+    """Run one query through run_query on the card, once per limb form,
+    with every kernel count set to 0 just before; check the rows exactly
+    against the oracle; then time it. `tables` maps each scanned table
+    to the columns the oracle reads."""
     import torch
     from presto_tpu_torch.connectors import tpch
     from presto_tpu_torch.exec import run_query
@@ -345,48 +545,193 @@ def phase_query(name, plan_fn, oracle, columns, limb_forms):
     from presto_tpu_torch.ops import kernels as K
     from presto_tpu_torch.plan.widths import annotate_widths
 
-    host = tpch.generate_columns("lineitem", SF, columns)
-    want = oracle(host)
-    rows_in = tpch.table_row_count("lineitem", SF)
-    report = {"query": name, "sf": SF, "rows": rows_in}
+    want = oracle({t: host_columns(t, sf, cols)
+                   for t, cols in tables.items()})
+    rows_in = tpch.table_row_count("lineitem", sf)
+    report = {"query": name, "sf": sf, "rows": rows_in, "launches": {},
+              "host_syncs": {}, "capacity_reruns": {}}
     for form in limb_forms:
-        K.LAUNCHES["limb_partial_sums"] = 0
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
         res, syncs = _count_syncs(
-            lambda: run_query(plan_fn(), sf=SF, limb_form=form))
-        launches = K.LAUNCHES["limb_partial_sums"]
+            lambda: run_query(plan_fn(), sf=sf, limb_form=form))
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(K.LAUNCHES)
         got = _plain_rows(res)
         if got != want:
             raise AssertionError(f"{name} ({form}) rows differ from the "
                                  f"oracle:\n got  {got}\n want {want}")
         print(f"{name} ({form}) equals its numpy oracle: {len(got)} rows; "
-              f"kernel launches {launches}; host syncs {syncs}")
-        report.setdefault("launches", {})[_FORM_OF[form]] = launches
-        report.setdefault("host_syncs", {})[_FORM_OF[form]] = syncs
+              f"kernel launches {launches}; host syncs {syncs}; capacity "
+              f"reruns {res.stats['capacity_reruns']} (scale "
+              f"{res.stats['capacity_scale']}); first run_query "
+              f"{first_ms:.1f} ms")
+        report["launches"][_FORM_OF[form]] = launches
+        report["host_syncs"][_FORM_OF[form]] = syncs
+        report["capacity_reruns"][_FORM_OF[form]] = \
+            res.stats["capacity_reruns"]
+        report.setdefault("first_run_query_ms", first_ms)
+        report["capacity_scale"] = res.stats["capacity_scale"]
     report["result"] = [list(map(str, r)) for r in want]
 
-    root = annotate_widths(plan_fn(), SF)
-    batches = stage_scans(root, SF, torch.device("cuda"))
-    staged = sum(t.numel() * t.element_size()
-                 for b in batches for col in b.columns
-                 for t in vars(col).values() if isinstance(t, torch.Tensor)) \
-        + sum(b.active.numel() for b in batches)
-    report["staged_mb"] = staged / 1e6
+    root = annotate_widths(plan_fn(), sf)
+    batches = stage_scans(root, sf, torch.device("cuda"))
+    report["staged_mb"] = _staged_bytes(batches) / 1e6
     report["execute_ms"] = wall_ms(lambda: execute(root, batches))
-    report["run_query_ms"] = wall_ms(lambda: run_query(plan_fn(), sf=SF))
+    del batches
+    torch.cuda.empty_cache()
+    report["run_query_ms"] = wall_ms(lambda: run_query(plan_fn(), sf=sf),
+                                     repeats=QUERY_REPEATS if sf <= SF else 1)
     report["rows_per_s_execute"] = rows_in / (report["execute_ms"] / 1e3)
     report["rows_per_s_run_query"] = rows_in / (report["run_query_ms"] / 1e3)
     print(f"{name}: staged {report['staged_mb']:.1f} MB; execute "
           f"{report['execute_ms']:.3f} ms ({report['rows_per_s_execute']:.0f}"
-          f" rows/s); run_query incl. generation and staging "
+          f" rows/s); run_query (staging included, host generation cached) "
           f"{report['run_query_ms']:.1f} ms")
-    del batches
+    print(json.dumps(report))
     torch.cuda.empty_cache()
     return report
 
 
-Q1_COLUMNS = ["returnflag", "linestatus", "quantity", "extendedprice",
-              "discount", "tax", "shipdate"]
-Q6_COLUMNS = ["shipdate", "discount", "quantity", "extendedprice"]
+ABSENT_WORD = b"zebra"  # in no generated comment
+
+
+def _edge_cases(rng):
+    """(what, chars (N, W) uint8, lengths (N,) int32, needle) on the
+    host: the shapes and rules the kernel must get right beyond the
+    main path's."""
+    def rand(n, w, lo=-1):
+        return (rng.integers(97, 100, (n, w)).astype(np.uint8),
+                rng.integers(lo, w + 2, n).astype(np.int32))
+    out = []
+    for what, n, w, needle in (
+            ("n not a multiple of the tile", 1001, 7, b"ab"),
+            ("needle length = W", 777, 5, b"abcab"),
+            ("needle longer than W", 300, 5, b"abcabc"),
+            ("empty needle", 600, 5, b""),
+            ("W = 1", 513, 1, b"a"),
+            ("many tiles, lengths past W", 100_003, 44, b"cab")):
+        chars, lengths = rand(n, w)
+        out.append((what, chars, lengths, needle))
+    chars = np.zeros((4, 8), np.uint8)
+    chars[:, :5] = np.frombuffer(b"PROMO", np.uint8)
+    out.append(("matching bytes past lengths[i]", chars,
+                np.array([5, 4, 3, 0], np.int32), b"PROMO"))
+    return out
+
+
+def phase_contains(seed):
+    """contains_bytes against its plain version, bit for bit: edge
+    cases, SF1 lineitem.comment with a frequent and an absent word, SF10
+    part.type with 'PROMO'. Then its path, contains_pattern over the
+    staged columns with the counts set to 0 just before, held against
+    _like('%w%'). Returns the kernel table rows."""
+    import torch
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.block import from_numpy
+    from presto_tpu_torch.expr.compile import _like
+    from presto_tpu_torch.expr.functions import contains_pattern
+    from presto_tpu_torch.ops import kernels as K
+    dev = torch.device("cuda")
+
+    def check(chars, lengths, needle, what):
+        got = K.contains_bytes(chars, lengths, needle)
+        want = K.contains_bytes_reference(chars, lengths, needle)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        if bad:
+            raise AssertionError(f"contains_bytes {what}: {bad} rows differ "
+                                 "from the plain version")
+        print(f"contains_bytes exact: {what} (N={chars.shape[0]}, "
+              f"W={chars.shape[1]}, needle {needle!r}): "
+              f"{int(got.sum())} rows match")
+        return float((got.to(torch.int8) - want.to(torch.int8)).abs().max()) \
+            if got.numel() else 0.0
+
+    for what, chars, lengths, needle in _edge_cases(
+            np.random.default_rng(seed)):
+        c = torch.from_numpy(chars).to(dev)
+        l = torch.from_numpy(lengths).to(dev)
+        check(c, l, needle, what)
+        if what.startswith("matching bytes past"):
+            if K.contains_bytes(c, l, needle).tolist() != [True, False,
+                                                          False, False]:
+                raise AssertionError("bytes past lengths[i] matched")
+
+    comment = from_numpy(T.varchar(44),
+                         host_columns("lineitem", SF, ["comment"])["comment"],
+                         device=dev)
+    ptype = from_numpy(T.varchar(25),
+                       host_columns("part", SF_JOIN, ["type"])["type"],
+                       device=dev)
+    cases = [("lineitem.comment SF1", comment, b"special", True),
+             ("lineitem.comment SF1", comment, ABSENT_WORD, False),
+             ("part.type SF10", ptype, b"PROMO", True)]
+    rows, paths = [], []
+    for what, col, needle, timed in cases:
+        err = check(col.chars, col.lengths, needle, what)
+        like = _like(col, f"%{needle.decode()}%")
+        if not torch.equal(contains_pattern(col, needle), like):
+            raise AssertionError(f"contains_pattern {what} {needle!r} "
+                                 "differs from _like")
+        if needle == ABSENT_WORD and bool(like.any()):
+            raise AssertionError(f"{needle!r} found in {what}")
+        if not timed:
+            continue
+        n, w = col.chars.shape
+        ms = cuda_ms(lambda: K.contains_bytes(col.chars, col.lengths, needle))
+        plain_ms = cuda_ms(lambda: K.contains_bytes_reference(
+            col.chars, col.lengths, needle))
+        like_ms = cuda_ms(lambda: _like(col, f"%{needle.decode()}%"))
+        nbytes = n * w + 5 * n
+        paths.append((col, needle))
+        rows.append({
+            "name": "contains_bytes", "form": f"{what} {needle.decode()!r}",
+            "route": "cuda",
+            "source": "presto_tpu_torch/ops/csrc/contains_bytes.cu",
+            "replaces": "presto_tpu/ops/pallas_kernels.py:76",
+            "launches": 0, "max_abs_err": err, "exact": err == 0.0,
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "like_ms": like_ms,
+            "library": "none: no single PyTorch call computes substring "
+                       "search; like_ms stands in: expr/compile.py::_like "
+                       "('%w%'), the window-gather form",
+            "shape": {"n": n, "W": w, "needle": needle.decode()},
+            "bytes": nbytes})
+        print(f"contains_bytes {what} {needle!r}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, _like {like_ms:.4f} ms, bound "
+              f"{rows[-1]['bound_ms']:.4f} ms")
+
+    # the path: each row's own contains_pattern call, counted alone
+    for row, (col, needle) in zip(rows, paths):
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        contains_pattern(col, needle)
+        torch.cuda.synchronize()
+        row["launches"] = K.LAUNCHES["contains_bytes"]
+        if row["launches"] < 1:
+            raise AssertionError("contains_pattern never launched "
+                                 "contains_bytes")
+    print(f"contains_pattern path launches: "
+          f"{[r['launches'] for r in rows]}")
+    del comment, ptype
+    torch.cuda.empty_cache()
+    return rows
+
+
+Q1_TABLES = {"lineitem": ["returnflag", "linestatus", "quantity",
+                          "extendedprice", "discount", "tax", "shipdate"]}
+Q6_TABLES = {"lineitem": ["shipdate", "discount", "quantity",
+                          "extendedprice"]}
+Q3_TABLES = {"lineitem": ["orderkey", "extendedprice", "discount",
+                          "shipdate"],
+             "orders": ["orderdate", "shippriority", "custkey", "orderkey"],
+             "customer": ["mktsegment"]}
+Q14_TABLES = {"lineitem": ["extendedprice", "discount", "partkey",
+                           "shipdate"],
+              "part": ["type"]}
 
 # the limb matrix q1 at SF1 hands the kernel: the same 39 requests as the
 # reference's fused pool (31 thirteen-bit sums and 8 one-bit counts, one
@@ -411,6 +756,7 @@ def main(argv=None) -> int:
     from presto_tpu_torch.ops import kernels as K
 
     t_start = time.perf_counter()
+    install_host_cache()
     build_s = phase_environment()
     kernel_rows = phase_kernels(args.seed, Q1_KERNEL_SHAPES)
 
@@ -426,7 +772,7 @@ def main(argv=None) -> int:
 
     K.limb_partial_sums = recording
     try:
-        q1 = phase_query("q1", q1_plan, numpy_q1, Q1_COLUMNS,
+        q1 = phase_query("q1", q1_plan, numpy_q1, Q1_TABLES, SF,
                          ("narrow", "wide"))
     finally:
         K.limb_partial_sums = launch
@@ -436,17 +782,21 @@ def main(argv=None) -> int:
         want = Q1_KERNEL_SHAPES[form]
         if not any(s[:3] == want for s in seen):
             raise AssertionError(f"q1 did not hand the kernel {want} ({form})")
-        row["launches"] = q1["launches"][form]
+        row["launches"] = q1["launches"][form]["limb_partial_sums"]
         if row["launches"] < 1:
             raise AssertionError(f"q1 never launched limb_partial_sums ({form})")
-    q6 = phase_query("q6", q6_plan, numpy_q6, Q6_COLUMNS, ("narrow",))
+    q6 = phase_query("q6", q6_plan, numpy_q6, Q6_TABLES, SF)
+    kernel_rows += phase_contains(args.seed)
+    q3 = phase_query("q3", q3_plan, numpy_q3, Q3_TABLES, SF_JOIN)
+    q14 = phase_query("q14", q14_plan, numpy_q14, Q14_TABLES, SF_JOIN)
 
     gpu = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
-    report = {"kernels": kernel_rows, "queries": [q1, q6],
-              "build_s": build_s, "gpu": gpu, "torch": torch.__version__,
-              "cuda": torch.version.cuda,
+    report = {"kernels": kernel_rows, "queries": [q1, q6, q3, q14],
+              "build_s": build_s, "host_generation_s": GEN_S, "gpu": gpu,
+              "torch": torch.__version__, "cuda": torch.version.cuda,
               "total_s": time.perf_counter() - t_start}
+    print(f"host generation: {GEN_S}; total {report['total_s']:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -27,7 +27,7 @@ from . import types as T
 
 __all__ = ["Column", "StringColumn", "Int128Column", "Batch", "Block",
            "torch_dtype", "resolve_device", "from_numpy", "batch_from_numpy",
-           "to_numpy", "gather_block"]
+           "to_numpy", "gather_block", "pad_chars"]
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
@@ -245,6 +245,19 @@ def to_numpy(block: Block) -> Tuple[np.ndarray, np.ndarray]:
         return int128_to_python(block.hi.cpu().numpy(),
                                 block.lo.cpu().numpy()), nulls
     return block.values.cpu().numpy(), nulls
+
+
+def pad_chars(c: StringColumn, width: int) -> StringColumn:
+    """The same strings in a chars matrix `width` bytes wide (zero
+    padded); `width` may not be narrower than the column."""
+    extra = width - c.chars.shape[1]
+    if extra == 0:
+        return c
+    if extra < 0:
+        raise ValueError(f"cannot narrow a {c.chars.shape[1]}-byte column "
+                         f"to {width}")
+    return StringColumn(torch.nn.functional.pad(c.chars, (0, extra)),
+                        c.lengths, c.nulls, c.type)
 
 
 def gather_block(b: Block, idx: torch.Tensor,

@@ -1,4 +1,5 @@
-"""The TPC-H connector: deterministic generated tables (lineitem)."""
+"""The TPC-H connector: deterministic generated tables (lineitem, orders,
+customer, part)."""
 
 from .generator import (TPCH_SCHEMA, column_type, generate_columns,
                         table_row_count)

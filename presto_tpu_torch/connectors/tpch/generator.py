@@ -1,7 +1,8 @@
-"""Deterministic columnar TPC-H data generator (lineitem).
+"""Deterministic columnar TPC-H data generator (lineitem, orders,
+customer, part).
 
 The port's own copy of presto_tpu/connectors/tpch/generator.py, trimmed
-to the `lineitem` table that TPC-H q1 and q6 scan. Every value is a
+to the tables that TPC-H q1, q3, q6 and q14 scan. Every value is a
 pure function of (table, column, global row index, scale factor)
 through a crc32-salted splitmix64 hash, so any split of the table
 generates identically in any process; the arrays equal the reference's
@@ -25,6 +26,7 @@ from ... import types as T
 # ---------------------------------------------------------------------------
 
 _D122 = T.decimal(12, 2)
+_D152 = T.decimal(15, 2)
 
 TPCH_SCHEMA: Dict[str, List[Tuple[str, T.Type]]] = {
     "lineitem": [
@@ -35,6 +37,26 @@ TPCH_SCHEMA: Dict[str, List[Tuple[str, T.Type]]] = {
         ("shipdate", T.DATE), ("commitdate", T.DATE), ("receiptdate", T.DATE),
         ("shipinstruct", T.varchar(25)), ("shipmode", T.varchar(10)),
         ("comment", T.varchar(44)),
+    ],
+    "orders": [
+        ("orderkey", T.BIGINT), ("custkey", T.BIGINT),
+        ("orderstatus", T.char(1)), ("totalprice", _D152),
+        ("orderdate", T.DATE), ("orderpriority", T.varchar(15)),
+        ("clerk", T.varchar(15)), ("shippriority", T.INTEGER),
+        ("comment", T.varchar(79)),
+    ],
+    "customer": [
+        ("custkey", T.BIGINT), ("name", T.varchar(25)),
+        ("address", T.varchar(40)), ("nationkey", T.BIGINT),
+        ("phone", T.varchar(15)), ("acctbal", _D122),
+        ("mktsegment", T.varchar(10)), ("comment", T.varchar(117)),
+    ],
+    "part": [
+        ("partkey", T.BIGINT), ("name", T.varchar(55)),
+        ("mfgr", T.varchar(25)), ("brand", T.varchar(10)),
+        ("type", T.varchar(25)), ("size", T.INTEGER),
+        ("container", T.varchar(10)), ("retailprice", _D122),
+        ("comment", T.varchar(23)),
     ],
 }
 
@@ -52,14 +74,24 @@ _EPOCH_1992 = int((np.datetime64("1992-01-01") - _D).astype(int))
 _ORDERDATE_RANGE = 2405  # spec: orders span 1992-01-01 .. 1998-08-02 (ENDDATE - 151 days)
 _CUTOFF_1995_06_17 = int((np.datetime64("1995-06-17") - _D).astype(int))
 
+_SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
+_PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
 _INSTRUCTS = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
 _MODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
+_TYPE_S1 = ["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"]
+_TYPE_S2 = ["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"]
+_TYPE_S3 = ["TIN", "NICKEL", "BRASS", "STEEL", "COPPER"]
+_CONTAINERS = ["SM CASE", "SM BOX", "SM PACK", "SM PKG", "MED BAG", "MED BOX",
+               "MED PKG", "MED PACK", "LG CASE", "LG BOX", "LG PACK", "LG PKG",
+               "JUMBO BAG", "JUMBO BOX", "WRAP CASE", "WRAP BOX"]
 _COMMENT_WORDS = ["carefully", "quickly", "furiously", "slyly", "blithely",
                   "final", "special", "pending", "regular", "express",
                   "deposits", "requests", "packages", "accounts", "ideas",
                   "theodolites", "dependencies", "instructions", "foxes",
                   "platelets", "sleep", "nag", "haggle", "wake", "cajole",
                   "above the", "among the", "across the", "beneath"]
+
+P_TYPES = [f"{a} {b} {c}" for a in _TYPE_S1 for b in _TYPE_S2 for c in _TYPE_S3]
 
 
 def table_row_count(table: str, sf: float) -> int:
@@ -140,6 +172,27 @@ def _retail_price(pkey: np.ndarray) -> np.ndarray:
     return (90000 + (pkey % 200001) + 100 * (pkey % 1000)).astype(np.int64)
 
 
+def _numbered(prefix: str, num: np.ndarray, width: int = 9) -> np.ndarray:
+    """Vectorized 'Prefix#000000042' formatting."""
+    digits = np.char.zfill(num.astype(np.int64).astype(str), width)
+    return np.char.add(f"{prefix}#", digits).astype(object)
+
+
+def _phone(table: str, idx: np.ndarray) -> np.ndarray:
+    """Spec: country code = nationkey + 10 (uses the SAME nationkey hash as
+    the table's nationkey column so phone and nationkey stay consistent)."""
+    nk = _uniform(table, "nationkey", idx, 0, 24)
+    h = _h(table, "phone", idx).astype(np.int64)
+    cc = (10 + nk).astype(str)
+    p1 = (h % 900 + 100).astype(str)
+    p2 = ((h >> 10) % 900 + 100).astype(str)
+    p3 = ((h >> 20) % 9000 + 1000).astype(str)
+    out = cc
+    for part in (p1, p2, p3):
+        out = np.char.add(np.char.add(out, "-"), part)
+    return out.astype(object)
+
+
 def _gen_lineitem(column: str, idx: np.ndarray, sf: float) -> np.ndarray:
     n_part = table_row_count("part", sf)
     n_supp = table_row_count("supplier", sf)
@@ -188,7 +241,80 @@ def _gen_lineitem(column: str, idx: np.ndarray, sf: float) -> np.ndarray:
     raise KeyError(f"lineitem.{column}")
 
 
-_GENERATORS = {"lineitem": _gen_lineitem}
+def _gen_orders(column: str, idx: np.ndarray, sf: float) -> np.ndarray:
+    n_cust = table_row_count("customer", sf)
+    if column == "orderkey":
+        return (idx + 1).astype(np.int64)
+    if column == "custkey":
+        # spec: only 2/3 of customers have orders (sparse custkeys)
+        c = _uniform("orders", "custkey", idx, 0, (n_cust // 3) * 2 - 1)
+        return (c // 2 * 3 + c % 2 + 1).astype(np.int64)
+    if column == "orderstatus":
+        # derived from line statuses; approximate with the spec's marginals
+        return _pick("orders", "orderstatus", idx, ["F", "O", "P"])
+    if column == "totalprice":
+        return _uniform("orders", "totalprice", idx, 85000, 55550000)
+    if column == "orderdate":
+        return _orders_orderdate(idx)
+    if column == "orderpriority":
+        return _pick("orders", "orderpriority", idx, _PRIORITIES)
+    if column == "clerk":
+        c = _uniform("orders", "clerk", idx, 1, max(int(1000 * sf), 1))
+        return _numbered("Clerk", c)
+    if column == "shippriority":
+        return np.zeros(len(idx), dtype=np.int32)
+    if column == "comment":
+        return _comment("orders", idx, 5)
+    raise KeyError(f"orders.{column}")
+
+
+def _gen_customer(column: str, idx: np.ndarray, sf: float) -> np.ndarray:
+    if column == "custkey":
+        return (idx + 1).astype(np.int64)
+    if column == "name":
+        return _numbered("Customer", idx + 1)
+    if column == "address":
+        return _comment("customer", idx, 2)
+    if column == "nationkey":
+        return _uniform("customer", "nationkey", idx, 0, 24)
+    if column == "phone":
+        return _phone("customer", idx)
+    if column == "acctbal":
+        return _uniform("customer", "acctbal", idx, -99999, 999999)
+    if column == "mktsegment":
+        return _pick("customer", "mktsegment", idx, _SEGMENTS)
+    if column == "comment":
+        return _comment("customer", idx, 6)
+    raise KeyError(f"customer.{column}")
+
+
+def _gen_part(column: str, idx: np.ndarray, sf: float) -> np.ndarray:
+    if column == "partkey":
+        return (idx + 1).astype(np.int64)
+    if column == "name":
+        return _comment("part", idx, 3)
+    if column == "mfgr":
+        m = _uniform("part", "mfgr", idx, 1, 5)
+        return np.array([f"Manufacturer#{v}" for v in m], dtype=object)
+    if column == "brand":
+        m = _uniform("part", "mfgr", idx, 1, 5)
+        b = _uniform("part", "brand", idx, 1, 5)
+        return np.array([f"Brand#{mm}{bb}" for mm, bb in zip(m, b)], dtype=object)
+    if column == "type":
+        return _pick("part", "type", idx, P_TYPES)
+    if column == "size":
+        return _uniform("part", "size", idx, 1, 50).astype(np.int32)
+    if column == "container":
+        return _pick("part", "container", idx, _CONTAINERS)
+    if column == "retailprice":
+        return _retail_price(idx + 1)
+    if column == "comment":
+        return _comment("part", idx, 2, max_chars=23)
+    raise KeyError(f"part.{column}")
+
+
+_GENERATORS = {"lineitem": _gen_lineitem, "orders": _gen_orders,
+               "customer": _gen_customer, "part": _gen_part}
 
 
 # ---------------------------------------------------------------------------
@@ -202,8 +328,8 @@ def generate_columns(table: str, sf: float, columns: Sequence[str],
     gen = _GENERATORS.get(table)
     if gen is None:
         raise NotImplementedError(
-            f"tpch.{table} is not ported yet (ROADMAP queue 1 item 8: the "
-            "tables of config 2)")
+            f"tpch.{table} is not ported yet (ROADMAP queue 1 item 10: "
+            "breadth)")
     total = table_row_count(table, sf)
     if count is None:
         count = total - start

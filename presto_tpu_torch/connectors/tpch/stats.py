@@ -1,7 +1,8 @@
-"""TPC-H value-range statistics for narrow-width staging (lineitem).
+"""TPC-H value-range statistics for narrow-width staging.
 
 The port's own copy of the value-range half of
-presto_tpu/connectors/tpch/stats.py, trimmed to `lineitem`. The
+presto_tpu/connectors/tpch/stats.py, trimmed to the generated tables
+(lineitem, orders, customer, part). The
 generator makes every numeric domain exact, so these are true bounds:
 a column staged at a lane they prove can never wrap. Decimal ranges
 are the scaled integers that are staged.
@@ -21,6 +22,12 @@ _RANGE_CONST = {
     ("lineitem", "extendedprice"): (90000, 50 * 389900),
     ("lineitem", "discount"): (0, 10),
     ("lineitem", "tax"): (0, 8),
+    ("orders", "totalprice"): (85000, 55550000),
+    ("orders", "shippriority"): (0, 0),
+    ("customer", "nationkey"): (0, 24),
+    ("customer", "acctbal"): (-99999, 999999),
+    ("part", "size"): (1, 50),
+    ("part", "retailprice"): (90000, 389900),
 }
 
 # 1..row_count(keyed table) key domains
@@ -28,6 +35,10 @@ _RANGE_KEYED = {
     ("lineitem", "orderkey"): "orders",
     ("lineitem", "partkey"): "part",
     ("lineitem", "suppkey"): "supplier",
+    ("orders", "orderkey"): "orders",
+    ("orders", "custkey"): "customer",
+    ("customer", "custkey"): "customer",
+    ("part", "partkey"): "part",
 }
 
 # date columns as (lo offset from the orderdate low bound, hi offset
@@ -37,6 +48,7 @@ _RANGE_DATES = {
     ("lineitem", "shipdate"): (1, 121),
     ("lineitem", "commitdate"): (30, 90),
     ("lineitem", "receiptdate"): (2, 151),
+    ("orders", "orderdate"): (0, 0),
 }
 
 

@@ -2,9 +2,10 @@
 
 Counterpart of presto_tpu/exec/planner.py::compile_plan for one device
 and no mesh: the plan tree becomes one Python function over the staged
-scan batches, calling the operators in turn. Aggregation overflow
-(more distinct keys than max_groups) is returned as a device flag; the
-runner owns the rerun-bigger policy.
+scan batches, calling the operators in turn. Join and aggregation
+overflow (more matches than a join's out_capacity, more distinct keys
+than max_groups) is returned as one device flag; the runner owns the
+rerun-bigger policy.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ import torch
 from .. import types as T
 from ..block import Batch
 from ..expr.compile import compile_filter, compile_projections
-from ..ops.aggregation import SMALL_G, finalize_states, group_by
-from ..ops.sort import sort_batch
+from ..ops.aggregation import finalize_states, group_by
+from ..ops.join import hash_join
+from ..ops.sort import sort_batch, top_n
 from ..plan import nodes as N
 
 __all__ = ["compile_plan", "CompiledPlan"]
@@ -41,23 +43,24 @@ def _collect_scans(node: N.PlanNode, out: List[N.TableScanNode]):
 
 
 def _check_supported(node: N.PlanNode) -> None:
-    if isinstance(node, N.AggregationNode):
-        if node.step != "SINGLE":
-            raise NotImplementedError(
-                f"{node.step} aggregation is not ported yet (ROADMAP queue 1 "
-                "item 9: merge_partials for PARTIAL/FINAL)")
-        if node.group_channels and node.max_groups > SMALL_G:
-            raise NotImplementedError(
-                f"max_groups {node.max_groups} > {SMALL_G} needs the "
-                "large-G aggregation (ROADMAP queue 1 item 9)")
+    if isinstance(node, N.AggregationNode) and node.step != "SINGLE":
+        raise NotImplementedError(
+            f"{node.step} aggregation is not ported yet (ROADMAP queue 1 "
+            "item 9: merge_partials for PARTIAL/FINAL)")
+    if isinstance(node, N.JoinNode) and node.join_type != "inner":
+        raise NotImplementedError(
+            f"{node.join_type} joins are not ported yet (ROADMAP queue 1 "
+            "item 8: outer joins)")
     for s in node.sources:
         _check_supported(s)
 
 
-def compile_plan(root: N.PlanNode, limb_form: str = "narrow") -> CompiledPlan:
-    """Lower Scan/Filter/Project/Aggregation(SINGLE)/Sort/Output.
-    `limb_form` picks the stacked limb lanes of the group-by sums
-    (ops/aggregation.py)."""
+def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
+                 default_join_capacity: int = 1 << 16) -> CompiledPlan:
+    """Lower Scan/Filter/Project/Aggregation(SINGLE)/Join(inner)/Sort/
+    TopN/Output. A join without an out_capacity gets
+    `default_join_capacity`; `limb_form` picks the stacked limb lanes of
+    the small-table group-by sums (ops/aggregation.py)."""
     _check_supported(root)
     scans: List[N.TableScanNode] = []
     _collect_scans(root, scans)
@@ -82,8 +85,19 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow") -> CompiledPlan:
                 overflow = overflow | r.overflow
                 return finalize_states(r.batch, len(node.group_channels),
                                        node.aggregates)
+            if isinstance(node, N.JoinNode):
+                probe = lower(node.left)
+                build = lower(node.right)
+                cap = node.out_capacity or default_join_capacity
+                r = hash_join(probe, build, node.left_keys, node.right_keys,
+                              cap, node.join_type,
+                              node.right_output_channels)
+                overflow = overflow | r.overflow
+                return r.batch
             if isinstance(node, N.SortNode):
                 return sort_batch(lower(node.source), node.keys)
+            if isinstance(node, N.TopNNode):
+                return top_n(lower(node.source), node.keys, node.count)
             if isinstance(node, N.OutputNode):
                 return lower(node.source)
             raise NotImplementedError(f"{type(node).__name__} is not ported "

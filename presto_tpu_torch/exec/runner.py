@@ -2,9 +2,9 @@
 
 Counterpart of presto_tpu/exec/runner.py (`QueryResult`, `run_query`,
 the staging of `stage_scan_split`, the overflow->rerun ladder of
-`_dispatch_ladder`, `_batch_to_result`) for one device. The
-observability ledgers of the reference (stats, datapath, timeline,
-accuracy) are not part of this port yet.
+`_dispatch_ladder` with its per-plan capacity memo, `_batch_to_result`)
+for one device. The observability ledgers of the reference (stats,
+datapath, timeline, accuracy) are not part of this port yet.
 
 `run_query` runs on CUDA unless the caller names another device, and
 raises when there is no CUDA device; it never falls back to the CPU.
@@ -13,7 +13,8 @@ raises when there is no CUDA device; it never falls back to the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+import json
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,8 +23,8 @@ from .. import types as T
 from ..block import (Batch, batch_from_numpy, gather_block, resolve_device,
                      to_numpy)
 from ..connectors import catalog
-from ..ops.aggregation import SMALL_G
 from ..plan import nodes as N
+from ..plan.stats import scale_capacities
 from ..plan.widths import annotate_widths, checked_physical_dtypes
 from .planner import compile_plan
 
@@ -40,6 +41,8 @@ class QueryResult:
     names: List[str]
     row_count: int
     types: List[T.Type] = dataclasses.field(default_factory=list)
+    # "capacity_reruns" and "capacity_scale" of the run's ladder
+    stats: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def rows(self) -> List[tuple]:
         return [tuple(None if self.nulls[c][i] else self.columns[c][i]
@@ -82,54 +85,77 @@ def stage_scans(root: N.PlanNode, sf: float, device) -> List[Batch]:
             for n in compile_plan(root).scan_nodes]
 
 
-def _grow_groups(root: N.PlanNode) -> Optional[N.PlanNode]:
-    """The plan with every keyed aggregation's max_groups doubled (capped
-    at the small-table limit); None when all are at the limit."""
-    grown = False
+# plan fingerprint -> the capacity scale that made it fit, so that a
+# structurally identical plan starts at the known-good size instead of
+# climbing the ladder again (the reference's _CAPACITY_FEEDBACK)
+_CAPACITY_FEEDBACK: Dict[str, int] = {}
+_MAX_CAPACITY_SCALE = 1 << 10
 
-    def walk(node: N.PlanNode) -> N.PlanNode:
-        nonlocal grown
-        changes = {f.name: walk(getattr(node, f.name))
-                   for f in dataclasses.fields(node)
-                   if isinstance(getattr(node, f.name), N.PlanNode)}
-        if isinstance(node, N.AggregationNode) and node.group_channels \
-                and node.max_groups < SMALL_G:
-            changes["max_groups"] = min(2 * node.max_groups, SMALL_G)
-            grown = True
-        return dataclasses.replace(node, **changes) if changes else node
 
-    new = walk(root)
-    return new if grown else None
+def _fingerprint(root: N.PlanNode) -> str:
+    """The plan's wire JSON with node ids left out."""
+    def strip(v):
+        if isinstance(v, dict):
+            return {k: strip(x) for k, x in v.items() if k != "id"}
+        if isinstance(v, list):
+            return [strip(x) for x in v]
+        return v
+    return json.dumps(strip(N.to_json(root)), sort_keys=True)
+
+
+def _dispatch_ladder(root: N.PlanNode, batches: Sequence[Batch],
+                     limb_form: str, default_join_capacity: int
+                     ) -> Tuple[Batch, int, int]:
+    """Run the plan; when a join or group table overflows, rerun with
+    every capacity 4x larger (scale_capacities, and the default join
+    capacity), up to 1024x. Returns (output, capacity scale, reruns)."""
+    fp = _fingerprint(root)
+    cap_scale = _CAPACITY_FEEDBACK.get(fp, 1)
+    reruns = 0
+    while True:
+        exec_root = root if cap_scale == 1 else \
+            scale_capacities(root, cap_scale)
+        out, overflow = compile_plan(
+            exec_root, limb_form,
+            default_join_capacity * cap_scale).fn(batches)
+        if not bool(overflow):
+            if cap_scale > 1:
+                _CAPACITY_FEEDBACK[fp] = cap_scale
+            return out, cap_scale, reruns
+        if cap_scale >= _MAX_CAPACITY_SCALE:
+            raise RuntimeError(
+                "plan execution overflowed a static bucket (join/group "
+                "capacity) beyond the adaptive rerun ceiling; rerun with "
+                "larger capacity hints (max_groups / join capacity)")
+        cap_scale *= 4
+        reruns += 1
 
 
 def execute(root: N.PlanNode, batches: Sequence[Batch],
-            limb_form: str = "narrow") -> Batch:
-    """Run the plan over staged batches. When a group table overflows,
-    rerun with max_groups doubled, up to 64, then raise."""
-    while True:
-        out, overflow = compile_plan(root, limb_form).fn(batches)
-        if not bool(overflow):
-            return out
-        grown = _grow_groups(root)
-        if grown is None:
-            raise RuntimeError(
-                f"more than {SMALL_G} groups: the large-G aggregation is not "
-                "ported yet (ROADMAP queue 1 item 9)")
-        root = grown
+            limb_form: str = "narrow",
+            default_join_capacity: int = 1 << 16) -> Batch:
+    """Run the plan over staged batches through the overflow ladder."""
+    return _dispatch_ladder(root, batches, limb_form,
+                            default_join_capacity)[0]
 
 
 def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
-              limb_form: str = "narrow", mesh=None) -> QueryResult:
+              limb_form: str = "narrow", mesh=None,
+              default_join_capacity: int = 1 << 16) -> QueryResult:
     """Plan -> rows, end to end: narrow-width annotation, staging of
     the generated tables on `device` (CUDA unless asked otherwise),
-    execution, result fetch."""
+    execution through the overflow ladder, result fetch. A join node
+    without an out_capacity starts at `default_join_capacity` rows."""
     if mesh is not None:
         raise NotImplementedError("a mesh is not ported yet (ROADMAP queue 1 "
                                   "item 12: parallel/ and the worker tier)")
     dev = resolve_device(device)
     root = annotate_widths(root, sf)
-    out = execute(root, stage_scans(root, sf, dev), limb_form)
-    return _batch_to_result(out, root)
+    out, scale, reruns = _dispatch_ladder(
+        root, stage_scans(root, sf, dev), limb_form, default_join_capacity)
+    res = _batch_to_result(out, root)
+    res.stats = {"capacity_reruns": reruns, "capacity_scale": scale}
+    return res
 
 
 def _batch_to_result(out: Batch, root: N.PlanNode) -> QueryResult:

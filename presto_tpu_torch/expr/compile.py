@@ -2,12 +2,13 @@
 analog.
 
 Counterpart of presto_tpu/expr/compile.py (`evaluate`, `_eval_special`
-for AND/BETWEEN, `_constant_block`, `compile_filter`,
-`compile_projections`). PyTorch runs eagerly, so "compiling" an
-expression is binding it into a closure over the tree.
+for AND/BETWEEN/SWITCH, `_constant_block`, `_like`, `_select`,
+`compile_filter`, `compile_projections`). PyTorch runs eagerly, so
+"compiling" an expression is binding it into a closure over the tree.
 
 Null semantics are Presto's three-valued logic: a scalar call is NULL
-when any argument is; AND is Kleene.
+when any argument is; AND is Kleene; SWITCH computes every branch and
+then selects lanes, as the reference does.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 from .. import types as T
-from ..block import Batch, Block, Column, torch_dtype
+from ..block import (Batch, Block, Column, Int128Column, StringColumn,
+                     pad_chars, torch_dtype)
 from . import functions as F
 from .ir import Call, Constant, InputReference, RowExpression, SpecialForm
 
@@ -30,7 +32,29 @@ def _constant_block(c: Constant, capacity: int, device) -> Block:
     """A literal broadcast to the batch: one element expanded to
     `capacity` rows (a view, no per-row storage)."""
     ty = c.type
-    if c.value is None or not ty.is_fixed_width:
+    if c.value is None:
+        nulls = torch.ones(1, dtype=torch.bool, device=device)
+        if ty.is_string:
+            return StringColumn(
+                torch.zeros((1, 1), dtype=torch.uint8,
+                            device=device).expand(capacity, 1),
+                torch.zeros(1, dtype=torch.int32,
+                            device=device).expand(capacity),
+                nulls.expand(capacity), ty)
+        dt = torch_dtype(np.bool_ if ty == T.UNKNOWN else ty.to_dtype())
+        return Column(torch.zeros(1, dtype=dt, device=device).expand(capacity),
+                      nulls.expand(capacity), ty)
+    no_nulls = torch.zeros(1, dtype=torch.bool, device=device)
+    if ty.is_string:
+        b = str(c.value).encode("utf-8")
+        w = max(len(b), 1)
+        chars = torch.tensor(list(b.ljust(w, b"\x00")), dtype=torch.uint8,
+                             device=device)
+        return StringColumn(chars[None, :].expand(capacity, w),
+                            torch.full((1,), len(b), dtype=torch.int32,
+                                       device=device).expand(capacity),
+                            no_nulls.expand(capacity), ty)
+    if not ty.is_fixed_width:
         raise NotImplementedError(
             f"constant {c} is not ported yet (ROADMAP queue 1 item 10: "
             "breadth)")
@@ -39,8 +63,78 @@ def _constant_block(c: Constant, capacity: int, device) -> Block:
         v = int((np.datetime64(v) - np.datetime64("1970-01-01")).astype(int))
     values = torch.full((1,), v, dtype=torch_dtype(ty.to_dtype()),
                         device=device)
-    no_nulls = torch.zeros(1, dtype=torch.bool, device=device)
     return Column(values.expand(capacity), no_nulls.expand(capacity), ty)
+
+
+def _like(a: StringColumn, pattern: str) -> torch.Tensor:
+    """Full LIKE matcher for patterns of %/_ wildcards, vectorized:
+    segments between % marks are located left-to-right greedily (each
+    segment's first feasible window), with '_' matching any single char.
+    Greedy works because segments are matched earliest-first, which never
+    eliminates a later feasible assignment (classic glob argument)."""
+    pat = pattern.encode("utf-8")
+    anchored_left = not pat.startswith(b"%")
+    anchored_right = not pat.endswith(b"%")
+    segments = [s for s in pat.split(b"%") if s != b""]
+    n, w = a.chars.shape
+    lengths = a.lengths
+    dev = a.chars.device
+
+    if not segments:
+        # pattern is only % signs (or empty)
+        if pat == b"":
+            return lengths == 0
+        return torch.ones(n, dtype=torch.bool, device=dev)
+
+    def seg_match_windows(seg: bytes):
+        """(N, windows) bool: seg matches at window start i ('_' = any)."""
+        L = len(seg)
+        windows = w - L + 1
+        if windows <= 0:
+            return None
+        start = torch.arange(windows, dtype=torch.int64, device=dev)
+        idx = start[:, None] + torch.arange(L, dtype=torch.int64,
+                                            device=dev)[None, :]
+        g = a.chars[:, idx]  # (N, windows, L)
+        sarr = torch.tensor(list(seg), dtype=torch.uint8, device=dev)
+        wild = sarr == ord("_")
+        m = ((g == sarr) | wild).all(dim=2)
+        ends_ok = (start + L)[None, :] <= lengths[:, None]
+        return m & ends_ok
+
+    ok = torch.ones(n, dtype=torch.bool, device=dev)
+    earliest = torch.zeros(n, dtype=torch.int64, device=dev)
+
+    # all segments except (if right-anchored) the last: greedy earliest match
+    loop_segments = segments[:-1] if anchored_right else segments
+    for si, seg in enumerate(loop_segments):
+        m = seg_match_windows(seg)
+        if m is None:
+            return torch.zeros(n, dtype=torch.bool, device=dev)
+        pos = torch.arange(m.shape[1], dtype=torch.int64, device=dev)[None, :]
+        feasible = m & (pos >= earliest[:, None])
+        if si == 0 and anchored_left:
+            feasible = feasible & (pos == 0)
+        found = feasible.any(dim=1)
+        # the first True window (argmax returns the first maximum)
+        first = torch.argmax(feasible.to(torch.uint8), dim=1)
+        ok = ok & found
+        earliest = first + len(seg)
+
+    if anchored_right:
+        last = segments[-1]
+        m = seg_match_windows(last)
+        if m is None:
+            return torch.zeros(n, dtype=torch.bool, device=dev)
+        # the last segment must match ending exactly at the string end,
+        # starting no earlier than where the previous segments finished
+        end_pos = lengths.to(torch.int64) - len(last)
+        at_end = torch.gather(
+            m, 1, end_pos.clamp(0, m.shape[1] - 1)[:, None])[:, 0]
+        ok = ok & at_end & (end_pos >= earliest)
+        if anchored_left and len(segments) == 1:
+            ok = ok & (lengths == len(last))  # no % at all: exact-width match
+    return ok
 
 
 def evaluate(expr: RowExpression, batch: Batch) -> Block:
@@ -51,6 +145,15 @@ def evaluate(expr: RowExpression, batch: Batch) -> Block:
     if isinstance(expr, SpecialForm):
         return _eval_special(expr, batch)
     if isinstance(expr, Call):
+        if expr.name.lower() == "like":
+            # the pattern is plan structure, not data
+            a = evaluate(expr.arguments[0], batch)
+            pat = expr.arguments[1]
+            if not isinstance(pat, Constant):
+                raise NotImplementedError(
+                    "LIKE with a pattern that is not a constant (ROADMAP "
+                    "queue 1 item 10: breadth)")
+            return Column(_like(a, str(pat.value)), a.nulls, expr.type)
         args = [evaluate(a, batch) for a in expr.arguments]
         sf = F.lookup(expr.name.lower())
         out = sf.fn(expr.type, *args)
@@ -90,8 +193,53 @@ def _eval_special(expr: SpecialForm, batch: Batch) -> Block:
         le = F.lookup("le").fn(T.BOOLEAN, x, hi)
         n = x.nulls | lo.nulls | hi.nulls
         return Column(ge.values & le.values & ~n, n, expr.type)
+    if form == "SWITCH":
+        # args: operand, WHEN(value, result)..., [else]
+        operand = args[0]
+        whens = [a for a in args[1:]
+                 if isinstance(a, SpecialForm) and a.form == "WHEN"]
+        els = [a for a in args[1:]
+               if not (isinstance(a, SpecialForm) and a.form == "WHEN")]
+        out = evaluate(els[0], batch) if els else _constant_block(
+            Constant(expr.type, None), batch.capacity, batch.active.device)
+        is_searched = isinstance(operand, Constant) and operand.value is True
+        op_block = None if is_searched else evaluate(operand, batch)
+        for wh in reversed(whens):
+            cond_expr, res_expr = wh.arguments
+            if is_searched:
+                cv, cn = _bool(evaluate(cond_expr, batch))
+            else:
+                c = evaluate(cond_expr, batch)
+                cv, cn = _bool(F.lookup("eq").fn(T.BOOLEAN, op_block, c))
+            res = evaluate(res_expr, batch)
+            out = _select(cv & ~cn, res, out, expr.type)
+        return out
     raise NotImplementedError(f"special form {form} is not ported yet "
                               "(ROADMAP queue 1 item 10: breadth)")
+
+
+def _select(take_a: torch.Tensor, a: Block, b: Block, ty: T.Type) -> Block:
+    """Lane-select between two blocks of the same logical type."""
+    if isinstance(a, Int128Column) or isinstance(b, Int128Column):
+        # mixed representations happen (a long-decimal branch vs an
+        # int64-lane literal of the same type): widen both to 128
+        ah, al = F._as128(a)
+        bh, bl = F._as128(b)
+        return Int128Column(torch.where(take_a, ah, bh),
+                            torch.where(take_a, al, bl),
+                            torch.where(take_a, a.nulls, b.nulls), ty)
+    if isinstance(a, StringColumn) or isinstance(b, StringColumn):
+        w = max(a.max_len, b.max_len)
+        ca, cb = pad_chars(a, w).chars, pad_chars(b, w).chars
+        return StringColumn(torch.where(take_a[:, None], ca, cb),
+                            torch.where(take_a, a.lengths, b.lengths),
+                            torch.where(take_a, a.nulls, b.nulls), ty)
+    av, bv = a.values, b.values
+    if av.dtype != bv.dtype:
+        dt = torch.promote_types(av.dtype, bv.dtype)
+        av, bv = av.to(dt), bv.to(dt)
+    return Column(torch.where(take_a, av, bv),
+                  torch.where(take_a, a.nulls, b.nulls), ty)
 
 
 def compile_filter(expr: RowExpression) -> Callable[[Batch], Batch]:

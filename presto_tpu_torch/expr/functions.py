@@ -1,11 +1,13 @@
-"""Scalar function registry: the functions TPC-H q1 and q6 reach.
+"""Scalar function registry: the functions TPC-H q1, q3, q6 and q14
+reach.
 
 Counterpart of presto_tpu/expr/functions.py, trimmed to comparisons of
-integers, dates and decimals and to decimal add/subtract/multiply/
-divide. A function is a name plus an implementation
-`(ret_type, *blocks) -> Block`; the compiler computes the default null
-mask (OR of argument nulls) and a function only overrides it through
-`null_fn`.
+integers, dates, decimals and strings, decimal add/subtract/multiply/
+divide (and divide to double), the casts onto decimals, and the
+substring search `contains_pattern`. A function is a name plus an
+implementation `(ret_type, *blocks) -> Block`; the compiler computes the
+default null mask (OR of argument nulls) and a function only overrides
+it through `null_fn`.
 
 Decimal rules are Presto's: add/subtract rescale to the result scale,
 multiply adds scales, divide rescales the dividend and rounds half away
@@ -22,12 +24,13 @@ import torch
 
 from .. import int128 as I128
 from .. import types as T
-from ..block import Column, Int128Column, StringColumn
+from ..block import Column, Int128Column, StringColumn, pad_chars
+from ..ops import kernels as K
 
 Block = Union[Column, StringColumn, Int128Column]
 
 __all__ = ["ScalarFunction", "REGISTRY", "register", "lookup",
-           "rescale_decimal"]
+           "rescale_decimal", "contains_pattern"]
 
 
 @dataclasses.dataclass
@@ -114,16 +117,51 @@ def _as128_at_scale(b, to_scale: int) -> tuple:
     return hi, lo
 
 
+def _u64_to_f64(x: torch.Tensor) -> torch.Tensor:
+    """float64 of the unsigned 64-bit value whose bits `x` holds,
+    rounded once to nearest (as a uint64 -> float64 conversion): both
+    32-bit halves convert exactly and the one add rounds."""
+    hi = I128._lshr(x, 32).to(torch.float64)
+    return hi * float(1 << 32) + (x & 0xFFFFFFFF).to(torch.float64)
+
+
+def _int128_to_f64(b: Int128Column) -> torch.Tensor:
+    """float64 of a long decimal, converted through its MAGNITUDE: for
+    negative values the two's-complement lo lane sits near 2^64 where
+    float64 granularity is ~2048, so hi*2^64+lo would lose the low
+    bits."""
+    neg = b.hi < 0
+    mh, ml = I128.neg128(b.hi, b.lo)
+    mh = torch.where(neg, mh, b.hi)
+    ml = torch.where(neg, ml, b.lo)
+    f = mh.to(torch.float64) * float(2 ** 64) + _u64_to_f64(ml)
+    f = torch.where(neg, -f, f)
+    return f / _POW10[_scale_of(b.type)]
+
+
 def _promote(ret_type: T.Type, *blocks: Column):
-    """Bring short decimal and integer args to the result's scale, as
-    int64 lanes."""
+    """Bring numeric args to the ret_type's representation: decimals to
+    the result's scale as int64 lanes, or everything to float64 for a
+    floating result."""
     out = []
     for b in blocks:
+        if ret_type.is_floating:
+            if ret_type != T.DOUBLE:
+                raise NotImplementedError(
+                    f"{ret_type} arithmetic is not ported yet (ROADMAP "
+                    "queue 1 item 10: breadth)")
+            if isinstance(b, Int128Column):
+                out.append(_int128_to_f64(b))
+            elif b.type.is_decimal:
+                out.append(b.values.to(torch.float64) / _POW10[b.type.scale])
+            else:
+                out.append(b.values.to(torch.float64))
+            continue
         if isinstance(b, Int128Column):
             raise NotImplementedError(
                 f"long-decimal lanes cannot promote to {ret_type} (ROADMAP "
                 "queue 1 item 10: breadth)")
-        if ret_type.is_floating or b.type.is_floating:
+        if b.type.is_floating:
             raise NotImplementedError(
                 f"floating-point arithmetic ({b.type} -> {ret_type}) is not "
                 "ported yet (ROADMAP queue 1 item 10: breadth)")
@@ -201,6 +239,9 @@ def _divide(ret, a, b):
                            _scale_of(b.type) + ret.scale - _scale_of(a.type)
                            > 18):
         return _divide128(ret, a, b, nulls)
+    if ret.is_floating:
+        x, y = _promote(ret, a, b)
+        return Column(x / torch.where(y == 0, 1.0, y), nulls, ret)
     if not ret.is_decimal:
         raise NotImplementedError(
             f"{ret} division is not ported yet (ROADMAP queue 1 item 10: "
@@ -249,7 +290,7 @@ def _divide128(ret, a, b, nulls):
 
 def _cmp_values(a: Block, b: Block):
     """int64 lanes of two fixed-point operands at one scale."""
-    if any(isinstance(x, StringColumn) or x.type.is_floating
+    if any(x.type.is_floating
            or x.type.base in ("timestamp", "timestamp with time zone")
            for x in (a, b)):
         raise NotImplementedError(
@@ -261,8 +302,38 @@ def _cmp_values(a: Block, b: Block):
             rescale_decimal(b.values.to(torch.int64), sb, s))
 
 
+def _str_eq(a: StringColumn, b: StringColumn):
+    w = max(a.max_len, b.max_len)
+    ca, cb = pad_chars(a, w).chars, pad_chars(b, w).chars
+    return (ca == cb).all(dim=1) & (a.lengths == b.lengths)
+
+
+def _str_cmp(a: StringColumn, b: StringColumn):
+    """Lexicographic compare: -1, 0 or 1 per row. Zero padding makes a
+    shorter string compare smaller."""
+    w = max(a.max_len, b.max_len)
+    ca = pad_chars(a, w).chars.to(torch.int32)
+    cb = pad_chars(b, w).chars.to(torch.int32)
+    diff = torch.sign(ca - cb)
+    first = torch.argmax(diff.abs(), dim=1, keepdim=True)
+    return torch.gather(diff, 1, first)[:, 0]
+
+
 def _binary_cmp(op):
     def fn(ret, a, b):
+        if isinstance(a, StringColumn) and isinstance(b, StringColumn):
+            if op in ("eq", "ne"):
+                eq = _str_eq(a, b)
+                v = eq if op == "eq" else ~eq
+            else:
+                d = _str_cmp(a, b)
+                v = {"lt": d < 0, "le": d <= 0, "gt": d > 0,
+                     "ge": d >= 0}[op]
+            return _col(ret, v, a, b)
+        if isinstance(a, StringColumn) or isinstance(b, StringColumn):
+            raise NotImplementedError(
+                f"comparing {a.type} with {b.type} is not ported yet "
+                "(ROADMAP queue 1 item 10: breadth)")
         if _any128(a, b):
             s = max(_scale_of(a.type), _scale_of(b.type))
             ah, al = _as128_at_scale(a, s)
@@ -287,3 +358,42 @@ for _opname, _presto in [("eq", "$operator$equal"),
     _f = _binary_cmp(_opname)
     REGISTRY[_opname] = ScalarFunction(_opname, _f)
     REGISTRY[_presto] = ScalarFunction(_presto, _f)
+
+
+# ---------------------------------------------------------------------------
+# casts onto decimals
+# ---------------------------------------------------------------------------
+
+@register("cast")
+def _cast(ret, a):
+    ft = a.type
+    if isinstance(a, (Int128Column, StringColumn)) or not ret.is_decimal \
+            or not (ft.is_integral or ft.is_decimal):
+        raise NotImplementedError(
+            f"cast {ft} -> {ret} is not ported yet (ROADMAP queue 1 item "
+            "10: breadth)")
+    src_scale = _scale_of(ft)
+    if not ret.is_short_decimal:
+        # widen onto int128 lanes, then rescale exactly
+        hi, lo = I128.from_int64(a.values)
+        if ret.scale > src_scale:
+            hi, lo = I128.rescale128_up(hi, lo, 10 ** (ret.scale - src_scale))
+        elif ret.scale < src_scale:
+            raise NotImplementedError("long-decimal downscale cast (ROADMAP "
+                                      "queue 1 item 10: breadth)")
+        return Int128Column(hi, lo, a.nulls, ret)
+    return _col(ret, rescale_decimal(a.values.to(torch.int64), src_scale,
+                                     ret.scale), a)
+
+
+# ---------------------------------------------------------------------------
+# substring search
+# ---------------------------------------------------------------------------
+
+def contains_pattern(a: StringColumn, needle: bytes) -> torch.Tensor:
+    """(N,) bool: `needle` occurs in the row (LIKE '%needle%'), through
+    the contains_bytes kernel (ops/kernels.py) for CUDA tensors. Nulls
+    are not looked at. An empty needle matches every row, as the kernel
+    of the reference does; the reference's XLA form answers False for an
+    empty row there."""
+    return K.contains_bytes(a.chars, a.lengths, needle)

@@ -1,9 +1,9 @@
-"""Grouped aggregation for small group tables: the HashAggregationOperator
-analog.
+"""Grouped aggregation: the HashAggregationOperator analog.
 
-Counterpart of the small-table path of presto_tpu/ops/aggregation.py
-(max_groups <= 64, the TPC-H q1 shape) and of its keyless one-slot
-path (q6). No hash table and no scatter:
+Counterpart of presto_tpu/ops/aggregation.py for sum/avg/count/
+count_star: its small-table path (max_groups <= 64, the TPC-H q1
+shape), its keyless one-slot path (q6, q14) and its sorted large-table
+path (q3). The small-table path has no hash table and no scatter:
 
 1. group ids by first-occurrence extraction (`_group_ids_small`): each
    round takes the first unresolved row and resolves every row with
@@ -21,6 +21,12 @@ The reference collects requests in a first trace and serves them in a
 second, which XLA's dead-code elimination makes free. PyTorch runs
 eagerly, so here each aggregate hands the pool its requests and returns
 closures that build its state columns once the pool has computed.
+
+The large-table path (`_group_by_sorted`, max_groups > 64) is
+scatter-free too: one sort of the key words, segment boundaries by
+adjacent-word inequality, per-group [start, end) ranges by
+searchsorted, and every sum as differences of a padded cumsum over
+13-bit limbs (`_seg_total`), exact in int64.
 
 Limb forms (an argument, not a knob): "narrow" stages 8-bit limbs as
 int16 (the default: fewer bytes for the kernel to read), "wide" stages
@@ -40,12 +46,13 @@ from ..expr.functions import lookup
 from ..int128 import (combine_limb_totals_128, limbs13_of_128,
                       limbs13_of_i64, limbs_of_i64)
 from . import kernels as K
-from .keys import key_words
+from .keys import SIGN, key_words
+from .sort import lex_permutation
 
 __all__ = ["AggSpec", "GroupByResult", "group_by", "finalize_states",
            "SMALL_G", "LIMB_FORMS"]
 
-SMALL_G = 64  # the largest group table this port handles
+SMALL_G = 64  # the largest group table of the small-table path
 LIMB_FORMS = ("narrow", "wide")
 
 @dataclasses.dataclass(frozen=True)
@@ -227,7 +234,7 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
     if name not in ("count", "sum", "avg"):
         raise NotImplementedError(
             f"aggregate {spec.name} is not ported yet (ROADMAP queue 1 "
-            "item 9: large-G aggregation and the other aggregates)")
+            "item 10: breadth)")
     live = active & ~col.nulls
     hn = _seg_count(pool, live)
 
@@ -267,9 +274,12 @@ def group_by(batch: Batch, key_channels: Sequence[int],
     if not key_channels:
         max_groups = 1
     elif max_groups > SMALL_G:
-        raise NotImplementedError(
-            f"max_groups {max_groups} > {SMALL_G} needs the large-G "
-            "aggregation (ROADMAP queue 1 item 9)")
+        if not _sorted_capable(batch, key_channels, aggs):
+            raise NotImplementedError(
+                f"max_groups {max_groups} > {SMALL_G} over "
+                f"{[a.name for a in aggs]} needs the hash-slot aggregation "
+                "(ROADMAP queue 1 item 9)")
+        return _group_by_sorted(batch, key_channels, aggs, max_groups)
     keys = [batch.column(c) for c in key_channels]
     ids, perm_first, num_groups, overflow = _group_ids(keys, batch.active,
                                                        max_groups)
@@ -289,6 +299,122 @@ def group_by(batch: Batch, key_channels: Sequence[int],
     out_cols.extend(build() for build in builders)
     return GroupByResult(Batch(tuple(out_cols), slot_active), num_groups,
                          overflow)
+
+
+# ---------------------------------------------------------------------------
+# Sorted-mode group-by: the large-table path (max_groups > SMALL_G)
+# ---------------------------------------------------------------------------
+
+_SORTED_AGGS = ("count_star", "count", "sum", "avg")
+
+
+def _padded_cumsum(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.pad(torch.cumsum(x, dim=0), (1, 0))
+
+
+def _seg_total(x: torch.Tensor, start: torch.Tensor, end: torch.Tensor):
+    """Per-segment totals of x (sorted order) over [start, end) ranges."""
+    p = _padded_cumsum(x)
+    return p[end] - p[start]
+
+
+def _sorted_capable(batch: Batch, key_channels, aggs) -> bool:
+    """Can this aggregation run in sorted mode? The reference also takes
+    count_distinct, approx_percentile, min/max and the moments there;
+    the port has sum/avg/count/count_star."""
+    return bool(key_channels) and all(s.name in _SORTED_AGGS for s in aggs)
+
+
+def _sorted_states(spec: AggSpec, scol: Optional[Block], live: torch.Tensor,
+                   start: torch.Tensor, end: torch.Tensor,
+                   max_groups: int) -> List[Block]:
+    """Sorted-order accumulator states for one aggregate, in the state
+    layout of `_acc_columns` (avg: sum then count)."""
+    zeros_g = torch.zeros(max_groups, dtype=torch.bool, device=live.device)
+    if spec.name == "count_star":
+        return [Column(end - start, zeros_g, T.BIGINT)]
+    nn = _seg_total(live.to(torch.int64), start, end)
+    no_input = nn == 0
+    if spec.name == "count":
+        return [Column(nn, zeros_g, T.BIGINT)]
+    sum_ty = spec.output_type if spec.name == "sum" else _sum_type(scol.type)
+    if isinstance(scol, Int128Column) or scol.type.is_decimal:
+        if isinstance(scol, Int128Column):
+            limbs = limbs13_of_128(scol.hi, scol.lo)
+        else:
+            limbs = limbs13_of_i64(scol.values, _nlimbs13(scol.values))
+        totals = [_seg_total(torch.where(live, l, 0), start, end)
+                  for l in limbs]
+        hi, lo = combine_limb_totals_128(torch.stack(totals, dim=-1))
+        total: Block = Int128Column(hi, lo, no_input, sum_ty)
+    elif scol.type.is_integral:
+        # 13-bit limb cumsums keep every intermediate exact
+        v = scol.values
+        tot = torch.zeros(max_groups, dtype=torch.int64, device=live.device)
+        for li, l in enumerate(limbs13_of_i64(v, _nlimbs13(v))):
+            tot = tot + (_seg_total(torch.where(live, l, 0), start, end)
+                         << (13 * li))
+        total = Column(tot, no_input, sum_ty)
+    else:
+        raise NotImplementedError(
+            f"{spec.name} over {scol.type} is not ported yet (ROADMAP queue "
+            "1 item 10: breadth)")
+    if spec.name == "avg":
+        return [total, Column(nn, zeros_g, T.BIGINT)]
+    return [total]
+
+
+def _group_by_sorted(batch: Batch, key_channels: Sequence[int],
+                     aggs: Sequence[AggSpec], max_groups: int
+                     ) -> GroupByResult:
+    """Sorted-mode group_by: ONE stable sort of (inactive flag, key
+    words), segment ids by adjacent-word inequality, [start, end) row
+    ranges per group slot by searchsorted over the segment ids, and
+    every accumulator a segmented reduction in sorted order. The output
+    table gathers keys from each segment's first row."""
+    n = batch.capacity
+    dev = batch.active.device
+    keys = [batch.column(c) for c in key_channels]
+    words = key_words(keys)
+    perm = lex_permutation([(~batch.active).to(torch.int64),
+                            *(w ^ SIGN for w in words)])
+    s_active = batch.active[perm]
+
+    diffs = torch.zeros(n, dtype=torch.bool, device=dev)
+    for w in words:
+        sw = w[perm]
+        diffs[1:] |= sw[1:] != sw[:-1]
+    seg = torch.cumsum(diffs.to(torch.int64), dim=0)
+
+    n_act = s_active.sum()
+    num_groups = torch.where(n_act > 0,
+                             seg[(n_act - 1).clamp(0, max(n - 1, 0))] + 1, 0)
+    overflow = num_groups > max_groups
+
+    # per-slot [start, end) ranges; inactive rows get a sentinel segment
+    seg_search = torch.where(s_active, seg, (1 << 63) - 1)
+    gids = torch.arange(max_groups, dtype=torch.int64, device=dev)
+    start = torch.searchsorted(seg_search, gids)
+    end = torch.searchsorted(seg_search, gids, right=True)
+    slot_active = gids < torch.clamp(num_groups, max=max_groups)
+
+    perm_first = perm[start.clamp(0, max(n - 1, 0))]
+    out_cols: List[Block] = [gather_block(k, perm_first, slot_active)
+                             for k in keys]
+    sorted_cols = {}
+    for spec in aggs:
+        if spec.input_channel is None:
+            scol, live = None, s_active
+        else:
+            ch = spec.input_channel
+            if ch not in sorted_cols:
+                sorted_cols[ch] = gather_block(batch.column(ch), perm)
+            scol = sorted_cols[ch]
+            live = s_active & ~scol.nulls
+        out_cols.extend(_sorted_states(spec, scol, live, start, end,
+                                       max_groups))
+    return GroupByResult(Batch(tuple(out_cols), slot_active),
+                         num_groups.to(torch.int32), overflow)
 
 
 def state_width(spec: AggSpec) -> int:

@@ -24,13 +24,14 @@ from typing import Dict
 import torch
 
 __all__ = ["limb_partial_sums", "limb_partial_sums_reference",
-           "build_library", "SUM_TILE", "LAUNCHES"]
+           "contains_bytes", "contains_bytes_reference", "build_library",
+           "KERNELS", "SUM_TILE", "LAUNCHES"]
 
 SUM_TILE = 1024
 MAX_GROUPS = 64
 
 # launches of each kernel since the counts were last set to 0
-LAUNCHES: Dict[str, int] = {"limb_partial_sums": 0}
+LAUNCHES: Dict[str, int] = {"limb_partial_sums": 0, "contains_bytes": 0}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -41,7 +42,6 @@ _SMEM_BUDGET = 96 * 1024  # two blocks per SM at the widest tables
 _WARPS = 8                # must match kWarps in the source
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_build_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -55,13 +55,18 @@ def _nvcc() -> str:
 def build_library(name: str) -> str:
     """Compile csrc/<name>.cu into build/<name>-<hash>.so unless that
     file exists; returns its path. The compiler's report (registers,
-    shared memory, spills) is kept beside it as <name>-<hash>.log."""
+    shared memory, spills) is kept beside it as <name>-<hash>.log.
+    Different kernels may build at the same time, from several
+    threads."""
+    if name not in _build_locks:
+        raise ValueError(f"no kernel source {name!r}; the kernels are "
+                         f"{KERNELS}")
     src = os.path.join(_CSRC, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode())
     stem = os.path.join(_BUILD, f"{name}-{digest.hexdigest()[:16]}")
     so = stem + ".so"
-    with _build_lock:
+    with _build_locks[name]:
         if os.path.exists(so):
             return so
         os.makedirs(_BUILD, exist_ok=True)
@@ -76,15 +81,31 @@ def build_library(name: str) -> str:
     return so
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# the C entry points of each library and their argument types
+_SIGNATURES = {
+    "limb_partial_sums": {
+        "limb_partial_sums_i16": [_P, _P, _P, _LL, _I, _I, _I, _P],
+        "limb_partial_sums_f32": [_P, _P, _P, _LL, _I, _I, _I, _P],
+    },
+    "contains_bytes": {
+        "contains_bytes_u8": [_P, _P, ctypes.c_char_p, _I, _P, _LL, _I, _P],
+    },
+}
+
+
+KERNELS = tuple(_SIGNATURES)
+_build_locks = {name: threading.Lock() for name in KERNELS}
+
+
 def _library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(build_library(name))
-        for fn in ("limb_partial_sums_i16", "limb_partial_sums_f32"):
+        for fn, argtypes in _SIGNATURES[name].items():
             f = getattr(lib, fn)
-            f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p]
+            f.argtypes = argtypes
             f.restype = ctypes.c_int
         _libs[name] = lib
     return lib
@@ -159,3 +180,84 @@ def limb_partial_sums_reference(ids: torch.Tensor, limbs: torch.Tensor,
     gidx = torch.arange(groups, dtype=torch.int32, device=ids.device)
     onehot = (ids_p.reshape(tiles, SUM_TILE, 1) == gidx).to(torch.float32)
     return torch.bmm(onehot.transpose(1, 2), lm.reshape(tiles, SUM_TILE, L))
+
+
+# ---------------------------------------------------------------------------
+# contains_bytes
+# ---------------------------------------------------------------------------
+
+# the C entry's own refusals (negative codes), by code
+_CONTAINS_REFUSED = {
+    -1: "bad arguments",
+    -2: "a needle longer than the kernel takes (kMaxNeedle)",
+    -3: "a row and the needle that do not fit one block's shared memory",
+}
+
+
+def _check_contains_args(chars: torch.Tensor, lengths: torch.Tensor,
+                         needle: bytes):
+    if chars.dtype != torch.uint8 or chars.dim() != 2:
+        raise TypeError(f"chars must be a 2-D uint8 matrix, got "
+                        f"{chars.dtype} {tuple(chars.shape)}")
+    if lengths.dtype != torch.int32 or lengths.shape != chars.shape[:1]:
+        raise TypeError(f"lengths must be ({chars.shape[0]},) int32, got "
+                        f"{lengths.dtype} {tuple(lengths.shape)}")
+    if not isinstance(needle, (bytes, bytearray)):
+        raise TypeError(f"needle must be bytes, got {type(needle)}")
+    if chars.device != lengths.device:
+        raise ValueError(f"chars on {chars.device}, lengths on "
+                         f"{lengths.device}")
+
+
+def contains_bytes(chars: torch.Tensor, lengths: torch.Tensor,
+                   needle: bytes) -> torch.Tensor:
+    """(N,) bool: `needle` occurs within the first lengths[i] bytes of
+    row i of the (N, W) chars matrix. A needle longer than W gives all
+    False without a launch; an empty needle matches every row (W >= 1)
+    whose length is not negative."""
+    _check_contains_args(chars, lengths, needle)
+    n, w = chars.shape
+    L = len(needle)
+    if max(L, 1) > w:
+        return torch.zeros(n, dtype=torch.bool, device=chars.device)
+    if chars.device.type == "cpu":
+        return contains_bytes_reference(chars, lengths, needle)
+    if chars.device.type != "cuda":
+        raise ValueError(f"no kernel for device {chars.device}")
+    if not (chars.is_contiguous() and lengths.is_contiguous()):
+        raise ValueError("chars and lengths must be contiguous")
+    out = torch.empty(n, dtype=torch.bool, device=chars.device)
+    if n == 0:
+        return out
+    lib = _library("contains_bytes")
+    with torch.cuda.device(chars.device):
+        stream = torch.cuda.current_stream(chars.device).cuda_stream
+        err = lib.contains_bytes_u8(chars.data_ptr(), lengths.data_ptr(),
+                                    bytes(needle), L, out.data_ptr(), n, w,
+                                    stream)
+    if err < 0:
+        raise ValueError(f"contains_bytes refused W={w}, L={L}: "
+                         f"{_CONTAINS_REFUSED[err]}")
+    if err != 0:
+        raise RuntimeError(f"contains_bytes launch failed: CUDA error {err}")
+    LAUNCHES["contains_bytes"] += 1
+    return out
+
+
+def contains_bytes_reference(chars: torch.Tensor, lengths: torch.Tensor,
+                             needle: bytes) -> torch.Tensor:
+    """Plain PyTorch version: the window gather of contains_pattern's
+    XLA form, (N, windows, L) bytes against the needle, with the
+    kernel's empty-needle rule (L = 0 matches at window 0)."""
+    n, w = chars.shape
+    L = len(needle)
+    if max(L, 1) > w:
+        return torch.zeros(n, dtype=torch.bool, device=chars.device)
+    windows = w - L + 1
+    start = torch.arange(windows, dtype=torch.int64, device=chars.device)
+    idx = start[:, None] + torch.arange(L, dtype=torch.int64,
+                                        device=chars.device)[None, :]
+    pat = torch.tensor(list(needle), dtype=torch.uint8, device=chars.device)
+    match = (chars[:, idx] == pat).all(dim=2)  # (N, windows)
+    ends_ok = (start + L)[None, :] <= lengths[:, None].to(torch.int64)
+    return (match & ends_ok).any(dim=1)

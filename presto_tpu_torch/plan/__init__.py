@@ -1,7 +1,9 @@
 """Plan nodes (the plan-fragment vocabulary) and plan passes."""
 
-from .nodes import (AggregationNode, FilterNode, OutputNode, PlanNode,
-                    ProjectNode, SortNode, TableScanNode, from_json)
+from .nodes import (AggregationNode, FilterNode, JoinNode, OutputNode,
+                    PlanNode, ProjectNode, SortNode, TableScanNode, TopNNode,
+                    from_json, to_json)
 
 __all__ = ["PlanNode", "TableScanNode", "FilterNode", "ProjectNode",
-           "AggregationNode", "SortNode", "OutputNode", "from_json"]
+           "AggregationNode", "JoinNode", "SortNode", "TopNNode",
+           "OutputNode", "from_json", "to_json"]

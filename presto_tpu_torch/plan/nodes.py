@@ -1,13 +1,15 @@
 """Plan nodes: the worker-visible plan vocabulary this port executes.
 
 Counterpart of presto_tpu/plan/nodes.py, trimmed to the nodes of the
-TPC-H q1/q6 plan shape: TableScan, Filter, Project, Aggregation, Sort
-and Output. Channels are already resolved to indices.
+TPC-H q1/q3/q6/q14 plan shapes: TableScan, Filter, Project,
+Aggregation, Join, Sort, TopN and Output. Channels are already resolved
+to indices.
 
-`from_json` reads the dict that presto_tpu.plan.nodes.to_json writes:
-that JSON is the plan-fragment wire format a worker parses, so the port
-reads it as data. Node kinds the port does not run yet raise
-NotImplementedError naming the ROADMAP item that ports them.
+`from_json` reads the dict that presto_tpu.plan.nodes.to_json writes,
+and `to_json` writes the same dict: that JSON is the plan-fragment wire
+format a worker parses, so the port reads it as data. Node kinds the
+port does not run yet raise NotImplementedError naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from ..expr import ir as E
 from ..ops.aggregation import AggSpec
 
 __all__ = ["PlanNode", "TableScanNode", "FilterNode", "ProjectNode",
-           "AggregationNode", "SortNode", "OutputNode", "from_json"]
+           "AggregationNode", "JoinNode", "SortNode", "TopNNode",
+           "OutputNode", "from_json", "to_json"]
 
 _ids = itertools.count(1)
 
@@ -101,9 +104,50 @@ class AggregationNode(PlanNode):
 
 
 @dataclasses.dataclass
+class JoinNode(PlanNode):
+    """`left` is the probe side, `right` the build side; the output is
+    left's columns followed by right's `right_output_channels` (all of
+    them when None). `out_capacity` None takes the runner's default."""
+    left: PlanNode
+    right: PlanNode
+    left_keys: List[int]
+    right_keys: List[int]
+    join_type: str = "inner"          # inner | left | right | full
+    distribution: str = "partitioned"  # partitioned | broadcast
+    right_output_channels: Optional[List[int]] = None
+    out_capacity: Optional[int] = None
+
+    @property
+    def sources(self):
+        return (self.left, self.right)
+
+    def output_types(self):
+        lt = self.left.output_types()
+        rt = self.right.output_types()
+        chans = self.right_output_channels
+        if chans is None:
+            chans = list(range(len(rt)))
+        return lt + [rt[c] for c in chans]
+
+
+@dataclasses.dataclass
 class SortNode(PlanNode):
     source: PlanNode
     keys: List[Tuple[int, bool, bool]]  # (channel, descending, nulls_last)
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_types(self):
+        return self.source.output_types()
+
+
+@dataclasses.dataclass
+class TopNNode(PlanNode):
+    source: PlanNode
+    keys: List[Tuple[int, bool, bool]]
+    count: int
 
     @property
     def sources(self):
@@ -132,12 +176,10 @@ class OutputNode(PlanNode):
 
 # node kinds of presto_tpu's wire format this port does not run yet
 _NOT_PORTED = {
-    "join": "queue 1 item 8 (joins, for config 2)",
-    "semijoin": "queue 1 item 8 (joins, for config 2)",
-    "limit": "queue 1 item 8 (joins and misc, for config 2)",
-    "distinct": "queue 1 item 8 (joins and misc, for config 2)",
-    "markdistinct": "queue 1 item 8 (joins and misc, for config 2)",
-    "topn": "queue 1 item 8 (top_n, for config 2)",
+    "semijoin": "queue 1 item 8 (semi_join_mask)",
+    "limit": "queue 1 item 8 (ops/misc.py)",
+    "distinct": "queue 1 item 8 (ops/misc.py)",
+    "markdistinct": "queue 1 item 8 (ops/misc.py)",
     "window": "queue 1 item 10 (breadth: ops/window.py)",
     "rownumber": "queue 1 item 10 (breadth: ops/window.py)",
     "unnest": "queue 1 item 10 (breadth: ops/unnest.py)",
@@ -148,6 +190,47 @@ _NOT_PORTED = {
 
 def _agg_from_json(j: dict) -> AggSpec:
     return AggSpec(j["name"], j["input"], T.parse_type(j["type"]))
+
+
+def to_json(n: PlanNode) -> dict:
+    base = {"id": n.id}
+    if isinstance(n, TableScanNode):
+        j = {**base, "@type": "tablescan", "connector": n.connector,
+             "table": n.table, "columns": n.columns,
+             "columnTypes": [str(t) for t in n.column_types]}
+        if n.physical_dtypes is not None:
+            j["physicalDtypes"] = list(n.physical_dtypes)
+        return j
+    if isinstance(n, FilterNode):
+        return {**base, "@type": "filter", "source": to_json(n.source),
+                "predicate": E.to_json(n.predicate)}
+    if isinstance(n, ProjectNode):
+        return {**base, "@type": "project", "source": to_json(n.source),
+                "expressions": [E.to_json(e) for e in n.expressions]}
+    if isinstance(n, AggregationNode):
+        return {**base, "@type": "aggregation", "source": to_json(n.source),
+                "groupChannels": n.group_channels,
+                "aggregates": [{"name": a.name, "input": a.input_channel,
+                                "type": str(a.output_type)}
+                               for a in n.aggregates],
+                "step": n.step, "maxGroups": n.max_groups}
+    if isinstance(n, JoinNode):
+        return {**base, "@type": "join", "left": to_json(n.left),
+                "right": to_json(n.right), "leftKeys": n.left_keys,
+                "rightKeys": n.right_keys, "joinType": n.join_type,
+                "distribution": n.distribution,
+                "rightOutputChannels": n.right_output_channels,
+                "outCapacity": n.out_capacity}
+    if isinstance(n, SortNode):
+        return {**base, "@type": "sort", "source": to_json(n.source),
+                "keys": [list(k) for k in n.keys]}
+    if isinstance(n, TopNNode):
+        return {**base, "@type": "topn", "source": to_json(n.source),
+                "keys": [list(k) for k in n.keys], "count": n.count}
+    if isinstance(n, OutputNode):
+        return {**base, "@type": "output", "source": to_json(n.source),
+                "names": n.names}
+    raise TypeError(type(n))
 
 
 def from_json(j: dict) -> PlanNode:
@@ -172,9 +255,17 @@ def from_json(j: dict) -> PlanNode:
         return AggregationNode(from_json(j["source"]), j["groupChannels"],
                                [_agg_from_json(a) for a in j["aggregates"]],
                                j["step"], j["maxGroups"], **kw)
+    if t == "join":
+        return JoinNode(from_json(j["left"]), from_json(j["right"]),
+                        j["leftKeys"], j["rightKeys"], j["joinType"],
+                        j["distribution"], j["rightOutputChannels"],
+                        j["outCapacity"], **kw)
     if t == "sort":
         return SortNode(from_json(j["source"]),
                         [tuple(k) for k in j["keys"]], **kw)
+    if t == "topn":
+        return TopNNode(from_json(j["source"]),
+                        [tuple(k) for k in j["keys"]], j["count"], **kw)
     if t == "output":
         return OutputNode(from_json(j["source"]), j["names"], **kw)
     if t in _NOT_PORTED:

@@ -1,20 +1,24 @@
-"""Where the time of the PyTorch port's q1/q6 goes, on one CUDA card.
+"""Where the time of the PyTorch port's queries goes, on one CUDA card.
 
-    python3 scripts/profile_torch_query.py [--sf 1.0] [--out PATH]
+    python3 scripts/profile_torch_query.py [--sf 1.0] [--join-sf 10.0]
+                                           [--out PATH]
 
-Stages each query's lineitem scan once on the card, then:
+TPC-H q1 and q6 at --sf, q3 and q14 at --join-sf. Stages each query's
+scans once on the card, runs it once through the overflow ladder (so
+the capacity scale that fits is known), then:
 
-* times every operator of the plan on its own (Filter, Project, the
-  group-id rounds, the pooled sums with the limb_partial_sums kernel,
-  finalize, Sort, the result fetch): host clock around a synced call,
-  median of 5 after a warm-up;
+* times every operator of the plan on its own (Filter, Project, each
+  LIKE inside them, Join, the group-by (small-table ids + pooled sums +
+  kernel, or the sorted large-table path), finalize, Sort, TopN, the
+  result fetch): host clock around a synced call, median of 5 after a
+  warm-up, each fed its input computed once beforehand;
 * records one `execute` under torch.profiler: the device time of every
-  kernel, their launch counts, and the device's idle share of the
-  execute wall.
+  kernel, their launch counts, the hand-written kernels' launches, and
+  the device's idle share of the execute wall.
 
 Prints one JSON object per query and the card's name and power limit;
-with --out also writes them to PATH. Needs a CUDA device. It takes
-its plans and timers from chip_smoke.py, and stands in for the
+with --out also writes them to PATH. Needs a CUDA device. It takes its
+plans and timers from chip_smoke.py, and stands in for the
 observability ledgers until they are ported.
 """
 
@@ -30,64 +34,98 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 
-def _stages(root, batch):
-    """(name, fn) per operator, each fed the previous operator's output
+def _likes(expr):
+    from presto_tpu_torch.expr import ir as E
+    if isinstance(expr, E.Call) and expr.name.lower() == "like":
+        yield expr
+    for c in expr.children():
+        yield from _likes(c)
+
+
+def _stages(root, batches, join_capacity):
+    """(label, fn, inputs) per operator, each fed its input batches
     (computed once, outside the timed calls)."""
+    from presto_tpu_torch.exec.planner import compile_plan
     from presto_tpu_torch.exec.runner import _batch_to_result
     from presto_tpu_torch.expr.compile import (compile_filter,
-                                               compile_projections)
-    from presto_tpu_torch.ops.aggregation import (_group_ids,
+                                               compile_projections, evaluate)
+    from presto_tpu_torch.ops.aggregation import (SMALL_G, _group_ids,
                                                   finalize_states, group_by)
-    from presto_tpu_torch.ops.sort import sort_batch
+    from presto_tpu_torch.ops.join import hash_join
+    from presto_tpu_torch.ops.sort import sort_batch, top_n
     from presto_tpu_torch.plan import nodes as N
 
-    chain = []
-    node = root
-    while not isinstance(node, N.TableScanNode):
-        chain.append(node)
-        node = node.source
+    inputs = {n.id: b for n, b in zip(compile_plan(root).scan_nodes,
+                                      batches)}
     out = []
-    cur = batch
-    for node in reversed(chain):
-        if isinstance(node, N.FilterNode):
-            fn = (lambda b, p=node.predicate: compile_filter(p)(b))
-            out.append(("filter", fn, cur))
-        elif isinstance(node, N.ProjectNode):
-            fn = (lambda b, e=node.expressions: compile_projections(e)(b))
-            out.append(("project", fn, cur))
-        elif isinstance(node, N.AggregationNode):
-            keys = node.group_channels
-            mg = node.max_groups if keys else 1
-            out.append(("group_ids", lambda b, k=keys, m=mg: _group_ids(
-                [b.column(c) for c in k], b.active, m), cur))
-            out.append(("group_by (ids + pooled sums + kernel)",
-                        lambda b, n=node: group_by(
-                            b, n.group_channels, n.aggregates, n.max_groups),
-                        cur))
-            table = group_by(cur, node.group_channels, node.aggregates,
-                             node.max_groups).batch
-            out.append(("finalize", lambda b, n=node: finalize_states(
-                b, len(n.group_channels), n.aggregates), table))
-            cur = finalize_states(table, len(node.group_channels),
-                                  node.aggregates)
-            continue
-        elif isinstance(node, N.SortNode):
-            fn = (lambda b, k=node.keys: sort_batch(b, k))
-            out.append(("sort", fn, cur))
-        elif isinstance(node, N.OutputNode):
-            out.append(("result fetch", lambda b, r=root:
-                        _batch_to_result(b, r), cur))
-            continue
-        cur = out[-1][1](cur)
+
+    def add(label, fn, *args):
+        n = sum(1 for lb, _, _ in out if lb.split(" #")[0] == label)
+        out.append((f"{label} #{n + 1}" if n else label, fn, args))
+        return fn(*args)
+
+    def walk(node):
+        if isinstance(node, N.TableScanNode):
+            return inputs[node.id]
+        if isinstance(node, (N.FilterNode, N.ProjectNode)):
+            b = walk(node.source)
+            exprs = [node.predicate] if isinstance(node, N.FilterNode) \
+                else node.expressions
+            for e in exprs:
+                for like in _likes(e):
+                    add(f"LIKE {like.arguments[1].value!r}",
+                        lambda x, l=like: evaluate(l, x), b)
+            if isinstance(node, N.FilterNode):
+                label = f"filter {node.source.table}" if isinstance(
+                    node.source, N.TableScanNode) else "filter"
+                return add(label, compile_filter(node.predicate), b)
+            return add("project", compile_projections(node.expressions), b)
+        if isinstance(node, N.JoinNode):
+            return add("join", lambda l, r, n=node: hash_join(
+                l, r, n.left_keys, n.right_keys,
+                n.out_capacity or join_capacity, n.join_type,
+                n.right_output_channels).batch,
+                walk(node.left), walk(node.right))
+        if isinstance(node, N.AggregationNode):
+            b = walk(node.source)
+            keys, mg = node.group_channels, node.max_groups
+            if not keys:
+                label = "group_by (keyless, one slot)"
+            elif mg <= SMALL_G:
+                add("group_ids", lambda x: _group_ids(
+                    [x.column(c) for c in keys], x.active, mg), b)
+                label = "group_by (ids + pooled sums + kernel)"
+            else:
+                label = "group_by (sorted)"
+            table = add(label, lambda x, n=node: group_by(
+                x, n.group_channels, n.aggregates, n.max_groups).batch, b)
+            return add("finalize", lambda t, n=node: finalize_states(
+                t, len(n.group_channels), n.aggregates), table)
+        if isinstance(node, N.SortNode):
+            return add("sort", lambda x, k=node.keys: sort_batch(x, k),
+                       walk(node.source))
+        if isinstance(node, N.TopNNode):
+            return add("top_n", lambda x, n=node: top_n(x, n.keys, n.count),
+                       walk(node.source))
+        if isinstance(node, N.OutputNode):
+            b = walk(node.source)
+            add("result fetch", lambda x: _batch_to_result(x, root), b)
+            return b
+        raise NotImplementedError(type(node).__name__)
+
+    walk(root)
     return out
 
 
 def _profile(root, batches):
     import torch
     from presto_tpu_torch.exec.runner import execute
+    from presto_tpu_torch.ops import kernels as K
     from torch.profiler import ProfilerActivity, profile
     execute(root, batches)
     torch.cuda.synchronize()
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -111,6 +149,7 @@ def _profile(root, batches):
     return {"execute_wall_us": wall_us, "device_busy_us": busy,
             "device_idle_share": 1.0 - busy / wall_us,
             "kernel_launches": len(kernels),
+            "hand_written_launches": dict(K.LAUNCHES),
             "kernel_time_us": sum(v[1] for v in by_name.values()),
             "top_by_time": [{"kernel": k[:120], "launches": v[0],
                              "us": v[1]} for k, v in top[:15]],
@@ -123,6 +162,7 @@ def _profile(root, batches):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--join-sf", type=float, default=10.0)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     import torch
@@ -130,19 +170,29 @@ def main(argv=None) -> int:
         print("profile_torch_query: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke
-    from presto_tpu_torch.exec.runner import stage_scans
+    from presto_tpu_torch.exec import runner
+    from presto_tpu_torch.exec.runner import execute, stage_scans
+    from presto_tpu_torch.plan.stats import scale_capacities
     from presto_tpu_torch.plan.widths import annotate_widths
+    chip_smoke.install_host_cache()
     dev = torch.device("cuda")
     gpu = chip_smoke._run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"])
     reports = []
-    for name, make in (("q1", chip_smoke.q1_plan), ("q6", chip_smoke.q6_plan)):
-        root = annotate_widths(make(), args.sf)
-        batches = stage_scans(root, args.sf, dev)
-        stages = {label: chip_smoke.wall_ms(lambda f=fn, b=inp: f(b))
-                  for label, fn, inp in _stages(root, batches[0])}
-        rep = {"query": name, "sf": args.sf, "gpu": gpu, "stage_ms": stages,
-               "profile": _profile(root, batches)}
+    for name, make, sf in (("q1", chip_smoke.q1_plan, args.sf),
+                           ("q6", chip_smoke.q6_plan, args.sf),
+                           ("q3", chip_smoke.q3_plan, args.join_sf),
+                           ("q14", chip_smoke.q14_plan, args.join_sf)):
+        root = annotate_widths(make(), sf)
+        batches = stage_scans(root, sf, dev)
+        execute(root, batches)  # climbs the ladder once; the memo keeps it
+        scale = runner._CAPACITY_FEEDBACK.get(runner._fingerprint(root), 1)
+        scaled = scale_capacities(root, scale)
+        stages = {label: chip_smoke.wall_ms(lambda f=fn, a=args_: f(*a))
+                  for label, fn, args_ in _stages(scaled, batches,
+                                                  (1 << 16) * scale)}
+        rep = {"query": name, "sf": sf, "gpu": gpu, "capacity_scale": scale,
+               "stage_ms": stages, "profile": _profile(root, batches)}
         print(json.dumps(rep))
         reports.append(rep)
         del batches

@@ -42,6 +42,24 @@ def _cases():
     ]
 
 
+def _config2_cases():
+    """Config 2's string widths (part.type, customer.mktsegment) and its
+    int8/int16 lanes (orders.shippriority, orders.orderdate)."""
+    return [
+        ("varchar(25)", np.array(["PROMO BRUSHED TIN", None,
+                                  "STANDARD POLISHED COPPER", "", "a" * 25,
+                                  "ECONOMY ANODIZED STEEL"], dtype=object),
+         None, None),
+        ("varchar(10)", np.array(["BUILDING", "AUTOMOBILE", None,
+                                  "MACHINERY", "", "HOUSEHOLD"],
+                                 dtype=object), None, None),
+        ("integer", np.array([0, 0, 127, -128, 1, 0], np.int32), None,
+         "int8"),
+        ("date", np.array([8035, 10440, 9204, 8036, 9404, 9374], np.int32),
+         np.array([0, 0, 1, 0, 0, 0], bool), "int16"),
+    ]
+
+
 def _same(ref, port):
     (rv, rn), (pv, pn) = ref, port
     assert rv.dtype == pv.dtype, (rv.dtype, pv.dtype)
@@ -52,6 +70,17 @@ def _same(ref, port):
 
 @pytest.mark.parametrize("case", _cases(), ids=lambda c: c[0])
 def test_round_trip_matches_reference(case):
+    _round_trip(case)
+
+
+@pytest.mark.parametrize("case", _config2_cases(),
+                         ids=["part.type", "customer.mktsegment",
+                              "orders.shippriority", "orders.orderdate"])
+def test_config2_columns_round_trip(case):
+    _round_trip(case)
+
+
+def _round_trip(case):
     sig, values, nulls, phys = case
     rty, pty = RT.parse_type(sig), PT.parse_type(sig)
     n = [nulls] if nulls is not None else None
@@ -115,6 +144,26 @@ def test_generator_equals_reference(columns):
             str(ptpch.column_type("lineitem", c))
 
 
+@pytest.mark.parametrize("table", ["orders", "customer", "part"])
+def test_config2_tables_equal_reference(table):
+    """The tables q3 and q14 add: every column equal to the reference's,
+    element for element and dtype for dtype, a split included, and the
+    value ranges that narrow their lanes."""
+    from presto_tpu.connectors.tpch import column_range as rrange
+    columns = [c for c, _ in rtpch.TPCH_SCHEMA[table]]
+    for start, count in ((0, None), (123, 456)):
+        ref = rtpch.generate_columns(table, 0.01, columns, start, count)
+        port = ptpch.generate_columns(table, 0.01, columns, start, count)
+        for c in columns:
+            assert ref[c].dtype == port[c].dtype, c
+            assert np.array_equal(ref[c], port[c]), c
+    for c in columns:
+        assert str(rtpch.column_type(table, c)) == \
+            str(ptpch.column_type(table, c))
+        for sf in (0.01, 10):
+            assert rrange(table, c, sf) == ptpch.column_range(table, c, sf)
+
+
 def test_generator_split_and_stats_match_reference():
     from presto_tpu.connectors.tpch import column_range as rrange
     ref = rtpch.generate_columns("lineitem", 0.01, Q1_COLUMNS, start=1000,
@@ -127,7 +176,7 @@ def test_generator_split_and_stats_match_reference():
         assert rrange("lineitem", c, 0.01) == \
             ptpch.column_range("lineitem", c, 0.01), c
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptpch.generate_columns("orders", 0.01, ["orderkey"])
+        ptpch.generate_columns("supplier", 0.01, ["suppkey"])
 
 
 @pytest.mark.parametrize("stage", ["from_numpy", "batch_from_numpy"])

@@ -31,7 +31,8 @@ def _launch_names():
     from presto_tpu_torch.ops import kernels
     return {n for n in kernels.__all__ if callable(getattr(kernels, n))
             and not n.endswith("_reference")} | {"limb_partial_sums_i16",
-                                                 "limb_partial_sums_f32"}
+                                                 "limb_partial_sums_f32",
+                                                 "contains_bytes_u8"}
 
 
 def _called_names(node):
@@ -47,7 +48,12 @@ def _called_names(node):
 def test_sources_found():
     names = {os.path.relpath(p, REPO) for p in _sources()}
     assert "chip_smoke.py" in names
-    assert os.path.join("presto_tpu_torch", "ops", "kernels.py") in names
+    for module in ("ops/kernels.py", "ops/join.py", "ops/sort.py",
+                   "ops/aggregation.py", "plan/stats.py", "plan/nodes.py",
+                   "expr/compile.py", "expr/functions.py",
+                   "connectors/tpch/generator.py", "exec/planner.py",
+                   "exec/runner.py"):
+        assert os.path.join("presto_tpu_torch", *module.split("/")) in names
 
 
 @pytest.mark.parametrize("path", _sources(),

@@ -107,7 +107,8 @@ def test_sql_planned_q1_matches_reference():
 
 
 def test_overflow_reruns_with_more_groups():
-    """max_groups=2 under q1's four groups: the ladder doubles to 4."""
+    """max_groups=2 under q1's four groups: the ladder's first 4x rerun
+    (8 groups) fits."""
     want = ref_run_query(q1_plan(), sf=SF)
     got = _port(RN.to_json(q1_plan(max_groups=2)))
     assert got.canonical_rows() == want.canonical_rows()
@@ -120,13 +121,16 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_out_of_slice_plans_raise_naming_the_roadmap():
-    join = RN.JoinNode(_scan(["orderkey"]), _scan(["orderkey"]), [0], [0])
+    join = RN.JoinNode(_scan(["orderkey"]), _scan(["orderkey"]), [0], [0],
+                       join_type="left")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        from_json(RN.to_json(join))
-    topn = RN.TopNNode(_scan(["orderkey"]), [(0, False, True)], 5)
+        _port(RN.to_json(join))
+    limit = RN.LimitNode(_scan(["orderkey"]), 5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_json(RN.to_json(topn))
+        from_json(RN.to_json(limit))
     big = RN.to_json(q1_plan(max_groups=1 << 10))
+    big["source"]["source"]["aggregates"].append(
+        {"name": "min", "input": 2, "type": "decimal(12, 2)"})
     with pytest.raises(NotImplementedError, match="item 9"):
         _port(big)
     partial = RN.to_json(q1_plan())
