@@ -6,9 +6,15 @@ Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, started together) and holds each against its plain
 PyTorch version at the shapes of its path:
 
-* limb_partial_sums at TPC-H q1's shapes, then q1 and q6 at scale
-  factor 1 (6,000,000 lineitem rows) through
-  `presto_tpu_torch.exec.run_query`;
+* limb_partial_sums (the per-tile kernel) at TPC-H q1's shapes, and
+  fused_limb_sums (limb split and per-group sums in one pass) on every
+  lane kind, a ragged n with ids outside [0, G), G = 2, 16 and 64, and
+  the worst case at the kernel's row limit;
+* q1 (in both limb forms: narrow takes fused_limb_sums, wide the
+  per-tile kernel) and q6 at scale factor 1 (6,000,000 lineitem rows)
+  through `presto_tpu_torch.exec.run_query`; fused_limb_sums again on
+  the very lanes q1 handed it, timed beside its plain version and the
+  unfused path it replaces;
 * contains_bytes bit for bit on SF1 lineitem.comment, SF10 part.type
   and edge cases, then its path: `expr.functions.contains_pattern`
   over the staged comment and type columns, checked against `_like`;
@@ -40,6 +46,7 @@ SF = 1.0
 SF_JOIN = 10.0  # q3 and q14: BASELINE config 2
 Q1_CUTOFF = "1998-09-02"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT8_OPS_PER_S = 1.979e15  # H100 SXM data sheet, dense int8 tensor cores
 WARMUP = 3
 REPEATS = 10
 QUERY_REPEATS = 5
@@ -329,6 +336,27 @@ def cuda_ms(fn, repeats=REPEATS, warmup=WARMUP):
     return statistics.median(times)
 
 
+def device_ms(fn, kernel, repeats=REPEATS):
+    """Median device milliseconds of the CUDA kernels whose name holds
+    `kernel`, from torch.profiler over `repeats` calls of fn() after a
+    warm-up (no host time between launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    if len(times) < repeats:
+        raise AssertionError(f"the profiler saw {len(times)} launches of "
+                             f"{kernel} in {repeats} calls")
+    return statistics.median(times)
+
+
 def wall_ms(fn, repeats=QUERY_REPEATS):
     """Median host wall milliseconds of fn() (which ends synced) after
     one warm-up run."""
@@ -478,6 +506,187 @@ def phase_kernels(seed, q1_shapes):
     return rows
 
 
+def _fused_lanes(n, groups, gen, dev, extreme=0):
+    """(ids, sources, requests) of fused_limb_sums on every lane kind:
+    random ids in [-2, G + 2) and random values, or with extreme = +1 /
+    -1 every row in group G - 1 and every lane at its maximum / minimum
+    (the 128-bit pair at +-(10^38 - 1)). Requests: a count, whole-lane
+    sums, and the 13-bit limb splits of every lane (the descriptors of
+    the port's 128-bit sums), masked and not."""
+    import torch
+    from presto_tpu_torch.ops import kernels as K
+    R = K.LimbRequest
+    if extreme:
+        ids = torch.full((n,), groups - 1, dtype=torch.int32, device=dev)
+    else:
+        ids = torch.randint(-2, groups + 2, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    sources = []
+    for dt in (torch.int8, torch.int16, torch.int32, torch.int64):
+        info = torch.iinfo(dt)
+        if extreme:
+            v = torch.full((n,), info.max if extreme > 0 else info.min,
+                           dtype=dt, device=dev)
+        else:
+            v = torch.randint(info.min, info.max, (n,), generator=gen,
+                              device=dev, dtype=torch.int64).to(dt)
+        sources.append(v)
+    big = 10 ** 38 - 1
+    if extreme:
+        x = big if extreme > 0 else -big
+        hi = torch.full((n,), x >> 64, dtype=torch.int64, device=dev)
+        lo_bits = x & ((1 << 64) - 1)
+        lo = torch.full((n,), lo_bits - (1 << 64) if lo_bits >> 63
+                        else lo_bits, dtype=torch.int64, device=dev)
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+    else:
+        hi = torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen,
+                           device=dev)
+        lo = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), generator=gen,
+                           device=dev)
+        mask = torch.rand(n, generator=gen, device=dev) < 0.6
+    sources += [(hi, lo), mask]
+    reqs = [R(5, -1, 0, 1, True)]
+    for i, width in enumerate((8, 16, 32, 64, 128)):
+        if width <= 64:
+            reqs.append(R(i, 5, 0, width, True))
+        nl = -(-width // 13)
+        reqs += [R(i, 5 if k % 2 else -1, 13 * k, 13, k == nl - 1)
+                 for k in range(nl)]
+    return ids, sources, reqs
+
+
+def _source_bytes(ids, sources):
+    return ids.numel() * 4 + sum(
+        t.numel() * t.element_size() for s in sources
+        for t in (s if isinstance(s, tuple) else (s,)))
+
+
+def check_fused(ids, sources, reqs, groups, what, **kw):
+    """fused_limb_sums against its plain version, bit for bit; returns
+    the max abs error (0)."""
+    import torch
+    from presto_tpu_torch.ops import kernels as K
+    got = K.fused_limb_sums(ids, sources, reqs, groups, **kw)
+    want = K.fused_limb_sums_reference(ids, sources, reqs, groups)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()[:8].tolist()
+        raise AssertionError(f"fused_limb_sums {what} {kw}: differs at "
+                             f"(group, request) {bad}")
+    print(f"fused_limb_sums exact: {what} {kw}")
+    return err
+
+
+def phase_fused(seed):
+    """fused_limb_sums against its plain version on the card: every
+    lane kind at a ragged n with ids outside [0, G) for G = 2, 16 and
+    64, and the worst case: every row in one group, every lane at its
+    extreme, one block summing the kernel's row limit."""
+    import torch
+    from presto_tpu_torch.ops import kernels as K
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for groups in (2, 16, 64):
+        n = 1_000_003
+        ids, sources, reqs = _fused_lanes(n, groups, gen, dev)
+        check_fused(ids, sources, reqs, groups,
+                    f"ragged n={n} G={groups} ids outside [0, G)")
+        check_fused(ids[:777], [tuple(t[:777] for t in s)
+                                if isinstance(s, tuple) else s[:777]
+                                for s in sources], reqs, groups,
+                    "n=777, one chunk, one block")
+    n = K.FUSED_MAX_ROWS_PER_BLOCK
+    for extreme in (1, -1):
+        ids, sources, reqs = _fused_lanes(n, 64, gen, dev, extreme)
+        check_fused(ids, sources, reqs, 64,
+                    f"worst case {'max' if extreme > 0 else 'min'}: "
+                    f"{n} rows in group 63, one block", blocks=1)
+    del ids, sources
+    torch.cuda.empty_cache()
+
+
+def _unfused_narrow(ids, contribs, groups):
+    """The path fused_limb_sums replaces, from materialised requests:
+    8-bit limbs stacked as an (n, L) int16 matrix, the per-tile kernel,
+    the tiles added in int64 and the limbs recombined by shifts."""
+    import torch
+    from presto_tpu_torch.int128 import limbs_of_i64
+    from presto_tpu_torch.ops import kernels as K
+    cols, spans = [], []
+    for x, bits in contribs:
+        nl = max(-(-bits // 8), 1)
+        spans.append((len(cols), nl))
+        cols.extend(limbs_of_i64(x, 8, nl) if nl > 1 else [x])
+    lm = torch.stack([c.to(torch.int16) for c in cols], dim=1)
+    tot = K.limb_partial_sums(ids, lm, groups).to(torch.int64).sum(dim=0)
+    shifts = 8 * torch.arange(max(nl for _, nl in spans), dtype=torch.int64,
+                              device=ids.device)
+    return torch.stack([(tot[:, a:a + nl] << shifts[:nl]).sum(dim=1)
+                        for a, nl in spans], dim=1)
+
+
+def fused_row(call, launches):
+    """Time fused_limb_sums on the lanes the main path handed it, beside
+    its plain version and the unfused path; the kernel table's row."""
+    import torch
+    from presto_tpu_torch.ops import kernels as K
+    ids, sources, reqs, groups = call
+    err = check_fused(ids, sources, reqs, groups, "q1's own lanes")
+    contribs = []
+    for r in reqs:
+        x = K.source_field(sources[r.source], r.shift, r.bits, r.remainder)
+        if r.mask != -1:
+            x = torch.where(sources[r.mask], x, 0)
+        contribs.append((x, r.bits))
+    want = K.fused_limb_sums(ids, sources, reqs, groups)
+    if not torch.equal(_unfused_narrow(ids, contribs, groups), want):
+        raise AssertionError("the unfused narrow path disagrees")
+    call_ms = cuda_ms(lambda: K.fused_limb_sums(ids, sources, reqs, groups))
+    ms = device_ms(lambda: K.fused_limb_sums(ids, sources, reqs, groups),
+                   "fused_limb_sums_kernel")
+    plain_ms = cuda_ms(lambda: K.fused_limb_sums_reference(
+        ids, sources, reqs, groups))
+    standin_ms = cuda_ms(lambda: _unfused_narrow(ids, contribs, groups))
+    n = ids.shape[0]
+    J = max(K.limb_count(r.bits) for r in reqs)
+    nbytes = _source_bytes(ids, sources) + groups * len(reqs) * J * 8
+    L = sum(K.limb_count(r.bits) for r in reqs)
+    ops = 2 * n * (16 * -(-groups // 16)) * (8 * -(-L // 8))
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+    row = {
+        "name": "fused_limb_sums", "form": "narrow (s8 7-bit limbs, fused)",
+        "route": "cuda",
+        "source": "presto_tpu_torch/ops/csrc/fused_limb_sums.cu",
+        "replaces": "presto_tpu/ops/pallas_kernels.py:141",
+        "launches": launches, "max_abs_err": err, "exact": err == 0.0,
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= ops / INT8_OPS_PER_S else "operations",
+        "library_ms": None, "standin_ms": standin_ms,
+        "call_ms": call_ms,
+        "timing": "ms: the kernel's device time (torch.profiler); "
+                  "call_ms: CUDA events around the wrapper call (zeroed "
+                  "output, launch, limb recombination, host gaps); "
+                  "plain_ms and standin_ms: CUDA events",
+        "library": "none: no single PyTorch call splits limbs and sums "
+                   "them per group; standin_ms is the unfused path it "
+                   "replaces (8-bit limb split, torch.stack, the per-tile "
+                   "kernel, the tile sum) from materialised requests",
+        "shape": {"n": n, "G": groups, "requests": len(reqs), "L": L,
+                  "sources": len(sources),
+                  "bytes_per_row": _source_bytes(ids, sources) / n},
+        "bytes": nbytes, "int8_ops": ops}
+    print(f"fused_limb_sums on q1's lanes: kernel {ms:.4f} ms (device), "
+          f"wrapper call {call_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, unfused stand-in {standin_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({row['bound_by']})")
+    return row
+
+
 def _count_syncs(fn):
     """Host-device synchronizations fn() makes (torch's sync debug mode
     warns once per synchronizing call)."""
@@ -567,9 +776,9 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",)):
               f"reruns {res.stats['capacity_reruns']} (scale "
               f"{res.stats['capacity_scale']}); first run_query "
               f"{first_ms:.1f} ms")
-        report["launches"][_FORM_OF[form]] = launches
-        report["host_syncs"][_FORM_OF[form]] = syncs
-        report["capacity_reruns"][_FORM_OF[form]] = \
+        report["launches"][form] = launches
+        report["host_syncs"][form] = syncs
+        report["capacity_reruns"][form] = \
             res.stats["capacity_reruns"]
         report.setdefault("first_run_query_ms", first_ms)
         report["capacity_scale"] = res.stats["capacity_scale"]
@@ -578,7 +787,19 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",)):
     root = annotate_widths(plan_fn(), sf)
     batches = stage_scans(root, sf, torch.device("cuda"))
     report["staged_mb"] = _staged_bytes(batches) / 1e6
-    report["execute_ms"] = wall_ms(lambda: execute(root, batches))
+    report["execute_ms_by_form"], report["peak_mb_by_form"] = {}, {}
+    for form in limb_forms:
+        ms = wall_ms(lambda: execute(root, batches, limb_form=form))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        execute(root, batches, limb_form=form)
+        torch.cuda.synchronize()
+        report["execute_ms_by_form"][form] = ms
+        report["peak_mb_by_form"][form] = \
+            torch.cuda.max_memory_allocated() / 1e6
+    report["execute_ms"] = report["execute_ms_by_form"][limb_forms[0]]
+    print(f"{name}: execute ms by form {report['execute_ms_by_form']}; peak "
+          f"device MB (staged batches included) {report['peak_mb_by_form']}")
     del batches
     torch.cuda.empty_cache()
     report["run_query_ms"] = wall_ms(lambda: run_query(plan_fn(), sf=sf),
@@ -733,12 +954,13 @@ Q14_TABLES = {"lineitem": ["extendedprice", "discount", "partkey",
                            "shipdate"],
               "part": ["type"]}
 
-# the limb matrix q1 at SF1 hands the kernel: the same 39 requests as the
-# reference's fused pool (31 thirteen-bit sums and 8 one-bit counts, one
-# count per aggregate); narrow splits each 13-bit sum into two 8-bit limbs
+# the limb matrices of q1 at SF1 for the per-tile kernel: the same 39
+# requests as the reference's fused pool (31 thirteen-bit sums and 8
+# one-bit counts, one count per aggregate). The wide form hands the kernel
+# its float32 13-bit limbs; the int16 8-bit form is what the unfused narrow
+# path built before fused_limb_sums took its place
 Q1_KERNEL_SHAPES = {"int16x8": (6_000_000, 16, 70),
                     "f32x13": (6_000_000, 16, 39)}
-_FORM_OF = {"narrow": "int16x8", "wide": "f32x13"}
 
 
 def main(argv=None) -> int:
@@ -760,31 +982,49 @@ def main(argv=None) -> int:
     build_s = phase_environment()
     kernel_rows = phase_kernels(args.seed, Q1_KERNEL_SHAPES)
 
-    # the shapes the main path really hands the kernel
-    seen = []
-    launch = K.limb_partial_sums
+    phase_fused(args.seed)
+
+    # the shapes and lanes the main path really hands the kernels
+    seen, fused_calls = [], []
+    per_tile, fused = K.limb_partial_sums, K.fused_limb_sums
 
     def recording(ids, limbs, groups):
         if limbs.is_cuda:
             seen.append((limbs.shape[0], groups, limbs.shape[1],
                          str(limbs.dtype)))
-        return launch(ids, limbs, groups)
+        return per_tile(ids, limbs, groups)
 
-    K.limb_partial_sums = recording
+    def recording_fused(ids, sources, requests, groups, **kw):
+        if ids.is_cuda and not fused_calls:
+            fused_calls.append((ids, sources, requests, groups))
+        return fused(ids, sources, requests, groups, **kw)
+
+    K.limb_partial_sums, K.fused_limb_sums = recording, recording_fused
     try:
         q1 = phase_query("q1", q1_plan, numpy_q1, Q1_TABLES, SF,
                          ("narrow", "wide"))
     finally:
-        K.limb_partial_sums = launch
-    print(f"main path kernel shapes: {sorted(set(seen))}")
+        K.limb_partial_sums, K.fused_limb_sums = per_tile, fused
+    print(f"main path per-tile kernel shapes: {sorted(set(seen))}")
+    narrow, wide = q1["launches"]["narrow"], q1["launches"]["wide"]
+    if (narrow["fused_limb_sums"], narrow["limb_partial_sums"]) != (1, 0):
+        raise AssertionError(f"q1 (narrow) must launch fused_limb_sums once "
+                             f"and the per-tile kernel never: {narrow}")
+    if wide["fused_limb_sums"] != 0 or wide["limb_partial_sums"] < 1:
+        raise AssertionError(f"q1 (wide) must take the per-tile kernel: "
+                             f"{wide}")
     for row in kernel_rows:
-        form = row["form"]
-        want = Q1_KERNEL_SHAPES[form]
-        if not any(s[:3] == want for s in seen):
-            raise AssertionError(f"q1 did not hand the kernel {want} ({form})")
-        row["launches"] = q1["launches"][form]["limb_partial_sums"]
-        if row["launches"] < 1:
-            raise AssertionError(f"q1 never launched limb_partial_sums ({form})")
+        if row["form"] == "f32x13":
+            if Q1_KERNEL_SHAPES["f32x13"] not in [s_[:3] for s_ in seen]:
+                raise AssertionError("q1 (wide) did not hand the per-tile "
+                                     f"kernel {Q1_KERNEL_SHAPES['f32x13']}")
+            row["launches"] = wide["limb_partial_sums"]
+        else:  # the int16 entry: off the narrow path since the fusion
+            row["launches"] = narrow["limb_partial_sums"]
+    kernel_rows.insert(0, fused_row(fused_calls[0],
+                                    narrow["fused_limb_sums"]))
+    del fused_calls
+    torch.cuda.empty_cache()
     q6 = phase_query("q6", q6_plan, numpy_q6, Q6_TABLES, SF)
     kernel_rows += phase_contains(args.seed)
     q3 = phase_query("q3", q3_plan, numpy_q3, Q3_TABLES, SF_JOIN)

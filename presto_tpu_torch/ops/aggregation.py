@@ -9,11 +9,10 @@ path (q3). The small-table path has no hash table and no scatter:
    round takes the first unresolved row and resolves every row with
    equal key words, at most max_groups rounds;
 2. every integer accumulator of every aggregate joins one request pool
-   (`_SegSumPool`). Values split into limbs that are stacked into one
-   (n, L) matrix, and ONE launch of the limb_partial_sums kernel
-   (ops/kernels.py) sums all of them per tile and group;
-   `_fused_limb_sums` adds the tiles in int64 and recombines the limbs
-   into exact int64 totals;
+   (`_SegSumPool`) as a descriptor of the lanes it reads (source lane,
+   live mask, bit offset, width). ONE launch of the fused_limb_sums
+   kernel (ops/kernels.py) reads each distinct lane once, splits the
+   limbs in registers and sums them per group into exact int64 totals;
 3. decimal sums are 128-bit: 13-bit limbs whose exact totals recombine
    into (hi, lo) once per group (`_sum128`).
 
@@ -28,9 +27,10 @@ adjacent-word inequality, per-group [start, end) ranges by
 searchsorted, and every sum as differences of a padded cumsum over
 13-bit limbs (`_seg_total`), exact in int64.
 
-Limb forms (an argument, not a knob): "narrow" stages 8-bit limbs as
-int16 (the default: fewer bytes for the kernel to read), "wide" stages
-13-bit limbs as float32.
+Limb forms (an argument, not a knob): "narrow" (the default) takes the
+fused kernel; "wide" keeps the unfused path of the TPU kernel's
+contract: requests materialise into 13-bit limbs stacked as an (n, L)
+float32 matrix that the per-tile limb_partial_sums kernel sums.
 """
 
 from __future__ import annotations
@@ -118,28 +118,75 @@ def _group_ids_small(words, active: torch.Tensor, max_groups: int):
     return ids, first, num_groups, overflow
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class _Request:
+    """One queued per-group sum, as a descriptor: bits [shift, shift +
+    bits) of `source` (a lane, or the (hi, lo) pair of a 128-bit value)
+    as an unsigned field, or with `remainder` every bit from `shift` up,
+    signed; zero where `mask` is False. The fused kernel reads the
+    source lanes themselves; `materialize` gives the int64 contribution
+    the reference queues, for the tests and the other forms."""
+    source: K.Source
+    mask: Optional[torch.Tensor]
+    shift: int
+    bits: int
+    remainder: bool
+
+    def materialize(self) -> torch.Tensor:
+        x = K.source_field(self.source, self.shift, self.bits,
+                           self.remainder)
+        return x if self.mask is None else torch.where(self.mask, x, 0)
+
+
+def _as_request(r) -> _Request:
+    """A descriptor, or a plain (contrib, value_bits) whole-lane request."""
+    if isinstance(r, _Request):
+        return r
+    contrib, value_bits = r
+    return _Request(contrib, None, 0, int(value_bits), True)
+
+
 def _fused_limb_sums(ids: torch.Tensor, requests, max_groups: int,
                      limb_form: str = "narrow") -> List[torch.Tensor]:
-    """Every integer seg-sum of `requests` (list of (contrib, value_bits))
-    through ONE limb_partial_sums launch -> list of (G,) exact int64
-    totals. Per-tile partials are exact in float32 and are added in
-    int64; limb totals recombine by shifts."""
+    """Every integer seg-sum of `requests` (descriptors, or plain
+    (contrib, value_bits) pairs) -> list of (G,) exact int64 totals.
+    Narrow: ONE fused_limb_sums launch over the distinct source lanes
+    (each tensor passed once), the limb split inside the kernel. Wide:
+    the requests materialise into float32 13-bit limbs stacked into an
+    (n, L) matrix, ONE limb_partial_sums launch sums them per tile, the
+    tiles add in int64 and the limbs recombine by shifts."""
     if limb_form not in LIMB_FORMS:
         raise ValueError(f"limb_form must be one of {LIMB_FORMS}")
-    narrow = limb_form == "narrow"
-    limb_bits = 8 if narrow else 13
-    stage_dt = torch.int16 if narrow else torch.float32
+    reqs = [_as_request(r) for r in requests]
+    ids = ids.to(torch.int32)
+    if limb_form == "narrow":
+        sources: List[K.Source] = []
+        slots = {}
+
+        def slot(src) -> int:
+            key = tuple(map(id, src)) if isinstance(src, tuple) else id(src)
+            if key not in slots:
+                slots[key] = len(sources)
+                sources.append(src)
+            return slots[key]
+
+        kreqs = [K.LimbRequest(slot(r.source),
+                               -1 if r.mask is None else slot(r.mask),
+                               r.shift, r.bits, r.remainder) for r in reqs]
+        return list(K.fused_limb_sums(ids, sources, kreqs, max_groups)
+                    .unbind(1))
+    limb_bits = 13
     limb_cols = []
     spans = []
-    for contrib, value_bits in requests:
-        nl = max(-(-int(value_bits) // limb_bits), 1)
-        x = contrib.to(torch.int64)
+    for r in reqs:
+        nl = max(-(-r.bits // limb_bits), 1)
+        x = r.materialize()
         spans.append((len(limb_cols), nl))
         limb_cols.extend(limbs_of_i64(x, limb_bits, nl) if nl > 1 else [x])
-    lm = torch.stack([l.to(stage_dt) for l in limb_cols], dim=1)
-    part = K.limb_partial_sums(ids.to(torch.int32), lm, max_groups)
+    lm = torch.stack([l.to(torch.float32) for l in limb_cols], dim=1)
+    part = K.limb_partial_sums(ids, lm, max_groups)
     tot = part.to(torch.int64).sum(dim=0)  # (G, L)
-    # limb weights 2^(limb_bits * k), made on the device (no host copy)
+    # limb weights 2^(13 k), made on the device (no host copy)
     shifts = limb_bits * torch.arange(max(nl for _, nl in spans),
                                       dtype=torch.int64, device=tot.device)
     weights = torch.ones_like(shifts) << shifts
@@ -149,7 +196,7 @@ def _fused_limb_sums(ids: torch.Tensor, requests, max_groups: int,
 
 class _SegSumPool:
     """Batches every integer per-group sum of one group_by call. `add`
-    queues a request and returns its handle; `compute` runs them all
+    queues a descriptor and returns its handle; `compute` runs them all
     (one fused kernel launch for 1 < G <= 64, a plain reduction per
     request for the single group of a global aggregation); `result`
     then reads a handle's (G,) int64 totals."""
@@ -158,17 +205,17 @@ class _SegSumPool:
         self.ids = ids
         self.g = max_groups
         self.limb_form = limb_form
-        self.requests: List[Tuple[torch.Tensor, int]] = []
+        self.requests: List[_Request] = []
         self.results: Optional[List[torch.Tensor]] = None
 
-    def add(self, contrib: torch.Tensor, value_bits: int) -> int:
-        self.requests.append((contrib, value_bits))
+    def add(self, request: _Request) -> int:
+        self.requests.append(request)
         return len(self.requests) - 1
 
     def compute(self) -> None:
         if self.g == 1:
-            self.results = [c.to(torch.int64).sum().reshape(1)
-                            for c, _ in self.requests]
+            self.results = [r.materialize().sum().reshape(1)
+                            for r in self.requests]
         elif self.requests:
             self.results = _fused_limb_sums(self.ids, self.requests, self.g,
                                             self.limb_form)
@@ -180,15 +227,15 @@ class _SegSumPool:
         return self.results[handle]
 
 
-def _seg_add(pool: _SegSumPool, contrib: torch.Tensor,
-             value_bits: int = 64) -> int:
-    """Queue a per-group sum of `contrib` (dead rows already zero)."""
-    return pool.add(contrib, value_bits)
+def _seg_add(pool: _SegSumPool, values: torch.Tensor, live: torch.Tensor,
+             value_bits: int) -> int:
+    """Queue a per-group sum of `values` over the live rows."""
+    return pool.add(_Request(values, live, 0, value_bits, True))
 
 
 def _seg_count(pool: _SegSumPool, flags: torch.Tensor) -> int:
     """Queue a per-group count of True flags."""
-    return pool.add(flags, 1)
+    return pool.add(_Request(flags, None, 0, 1, True))
 
 
 def _lane_bits(values: torch.Tensor) -> int:
@@ -204,14 +251,15 @@ def _nlimbs13(values: torch.Tensor) -> int:
 
 
 def _sum128(pool: _SegSumPool, col: Block, live: torch.Tensor) -> List[int]:
-    """Queue the 13-bit limbs of an exact per-group 128-bit sum; the
-    totals recombine with combine_limb_totals_128."""
+    """Queue the 13-bit limbs of an exact per-group 128-bit sum, each a
+    descriptor of the column's own lanes; the totals recombine with
+    combine_limb_totals_128."""
     if isinstance(col, Int128Column):
-        limbs = limbs13_of_128(col.hi, col.lo)
+        source, nl = (col.hi, col.lo), 10  # 10 limbs cover decimal(38)
     else:
-        limbs = limbs13_of_i64(col.values, _nlimbs13(col.values))
-    return [_seg_add(pool, torch.where(live, l, 0), value_bits=13)
-            for l in limbs]
+        source, nl = col.values, _nlimbs13(col.values)
+    return [pool.add(_Request(source, live, 13 * k, 13, k == nl - 1))
+            for k in range(nl)]
 
 
 def _sum_type(in_ty: T.Type) -> T.Type:
@@ -222,9 +270,12 @@ StateBuilder = Callable[[], Block]
 
 
 def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
+                 live: Optional[torch.Tensor],
                  pool: _SegSumPool) -> List[StateBuilder]:
     """Queue one aggregate's sums and return a builder per state column
-    (avg has two: sum and count), called after pool.compute()."""
+    (avg has two: sum and count), called after pool.compute(). `live`
+    is the column's active non-null mask, one tensor per input channel
+    so that the pool passes it to the kernel once."""
     g = pool.g
     no_nulls = torch.zeros(g, dtype=torch.bool, device=active.device)
     name = spec.name
@@ -235,7 +286,6 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
         raise NotImplementedError(
             f"aggregate {spec.name} is not ported yet (ROADMAP queue 1 "
             "item 10: breadth)")
-    live = active & ~col.nulls
     hn = _seg_count(pool, live)
 
     def count() -> Block:
@@ -253,8 +303,7 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
             return Int128Column(hi, lo, pool.result(hn) == 0, sum_ty)
     elif col.type.is_integral:
         v = col.values
-        h = _seg_add(pool, torch.where(live, v.to(torch.int64), 0),
-                     value_bits=_lane_bits(v))
+        h = _seg_add(pool, v, live, _lane_bits(v))
 
         def total() -> Block:
             return Column(pool.result(h), pool.result(hn) == 0, sum_ty)
@@ -291,10 +340,15 @@ def group_by(batch: Batch, key_channels: Sequence[int],
                              for k in keys]
     pool = _SegSumPool(ids, max_groups, limb_form)
     builders = []
+    lives = {}
     for spec in aggs:
-        col = None if spec.input_channel is None \
-            else batch.column(spec.input_channel)
-        builders.extend(_acc_columns(spec, col, batch.active, pool))
+        col, live = None, None
+        if spec.input_channel is not None:
+            col = batch.column(spec.input_channel)
+            if spec.input_channel not in lives:
+                lives[spec.input_channel] = batch.active & ~col.nulls
+            live = lives[spec.input_channel]
+        builders.extend(_acc_columns(spec, col, batch.active, live, pool))
     pool.compute()
     out_cols.extend(build() for build in builders)
     return GroupByResult(Batch(tuple(out_cols), slot_active), num_groups,

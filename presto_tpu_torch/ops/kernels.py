@@ -5,6 +5,11 @@ lives in ops/csrc/ and is compiled with nvcc for sm_90a on first use
 into presto_tpu_torch/build/ (keyed by a hash of the source and flags),
 then bound through ctypes to its plain C entry points.
 
+The TPU's limb_partial_sums has two counterparts: limb_partial_sums,
+its literal port (per-tile sums of a stacked limb matrix, the group-by's
+wide form), and fused_limb_sums, which takes the aggregates' own lanes
+and splits the limbs inside the kernel (the narrow form, the default).
+
 A wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version only for CPU tensors; there is no fallback from a
 failed launch. Each wrapper counts its launches in a module-level
@@ -19,19 +24,24 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, List, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
+from ..int128 import _lshr, limbs_of_i64
+
 __all__ = ["limb_partial_sums", "limb_partial_sums_reference",
-           "contains_bytes", "contains_bytes_reference", "build_library",
-           "KERNELS", "SUM_TILE", "LAUNCHES"]
+           "fused_limb_sums", "fused_limb_sums_reference", "LimbRequest",
+           "source_field", "limb_count", "contains_bytes",
+           "contains_bytes_reference", "build_library", "KERNELS",
+           "SUM_TILE", "FUSED_MAX_ROWS_PER_BLOCK", "LAUNCHES"]
 
 SUM_TILE = 1024
 MAX_GROUPS = 64
 
 # launches of each kernel since the counts were last set to 0
-LAUNCHES: Dict[str, int] = {"limb_partial_sums": 0, "contains_bytes": 0}
+LAUNCHES: Dict[str, int] = {"limb_partial_sums": 0, "fused_limb_sums": 0,
+                            "contains_bytes": 0}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -88,6 +98,9 @@ _SIGNATURES = {
     "limb_partial_sums": {
         "limb_partial_sums_i16": [_P, _P, _P, _LL, _I, _I, _I, _P],
         "limb_partial_sums_f32": [_P, _P, _P, _LL, _I, _I, _I, _P],
+    },
+    "fused_limb_sums": {
+        "fused_limb_sums": [_P, _LL, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P],
     },
     "contains_bytes": {
         "contains_bytes_u8": [_P, _P, ctypes.c_char_p, _I, _P, _LL, _I, _P],
@@ -180,6 +193,194 @@ def limb_partial_sums_reference(ids: torch.Tensor, limbs: torch.Tensor,
     gidx = torch.arange(groups, dtype=torch.int32, device=ids.device)
     onehot = (ids_p.reshape(tiles, SUM_TILE, 1) == gidx).to(torch.float32)
     return torch.bmm(onehot.transpose(1, 2), lm.reshape(tiles, SUM_TILE, L))
+
+
+# ---------------------------------------------------------------------------
+# fused_limb_sums
+# ---------------------------------------------------------------------------
+
+FUSED_MAX_ROWS_PER_BLOCK = 1 << 24  # int32 limb sums stay exact up to here
+LIMB_BITS = 7                       # limbs held in s8: every one in [-128, 127]
+
+# the C entry's kinds of source lane; a (hi, lo) pair is kind 5
+_KINDS = {torch.bool: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3,
+          torch.int64: 4}
+_INT128 = 5
+_MAX_SHIFT = 127
+
+# the C entry's own refusals (negative codes), by code
+_FUSED_REFUSED = {
+    -1: "bad arguments",
+    -2: "more than 16 sources, 128 requests or 256 limbs",
+    -3: "a lane that is not 16-byte aligned",
+    -4: "sources and limbs that do not fit one block's shared memory",
+    -5: f"blocks that would sum more than {FUSED_MAX_ROWS_PER_BLOCK} rows "
+        "each (int32 limb sums would not be exact)",
+}
+
+Source = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+class LimbRequest(NamedTuple):
+    """One per-group sum of fused_limb_sums: bits [shift, shift + bits)
+    of source `source` as an unsigned field, or with `remainder` every
+    bit from `shift` up, signed; zero where the bool source `mask` is
+    False (-1: no mask)."""
+    source: int
+    mask: int
+    shift: int
+    bits: int
+    remainder: bool
+
+
+def limb_count(bits: int) -> int:
+    return max(-(-int(bits) // LIMB_BITS), 1)
+
+
+def source_field(source: Source, shift: int, bits: int,
+                 remainder: bool) -> torch.Tensor:
+    """The int64 field a request takes from a source lane (bool, int8-64)
+    or from the (hi, lo) int64 pair of a 128-bit value, before its mask."""
+    if isinstance(source, tuple):
+        hi, lo = source
+        if shift >= 64:
+            x = hi >> (shift - 64)
+        elif shift == 0:
+            x = lo
+        else:
+            x = _lshr(lo, shift) | (hi << (64 - shift))
+    else:
+        x = source.to(torch.int64) >> min(shift, 63)
+    if not remainder and bits < 64:
+        x = x & ((1 << bits) - 1)
+    return x
+
+
+def _source_lanes(source: Source) -> List[torch.Tensor]:
+    return list(source) if isinstance(source, tuple) else [source]
+
+
+def _check_fused_args(ids: torch.Tensor, sources: Sequence[Source],
+                      requests: Sequence[LimbRequest], groups: int):
+    if ids.dtype != torch.int32 or ids.dim() != 1:
+        raise TypeError(f"ids must be (n,) int32, got {ids.dtype} "
+                        f"{tuple(ids.shape)}")
+    if not 1 <= groups <= MAX_GROUPS:
+        raise ValueError(f"groups must lie in [1, {MAX_GROUPS}], got "
+                         f"{groups}")
+    if not sources or not requests:
+        raise ValueError("fused_limb_sums needs a source and a request")
+    for s in sources:
+        if isinstance(s, tuple):
+            if len(s) != 2 or any(t.dtype != torch.int64 for t in s):
+                raise TypeError("a 128-bit source is an (hi, lo) pair of "
+                                "int64 lanes")
+        elif s.dtype not in _KINDS:
+            raise TypeError(f"source lanes are bool or int8-64, got "
+                            f"{s.dtype}")
+        for t in _source_lanes(s):
+            if t.shape != ids.shape:
+                raise ValueError(f"a source of shape {tuple(t.shape)} for "
+                                 f"{tuple(ids.shape)} ids")
+            if t.device != ids.device:
+                raise ValueError(f"ids on {ids.device}, a source on "
+                                 f"{t.device}")
+    for r in requests:
+        if not 0 <= r.source < len(sources):
+            raise ValueError(f"request {r} names no source")
+        if r.mask != -1 and not (0 <= r.mask < len(sources) and not
+                                 isinstance(sources[r.mask], tuple) and
+                                 sources[r.mask].dtype == torch.bool):
+            raise ValueError(f"request {r}: a mask is a bool source")
+        if not (0 <= r.shift <= _MAX_SHIFT and 1 <= r.bits <= 64):
+            raise ValueError(f"request {r}: shift must lie in [0, 127] and "
+                             "bits in [1, 64]")
+
+
+def _recombine(tot: torch.Tensor) -> torch.Tensor:
+    """(G, R, J) int64 limb totals -> (G, R): sum_j tot[..., j] << 7j,
+    wrapping like int64 sums do."""
+    shifts = LIMB_BITS * torch.arange(tot.shape[2], dtype=torch.int64,
+                                      device=tot.device)
+    return (tot << shifts).sum(dim=2)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The lane itself, or a fresh (aligned) copy when its data does not
+    start on 16 bytes, as the kernel's 16-byte copies need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def fused_limb_sums(ids: torch.Tensor, sources: Sequence[Source],
+                    requests: Sequence[LimbRequest], groups: int,
+                    blocks: int = 0) -> torch.Tensor:
+    """(G, R) int64: for every request, the exact sum of its field over
+    the rows of each group (ids outside [0, G) contribute nothing), the
+    limb split and the sums in one pass over the source lanes. `blocks`
+    sets the kernel's grid (0: as many blocks as the card holds at
+    once)."""
+    _check_fused_args(ids, sources, requests, groups)
+    if ids.device.type == "cpu":
+        return fused_limb_sums_reference(ids, sources, requests, groups)
+    if ids.device.type != "cuda":
+        raise ValueError(f"no kernel for device {ids.device}")
+    J = max(limb_count(r.bits) for r in requests)
+    out = torch.zeros((groups, len(requests), J), dtype=torch.int64,
+                      device=ids.device)
+    ids = _aligned(ids)
+    lanes: List[torch.Tensor] = []
+    kinds = []
+    for s in sources:
+        if isinstance(s, tuple):
+            hi, lo = s
+            lanes += [_aligned(lo), _aligned(hi)]  # the C entry takes lo first
+            kinds.append(_INT128)
+        else:
+            lanes += [_aligned(s), s]
+            kinds.append(_KINDS[s.dtype])
+    ptrs = (ctypes.c_void_p * len(lanes))(*[t.data_ptr() for t in lanes])
+    kind_arr = (ctypes.c_int * len(kinds))(*kinds)
+    fields = [v for r in requests
+              for v in (r.source, r.mask, r.shift, r.bits, int(r.remainder))]
+    req_arr = (ctypes.c_int * len(fields))(*fields)
+    lib = _library("fused_limb_sums")
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream(ids.device).cuda_stream
+        err = lib.fused_limb_sums(
+            ids.data_ptr(), ids.shape[0], groups, len(sources), ptrs,
+            kind_arr, len(requests), req_arr, J, out.data_ptr(), blocks,
+            stream)
+    if err < 0:
+        raise ValueError(f"fused_limb_sums refused: {_FUSED_REFUSED[err]}")
+    if err != 0:
+        raise RuntimeError(f"fused_limb_sums launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["fused_limb_sums"] += 1
+    return _recombine(out)
+
+
+def fused_limb_sums_reference(ids: torch.Tensor, sources: Sequence[Source],
+                              requests: Sequence[LimbRequest],
+                              groups: int) -> torch.Tensor:
+    """Plain PyTorch version: materialise each request's s8 limbs (7-bit,
+    low limbs unsigned, the last the signed remainder) from the same
+    descriptors and sum them per group exactly in int64."""
+    J = max(limb_count(r.bits) for r in requests)
+    idx = torch.where((ids >= 0) & (ids < groups), ids, groups).to(
+        torch.int64)
+    tot = torch.zeros((groups + 1, len(requests), J), dtype=torch.int64,
+                      device=ids.device)
+    for ri, r in enumerate(requests):
+        x = source_field(sources[r.source], r.shift, r.bits, r.remainder)
+        if r.mask != -1:
+            x = torch.where(sources[r.mask], x, 0)
+        nl = limb_count(r.bits)
+        for j, limb in enumerate(limbs_of_i64(x, LIMB_BITS, nl)):
+            tot[:, ri, j] = torch.zeros(
+                groups + 1, dtype=torch.int64, device=ids.device).index_add_(
+                    0, idx, limb.to(torch.int8).to(torch.int64))
+    return _recombine(tot[:groups])
 
 
 # ---------------------------------------------------------------------------

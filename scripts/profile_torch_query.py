@@ -3,7 +3,9 @@
     python3 scripts/profile_torch_query.py [--sf 1.0] [--join-sf 10.0]
                                            [--out PATH]
 
-TPC-H q1 and q6 at --sf, q3 and q14 at --join-sf. Stages each query's
+TPC-H q1 (in both limb forms: narrow takes the fused_limb_sums kernel,
+wide the per-tile limb_partial_sums kernel) and q6 at --sf, q3 and q14
+at --join-sf. Stages each query's
 scans once on the card, runs it once through the overflow ladder (so
 the capacity scale that fits is known), then:
 
@@ -42,7 +44,7 @@ def _likes(expr):
         yield from _likes(c)
 
 
-def _stages(root, batches, join_capacity):
+def _stages(root, batches, join_capacity, limb_form):
     """(label, fn, inputs) per operator, each fed its input batches
     (computed once, outside the timed calls)."""
     from presto_tpu_torch.exec.planner import compile_plan
@@ -98,7 +100,8 @@ def _stages(root, batches, join_capacity):
             else:
                 label = "group_by (sorted)"
             table = add(label, lambda x, n=node: group_by(
-                x, n.group_channels, n.aggregates, n.max_groups).batch, b)
+                x, n.group_channels, n.aggregates, n.max_groups,
+                limb_form).batch, b)
             return add("finalize", lambda t, n=node: finalize_states(
                 t, len(n.group_channels), n.aggregates), table)
         if isinstance(node, N.SortNode):
@@ -117,19 +120,19 @@ def _stages(root, batches, join_capacity):
     return out
 
 
-def _profile(root, batches):
+def _profile(root, batches, limb_form):
     import torch
     from presto_tpu_torch.exec.runner import execute
     from presto_tpu_torch.ops import kernels as K
     from torch.profiler import ProfilerActivity, profile
-    execute(root, batches)
+    execute(root, batches, limb_form)
     torch.cuda.synchronize()
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        execute(root, batches)
+        execute(root, batches, limb_form)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
@@ -179,22 +182,25 @@ def main(argv=None) -> int:
     gpu = chip_smoke._run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"])
     reports = []
-    for name, make, sf in (("q1", chip_smoke.q1_plan, args.sf),
-                           ("q6", chip_smoke.q6_plan, args.sf),
-                           ("q3", chip_smoke.q3_plan, args.join_sf),
-                           ("q14", chip_smoke.q14_plan, args.join_sf)):
+    for name, make, sf, forms in (
+            ("q1", chip_smoke.q1_plan, args.sf, ("narrow", "wide")),
+            ("q6", chip_smoke.q6_plan, args.sf, ("narrow",)),
+            ("q3", chip_smoke.q3_plan, args.join_sf, ("narrow",)),
+            ("q14", chip_smoke.q14_plan, args.join_sf, ("narrow",))):
         root = annotate_widths(make(), sf)
         batches = stage_scans(root, sf, dev)
         execute(root, batches)  # climbs the ladder once; the memo keeps it
         scale = runner._CAPACITY_FEEDBACK.get(runner._fingerprint(root), 1)
         scaled = scale_capacities(root, scale)
-        stages = {label: chip_smoke.wall_ms(lambda f=fn, a=args_: f(*a))
-                  for label, fn, args_ in _stages(scaled, batches,
-                                                  (1 << 16) * scale)}
-        rep = {"query": name, "sf": sf, "gpu": gpu, "capacity_scale": scale,
-               "stage_ms": stages, "profile": _profile(root, batches)}
-        print(json.dumps(rep))
-        reports.append(rep)
+        for form in forms:
+            stages = {label: chip_smoke.wall_ms(lambda f=fn, a=args_: f(*a))
+                      for label, fn, args_ in _stages(
+                          scaled, batches, (1 << 16) * scale, form)}
+            rep = {"query": name, "limb_form": form, "sf": sf, "gpu": gpu,
+                   "capacity_scale": scale, "stage_ms": stages,
+                   "profile": _profile(root, batches, form)}
+            print(json.dumps(rep))
+            reports.append(rep)
         del batches
         torch.cuda.empty_cache()
     if args.out:

@@ -110,23 +110,23 @@ def test_group_by_and_finalize_match(staged, form, monkeypatch):
 def test_fused_request_pool_matches_the_reference(staged, monkeypatch):
     """q1's aggregates hand the fused limb sum the same requests as the
     reference, in the same order: 31 thirteen-bit limb sums and 8
-    one-bit counts, so the narrow limb matrix has L = 31 * 2 + 8 = 70
-    columns and the wide one L = 39."""
+    one-bit counts. The port queues descriptors of the lanes; each one's
+    materialize() equals the reference's contribution. In 7-bit limbs
+    the fused kernel sums L = 31 * 2 + 8 = 70 limb columns."""
     monkeypatch.setenv("PRESTO_TPU_SMALLG", "einsum")
     monkeypatch.setenv("PRESTO_TPU_BF16", "1")
     seen = {"ref": [], "port": []}
 
-    def spy(mod, key):
+    def spy(mod, key, unpack):
         inner = mod._fused_limb_sums
 
         def run(ids, requests, max_groups, *a, **k):
-            seen[key].append([(np.asarray(c).astype(np.int64), int(b))
-                              for c, b in requests])
+            seen[key].append([unpack(r) for r in requests])
             return inner(ids, requests, max_groups, *a, **k)
         monkeypatch.setattr(mod, "_fused_limb_sums", run)
 
-    spy(RA, "ref")
-    spy(PA, "port")
+    spy(RA, "ref", lambda r: (np.asarray(r[0]).astype(np.int64), int(r[1])))
+    spy(PA, "port", lambda r: (r.materialize().numpy(), r.bits))
     rb, pb = _project(staged)
     q1 = [a for a in range(9) if a != 7]   # drop the extra count(disc)
     raggs = [_aggs(RA.AggSpec, RT, RT.decimal(12, 2))[a] for a in q1]
@@ -138,7 +138,7 @@ def test_fused_request_pool_matches_the_reference(staged, monkeypatch):
     assert all(np.array_equal(rc, pc) for (rc, _), (pc, _) in zip(ref, port))
     bits = [b for _, b in port]
     assert (bits.count(13), bits.count(1), len(bits)) == (31, 8, 39)
-    assert sum(-(-b // 8) for b in bits) == 70
+    assert sum(-(-b // 7) for b in bits) == 70
 
 
 def test_keyless_aggregation_matches(staged):

@@ -32,6 +32,7 @@ def _launch_names():
     return {n for n in kernels.__all__ if callable(getattr(kernels, n))
             and not n.endswith("_reference")} | {"limb_partial_sums_i16",
                                                  "limb_partial_sums_f32",
+                                                 "fused_limb_sums",
                                                  "contains_bytes_u8"}
 
 
