@@ -15,9 +15,12 @@ PyTorch version at the shapes of its path:
   through `presto_tpu_torch.exec.run_query`; fused_limb_sums again on
   the very lanes q1 handed it, timed beside its plain version and the
   unfused path it replaces;
-* contains_bytes bit for bit on SF1 lineitem.comment, SF10 part.type
-  and edge cases, then its path: `expr.functions.contains_pattern`
-  over the staged comment and type columns, checked against `_like`;
+* contains_bytes bit for bit on SF1 lineitem.comment, SF10 part.type,
+  periodic rows and edge cases (needle lengths across 4-byte words,
+  bytes >= 0x80 and NUL over zero padding, unaligned bases, one row a
+  tile, every length at every start, the refusals), timed by its
+  kernel's device time; then its path: `expr.functions.contains_pattern`
+  over the staged columns, checked against `_like`;
 * TPC-H q3 and q14 at scale factor 10 (60,000,000 lineitem rows;
   joins, sorted group-by, top-N, LIKE, CASE) through `run_query`.
 
@@ -336,25 +339,61 @@ def cuda_ms(fn, repeats=REPEATS, warmup=WARMUP):
     return statistics.median(times)
 
 
-def device_ms(fn, kernel, repeats=REPEATS):
-    """Median device milliseconds of the CUDA kernels whose name holds
-    `kernel`, from torch.profiler over `repeats` calls of fn() after a
-    warm-up (no host time between launches)."""
+def device_times(fns, kernel, repeats=REPEATS, tries=3):
+    """Median device milliseconds of each fn's kernel, the CUDA kernel
+    whose name holds `kernel` (each call of each fn launches one): every
+    fn called once to warm up, then `repeats` times each, one fn after
+    the other, in a single torch.profiler window (a process that opens
+    many windows finds them dropping kernels). Between the groups the
+    window syncs and pauses 2 ms, and it opens and closes with one
+    unmeasured call (a trace that is starting can miss a kernel); the
+    kernels are split into groups at those pauses, and every group must
+    hold `repeats` kernels, or the window is taken again, up to `tries`
+    windows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
+
+    def pause():
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    if len(times) < repeats:
-        raise AssertionError(f"the profiler saw {len(times)} launches of "
-                             f"{kernel} in {repeats} calls")
-    return statistics.median(times)
+        time.sleep(0.002)
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fns[0]()
+            for fn in fns:
+                pause()
+                for _ in range(repeats):
+                    fn()
+            pause()
+            fns[-1]()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and kernel in e.name),
+                        key=lambda e: e.time_range.start)
+        groups = []
+        for e in events:
+            if groups and e.time_range.start - groups[-1][-1].time_range.end \
+                    < 1000:  # us: within a group
+                groups[-1].append(e)
+            else:
+                groups.append([e])
+        groups = [g for g in groups if len(g) > 1]  # not the lone calls
+        if len(groups) == len(fns) and all(len(g) == repeats
+                                           for g in groups):
+            return [statistics.median(e.time_range.elapsed_us() / 1e3
+                                      for e in g) for g in groups]
+    raise AssertionError(f"the profiler saw groups of "
+                         f"{[len(g) for g in groups]} launches of {kernel}, "
+                         f"not {len(fns)} of {repeats}, {tries} times")
+
+
+def device_ms(fn, kernel, repeats=REPEATS):
+    """Median device milliseconds of fn()'s kernel (device_times)."""
+    return device_times([fn], kernel, repeats)[0]
 
 
 def wall_ms(fn, repeats=QUERY_REPEATS):
@@ -816,12 +855,49 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",)):
 
 
 ABSENT_WORD = b"zebra"  # in no generated comment
+PERIODIC_W = 64
+# rows of 'a' (PERIODIC_W wide, random lengths): both ends of every
+# window match the first two needles' ends or first bytes, and the third
+# passes the first/last-byte filter at every window and fails only at
+# its 31st byte, so every window costs a confirmation of eight words
+PERIODIC_NEEDLES = (b"aaab", b"aaaaaaaa", b"a" * 30 + b"ba")
 
 
-def _edge_cases(rng):
+def _planted(rng, n, w, needle, alphabet, zero_pad=False, share=0.3):
+    """(chars (n, w) uint8, lengths (n,) int32): random bytes from
+    `alphabet`, lengths in [-1, w + 1], the needle written at a random
+    start in about `share` of the rows (crossing lengths[i] in some),
+    and with zero_pad every byte past lengths[i] set to 0."""
+    alphabet = np.frombuffer(bytes(alphabet), np.uint8)
+    chars = alphabet[rng.integers(0, alphabet.size, (n, w))]
+    lengths = rng.integers(-1, w + 2, n).astype(np.int32)
+    L = len(needle)
+    if 0 < L <= w:
+        rows = np.flatnonzero(rng.random(n) < share)
+        starts = rng.integers(0, w - L + 1, rows.size)
+        chars[rows[:, None], starts[:, None] + np.arange(L)] = \
+            np.frombuffer(needle, np.uint8)
+    if zero_pad:
+        chars[np.arange(w)[None, :] >= lengths[:, None]] = 0
+    return chars, lengths
+
+
+def _every_length_and_start(w, needle):
+    """One row for every length in [-1, w + 1] and every start of the
+    needle: the needle at that start over a background of '.'."""
+    L = len(needle)
+    cases = [(ln, s) for ln in range(-1, w + 2) for s in range(w - L + 1)]
+    chars = np.full((len(cases), w), ord("."), np.uint8)
+    lengths = np.array([ln for ln, _ in cases], np.int32)
+    for i, (_, s) in enumerate(cases):
+        chars[i, s:s + L] = np.frombuffer(needle, np.uint8)
+    return chars, lengths
+
+
+def _edge_cases(rng, max_w):
     """(what, chars (N, W) uint8, lengths (N,) int32, needle) on the
     host: the shapes and rules the kernel must get right beyond the
-    main path's."""
+    main path's; max_w is the widest row the kernel takes."""
     def rand(n, w, lo=-1):
         return (rng.integers(97, 100, (n, w)).astype(np.uint8),
                 rng.integers(lo, w + 2, n).astype(np.int32))
@@ -839,18 +915,96 @@ def _edge_cases(rng):
     chars[:, :5] = np.frombuffer(b"PROMO", np.uint8)
     out.append(("matching bytes past lengths[i]", chars,
                 np.array([5, 4, 3, 0], np.int32), b"PROMO"))
+    # every needle length the word-wide scan treats apart: under, at and
+    # past one word, two words, eight words, and the longest needle
+    for L in (1, 2, 3, 4, 5, 7, 8, 9, 31, 32, 33, 1024):
+        w = 40 if L <= 9 else 100 if L <= 33 else 1100
+        n = 20_011 if L <= 9 else 5003 if L <= 33 else 301
+        needle = bytes(rng.integers(97, 100, L).astype(np.uint8))
+        out.append((f"needle length {L}", *_planted(rng, n, w, needle,
+                                                   b"abc"), needle))
+    # bytes >= 0x80 and NUL bytes in the needle, over zero-padded rows
+    for w, needle, alphabet in (
+            (37, b"\xff\x80\xc3\xa9", b"\x00\x80\xff\xc3\xa9"),
+            (38, b"\x80", b"\x00\x7f\x80\xff"),
+            (39, b"\x00", b"\x00a"),
+            (39, b"a\x00", b"\x00a"),
+            (38, b"\x00\x00\x00\x00\x00", b"\x00a"),
+            (5, b"\x00\xff", b"\x00\xff")):
+        out.append((f"needle {needle!r} over zero-padded rows, W = {w}",
+                    *_planted(rng, 10_007, w, needle, alphabet,
+                              zero_pad=True), needle))
+    # rows of more windows than one step of a 32-lane group covers
+    for w, needle in ((300, b"abc"), (2000, b"cabca")):
+        out.append((f"W = {w}: several steps a row",
+                    *_planted(rng, 3001, w, needle, b"abc"), needle))
+    # wide rows: one row a tile, up to the widest the kernel takes
+    for w, n in ((9000, 37), (max_w, 3)):
+        out.append((f"W = {w}: one row a tile",
+                    *_planted(rng, n, w, b"xyz", b"xyw", share=0.7),
+                    b"xyz"))
+    chars, lengths = _planted(rng, 1, 38, b"special", b"spe", share=1.0)
+    out.append(("n = 1", chars, np.array([38], np.int32), b"special"))
+    out.append(("n smaller than one tile",
+                *_planted(rng, 100, 38, b"special", b"spe"), b"special"))
+    out.append(("every length -1 .. W + 1 at every start",
+                *_every_length_and_start(38, b"special"), b"special"))
+    for needle in PERIODIC_NEEDLES:
+        lengths = rng.integers(-1, PERIODIC_W + 2, 5003).astype(np.int32)
+        out.append((f"periodic rows of 'a', needle {needle!r}",
+                    np.full((5003, PERIODIC_W), ord("a"), np.uint8),
+                    lengths, needle))
     return out
+
+
+def _offset_copy(t, off):
+    """t's values in a view `off` elements past the start of a fresh
+    allocation (whose start is 16-byte aligned)."""
+    import torch
+    flat = torch.empty(t.numel() + off + 16, dtype=t.dtype, device=t.device)
+    view = flat[off:off + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _string_column(values, width):
+    import torch
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.block import from_numpy
+    return from_numpy(T.varchar(width), values, device=torch.device("cuda"))
+
+
+def timed_contains_cases(rng):
+    """(what, staged column, needle) of every shape contains_bytes is
+    timed on: SF1 lineitem.comment with a frequent and an absent word,
+    SF10 part.type with 'PROMO', and 1.0M periodic rows of 'a' (random
+    lengths) with the costliest needle."""
+    comment = _string_column(
+        host_columns("lineitem", SF, ["comment"])["comment"], 44)
+    ptype = _string_column(host_columns("part", SF_JOIN, ["type"])["type"],
+                           25)
+    periodic = _string_column(
+        np.array(["a" * k for k in rng.integers(0, PERIODIC_W + 1,
+                                                 1_000_000)], dtype=object),
+        PERIODIC_W)
+    return [("lineitem.comment SF1", comment, b"special"),
+            ("lineitem.comment SF1", comment, ABSENT_WORD),
+            ("part.type SF10", ptype, b"PROMO"),
+            ("periodic rows of 'a'", periodic, PERIODIC_NEEDLES[-1])]
 
 
 def phase_contains(seed):
     """contains_bytes against its plain version, bit for bit: edge
-    cases, SF1 lineitem.comment with a frequent and an absent word, SF10
-    part.type with 'PROMO'. Then its path, contains_pattern over the
-    staged columns with the counts set to 0 just before, held against
+    cases (needle lengths across word edges, bytes >= 0x80 and NUL over
+    zero padding, W not a multiple of 4, rows of several steps, one row
+    a tile, n = 1, every length at every start, periodic rows, chars and
+    lengths at unaligned addresses, the refusals), SF1 lineitem.comment
+    with a frequent and an absent word, SF10 part.type with 'PROMO' and
+    periodic rows with the costliest needle. Each timed by its kernel's
+    device time beside the wrapper call. Then its path, contains_pattern
+    over each column with the counts set to 0 just before, held against
     _like('%w%'). Returns the kernel table rows."""
     import torch
-    from presto_tpu_torch import types as T
-    from presto_tpu_torch.block import from_numpy
     from presto_tpu_torch.expr.compile import _like
     from presto_tpu_torch.expr.functions import contains_pattern
     from presto_tpu_torch.ops import kernels as K
@@ -865,13 +1019,15 @@ def phase_contains(seed):
             raise AssertionError(f"contains_bytes {what}: {bad} rows differ "
                                  "from the plain version")
         print(f"contains_bytes exact: {what} (N={chars.shape[0]}, "
-              f"W={chars.shape[1]}, needle {needle!r}): "
+              f"W={chars.shape[1]}, needle {needle[:12]!r}"
+              f"{'...' if len(needle) > 12 else ''}): "
               f"{int(got.sum())} rows match")
         return float((got.to(torch.int8) - want.to(torch.int8)).abs().max()) \
             if got.numel() else 0.0
 
-    for what, chars, lengths, needle in _edge_cases(
-            np.random.default_rng(seed)):
+    rng = np.random.default_rng(seed)
+    max_w = K._library("contains_bytes").contains_bytes_max_width()
+    for what, chars, lengths, needle in _edge_cases(rng, max_w):
         c = torch.from_numpy(chars).to(dev)
         l = torch.from_numpy(lengths).to(dev)
         check(c, l, needle, what)
@@ -879,17 +1035,38 @@ def phase_contains(seed):
             if K.contains_bytes(c, l, needle).tolist() != [True, False,
                                                           False, False]:
                 raise AssertionError("bytes past lengths[i] matched")
+        if what.startswith("many tiles"):
+            # bases that are not 16-byte aligned: byte offsets of the
+            # chars, element offsets of the lengths, and a row slice
+            for off in (1, 3, 8, 15):
+                check(_offset_copy(c, off), _offset_copy(l, off % 4), needle,
+                      f"{what}, chars at +{off} B, lengths at "
+                      f"+{4 * (off % 4)} B")
+            big = torch.cat([c[:1], c])
+            check(big[1:], l, needle, f"{what}, a row slice [1:] of an "
+                  f"(N + 1, W) matrix (base at +{c.shape[1]} B)")
+    # the C entry's refusals: a row one byte wider than it takes, and a
+    # needle one byte longer (the wrapper raises ValueError on each code)
+    lib = K._library("contains_bytes")
+    for w, L, code in ((max_w + 1, 3, -3), (2000, 1025, -2)):
+        c = torch.zeros((2, w), dtype=torch.uint8, device=dev)
+        l = torch.full((2,), w, dtype=torch.int32, device=dev)
+        out = torch.empty(2, dtype=torch.bool, device=dev)
+        got = lib.contains_bytes_u8(
+            c.data_ptr(), l.data_ptr(), b"a" * L, L, out.data_ptr(), 2, w,
+            torch.cuda.current_stream().cuda_stream)
+        if got != code:
+            raise AssertionError(f"contains_bytes_u8 W={w}, L={L} returned "
+                                 f"{got}, not {code}")
+        print(f"contains_bytes refuses W={w}, L={L}: "
+              f"{K._CONTAINS_REFUSED[code]}")
 
-    comment = from_numpy(T.varchar(44),
-                         host_columns("lineitem", SF, ["comment"])["comment"],
-                         device=dev)
-    ptype = from_numpy(T.varchar(25),
-                       host_columns("part", SF_JOIN, ["type"])["type"],
-                       device=dev)
-    cases = [("lineitem.comment SF1", comment, b"special", True),
-             ("lineitem.comment SF1", comment, ABSENT_WORD, False),
-             ("part.type SF10", ptype, b"PROMO", True)]
-    rows, paths = [], []
+    cases = [(what, col, needle, True)
+             for what, col, needle in timed_contains_cases(rng)]
+    periodic = cases[-1][1]
+    cases += [("periodic rows of 'a'", periodic, needle, False)
+              for needle in PERIODIC_NEEDLES[:-1]]
+    rows, paths, calls = [], [], []
     for what, col, needle, timed in cases:
         err = check(col.chars, col.lengths, needle, what)
         like = _like(col, f"%{needle.decode()}%")
@@ -901,7 +1078,12 @@ def phase_contains(seed):
         if not timed:
             continue
         n, w = col.chars.shape
-        ms = cuda_ms(lambda: K.contains_bytes(col.chars, col.lengths, needle))
+
+        def call(col=col, needle=needle):
+            return K.contains_bytes(col.chars, col.lengths, needle)
+
+        calls.append(call)
+        call_ms = cuda_ms(call)
         plain_ms = cuda_ms(lambda: K.contains_bytes_reference(
             col.chars, col.lengths, needle))
         like_ms = cuda_ms(lambda: _like(col, f"%{needle.decode()}%"))
@@ -913,17 +1095,27 @@ def phase_contains(seed):
             "source": "presto_tpu_torch/ops/csrc/contains_bytes.cu",
             "replaces": "presto_tpu/ops/pallas_kernels.py:76",
             "launches": 0, "max_abs_err": err, "exact": err == 0.0,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "ms": None, "kernel_ms": None, "call_ms": call_ms,
+            "plain_ms": plain_ms,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None, "like_ms": like_ms,
+            "timing": "ms: the kernel's device time (torch.profiler); "
+                      "call_ms: CUDA events around the wrapper call (checks, "
+                      "output allocation, ctypes call, launch); plain_ms "
+                      "and like_ms: CUDA events",
             "library": "none: no single PyTorch call computes substring "
                        "search; like_ms stands in: expr/compile.py::_like "
                        "('%w%'), the window-gather form",
             "shape": {"n": n, "W": w, "needle": needle.decode()},
             "bytes": nbytes})
-        print(f"contains_bytes {what} {needle!r}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, _like {like_ms:.4f} ms, bound "
-              f"{rows[-1]['bound_ms']:.4f} ms")
+
+    # the kernel's device time on every timed column, in one window
+    for row, ms in zip(rows, device_times(calls, "contains_bytes_kernel")):
+        row["ms"] = row["kernel_ms"] = ms
+        print(f"contains_bytes {row['form']}: kernel {ms:.4f} ms (device), "
+              f"wrapper call {row['call_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, _like {row['like_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms")
 
     # the path: each row's own contains_pattern call, counted alone
     for row, (col, needle) in zip(rows, paths):
@@ -937,7 +1129,7 @@ def phase_contains(seed):
                                  "contains_bytes")
     print(f"contains_pattern path launches: "
           f"{[r['launches'] for r in rows]}")
-    del comment, ptype
+    del cases, periodic, paths, calls
     torch.cuda.empty_cache()
     return rows
 

@@ -104,6 +104,7 @@ _SIGNATURES = {
     },
     "contains_bytes": {
         "contains_bytes_u8": [_P, _P, ctypes.c_char_p, _I, _P, _LL, _I, _P],
+        "contains_bytes_max_width": [],
     },
 }
 
@@ -391,7 +392,8 @@ def fused_limb_sums_reference(ids: torch.Tensor, sources: Sequence[Source],
 _CONTAINS_REFUSED = {
     -1: "bad arguments",
     -2: "a needle longer than the kernel takes (kMaxNeedle)",
-    -3: "a row and the needle that do not fit one block's shared memory",
+    -3: "a row too wide for one block's shared memory (three one-row "
+        "stages, the needle, the queues and the flags in 227 KB)",
 }
 
 
@@ -415,7 +417,10 @@ def contains_bytes(chars: torch.Tensor, lengths: torch.Tensor,
     """(N,) bool: `needle` occurs within the first lengths[i] bytes of
     row i of the (N, W) chars matrix. A needle longer than W gives all
     False without a launch; an empty needle matches every row (W >= 1)
-    whose length is not negative."""
+    whose length is not negative. The kernel takes needles of up to
+    1024 bytes and rows as wide as its shared memory allows (about
+    75,000 bytes: contains_bytes_max_width() of its library), at any
+    base alignment; it raises ValueError beyond those."""
     _check_contains_args(chars, lengths, needle)
     n, w = chars.shape
     L = len(needle)
@@ -437,8 +442,10 @@ def contains_bytes(chars: torch.Tensor, lengths: torch.Tensor,
                                     bytes(needle), L, out.data_ptr(), n, w,
                                     stream)
     if err < 0:
+        limit = f" (W up to {lib.contains_bytes_max_width()})" \
+            if err == -3 else ""
         raise ValueError(f"contains_bytes refused W={w}, L={L}: "
-                         f"{_CONTAINS_REFUSED[err]}")
+                         f"{_CONTAINS_REFUSED[err]}{limit}")
     if err != 0:
         raise RuntimeError(f"contains_bytes launch failed: CUDA error {err}")
     LAUNCHES["contains_bytes"] += 1

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import presto_tpu  # noqa: F401  (enables jax x64 before any jnp array)
+import jax.numpy as jnp
 from presto_tpu import block as RB
 from presto_tpu import types as RT
 from presto_tpu.expr import call, const, input_ref, special
@@ -137,6 +138,10 @@ CONTAINS_CASES = [
     ("prefix", b"PROMO"),
     # the empty needle: the kernel's answer (every row)
     ("corpus", b""),
+    # periodic rows of 'a': both end bytes match at every window
+    ("periodic", b"aaab"), ("periodic", b"aaaaaaaa"),
+    # UTF-8 text: needle bytes >= 0x80
+    ("utf8", "é".encode()),
 ]
 
 
@@ -150,6 +155,10 @@ def _contains_column(kind):
         strings = [words[i] for i in rng.integers(0, len(words), 700)]
     elif kind == "narrow":
         strings = ["abc", "defg"]
+    elif kind == "periodic":
+        strings = ["a" * k for k in range(33)]
+    elif kind == "utf8":
+        strings = ["café", "naïve é", "e", "", "ée", "résumé café"]
     else:
         strings = ["PROMO", "PRO"]
     vals = np.array(strings, dtype=object)
@@ -206,3 +215,112 @@ def test_contains_bytes_refuses_what_the_kernel_does_not_take():
         K.contains_bytes(chars, lengths, "a")
     with pytest.raises(ValueError, match="no kernel"):
         K.contains_bytes(chars.to("meta"), lengths.to("meta"), b"a")
+
+
+def _planted(rng, n, w, needle, alphabet, zero_pad=False, share=0.3):
+    """(chars, lengths): random bytes from `alphabet`, lengths in
+    [-1, w + 1], the needle written at a random start in about `share` of
+    the rows, and with zero_pad every byte past lengths[i] set to 0."""
+    alphabet = np.frombuffer(alphabet, np.uint8)
+    chars = alphabet[rng.integers(0, alphabet.size, (n, w))]
+    lengths = rng.integers(-1, w + 2, n).astype(np.int32)
+    L = len(needle)
+    if 0 < L <= w:
+        rows = np.flatnonzero(rng.random(n) < share)
+        starts = rng.integers(0, w - L + 1, rows.size)
+        chars[rows[:, None], starts[:, None] + np.arange(L)] = \
+            np.frombuffer(needle, np.uint8)
+    if zero_pad:
+        chars[np.arange(w)[None, :] >= lengths[:, None]] = 0
+    return chars, lengths
+
+
+def _every_length_and_start(w, needle):
+    """A row for every length in [-1, w + 1] and every start of the
+    needle, over a background of '.'."""
+    L = len(needle)
+    cases = [(ln, s) for ln in range(-1, w + 2) for s in range(w - L + 1)]
+    chars = np.full((len(cases), w), ord("."), np.uint8)
+    for i, (_, s) in enumerate(cases):
+        chars[i, s:s + L] = np.frombuffer(needle, np.uint8)
+    return chars, np.array([ln for ln, _ in cases], np.int32)
+
+
+def _offset_view(a, off):
+    """a's values in a view `off` elements into a larger flat array, as a
+    chars or lengths tensor whose base is not 16-byte aligned."""
+    flat = np.zeros(a.size + off, a.dtype)
+    flat[off:] = a.reshape(-1)
+    return torch.from_numpy(flat)[off:].view(a.shape)
+
+
+def _hazard(case):
+    """(chars, lengths, needle) of one case the redesigned kernel must
+    get right, at a small size."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    kind, _, arg = case.partition(":")
+    if kind == "needle":  # needle lengths around word edges, and the longest
+        L = int(arg)
+        w, n = (40, 500) if L <= 9 else (100, 200) if L <= 33 else (1100, 40)
+        needle = bytes(rng.integers(97, 100, L).astype(np.uint8))
+        return (*_planted(rng, n, w, needle, b"abc"), needle)
+    if kind == "padded":  # bytes >= 0x80 and NUL over zero-padded rows
+        w, needle, alphabet = {
+            "high": (37, b"\xff\x80\xc3\xa9", b"\x00\x80\xff\xc3\xa9"),
+            "0x80": (38, b"\x80", b"\x00\x7f\x80\xff"),
+            "nul": (39, b"\x00", b"\x00a"),
+            "a-nul": (39, b"a\x00", b"\x00a"),
+            "nul5": (38, b"\x00" * 5, b"\x00a"),
+            "nul-ff": (5, b"\x00\xff", b"\x00\xff")}[arg]
+        return (*_planted(rng, 400, w, needle, alphabet, zero_pad=True),
+                needle)
+    if kind == "wide":  # several steps a row, and one row a tile
+        w = int(arg)
+        n, needle = (200, b"abc") if w < 9000 else (3, b"xyz")
+        return (*_planted(rng, n, w, needle, b"abcxyz", share=0.5), needle)
+    if kind == "rows":  # n = 1 and n smaller than one tile
+        n = int(arg)
+        chars, lengths = _planted(rng, n, 38, b"special", b"spe", share=0.5)
+        return chars, np.maximum(lengths, 30), b"special"
+    if kind == "every-length":
+        return (*_every_length_and_start(38, b"special"), b"special")
+    if kind == "periodic":
+        lengths = rng.integers(-1, 66, 300).astype(np.int32)
+        needle = {"aaab": b"aaab", "a8": b"a" * 8,
+                  "a30ba": b"a" * 30 + b"ba"}[arg]
+        return np.full((300, 64), ord("a"), np.uint8), lengths, needle
+    raise ValueError(case)
+
+
+HAZARDS = ([f"needle:{L}" for L in (1, 2, 3, 4, 5, 7, 8, 9, 31, 32, 33,
+                                    1024)]
+           + [f"padded:{k}" for k in ("high", "0x80", "nul", "a-nul", "nul5",
+                                      "nul-ff")]
+           + ["wide:300", "wide:9000", "rows:1", "rows:100", "every-length"]
+           + [f"periodic:{k}" for k in ("aaab", "a8", "a30ba")])
+
+
+@pytest.mark.parametrize("case", HAZARDS)
+@pytest.mark.parametrize("base", ["aligned", "offset"])
+def test_contains_bytes_hazards_match_the_reference_kernel(case, base):
+    """The cases the word-wide scan treats apart (needle lengths around
+    4-byte words and the 1024-byte limit, bytes >= 0x80 and NUL over zero
+    padding, W not a multiple of 4, rows of many windows, one row a tile,
+    n = 1, every length at every start, periodic rows), in the port's
+    plain version against the reference kernel in interpret mode (a
+    Python oracle for the 1024-byte needle, too slow there), with chars
+    and lengths at aligned bases and at offsets into larger arrays."""
+    chars, lengths, needle = _hazard(case)
+    if base == "aligned":
+        c, l = torch.from_numpy(chars), torch.from_numpy(lengths)
+    else:
+        c, l = _offset_view(chars, 3), _offset_view(lengths, 1)
+    got = K.contains_bytes(c, l, needle).numpy()
+    w = chars.shape[1]
+    oracle = [ln >= 0 and needle in bytes(chars[i, :max(min(ln, w), 0)])
+              for i, ln in enumerate(lengths)]
+    np.testing.assert_array_equal(got, oracle)
+    if len(needle) < 1024:
+        want = np.asarray(ref_kernel(jnp.asarray(chars), jnp.asarray(lengths),
+                                     needle, interpret=True))
+        np.testing.assert_array_equal(got, want)
