@@ -22,9 +22,24 @@ PyTorch version at the shapes of its path:
   kernel's device time; then its path: `expr.functions.contains_pattern`
   over the staged columns, checked against `_like`;
 * TPC-H q3 and q14 at scale factor 10 (60,000,000 lineitem rows;
-  joins, sorted group-by, top-N, LIKE, CASE) through `run_query`.
+  joins, sorted group-by, top-N, LIKE, CASE) through `run_query`;
+* the corpus: the 13 other TPC-H queries the port runs (q4, q5, q7-q13,
+  q15, q18, q19, q22; semi joins, OR/IN/COALESCE, year/substr/not, the
+  supplier/partsupp/nation/region tables, min/max) and the probes of
+  q11 and q18 (the one constant moved that leaves them empty at SF1) at
+  scale factor 1, each from the plan the reference prepared for it,
+  through `run_query`; fused_limb_sums again on the lanes q9 handed it
+  (32 groups), timed beside its plain version.
 
-Every query's rows are checked against a numpy oracle written here.
+Each query runs once to climb its overflow ladder, then once more with
+every kernel count set to 0 just before: that second run starts at the
+capacities the first found, makes one attempt, and returns the rows, so
+its counts (and the kernel calls captured from it) are those of the
+path that produced the result.
+
+q1, q3, q6 and q14 are checked against numpy oracles written here; the
+corpus queries against the reference's own rows, committed in
+presto_tpu_torch/queries/tpch_sf1.json (scripts/make_tpch_corpus.py).
 Host tables are generated once per process and cached here. Prints a
 JSON line per query, one JSON line with the kernel table, the card's
 name and power limit, and as its last line {"ok": true, "device":
@@ -35,6 +50,7 @@ device, when the package is missing, or when any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -317,6 +333,12 @@ def _plain_rows(res):
             for row in res.rows()]
 
 
+def _exact_rows(res):
+    """A result's rows in the corpus's exact form."""
+    from presto_tpu_torch.queries import exact_rows
+    return exact_rows(res.columns, res.nulls, res.types, res.row_count)
+
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -349,7 +371,10 @@ def device_times(fns, kernel, repeats=REPEATS, tries=3):
     unmeasured call (a trace that is starting can miss a kernel); the
     kernels are split into groups at those pauses, and every group must
     hold `repeats` kernels, or the window is taken again, up to `tries`
-    windows."""
+    windows. The garbage collector is paused meanwhile: a collection
+    over the cached host tables (millions of str objects) can stall the
+    host longer than a pause and split a group."""
+    import gc
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -360,32 +385,36 @@ def device_times(fns, kernel, repeats=REPEATS, tries=3):
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fns[0]()
-            for fn in fns:
+    gc.disable()
+    try:
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fns[0]()
+                for fn in fns:
+                    pause()
+                    for _ in range(repeats):
+                        fn()
                 pause()
-                for _ in range(repeats):
-                    fn()
-            pause()
-            fns[-1]()
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA
-                         and kernel in e.name),
-                        key=lambda e: e.time_range.start)
-        groups = []
-        for e in events:
-            if groups and e.time_range.start - groups[-1][-1].time_range.end \
-                    < 1000:  # us: within a group
-                groups[-1].append(e)
-            else:
-                groups.append([e])
-        groups = [g for g in groups if len(g) > 1]  # not the lone calls
-        if len(groups) == len(fns) and all(len(g) == repeats
-                                           for g in groups):
-            return [statistics.median(e.time_range.elapsed_us() / 1e3
-                                      for e in g) for g in groups]
+                fns[-1]()
+                torch.cuda.synchronize()
+            events = sorted(
+                (e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name), key=lambda e: e.time_range.start)
+            groups = []
+            for e in events:
+                if groups and e.time_range.start \
+                        - groups[-1][-1].time_range.end < 1000:  # us
+                    groups[-1].append(e)
+                else:
+                    groups.append([e])
+            groups = [g for g in groups if len(g) > 1]  # not the lone calls
+            if len(groups) == len(fns) and all(len(g) == repeats
+                                               for g in groups):
+                return [statistics.median(e.time_range.elapsed_us() / 1e3
+                                          for e in g) for g in groups]
+    finally:
+        gc.enable()
     raise AssertionError(f"the profiler saw groups of "
                          f"{[len(g) for g in groups]} launches of {kernel}, "
                          f"not {len(fns)} of {repeats}, {tries} times")
@@ -667,13 +696,14 @@ def _unfused_narrow(ids, contribs, groups):
                         for a, nl in spans], dim=1)
 
 
-def fused_row(call, launches):
-    """Time fused_limb_sums on the lanes the main path handed it, beside
-    its plain version and the unfused path; the kernel table's row."""
+def fused_row(call, launches, query="q1"):
+    """Time fused_limb_sums on the lanes `query` handed it on the main
+    path, beside its plain version and the unfused path; the kernel
+    table's row."""
     import torch
     from presto_tpu_torch.ops import kernels as K
     ids, sources, reqs, groups = call
-    err = check_fused(ids, sources, reqs, groups, "q1's own lanes")
+    err = check_fused(ids, sources, reqs, groups, f"{query}'s own lanes")
     contribs = []
     for r in reqs:
         x = K.source_field(sources[r.source], r.shift, r.bits, r.remainder)
@@ -696,7 +726,8 @@ def fused_row(call, launches):
     ops = 2 * n * (16 * -(-groups // 16)) * (8 * -(-L // 8))
     bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
     row = {
-        "name": "fused_limb_sums", "form": "narrow (s8 7-bit limbs, fused)",
+        "name": "fused_limb_sums",
+        "form": f"narrow (s8 7-bit limbs, fused), {query}'s lanes",
         "route": "cuda",
         "source": "presto_tpu_torch/ops/csrc/fused_limb_sums.cu",
         "replaces": "presto_tpu/ops/pallas_kernels.py:141",
@@ -719,7 +750,7 @@ def fused_row(call, launches):
                   "sources": len(sources),
                   "bytes_per_row": _source_bytes(ids, sources) / n},
         "bytes": nbytes, "int8_ops": ops}
-    print(f"fused_limb_sums on q1's lanes: kernel {ms:.4f} ms (device), "
+    print(f"fused_limb_sums on {query}'s lanes: kernel {ms:.4f} ms (device), "
           f"wrapper call {call_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, unfused stand-in {standin_ms:.4f} ms, bound "
           f"{bound:.4f} ms ({row['bound_by']})")
@@ -781,11 +812,36 @@ def _staged_bytes(batches):
         + sum(b.active.numel() for b in batches)
 
 
-def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",)):
-    """Run one query through run_query on the card, once per limb form,
-    with every kernel count set to 0 just before; check the rows exactly
-    against the oracle; then time it. `tables` maps each scanned table
-    to the columns the oracle reads."""
+@contextlib.contextmanager
+def recording_fused():
+    """Within the block, keep every call fused_limb_sums gets on the
+    card (ids, sources, requests, groups); yields that list."""
+    from presto_tpu_torch.ops import kernels as K
+    fused, calls = K.fused_limb_sums, []
+
+    def recording(ids, sources, requests, groups, **kw):
+        if ids.is_cuda:
+            calls.append((ids, sources, requests, groups))
+        return fused(ids, sources, requests, groups, **kw)
+
+    K.fused_limb_sums = recording
+    try:
+        yield calls
+    finally:
+        K.fused_limb_sums = fused
+
+
+def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",),
+                rows=_plain_rows, fused_calls=None):
+    """Run one query through run_query on the card, per limb form: once
+    to climb the overflow ladder, then once more, with every kernel
+    count set to 0 just before, in one attempt at the capacities the
+    first run found; check both runs' rows exactly against the oracle;
+    then time it. The launches and host syncs are the second run's: the
+    path that returned the rows. `tables` maps each scanned table to
+    the columns the oracle reads; `rows` puts a result in the oracle's
+    form; `fused_calls`, a list, gets the fused_limb_sums calls of the
+    second runs."""
     import torch
     from presto_tpu_torch.connectors import tpch
     from presto_tpu_torch.exec import run_query
@@ -797,30 +853,49 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",)):
                    for t, cols in tables.items()})
     rows_in = tpch.table_row_count("lineitem", sf)
     report = {"query": name, "sf": sf, "rows": rows_in, "launches": {},
-              "host_syncs": {}, "capacity_reruns": {}}
+              "first_run_launches": {}, "host_syncs": {},
+              "first_run_host_syncs": {}, "capacity_reruns": {}}
     for form in limb_forms:
         for k in K.LAUNCHES:
             K.LAUNCHES[k] = 0
         t0 = time.perf_counter()
-        res, syncs = _count_syncs(
+        first, first_syncs = _count_syncs(
             lambda: run_query(plan_fn(), sf=sf, limb_form=form))
         first_ms = (time.perf_counter() - t0) * 1e3
+        first_launches = dict(K.LAUNCHES)
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = 0
+        with recording_fused() as calls:
+            res, syncs = _count_syncs(
+                lambda: run_query(plan_fn(), sf=sf, limb_form=form))
         launches = dict(K.LAUNCHES)
-        got = _plain_rows(res)
-        if got != want:
-            raise AssertionError(f"{name} ({form}) rows differ from the "
-                                 f"oracle:\n got  {got}\n want {want}")
-        print(f"{name} ({form}) equals its numpy oracle: {len(got)} rows; "
-              f"kernel launches {launches}; host syncs {syncs}; capacity "
-              f"reruns {res.stats['capacity_reruns']} (scale "
-              f"{res.stats['capacity_scale']}); first run_query "
+        if fused_calls is not None:
+            fused_calls.extend(calls)
+        del calls
+        if res.stats["capacity_reruns"]:
+            raise AssertionError(f"{name} ({form}) climbed the ladder again"
+                                 f" after its first run: {res.stats}")
+        for what, r in (("first run", first), ("counted run", res)):
+            got = rows(r)
+            if got != want:
+                raise AssertionError(
+                    f"{name} ({form}, {what}) rows differ from the "
+                    f"oracle:\n got  {got}\n want {want}")
+        print(f"{name} ({form}) equals its oracle: {len(got)} rows; "
+              f"kernel launches {launches} (first run, ladder included: "
+              f"{first_launches}); host syncs {syncs} (first run "
+              f"{first_syncs}); capacity reruns "
+              f"{first.stats['capacity_reruns']} (largest factor "
+              f"{first.stats['capacity_scale']}); first run_query "
               f"{first_ms:.1f} ms")
         report["launches"][form] = launches
+        report["first_run_launches"][form] = first_launches
         report["host_syncs"][form] = syncs
+        report["first_run_host_syncs"][form] = first_syncs
         report["capacity_reruns"][form] = \
-            res.stats["capacity_reruns"]
+            first.stats["capacity_reruns"]
         report.setdefault("first_run_query_ms", first_ms)
-        report["capacity_scale"] = res.stats["capacity_scale"]
+        report["capacity_scale"] = first.stats["capacity_scale"]
     report["result"] = [list(map(str, r)) for r in want]
 
     root = annotate_widths(plan_fn(), sf)
@@ -1134,6 +1209,91 @@ def phase_contains(seed):
     return rows
 
 
+def _plan_nodes(j, kind):
+    """Every node of `kind` ("aggregation", "tablescan", ...) in a plan's
+    JSON."""
+    if isinstance(j, dict):
+        if j.get("@type") == kind:
+            yield j
+        for v in j.values():
+            yield from _plan_nodes(v, kind)
+    elif isinstance(j, list):
+        for v in j:
+            yield from _plan_nodes(v, kind)
+
+
+def _small_keyed_aggs(plan_json):
+    """max_groups of the plan's keyed aggregations that take the
+    small-table group-by (fused_limb_sums) unless they overflow."""
+    from presto_tpu_torch.ops.aggregation import SMALL_G
+    return [a["maxGroups"] for a in _plan_nodes(plan_json, "aggregation")
+            if a["groupChannels"] and a["maxGroups"] <= SMALL_G]
+
+
+def _scanned_columns(plan_json):
+    """{table: columns} the plan's scans read."""
+    out = {}
+    for scan in _plan_nodes(plan_json, "tablescan"):
+        cols = out.setdefault(scan["table"], [])
+        cols.extend(c for c in scan["columns"] if c not in cols)
+    return out
+
+
+# the corpus query whose fused_limb_sums lanes get a row of the kernel
+# table beside q1's: 32 groups (25 live), n the rows of its last join
+SECOND_G_QUERY = "q9"
+
+
+def _corpus_order(name):
+    return int(name[1:].split("_")[0]), name
+
+
+def phase_corpus():
+    """Every query and probe of the committed SF1 corpus through
+    run_query on the card (phase_query), its rows held equal to the
+    reference's committed rows in exact form. A query with a small-table
+    keyed aggregation in its plan must launch fused_limb_sums on the
+    path that returns its rows; no query may launch contains_bytes.
+    Returns the reports and the lanes SECOND_G_QUERY handed
+    fused_limb_sums on that path."""
+    from presto_tpu_torch.plan import from_json
+    from presto_tpu_torch.queries import load_corpus
+    corpus = load_corpus()
+    reports, second_g = [], []
+    for name in sorted(corpus, key=_corpus_order):
+        entry = corpus[name]
+        small = _small_keyed_aggs(entry["plan"])
+        # the oracle generates the scanned tables before the first run,
+        # as the numpy oracles of the other phases do
+        rep = phase_query(name, lambda e=entry: from_json(e["plan"]),
+                          lambda _t, e=entry: e["rows"],
+                          _scanned_columns(entry["plan"]), entry["sf"],
+                          rows=_exact_rows,
+                          fused_calls=second_g if name == SECOND_G_QUERY
+                          else None)
+        launches = rep["launches"]["narrow"]
+        rep["small_table_max_groups"] = small
+        if launches["contains_bytes"]:
+            raise AssertionError(f"{name} launched contains_bytes: "
+                                 f"{launches}")
+        if small and launches["fused_limb_sums"] < 1:
+            raise AssertionError(f"{name} has small-table aggregations "
+                                 f"{small} but its rows came from no "
+                                 f"fused_limb_sums launch: {launches}")
+        reports.append(rep)
+    if not second_g:
+        raise AssertionError(f"{SECOND_G_QUERY} handed fused_limb_sums "
+                             "no lanes on the card")
+    print("corpus: " + json.dumps(
+        {r["query"]: {"rows": len(r["result"]),
+                      "execute_ms": r["execute_ms"],
+                      "first_run_query_ms": r["first_run_query_ms"],
+                      "capacity_reruns": r["capacity_reruns"]["narrow"],
+                      "fused_limb_sums": r["launches"]["narrow"][
+                          "fused_limb_sums"]} for r in reports}))
+    return reports, second_g[0]
+
+
 Q1_TABLES = {"lineitem": ["returnflag", "linestatus", "quantity",
                           "extendedprice", "discount", "tax", "shipdate"]}
 Q6_TABLES = {"lineitem": ["shipdate", "discount", "quantity",
@@ -1178,7 +1338,7 @@ def main(argv=None) -> int:
 
     # the shapes and lanes the main path really hands the kernels
     seen, fused_calls = [], []
-    per_tile, fused = K.limb_partial_sums, K.fused_limb_sums
+    per_tile = K.limb_partial_sums
 
     def recording(ids, limbs, groups):
         if limbs.is_cuda:
@@ -1186,17 +1346,12 @@ def main(argv=None) -> int:
                          str(limbs.dtype)))
         return per_tile(ids, limbs, groups)
 
-    def recording_fused(ids, sources, requests, groups, **kw):
-        if ids.is_cuda and not fused_calls:
-            fused_calls.append((ids, sources, requests, groups))
-        return fused(ids, sources, requests, groups, **kw)
-
-    K.limb_partial_sums, K.fused_limb_sums = recording, recording_fused
+    K.limb_partial_sums = recording
     try:
         q1 = phase_query("q1", q1_plan, numpy_q1, Q1_TABLES, SF,
-                         ("narrow", "wide"))
+                         ("narrow", "wide"), fused_calls=fused_calls)
     finally:
-        K.limb_partial_sums, K.fused_limb_sums = per_tile, fused
+        K.limb_partial_sums = per_tile
     print(f"main path per-tile kernel shapes: {sorted(set(seen))}")
     narrow, wide = q1["launches"]["narrow"], q1["launches"]["wide"]
     if (narrow["fused_limb_sums"], narrow["limb_partial_sums"]) != (1, 0):
@@ -1221,10 +1376,16 @@ def main(argv=None) -> int:
     kernel_rows += phase_contains(args.seed)
     q3 = phase_query("q3", q3_plan, numpy_q3, Q3_TABLES, SF_JOIN)
     q14 = phase_query("q14", q14_plan, numpy_q14, Q14_TABLES, SF_JOIN)
+    corpus, second_call = phase_corpus()
+    second = next(r for r in corpus if r["query"] == SECOND_G_QUERY)
+    kernel_rows.insert(1, fused_row(second_call, second["launches"][
+        "narrow"]["fused_limb_sums"], SECOND_G_QUERY))
+    del second_call
+    torch.cuda.empty_cache()
 
     gpu = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
-    report = {"kernels": kernel_rows, "queries": [q1, q6, q3, q14],
+    report = {"kernels": kernel_rows, "queries": [q1, q6, q3, q14, *corpus],
               "build_s": build_s, "host_generation_s": GEN_S, "gpu": gpu,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "total_s": time.perf_counter() - t_start}

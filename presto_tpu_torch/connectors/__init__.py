@@ -11,4 +11,4 @@ def catalog(name: str):
         from . import tpch
         return tpch
     raise KeyError(f"no connector {name!r} in this port (ROADMAP queue 1 "
-                   "item 8 adds the others)")
+                   "item 9 adds the others)")

@@ -1,5 +1,4 @@
-"""The TPC-H connector: deterministic generated tables (lineitem, orders,
-customer, part)."""
+"""The TPC-H connector: the eight deterministic generated tables."""
 
 from .generator import (TPCH_SCHEMA, column_type, generate_columns,
                         table_row_count)

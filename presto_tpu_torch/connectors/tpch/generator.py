@@ -1,8 +1,7 @@
-"""Deterministic columnar TPC-H data generator (lineitem, orders,
-customer, part).
+"""Deterministic columnar TPC-H data generator: the eight tables.
 
-The port's own copy of presto_tpu/connectors/tpch/generator.py, trimmed
-to the tables that TPC-H q1, q3, q6 and q14 scan. Every value is a
+The port's own copy of presto_tpu/connectors/tpch/generator.py. Every
+value is a
 pure function of (table, column, global row index, scale factor)
 through a crc32-salted splitmix64 hash, so any split of the table
 generates identically in any process; the arrays equal the reference's
@@ -58,6 +57,25 @@ TPCH_SCHEMA: Dict[str, List[Tuple[str, T.Type]]] = {
         ("container", T.varchar(10)), ("retailprice", _D122),
         ("comment", T.varchar(23)),
     ],
+    "supplier": [
+        ("suppkey", T.BIGINT), ("name", T.varchar(25)),
+        ("address", T.varchar(40)), ("nationkey", T.BIGINT),
+        ("phone", T.varchar(15)), ("acctbal", _D122),
+        ("comment", T.varchar(101)),
+    ],
+    "partsupp": [
+        ("partkey", T.BIGINT), ("suppkey", T.BIGINT),
+        ("availqty", T.INTEGER), ("supplycost", _D122),
+        ("comment", T.varchar(199)),
+    ],
+    "nation": [
+        ("nationkey", T.BIGINT), ("name", T.varchar(25)),
+        ("regionkey", T.BIGINT), ("comment", T.varchar(152)),
+    ],
+    "region": [
+        ("regionkey", T.BIGINT), ("name", T.varchar(25)),
+        ("comment", T.varchar(152)),
+    ],
 }
 
 _BASE_ROWS = {
@@ -74,6 +92,14 @@ _EPOCH_1992 = int((np.datetime64("1992-01-01") - _D).astype(int))
 _ORDERDATE_RANGE = 2405  # spec: orders span 1992-01-01 .. 1998-08-02 (ENDDATE - 151 days)
 _CUTOFF_1995_06_17 = int((np.datetime64("1995-06-17") - _D).astype(int))
 
+_NATIONS = ["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
+            "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ",
+            "JAPAN", "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU",
+            "CHINA", "ROMANIA", "SAUDI ARABIA", "VIETNAM", "RUSSIA",
+            "UNITED KINGDOM", "UNITED STATES"]
+_NATION_REGION = [0, 1, 1, 1, 4, 0, 3, 3, 2, 2, 4, 4, 2, 4, 0, 0, 0, 1, 2, 3,
+                  4, 2, 3, 3, 1]
+_REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
 _SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
 _PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
 _INSTRUCTS = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
@@ -313,8 +339,71 @@ def _gen_part(column: str, idx: np.ndarray, sf: float) -> np.ndarray:
     raise KeyError(f"part.{column}")
 
 
-_GENERATORS = {"lineitem": _gen_lineitem, "orders": _gen_orders,
-               "customer": _gen_customer, "part": _gen_part}
+def _gen_supplier(column: str, idx: np.ndarray, sf: float) -> np.ndarray:
+    if column == "suppkey":
+        return (idx + 1).astype(np.int64)
+    if column == "name":
+        return _numbered("Supplier", idx + 1)
+    if column == "address":
+        return _comment("supplier", idx, 2)
+    if column == "nationkey":
+        return _uniform("supplier", "nationkey", idx, 0, 24)
+    if column == "phone":
+        return _phone("supplier", idx)
+    if column == "acctbal":
+        return _uniform("supplier", "acctbal", idx, -99999, 999999)
+    if column == "comment":
+        return _comment("supplier", idx, 5)
+    raise KeyError(f"supplier.{column}")
+
+
+def _gen_partsupp(column: str, idx: np.ndarray, sf: float) -> np.ndarray:
+    n_supp = table_row_count("supplier", sf)
+    if column == "partkey":
+        return (idx // 4 + 1).astype(np.int64)
+    if column == "suppkey":
+        # four suppliers a part, spread over the supplier key space
+        pk = idx // 4
+        s = idx % 4
+        return ((pk + s * (n_supp // 4 + pk % max(n_supp // 4, 1)))
+                % n_supp + 1).astype(np.int64)
+    if column == "availqty":
+        return _uniform("partsupp", "availqty", idx, 1, 9999).astype(np.int32)
+    if column == "supplycost":
+        return _uniform("partsupp", "supplycost", idx, 100, 100000)
+    if column == "comment":
+        return _comment("partsupp", idx, 8)
+    raise KeyError(f"partsupp.{column}")
+
+
+def _gen_nation(column: str, idx: np.ndarray, sf: float) -> np.ndarray:
+    if column == "nationkey":
+        return idx.astype(np.int64)
+    if column == "name":
+        return _strings(_NATIONS)[idx]
+    if column == "regionkey":
+        return np.array(_NATION_REGION, dtype=np.int64)[idx]
+    if column == "comment":
+        return _comment("nation", idx, 4)
+    raise KeyError(f"nation.{column}")
+
+
+def _gen_region(column: str, idx: np.ndarray, sf: float) -> np.ndarray:
+    if column == "regionkey":
+        return idx.astype(np.int64)
+    if column == "name":
+        return _strings(_REGIONS)[idx]
+    if column == "comment":
+        return _comment("region", idx, 4)
+    raise KeyError(f"region.{column}")
+
+
+_GENERATORS = {
+    "lineitem": _gen_lineitem, "orders": _gen_orders,
+    "customer": _gen_customer, "part": _gen_part,
+    "supplier": _gen_supplier, "partsupp": _gen_partsupp,
+    "nation": _gen_nation, "region": _gen_region,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -325,11 +414,7 @@ def generate_columns(table: str, sf: float, columns: Sequence[str],
                      start: int = 0, count: Optional[int] = None
                      ) -> Dict[str, np.ndarray]:
     """Generate host columns for rows [start, start+count) of `table`."""
-    gen = _GENERATORS.get(table)
-    if gen is None:
-        raise NotImplementedError(
-            f"tpch.{table} is not ported yet (ROADMAP queue 1 item 10: "
-            "breadth)")
+    gen = _GENERATORS[table]
     total = table_row_count(table, sf)
     if count is None:
         count = total - start

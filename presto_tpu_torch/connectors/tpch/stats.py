@@ -1,9 +1,7 @@
 """TPC-H value-range statistics for narrow-width staging.
 
 The port's own copy of the value-range half of
-presto_tpu/connectors/tpch/stats.py, trimmed to the generated tables
-(lineitem, orders, customer, part). The
-generator makes every numeric domain exact, so these are true bounds:
+presto_tpu/connectors/tpch/stats.py. The generator makes every numeric domain exact, so these are true bounds:
 a column staged at a lane they prove can never wrap. Decimal ranges
 are the scaled integers that are staged.
 """
@@ -28,6 +26,13 @@ _RANGE_CONST = {
     ("customer", "acctbal"): (-99999, 999999),
     ("part", "size"): (1, 50),
     ("part", "retailprice"): (90000, 389900),
+    ("supplier", "nationkey"): (0, 24),
+    ("supplier", "acctbal"): (-99999, 999999),
+    ("partsupp", "availqty"): (1, 9999),
+    ("partsupp", "supplycost"): (100, 100000),
+    ("nation", "nationkey"): (0, 24),
+    ("nation", "regionkey"): (0, 4),
+    ("region", "regionkey"): (0, 4),
 }
 
 # 1..row_count(keyed table) key domains
@@ -39,6 +44,9 @@ _RANGE_KEYED = {
     ("orders", "custkey"): "customer",
     ("customer", "custkey"): "customer",
     ("part", "partkey"): "part",
+    ("supplier", "suppkey"): "supplier",
+    ("partsupp", "partkey"): "part",
+    ("partsupp", "suppkey"): "supplier",
 }
 
 # date columns as (lo offset from the orderdate low bound, hi offset

@@ -24,12 +24,12 @@ from ..block import (Batch, batch_from_numpy, gather_block, resolve_device,
                      to_numpy)
 from ..connectors import catalog
 from ..plan import nodes as N
-from ..plan.stats import scale_capacities
+from ..plan.stats import capacity_nodes, scale_capacities
 from ..plan.widths import annotate_widths, checked_physical_dtypes
 from .planner import compile_plan
 
 __all__ = ["run_query", "QueryResult", "resolve_device", "stage_scans",
-           "execute"]
+           "execute", "capacity_plan"]
 
 _PAD = 8  # staged capacities are a multiple of this
 
@@ -41,7 +41,8 @@ class QueryResult:
     names: List[str]
     row_count: int
     types: List[T.Type] = dataclasses.field(default_factory=list)
-    # "capacity_reruns" and "capacity_scale" of the run's ladder
+    # "capacity_reruns" of the run's ladder and its "capacity_scale",
+    # the largest capacity factor it gave a node
     stats: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def rows(self) -> List[tuple]:
@@ -85,10 +86,11 @@ def stage_scans(root: N.PlanNode, sf: float, device) -> List[Batch]:
             for n in compile_plan(root).scan_nodes]
 
 
-# plan fingerprint -> the capacity scale that made it fit, so that a
-# structurally identical plan starts at the known-good size instead of
+# plan fingerprint -> the capacity factors (one per capacity node, in
+# plan.stats.capacity_nodes order) that made it fit, so that a
+# structurally identical plan starts at the known-good sizes instead of
 # climbing the ladder again (the reference's _CAPACITY_FEEDBACK)
-_CAPACITY_FEEDBACK: Dict[str, int] = {}
+_CAPACITY_FEEDBACK: Dict[str, Tuple[int, ...]] = {}
 _MAX_CAPACITY_SCALE = 1 << 10
 
 
@@ -103,31 +105,66 @@ def _fingerprint(root: N.PlanNode) -> str:
     return json.dumps(strip(N.to_json(root)), sort_keys=True)
 
 
+def capacity_plan(root: N.PlanNode, default_join_capacity: int = 1 << 16
+                  ) -> N.PlanNode:
+    """The plan at the capacities the ladder last found to fit it (its
+    own where it has not run): what `execute` runs once it has."""
+    ids = [n.id for n in capacity_nodes(root)]
+    factors = _CAPACITY_FEEDBACK.get(_fingerprint(root), (1,) * len(ids))
+    return scale_capacities(root, dict(zip(ids, factors)),
+                            default_join_capacity)
+
+
+def _joins_above(root: N.PlanNode, ids: List[str]) -> Dict[str, set]:
+    """capacity node id -> positions in `ids` of the joins above it."""
+    pos = {i: k for k, i in enumerate(ids)}
+    out: Dict[str, set] = {}
+
+    def walk(n: N.PlanNode, above: Tuple[int, ...]):
+        out.setdefault(n.id, set()).update(above)
+        if isinstance(n, N.JoinNode):
+            above += (pos[n.id],)
+        for s in n.sources:
+            walk(s, above)
+
+    walk(root, ())
+    return out
+
+
 def _dispatch_ladder(root: N.PlanNode, batches: Sequence[Batch],
                      limb_form: str, default_join_capacity: int
                      ) -> Tuple[Batch, int, int]:
     """Run the plan; when a join or group table overflows, rerun with
-    every capacity 4x larger (scale_capacities, and the default join
-    capacity), up to 1024x. Returns (output, capacity scale, reruns)."""
+    its capacity 4x larger (scale_capacities; a join without an
+    out_capacity starts at `default_join_capacity`), up to 1024x, and
+    with the capacity of every join above it 4x larger too, since their
+    input was cut short. The reference raises every capacity of the
+    plan at once; an aggregation here grows only when it overflows
+    itself, so a join's overflow leaves a small aggregation on its
+    small-table path. Returns (output, largest capacity factor,
+    reruns)."""
     fp = _fingerprint(root)
-    cap_scale = _CAPACITY_FEEDBACK.get(fp, 1)
+    ids = [n.id for n in capacity_nodes(root)]
+    above = _joins_above(root, ids)
+    factors = list(_CAPACITY_FEEDBACK.get(fp, (1,) * len(ids)))
     reruns = 0
     while True:
-        exec_root = root if cap_scale == 1 else \
-            scale_capacities(root, cap_scale)
-        out, overflow = compile_plan(
-            exec_root, limb_form,
-            default_join_capacity * cap_scale).fn(batches)
-        if not bool(overflow):
-            if cap_scale > 1:
-                _CAPACITY_FEEDBACK[fp] = cap_scale
-            return out, cap_scale, reruns
-        if cap_scale >= _MAX_CAPACITY_SCALE:
+        plan = compile_plan(
+            scale_capacities(root, dict(zip(ids, factors)),
+                             default_join_capacity), limb_form)
+        out, flags = plan.fn(batches)
+        over = [k for k, o in enumerate(flags.tolist()) if o]
+        if not over:
+            if any(k > 1 for k in factors):
+                _CAPACITY_FEEDBACK[fp] = tuple(factors)
+            return out, max(factors, default=1), reruns
+        if any(factors[k] >= _MAX_CAPACITY_SCALE for k in over):
             raise RuntimeError(
                 "plan execution overflowed a static bucket (join/group "
                 "capacity) beyond the adaptive rerun ceiling; rerun with "
                 "larger capacity hints (max_groups / join capacity)")
-        cap_scale *= 4
+        for k in set(over).union(*(above[ids[k]] for k in over)):
+            factors[k] = min(factors[k] * 4, _MAX_CAPACITY_SCALE)
         reruns += 1
 
 

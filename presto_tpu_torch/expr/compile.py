@@ -2,13 +2,15 @@
 analog.
 
 Counterpart of presto_tpu/expr/compile.py (`evaluate`, `_eval_special`
-for AND/BETWEEN/SWITCH, `_constant_block`, `_like`, `_select`,
-`compile_filter`, `compile_projections`). PyTorch runs eagerly, so
-"compiling" an expression is binding it into a closure over the tree.
+for AND/OR/IN/IS_NULL/IF/NULL_IF/COALESCE/BETWEEN/SWITCH,
+`_constant_block`, `_like`, `_select`, `compile_filter`,
+`compile_projections`). PyTorch runs eagerly, so "compiling" an
+expression is binding it into a closure over the tree.
 
 Null semantics are Presto's three-valued logic: a scalar call is NULL
-when any argument is; AND is Kleene; SWITCH computes every branch and
-then selects lanes, as the reference does.
+when any argument is; AND, OR and IN are Kleene; IF, COALESCE and
+SWITCH compute every branch and then select lanes, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ def _constant_block(c: Constant, capacity: int, device) -> Block:
                             no_nulls.expand(capacity), ty)
     if not ty.is_fixed_width:
         raise NotImplementedError(
-            f"constant {c} is not ported yet (ROADMAP queue 1 item 10: "
+            f"constant {c} is not ported yet (ROADMAP queue 1 item 9: "
             "breadth)")
     v = c.value
     if ty.base == "date" and isinstance(v, str):
@@ -152,7 +154,7 @@ def evaluate(expr: RowExpression, batch: Batch) -> Block:
             if not isinstance(pat, Constant):
                 raise NotImplementedError(
                     "LIKE with a pattern that is not a constant (ROADMAP "
-                    "queue 1 item 10: breadth)")
+                    "queue 1 item 9: breadth)")
             return Column(_like(a, str(pat.value)), a.nulls, expr.type)
         args = [evaluate(a, batch) for a in expr.arguments]
         sf = F.lookup(expr.name.lower())
@@ -185,6 +187,46 @@ def _eval_special(expr: SpecialForm, batch: Batch) -> Block:
             any_null = bn if any_null is None else (any_null | bn)
         nulls = ~any_false & any_null
         return Column(~any_false & ~nulls, nulls, expr.type)
+    if form == "OR":
+        # Kleene: TRUE if any TRUE; else NULL if any NULL; else FALSE
+        any_true, any_null = None, None
+        for a in args:
+            bv, bn = _bool(evaluate(a, batch))
+            any_true = bv if any_true is None else (any_true | bv)
+            any_null = bn if any_null is None else (any_null | bn)
+        return Column(any_true, ~any_true & any_null, expr.type)
+    if form == "IS_NULL":
+        a = evaluate(args[0], batch)
+        return Column(a.nulls, torch.zeros_like(a.nulls), expr.type)
+    if form == "IF":
+        cv, cn = _bool(evaluate(args[0], batch))
+        t = evaluate(args[1], batch)
+        f = evaluate(args[2], batch) if len(args) > 2 else _constant_block(
+            Constant(expr.type, None), batch.capacity, batch.active.device)
+        return _select(cv & ~cn, t, f, expr.type)
+    if form == "NULL_IF":
+        a = evaluate(args[0], batch)
+        ev, en = _bool(F.lookup("eq").fn(T.BOOLEAN, a,
+                                         evaluate(args[1], batch)))
+        return dataclasses.replace(a, nulls=a.nulls | (ev & ~en),
+                                   type=expr.type)
+    if form == "COALESCE":
+        out = evaluate(args[0], batch)
+        for a in args[1:]:
+            out = _select(~out.nulls, out, evaluate(a, batch), expr.type)
+        return out
+    if form == "IN":
+        # TRUE on a match; else NULL if the value or any item is NULL
+        x = evaluate(args[0], batch)
+        eq = F.lookup("eq").fn
+        any_match, any_null = None, x.nulls
+        for a in args[1:]:
+            b = evaluate(a, batch)
+            ev, _ = _bool(eq(T.BOOLEAN, x, b))
+            any_match = ev if any_match is None else (any_match | ev)
+            any_null = any_null | b.nulls
+        nulls = ~any_match & any_null
+        return Column(any_match & ~nulls, nulls, expr.type)
     if form == "BETWEEN":
         x = evaluate(args[0], batch)
         lo = evaluate(args[1], batch)
@@ -215,7 +257,7 @@ def _eval_special(expr: SpecialForm, batch: Batch) -> Block:
             out = _select(cv & ~cn, res, out, expr.type)
         return out
     raise NotImplementedError(f"special form {form} is not ported yet "
-                              "(ROADMAP queue 1 item 10: breadth)")
+                              "(ROADMAP queue 1 item 9: breadth)")
 
 
 def _select(take_a: torch.Tensor, a: Block, b: Block, ty: T.Type) -> Block:

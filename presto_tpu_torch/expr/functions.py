@@ -1,10 +1,10 @@
-"""Scalar function registry: the functions TPC-H q1, q3, q6 and q14
+"""Scalar function registry: the functions the ported TPC-H queries
 reach.
 
 Counterpart of presto_tpu/expr/functions.py, trimmed to comparisons of
 integers, dates, decimals and strings, decimal add/subtract/multiply/
-divide (and divide to double), the casts onto decimals, and the
-substring search `contains_pattern`. A function is a name plus an
+divide (and divide to double), the casts onto decimals, `not`, `year`,
+`substr`, and the substring search `contains_pattern`. A function is a name plus an
 implementation `(ret_type, *blocks) -> Block`; the compiler computes the
 default null mask (OR of argument nulls) and a function only overrides
 it through `null_fn`.
@@ -24,7 +24,8 @@ import torch
 
 from .. import int128 as I128
 from .. import types as T
-from ..block import Column, Int128Column, StringColumn, pad_chars
+from ..block import (Column, Int128Column, StringColumn, pad_chars,
+                     torch_dtype)
 from ..ops import kernels as K
 
 Block = Union[Column, StringColumn, Int128Column]
@@ -56,7 +57,7 @@ def lookup(name: str) -> ScalarFunction:
     except KeyError:
         raise NotImplementedError(
             f"scalar function {name!r} is not ported yet (ROADMAP queue 1 "
-            "item 10: breadth)") from None
+            "item 9: breadth)") from None
 
 
 def _default_nulls(*blocks: Block):
@@ -113,7 +114,7 @@ def _as128_at_scale(b, to_scale: int) -> tuple:
         hi, lo = I128.rescale128_up(hi, lo, 10 ** (to_scale - s))
     elif to_scale < s:
         raise NotImplementedError("long-decimal downscale (ROADMAP queue 1 "
-                                  "item 10: breadth)")
+                                  "item 9: breadth)")
     return hi, lo
 
 
@@ -149,7 +150,7 @@ def _promote(ret_type: T.Type, *blocks: Column):
             if ret_type != T.DOUBLE:
                 raise NotImplementedError(
                     f"{ret_type} arithmetic is not ported yet (ROADMAP "
-                    "queue 1 item 10: breadth)")
+                    "queue 1 item 9: breadth)")
             if isinstance(b, Int128Column):
                 out.append(_int128_to_f64(b))
             elif b.type.is_decimal:
@@ -160,11 +161,11 @@ def _promote(ret_type: T.Type, *blocks: Column):
         if isinstance(b, Int128Column):
             raise NotImplementedError(
                 f"long-decimal lanes cannot promote to {ret_type} (ROADMAP "
-                "queue 1 item 10: breadth)")
+                "queue 1 item 9: breadth)")
         if b.type.is_floating:
             raise NotImplementedError(
                 f"floating-point arithmetic ({b.type} -> {ret_type}) is not "
-                "ported yet (ROADMAP queue 1 item 10: breadth)")
+                "ported yet (ROADMAP queue 1 item 9: breadth)")
         v = b.values.to(torch.int64)
         if ret_type.is_decimal:
             v = rescale_decimal(v, _scale_of(b.type), ret_type.scale)
@@ -244,7 +245,7 @@ def _divide(ret, a, b):
         return Column(x / torch.where(y == 0, 1.0, y), nulls, ret)
     if not ret.is_decimal:
         raise NotImplementedError(
-            f"{ret} division is not ported yet (ROADMAP queue 1 item 10: "
+            f"{ret} division is not ported yet (ROADMAP queue 1 item 9: "
             "breadth)")
     sa, sb = _scale_of(a.type), _scale_of(b.type)
     num = a.values.to(torch.int64) * _POW10[ret.scale + sb - sa]
@@ -295,7 +296,7 @@ def _cmp_values(a: Block, b: Block):
            for x in (a, b)):
         raise NotImplementedError(
             f"comparing {a.type} with {b.type} is not ported yet (ROADMAP "
-            "queue 1 item 10: breadth)")
+            "queue 1 item 9: breadth)")
     sa, sb = _scale_of(a.type), _scale_of(b.type)
     s = max(sa, sb)
     return (rescale_decimal(a.values.to(torch.int64), sa, s),
@@ -333,7 +334,7 @@ def _binary_cmp(op):
         if isinstance(a, StringColumn) or isinstance(b, StringColumn):
             raise NotImplementedError(
                 f"comparing {a.type} with {b.type} is not ported yet "
-                "(ROADMAP queue 1 item 10: breadth)")
+                "(ROADMAP queue 1 item 9: breadth)")
         if _any128(a, b):
             s = max(_scale_of(a.type), _scale_of(b.type))
             ah, al = _as128_at_scale(a, s)
@@ -360,6 +361,80 @@ for _opname, _presto in [("eq", "$operator$equal"),
     REGISTRY[_presto] = ScalarFunction(_presto, _f)
 
 
+@register("not")
+def _not(ret, a):
+    return _col(ret, ~a.values, a)
+
+
+# ---------------------------------------------------------------------------
+# dates (DATE = days since epoch, TIMESTAMP = micros since epoch)
+# ---------------------------------------------------------------------------
+
+def _fdiv(a, b):
+    """int64 floor division (a negative day number rounds down)."""
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _civil(days):
+    """(year, month, day) of days since epoch: Howard Hinnant's
+    civil_from_days, vectorized."""
+    z = days.to(torch.int64) + 719468
+    era = _fdiv(torch.where(z >= 0, z, z - 146096), 146097)
+    doe = z - era * 146097
+    yoe = _fdiv(doe - _fdiv(doe, 1460) + _fdiv(doe, 36524)
+                - _fdiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _fdiv(yoe, 4) - _fdiv(yoe, 100))
+    mp = _fdiv(5 * doy + 2, 153)
+    d = doy - _fdiv(153 * mp + 2, 5) + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    return torch.where(m <= 2, y + 1, y), m, d
+
+
+def _as_days(a: Column):
+    if a.type.base == "timestamp":
+        return _fdiv(a.values.to(torch.int64), 86_400_000_000)
+    if a.type.base != "date":
+        raise NotImplementedError(
+            f"date parts of {a.type} are not ported yet (ROADMAP queue 1 "
+            "item 9: breadth)")
+    return a.values
+
+
+@register("year")
+def _year(ret, a):
+    y, _, _ = _civil(_as_days(a))
+    return _col(ret, y.to(torch_dtype(ret.to_dtype())), a)
+
+
+# ---------------------------------------------------------------------------
+# strings
+# ---------------------------------------------------------------------------
+
+@register("substr")
+def _substr(ret, a: StringColumn, start: Column, *rest):
+    """substr(s, start[, length]): 1-based start, a negative start
+    counts from the end; start 0, or a start beyond the length either
+    way, gives ''."""
+    n, w = a.chars.shape
+    lengths = a.lengths
+    st0 = start.values.to(torch.int32)
+    valid = (st0 != 0) & (st0.abs() <= lengths)
+    st = torch.where(st0 < 0, lengths + st0, st0 - 1)  # 0-based
+    st = torch.minimum(st.clamp(min=0), lengths)
+    if rest:
+        ln = rest[0].values.to(torch.int32).clamp(0, w)
+    else:
+        ln = lengths - st
+    ln = torch.minimum(ln, lengths - st).clamp(0, w)
+    ln = torch.where(valid, ln, 0)
+    pos = torch.arange(w, dtype=torch.int32, device=a.chars.device)[None, :]
+    idx = (st[:, None] + pos).clamp(0, w - 1).to(torch.int64)
+    gathered = torch.gather(a.chars, 1, idx)
+    out = torch.where(pos < ln[:, None], gathered, 0).to(torch.uint8)
+    return StringColumn(out, ln, _default_nulls(a, start, *rest[:1]), ret)
+
+
 # ---------------------------------------------------------------------------
 # casts onto decimals
 # ---------------------------------------------------------------------------
@@ -380,7 +455,7 @@ def _cast(ret, a):
             hi, lo = I128.rescale128_up(hi, lo, 10 ** (ret.scale - src_scale))
         elif ret.scale < src_scale:
             raise NotImplementedError("long-decimal downscale cast (ROADMAP "
-                                      "queue 1 item 10: breadth)")
+                                      "queue 1 item 9: breadth)")
         return Int128Column(hi, lo, a.nulls, ret)
     return _col(ret, rescale_decimal(a.values.to(torch.int64), src_scale,
                                      ret.scale), a)

@@ -1,7 +1,7 @@
 """Grouped aggregation: the HashAggregationOperator analog.
 
 Counterpart of presto_tpu/ops/aggregation.py for sum/avg/count/
-count_star: its small-table path (max_groups <= 64, the TPC-H q1
+count_star/min/max: its small-table path (max_groups <= 64, the TPC-H q1
 shape), its keyless one-slot path (q6, q14) and its sorted large-table
 path (q3). The small-table path has no hash table and no scatter:
 
@@ -27,6 +27,12 @@ adjacent-word inequality, per-group [start, end) ranges by
 searchsorted, and every sum as differences of a padded cumsum over
 13-bit limbs (`_seg_total`), exact in int64.
 
+min and max are per-group extremes in both paths (`_seg_extreme`,
+`_argbest`): a scatter_reduce over the group ids (the segment ids in
+sorted order) with dead rows at the identity. Long decimals and
+strings take the extreme row word by word (for Int128 lanes the signed
+`hi`, then `lo` as unsigned), and gather its value.
+
 Limb forms (an argument, not a knob): "narrow" (the default) takes the
 fused kernel; "wide" keeps the unfused path of the TPU kernel's
 contract: requests materialise into 13-bit limbs stacked as an (n, L)
@@ -46,7 +52,7 @@ from ..expr.functions import lookup
 from ..int128 import (combine_limb_totals_128, limbs13_of_128,
                       limbs13_of_i64, limbs_of_i64)
 from . import kernels as K
-from .keys import SIGN, key_words
+from .keys import SIGN, key_words, string_words
 from .sort import lex_permutation
 
 __all__ = ["AggSpec", "GroupByResult", "group_by", "finalize_states",
@@ -282,10 +288,8 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
     if name == "count_star":
         h = _seg_count(pool, active)
         return [lambda: Column(pool.result(h), no_nulls, T.BIGINT)]
-    if name not in ("count", "sum", "avg"):
-        raise NotImplementedError(
-            f"aggregate {spec.name} is not ported yet (ROADMAP queue 1 "
-            "item 10: breadth)")
+    if name not in ("count", "sum", "avg", "min", "max"):
+        raise NotImplementedError(_unported(spec))
     hn = _seg_count(pool, live)
 
     def count() -> Block:
@@ -293,6 +297,9 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
 
     if name == "count":
         return [count]
+    if name in ("min", "max"):
+        return [lambda: _extreme(spec, col, pool.ids.to(torch.int64), live,
+                                 g, pool.result(hn) == 0)]
     sum_ty = spec.output_type if name == "sum" else _sum_type(col.type)
     if isinstance(col, Int128Column) or col.type.is_decimal:
         hs = _sum128(pool, col, live)
@@ -310,8 +317,72 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
     else:
         raise NotImplementedError(
             f"{spec.name} over {col.type} is not ported yet (ROADMAP queue 1 "
-            "item 10: breadth)")
+            "item 9: breadth)")
     return [total] if name == "sum" else [total, count]
+
+
+def _unported(spec: AggSpec) -> str:
+    item = {"count_distinct": "6", "approx_distinct": "8",
+            "approx_percentile": "8"}.get(spec.name, "9: breadth")
+    return (f"aggregate {spec.name} is not ported yet (ROADMAP queue 1 "
+            f"item {item})")
+
+
+def _ident(dt: torch.dtype, minimize: bool):
+    """The identity of min (the dtype's largest value) or of max."""
+    if dt.is_floating_point:
+        return float("inf") if minimize else float("-inf")
+    info = torch.iinfo(dt)
+    return info.max if minimize else info.min
+
+
+def _seg_extreme(ids: torch.Tensor, values: torch.Tensor,
+                 live: torch.Tensor, g: int, minimize: bool) -> torch.Tensor:
+    """Per-group min (or max) of the live values; the identity where a
+    group has none. `ids` are int64 in [0, g)."""
+    ident = _ident(values.dtype, minimize)
+    contrib = torch.where(live, values, ident)
+    return torch.full((g,), ident, dtype=values.dtype,
+                      device=values.device).scatter_reduce(
+        0, ids, contrib, "amin" if minimize else "amax")
+
+
+def _argbest(words: Sequence[torch.Tensor], ids: torch.Tensor,
+             live: torch.Tensor, g: int, minimize: bool) -> torch.Tensor:
+    """Row of the min (or max) word tuple per group, words compared as
+    signed int64 from the first; ties go to the lowest row. n where a
+    group has no live row."""
+    n = live.shape[0]
+    remaining = live
+    for w in words:
+        best = _seg_extreme(ids, w, remaining, g, minimize)
+        remaining = remaining & (w == best[ids])
+    rows = torch.arange(n, dtype=torch.int64, device=live.device)
+    return _seg_extreme(ids, rows, remaining, g, True).clamp(max=n)
+
+
+def _extreme(spec: AggSpec, col: Block, ids: torch.Tensor,
+             live: torch.Tensor, g: int, nulls: torch.Tensor) -> Block:
+    """min/max state of one group table, NULL where `nulls` (no live
+    input): the reference's _seg_min/_seg_max for fixed-width lanes, its
+    _argbest over (hi, lo) for long decimals and over the packed key
+    words for strings (_minmax_string)."""
+    minimize = spec.name == "min"
+    if isinstance(col, Column):
+        if col.values.dtype == torch.bool:
+            raise NotImplementedError(
+                f"{spec.name} over {col.type} is not ported yet (ROADMAP "
+                "queue 1 item 9: breadth)")
+        return Column(_seg_extreme(ids, col.values, live, g, minimize),
+                      nulls, spec.output_type)
+    if isinstance(col, Int128Column):
+        words = [col.hi, col.lo ^ SIGN]  # lo compares as unsigned
+    else:
+        words = [w ^ SIGN for w in string_words(col)]
+    n = live.shape[0]
+    idx = _argbest(words, ids, live, g, minimize).clamp(max=max(n - 1, 0))
+    return dataclasses.replace(gather_block(col, idx), nulls=nulls,
+                               type=spec.output_type)
 
 
 def group_by(batch: Batch, key_channels: Sequence[int],
@@ -323,11 +394,9 @@ def group_by(batch: Batch, key_channels: Sequence[int],
     if not key_channels:
         max_groups = 1
     elif max_groups > SMALL_G:
-        if not _sorted_capable(batch, key_channels, aggs):
-            raise NotImplementedError(
-                f"max_groups {max_groups} > {SMALL_G} over "
-                f"{[a.name for a in aggs]} needs the hash-slot aggregation "
-                "(ROADMAP queue 1 item 9)")
+        for spec in aggs:
+            if spec.name not in _SORTED_AGGS:
+                raise NotImplementedError(_unported(spec))
         return _group_by_sorted(batch, key_channels, aggs, max_groups)
     keys = [batch.column(c) for c in key_channels]
     ids, perm_first, num_groups, overflow = _group_ids(keys, batch.active,
@@ -359,7 +428,10 @@ def group_by(batch: Batch, key_channels: Sequence[int],
 # Sorted-mode group-by: the large-table path (max_groups > SMALL_G)
 # ---------------------------------------------------------------------------
 
-_SORTED_AGGS = ("count_star", "count", "sum", "avg")
+# the reference's sorted mode also takes count_distinct,
+# approx_percentile and the moments; the port's takes min/max over long
+# decimals and strings too, which the reference sends to its hash path
+_SORTED_AGGS = ("count_star", "count", "sum", "avg", "min", "max")
 
 
 def _padded_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -372,18 +444,12 @@ def _seg_total(x: torch.Tensor, start: torch.Tensor, end: torch.Tensor):
     return p[end] - p[start]
 
 
-def _sorted_capable(batch: Batch, key_channels, aggs) -> bool:
-    """Can this aggregation run in sorted mode? The reference also takes
-    count_distinct, approx_percentile, min/max and the moments there;
-    the port has sum/avg/count/count_star."""
-    return bool(key_channels) and all(s.name in _SORTED_AGGS for s in aggs)
-
-
 def _sorted_states(spec: AggSpec, scol: Optional[Block], live: torch.Tensor,
                    start: torch.Tensor, end: torch.Tensor,
-                   max_groups: int) -> List[Block]:
+                   seg_ids: torch.Tensor, max_groups: int) -> List[Block]:
     """Sorted-order accumulator states for one aggregate, in the state
-    layout of `_acc_columns` (avg: sum then count)."""
+    layout of `_acc_columns` (avg: sum then count). `seg_ids` is each
+    sorted row's group slot."""
     zeros_g = torch.zeros(max_groups, dtype=torch.bool, device=live.device)
     if spec.name == "count_star":
         return [Column(end - start, zeros_g, T.BIGINT)]
@@ -391,6 +457,8 @@ def _sorted_states(spec: AggSpec, scol: Optional[Block], live: torch.Tensor,
     no_input = nn == 0
     if spec.name == "count":
         return [Column(nn, zeros_g, T.BIGINT)]
+    if spec.name in ("min", "max"):
+        return [_extreme(spec, scol, seg_ids, live, max_groups, no_input)]
     sum_ty = spec.output_type if spec.name == "sum" else _sum_type(scol.type)
     if isinstance(scol, Int128Column) or scol.type.is_decimal:
         if isinstance(scol, Int128Column):
@@ -412,7 +480,7 @@ def _sorted_states(spec: AggSpec, scol: Optional[Block], live: torch.Tensor,
     else:
         raise NotImplementedError(
             f"{spec.name} over {scol.type} is not ported yet (ROADMAP queue "
-            "1 item 10: breadth)")
+            "1 item 9: breadth)")
     if spec.name == "avg":
         return [total, Column(nn, zeros_g, T.BIGINT)]
     return [total]
@@ -452,6 +520,7 @@ def _group_by_sorted(batch: Batch, key_channels: Sequence[int],
     end = torch.searchsorted(seg_search, gids, right=True)
     slot_active = gids < torch.clamp(num_groups, max=max_groups)
 
+    seg_ids = seg.clamp(max=max_groups - 1)
     perm_first = perm[start.clamp(0, max(n - 1, 0))]
     out_cols: List[Block] = [gather_block(k, perm_first, slot_active)
                              for k in keys]
@@ -466,7 +535,7 @@ def _group_by_sorted(batch: Batch, key_channels: Sequence[int],
             scol = sorted_cols[ch]
             live = s_active & ~scol.nulls
         out_cols.extend(_sorted_states(spec, scol, live, start, end,
-                                       max_groups))
+                                       seg_ids, max_groups))
     return GroupByResult(Batch(tuple(out_cols), slot_active),
                          num_groups.to(torch.int32), overflow)
 

@@ -1,7 +1,7 @@
 """Joins: the HashBuilderOperator / LookupJoinOperator analog.
 
-Counterpart of presto_tpu/ops/join.py (`hash_join` for INNER joins and
-its helpers). No pointer-chasing hash table: the build side is SORTED
+Counterpart of presto_tpu/ops/join.py (`hash_join` for INNER joins,
+`semi_join_mask`, and their helpers). No pointer-chasing hash table: the build side is SORTED
 by key words once; probes binary-search it with torch.searchsorted. 1:N
 matches expand through a static-capacity prefix-sum expansion:
 
@@ -34,7 +34,7 @@ from ..block import Batch, Block, StringColumn, gather_block, pad_chars
 from .keys import SIGN, key_words
 from .sort import lex_permutation
 
-__all__ = ["hash_join", "JoinResult"]
+__all__ = ["hash_join", "semi_join_mask", "JoinResult"]
 
 _MAXW = (1 << 63) - 1  # the largest word in signed order
 
@@ -86,6 +86,23 @@ def _sort_build(b_words: List[torch.Tensor], b_usable: torch.Tensor):
     return [w[perm] for w in masked], perm
 
 
+def _probe_ranges(b_words: List[torch.Tensor], b_usable: torch.Tensor,
+                  p_words: List[torch.Tensor]):
+    """Sort the build side and binary-search every probe key in it:
+    (start, end) of each probe row's matches in sorted build order,
+    clamped to the usable rows, and the build permutation."""
+    sb_words, b_perm = _sort_build(b_words, b_usable)
+    if len(p_words) == 1:
+        sorted_keys, probe_keys = sb_words[0], p_words[0]
+    else:
+        sorted_keys, probe_keys = _pack_ranks(sb_words, p_words)
+    start = torch.searchsorted(sorted_keys, probe_keys)
+    end = torch.searchsorted(sorted_keys, probe_keys, right=True)
+    n_usable = b_usable.sum()
+    return (torch.minimum(start, n_usable), torch.minimum(end, n_usable),
+            b_perm)
+
+
 def _pack_ranks(build_words: List[torch.Tensor],
                 probe_words: List[torch.Tensor]):
     """Reduce multi-word keys to single int64 ranks, exactly. Per word
@@ -124,7 +141,7 @@ def hash_join(probe: Batch, build: Batch,
     out_capacity."""
     if join_type != "inner":
         raise NotImplementedError(
-            f"{join_type} joins are not ported yet (ROADMAP queue 1 item 8: "
+            f"{join_type} joins are not ported yet (ROADMAP queue 1 item 5: "
             "outer joins)")
     if build_output_channels is None:
         build_output_channels = range(build.num_columns)
@@ -137,18 +154,7 @@ def hash_join(probe: Batch, build: Batch,
 
     nb = build.capacity
     npr = probe.capacity
-    sb_words, b_perm = _sort_build(b_words, b_usable)
-    n_build_usable = b_usable.sum()
-
-    if len(p_words) == 1:
-        sorted_keys, probe_keys = sb_words[0], p_words[0]
-    else:
-        sorted_keys, probe_keys = _pack_ranks(sb_words, p_words)
-    start = torch.searchsorted(sorted_keys, probe_keys)
-    end = torch.searchsorted(sorted_keys, probe_keys, right=True)
-    # clamp matches into the usable (sorted-front) region
-    start = torch.minimum(start, n_build_usable)
-    end = torch.minimum(end, n_build_usable)
+    start, end, b_perm = _probe_ranges(b_words, b_usable, p_words)
 
     cnt = torch.where(p_usable, end - start, 0)
     off = torch.cumsum(cnt, dim=0) - cnt  # exclusive
@@ -168,3 +174,39 @@ def hash_join(probe: Batch, build: Batch,
     out_cols += [gather_block(build.column(ci), brow, valid)
                  for ci in build_output_channels]
     return JoinResult(Batch(tuple(out_cols), valid), total, overflow)
+
+
+def semi_join_mask(probe: Batch, build: Batch,
+                   probe_key_channels: Sequence[int],
+                   build_key_channels: Sequence[int],
+                   null_keys_match: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SemiJoinNode analog: per probe row, 'key IN build side' with
+    SQL's three values, as (match, null_flag):
+
+      match      the non-null key has a build match
+      null_flag  the IN is NULL: the probe key is NULL, or it has no
+                 match and the build side holds a NULL key
+
+    so NOT IN composes through Kleene `not` and the filters. With
+    null_keys_match NULL keys compare equal (IS NOT DISTINCT FROM, the
+    set-operation semantics) and null_flag is always False."""
+    p_keys = [probe.column(c) for c in probe_key_channels]
+    b_keys = [build.column(c) for c in build_key_channels]
+    p_keys, b_keys = _align_key_widths(p_keys, b_keys)
+    if null_keys_match:
+        # the null words join the key: NULL == NULL
+        p_words = [w ^ SIGN for w in key_words(p_keys)]
+        b_words = [w ^ SIGN for w in key_words(b_keys)]
+        p_usable, b_usable = probe.active, build.active
+    else:
+        p_words, p_usable = _combined_key(p_keys, probe.active)
+        b_words, b_usable = _combined_key(b_keys, build.active)
+    start, end, _ = _probe_ranges(b_words, b_usable, p_words)
+    match = p_usable & (end > start)
+    if null_keys_match:
+        return match, torch.zeros_like(match)
+    build_has_null = (build.active & ~b_usable).any()
+    null_flag = (probe.active & ~p_usable) | \
+        (probe.active & ~match & build_has_null)
+    return match, null_flag

@@ -23,21 +23,21 @@ from ..block import Block, Column, Int128Column, StringColumn
 
 SIGN = -(1 << 63)  # int64 bit pattern of the reference's uint64 1 << 63
 
-__all__ = ["key_words", "SIGN"]
+__all__ = ["key_words", "string_words", "SIGN"]
 
 
 def _fixed_words(col: Column) -> List[torch.Tensor]:
     v = col.values
     if v.is_floating_point() or col.type.base == "timestamp with time zone":
         raise NotImplementedError(
-            f"{col.type} keys are not ported yet (ROADMAP queue 1 item 10: "
+            f"{col.type} keys are not ported yet (ROADMAP queue 1 item 9: "
             "breadth)")
     if v.dtype == torch.bool:
         return [v.to(torch.int64)]
     return [v.to(torch.int64) ^ SIGN]
 
 
-def _string_words(col: StringColumn) -> List[torch.Tensor]:
+def string_words(col: StringColumn) -> List[torch.Tensor]:
     n, w = col.chars.shape
     padded = torch.nn.functional.pad(col.chars, (0, (-w) % 8))
     nwords = padded.shape[1] // 8
@@ -61,7 +61,7 @@ def key_words(cols: Sequence[Block],
         isnull = col.nulls
         words.append(torch.where(isnull, int(nl), int(not nl)))
         if isinstance(col, StringColumn):
-            vws = _string_words(col)
+            vws = string_words(col)
         elif isinstance(col, Int128Column):
             vws = [col.hi ^ SIGN, col.lo]
         else:

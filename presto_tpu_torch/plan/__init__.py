@@ -1,9 +1,10 @@
 """Plan nodes (the plan-fragment vocabulary) and plan passes."""
 
 from .nodes import (AggregationNode, FilterNode, JoinNode, OutputNode,
-                    PlanNode, ProjectNode, SortNode, TableScanNode, TopNNode,
-                    from_json, to_json)
+                    PlanNode, ProjectNode, SemiJoinNode, SortNode,
+                    TableScanNode, TopNNode, from_json, to_json)
 
 __all__ = ["PlanNode", "TableScanNode", "FilterNode", "ProjectNode",
-           "AggregationNode", "JoinNode", "SortNode", "TopNNode",
+           "AggregationNode", "JoinNode", "SemiJoinNode", "SortNode",
+           "TopNNode",
            "OutputNode", "from_json", "to_json"]

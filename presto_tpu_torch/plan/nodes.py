@@ -1,8 +1,8 @@
 """Plan nodes: the worker-visible plan vocabulary this port executes.
 
 Counterpart of presto_tpu/plan/nodes.py, trimmed to the nodes of the
-TPC-H q1/q3/q6/q14 plan shapes: TableScan, Filter, Project,
-Aggregation, Join, Sort, TopN and Output. Channels are already resolved
+ported TPC-H plan shapes: TableScan, Filter, Project, Aggregation,
+Join, SemiJoin, Sort, TopN and Output. Channels are already resolved
 to indices.
 
 `from_json` reads the dict that presto_tpu.plan.nodes.to_json writes,
@@ -16,14 +16,15 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 from .. import types as T
 from ..expr import ir as E
 from ..ops.aggregation import AggSpec
 
 __all__ = ["PlanNode", "TableScanNode", "FilterNode", "ProjectNode",
-           "AggregationNode", "JoinNode", "SortNode", "TopNNode",
+           "AggregationNode", "JoinNode", "SemiJoinNode", "SortNode",
+           "TopNNode",
            "OutputNode", "from_json", "to_json"]
 
 _ids = itertools.count(1)
@@ -131,6 +132,27 @@ class JoinNode(PlanNode):
 
 
 @dataclasses.dataclass
+class SemiJoinNode(PlanNode):
+    """`source`'s columns plus one BOOLEAN column: whether each row's
+    `source_key` is IN `filtering_source`'s `filtering_key`, with SQL's
+    NULL (ops/join.py::semi_join_mask). A key is one channel or a list
+    of them."""
+    source: PlanNode
+    filtering_source: PlanNode
+    source_key: Union[int, List[int]]
+    filtering_key: Union[int, List[int]]
+    negate: bool = False  # anti-join semantics when filtered on
+    null_keys_match: bool = False  # NULL == NULL (set-operation semantics)
+
+    @property
+    def sources(self):
+        return (self.source, self.filtering_source)
+
+    def output_types(self):
+        return self.source.output_types() + [T.BOOLEAN]
+
+
+@dataclasses.dataclass
 class SortNode(PlanNode):
     source: PlanNode
     keys: List[Tuple[int, bool, bool]]  # (channel, descending, nulls_last)
@@ -176,13 +198,13 @@ class OutputNode(PlanNode):
 
 # node kinds of presto_tpu's wire format this port does not run yet
 _NOT_PORTED = {
-    "semijoin": "queue 1 item 8 (semi_join_mask)",
-    "limit": "queue 1 item 8 (ops/misc.py)",
-    "distinct": "queue 1 item 8 (ops/misc.py)",
-    "markdistinct": "queue 1 item 8 (ops/misc.py)",
-    "window": "queue 1 item 10 (breadth: ops/window.py)",
-    "rownumber": "queue 1 item 10 (breadth: ops/window.py)",
-    "unnest": "queue 1 item 10 (breadth: ops/unnest.py)",
+    "assignuniqueid": "queue 1 item 6 (AssignUniqueId)",
+    "limit": "queue 1 item 7 (ops/misc.py)",
+    "distinct": "queue 1 item 7 (ops/misc.py)",
+    "markdistinct": "queue 1 item 7 (ops/misc.py)",
+    "window": "queue 1 item 9 (breadth: ops/window.py)",
+    "rownumber": "queue 1 item 9 (breadth: ops/window.py)",
+    "unnest": "queue 1 item 9 (breadth: ops/unnest.py)",
     "exchange": "queue 1 item 12 (parallel/ and the worker tier)",
     "remotesource": "queue 1 item 12 (parallel/ and the worker tier)",
 }
@@ -221,6 +243,11 @@ def to_json(n: PlanNode) -> dict:
                 "distribution": n.distribution,
                 "rightOutputChannels": n.right_output_channels,
                 "outCapacity": n.out_capacity}
+    if isinstance(n, SemiJoinNode):
+        return {**base, "@type": "semijoin", "source": to_json(n.source),
+                "filteringSource": to_json(n.filtering_source),
+                "sourceKey": n.source_key, "filteringKey": n.filtering_key,
+                "negate": n.negate, "nullKeysMatch": n.null_keys_match}
     if isinstance(n, SortNode):
         return {**base, "@type": "sort", "source": to_json(n.source),
                 "keys": [list(k) for k in n.keys]}
@@ -260,6 +287,11 @@ def from_json(j: dict) -> PlanNode:
                         j["leftKeys"], j["rightKeys"], j["joinType"],
                         j["distribution"], j["rightOutputChannels"],
                         j["outCapacity"], **kw)
+    if t == "semijoin":
+        return SemiJoinNode(from_json(j["source"]),
+                            from_json(j["filteringSource"]), j["sourceKey"],
+                            j["filteringKey"], j["negate"],
+                            j.get("nullKeysMatch", False), **kw)
     if t == "sort":
         return SortNode(from_json(j["source"]),
                         [tuple(k) for k in j["keys"]], **kw)
@@ -272,5 +304,5 @@ def from_json(j: dict) -> PlanNode:
         raise NotImplementedError(
             f"plan node {t!r} is not ported yet: ROADMAP {_NOT_PORTED[t]}")
     raise NotImplementedError(
-        f"plan node {t!r} is not ported yet: ROADMAP queue 1 item 10 "
+        f"plan node {t!r} is not ported yet: ROADMAP queue 1 item 9 "
         "(breadth)")

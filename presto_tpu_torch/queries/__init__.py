@@ -1,0 +1,59 @@
+"""The TPC-H corpus the card is held to: the reference's own plans and
+rows at scale factor 1, committed as data.
+
+`tpch_sf1.json` holds, for each query of the corpus that the port runs,
+the plan-fragment JSON that presto_tpu prepares for it at SF1 and the
+rows presto_tpu's run_query returns for that plan, in an exact form:
+integers and decimals as their scaled integers, dates as days since
+epoch, strings as text, booleans as booleans, doubles as `float.hex`
+and NULL as null. `scripts/make_tpch_corpus.py` writes the file from
+presto_tpu; this module only reads it, so the port needs nothing of
+the reference to check itself against it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List
+
+import numpy as np
+
+from .. import types as T
+
+__all__ = ["CORPUS_PATH", "load_corpus", "exact_rows", "exact_value"]
+
+CORPUS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tpch_sf1.json")
+
+
+def exact_value(v, ty: T.Type):
+    """One result value in the corpus's exact, JSON-able form."""
+    if v is None:
+        return None
+    if ty.is_floating:
+        return float(v).hex()
+    if ty.is_string:
+        return str(v)
+    if ty == T.BOOLEAN:
+        return bool(v)
+    return int(v)
+
+
+def exact_rows(columns: List[np.ndarray], nulls: List[np.ndarray],
+               types: List[T.Type], row_count: int) -> List[list]:
+    """A query result's rows (its columns, null masks and logical
+    types, as both packages' QueryResult carries them) in exact form."""
+    return [[exact_value(None if nulls[c][i] else columns[c][i], types[c])
+             for c in range(len(columns))] for i in range(row_count)]
+
+
+def load_corpus(path: str = CORPUS_PATH) -> Dict[str, dict]:
+    """{query name: {"plan", "names", "types", "rows", ...}} of the
+    committed corpus, with "sf" and "source" on each entry."""
+    with open(path) as f:
+        data = json.load(f)
+    out = {}
+    for name, q in data["queries"].items():
+        out[name] = {**q, "sf": data["sf"], "source": data["source"]}
+    return out

@@ -5,9 +5,11 @@
 
 TPC-H q1 (in both limb forms: narrow takes the fused_limb_sums kernel,
 wide the per-tile limb_partial_sums kernel) and q6 at --sf, q3 and q14
-at --join-sf. Stages each query's
-scans once on the card, runs it once through the overflow ladder (so
-the capacity scale that fits is known), then:
+at --join-sf, and q5, q7, q8 and q9 of the committed SF1 corpus
+(presto_tpu_torch/queries/tpch_sf1.json: small aggregations above join
+chains). Stages each query's scans once on the card, runs it once
+through the overflow ladder (so the capacities that fit are known),
+then:
 
 * times every operator of the plan on its own (Filter, Project, each
   LIKE inside them, Join, the group-by (small-table ids + pooled sums +
@@ -16,7 +18,12 @@ the capacity scale that fits is known), then:
   warm-up, each fed its input computed once beforehand;
 * records one `execute` under torch.profiler: the device time of every
   kernel, their launch counts, the hand-written kernels' launches, and
-  the device's idle share of the execute wall.
+  the device's idle share of the execute wall;
+* where the ladder fitted its capacity nodes unequally, runs the plan
+  also with every capacity at the largest factor (the reference
+  ladder's plan, which raises them all): host wall of both in turns
+  (fitted, uniform, uniform, fitted; median of 5 each) and one profiled
+  run of each.
 
 Prints one JSON object per query and the card's name and power limit;
 with --out also writes them to PATH. Needs a CUDA device. It takes its
@@ -44,7 +51,7 @@ def _likes(expr):
         yield from _likes(c)
 
 
-def _stages(root, batches, join_capacity, limb_form):
+def _stages(root, batches, limb_form):
     """(label, fn, inputs) per operator, each fed its input batches
     (computed once, outside the timed calls)."""
     from presto_tpu_torch.exec.planner import compile_plan
@@ -85,7 +92,7 @@ def _stages(root, batches, join_capacity, limb_form):
         if isinstance(node, N.JoinNode):
             return add("join", lambda l, r, n=node: hash_join(
                 l, r, n.left_keys, n.right_keys,
-                n.out_capacity or join_capacity, n.join_type,
+                n.out_capacity, n.join_type,
                 n.right_output_channels).batch,
                 walk(node.left), walk(node.right))
         if isinstance(node, N.AggregationNode):
@@ -120,19 +127,19 @@ def _stages(root, batches, join_capacity, limb_form):
     return out
 
 
-def _profile(root, batches, limb_form):
+def _profile(run):
+    """One run() under torch.profiler, after one unprofiled run."""
     import torch
-    from presto_tpu_torch.exec.runner import execute
     from presto_tpu_torch.ops import kernels as K
     from torch.profiler import ProfilerActivity, profile
-    execute(root, batches, limb_form)
+    run()
     torch.cuda.synchronize()
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        execute(root, batches, limb_form)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
@@ -174,31 +181,53 @@ def main(argv=None) -> int:
         return 2
     import chip_smoke
     from presto_tpu_torch.exec import runner
-    from presto_tpu_torch.exec.runner import execute, stage_scans
-    from presto_tpu_torch.plan.stats import scale_capacities
+    from presto_tpu_torch.exec.planner import compile_plan
+    from presto_tpu_torch.exec.runner import (capacity_plan, execute,
+                                              stage_scans)
+    from presto_tpu_torch.plan import from_json
+    from presto_tpu_torch.plan.stats import capacity_nodes, scale_capacities
     from presto_tpu_torch.plan.widths import annotate_widths
+    from presto_tpu_torch.queries import load_corpus
     chip_smoke.install_host_cache()
     dev = torch.device("cuda")
     gpu = chip_smoke._run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"])
+    corpus = load_corpus()
     reports = []
     for name, make, sf, forms in (
             ("q1", chip_smoke.q1_plan, args.sf, ("narrow", "wide")),
             ("q6", chip_smoke.q6_plan, args.sf, ("narrow",)),
             ("q3", chip_smoke.q3_plan, args.join_sf, ("narrow",)),
-            ("q14", chip_smoke.q14_plan, args.join_sf, ("narrow",))):
+            ("q14", chip_smoke.q14_plan, args.join_sf, ("narrow",)),
+            *((q, lambda q=q: from_json(corpus[q]["plan"]),
+               corpus[q]["sf"], ("narrow",))
+              for q in ("q5", "q7", "q8", "q9"))):
         root = annotate_widths(make(), sf)
         batches = stage_scans(root, sf, dev)
         execute(root, batches)  # climbs the ladder once; the memo keeps it
-        scale = runner._CAPACITY_FEEDBACK.get(runner._fingerprint(root), 1)
-        scaled = scale_capacities(root, scale)
+        factors = runner._CAPACITY_FEEDBACK.get(runner._fingerprint(root),
+                                                (1,))
+        scaled = capacity_plan(root)
+        uniform = scale_capacities(
+            root, {n.id: max(factors) for n in capacity_nodes(root)},
+            1 << 16)
         for form in forms:
             stages = {label: chip_smoke.wall_ms(lambda f=fn, a=args_: f(*a))
                       for label, fn, args_ in _stages(
-                          scaled, batches, (1 << 16) * scale, form)}
+                          scaled, batches, form)}
             rep = {"query": name, "limb_form": form, "sf": sf, "gpu": gpu,
-                   "capacity_scale": scale, "stage_ms": stages,
-                   "profile": _profile(root, batches, form)}
+                   "capacity_factors": list(factors), "stage_ms": stages,
+                   "profile": _profile(
+                       lambda: execute(root, batches, form))}
+            if len(set(factors)) > 1:
+                fitted_fn = compile_plan(scaled, form).fn
+                uniform_fn = compile_plan(uniform, form).fn
+                turns = [chip_smoke.wall_ms(lambda f=f: f(batches))
+                         for f in (fitted_fn, uniform_fn, uniform_fn,
+                                   fitted_fn)]
+                rep["fitted_vs_uniform"] = {
+                    "execute_ms_in_turns": turns,
+                    "uniform_profile": _profile(lambda: uniform_fn(batches))}
             print(json.dumps(rep))
             reports.append(rep)
         del batches

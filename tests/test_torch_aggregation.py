@@ -173,13 +173,13 @@ def test_overflow_flags_like_the_reference(staged):
 
 def test_out_of_slice_aggregates_raise(staged):
     _, port = staged
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PA.group_by(port, [0], [PA.AggSpec("min", 2, PT.decimal(12, 2))],
-                    16)
-    # the large-table (sorted) path takes sum/avg/count/count_star only
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PA.group_by(port, [0], [PA.AggSpec("min", 2, PT.decimal(12, 2))],
-                    128)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+        PA.group_by(port, [0], [PA.AggSpec("count_distinct", 2,
+                                           PT.BIGINT)], 16)
+    # the large-table (sorted) path takes sum/avg/count/count_star/min/max
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        PA.group_by(port, [0], [PA.AggSpec("approx_percentile", 2,
+                                           PT.decimal(12, 2))], 128)
 
 
 def test_key_words_and_sort_match(staged):

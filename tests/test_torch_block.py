@@ -164,6 +164,34 @@ def test_config2_tables_equal_reference(table):
             assert rrange(table, c, sf) == ptpch.column_range(table, c, sf)
 
 
+@pytest.mark.parametrize("table", ["supplier", "partsupp", "nation",
+                                   "region"])
+@pytest.mark.parametrize("sf", [0.01, 0.05, 1.0])
+def test_other_four_tables_equal_reference(table, sf):
+    """supplier, partsupp, nation and region: every column equal to the
+    reference's, element for element and dtype for dtype, on a window
+    of rows at each sf (partsupp's suppkey spreads over
+    table_row_count('supplier', sf), so it differs by sf) and whole at
+    sf 0.01; the schema, and the value ranges that narrow their
+    lanes."""
+    from presto_tpu.connectors.tpch import column_range as rrange
+    columns = [c for c, _ in rtpch.TPCH_SCHEMA[table]]
+    total = rtpch.table_row_count(table, sf)
+    assert ptpch.table_row_count(table, sf) == total
+    windows = [(0, None)] if sf == 0.01 else []
+    windows.append((total // 3, min(2000, total - total // 3)))
+    for start, count in windows:
+        ref = rtpch.generate_columns(table, sf, columns, start, count)
+        port = ptpch.generate_columns(table, sf, columns, start, count)
+        for c in columns:
+            assert ref[c].dtype == port[c].dtype, c
+            assert np.array_equal(ref[c], port[c]), c
+    for c in columns:
+        assert str(rtpch.column_type(table, c)) == \
+            str(ptpch.column_type(table, c))
+        assert rrange(table, c, sf) == ptpch.column_range(table, c, sf)
+
+
 def test_generator_split_and_stats_match_reference():
     from presto_tpu.connectors.tpch import column_range as rrange
     ref = rtpch.generate_columns("lineitem", 0.01, Q1_COLUMNS, start=1000,
@@ -175,8 +203,12 @@ def test_generator_split_and_stats_match_reference():
     for c, _ in rtpch.TPCH_SCHEMA["lineitem"]:
         assert rrange("lineitem", c, 0.01) == \
             ptpch.column_range("lineitem", c, 0.01), c
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptpch.generate_columns("supplier", 0.01, ["suppkey"])
+    # every table of the schema generates; a name outside it is refused
+    # as the reference refuses it
+    with pytest.raises(KeyError):
+        rtpch.generate_columns("suppliers", 0.01, ["suppkey"])
+    with pytest.raises(KeyError):
+        ptpch.generate_columns("suppliers", 0.01, ["suppkey"])
 
 
 @pytest.mark.parametrize("stage", ["from_numpy", "batch_from_numpy"])

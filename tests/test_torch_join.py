@@ -163,7 +163,7 @@ def test_hash_join_flags_overflow():
     # the first 16 matches are emitted, the same multiset as the reference
     assert sorted(_port_rows(p.batch), key=_key) == \
         sorted(_ref_rows(r.batch), key=_key)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
         PJ.hash_join(pp, pb, pk, bk, 16, join_type="left")
 
 
@@ -289,3 +289,51 @@ def test_ladder_scales_capacities_like_the_reference():
                       device="cpu")
     assert again.rows() == want.rows()
     assert again.stats == {"capacity_reruns": 0, "capacity_scale": 64}
+
+
+@pytest.mark.parametrize("n", [12, 5], ids=lambda n: f"q{n}")
+def test_ladder_raises_only_the_capacities_that_overflowed(n):
+    """A TPC-H plan at sf 0.01 with its deepest join's out_capacity cut
+    to 64 rows: that join overflows and climbs the ladder, each join
+    above it (its input cut short) climbs with it, and the small
+    aggregation on top keeps its max_groups (the small-table path);
+    the rows are the reference's."""
+    from presto_tpu.exec.runner import prepare_plan
+    from presto_tpu.queries.tpch_sql import TPCH_QUERIES
+    from presto_tpu.sql import plan_sql
+    from presto_tpu_torch.exec import runner
+    from presto_tpu_torch.ops.aggregation import SMALL_G
+    from presto_tpu_torch.plan import nodes as PN
+    from presto_tpu_torch.plan import to_json
+    from presto_tpu_torch.plan.stats import capacity_nodes
+    from presto_tpu_torch.plan.widths import annotate_widths
+    q = TPCH_QUERIES[n]
+    prepared = prepare_plan(plan_sql(q.text, max_groups=q.max_groups,
+                                     join_capacity=q.join_capacity),
+                            sf=0.01)
+    want = ref_run_query(prepared, sf=0.01, prepared=True)
+    root = from_json(RN.to_json(prepared))
+    nodes = capacity_nodes(root)
+    joins = [k for k, x in enumerate(nodes) if isinstance(x, PN.JoinNode)]
+    aggs = [k for k, x in enumerate(nodes)
+            if isinstance(x, PN.AggregationNode)]
+    assert [nodes[k].max_groups for k in aggs] == [8 if n == 12 else 32]
+    deepest = joins[-1]
+    nodes[deepest].out_capacity = 64
+    plan = to_json(root)
+    runner._CAPACITY_FEEDBACK.clear()
+    got = run_query(from_json(plan), sf=0.01, device="cpu")
+    assert got.rows() == want.rows()
+    assert got.stats["capacity_reruns"] > 0
+    scale = got.stats["capacity_scale"]
+    assert scale > 1
+    before = [x.out_capacity if k in joins else x.max_groups
+              for k, x in enumerate(nodes)]
+    fitted = capacity_nodes(runner.capacity_plan(
+        annotate_widths(from_json(plan), 0.01)))
+    after = [x.out_capacity if k in joins else x.max_groups
+             for k, x in enumerate(fitted)]
+    for k in aggs:
+        assert after[k] == before[k] <= SMALL_G
+    for k in joins:  # the chain from the root down to the cut join
+        assert after[k] == min(before[k] * scale, 1 << 24)
