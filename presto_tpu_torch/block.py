@@ -27,7 +27,7 @@ from . import types as T
 
 __all__ = ["Column", "StringColumn", "Int128Column", "Batch", "Block",
            "torch_dtype", "resolve_device", "from_numpy", "batch_from_numpy",
-           "to_numpy", "gather_block", "pad_chars"]
+           "to_numpy", "gather_block", "pad_chars", "concat_batches"]
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
@@ -276,3 +276,26 @@ def gather_block(b: Block, idx: torch.Tensor,
     if isinstance(b, Int128Column):
         return Int128Column(b.hi[idx], b.lo[idx], nulls, b.type)
     return Column(b.values[idx], nulls, b.type)
+
+
+def concat_batches(batches: Sequence[Batch]) -> Batch:
+    """The rows of `batches` one after another (UNION ALL): capacities
+    add, and string columns pad to the widest chars matrix."""
+    cols = []
+    for ci in range(batches[0].num_columns):
+        blocks = [b.columns[ci] for b in batches]
+        b0 = blocks[0]
+        nulls = torch.cat([b.nulls for b in blocks])
+        if isinstance(b0, StringColumn):
+            width = max(b.max_len for b in blocks)
+            cols.append(StringColumn(
+                torch.cat([pad_chars(b, width).chars for b in blocks]),
+                torch.cat([b.lengths for b in blocks]), nulls, b0.type))
+        elif isinstance(b0, Int128Column):
+            cols.append(Int128Column(torch.cat([b.hi for b in blocks]),
+                                     torch.cat([b.lo for b in blocks]),
+                                     nulls, b0.type))
+        else:  # torch.cat widens narrow lanes to their common dtype
+            cols.append(Column(torch.cat([b.values for b in blocks]), nulls,
+                               b0.type))
+    return Batch(tuple(cols), torch.cat([b.active for b in batches]))

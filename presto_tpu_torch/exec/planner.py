@@ -5,21 +5,24 @@ and no mesh: the plan tree becomes one Python function over the staged
 scan batches, calling the operators in turn. Join and aggregation
 overflow (more matches than a join's out_capacity, more distinct keys
 than max_groups) is returned as one device flag per capacity node; the
-runner owns the rerun-bigger policy.
+runner owns the rerun-bigger policy. Distinct and MarkDistinct sort
+instead of filling a table (ops/misc.py) and have no flag.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 from typing import Callable, List, Sequence, Tuple
 
 import torch
 
 from .. import types as T
-from ..block import Batch, Column
+from ..block import Batch, Column, concat_batches
 from ..expr.compile import compile_filter, compile_projections
 from ..ops.aggregation import finalize_states, group_by
 from ..ops.join import hash_join, semi_join_mask
+from ..ops.misc import distinct, limit, mark_distinct
 from ..ops.sort import sort_batch, top_n
 from ..plan import nodes as N
 from ..plan.stats import capacity_nodes
@@ -38,11 +41,19 @@ class CompiledPlan:
     output_types: List[T.Type]
 
 
-def _collect_scans(node: N.PlanNode, out: List[N.TableScanNode]):
+def _walk_dag(node: N.PlanNode, scans: List[N.TableScanNode],
+              uses: Counter, seen: set) -> None:
+    """The scans in preorder, and per node id the number of edges that
+    reach it: a shared subtree (one node id under several parents,
+    plan.nodes.from_json) is walked once."""
+    if node.id in seen:
+        return
+    seen.add(node.id)
     if isinstance(node, N.TableScanNode):
-        out.append(node)
+        scans.append(node)
     for s in node.sources:
-        _collect_scans(s, out)
+        uses[s.id] += 1
+        _walk_dag(s, scans, uses, seen)
 
 
 def _check_supported(node: N.PlanNode) -> None:
@@ -50,10 +61,6 @@ def _check_supported(node: N.PlanNode) -> None:
         raise NotImplementedError(
             f"{node.step} aggregation is not ported yet (ROADMAP queue 1 "
             "item 8: merge_partials for PARTIAL/FINAL)")
-    if isinstance(node, N.JoinNode) and node.join_type != "inner":
-        raise NotImplementedError(
-            f"{node.join_type} joins are not ported yet (ROADMAP queue 1 "
-            "item 5: outer joins)")
     for s in node.sources:
         _check_supported(s)
 
@@ -64,26 +71,38 @@ def _channels(key) -> List[int]:
 
 def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
                  default_join_capacity: int = 1 << 16) -> CompiledPlan:
-    """Lower Scan/Filter/Project/Aggregation(SINGLE)/Join(inner)/
-    SemiJoin/Sort/TopN/Output. A join without an out_capacity gets
+    """Lower Scan/Filter/Project/Aggregation(SINGLE)/Join (inner,
+    left, right, full)/SemiJoin/Sort/TopN/Limit/Distinct/Union/
+    AssignUniqueId/MarkDistinct/Output. A join without an out_capacity gets
     `default_join_capacity`; `limb_form` picks the stacked limb lanes of
     the small-table group-by sums (ops/aggregation.py)."""
     _check_supported(root)
     scans: List[N.TableScanNode] = []
-    _collect_scans(root, scans)
+    uses: Counter = Counter()
+    _walk_dag(root, scans, uses, set())
     capacity_ids = [n.id for n in capacity_nodes(root)]
 
     def run(scan_batches: Sequence[Batch]):
         inputs = {n.id: b for n, b in zip(scans, scan_batches)}
+        # a shared subtree runs once; its output is kept until its last
+        # parent has read it: node id -> [output, reads left]
+        shared = {}
         overflow = {}
 
-        def flag(node: N.PlanNode, r) -> None:
-            overflow[node.id] = overflow[node.id] | r.overflow \
-                if node.id in overflow else r.overflow
-
         def lower(node: N.PlanNode) -> Batch:
-            if isinstance(node, N.TableScanNode):
+            if node.id in inputs:
                 return inputs[node.id]
+            if uses[node.id] <= 1:
+                return lower_node(node)
+            if node.id not in shared:
+                shared[node.id] = [lower_node(node), uses[node.id]]
+            entry = shared[node.id]
+            entry[1] -= 1
+            if not entry[1]:
+                del shared[node.id]
+            return entry[0]
+
+        def lower_node(node: N.PlanNode) -> Batch:
             if isinstance(node, N.FilterNode):
                 return compile_filter(node.predicate)(lower(node.source))
             if isinstance(node, N.ProjectNode):
@@ -92,7 +111,7 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
             if isinstance(node, N.AggregationNode):
                 r = group_by(lower(node.source), node.group_channels,
                              node.aggregates, node.max_groups, limb_form)
-                flag(node, r)
+                overflow[node.id] = r.overflow
                 return finalize_states(r.batch, len(node.group_channels),
                                        node.aggregates)
             if isinstance(node, N.JoinNode):
@@ -102,7 +121,7 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
                 r = hash_join(probe, build, node.left_keys, node.right_keys,
                               cap, node.join_type,
                               node.right_output_channels)
-                flag(node, r)
+                overflow[node.id] = r.overflow
                 return r.batch
             if isinstance(node, N.SemiJoinNode):
                 src = lower(node.source)
@@ -117,6 +136,30 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
                 return sort_batch(lower(node.source), node.keys)
             if isinstance(node, N.TopNNode):
                 return top_n(lower(node.source), node.keys, node.count)
+            if isinstance(node, N.LimitNode):
+                return limit(lower(node.source), node.count)
+            if isinstance(node, N.DistinctNode):
+                src = lower(node.source)
+                keys = node.key_channels
+                if keys is None:
+                    keys = range(src.num_columns)
+                return distinct(src, keys)
+            if isinstance(node, N.UnionNode):
+                return concat_batches([lower(s) for s in node.inputs])
+            if isinstance(node, N.AssignUniqueIdNode):
+                # one device and no mesh: the row slot is unique, with
+                # no worker salt in the high bits
+                src = lower(node.source)
+                rid = torch.arange(src.capacity, dtype=torch.int64,
+                                   device=src.active.device)
+                return Batch(src.columns + (Column(
+                    rid, torch.zeros_like(src.active), T.BIGINT),),
+                    src.active)
+            if isinstance(node, N.MarkDistinctNode):
+                src = lower(node.source)
+                m = mark_distinct(src, node.key_channels)
+                return Batch(src.columns + (Column(
+                    m, torch.zeros_like(m), T.BOOLEAN),), src.active)
             if isinstance(node, N.OutputNode):
                 return lower(node.source)
             raise NotImplementedError(f"{type(node).__name__} is not ported "

@@ -1,9 +1,10 @@
 """Grouped aggregation: the HashAggregationOperator analog.
 
 Counterpart of presto_tpu/ops/aggregation.py for sum/avg/count/
-count_star/min/max: its small-table path (max_groups <= 64, the TPC-H q1
-shape), its keyless one-slot path (q6, q14) and its sorted large-table
-path (q3). The small-table path has no hash table and no scatter:
+count_star/min/max/count_distinct: its small-table path (max_groups <=
+64, the TPC-H q1 shape), its keyless one-slot path (q6, q14) and its
+sorted large-table path (q3). The small-table path has no hash table
+and no scatter:
 
 1. group ids by first-occurrence extraction (`_group_ids_small`): each
    round takes the first unresolved row and resolves every row with
@@ -33,6 +34,13 @@ sorted order) with dead rows at the identity. Long decimals and
 strings take the extreme row word by word (for Int128 lanes the signed
 `hi`, then `lo` as unsigned), and gather its value.
 
+count_distinct counts the distinct non-null values per group. In the
+sorted path it rides the one sort: the value's words follow the key
+words (nulls last), and a row that starts a new (key, value) pair
+counts. In the small-table and keyless paths it marks the first row of
+each (group id, value) pair with ops/misc.mark_distinct and counts the
+marks per group.
+
 Limb forms (an argument, not a knob): "narrow" (the default) takes the
 fused kernel; "wide" keeps the unfused path of the TPU kernel's
 contract: requests materialise into 13-bit limbs stacked as an (n, L)
@@ -53,6 +61,7 @@ from ..int128 import (combine_limb_totals_128, limbs13_of_128,
                       limbs13_of_i64, limbs_of_i64)
 from . import kernels as K
 from .keys import SIGN, key_words, string_words
+from .misc import mark_distinct
 from .sort import lex_permutation
 
 __all__ = ["AggSpec", "GroupByResult", "group_by", "finalize_states",
@@ -288,6 +297,12 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
     if name == "count_star":
         h = _seg_count(pool, active)
         return [lambda: Column(pool.result(h), no_nulls, T.BIGINT)]
+    if name == "count_distinct":
+        # the first live row of each (group, value) pair
+        pairs = Batch((Column(pool.ids, torch.zeros_like(live), T.INTEGER),
+                       col), live)
+        h = _seg_count(pool, mark_distinct(pairs, [0, 1]))
+        return [lambda: Column(pool.result(h), no_nulls, T.BIGINT)]
     if name not in ("count", "sum", "avg", "min", "max"):
         raise NotImplementedError(_unported(spec))
     hn = _seg_count(pool, live)
@@ -322,8 +337,8 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
 
 
 def _unported(spec: AggSpec) -> str:
-    item = {"count_distinct": "6", "approx_distinct": "8",
-            "approx_percentile": "8"}.get(spec.name, "9: breadth")
+    item = {"approx_distinct": "8", "approx_percentile": "8"}.get(
+        spec.name, "9: breadth")
     return (f"aggregate {spec.name} is not ported yet (ROADMAP queue 1 "
             f"item {item})")
 
@@ -428,10 +443,11 @@ def group_by(batch: Batch, key_channels: Sequence[int],
 # Sorted-mode group-by: the large-table path (max_groups > SMALL_G)
 # ---------------------------------------------------------------------------
 
-# the reference's sorted mode also takes count_distinct,
-# approx_percentile and the moments; the port's takes min/max over long
-# decimals and strings too, which the reference sends to its hash path
-_SORTED_AGGS = ("count_star", "count", "sum", "avg", "min", "max")
+# the reference's sorted mode also takes approx_percentile and the
+# moments; the port's takes min/max over long decimals and strings too,
+# which the reference sends to its hash path
+_SORTED_AGGS = ("count_star", "count", "sum", "avg", "min", "max",
+                "count_distinct")
 
 
 def _padded_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -446,13 +462,18 @@ def _seg_total(x: torch.Tensor, start: torch.Tensor, end: torch.Tensor):
 
 def _sorted_states(spec: AggSpec, scol: Optional[Block], live: torch.Tensor,
                    start: torch.Tensor, end: torch.Tensor,
-                   seg_ids: torch.Tensor, max_groups: int) -> List[Block]:
+                   seg_ids: torch.Tensor, pair_first: torch.Tensor,
+                   max_groups: int) -> List[Block]:
     """Sorted-order accumulator states for one aggregate, in the state
     layout of `_acc_columns` (avg: sum then count). `seg_ids` is each
-    sorted row's group slot."""
+    sorted row's group slot; `pair_first` flags the sorted rows that
+    start a (key, count_distinct value) pair."""
     zeros_g = torch.zeros(max_groups, dtype=torch.bool, device=live.device)
     if spec.name == "count_star":
         return [Column(end - start, zeros_g, T.BIGINT)]
+    if spec.name == "count_distinct":
+        return [Column(_seg_total((live & pair_first).to(torch.int64),
+                                  start, end), zeros_g, T.BIGINT)]
     nn = _seg_total(live.to(torch.int64), start, end)
     no_input = nn == 0
     if spec.name == "count":
@@ -490,16 +511,27 @@ def _group_by_sorted(batch: Batch, key_channels: Sequence[int],
                      aggs: Sequence[AggSpec], max_groups: int
                      ) -> GroupByResult:
     """Sorted-mode group_by: ONE stable sort of (inactive flag, key
-    words), segment ids by adjacent-word inequality, [start, end) row
-    ranges per group slot by searchsorted over the segment ids, and
-    every accumulator a segmented reduction in sorted order. The output
-    table gathers keys from each segment's first row."""
+    words, the count_distinct column's words), segment ids by
+    adjacent-word inequality, [start, end) row ranges per group slot by
+    searchsorted over the segment ids, and every accumulator a
+    segmented reduction in sorted order. The output table gathers keys
+    from each segment's first row. One column only can follow the keys
+    in the sort, so every count_distinct must count the same column."""
     n = batch.capacity
     dev = batch.active.device
     keys = [batch.column(c) for c in key_channels]
     words = key_words(keys)
+    distinct_chans = {s.input_channel for s in aggs
+                      if s.name == "count_distinct"}
+    if len(distinct_chans) > 1:
+        raise NotImplementedError(
+            "count_distinct over more than one column in one aggregation "
+            "is not ported yet (ROADMAP queue 1 item 8: the hash-slot "
+            "group-by)")
+    pair_words = [] if not distinct_chans else key_words(
+        [batch.column(distinct_chans.pop())], nulls_last=True)
     perm = lex_permutation([(~batch.active).to(torch.int64),
-                            *(w ^ SIGN for w in words)])
+                            *(w ^ SIGN for w in words + pair_words)])
     s_active = batch.active[perm]
 
     diffs = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -507,6 +539,11 @@ def _group_by_sorted(batch: Batch, key_channels: Sequence[int],
         sw = w[perm]
         diffs[1:] |= sw[1:] != sw[:-1]
     seg = torch.cumsum(diffs.to(torch.int64), dim=0)
+    pair_first = diffs.clone()
+    pair_first[:1] = True
+    for w in pair_words:
+        sw = w[perm]
+        pair_first[1:] |= sw[1:] != sw[:-1]
 
     n_act = s_active.sum()
     num_groups = torch.where(n_act > 0,
@@ -535,7 +572,7 @@ def _group_by_sorted(batch: Batch, key_channels: Sequence[int],
             scol = sorted_cols[ch]
             live = s_active & ~scol.nulls
         out_cols.extend(_sorted_states(spec, scol, live, start, end,
-                                       seg_ids, max_groups))
+                                       seg_ids, pair_first, max_groups))
     return GroupByResult(Batch(tuple(out_cols), slot_active),
                          num_groups.to(torch.int32), overflow)
 

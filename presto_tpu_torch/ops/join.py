@@ -1,15 +1,22 @@
 """Joins: the HashBuilderOperator / LookupJoinOperator analog.
 
-Counterpart of presto_tpu/ops/join.py (`hash_join` for INNER joins,
-`semi_join_mask`, and their helpers). No pointer-chasing hash table: the build side is SORTED
-by key words once; probes binary-search it with torch.searchsorted. 1:N
-matches expand through a static-capacity prefix-sum expansion:
+Counterpart of presto_tpu/ops/join.py (`hash_join` for INNER, LEFT,
+RIGHT and FULL joins, `semi_join_mask`, and their helpers). No
+pointer-chasing hash table: the build side is SORTED by key words once;
+probes binary-search it with torch.searchsorted. 1:N matches expand
+through a static-capacity prefix-sum expansion:
 
   start[i] = searchsorted_left(build, probe_i)
   cnt[i]   = searchsorted_right - start  (0 for null/missing keys)
   off      = exclusive_cumsum(cnt)
   out row k maps back to probe row via searchsorted(off, k), and to
   build row start[row] + (k - off[row])
+
+LEFT and FULL emit max(cnt, 1) rows per active probe row, with NULL
+build columns where nothing matched. RIGHT and FULL find the build rows
+no probe row matches by the reverse probe (build keys binary-search the
+sorted probe keys) and append them after the matched region, with NULL
+probe columns.
 
 Every step is a fixed-shape gather: the dynamic result size only shows
 in the output's active mask and an `overflow` flag when out_capacity is
@@ -135,14 +142,15 @@ def hash_join(probe: Batch, build: Batch,
               join_type: str = "inner",
               build_output_channels: Optional[Sequence[int]] = None
               ) -> JoinResult:
-    """Inner join probe x build. Output columns are probe.columns ++
+    """Join probe x build, join_type one of inner, left, right and
+    full. Output columns are probe.columns ++
     build.columns[build_output_channels]; output rows are active for
-    slots < the match count, which `overflow` flags when it exceeds
-    out_capacity."""
-    if join_type != "inner":
-        raise NotImplementedError(
-            f"{join_type} joins are not ported yet (ROADMAP queue 1 item 5: "
-            "outer joins)")
+    slots < the row count (matches, then the probe rows of an outer
+    probe side that matched nothing, then the build rows of an outer
+    build side that matched nothing), which `overflow` flags when it
+    exceeds out_capacity."""
+    if join_type not in ("inner", "left", "right", "full"):
+        raise ValueError(f"unknown join type {join_type!r}")
     if build_output_channels is None:
         build_output_channels = range(build.num_columns)
 
@@ -157,23 +165,48 @@ def hash_join(probe: Batch, build: Batch,
     start, end, b_perm = _probe_ranges(b_words, b_usable, p_words)
 
     cnt = torch.where(p_usable, end - start, 0)
-    off = torch.cumsum(cnt, dim=0) - cnt  # exclusive
-    total = off[-1] + cnt[-1]
-    overflow = total > out_capacity
+    if join_type in ("left", "full"):
+        emit = torch.where(probe.active, cnt.clamp(min=1), 0)
+    else:
+        emit = cnt
+    off = torch.cumsum(emit, dim=0) - emit  # exclusive
+    total = off[-1] + emit[-1]
+    outer_build = join_type in ("right", "full")
+    if outer_build:
+        # the reverse probe, in the forward probe's word order and
+        # sentinel: does a usable probe row carry this build key?
+        bs, be, _ = _probe_ranges(p_words, p_usable, b_words)
+        u = (build.active & ~(b_usable & (be > bs))).to(torch.int64)
+        off2 = torch.cumsum(u, dim=0) - u  # exclusive, build row order
+        total2 = total + off2[-1] + u[-1]
+    else:
+        total2 = total
+    overflow = total2 > out_capacity
 
     k = torch.arange(out_capacity, dtype=torch.int64, device=cnt.device)
     # map output slot -> probe row
     prow = (torch.searchsorted(off, k, right=True) - 1).clamp(0, npr - 1)
     j = k - off[prow]
-    valid = (k < total) & (j < cnt[prow])
+    valid = (k < total) & (j < emit[prow])
+    build_valid = valid & (j < cnt[prow])
     srow = (start[prow] + j).clamp(0, nb - 1)
     brow = b_perm[srow]  # back to original build row order
+    all_valid = valid
+    if outer_build:
+        # slots [total, total2): the unmatched build rows
+        k2 = k - total
+        brow2 = (torch.searchsorted(off2, k2, right=True) - 1).clamp(
+            0, nb - 1)
+        valid2 = (k >= total) & (k < total2) & (k2 - off2[brow2] < u[brow2])
+        brow = torch.where(valid2, brow2, brow)
+        build_valid = build_valid | valid2
+        all_valid = valid | valid2
 
     out_cols: List[Block] = [gather_block(c, prow, valid)
                              for c in probe.columns]
-    out_cols += [gather_block(build.column(ci), brow, valid)
+    out_cols += [gather_block(build.column(ci), brow, build_valid)
                  for ci in build_output_channels]
-    return JoinResult(Batch(tuple(out_cols), valid), total, overflow)
+    return JoinResult(Batch(tuple(out_cols), all_valid), total2, overflow)
 
 
 def semi_join_mask(probe: Batch, build: Batch,

@@ -1,9 +1,9 @@
 """Plan nodes: the worker-visible plan vocabulary this port executes.
 
 Counterpart of presto_tpu/plan/nodes.py, trimmed to the nodes of the
-ported TPC-H plan shapes: TableScan, Filter, Project, Aggregation,
-Join, SemiJoin, Sort, TopN and Output. Channels are already resolved
-to indices.
+ported plan shapes: TableScan, Filter, Project, Aggregation, Join,
+SemiJoin, Sort, TopN, Limit, Distinct, Union, AssignUniqueId,
+MarkDistinct and Output. Channels are already resolved to indices.
 
 `from_json` reads the dict that presto_tpu.plan.nodes.to_json writes,
 and `to_json` writes the same dict: that JSON is the plan-fragment wire
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 from typing import List, Optional, Tuple, Union
 
 from .. import types as T
@@ -24,7 +25,8 @@ from ..ops.aggregation import AggSpec
 
 __all__ = ["PlanNode", "TableScanNode", "FilterNode", "ProjectNode",
            "AggregationNode", "JoinNode", "SemiJoinNode", "SortNode",
-           "TopNNode",
+           "TopNNode", "LimitNode", "DistinctNode", "UnionNode",
+           "AssignUniqueIdNode", "MarkDistinctNode",
            "OutputNode", "from_json", "to_json"]
 
 _ids = itertools.count(1)
@@ -180,6 +182,80 @@ class TopNNode(PlanNode):
 
 
 @dataclasses.dataclass
+class LimitNode(PlanNode):
+    source: PlanNode
+    count: int
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_types(self):
+        return self.source.output_types()
+
+
+@dataclasses.dataclass
+class DistinctNode(PlanNode):
+    """DISTINCT over `key_channels` (every column when None). The port
+    finds distinct keys by a sort (ops/misc.py), so `max_groups` is
+    carried for the plan JSON and never scaled."""
+    source: PlanNode
+    key_channels: Optional[List[int]] = None
+    max_groups: int = 1 << 16
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_types(self):
+        return self.source.output_types()
+
+
+@dataclasses.dataclass
+class UnionNode(PlanNode):
+    """UNION ALL of `inputs`; a set-distinct UNION is a Distinct above
+    it."""
+    inputs: List[PlanNode] = dataclasses.field(default_factory=list)
+
+    @property
+    def sources(self):
+        return tuple(self.inputs)
+
+    def output_types(self):
+        return self.inputs[0].output_types()
+
+
+@dataclasses.dataclass
+class AssignUniqueIdNode(PlanNode):
+    """`source`'s columns plus a BIGINT unique to each row."""
+    source: PlanNode
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_types(self):
+        return self.source.output_types() + [T.BIGINT]
+
+
+@dataclasses.dataclass
+class MarkDistinctNode(PlanNode):
+    """`source`'s columns plus a BOOLEAN that marks the first
+    occurrence of each distinct key of `key_channels`; `max_groups` as
+    in DistinctNode."""
+    source: PlanNode
+    key_channels: List[int] = dataclasses.field(default_factory=list)
+    max_groups: int = 1 << 16
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_types(self):
+        return self.source.output_types() + [T.BOOLEAN]
+
+
+@dataclasses.dataclass
 class OutputNode(PlanNode):
     source: PlanNode
     names: List[str]
@@ -198,10 +274,6 @@ class OutputNode(PlanNode):
 
 # node kinds of presto_tpu's wire format this port does not run yet
 _NOT_PORTED = {
-    "assignuniqueid": "queue 1 item 6 (AssignUniqueId)",
-    "limit": "queue 1 item 7 (ops/misc.py)",
-    "distinct": "queue 1 item 7 (ops/misc.py)",
-    "markdistinct": "queue 1 item 7 (ops/misc.py)",
     "window": "queue 1 item 9 (breadth: ops/window.py)",
     "rownumber": "queue 1 item 9 (breadth: ops/window.py)",
     "unnest": "queue 1 item 9 (breadth: ops/unnest.py)",
@@ -254,13 +326,64 @@ def to_json(n: PlanNode) -> dict:
     if isinstance(n, TopNNode):
         return {**base, "@type": "topn", "source": to_json(n.source),
                 "keys": [list(k) for k in n.keys], "count": n.count}
+    if isinstance(n, LimitNode):
+        return {**base, "@type": "limit", "source": to_json(n.source),
+                "count": n.count}
+    if isinstance(n, DistinctNode):
+        return {**base, "@type": "distinct", "source": to_json(n.source),
+                "keyChannels": n.key_channels, "maxGroups": n.max_groups}
+    if isinstance(n, UnionNode):
+        return {**base, "@type": "union",
+                "inputs": [to_json(s) for s in n.inputs]}
+    if isinstance(n, AssignUniqueIdNode):
+        return {**base, "@type": "assignuniqueid",
+                "source": to_json(n.source)}
+    if isinstance(n, MarkDistinctNode):
+        return {**base, "@type": "markdistinct", "source": to_json(n.source),
+                "keyChannels": n.key_channels, "maxGroups": n.max_groups}
     if isinstance(n, OutputNode):
         return {**base, "@type": "output", "source": to_json(n.source),
                 "names": n.names}
     raise TypeError(type(n))
 
 
+def _shape(j: dict) -> str:
+    """A node's JSON with every node id left out."""
+    def strip(v):
+        if isinstance(v, dict):
+            return {k: strip(x) for k, x in v.items() if k != "id"}
+        if isinstance(v, list):
+            return [strip(x) for x in v]
+        return v
+    return json.dumps(strip(j), sort_keys=True)
+
+
 def from_json(j: dict) -> PlanNode:
+    """The plan a to_json dict describes. A node id that comes again
+    is the node already read, so the plan is a DAG with one node per
+    id: the reference's plan passes copy subtrees with
+    dataclasses.replace, which keeps the id, and its JSON writes a
+    shared subtree out under every parent. Repeats of an id must read
+    the same, node ids below them aside (ValueError otherwise)."""
+    memo: dict = {}
+
+    def read(x: dict) -> PlanNode:
+        nid = x.get("id")
+        if nid and nid in memo:
+            node, shape = memo[nid]
+            if _shape(x) != shape:
+                raise ValueError(f"plan node id {nid!r} names two "
+                                 "different nodes")
+            return node
+        node = _node_from_json(x, read)
+        if nid:
+            memo[nid] = (node, _shape(x))
+        return node
+
+    return read(j)
+
+
+def _node_from_json(j: dict, sub) -> PlanNode:
     t = j["@type"]
     nid = j.get("id")
     kw = {"id": nid} if nid else {}
@@ -273,33 +396,45 @@ def from_json(j: dict) -> PlanNode:
                              physical_dtypes=tuple(phys) if phys else None,
                              **kw)
     if t == "filter":
-        return FilterNode(from_json(j["source"]),
+        return FilterNode(sub(j["source"]),
                           E.from_json(j["predicate"]), **kw)
     if t == "project":
-        return ProjectNode(from_json(j["source"]),
+        return ProjectNode(sub(j["source"]),
                            [E.from_json(e) for e in j["expressions"]], **kw)
     if t == "aggregation":
-        return AggregationNode(from_json(j["source"]), j["groupChannels"],
+        return AggregationNode(sub(j["source"]), j["groupChannels"],
                                [_agg_from_json(a) for a in j["aggregates"]],
                                j["step"], j["maxGroups"], **kw)
     if t == "join":
-        return JoinNode(from_json(j["left"]), from_json(j["right"]),
+        return JoinNode(sub(j["left"]), sub(j["right"]),
                         j["leftKeys"], j["rightKeys"], j["joinType"],
                         j["distribution"], j["rightOutputChannels"],
                         j["outCapacity"], **kw)
     if t == "semijoin":
-        return SemiJoinNode(from_json(j["source"]),
-                            from_json(j["filteringSource"]), j["sourceKey"],
+        return SemiJoinNode(sub(j["source"]),
+                            sub(j["filteringSource"]), j["sourceKey"],
                             j["filteringKey"], j["negate"],
                             j.get("nullKeysMatch", False), **kw)
     if t == "sort":
-        return SortNode(from_json(j["source"]),
+        return SortNode(sub(j["source"]),
                         [tuple(k) for k in j["keys"]], **kw)
     if t == "topn":
-        return TopNNode(from_json(j["source"]),
+        return TopNNode(sub(j["source"]),
                         [tuple(k) for k in j["keys"]], j["count"], **kw)
+    if t == "limit":
+        return LimitNode(sub(j["source"]), j["count"], **kw)
+    if t == "distinct":
+        return DistinctNode(sub(j["source"]), j["keyChannels"],
+                            j["maxGroups"], **kw)
+    if t == "union":
+        return UnionNode([sub(s) for s in j["inputs"]], **kw)
+    if t == "assignuniqueid":
+        return AssignUniqueIdNode(sub(j["source"]), **kw)
+    if t == "markdistinct":
+        return MarkDistinctNode(sub(j["source"]), j["keyChannels"],
+                                j["maxGroups"], **kw)
     if t == "output":
-        return OutputNode(from_json(j["source"]), j["names"], **kw)
+        return OutputNode(sub(j["source"]), j["names"], **kw)
     if t in _NOT_PORTED:
         raise NotImplementedError(
             f"plan node {t!r} is not ported yet: ROADMAP {_NOT_PORTED[t]}")

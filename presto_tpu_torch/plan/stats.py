@@ -6,6 +6,12 @@ plan when a run overflows one of them; the port's runner keeps one
 factor per capacity node (group table or join output) and raises only
 the factors of the nodes that overflowed, so that a join's overflow
 does not also move a small aggregation off its small-table path.
+
+The reference also scales the `max_groups` of its DistinctNode and
+MarkDistinctNode, whose hash-slot tables can overflow. The port finds
+distinct keys by a sort (ops/misc.py), which has no table and cannot
+overflow, so those nodes are not capacity nodes here; the rows are the
+same either way.
 """
 
 from __future__ import annotations
@@ -57,6 +63,10 @@ def scale_capacities(root: N.PlanNode, factors: Mapping[str, int],
             if isinstance(v, N.PlanNode):
                 w = walk(v)
                 if w is not v:
+                    changes[f.name] = w
+            elif isinstance(v, list) and v and isinstance(v[0], N.PlanNode):
+                w = [walk(x) for x in v]  # a UnionNode's inputs
+                if any(a is not b for a, b in zip(w, v)):
                     changes[f.name] = w
         k = factors.get(n.id, 1)
         if isinstance(n, N.AggregationNode) and k > 1:

@@ -79,6 +79,10 @@ def annotate_widths(root: N.PlanNode, sf: float) -> N.PlanNode:
             nv = annotate_widths(v, sf)
             if nv is not v:
                 replaced[f.name] = nv
+        elif isinstance(v, list) and v and isinstance(v[0], N.PlanNode):
+            nv = [annotate_widths(x, sf) for x in v]  # a UnionNode's inputs
+            if any(a is not b for a, b in zip(nv, v)):
+                replaced[f.name] = nv
     if replaced:
         root = dataclasses.replace(root, **replaced)
     if isinstance(root, N.TableScanNode) and root.physical_dtypes is None:

@@ -1,21 +1,24 @@
 """Where the time of the PyTorch port's queries goes, on one CUDA card.
 
     python3 scripts/profile_torch_query.py [--sf 1.0] [--join-sf 10.0]
-                                           [--out PATH]
+                                           [--queries NAMES] [--out PATH]
 
 TPC-H q1 (in both limb forms: narrow takes the fused_limb_sums kernel,
 wide the per-tile limb_partial_sums kernel) and q6 at --sf, q3 and q14
 at --join-sf, and q5, q7, q8 and q9 of the committed SF1 corpus
 (presto_tpu_torch/queries/tpch_sf1.json: small aggregations above join
-chains). Stages each query's scans once on the card, runs it once
+chains); --queries names others (a comma list of those four and any
+corpus entry). Stages each query's scans once on the card, runs it once
 through the overflow ladder (so the capacities that fit are known),
 then:
 
 * times every operator of the plan on its own (Filter, Project, each
-  LIKE inside them, Join, the group-by (small-table ids + pooled sums +
-  kernel, or the sorted large-table path), finalize, Sort, TopN, the
-  result fetch): host clock around a synced call, median of 5 after a
-  warm-up, each fed its input computed once beforehand;
+  LIKE inside them, Join, SemiJoin, the group-by (small-table ids +
+  pooled sums + kernel, or the sorted large-table path), finalize,
+  Sort, TopN, Limit, Distinct, MarkDistinct, Union, AssignUniqueId, the
+  result fetch; a shared subtree once): host clock around a synced
+  call, median of 5 after a warm-up, each fed its input computed once
+  beforehand;
 * records one `execute` under torch.profiler: the device time of every
   kernel, their launch counts, the hand-written kernels' launches, and
   the device's idle share of the execute wall;
@@ -60,13 +63,18 @@ def _stages(root, batches, limb_form):
                                                compile_projections, evaluate)
     from presto_tpu_torch.ops.aggregation import (SMALL_G, _group_ids,
                                                   finalize_states, group_by)
-    from presto_tpu_torch.ops.join import hash_join
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.block import Batch, Column, concat_batches
+    from presto_tpu_torch.ops.join import hash_join, semi_join_mask
+    from presto_tpu_torch.ops.misc import distinct, limit, mark_distinct
     from presto_tpu_torch.ops.sort import sort_batch, top_n
     from presto_tpu_torch.plan import nodes as N
+    import torch
 
     inputs = {n.id: b for n, b in zip(compile_plan(root).scan_nodes,
                                       batches)}
     out = []
+    done = {}  # node id -> output: a shared subtree is timed once
 
     def add(label, fn, *args):
         n = sum(1 for lb, _, _ in out if lb.split(" #")[0] == label)
@@ -74,6 +82,15 @@ def _stages(root, batches, limb_form):
         return fn(*args)
 
     def walk(node):
+        if node.id not in done:
+            done[node.id] = walk_node(node)
+        return done[node.id]
+
+    def with_column(b, values, ty):
+        return Batch(b.columns + (Column(values, torch.zeros_like(
+            b.active), ty),), b.active)
+
+    def walk_node(node):
         if isinstance(node, N.TableScanNode):
             return inputs[node.id]
         if isinstance(node, (N.FilterNode, N.ProjectNode)):
@@ -89,8 +106,40 @@ def _stages(root, batches, limb_form):
                     node.source, N.TableScanNode) else "filter"
                 return add(label, compile_filter(node.predicate), b)
             return add("project", compile_projections(node.expressions), b)
+        if isinstance(node, N.SemiJoinNode):
+            def semi(src, filt, n=node):
+                m, mnull = semi_join_mask(
+                    src, filt, n.source_key if isinstance(
+                        n.source_key, list) else [n.source_key],
+                    n.filtering_key if isinstance(
+                        n.filtering_key, list) else [n.filtering_key],
+                    n.null_keys_match)
+                return Batch(src.columns + (Column(m, mnull, T.BOOLEAN),),
+                             src.active)
+            return add("semi join", semi, walk(node.source),
+                       walk(node.filtering_source))
+        if isinstance(node, N.LimitNode):
+            return add("limit", lambda x, n=node: limit(x, n.count),
+                       walk(node.source))
+        if isinstance(node, N.DistinctNode):
+            return add("distinct", lambda x, n=node: distinct(
+                x, n.key_channels if n.key_channels is not None
+                else range(x.num_columns)), walk(node.source))
+        if isinstance(node, N.MarkDistinctNode):
+            return add("mark distinct", lambda x, n=node: with_column(
+                x, mark_distinct(x, n.key_channels), T.BOOLEAN),
+                walk(node.source))
+        if isinstance(node, N.UnionNode):
+            return add("union", lambda *xs: concat_batches(xs),
+                       *[walk(s) for s in node.inputs])
+        if isinstance(node, N.AssignUniqueIdNode):
+            return add("assign unique id", lambda x: with_column(
+                x, torch.arange(x.capacity, device=x.active.device),
+                T.BIGINT), walk(node.source))
         if isinstance(node, N.JoinNode):
-            return add("join", lambda l, r, n=node: hash_join(
+            label = "join" if node.join_type == "inner" \
+                else f"join ({node.join_type})"
+            return add(label, lambda l, r, n=node: hash_join(
                 l, r, n.left_keys, n.right_keys,
                 n.out_capacity, n.join_type,
                 n.right_output_channels).batch,
@@ -173,6 +222,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--join-sf", type=float, default=10.0)
+    ap.add_argument("--queries", default="q1,q6,q3,q14,q5,q7,q8,q9",
+                    help="comma list: q1, q6, q3, q14 and corpus entries")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     import torch
@@ -194,14 +245,14 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"])
     corpus = load_corpus()
     reports = []
-    for name, make, sf, forms in (
-            ("q1", chip_smoke.q1_plan, args.sf, ("narrow", "wide")),
-            ("q6", chip_smoke.q6_plan, args.sf, ("narrow",)),
-            ("q3", chip_smoke.q3_plan, args.join_sf, ("narrow",)),
-            ("q14", chip_smoke.q14_plan, args.join_sf, ("narrow",)),
-            *((q, lambda q=q: from_json(corpus[q]["plan"]),
-               corpus[q]["sf"], ("narrow",))
-              for q in ("q5", "q7", "q8", "q9"))):
+    own = {"q1": (chip_smoke.q1_plan, args.sf, ("narrow", "wide")),
+           "q6": (chip_smoke.q6_plan, args.sf, ("narrow",)),
+           "q3": (chip_smoke.q3_plan, args.join_sf, ("narrow",)),
+           "q14": (chip_smoke.q14_plan, args.join_sf, ("narrow",))}
+    work = [(q, *own[q]) if q in own else
+            (q, lambda q=q: from_json(corpus[q]["plan"]), corpus[q]["sf"],
+             ("narrow",)) for q in args.queries.split(",")]
+    for name, make, sf, forms in work:
         root = annotate_widths(make(), sf)
         batches = stage_scans(root, sf, dev)
         execute(root, batches)  # climbs the ladder once; the memo keeps it

@@ -173,9 +173,14 @@ def test_overflow_flags_like_the_reference(staged):
 
 def test_out_of_slice_aggregates_raise(staged):
     _, port = staged
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        PA.group_by(port, [0], [PA.AggSpec("count_distinct", 2,
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        PA.group_by(port, [0], [PA.AggSpec("approx_distinct", 2,
                                            PT.BIGINT)], 16)
+    # one column only can ride the sorted path's sort
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        PA.group_by(port, [0], [PA.AggSpec("count_distinct", 2, PT.BIGINT),
+                                PA.AggSpec("count_distinct", 3, PT.BIGINT)],
+                    128)
     # the large-table (sorted) path takes sum/avg/count/count_star/min/max
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         PA.group_by(port, [0], [PA.AggSpec("approx_percentile", 2,

@@ -120,19 +120,40 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         presto_tpu_torch.run_query(from_json(RN.to_json(q6_plan())), sf=SF)
 
 
+def _orders_between(lo, hi, cols):
+    key = input_ref(0, RT.BIGINT)
+    return RN.FilterNode(_scan(["orderkey"] + cols), special(
+        "BETWEEN", RT.BOOLEAN, key, const(lo, RT.BIGINT),
+        const(hi, RT.BIGINT)))
+
+
 def test_out_of_slice_plans_raise_naming_the_roadmap():
-    join = RN.JoinNode(_scan(["orderkey"]), _scan(["orderkey"]), [0], [0],
+    """A left join, a LimitNode and a count_distinct in the sorted
+    group-by, which earlier slices refused, equal the reference; what
+    is still out of the slice raises naming its ROADMAP item."""
+    join = RN.JoinNode(_orders_between(1, 40, ["linenumber"]),
+                       _orders_between(20, 70, ["quantity"]), [0], [0],
                        join_type="left")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        _port(RN.to_json(join))
-    limit = RN.LimitNode(_scan(["orderkey"]), 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_json(RN.to_json(limit))
+    limit = RN.LimitNode(_scan(["orderkey", "linenumber"]), 5)
     big = RN.to_json(q1_plan(max_groups=1 << 10))
     big["source"]["source"]["aggregates"].append(
         {"name": "count_distinct", "input": 2, "type": "bigint"})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _port(big)
+    big["names"].append("distinct_qty")
+    for plan in (RN.to_json(join), RN.to_json(limit), big):
+        want = ref_run_query(RN.from_json(plan), sf=SF)
+        got = _port(plan)
+        assert want.row_count > 0
+        assert got.rows() == want.rows()
+    approx = RN.to_json(q1_plan(max_groups=1 << 10))
+    approx["source"]["source"]["aggregates"].append(
+        {"name": "approx_distinct", "input": 2, "type": "bigint"})
+    with pytest.raises(NotImplementedError, match="item 8"):
+        _port(approx)
+    window = {"@type": "window", "id": "w", "source": RN.to_json(limit),
+              "partitionChannels": [0], "orderKeys": [[1, False, True]],
+              "functions": []}
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        from_json(window)
     partial = RN.to_json(q1_plan())
     partial["source"]["source"]["step"] = "PARTIAL"
     with pytest.raises(NotImplementedError, match="item 8"):

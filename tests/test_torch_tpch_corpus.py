@@ -6,17 +6,17 @@ join_capacity, then prepare_plan at sf 0.01), crosses to the port as
 plan-fragment JSON, and runs through presto_tpu_torch.run_query on the
 CPU:
 
-* the queries the port runs return the reference run_query's rows
-  exactly, doubles bit for bit;
-* the others raise NotImplementedError naming the ROADMAP item that
-  ports what they lack.
+every query returns the reference run_query's rows exactly, doubles
+bit for bit.
 
 A drift guard holds the committed SF1 corpus (presto_tpu_torch/queries/
 tpch_sf1.json, which chip_smoke.py runs on the card) to the reference:
 its plans are the reference's prepare_plan at SF1, node ids aside, and
 its rows are in the exact form. The corpus's probes (q11 and q18 with
 the one constant moved that leaves them empty at SF1, scripts/
-make_tpch_corpus.py::PROBES) also equal the reference at sf 0.01.
+make_tpch_corpus.py::PROBES) also equal the reference at sf 0.01; its
+statements (scripts/make_tpch_corpus.py::STATEMENTS) are held at sf
+0.01 by tests/test_torch_misc.py.
 """
 
 import json
@@ -36,35 +36,33 @@ from presto_tpu_torch.exec import run_query
 from presto_tpu_torch.plan import from_json
 from presto_tpu_torch.queries import exact_rows, load_corpus
 
-from make_tpch_corpus import PROBES, SF as CORPUS_SF, probe_text
+from make_tpch_corpus import (PROBES, SF as CORPUS_SF, STATEMENTS,
+                              entry_names, entry_source)
 
 SF = 0.01
-PORTED = (1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 18, 19, 22)
+PORTED = tuple(range(1, 23))
 # query -> the ROADMAP queue 1 item of the first piece it lacks
-UNPORTED = {2: "item 5", 16: "item 6", 17: "item 5", 20: "item 5",
-            21: "item 6"}
+UNPORTED = {}
 # the queries chip_smoke.py checks against numpy oracles of its own
 ORACLE_CHECKED = (1, 3, 6, 14)
 
 
-def _prepared(n, sf, text=None):
-    q = TPCH_QUERIES[n]
-    return prepare_plan(plan_sql(text or q.text, max_groups=q.max_groups,
-                                 join_capacity=q.join_capacity), sf=sf)
-
-
 def _prepared_entry(name, sf):
-    """The reference's prepared plan of a corpus entry: a query (qN)
-    or a probe."""
-    if name in PROBES:
-        return _prepared(PROBES[name][0], sf, probe_text(name))
-    return _prepared(int(name[1:]), sf)
+    """The reference's prepared plan of a corpus entry: a query (qN), a
+    probe or a statement."""
+    text, max_groups, join_capacity = entry_source(name)
+    return prepare_plan(plan_sql(text, max_groups=max_groups,
+                                 join_capacity=join_capacity), sf=sf)
 
 
-# the corpus's entries: the ported queries chip_smoke.py does not check
-# against a numpy oracle, then the probes
+def _prepared(n, sf):
+    return _prepared_entry(f"q{n}", sf)
+
+
+# the corpus's entries: the queries chip_smoke.py does not check
+# against a numpy oracle, then the probes, then the statements
 CORPUS = [f"q{n}" for n in PORTED if n not in ORACLE_CHECKED] + \
-    sorted(PROBES)
+    sorted(PROBES) + sorted(STATEMENTS)
 
 
 def _exact(res):
@@ -107,14 +105,6 @@ def test_probe_returns_the_reference_rows(name):
     assert _exact(got) == _exact(want)
 
 
-@pytest.mark.parametrize("n", sorted(UNPORTED), ids=lambda n: f"q{n}")
-def test_unported_query_names_its_roadmap_item(n):
-    plan = RN.to_json(_prepared(n, SF))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1 {UNPORTED[n]}\\b"):
-        run_query(from_json(plan), sf=SF, device="cpu")
-
-
 def _without_ids(j):
     if isinstance(j, dict):
         return {k: _without_ids(v) for k, v in j.items() if k != "id"}
@@ -129,7 +119,7 @@ def corpus():
 
 
 def test_sf1_corpus_holds_every_ported_query_off_the_oracles(corpus):
-    assert sorted(corpus) == sorted(CORPUS)
+    assert sorted(corpus) == sorted(CORPUS) == sorted(entry_names())
 
 
 @pytest.mark.parametrize("name", CORPUS)
@@ -140,10 +130,9 @@ def test_sf1_corpus_plan_is_the_reference_plan(corpus, name):
     the exact form of its type; a probe returns rows."""
     entry = corpus[name]
     assert entry["sf"] == CORPUS_SF == 1.0
-    q = TPCH_QUERIES[PROBES[name][0] if name in PROBES else int(name[1:])]
     assert (entry["max_groups"], entry["join_capacity"]) == \
-        (q.max_groups, q.join_capacity)
-    if name in PROBES:
+        entry_source(name)[1:]
+    if name in PROBES or name in STATEMENTS:
         assert entry["rows"]
     want = _without_ids(RN.to_json(_prepared_entry(name, 1.0)))
     assert json.dumps(_without_ids(entry["plan"]), sort_keys=True) == \
