@@ -32,7 +32,19 @@ PyTorch version at the shapes of its path:
   RIGHT JOIN, FULL OUTER JOIN) at scale factor 1, each from the plan
   the reference prepared for it, through `run_query`; fused_limb_sums
   again on the lanes q9 handed it (32 groups), timed beside its plain
-  version.
+  version;
+* the two-stage plans of all 22 TPC-H queries (the reference's
+  add_exchanges: PARTIAL -> exchange -> FINAL, the exchange the
+  identity on one card) at scale factor 1, q1, q3, q6 and q14 against
+  the numpy oracles, the rest against their single plans' committed
+  rows; two-stage q1 launches fused_limb_sums in its PARTIAL and its
+  FINAL;
+* the aggregate statements of the committed corpus: the hash-slot
+  group-by (min_by, max_by, checksum, corr, geometric_mean over 6.0M
+  rows and 200,000 groups; a 524,288-slot table) alone and two-stage,
+  the variance family and bool_or on the sorted path, approx_distinct
+  grouped and global; doubles of the moments within rel 1e-9; then
+  approx_percentile through group_by against numpy.
 
 Each query runs once to climb its overflow ladder, then once more with
 every kernel count set to 0 just before: that second run starts at the
@@ -835,7 +847,8 @@ def recording_fused():
 
 
 def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",),
-                rows=_plain_rows, fused_calls=None):
+                rows=_plain_rows, fused_calls=None, same=None,
+                run_query_repeats=None):
     """Run one query through run_query on the card, per limb form: once
     to climb the overflow ladder, then once more, with every kernel
     count set to 0 just before, in one attempt at the capacities the
@@ -844,7 +857,9 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",),
     path that returned the rows. `tables` maps each scanned table to
     the columns the oracle reads; `rows` puts a result in the oracle's
     form; `fused_calls`, a list, gets the fused_limb_sums calls of the
-    second runs."""
+    second runs; `same(got, want)` replaces exact equality of the rows;
+    `run_query_repeats` 0 skips timing run_query (None: QUERY_REPEATS at
+    SF1, one run above)."""
     import torch
     from presto_tpu_torch.connectors import tpch
     from presto_tpu_torch.exec import run_query
@@ -880,7 +895,7 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",),
                                  f" after its first run: {res.stats}")
         for what, r in (("first run", first), ("counted run", res)):
             got = rows(r)
-            if got != want:
+            if not (same(got, want) if same else got == want):
                 raise AssertionError(
                     f"{name} ({form}, {what}) rows differ from the "
                     f"oracle:\n got  {got}\n want {want}")
@@ -919,14 +934,19 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",),
           f"device MB (staged batches included) {report['peak_mb_by_form']}")
     del batches
     torch.cuda.empty_cache()
-    report["run_query_ms"] = wall_ms(lambda: run_query(plan_fn(), sf=sf),
-                                     repeats=QUERY_REPEATS if sf <= SF else 1)
+    if run_query_repeats is None:
+        run_query_repeats = QUERY_REPEATS if sf <= SF else 1
     report["rows_per_s_execute"] = rows_in / (report["execute_ms"] / 1e3)
-    report["rows_per_s_run_query"] = rows_in / (report["run_query_ms"] / 1e3)
+    report["run_query_ms"] = report["rows_per_s_run_query"] = None
+    if run_query_repeats:
+        report["run_query_ms"] = wall_ms(lambda: run_query(plan_fn(), sf=sf),
+                                         repeats=run_query_repeats)
+        report["rows_per_s_run_query"] = rows_in / (report["run_query_ms"]
+                                                    / 1e3)
     print(f"{name}: staged {report['staged_mb']:.1f} MB; execute "
           f"{report['execute_ms']:.3f} ms ({report['rows_per_s_execute']:.0f}"
           f" rows/s); run_query (staging included, host generation cached) "
-          f"{report['run_query_ms']:.1f} ms")
+          f"{report['run_query_ms']} ms")
     print(json.dumps(report))
     torch.cuda.empty_cache()
     return report
@@ -1266,7 +1286,8 @@ def phase_corpus():
     fused_limb_sums on that path."""
     from presto_tpu_torch.plan import from_json
     from presto_tpu_torch.queries import load_corpus
-    corpus = load_corpus()
+    corpus = {k: v for k, v in load_corpus().items()
+              if v.get("kind", "single") == "single"}
     reports, second_g = [], []
     for name in sorted(corpus, key=_corpus_order):
         entry = corpus[name]
@@ -1300,6 +1321,181 @@ def phase_corpus():
                       "fused_limb_sums": r["launches"]["narrow"][
                           "fused_limb_sums"]} for r in reports}))
     return reports, second_g[0]
+
+
+# two-stage entries checked against the numpy oracles: the SQL q1
+# keeps columns 0-4 and 9 of numpy_q1's row
+TWO_STAGE_ORACLES = {
+    "q1": (lambda t: [r[:5] + r[9:] for r in numpy_q1(t)], "Q1_TABLES"),
+    "q3": (lambda t: numpy_q3(t), "Q3_TABLES"),
+    "q6": (lambda t: numpy_q6(t), "Q6_TABLES"),
+    "q14": (lambda t: numpy_q14(t), "Q14_TABLES")}
+
+
+def _summary(reports):
+    return {r["query"]: {"rows": len(r["result"]),
+                         "execute_ms": r["execute_ms"],
+                         "first_run_query_ms": r["first_run_query_ms"],
+                         "capacity_reruns": r["capacity_reruns"]["narrow"],
+                         "host_syncs": r["host_syncs"]["narrow"],
+                         "peak_mb": r["peak_mb_by_form"]["narrow"],
+                         "fused_limb_sums": r["launches"]["narrow"][
+                             "fused_limb_sums"]} for r in reports}
+
+
+def phase_two_stage():
+    """The reference's two-stage plan (add_exchanges: PARTIAL -> REMOTE
+    exchange -> FINAL, partial TopN/Limit under a GATHER, MERGE over a
+    local Sort) of each of the 22 TPC-H queries through run_query on
+    the card (phase_query, run_query not timed): q1, q3, q6 and q14
+    held to the numpy oracles, the other 18 to the committed rows of
+    their single plans, exactly. Each PARTIAL and FINAL with a keyed
+    table of <= 64 groups launches fused_limb_sums: two-stage q1 twice.
+    Returns the reports."""
+    from presto_tpu_torch.plan import from_json
+    from presto_tpu_torch.queries import load_corpus
+    corpus = {k: v for k, v in load_corpus().items()
+              if v["kind"] == "two_stage"}
+    reports = []
+    for name in sorted(corpus, key=_corpus_order):
+        entry = corpus[name]
+        base = name.split("_")[0]
+        small = _small_keyed_aggs(entry["plan"])
+        if base in TWO_STAGE_ORACLES:
+            oracle, tables = TWO_STAGE_ORACLES[base]
+            tables, rows = globals()[tables], _plain_rows
+        else:
+            oracle, tables, rows = (lambda _t, e=entry: e["rows"],
+                                    _scanned_columns(entry["plan"]),
+                                    _exact_rows)
+        rep = phase_query(name, lambda e=entry: from_json(e["plan"]),
+                          oracle, tables, entry["sf"], rows=rows,
+                          run_query_repeats=0)
+        launches = rep["launches"]["narrow"]
+        rep["small_table_max_groups"] = small
+        if launches["contains_bytes"]:
+            raise AssertionError(f"{name} launched contains_bytes: "
+                                 f"{launches}")
+        if small and launches["fused_limb_sums"] < 1:
+            raise AssertionError(f"{name} has small-table aggregations "
+                                 f"{small} but its rows came from no "
+                                 f"fused_limb_sums launch: {launches}")
+        if name == "q1_two_stage" and launches["fused_limb_sums"] != 2:
+            raise AssertionError("two-stage q1 must launch fused_limb_sums "
+                                 f"in its PARTIAL and its FINAL: {launches}")
+        reports.append(rep)
+    if len(reports) != 22:
+        raise AssertionError(f"{len(reports)} two-stage plans, not 22")
+    print("two-stage: " + json.dumps(_summary(reports)))
+    return reports
+
+
+def _close_rows(got, want, rel=1e-9):
+    """Rows in exact form equal, doubles (float.hex) within `rel`: the
+    moment sums add in another order on the card."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        for a, b in zip(g, w):
+            if isinstance(b, str) and isinstance(a, str) and \
+                    b.startswith(("0x", "-0x")):
+                x, y = float.fromhex(a), float.fromhex(b)
+                if abs(x - y) > rel * abs(y):
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+def numpy_percentile(t, fraction=0.5):
+    """quantity by returnflag: the value at floor((n - 1) * fraction) of
+    each group's sorted quantities, groups in first-row order."""
+    li = t["lineitem"]
+    flags, first = np.unique(li["returnflag"], return_index=True)
+    out = []
+    for f in flags[np.argsort(first)]:
+        q = np.sort(li["quantity"][li["returnflag"] == f])
+        out.append((f, int(q[int(np.floor((len(q) - 1) * fraction))])))
+    return out
+
+
+def phase_aggregates():
+    """The aggregate statements of the committed corpus (agg_hash and its
+    two-stage form: min_by/max_by/checksum/corr/geometric_mean on the
+    hash-slot path over 6.0M rows and 200,000 groups; agg_moments:
+    stddev/var/bool_or on the sorted path; approx_distinct grouped and
+    global) through run_query on the card, rows equal to the committed
+    ones: exact, doubles within rel 1e-9. agg_hash must take the hash
+    path at 262,144 groups on the run that returns its rows. Then one
+    ops-level group_by with approx_percentile (0.5) of quantity by
+    returnflag over SF1 lineitem, on the small-table and the sorted
+    path, against numpy. Returns the reports."""
+    import torch
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.block import batch_from_numpy, to_numpy
+    from presto_tpu_torch.connectors import tpch
+    from presto_tpu_torch.ops import aggregation as A
+    from presto_tpu_torch.plan import from_json
+    from presto_tpu_torch.queries import load_corpus
+    corpus = {k: v for k, v in load_corpus().items()
+              if v["kind"] == "aggregate"}
+    reports = []
+    hash_calls = []
+    group_ids_hash = A._group_ids_hash
+
+    def recording(words, active, max_groups):
+        hash_calls.append((active.shape[0], max_groups))
+        out = group_ids_hash(words, active, max_groups)
+        hash_calls[-1] += (dict(A.HASH_STATS),)
+        return out
+
+    for name in sorted(corpus):
+        entry = corpus[name]
+        A._group_ids_hash = recording
+        try:
+            rep = phase_query(name, lambda e=entry: from_json(e["plan"]),
+                              lambda _t, e=entry: e["rows"],
+                              _scanned_columns(entry["plan"]), entry["sf"],
+                              rows=_exact_rows, same=_close_rows,
+                              run_query_repeats=0)
+        finally:
+            A._group_ids_hash = group_ids_hash
+        # the hash tables of the last run (phase_query's timing runs)
+        rep["hash_tables"] = sorted({c[:2] for c in hash_calls})
+        rep["hash_stats"] = hash_calls[-1][2] if hash_calls else None
+        hash_calls.clear()
+        if name.startswith("agg_hash") and \
+                all(g != 1 << 18 for _, g in rep["hash_tables"]):
+            raise AssertionError(f"{name} did not take the hash path at "
+                                 f"262,144 groups: {rep['hash_tables']}")
+        reports.append(rep)
+    print("aggregates: " + json.dumps(
+        {**_summary(reports), **{r["query"] + "_hash": {
+            "tables": r["hash_tables"], "last": r["hash_stats"]}
+            for r in reports if r["hash_tables"]}}))
+
+    cols = host_columns("lineitem", SF, ["returnflag", "quantity"])
+    want = numpy_percentile({"lineitem": cols})
+    batch = batch_from_numpy([T.char(1), T.decimal(12, 2)],
+                             [cols["returnflag"], cols["quantity"]])
+    spec = [A.AggSpec("approx_percentile", 1, T.decimal(12, 2),
+                      parameter=0.5)]
+    for g in (16, 128):
+        res = A.group_by(batch, [0], spec, g)
+        act = res.batch.active.cpu().numpy()
+        keys, _ = to_numpy(res.batch.columns[0])
+        vals, _ = to_numpy(res.batch.columns[1])
+        got = [(k, int(v)) for k, v, a in zip(keys, vals, act) if a]
+        if sorted(got) != sorted(want) or bool(res.overflow):
+            raise AssertionError(f"approx_percentile (max_groups {g}) "
+                                 f"differs:\n got  {got}\n want {want}")
+        print(f"approx_percentile(quantity, 0.5) by returnflag, max_groups "
+              f"{g}: {got} equals numpy")
+    del batch
+    torch.cuda.empty_cache()
+    return reports
 
 
 Q1_TABLES = {"lineitem": ["returnflag", "linestatus", "quantity",
@@ -1390,10 +1586,13 @@ def main(argv=None) -> int:
         "narrow"]["fused_limb_sums"], SECOND_G_QUERY))
     del second_call
     torch.cuda.empty_cache()
+    two_stage = phase_two_stage()
+    aggregates = phase_aggregates()
 
     gpu = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     report = {"kernels": kernel_rows, "queries": [q1, q6, q3, q14, *corpus],
+              "two_stage": two_stage, "aggregates": aggregates,
               "build_s": build_s, "host_generation_s": GEN_S, "gpu": gpu,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "total_s": time.perf_counter() - t_start}

@@ -11,6 +11,9 @@ in place of JAX pytrees and an explicit `device` on every staging call:
   The reference's `lo` lane is uint64; torch has no unsigned 64-bit
   shifts or compares, so `lo` holds the same bits as an int64 pattern
   (int128.py does the unsigned arithmetic on those patterns).
+* An `ArrayColumn` is a fixed-fanout array per row, an `(N, K)` element
+  matrix: only the layout of the HLL register state of approx_distinct
+  (`array(tinyint)`, K = 2048) is ported; Map/Row columns are not.
 * A `Batch` is equal-capacity columns plus an `active` row mask: rows
   past the live count, and rows a filter dropped, are inactive.
 """
@@ -25,7 +28,8 @@ import torch
 
 from . import types as T
 
-__all__ = ["Column", "StringColumn", "Int128Column", "Batch", "Block",
+__all__ = ["Column", "StringColumn", "Int128Column", "ArrayColumn", "Batch",
+           "Block",
            "torch_dtype", "resolve_device", "from_numpy", "batch_from_numpy",
            "to_numpy", "gather_block", "pad_chars", "concat_batches"]
 
@@ -87,7 +91,22 @@ class Int128Column:
         return self.hi.shape[0]
 
 
-Block = Union[Column, StringColumn, Int128Column]
+@dataclasses.dataclass
+class ArrayColumn:
+    """Fixed-fanout arrays: row i's array is elements[i, :lengths[i]];
+    `elements` and `elem_nulls` (N, K), `lengths` (N,) int32, `nulls`
+    (N,) bool."""
+    elements: torch.Tensor
+    elem_nulls: torch.Tensor
+    lengths: torch.Tensor
+    nulls: torch.Tensor
+    type: T.Type
+
+    def __len__(self):
+        return self.elements.shape[0]
+
+
+Block = Union[Column, StringColumn, Int128Column, ArrayColumn]
 
 
 @dataclasses.dataclass
@@ -231,8 +250,19 @@ def batch_from_numpy(types: Sequence[T.Type], arrays: Sequence[np.ndarray],
 
 def to_numpy(block: Block) -> Tuple[np.ndarray, np.ndarray]:
     """Fetch (values, nulls) to the host. Strings come back as an object
-    array of str, long decimals as an object array of Python ints."""
+    array of str, long decimals as an object array of Python ints,
+    arrays as an object array of lists."""
     nulls = block.nulls.cpu().numpy()
+    if isinstance(block, ArrayColumn):
+        elems = block.elements.cpu().numpy()
+        enulls = block.elem_nulls.cpu().numpy()
+        lengths = block.lengths.cpu().numpy()
+        vals = np.empty(len(lengths), dtype=object)
+        for i in range(len(lengths)):
+            vals[i] = None if nulls[i] else [
+                None if enulls[i, j] else elems[i, j].item()
+                for j in range(lengths[i])]
+        return vals, nulls
     if isinstance(block, StringColumn):
         chars = block.chars.cpu().numpy()
         lengths = block.lengths.cpu().numpy()
@@ -273,6 +303,12 @@ def gather_block(b: Block, idx: torch.Tensor,
         if valid is not None:
             lengths = torch.where(valid, lengths, 0)
         return StringColumn(b.chars[idx], lengths, nulls, b.type)
+    if isinstance(b, ArrayColumn):
+        lengths = b.lengths[idx]
+        if valid is not None:
+            lengths = torch.where(valid, lengths, 0)
+        return ArrayColumn(b.elements[idx], b.elem_nulls[idx], lengths,
+                           nulls, b.type)
     if isinstance(b, Int128Column):
         return Int128Column(b.hi[idx], b.lo[idx], nulls, b.type)
     return Column(b.values[idx], nulls, b.type)
@@ -280,7 +316,8 @@ def gather_block(b: Block, idx: torch.Tensor,
 
 def concat_batches(batches: Sequence[Batch]) -> Batch:
     """The rows of `batches` one after another (UNION ALL): capacities
-    add, and string columns pad to the widest chars matrix."""
+    add, and string (array) columns pad to the widest chars (element)
+    matrix."""
     cols = []
     for ci in range(batches[0].num_columns):
         blocks = [b.columns[ci] for b in batches]
@@ -290,6 +327,16 @@ def concat_batches(batches: Sequence[Batch]) -> Batch:
             width = max(b.max_len for b in blocks)
             cols.append(StringColumn(
                 torch.cat([pad_chars(b, width).chars for b in blocks]),
+                torch.cat([b.lengths for b in blocks]), nulls, b0.type))
+        elif isinstance(b0, ArrayColumn):
+            k = max(b.elements.shape[1] for b in blocks)
+            cols.append(ArrayColumn(
+                torch.cat([torch.nn.functional.pad(
+                    b.elements, (0, k - b.elements.shape[1]))
+                    for b in blocks]),
+                torch.cat([torch.nn.functional.pad(
+                    b.elem_nulls, (0, k - b.elem_nulls.shape[1]))
+                    for b in blocks]),
                 torch.cat([b.lengths for b in blocks]), nulls, b0.type))
         elif isinstance(b0, Int128Column):
             cols.append(Int128Column(torch.cat([b.hi for b in blocks]),

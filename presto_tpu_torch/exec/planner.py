@@ -7,6 +7,12 @@ overflow (more matches than a join's out_capacity, more distinct keys
 than max_groups) is returned as one device flag per capacity node; the
 runner owns the rerun-bigger policy. Distinct and MarkDistinct sort
 instead of filling a table (ops/misc.py) and have no flag.
+
+Aggregation steps lower as the reference lowers them: SINGLE and
+PARTIAL run `group_by` over rows, INTERMEDIATE and FINAL run
+`merge_partials` over state tables, and SINGLE and FINAL finalize. An
+ExchangeNode of any kind and scope is the identity, as the reference's
+lowering without a mesh: one device holds every partition.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import torch
 from .. import types as T
 from ..block import Batch, Column, concat_batches
 from ..expr.compile import compile_filter, compile_projections
-from ..ops.aggregation import finalize_states, group_by
+from ..ops.aggregation import finalize_states, group_by, merge_partials
 from ..ops.join import hash_join, semi_join_mask
 from ..ops.misc import distinct, limit, mark_distinct
 from ..ops.sort import sort_batch, top_n
@@ -56,27 +62,18 @@ def _walk_dag(node: N.PlanNode, scans: List[N.TableScanNode],
         _walk_dag(s, scans, uses, seen)
 
 
-def _check_supported(node: N.PlanNode) -> None:
-    if isinstance(node, N.AggregationNode) and node.step != "SINGLE":
-        raise NotImplementedError(
-            f"{node.step} aggregation is not ported yet (ROADMAP queue 1 "
-            "item 8: merge_partials for PARTIAL/FINAL)")
-    for s in node.sources:
-        _check_supported(s)
-
-
 def _channels(key) -> List[int]:
     return key if isinstance(key, list) else [key]
 
 
 def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
                  default_join_capacity: int = 1 << 16) -> CompiledPlan:
-    """Lower Scan/Filter/Project/Aggregation(SINGLE)/Join (inner,
+    """Lower Scan/Filter/Project/Aggregation (every step)/Join (inner,
     left, right, full)/SemiJoin/Sort/TopN/Limit/Distinct/Union/
-    AssignUniqueId/MarkDistinct/Output. A join without an out_capacity gets
-    `default_join_capacity`; `limb_form` picks the stacked limb lanes of
-    the small-table group-by sums (ops/aggregation.py)."""
-    _check_supported(root)
+    AssignUniqueId/MarkDistinct/Exchange/Output. A join without an
+    out_capacity gets `default_join_capacity`; `limb_form` picks the
+    stacked limb lanes of the small-table group-by sums
+    (ops/aggregation.py)."""
     scans: List[N.TableScanNode] = []
     uses: Counter = Counter()
     _walk_dag(root, scans, uses, set())
@@ -109,11 +106,20 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
                 return compile_projections(node.expressions)(
                     lower(node.source))
             if isinstance(node, N.AggregationNode):
-                r = group_by(lower(node.source), node.group_channels,
-                             node.aggregates, node.max_groups, limb_form)
+                src = lower(node.source)
+                nkeys = len(node.group_channels)
+                if node.step in ("FINAL", "INTERMEDIATE"):
+                    r = merge_partials(src, nkeys, node.aggregates,
+                                       node.max_groups, limb_form)
+                else:  # SINGLE and PARTIAL aggregate rows
+                    r = group_by(src, node.group_channels, node.aggregates,
+                                 node.max_groups, limb_form)
                 overflow[node.id] = r.overflow
-                return finalize_states(r.batch, len(node.group_channels),
-                                       node.aggregates)
+                if node.step in ("SINGLE", "FINAL"):
+                    return finalize_states(r.batch, nkeys, node.aggregates)
+                return r.batch
+            if isinstance(node, N.ExchangeNode):
+                return lower(node.source)
             if isinstance(node, N.JoinNode):
                 probe = lower(node.left)
                 build = lower(node.right)

@@ -31,7 +31,8 @@ from ..ops import kernels as K
 Block = Union[Column, StringColumn, Int128Column]
 
 __all__ = ["ScalarFunction", "REGISTRY", "register", "lookup",
-           "rescale_decimal", "contains_pattern"]
+           "rescale_decimal", "contains_pattern", "GOLD", "mix64",
+           "hash64_block", "decimal_to_f64"]
 
 
 @dataclasses.dataclass
@@ -472,3 +473,67 @@ def contains_pattern(a: StringColumn, needle: bytes) -> torch.Tensor:
     of the reference does; the reference's XLA form answers False for an
     empty row there."""
     return K.contains_bytes(a.chars, a.lengths, needle)
+
+
+# ---------------------------------------------------------------------------
+# hashing: splitmix64 over int64 bit patterns
+# ---------------------------------------------------------------------------
+
+def _i64(u: int) -> int:
+    """The int64 bit pattern of an unsigned 64-bit constant."""
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+# the reference's uint64 constants; add and multiply wrap the same way
+# in int64, and a right shift is logical only through int128._lshr
+GOLD = _i64(0x9E3779B97F4A7C15)
+_H1 = _i64(0xBF58476D1CE4E5B9)
+_H2 = _i64(0x94D049BB133111EB)
+
+
+def mix64(z: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finalizer of z + GOLD, bit for bit the reference's
+    uint64 `_mix64`."""
+    z = z + GOLD
+    z = (z ^ I128._lshr(z, 30)) * _H1
+    z = (z ^ I128._lshr(z, 27)) * _H2
+    return z ^ I128._lshr(z, 31)
+
+
+def hash64_block(b: Block) -> torch.Tensor:
+    """Per-row 64-bit hash of a block as int64 bit patterns, NULL rows
+    GOLD: long decimals mix hi then lo; strings mix their little-endian
+    8-byte words up to their length, then the length (so the hash does
+    not depend on the column's width); fixed-width lanes mix the value
+    (a double's bits, -0.0 as 0.0)."""
+    if isinstance(b, Int128Column):
+        h = mix64(mix64(b.hi) ^ b.lo)
+    elif isinstance(b, StringColumn):
+        n, w = b.chars.shape
+        padded = torch.nn.functional.pad(b.chars, (0, (-w) % 8))
+        chunks = padded.reshape(n, -1, 8).to(torch.int64)
+        shifts = 8 * torch.arange(8, dtype=torch.int64, device=chunks.device)
+        # the shifted bytes occupy disjoint bits: the sum is their or
+        packed = (chunks << shifts).sum(dim=2)
+        h = torch.zeros(n, dtype=torch.int64, device=chunks.device)
+        lengths = b.lengths.to(torch.int64)
+        for i in range(packed.shape[1]):
+            h = torch.where(i * 8 < lengths, mix64(h ^ packed[:, i]), h)
+        h = mix64(h ^ lengths)
+    else:
+        v = b.values
+        if v.is_floating_point():
+            f = v.to(torch.float64)
+            f = torch.where(f == 0.0, 0.0, f)
+            f = torch.where(torch.isnan(f), float("nan"), f)
+            v = f.view(torch.int64)
+        h = mix64(v.to(torch.int64))
+    return torch.where(b.nulls, GOLD, h)
+
+
+def decimal_to_f64(b: Column) -> torch.Tensor:
+    """A numeric column's lanes as float64, decimals unscaled."""
+    f = b.values.to(torch.float64)
+    if b.type.is_decimal:
+        f = f / _POW10[b.type.scale]
+    return f

@@ -7,7 +7,9 @@ so each word here is the int64 tensor with the same bits: equality is
 unchanged, and ordering code compares `word ^ SIGN` (ops/sort.py).
 
 * integers, dates, short decimals: one word, the value with its sign
-  bit flipped; booleans: one word, 0 or 1;
+  bit flipped; booleans: one word, 0 or 1; doubles: one word, the IEEE
+  bits with the sign flipped (negative values complemented), -0.0 as
+  0.0, NaN above +inf;
 * varchar/char: big-endian packed 8-byte chunks, zero padded;
 * NULL: a leading null word per column; value words are zeroed under
   null, so NULL keys compare equal (GROUP BY semantics).
@@ -28,12 +30,17 @@ __all__ = ["key_words", "string_words", "SIGN"]
 
 def _fixed_words(col: Column) -> List[torch.Tensor]:
     v = col.values
-    if v.is_floating_point() or col.type.base == "timestamp with time zone":
+    if col.type.base == "timestamp with time zone":
         raise NotImplementedError(
             f"{col.type} keys are not ported yet (ROADMAP queue 1 item 9: "
             "breadth)")
     if v.dtype == torch.bool:
         return [v.to(torch.int64)]
+    if v.is_floating_point():
+        f = v.to(torch.float64)
+        bits = torch.where(f == 0.0, 0.0, f).view(torch.int64)
+        w = torch.where(bits < 0, ~bits, bits ^ SIGN)
+        return [torch.where(torch.isnan(f), -1, w)]  # NaN: all ones
     return [v.to(torch.int64) ^ SIGN]
 
 

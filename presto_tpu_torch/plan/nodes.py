@@ -1,9 +1,10 @@
 """Plan nodes: the worker-visible plan vocabulary this port executes.
 
 Counterpart of presto_tpu/plan/nodes.py, trimmed to the nodes of the
-ported plan shapes: TableScan, Filter, Project, Aggregation, Join,
-SemiJoin, Sort, TopN, Limit, Distinct, Union, AssignUniqueId,
-MarkDistinct and Output. Channels are already resolved to indices.
+ported plan shapes: TableScan, Filter, Project, Aggregation (SINGLE,
+PARTIAL, INTERMEDIATE, FINAL), Join, SemiJoin, Sort, TopN, Limit,
+Distinct, Union, AssignUniqueId, MarkDistinct, Exchange and Output.
+Channels are already resolved to indices.
 
 `from_json` reads the dict that presto_tpu.plan.nodes.to_json writes,
 and `to_json` writes the same dict: that JSON is the plan-fragment wire
@@ -21,12 +22,12 @@ from typing import List, Optional, Tuple, Union
 
 from .. import types as T
 from ..expr import ir as E
-from ..ops.aggregation import AggSpec
+from ..ops.aggregation import AggSpec, state_types
 
 __all__ = ["PlanNode", "TableScanNode", "FilterNode", "ProjectNode",
            "AggregationNode", "JoinNode", "SemiJoinNode", "SortNode",
            "TopNNode", "LimitNode", "DistinctNode", "UnionNode",
-           "AssignUniqueIdNode", "MarkDistinctNode",
+           "AssignUniqueIdNode", "MarkDistinctNode", "ExchangeNode",
            "OutputNode", "from_json", "to_json"]
 
 _ids = itertools.count(1)
@@ -101,9 +102,18 @@ class AggregationNode(PlanNode):
         return (self.source,)
 
     def output_types(self):
+        """SINGLE and FINAL: the keys, then one column per aggregate;
+        PARTIAL: the keys, then each aggregate's state columns;
+        INTERMEDIATE: its source's state layout again."""
         src = self.source.output_types()
-        return [src[c] for c in self.group_channels] + \
-            [a.output_type for a in self.aggregates]
+        if self.step == "INTERMEDIATE":
+            return list(src)
+        out = [src[c] for c in self.group_channels]
+        if self.step in ("SINGLE", "FINAL"):
+            return out + [a.output_type for a in self.aggregates]
+        for a in self.aggregates:
+            out.extend(state_types(a, src))
+        return out
 
 
 @dataclasses.dataclass
@@ -256,6 +266,29 @@ class MarkDistinctNode(PlanNode):
 
 
 @dataclasses.dataclass
+class ExchangeNode(PlanNode):
+    """A stage boundary of a distributed plan: REPARTITION (hash by
+    `partition_channels`), REPLICATE, GATHER, or MERGE (of inputs each
+    sorted locally by `sort_keys`); scope REMOTE or LOCAL. On one
+    device with no mesh every kind and scope is the identity, as in
+    the reference without a mesh: a MERGE's input is its local
+    SortNode, so its rows are already in order."""
+    source: PlanNode
+    kind: str = "REPARTITION"
+    scope: str = "REMOTE"
+    partition_channels: List[int] = dataclasses.field(default_factory=list)
+    slot_capacity: Optional[int] = None
+    sort_keys: Optional[List[Tuple[int, bool, bool]]] = None
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_types(self):
+        return self.source.output_types()
+
+
+@dataclasses.dataclass
 class OutputNode(PlanNode):
     source: PlanNode
     names: List[str]
@@ -277,13 +310,24 @@ _NOT_PORTED = {
     "window": "queue 1 item 9 (breadth: ops/window.py)",
     "rownumber": "queue 1 item 9 (breadth: ops/window.py)",
     "unnest": "queue 1 item 9 (breadth: ops/unnest.py)",
-    "exchange": "queue 1 item 12 (parallel/ and the worker tier)",
     "remotesource": "queue 1 item 12 (parallel/ and the worker tier)",
 }
 
 
+def _agg_to_json(a: AggSpec) -> dict:
+    out = {"name": a.name, "input": a.input_channel,
+           "type": str(a.output_type)}
+    if a.second_channel is not None:
+        out["secondChannel"] = a.second_channel
+        out["secondType"] = str(a.second_type) if a.second_type else None
+    return out
+
+
 def _agg_from_json(j: dict) -> AggSpec:
-    return AggSpec(j["name"], j["input"], T.parse_type(j["type"]))
+    st = j.get("secondType")
+    return AggSpec(j["name"], j["input"], T.parse_type(j["type"]),
+                   second_channel=j.get("secondChannel"),
+                   second_type=T.parse_type(st) if st else None)
 
 
 def to_json(n: PlanNode) -> dict:
@@ -304,9 +348,7 @@ def to_json(n: PlanNode) -> dict:
     if isinstance(n, AggregationNode):
         return {**base, "@type": "aggregation", "source": to_json(n.source),
                 "groupChannels": n.group_channels,
-                "aggregates": [{"name": a.name, "input": a.input_channel,
-                                "type": str(a.output_type)}
-                               for a in n.aggregates],
+                "aggregates": [_agg_to_json(a) for a in n.aggregates],
                 "step": n.step, "maxGroups": n.max_groups}
     if isinstance(n, JoinNode):
         return {**base, "@type": "join", "left": to_json(n.left),
@@ -341,6 +383,13 @@ def to_json(n: PlanNode) -> dict:
     if isinstance(n, MarkDistinctNode):
         return {**base, "@type": "markdistinct", "source": to_json(n.source),
                 "keyChannels": n.key_channels, "maxGroups": n.max_groups}
+    if isinstance(n, ExchangeNode):
+        return {**base, "@type": "exchange", "source": to_json(n.source),
+                "kind": n.kind, "scope": n.scope,
+                "partitionChannels": n.partition_channels,
+                "slotCapacity": n.slot_capacity,
+                "sortKeys": [list(k) for k in n.sort_keys]
+                if n.sort_keys is not None else None}
     if isinstance(n, OutputNode):
         return {**base, "@type": "output", "source": to_json(n.source),
                 "names": n.names}
@@ -433,6 +482,12 @@ def _node_from_json(j: dict, sub) -> PlanNode:
     if t == "markdistinct":
         return MarkDistinctNode(sub(j["source"]), j["keyChannels"],
                                 j["maxGroups"], **kw)
+    if t == "exchange":
+        keys = j.get("sortKeys")
+        return ExchangeNode(sub(j["source"]), j["kind"], j["scope"],
+                            j["partitionChannels"], j["slotCapacity"],
+                            [tuple(k) for k in keys] if keys is not None
+                            else None, **kw)
     if t == "output":
         return OutputNode(sub(j["source"]), j["names"], **kw)
     if t in _NOT_PORTED:

@@ -11,7 +11,10 @@ The reference also scales the `max_groups` of its DistinctNode and
 MarkDistinctNode, whose hash-slot tables can overflow. The port finds
 distinct keys by a sort (ops/misc.py), which has no table and cannot
 overflow, so those nodes are not capacity nodes here; the rows are the
-same either way.
+same either way. A two-stage plan's PARTIAL and FINAL aggregations are
+two capacity nodes, each with its own factor; exchange slot capacities
+are not scaled, as in the reference (and on one device an exchange is
+the identity).
 """
 
 from __future__ import annotations

@@ -8,17 +8,21 @@ wide the per-tile limb_partial_sums kernel) and q6 at --sf, q3 and q14
 at --join-sf, and q5, q7, q8 and q9 of the committed SF1 corpus
 (presto_tpu_torch/queries/tpch_sf1.json: small aggregations above join
 chains); --queries names others (a comma list of those four and any
-corpus entry). Stages each query's scans once on the card, runs it once
+corpus entry: a two-stage plan such as q1_two_stage, an aggregate
+statement such as agg_hash). Stages each query's scans once on the card, runs it once
 through the overflow ladder (so the capacities that fit are known),
 then:
 
 * times every operator of the plan on its own (Filter, Project, each
   LIKE inside them, Join, SemiJoin, the group-by (small-table ids +
-  pooled sums + kernel, or the sorted large-table path), finalize,
-  Sort, TopN, Limit, Distinct, MarkDistinct, Union, AssignUniqueId, the
-  result fetch; a shared subtree once): host clock around a synced
+  pooled sums + kernel, the sorted large-table path, or the hash-slot
+  path with its probe rounds timed apart), a FINAL step's
+  merge_partials, finalize, Sort, TopN, Limit, Distinct, MarkDistinct,
+  Union, AssignUniqueId, the result fetch; an exchange is the identity
+  on one card; a shared subtree once): host clock around a synced
   call, median of 5 after a warm-up, each fed its input computed once
-  beforehand;
+  beforehand; the hash path's probe rounds and host reads of its exit
+  flag go to `hash_stats`;
 * records one `execute` under torch.profiler: the device time of every
   kernel, their launch counts, the hand-written kernels' launches, and
   the device's idle share of the execute wall;
@@ -61,8 +65,7 @@ def _stages(root, batches, limb_form):
     from presto_tpu_torch.exec.runner import _batch_to_result
     from presto_tpu_torch.expr.compile import (compile_filter,
                                                compile_projections, evaluate)
-    from presto_tpu_torch.ops.aggregation import (SMALL_G, _group_ids,
-                                                  finalize_states, group_by)
+    from presto_tpu_torch.ops import aggregation as A
     from presto_tpu_torch import types as T
     from presto_tpu_torch.block import Batch, Column, concat_batches
     from presto_tpu_torch.ops.join import hash_join, semi_join_mask
@@ -74,6 +77,7 @@ def _stages(root, batches, limb_form):
     inputs = {n.id: b for n, b in zip(compile_plan(root).scan_nodes,
                                       batches)}
     out = []
+    hash_stats = []
     done = {}  # node id -> output: a shared subtree is timed once
 
     def add(label, fn, *args):
@@ -146,20 +150,44 @@ def _stages(root, batches, limb_form):
                 walk(node.left), walk(node.right))
         if isinstance(node, N.AggregationNode):
             b = walk(node.source)
-            keys, mg = node.group_channels, node.max_groups
-            if not keys:
-                label = "group_by (keyless, one slot)"
-            elif mg <= SMALL_G:
-                add("group_ids", lambda x: _group_ids(
-                    [x.column(c) for c in keys], x.active, mg), b)
-                label = "group_by (ids + pooled sums + kernel)"
+            keys, mg, aggs = node.group_channels, node.max_groups, \
+                node.aggregates
+            merge = node.step in ("FINAL", "INTERMEDIATE")
+            if merge:  # the merge aggregates over the state table's keys
+                keys, specs, ch = list(range(len(keys))), [], len(keys)
+                for a in aggs:
+                    specs.extend(A.merge_spec(a, ch))
+                    ch += A.state_width(a)
             else:
-                label = "group_by (sorted)"
-            table = add(label, lambda x, n=node: group_by(
-                x, n.group_channels, n.aggregates, n.max_groups,
-                limb_form).batch, b)
-            return add("finalize", lambda t, n=node: finalize_states(
+                specs = aggs
+            if not keys:
+                path = "keyless, one slot"
+            elif mg <= A.SMALL_G:
+                path = "ids + pooled sums + kernel"
+                add("group_ids", lambda x: A._group_ids(
+                    [x.column(c) for c in keys], x.active, mg), b)
+            elif A._sorted_capable(b, keys, specs):
+                path = "sorted"
+            else:
+                path = "hash"
+                add("hash rounds (group ids)", lambda x: A._group_ids(
+                    [x.column(c) for c in keys], x.active, mg), b)
+                hash_stats.append(dict(A.HASH_STATS))
+            if merge:
+                table = add(f"merge_partials ({path})",
+                            lambda x, n=node: A.merge_partials(
+                                x, len(n.group_channels), n.aggregates,
+                                n.max_groups, limb_form).batch, b)
+            else:
+                table = add(f"group_by ({path})", lambda x, n=node:
+                            A.group_by(x, n.group_channels, n.aggregates,
+                                       n.max_groups, limb_form).batch, b)
+            if node.step == "PARTIAL":
+                return table
+            return add("finalize", lambda t, n=node: A.finalize_states(
                 t, len(n.group_channels), n.aggregates), table)
+        if isinstance(node, N.ExchangeNode):
+            return walk(node.source)
         if isinstance(node, N.SortNode):
             return add("sort", lambda x, k=node.keys: sort_batch(x, k),
                        walk(node.source))
@@ -173,7 +201,7 @@ def _stages(root, batches, limb_form):
         raise NotImplementedError(type(node).__name__)
 
     walk(root)
-    return out
+    return out, hash_stats
 
 
 def _profile(run):
@@ -263,11 +291,12 @@ def main(argv=None) -> int:
             root, {n.id: max(factors) for n in capacity_nodes(root)},
             1 << 16)
         for form in forms:
+            stage_list, hash_stats = _stages(scaled, batches, form)
             stages = {label: chip_smoke.wall_ms(lambda f=fn, a=args_: f(*a))
-                      for label, fn, args_ in _stages(
-                          scaled, batches, form)}
+                      for label, fn, args_ in stage_list}
             rep = {"query": name, "limb_form": form, "sf": sf, "gpu": gpu,
                    "capacity_factors": list(factors), "stage_ms": stages,
+                   "hash_stats": hash_stats,
                    "profile": _profile(
                        lambda: execute(root, batches, form))}
             if len(set(factors)) > 1:

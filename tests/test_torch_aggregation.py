@@ -172,19 +172,35 @@ def test_overflow_flags_like_the_reference(staged):
 
 
 def test_out_of_slice_aggregates_raise(staged):
-    _, port = staged
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        PA.group_by(port, [0], [PA.AggSpec("approx_distinct", 2,
-                                           PT.BIGINT)], 16)
-    # one column only can ride the sorted path's sort
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        PA.group_by(port, [0], [PA.AggSpec("count_distinct", 2, PT.BIGINT),
-                                PA.AggSpec("count_distinct", 3, PT.BIGINT)],
-                    128)
-    # the large-table (sorted) path takes sum/avg/count/count_star/min/max
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        PA.group_by(port, [0], [PA.AggSpec("approx_percentile", 2,
-                                           PT.decimal(12, 2))], 128)
+    """What earlier slices refused now equals the reference: HLL
+    registers on the small-table path, two count(DISTINCT) columns
+    (the hash-slot path) and approx_percentile riding the sorted path's
+    sort. What still raises is what the reference refuses too: merging
+    count(DISTINCT) or approx_percentile partial states."""
+    ref, port = staged
+    cases = [(16, [("approx_distinct", 2, "bigint", None)]),
+             (128, [("count_distinct", 2, "bigint", None),
+                    ("count_distinct", 3, "bigint", None)]),
+             (128, [("approx_percentile", 2, "decimal(12, 2)", 0.5)])]
+    for g, specs in cases:
+        raggs = [RA.AggSpec(n, c, RT.parse_type(t), parameter=q)
+                 for n, c, t, q in specs]
+        paggs = [PA.AggSpec(n, c, PT.parse_type(t), parameter=q)
+                 for n, c, t, q in specs]
+        r = RA.group_by(ref, [0], raggs, g)
+        p = PA.group_by(port, [0], paggs, g)
+        assert int(r.num_groups) == int(p.num_groups) == 3
+        assert _table(r.batch, RB.to_numpy, r.batch.active) == \
+            _table(p.batch, PB.to_numpy, p.batch.active.numpy())
+        rf = RA.finalize_states(r.batch, 1, raggs)
+        pf = PA.finalize_states(p.batch, 1, paggs)
+        assert _table(rf, RB.to_numpy, rf.active) == \
+            _table(pf, PB.to_numpy, pf.active.numpy())
+        if g == 128:
+            for A, b, aggs in ((RA, r, raggs), (PA, p, paggs)):
+                with pytest.raises(NotImplementedError,
+                                   match="don't merge across partials"):
+                    A.merge_partials(b.batch, 1, aggs, g)
 
 
 def test_key_words_and_sort_match(staged):

@@ -41,8 +41,8 @@ WORDS = ["", "a", "abcdefgh", "abcdefghi", "zz", "BUILDINGS", "héllo"]
 SIGS = ["bigint", "varchar(12)", "decimal(12, 2)", "decimal(38, 2)",
         "integer", "bigint"]
 # DEFAULT_CORPUS entry -> the ROADMAP queue 1 item of what it lacks
-VERIFIER_UNPORTED = {9: "item 8", 11: "item 9", 12: "item 9",
-                     16: "item 9", 17: "item 9"}
+VERIFIER_UNPORTED = {11: "item 9", 12: "item 9", 16: "item 9",
+                     17: "item 9"}
 VERIFIER_PORTED = [i for i in range(len(DEFAULT_CORPUS))
                    if i not in VERIFIER_UNPORTED]
 
@@ -213,7 +213,8 @@ def _verifier_plan(i):
 @pytest.mark.parametrize("i", VERIFIER_PORTED, ids=lambda i: f"entry{i}")
 def test_verifier_statement_returns_the_reference_rows(i):
     """Among them INTERSECT (5), UNION (6), count(DISTINCT) over a
-    varchar (8), RIGHT JOIN (19) and FULL OUTER JOIN (20)."""
+    varchar (8), approx_distinct (9), RIGHT JOIN (19) and FULL OUTER
+    JOIN (20)."""
     plan = _verifier_plan(i)
     want = ref_run_query(RN.from_json(plan), sf=SF, prepared=True)
     got = run_query(from_json(plan), sf=SF, device="cpu")

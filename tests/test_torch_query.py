@@ -128,9 +128,13 @@ def _orders_between(lo, hi, cols):
 
 
 def test_out_of_slice_plans_raise_naming_the_roadmap():
-    """A left join, a LimitNode and a count_distinct in the sorted
-    group-by, which earlier slices refused, equal the reference; what
-    is still out of the slice raises naming its ROADMAP item."""
+    """A left join, a LimitNode, a count_distinct in the sorted
+    group-by, an approx_distinct and the PARTIAL step, which earlier
+    slices refused, equal the reference (a PARTIAL at the root returns
+    its state columns; the two-stage plan of q1, PARTIAL -> exchange ->
+    FINAL, returns q1's rows); what is still out of the slice raises
+    naming its ROADMAP item."""
+    from presto_tpu.plan.distribute import add_exchanges
     join = RN.JoinNode(_orders_between(1, 40, ["linenumber"]),
                        _orders_between(20, 70, ["quantity"]), [0], [0],
                        join_type="left")
@@ -139,25 +143,25 @@ def test_out_of_slice_plans_raise_naming_the_roadmap():
     big["source"]["source"]["aggregates"].append(
         {"name": "count_distinct", "input": 2, "type": "bigint"})
     big["names"].append("distinct_qty")
-    for plan in (RN.to_json(join), RN.to_json(limit), big):
+    approx = RN.to_json(q1_plan(max_groups=1 << 10))
+    approx["source"]["source"]["aggregates"].append(
+        {"name": "approx_distinct", "input": 2, "type": "bigint"})
+    approx["names"].append("approx_qty")
+    partial = RN.to_json(q1_plan())
+    partial["source"]["source"]["step"] = "PARTIAL"
+    two_stage = RN.to_json(add_exchanges(q1_plan()))
+    for plan in (RN.to_json(join), RN.to_json(limit), big, approx, partial,
+                 two_stage):
         want = ref_run_query(RN.from_json(plan), sf=SF)
         got = _port(plan)
         assert want.row_count > 0
         assert got.rows() == want.rows()
-    approx = RN.to_json(q1_plan(max_groups=1 << 10))
-    approx["source"]["source"]["aggregates"].append(
-        {"name": "approx_distinct", "input": 2, "type": "bigint"})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _port(approx)
+    assert len(_port(partial).columns) == 2 + 4 + 3 * 2 + 1
     window = {"@type": "window", "id": "w", "source": RN.to_json(limit),
               "partitionChannels": [0], "orderKeys": [[1, False, True]],
               "functions": []}
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
         from_json(window)
-    partial = RN.to_json(q1_plan())
-    partial["source"]["source"]["step"] = "PARTIAL"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _port(partial)
     with pytest.raises(NotImplementedError, match="item 12"):
         run_query(from_json(RN.to_json(q6_plan())), sf=SF, device="cpu",
                   mesh=object())

@@ -16,7 +16,9 @@ its rows are in the exact form. The corpus's probes (q11 and q18 with
 the one constant moved that leaves them empty at SF1, scripts/
 make_tpch_corpus.py::PROBES) also equal the reference at sf 0.01; its
 statements (scripts/make_tpch_corpus.py::STATEMENTS) are held at sf
-0.01 by tests/test_torch_misc.py.
+0.01 by tests/test_torch_misc.py, its two-stage plans and aggregate
+statements (TWO_STAGE_QUERIES, AGGREGATES) by
+tests/test_torch_two_stage.py.
 """
 
 import json
@@ -26,18 +28,18 @@ import pytest
 
 import presto_tpu  # noqa: F401  (enables jax x64 before any jnp array)
 from presto_tpu.exec import run_query as ref_run_query
-from presto_tpu.exec.runner import prepare_plan
 from presto_tpu.plan import nodes as RN
 from presto_tpu.queries.tpch_sql import TPCH_QUERIES
-from presto_tpu.sql import plan_sql
 
 from presto_tpu_torch import types as PT
 from presto_tpu_torch.exec import run_query
 from presto_tpu_torch.plan import from_json
 from presto_tpu_torch.queries import exact_rows, load_corpus
 
-from make_tpch_corpus import (PROBES, SF as CORPUS_SF, STATEMENTS,
-                              entry_names, entry_source)
+from make_tpch_corpus import (AGGREGATES, AGGREGATES_TWO_STAGE, PROBES,
+                              SF as CORPUS_SF, STATEMENTS, TWO_STAGE,
+                              TWO_STAGE_QUERIES, entry_kind, entry_names,
+                              entry_source, prepared_entry)
 
 SF = 0.01
 PORTED = tuple(range(1, 23))
@@ -49,10 +51,8 @@ ORACLE_CHECKED = (1, 3, 6, 14)
 
 def _prepared_entry(name, sf):
     """The reference's prepared plan of a corpus entry: a query (qN), a
-    probe or a statement."""
-    text, max_groups, join_capacity = entry_source(name)
-    return prepare_plan(plan_sql(text, max_groups=max_groups,
-                                 join_capacity=join_capacity), sf=sf)
+    probe, a statement, or the two-stage form of one."""
+    return prepared_entry(name, sf)
 
 
 def _prepared(n, sf):
@@ -60,9 +60,12 @@ def _prepared(n, sf):
 
 
 # the corpus's entries: the queries chip_smoke.py does not check
-# against a numpy oracle, then the probes, then the statements
+# against a numpy oracle, then the probes, then the statements; then
+# every query's two-stage plan and the aggregate statements
 CORPUS = [f"q{n}" for n in PORTED if n not in ORACLE_CHECKED] + \
-    sorted(PROBES) + sorted(STATEMENTS)
+    sorted(PROBES) + sorted(STATEMENTS) + \
+    [f"q{n}{TWO_STAGE}" for n in TWO_STAGE_QUERIES] + sorted(AGGREGATES) + \
+    [a + TWO_STAGE for a in AGGREGATES_TWO_STAGE]
 
 
 def _exact(res):
@@ -130,10 +133,23 @@ def test_sf1_corpus_plan_is_the_reference_plan(corpus, name):
     the exact form of its type; a probe returns rows."""
     entry = corpus[name]
     assert entry["sf"] == CORPUS_SF == 1.0
+    assert entry["kind"] == entry_kind(name)
     assert (entry["max_groups"], entry["join_capacity"]) == \
         entry_source(name)[1:]
-    if name in PROBES or name in STATEMENTS:
+    if name in PROBES or name in STATEMENTS or name.startswith("agg"):
         assert entry["rows"]
+    if entry["kind"] == "two_stage":
+        # a two-stage plan has its exchanges, and a PARTIAL/FINAL pair
+        # for each aggregation (q16's count(DISTINCT) moves raw rows to
+        # one SINGLE step instead)
+        text = json.dumps(entry["plan"])
+        assert '"exchange"' in text
+        assert text.count('"FINAL"') == text.count('"PARTIAL"') > 0 or \
+            name == "q16" + TWO_STAGE
+        if name[:-len(TWO_STAGE)] in corpus:
+            single = corpus[name[:-len(TWO_STAGE)]]
+            assert (entry["rows"], entry["types"]) == \
+                (single["rows"], single["types"])
     want = _without_ids(RN.to_json(_prepared_entry(name, 1.0)))
     assert json.dumps(_without_ids(entry["plan"]), sort_keys=True) == \
         json.dumps(want, sort_keys=True)
