@@ -44,7 +44,14 @@ PyTorch version at the shapes of its path:
   rows and 200,000 groups; a 524,288-slot table) alone and two-stage,
   the variance family and bool_or on the sorted path, approx_distinct
   grouped and global; doubles of the moments within rel 1e-9; then
-  approx_percentile through group_by against numpy.
+  approx_percentile through group_by against numpy;
+* the 99 TPC-DS queries (phase_tpcds): each at its suite scale factor
+  against the reference's rows committed in
+  presto_tpu_torch/queries/tpcds.json (scripts/make_tpcds_corpus.py),
+  each timed at SF1 (q72 at 0.2), and the 22 with a Window or GroupId
+  node held to the port's own CPU rows of the same SF1 plan, computed
+  by worker processes (--tpcds-cpu-rows) that run beside the card's
+  last phases.
 
 Each query runs once to climb its overflow ladder, then once more with
 every kernel count set to 0 just before: that second run starts at the
@@ -72,6 +79,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -792,31 +800,36 @@ _HOST = {}
 GEN_S = {}
 
 
-def host_columns(table, sf, columns):
-    """{column: host array} of tpch `table` at `sf`, each column
-    generated once per process; seconds per table go to GEN_S."""
-    from presto_tpu_torch.connectors.tpch import generator
-    cache = _HOST.setdefault((table, sf), {})
+def host_columns(table, sf, columns, connector="tpch"):
+    """{column: host array} of `connector`'s `table` at `sf`, each
+    column generated once per process; seconds per table go to GEN_S."""
+    import importlib
+    generator = importlib.import_module(
+        f"presto_tpu_torch.connectors.{connector}.generator")
+    cache = _HOST.setdefault((connector, table, sf), {})
     missing = [c for c in columns if c not in cache]
     if missing:
         t0 = time.perf_counter()
         cache.update(generator.generate_columns(table, sf, missing))
-        key = f"{table}@sf{sf:g}"
+        key = f"{table}@sf{sf:g}" if connector == "tpch" else \
+            f"{connector}.{table}@sf{sf:g}"
         GEN_S[key] = GEN_S.get(key, 0.0) + time.perf_counter() - t0
     return {c: cache[c] for c in columns}
 
 
 def install_host_cache():
-    from presto_tpu_torch.connectors import tpch
-    from presto_tpu_torch.connectors.tpch import generator
+    import importlib
+    for connector in ("tpch", "tpcds"):
+        module = importlib.import_module(
+            f"presto_tpu_torch.connectors.{connector}")
 
-    def cached(table, sf, columns, start=0, count=None):
-        if start or count is not None:
-            return generator.generate_columns(table, sf, columns, start,
-                                              count)
-        return host_columns(table, sf, columns)
+        def cached(table, sf, columns, start=0, count=None,
+                   connector=connector, generate=module.generate_columns):
+            if start or count is not None:
+                return generate(table, sf, columns, start, count)
+            return host_columns(table, sf, columns, connector)
 
-    tpch.generate_columns = cached
+        module.generate_columns = cached
 
 
 def _staged_bytes(batches):
@@ -1519,10 +1532,265 @@ Q1_KERNEL_SHAPES = {"int16x8": (6_000_000, 16, 70),
                     "f32x13": (6_000_000, 16, 39)}
 
 
+TPCDS_EXECUTE_REPEATS = 3
+# processes (and torch threads each) that compute the CPU side of
+# phase_tpcds's cross-check while the card runs the other phases
+TPCDS_CPU_WORKERS, TPCDS_CPU_THREADS = 3, 2
+# the cross-check's slowest plans on the CPU (84-302 s each on an H100
+# machine's host, 2 threads), handed out first
+TPCDS_CPU_SLOWEST = ("q47", "q51", "q67", "q14", "q57", "q77")
+
+
+def _tpcds_order(name):
+    return int(name[1:])
+
+
+def _plan_has(plan_json, *kinds):
+    return any(next(_plan_nodes(plan_json, k), None) is not None
+               for k in kinds)
+
+
+def _tpcds_cross_names(corpus):
+    """The queries whose SF1 plan holds a Window or GroupId node."""
+    return [n for n in sorted(corpus, key=_tpcds_order)
+            if _plan_has(corpus[n]["plan_timed"], "window", "groupid")]
+
+
+def start_tpcds_cpu_rows(out_dir):
+    """Start the CPU side of phase_tpcds's cross-check: worker
+    processes (this script with --tpcds-cpu-rows) that run the SF1
+    plans with a Window or GroupId node through run_query(device="cpu")
+    and write their rows to `out_dir`. Each worker claims the next
+    unclaimed plan (a file created exclusively in `out_dir`), the
+    slowest first. Returns [(process, path)]."""
+    procs = []
+    for k in range(TPCDS_CPU_WORKERS):
+        path = os.path.join(out_dir, f"tpcds_cpu_rows_{k}.json")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tpcds-cpu-rows",
+             out_dir, "--out", path]), path))
+    return procs
+
+
+def tpcds_cpu_rows(claim_dir, out):
+    """The worker: each plan it claims through run_query on the CPU;
+    {name: {"rows": exact rows, "s": seconds}} to `out`."""
+    import torch
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.plan import from_json
+    from presto_tpu_torch.queries import load_tpcds_corpus
+    torch.set_num_threads(TPCDS_CPU_THREADS)
+    os.nice(10)  # the card's host work comes first
+    install_host_cache()
+    corpus = load_tpcds_corpus()
+    names = _tpcds_cross_names(corpus)
+    names.sort(key=lambda n: (n not in TPCDS_CPU_SLOWEST,
+                              TPCDS_CPU_SLOWEST.index(n)
+                              if n in TPCDS_CPU_SLOWEST else 0))
+    rows = {}
+    for name in names:
+        try:
+            os.close(os.open(os.path.join(claim_dir, name + ".claim"),
+                             os.O_CREAT | os.O_EXCL))
+        except FileExistsError:
+            continue
+        e = corpus[name]
+        t0 = time.perf_counter()
+        res = run_query(from_json(e["plan_timed"]), sf=e["timed_sf"],
+                        device="cpu",
+                        default_join_capacity=e["timed_join_capacity"])
+        rows[name] = {"rows": _exact_rows(res),
+                      "s": time.perf_counter() - t0}
+    with open(out, "w") as f:
+        json.dump(rows, f)
+
+
+def _tpcds_sf1_query(name, e, window_or_groupid):
+    """One TPC-DS SF1 plan on the card (phase_tpcds): the host generation
+    of the tables it scans that no earlier plan generated, the ladder
+    run, the counted run, three executes. Returns (report, exact rows)."""
+    import torch
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.exec.runner import execute, stage_scans
+    from presto_tpu_torch.ops import kernels as K
+    from presto_tpu_torch.plan import from_json
+    from presto_tpu_torch.plan.widths import annotate_widths
+    sf, jc = e["timed_sf"], e["timed_join_capacity"]
+
+    def plan():
+        return from_json(e["plan_timed"])
+
+    # the scanned tables are generated before the first run, as
+    # phase_query's oracles generate theirs, so that first_run_query_ms
+    # holds staging and the ladder but no host generation
+    t1 = time.perf_counter()
+    for table, cols in _scanned_columns(e["plan_timed"]).items():
+        host_columns(table, sf, cols, connector="tpcds")
+    gen_ms = (time.perf_counter() - t1) * 1e3
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    t1 = time.perf_counter()
+    first = run_query(plan(), sf=sf, default_join_capacity=jc)
+    first_ms = (time.perf_counter() - t1) * 1e3
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res, syncs = _count_syncs(lambda: run_query(
+        plan(), sf=sf, default_join_capacity=jc))
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    launches = dict(K.LAUNCHES)
+    if res.stats["capacity_reruns"]:
+        raise AssertionError(f"TPC-DS {name} climbed the ladder again "
+                             f"after its first run: {res.stats}")
+    rows = _exact_rows(res)
+    if not _close_rows(rows, _exact_rows(first)):
+        raise AssertionError(f"TPC-DS {name} at SF1: the counted run's "
+                             "rows differ from the first run's")
+    small = _small_keyed_aggs(e["plan_timed"])
+    if launches["contains_bytes"]:
+        raise AssertionError(f"TPC-DS {name} launched contains_bytes: "
+                             f"{launches}")
+    if small and launches["fused_limb_sums"] < 1:
+        raise AssertionError(f"TPC-DS {name} has small-table "
+                             f"aggregations {small} but its rows came "
+                             f"from no fused_limb_sums launch: {launches}")
+    root = annotate_widths(plan(), sf)
+    batches = stage_scans(root, sf, torch.device("cuda"))
+    staged_mb = _staged_bytes(batches) / 1e6
+    times = []
+    for _ in range(TPCDS_EXECUTE_REPEATS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        execute(root, batches, default_join_capacity=jc)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    del batches
+    torch.cuda.empty_cache()
+    return {"query": name, "sf": sf, "rows": len(rows),
+            "host_generation_ms": gen_ms, "first_run_query_ms": first_ms,
+            "capacity_reruns": first.stats["capacity_reruns"],
+            "capacity_scale": first.stats["capacity_scale"],
+            "execute_ms": statistics.median(times),
+            "execute_ms_runs": times, "host_syncs": syncs,
+            "peak_mb": peak_mb, "staged_mb": staged_mb,
+            "fused_limb_sums": launches["fused_limb_sums"],
+            "small_table_max_groups": small,
+            "window_or_groupid": window_or_groupid}, rows
+
+
+def phase_tpcds(cpu_procs, log_path=None):
+    """The 99 TPC-DS queries of the committed corpus
+    (presto_tpu_torch/queries/tpcds.json) through run_query on the card.
+
+    * Exactness: each query's small plan at its suite scale factor, its
+      rows held to the reference's committed rows in exact form
+      (doubles within rel 1e-9).
+    * Timing at SF1 (q72 at sf 0.2: its plan's first join outgrows the
+      card at SF1, scripts/make_tpcds_corpus.py::TIMED_SF): each
+      query's scanned host columns are generated first (those no
+      earlier plan generated, host_generation_ms), then its timed plan
+      runs once to climb the overflow ladder (first_run_query_ms:
+      staging and every attempt, no generation; reruns, largest factor),
+      then once more in one attempt with the kernel counts at 0 (the
+      launches, host syncs and peak device memory, staged batches
+      included, of the attempt that returns the rows; its rows equal
+      the first run's), then its staged batches execute
+      TPCDS_EXECUTE_REPEATS times (the median is execute_ms). A plan
+      with a small-table keyed aggregation must launch fused_limb_sums
+      on that attempt; none may launch contains_bytes.
+    * Cross-check at SF1: each of the 22 plans with a Window or GroupId
+      node runs again through run_query(device="cpu") on this host, in
+      the worker processes of `cpu_procs` (start_tpcds_cpu_rows), which
+      ran beside the card's phases; its rows must equal the card's
+      (doubles within rel 1e-9).
+
+    Each timed query's report is also appended to `log_path` (JSON
+    lines) as it comes, when given. Returns the reports."""
+    import torch
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.plan import from_json
+    from presto_tpu_torch.queries import load_tpcds_corpus
+
+    corpus = load_tpcds_corpus()
+    names = sorted(corpus, key=_tpcds_order)
+    if len(names) != 99:
+        raise AssertionError(f"{len(names)} TPC-DS queries, not 99")
+    t0 = time.perf_counter()
+    for name in names:
+        e = corpus[name]
+        res = run_query(from_json(e["plan"]), sf=e["sf"],
+                        default_join_capacity=e["join_capacity"])
+        got = _exact_rows(res)
+        if res.names != e["names"] or not _close_rows(got, e["rows"]):
+            raise AssertionError(
+                f"TPC-DS {name} at sf {e['sf']}: rows differ from the "
+                f"reference's ({len(got)} vs {len(e['rows'])}):\n got  "
+                f"{got[:5]}\n want {e['rows'][:5]}")
+    exact_s = time.perf_counter() - t0
+    print(f"tpcds: all 99 queries equal the reference's rows at their "
+          f"suite scale factors ({exact_s:.1f} s)")
+
+    cross = _tpcds_cross_names(corpus)
+    if len(cross) != 22:
+        raise AssertionError(f"{len(cross)} SF1 plans with a Window or "
+                             f"GroupId node, not 22: {cross}")
+    reports, card_rows, failed = [], {}, {}
+    for name in names:
+        try:
+            rep, rows = _tpcds_sf1_query(name, corpus[name], name in cross)
+        except Exception as ex:  # the phase fails after the loop
+            failed[name] = f"{type(ex).__name__}: {ex}"
+            print(f"TPC-DS {name} at SF1 FAILED:\n{traceback.format_exc()}")
+            torch.cuda.empty_cache()
+            continue
+        if name in cross:
+            card_rows[name] = rows
+        print(json.dumps(rep))
+        if log_path:
+            with open(log_path, "a") as f:
+                f.write(json.dumps(rep) + "\n")
+        reports.append(rep)
+    if failed:
+        raise AssertionError(f"{len(failed)} TPC-DS SF1 plans failed on the "
+                             f"card: {sorted(failed, key=_tpcds_order)}")
+
+    t0 = time.perf_counter()
+    cpu = {}
+    for proc, path in cpu_procs:
+        if proc.wait() != 0:
+            raise AssertionError(f"a TPC-DS CPU worker exited "
+                                 f"{proc.returncode}")
+        with open(path) as f:
+            cpu.update(json.load(f))
+    wait_s = time.perf_counter() - t0
+    if sorted(cpu) != sorted(cross):
+        raise AssertionError(f"the CPU workers ran {sorted(cpu)}")
+    for name in cross:
+        if not _close_rows(card_rows[name], cpu[name]["rows"]):
+            raise AssertionError(f"TPC-DS {name} at SF1: the card's rows "
+                                 "differ from the port's CPU rows")
+    cross_s = {n: cpu[n]["s"] for n in cross}
+    print(f"tpcds: the {len(cross)} Window/GroupId queries at SF1 equal "
+          f"the port's CPU rows (CPU seconds each {cross_s}; waited "
+          f"{wait_s:.1f} s for the workers)")
+    print("tpcds: " + json.dumps(
+        {r["query"]: {k: r[k] for k in (
+            "rows", "host_generation_ms", "first_run_query_ms",
+            "capacity_reruns",
+            "capacity_scale", "execute_ms", "host_syncs", "peak_mb",
+            "staged_mb", "fused_limb_sums")} for r in reports}))
+    return {"queries": reports, "exactness_s": exact_s,
+            "cross_check_cpu_s": cross_s, "cross_check_wait_s": wait_s}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the report JSON here")
+    ap.add_argument("--tpcds-cpu-rows", metavar="DIR",
+                    help="a cross-check worker: run the SF1 plans it "
+                         "claims in DIR on the CPU, their rows to --out")
     args = ap.parse_args(argv)
 
     import torch
@@ -1531,6 +1799,33 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import presto_tpu_torch  # noqa: F401  (fails outside the checkout)
+    from presto_tpu_torch.ops import kernels as K
+    if args.tpcds_cpu_rows:
+        tpcds_cpu_rows(args.tpcds_cpu_rows, args.out)
+        return 0
+
+    import tempfile
+    cpu_procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        def start_cpu_rows():
+            cpu_procs.extend(start_tpcds_cpu_rows(tmp))
+            return cpu_procs
+
+        try:
+            return run_phases(args, start_cpu_rows)
+        finally:
+            for proc, _ in cpu_procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+
+def run_phases(args, start_cpu_rows) -> int:
+    """The phases in order. `start_cpu_rows()` starts phase_tpcds's CPU
+    workers and returns them: after the last kernel timed by its device
+    time, since a loaded host stalls between launches and splits the
+    profiler's groups (device_times)."""
+    import torch
     from presto_tpu_torch.ops import kernels as K
 
     t_start = time.perf_counter()
@@ -1586,13 +1881,17 @@ def main(argv=None) -> int:
         "narrow"]["fused_limb_sums"], SECOND_G_QUERY))
     del second_call
     torch.cuda.empty_cache()
+    cpu_procs = start_cpu_rows()
     two_stage = phase_two_stage()
     aggregates = phase_aggregates()
+    tpcds = phase_tpcds(
+        cpu_procs, args.out + ".tpcds.jsonl" if args.out else None)
 
     gpu = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     report = {"kernels": kernel_rows, "queries": [q1, q6, q3, q14, *corpus],
               "two_stage": two_stage, "aggregates": aggregates,
+              "tpcds": tpcds,
               "build_s": build_s, "host_generation_s": GEN_S, "gpu": gpu,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "total_s": time.perf_counter() - t_start}

@@ -31,7 +31,8 @@ from . import types as T
 __all__ = ["Column", "StringColumn", "Int128Column", "ArrayColumn", "Batch",
            "Block",
            "torch_dtype", "resolve_device", "from_numpy", "batch_from_numpy",
-           "to_numpy", "gather_block", "pad_chars", "concat_batches"]
+           "to_numpy", "gather_block", "pad_chars", "null_like",
+           "concat_batches"]
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
@@ -312,6 +313,21 @@ def gather_block(b: Block, idx: torch.Tensor,
     if isinstance(b, Int128Column):
         return Int128Column(b.hi[idx], b.lo[idx], nulls, b.type)
     return Column(b.values[idx], nulls, b.type)
+
+
+def null_like(b: Block) -> Block:
+    """An all-NULL block with the same capacity, type and layout as `b`
+    (GroupIdNode's dropped-key columns); strings and arrays are empty."""
+    ones = torch.ones_like(b.nulls)
+    if isinstance(b, StringColumn):
+        return StringColumn(b.chars, torch.zeros_like(b.lengths), ones,
+                            b.type)
+    if isinstance(b, ArrayColumn):
+        return ArrayColumn(b.elements, b.elem_nulls,
+                           torch.zeros_like(b.lengths), ones, b.type)
+    if isinstance(b, Int128Column):
+        return Int128Column(b.hi, b.lo, ones, b.type)
+    return Column(b.values, ones, b.type)
 
 
 def concat_batches(batches: Sequence[Batch]) -> Batch:

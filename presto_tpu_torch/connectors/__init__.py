@@ -10,5 +10,8 @@ def catalog(name: str):
     if name == "tpch":
         from . import tpch
         return tpch
+    if name == "tpcds":
+        from . import tpcds
+        return tpcds
     raise KeyError(f"no connector {name!r} in this port (ROADMAP queue 1 "
-                   "item 9 adds the others)")
+                   "item 10 adds the others)")

@@ -1,0 +1,8 @@
+"""The TPC-DS connector: the 24 deterministic generated tables."""
+
+from .generator import (TPCDS_SCHEMA, column_type, generate_columns,
+                        table_row_count)
+from .stats import column_distinct_count
+
+__all__ = ["TPCDS_SCHEMA", "table_row_count", "generate_columns",
+           "column_type", "column_distinct_count"]

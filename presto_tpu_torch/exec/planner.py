@@ -12,7 +12,9 @@ Aggregation steps lower as the reference lowers them: SINGLE and
 PARTIAL run `group_by` over rows, INTERMEDIATE and FINAL run
 `merge_partials` over state tables, and SINGLE and FINAL finalize. An
 ExchangeNode of any kind and scope is the identity, as the reference's
-lowering without a mesh: one device holds every partition.
+lowering without a mesh: one device holds every partition. A GroupId
+node stacks one copy of its source per grouping set, so the capacity
+nodes above it see that many times the rows.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ from ..block import Batch, Column, concat_batches
 from ..expr.compile import compile_filter, compile_projections
 from ..ops.aggregation import finalize_states, group_by, merge_partials
 from ..ops.join import hash_join, semi_join_mask
-from ..ops.misc import distinct, limit, mark_distinct
+from ..ops.misc import distinct, group_id, limit, mark_distinct
 from ..ops.sort import sort_batch, top_n
+from ..ops.window import WindowSpec, specs_of, window
 from ..plan import nodes as N
 from ..plan.stats import capacity_nodes
 
@@ -70,7 +73,8 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
                  default_join_capacity: int = 1 << 16) -> CompiledPlan:
     """Lower Scan/Filter/Project/Aggregation (every step)/Join (inner,
     left, right, full)/SemiJoin/Sort/TopN/Limit/Distinct/Union/
-    AssignUniqueId/MarkDistinct/Exchange/Output. A join without an
+    AssignUniqueId/MarkDistinct/Window/RowNumber/GroupId/Exchange/
+    Output. A join without an
     out_capacity gets `default_join_capacity`; `limb_form` picks the
     stacked limb lanes of the small-table group-by sums
     (ops/aggregation.py)."""
@@ -166,6 +170,20 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
                 m = mark_distinct(src, node.key_channels)
                 return Batch(src.columns + (Column(
                     m, torch.zeros_like(m), T.BOOLEAN),), src.active)
+            if isinstance(node, N.WindowNode):
+                return window(lower(node.source), node.partition_channels,
+                              node.order_keys, specs_of(node.functions))
+            if isinstance(node, N.RowNumberNode):
+                out = window(lower(node.source), node.partition_channels,
+                             node.order_keys, [WindowSpec("row_number")])
+                if node.max_rows_per_partition is not None:
+                    rn = out.column(out.num_columns - 1)
+                    out = out.with_active(
+                        out.active & (rn.values <= node.max_rows_per_partition))
+                return out
+            if isinstance(node, N.GroupIdNode):
+                return group_id(lower(node.source), node.grouping_sets,
+                                node.key_channels)
             if isinstance(node, N.OutputNode):
                 return lower(node.source)
             raise NotImplementedError(f"{type(node).__name__} is not ported "

@@ -185,7 +185,7 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
     without an out_capacity starts at `default_join_capacity` rows."""
     if mesh is not None:
         raise NotImplementedError("a mesh is not ported yet (ROADMAP queue 1 "
-                                  "item 12: parallel/ and the worker tier)")
+                                  "item 13: parallel/ and the worker tier)")
     dev = resolve_device(device)
     root = annotate_widths(root, sf)
     out, scale, reruns = _dispatch_ladder(

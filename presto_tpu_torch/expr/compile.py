@@ -58,7 +58,7 @@ def _constant_block(c: Constant, capacity: int, device) -> Block:
                             no_nulls.expand(capacity), ty)
     if not ty.is_fixed_width:
         raise NotImplementedError(
-            f"constant {c} is not ported yet (ROADMAP queue 1 item 9: "
+            f"constant {c} is not ported yet (ROADMAP queue 1 item 10: "
             "breadth)")
     v = c.value
     if ty.base == "date" and isinstance(v, str):
@@ -154,7 +154,7 @@ def evaluate(expr: RowExpression, batch: Batch) -> Block:
             if not isinstance(pat, Constant):
                 raise NotImplementedError(
                     "LIKE with a pattern that is not a constant (ROADMAP "
-                    "queue 1 item 9: breadth)")
+                    "queue 1 item 10: breadth)")
             return Column(_like(a, str(pat.value)), a.nulls, expr.type)
         args = [evaluate(a, batch) for a in expr.arguments]
         sf = F.lookup(expr.name.lower())
@@ -257,7 +257,7 @@ def _eval_special(expr: SpecialForm, batch: Batch) -> Block:
             out = _select(cv & ~cn, res, out, expr.type)
         return out
     raise NotImplementedError(f"special form {form} is not ported yet "
-                              "(ROADMAP queue 1 item 9: breadth)")
+                              "(ROADMAP queue 1 item 10: breadth)")
 
 
 def _select(take_a: torch.Tensor, a: Block, b: Block, ty: T.Type) -> Block:

@@ -3,8 +3,9 @@ reach.
 
 Counterpart of presto_tpu/expr/functions.py, trimmed to comparisons of
 integers, dates, decimals and strings, decimal add/subtract/multiply/
-divide (and divide to double), the casts onto decimals, `not`, `year`,
-`substr`, and the substring search `contains_pattern`. A function is a name plus an
+divide (and divide to double), `negate` and `abs`, the casts onto
+decimals, `not`, `year`, `substr`, `upper`, `concat`, and the
+substring search `contains_pattern`. A function is a name plus an
 implementation `(ret_type, *blocks) -> Block`; the compiler computes the
 default null mask (OR of argument nulls) and a function only overrides
 it through `null_fn`.
@@ -58,7 +59,7 @@ def lookup(name: str) -> ScalarFunction:
     except KeyError:
         raise NotImplementedError(
             f"scalar function {name!r} is not ported yet (ROADMAP queue 1 "
-            "item 9: breadth)") from None
+            "item 10: breadth)") from None
 
 
 def _default_nulls(*blocks: Block):
@@ -115,7 +116,7 @@ def _as128_at_scale(b, to_scale: int) -> tuple:
         hi, lo = I128.rescale128_up(hi, lo, 10 ** (to_scale - s))
     elif to_scale < s:
         raise NotImplementedError("long-decimal downscale (ROADMAP queue 1 "
-                                  "item 9: breadth)")
+                                  "item 10: breadth)")
     return hi, lo
 
 
@@ -151,7 +152,7 @@ def _promote(ret_type: T.Type, *blocks: Column):
             if ret_type != T.DOUBLE:
                 raise NotImplementedError(
                     f"{ret_type} arithmetic is not ported yet (ROADMAP "
-                    "queue 1 item 9: breadth)")
+                    "queue 1 item 10: breadth)")
             if isinstance(b, Int128Column):
                 out.append(_int128_to_f64(b))
             elif b.type.is_decimal:
@@ -162,11 +163,11 @@ def _promote(ret_type: T.Type, *blocks: Column):
         if isinstance(b, Int128Column):
             raise NotImplementedError(
                 f"long-decimal lanes cannot promote to {ret_type} (ROADMAP "
-                "queue 1 item 9: breadth)")
+                "queue 1 item 10: breadth)")
         if b.type.is_floating:
             raise NotImplementedError(
                 f"floating-point arithmetic ({b.type} -> {ret_type}) is not "
-                "ported yet (ROADMAP queue 1 item 9: breadth)")
+                "ported yet (ROADMAP queue 1 item 10: breadth)")
         v = b.values.to(torch.int64)
         if ret_type.is_decimal:
             v = rescale_decimal(v, _scale_of(b.type), ret_type.scale)
@@ -222,6 +223,29 @@ def _multiply(ret, a, b):
     return _col(ret, x * y, a, b)
 
 
+def _widened(ret: T.Type, a: Column) -> torch.Tensor:
+    """A narrow-lane column's values at the result's own dtype."""
+    return a.values.to(torch_dtype(ret.to_dtype()))
+
+
+@register("negate")
+def _negate(ret, a):
+    if isinstance(a, Int128Column):
+        hi, lo = I128.neg128(a.hi, a.lo)
+        return Int128Column(hi, lo, a.nulls, ret)
+    return _col(ret, -_widened(ret, a), a)
+
+
+@register("abs")
+def _abs(ret, a):
+    if isinstance(a, Int128Column):
+        nh, nl = I128.neg128(a.hi, a.lo)
+        neg = a.hi < 0
+        return Int128Column(torch.where(neg, nh, a.hi),
+                            torch.where(neg, nl, a.lo), a.nulls, ret)
+    return _col(ret, torch.abs(_widened(ret, a)), a)
+
+
 def _zero_lanes(b):
     if isinstance(b, Int128Column):
         return (b.hi == 0) & (b.lo == 0)
@@ -246,7 +270,7 @@ def _divide(ret, a, b):
         return Column(x / torch.where(y == 0, 1.0, y), nulls, ret)
     if not ret.is_decimal:
         raise NotImplementedError(
-            f"{ret} division is not ported yet (ROADMAP queue 1 item 9: "
+            f"{ret} division is not ported yet (ROADMAP queue 1 item 10: "
             "breadth)")
     sa, sb = _scale_of(a.type), _scale_of(b.type)
     num = a.values.to(torch.int64) * _POW10[ret.scale + sb - sa]
@@ -291,14 +315,23 @@ def _divide128(ret, a, b, nulls):
 # ---------------------------------------------------------------------------
 
 def _cmp_values(a: Block, b: Block):
-    """int64 lanes of two fixed-point operands at one scale."""
-    if any(x.type.is_floating
-           or x.type.base in ("timestamp", "timestamp with time zone")
+    """Comparable lanes of two fixed-width operands: fixed-point ones as
+    int64 at one scale; with a floating operand, both as float64
+    (decimals unscaled)."""
+    if any(x.type.base in ("timestamp", "timestamp with time zone")
            for x in (a, b)):
         raise NotImplementedError(
             f"comparing {a.type} with {b.type} is not ported yet (ROADMAP "
-            "queue 1 item 9: breadth)")
+            "queue 1 item 10: breadth)")
     sa, sb = _scale_of(a.type), _scale_of(b.type)
+    if a.type.is_floating or b.type.is_floating:
+        va = a.values.to(torch.float64)
+        vb = b.values.to(torch.float64)
+        if a.type.is_decimal:
+            va = va / _POW10[sa]
+        if b.type.is_decimal:
+            vb = vb / _POW10[sb]
+        return va, vb
     s = max(sa, sb)
     return (rescale_decimal(a.values.to(torch.int64), sa, s),
             rescale_decimal(b.values.to(torch.int64), sb, s))
@@ -335,7 +368,7 @@ def _binary_cmp(op):
         if isinstance(a, StringColumn) or isinstance(b, StringColumn):
             raise NotImplementedError(
                 f"comparing {a.type} with {b.type} is not ported yet "
-                "(ROADMAP queue 1 item 9: breadth)")
+                "(ROADMAP queue 1 item 10: breadth)")
         if _any128(a, b):
             s = max(_scale_of(a.type), _scale_of(b.type))
             ah, al = _as128_at_scale(a, s)
@@ -398,7 +431,7 @@ def _as_days(a: Column):
     if a.type.base != "date":
         raise NotImplementedError(
             f"date parts of {a.type} are not ported yet (ROADMAP queue 1 "
-            "item 9: breadth)")
+            "item 10: breadth)")
     return a.values
 
 
@@ -436,30 +469,111 @@ def _substr(ret, a: StringColumn, start: Column, *rest):
     return StringColumn(out, ln, _default_nulls(a, start, *rest[:1]), ret)
 
 
+@register("upper")
+def _upper(ret, a: StringColumn):
+    """ASCII upper case over the padded bytes; lengths are unchanged."""
+    c = a.chars
+    return StringColumn(torch.where((c >= 97) & (c <= 122), c - 32, c),
+                        a.lengths, a.nulls, ret)
+
+
+@register("concat")
+def _concat(ret, *args: StringColumn):
+    """The arguments' bytes end to end: the output is as wide as the
+    widths together, the lengths add, and a NULL argument makes the row
+    NULL. A constant argument is a broadcast one-row view
+    (expr/compile.py), which the gathers read as it is."""
+    out = args[0]
+    for b in args[1:]:
+        n, w = out.chars.shape[0], out.max_len + b.max_len
+        pos = torch.arange(w, dtype=torch.int64,
+                           device=out.chars.device)[None, :]
+        l1 = out.lengths.to(torch.int64)[:, None]
+        lens = out.lengths + b.lengths
+        ca = torch.gather(out.chars, 1,
+                          pos.clamp(max=out.max_len - 1).expand(n, w))
+        cb = torch.gather(b.chars, 1, (pos - l1).clamp(0, b.max_len - 1))
+        chars = torch.where(pos < l1, ca,
+                            torch.where(pos < lens[:, None], cb, 0))
+        out = StringColumn(chars.to(torch.uint8), lens,
+                           _default_nulls(out, b), ret)
+    return out
+
+
 # ---------------------------------------------------------------------------
-# casts onto decimals
+# casts
 # ---------------------------------------------------------------------------
 
 @register("cast")
 def _cast(ret, a):
+    """The reference's numeric casts: long decimals to double (hi * 2^64
+    + lo, as the reference converts), to long decimals (upscale) and to
+    short decimals or integers (through the low lane); decimals and
+    integers onto each other, decimals to double, doubles rounded onto
+    decimals and integers, booleans and NULL literals onto numbers;
+    varchar to varchar. Date and time casts are not ported."""
     ft = a.type
-    if isinstance(a, (Int128Column, StringColumn)) or not ret.is_decimal \
-            or not (ft.is_integral or ft.is_decimal):
+    if isinstance(a, Int128Column):
+        if ret.is_floating:
+            f = a.hi.to(torch.float64) * float(2 ** 64) + _u64_to_f64(a.lo)
+            return _col(ret, f / _POW10[ft.scale], a)
+        if ret.is_decimal and not ret.is_short_decimal:
+            if ret.scale < ft.scale:
+                raise NotImplementedError("long-decimal downscale cast "
+                                          "(ROADMAP queue 1 item 10: "
+                                          "breadth)")
+            hi, lo = I128.rescale128_up(a.hi, a.lo,
+                                        10 ** (ret.scale - ft.scale))
+            return Int128Column(hi, lo, a.nulls, ret)
+        if ret.is_decimal or ret.is_integral:
+            v = rescale_decimal(a.lo, ft.scale, _scale_of(ret))
+            return _col(ret, v.to(torch_dtype(ret.to_dtype())), a)
+        raise NotImplementedError(f"cast {ft} -> {ret} is not ported yet "
+                                  "(ROADMAP queue 1 item 10: breadth)")
+    if isinstance(a, StringColumn) and ret.is_string:
+        return StringColumn(a.chars, a.lengths, a.nulls, ret)
+    if ft == T.UNKNOWN and ret.is_string:
+        # a typed NULL literal: a string column of NULLs
+        n = len(a)
+        return StringColumn(
+            torch.zeros((n, 1), dtype=torch.uint8, device=a.nulls.device),
+            torch.zeros(n, dtype=torch.int32, device=a.nulls.device),
+            torch.ones_like(a.nulls), ret)
+    if isinstance(a, StringColumn) or not ret.is_numeric or not (
+            ft.is_numeric or ft.base in ("boolean", "unknown")):
         raise NotImplementedError(
             f"cast {ft} -> {ret} is not ported yet (ROADMAP queue 1 item "
             "10: breadth)")
-    src_scale = _scale_of(ft)
-    if not ret.is_short_decimal:
+    dt = torch_dtype(ret.to_dtype())
+    v = a.values
+    if ft.is_decimal and ret.is_floating:
+        return _col(ret, v.to(dt) / _POW10[ft.scale], a)
+    if (ft.is_decimal or ft.is_integral) and ret.is_decimal and \
+            not ret.is_short_decimal:
         # widen onto int128 lanes, then rescale exactly
-        hi, lo = I128.from_int64(a.values)
+        src_scale = _scale_of(ft)
+        hi, lo = I128.from_int64(v)
         if ret.scale > src_scale:
             hi, lo = I128.rescale128_up(hi, lo, 10 ** (ret.scale - src_scale))
         elif ret.scale < src_scale:
             raise NotImplementedError("long-decimal downscale cast (ROADMAP "
-                                      "queue 1 item 9: breadth)")
+                                      "queue 1 item 10: breadth)")
         return Int128Column(hi, lo, a.nulls, ret)
-    return _col(ret, rescale_decimal(a.values.to(torch.int64), src_scale,
-                                     ret.scale), a)
+    if ft.is_decimal and ret.is_decimal:
+        return _col(ret, rescale_decimal(v.to(torch.int64), ft.scale,
+                                         ret.scale), a)
+    if ft.is_decimal and ret.is_integral:
+        return _col(ret, rescale_decimal(v.to(torch.int64), ft.scale,
+                                         0).to(dt), a)
+    if ft.is_integral and ret.is_decimal:
+        return _col(ret, v.to(torch.int64) * _POW10[ret.scale], a)
+    if ft.is_floating and ret.is_decimal:
+        return _col(ret, torch.round(v * _POW10[ret.scale]).to(torch.int64),
+                    a)
+    if ft.is_floating and ret.is_integral:
+        return _col(ret, torch.round(v).to(dt), a)
+    # plain numeric widening/narrowing (booleans to numbers among them)
+    return _col(ret, v.to(dt), a)
 
 
 # ---------------------------------------------------------------------------

@@ -494,7 +494,7 @@ def _extreme(spec: AggSpec, col: Block, ids: torch.Tensor,
         if col.values.dtype == torch.bool:
             raise NotImplementedError(
                 f"{spec.name} over {col.type} is not ported yet (ROADMAP "
-                "queue 1 item 9: breadth)")
+                "queue 1 item 10: breadth)")
         return Column(_seg_extreme(ids, col.values, live, g, minimize),
                       nulls, spec.output_type)
     if isinstance(col, Int128Column):
@@ -726,7 +726,7 @@ def _min_by(spec: AggSpec, col: Column, active: torch.Tensor,
     if not isinstance(order, Column):
         raise NotImplementedError(
             f"{spec.name} ordered by {order.type} is not ported yet "
-            "(ROADMAP queue 1 item 9: breadth)")
+            "(ROADMAP queue 1 item 10: breadth)")
     live = active & ~order.nulls
     words = [w ^ SIGN for w in key_words([order])[1:]]
     n = len(col)

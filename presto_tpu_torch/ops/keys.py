@@ -32,7 +32,7 @@ def _fixed_words(col: Column) -> List[torch.Tensor]:
     v = col.values
     if col.type.base == "timestamp with time zone":
         raise NotImplementedError(
-            f"{col.type} keys are not ported yet (ROADMAP queue 1 item 9: "
+            f"{col.type} keys are not ported yet (ROADMAP queue 1 item 10: "
             "breadth)")
     if v.dtype == torch.bool:
         return [v.to(torch.int64)]

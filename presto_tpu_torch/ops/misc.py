@@ -1,5 +1,5 @@
-"""Limit, Distinct and MarkDistinct: the LimitOperator,
-DistinctLimitOperator and MarkDistinctOperator analogs.
+"""Limit, Distinct, MarkDistinct and GroupId: the LimitOperator,
+DistinctLimitOperator, MarkDistinctOperator and GroupIdOperator analogs.
 
 Counterpart of presto_tpu/ops/misc.py. The reference finds distinct
 keys with its hash-slot group-id kernel and flags a rerun when the
@@ -23,11 +23,12 @@ from typing import Sequence
 
 import torch
 
-from ..block import Batch
+from .. import types as T
+from ..block import Batch, Column, concat_batches, null_like
 from .keys import SIGN, key_words
 from .sort import lex_permutation
 
-__all__ = ["limit", "mark_distinct", "distinct"]
+__all__ = ["limit", "mark_distinct", "distinct", "group_id"]
 
 
 def limit(batch: Batch, n: int) -> Batch:
@@ -56,3 +57,20 @@ def distinct(batch: Batch, key_channels: Sequence[int]) -> Batch:
     """SELECT DISTINCT: deactivate every row mark_distinct leaves
     unmarked."""
     return batch.with_active(mark_distinct(batch, key_channels))
+
+
+def group_id(batch: Batch, grouping_sets: Sequence[Sequence[int]],
+             key_channels: Sequence[int]) -> Batch:
+    """One copy of `batch` per grouping set, one after another: key
+    channels not in the set are NULL, and a BIGINT column holding the
+    set's index is appended."""
+    keyset = set(key_channels)
+    parts = []
+    for gi, kept in enumerate(grouping_sets):
+        cols = tuple(null_like(c) if ci in keyset and ci not in kept else c
+                     for ci, c in enumerate(batch.columns))
+        gid = Column(torch.full((batch.capacity,), gi, dtype=torch.int64,
+                                device=batch.active.device),
+                     torch.zeros_like(batch.active), T.BIGINT)
+        parts.append(Batch(cols + (gid,), batch.active))
+    return concat_batches(parts)

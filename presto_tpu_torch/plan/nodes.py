@@ -3,7 +3,8 @@
 Counterpart of presto_tpu/plan/nodes.py, trimmed to the nodes of the
 ported plan shapes: TableScan, Filter, Project, Aggregation (SINGLE,
 PARTIAL, INTERMEDIATE, FINAL), Join, SemiJoin, Sort, TopN, Limit,
-Distinct, Union, AssignUniqueId, MarkDistinct, Exchange and Output.
+Distinct, Union, AssignUniqueId, MarkDistinct, Window, RowNumber,
+GroupId, Exchange and Output.
 Channels are already resolved to indices.
 
 `from_json` reads the dict that presto_tpu.plan.nodes.to_json writes,
@@ -27,8 +28,9 @@ from ..ops.aggregation import AggSpec, state_types
 __all__ = ["PlanNode", "TableScanNode", "FilterNode", "ProjectNode",
            "AggregationNode", "JoinNode", "SemiJoinNode", "SortNode",
            "TopNNode", "LimitNode", "DistinctNode", "UnionNode",
-           "AssignUniqueIdNode", "MarkDistinctNode", "ExchangeNode",
-           "OutputNode", "from_json", "to_json"]
+           "AssignUniqueIdNode", "MarkDistinctNode", "WindowNode",
+           "RowNumberNode", "GroupIdNode", "ExchangeNode", "OutputNode",
+           "from_json", "to_json"]
 
 _ids = itertools.count(1)
 
@@ -266,6 +268,73 @@ class MarkDistinctNode(PlanNode):
 
 
 @dataclasses.dataclass
+class WindowNode(PlanNode):
+    """Window functions over partitions. `functions` entries:
+    (name, input channel or None, type, frame, k), frame as
+    ops/window.WindowSpec takes it and k the function's int parameter
+    (ntile's bucket count, lag/lead's offset, nth_value's n)."""
+    source: PlanNode
+    partition_channels: List[int] = dataclasses.field(default_factory=list)
+    order_keys: List[Tuple[int, bool, bool]] = dataclasses.field(
+        default_factory=list)
+    functions: List[Tuple] = dataclasses.field(default_factory=list)
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_types(self):
+        return self.source.output_types() + [f[2] for f in self.functions]
+
+
+@dataclasses.dataclass
+class RowNumberNode(PlanNode):
+    """`source`'s columns plus row_number() over partitions, keeping only
+    the first `max_rows_per_partition` rows of each when it is set.
+    `max_partitions` is carried for the plan JSON only: the sort-based
+    operator has no partition table."""
+    source: PlanNode
+    partition_channels: List[int] = dataclasses.field(default_factory=list)
+    order_keys: List[Tuple[int, bool, bool]] = dataclasses.field(
+        default_factory=list)
+    max_rows_per_partition: Optional[int] = None
+    max_partitions: int = 1 << 16
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_types(self):
+        return self.source.output_types() + [T.BIGINT]
+
+
+@dataclasses.dataclass
+class GroupIdNode(PlanNode):
+    """Grouping-set row expansion: each input row is emitted once per
+    grouping set, key channels not in that set NULL, and a BIGINT group
+    id (the set's index) appended. Output capacity is the source's
+    times len(grouping_sets)."""
+    source: PlanNode
+    grouping_sets: List[List[int]] = dataclasses.field(default_factory=list)
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    @property
+    def key_channels(self) -> List[int]:
+        seen: List[int] = []
+        for s in self.grouping_sets:
+            for c in s:
+                if c not in seen:
+                    seen.append(c)
+        return seen
+
+    def output_types(self):
+        return self.source.output_types() + [T.BIGINT]
+
+
+@dataclasses.dataclass
 class ExchangeNode(PlanNode):
     """A stage boundary of a distributed plan: REPARTITION (hash by
     `partition_channels`), REPLICATE, GATHER, or MERGE (of inputs each
@@ -307,10 +376,8 @@ class OutputNode(PlanNode):
 
 # node kinds of presto_tpu's wire format this port does not run yet
 _NOT_PORTED = {
-    "window": "queue 1 item 9 (breadth: ops/window.py)",
-    "rownumber": "queue 1 item 9 (breadth: ops/window.py)",
-    "unnest": "queue 1 item 9 (breadth: ops/unnest.py)",
-    "remotesource": "queue 1 item 12 (parallel/ and the worker tier)",
+    "unnest": "queue 1 item 10 (breadth: ops/unnest.py)",
+    "remotesource": "queue 1 item 13 (parallel/ and the worker tier)",
 }
 
 
@@ -328,6 +395,12 @@ def _agg_from_json(j: dict) -> AggSpec:
     return AggSpec(j["name"], j["input"], T.parse_type(j["type"]),
                    second_channel=j.get("secondChannel"),
                    second_type=T.parse_type(st) if st else None)
+
+
+def _frame_from_json(frame):
+    """A ROWS or RANGE frame arrives as a JSON list: read back the
+    tuple the reference builds."""
+    return tuple(frame) if isinstance(frame, list) else frame
 
 
 def to_json(n: PlanNode) -> dict:
@@ -383,6 +456,21 @@ def to_json(n: PlanNode) -> dict:
     if isinstance(n, MarkDistinctNode):
         return {**base, "@type": "markdistinct", "source": to_json(n.source),
                 "keyChannels": n.key_channels, "maxGroups": n.max_groups}
+    if isinstance(n, WindowNode):
+        return {**base, "@type": "window", "source": to_json(n.source),
+                "partitionChannels": n.partition_channels,
+                "orderKeys": [list(k) for k in n.order_keys],
+                "functions": [[f[0], f[1], str(f[2]), f[3], f[4]]
+                              for f in n.functions]}
+    if isinstance(n, RowNumberNode):
+        return {**base, "@type": "rownumber", "source": to_json(n.source),
+                "partitionChannels": n.partition_channels,
+                "orderKeys": [list(k) for k in n.order_keys],
+                "maxRowsPerPartition": n.max_rows_per_partition,
+                "maxPartitions": n.max_partitions}
+    if isinstance(n, GroupIdNode):
+        return {**base, "@type": "groupid", "source": to_json(n.source),
+                "groupingSets": [list(s) for s in n.grouping_sets]}
     if isinstance(n, ExchangeNode):
         return {**base, "@type": "exchange", "source": to_json(n.source),
                 "kind": n.kind, "scope": n.scope,
@@ -409,24 +497,28 @@ def _shape(j: dict) -> str:
 
 def from_json(j: dict) -> PlanNode:
     """The plan a to_json dict describes. A node id that comes again
-    is the node already read, so the plan is a DAG with one node per
-    id: the reference's plan passes copy subtrees with
-    dataclasses.replace, which keeps the id, and its JSON writes a
-    shared subtree out under every parent. Repeats of an id must read
-    the same, node ids below them aside (ValueError otherwise)."""
+    with the same content (node ids below it aside) is the node already
+    read, so the plan is a DAG with one node per shared subtree: the
+    reference's plan passes copy subtrees with dataclasses.replace,
+    which keeps the id, and its JSON writes a shared subtree out under
+    every parent. The same passes also keep the id of a node they
+    change (a pruned projection of one side of a self-join, TPC-DS q47),
+    so a repeated id with other content is another node: it reads
+    under the id with ".k" appended, k counting the variants."""
     memo: dict = {}
 
     def read(x: dict) -> PlanNode:
         nid = x.get("id")
-        if nid and nid in memo:
-            node, shape = memo[nid]
-            if _shape(x) != shape:
-                raise ValueError(f"plan node id {nid!r} names two "
-                                 "different nodes")
-            return node
+        variants = memo.setdefault(nid, []) if nid else None
+        if variants:
+            shape = _shape(x)
+            for node, known in variants:
+                if known == shape:
+                    return node
+            x = {**x, "id": f"{nid}.{len(variants)}"}
         node = _node_from_json(x, read)
         if nid:
-            memo[nid] = (node, _shape(x))
+            variants.append((node, _shape(x)))
         return node
 
     return read(j)
@@ -482,6 +574,20 @@ def _node_from_json(j: dict, sub) -> PlanNode:
     if t == "markdistinct":
         return MarkDistinctNode(sub(j["source"]), j["keyChannels"],
                                 j["maxGroups"], **kw)
+    if t == "window":
+        return WindowNode(sub(j["source"]), j["partitionChannels"],
+                          [tuple(k) for k in j["orderKeys"]],
+                          [(f[0], f[1], T.parse_type(f[2]),
+                            _frame_from_json(f[3]), f[4])
+                           for f in j["functions"]], **kw)
+    if t == "rownumber":
+        return RowNumberNode(sub(j["source"]), j["partitionChannels"],
+                             [tuple(k) for k in j["orderKeys"]],
+                             j["maxRowsPerPartition"], j["maxPartitions"],
+                             **kw)
+    if t == "groupid":
+        return GroupIdNode(sub(j["source"]),
+                           [list(s) for s in j["groupingSets"]], **kw)
     if t == "exchange":
         keys = j.get("sortKeys")
         return ExchangeNode(sub(j["source"]), j["kind"], j["scope"],
@@ -494,5 +600,5 @@ def _node_from_json(j: dict, sub) -> PlanNode:
         raise NotImplementedError(
             f"plan node {t!r} is not ported yet: ROADMAP {_NOT_PORTED[t]}")
     raise NotImplementedError(
-        f"plan node {t!r} is not ported yet: ROADMAP queue 1 item 9 "
+        f"plan node {t!r} is not ported yet: ROADMAP queue 1 item 10 "
         "(breadth)")

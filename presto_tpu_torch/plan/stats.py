@@ -1,4 +1,5 @@
-"""Capacity scaling for the overflow -> rerun ladder.
+"""Capacity scaling for the overflow -> rerun ladder, and the
+connectors' distinct-count statistics traced through a plan.
 
 The port's counterpart of presto_tpu/plan/stats.py::scale_capacities
 and its ceilings. The reference multiplies every static capacity of a
@@ -15,19 +16,35 @@ same either way. A two-stage plan's PARTIAL and FINAL aggregations are
 two capacity nodes, each with its own factor; exchange slot capacities
 are not scaled, as in the reference (and on one device an exchange is
 the identity).
+
+`estimate_distinct` is the reference's (presto_tpu/plan/stats.py): an
+output channel traced to its base-table column takes the connector's
+`column_distinct_count` (tpcds has one, tpch none), and a GroupId's
+appended id column has one value per grouping set. No code of the
+port reads it at run time: the port runs plans the reference already
+sized. It is kept, with the connectors' distinct counts, for the
+port's own planner (ROADMAP queue 1 item 12), which sizes aggregations
+from it as the reference's planner does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Mapping
+from typing import List, Mapping, Optional, Tuple
 
+from ..expr import ir as E
 from . import nodes as N
 
-__all__ = ["capacity_nodes", "scale_capacities"]
+__all__ = ["capacity_nodes", "scale_capacities", "column_source",
+           "estimate_distinct"]
 
 _MAX_GROUPS_CEILING = 1 << 23
-_CAPACITY_CEILING = 1 << 24
+# The reference stops a join's out_capacity at 1 << 24 rows, sized for
+# a TPU chip's HBM. One H100 holds 80 GB, and TPC-DS q47/q57 at SF1
+# (a three-way self-join on four keys, its rank conditions a filter
+# above it, as the reference plans them) need more than 16.8M rows, so
+# the port's ceiling is 1 << 26: the ladder's next step, x4.
+_CAPACITY_CEILING = 1 << 26
 
 
 def capacity_nodes(root: N.PlanNode) -> List[N.PlanNode]:
@@ -86,3 +103,68 @@ def scale_capacities(root: N.PlanNode, factors: Mapping[str, int],
         return out
 
     return walk(root)
+
+
+def column_source(node: N.PlanNode, channel: int
+                  ) -> Optional[Tuple[str, str, str]]:
+    """Trace an output channel to its base-table column: (connector,
+    table, column), or None when the channel is computed (expressions,
+    aggregates, appended columns)."""
+    if isinstance(node, N.TableScanNode):
+        if 0 <= channel < len(node.columns):
+            return (node.connector, node.table, node.columns[channel])
+        return None
+    if isinstance(node, N.ProjectNode):
+        e = node.expressions[channel] \
+            if 0 <= channel < len(node.expressions) else None
+        if isinstance(e, E.InputReference):
+            return column_source(node.source, e.channel)
+        return None
+    if isinstance(node, (N.FilterNode, N.SortNode, N.TopNNode, N.LimitNode,
+                         N.DistinctNode, N.ExchangeNode, N.OutputNode)):
+        return column_source(node.sources[0], channel)
+    if isinstance(node, N.JoinNode):
+        nleft = len(node.left.output_types())
+        if channel < nleft:
+            return column_source(node.left, channel)
+        rch = channel - nleft
+        out = node.right_output_channels
+        if out is not None:
+            if not 0 <= rch < len(out):
+                return None
+            rch = out[rch]
+        return column_source(node.right, rch)
+    if isinstance(node, N.AggregationNode):
+        # group keys pass the source column through; states do not
+        if 0 <= channel < len(node.group_channels):
+            return column_source(node.source, node.group_channels[channel])
+        return None
+    if isinstance(node, (N.SemiJoinNode, N.WindowNode, N.RowNumberNode,
+                         N.MarkDistinctNode, N.AssignUniqueIdNode,
+                         N.GroupIdNode)):
+        # the source's channels pass through; appended ones are computed
+        if channel < len(node.sources[0].output_types()):
+            return column_source(node.sources[0], channel)
+        return None
+    return None
+
+
+def estimate_distinct(node: N.PlanNode, channel: int,
+                      sf: float) -> Optional[int]:
+    """Distinct-count upper bound of one output channel from the
+    originating connector's statistics; None where there is none."""
+    if isinstance(node, N.GroupIdNode) and \
+            channel == len(node.source.output_types()):
+        return len(node.grouping_sets)  # the appended group id
+    src = column_source(node, channel)
+    if src is None:
+        return None
+    connector, table, column = src
+    from ..connectors import catalog
+    fn = getattr(catalog(connector), "column_distinct_count", None)
+    if fn is None:
+        return None
+    try:
+        return fn(table, column, sf)
+    except KeyError:
+        return None

@@ -48,6 +48,19 @@ def infer_column_width(ty: T.Type, lo: int, hi: int) -> Optional[str]:
     return None
 
 
+def _column_range(conn, table: str, column: str, sf: float
+                  ) -> Optional[Tuple[int, int]]:
+    """The connector's proven value range of a column; None where it
+    has no range statistics (the tpcds connector) or none for it."""
+    fn = getattr(conn, "column_range", None)
+    if fn is None:
+        return None
+    try:
+        return fn(table, column, sf)
+    except KeyError:
+        return None
+
+
 def infer_table_widths(connector: str, table: str, columns: Sequence[str],
                        column_types: Sequence[T.Type], sf: float
                        ) -> Optional[Tuple[Optional[str], ...]]:
@@ -60,7 +73,7 @@ def infer_table_widths(connector: str, table: str, columns: Sequence[str],
         return None
     out: List[Optional[str]] = []
     for col, ty in zip(columns, column_types):
-        rng = conn.column_range(table, col, sf)
+        rng = _column_range(conn, table, col, sf)
         out.append(None if rng is None
                    else infer_column_width(ty, int(rng[0]), int(rng[1])))
     if not any(out):

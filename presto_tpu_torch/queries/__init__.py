@@ -1,5 +1,5 @@
-"""The TPC-H corpus the card is held to: the reference's own plans and
-rows at scale factor 1, committed as data.
+"""The corpora the port is held to: the reference's own plans and rows,
+committed as data.
 
 `tpch_sf1.json` holds, for each query of the corpus that the port runs,
 the plan-fragment JSON that presto_tpu prepares for it at SF1 and the
@@ -9,22 +9,33 @@ epoch, strings as text, booleans as booleans, doubles as `float.hex`
 and NULL as null. `scripts/make_tpch_corpus.py` writes the file from
 presto_tpu; this module only reads it, so the port needs nothing of
 the reference to check itself against it.
+
+`tpcds.json` holds, for each of the 99 TPC-DS queries, the reference's
+prepared plan and rows at the query's suite scale factor, and its plan
+prepared at the scale the card times it at, SF1 but for q72
+(`scripts/make_tpcds_corpus.py` writes it; plans and
+rows are zlib-compressed, base64-encoded JSON, decoded by
+`load_tpcds_corpus`).
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import os
+import zlib
 from typing import Dict, List
 
 import numpy as np
 
 from .. import types as T
 
-__all__ = ["CORPUS_PATH", "load_corpus", "exact_rows", "exact_value"]
+__all__ = ["CORPUS_PATH", "TPCDS_CORPUS_PATH", "load_corpus",
+           "load_tpcds_corpus", "exact_rows", "exact_value"]
 
-CORPUS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "tpch_sf1.json")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CORPUS_PATH = os.path.join(_HERE, "tpch_sf1.json")
+TPCDS_CORPUS_PATH = os.path.join(_HERE, "tpcds.json")
 
 
 def exact_value(v, ty: T.Type):
@@ -57,3 +68,20 @@ def load_corpus(path: str = CORPUS_PATH) -> Dict[str, dict]:
     for name, q in data["queries"].items():
         out[name] = {**q, "sf": data["sf"], "source": data["source"]}
     return out
+
+
+def _unpack(packed: str):
+    return json.loads(zlib.decompress(base64.b64decode(packed)))
+
+
+def load_tpcds_corpus(path: str = TPCDS_CORPUS_PATH) -> Dict[str, dict]:
+    """{query name: {"sf", "plan", "names", "types", "rows",
+    "max_groups", "join_capacity", "plan_timed", "timed_sf",
+    "timed_max_groups", "timed_join_capacity"}} of the committed TPC-DS
+    corpus (the plan the card times, at timed_sf: SF1, q72 at 0.2), plans
+    decoded to plan-fragment JSON dicts and rows to lists."""
+    with open(path) as f:
+        data = json.load(f)
+    return {name: {**q, **{k: _unpack(q[k])
+                           for k in ("plan", "rows", "plan_timed")}}
+            for name, q in data["queries"].items()}

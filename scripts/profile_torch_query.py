@@ -9,7 +9,8 @@ at --join-sf, and q5, q7, q8 and q9 of the committed SF1 corpus
 (presto_tpu_torch/queries/tpch_sf1.json: small aggregations above join
 chains); --queries names others (a comma list of those four and any
 corpus entry: a two-stage plan such as q1_two_stage, an aggregate
-statement such as agg_hash). Stages each query's scans once on the card, runs it once
+statement such as agg_hash, or a TPC-DS query as tpcds_q51, its timed
+plan of presto_tpu_torch/queries/tpcds.json). Stages each query's scans once on the card, runs it once
 through the overflow ladder (so the capacities that fit are known),
 then:
 
@@ -18,7 +19,7 @@ then:
   pooled sums + kernel, the sorted large-table path, or the hash-slot
   path with its probe rounds timed apart), a FINAL step's
   merge_partials, finalize, Sort, TopN, Limit, Distinct, MarkDistinct,
-  Union, AssignUniqueId, the result fetch; an exchange is the identity
+  Union, AssignUniqueId, Window, RowNumber, GroupId, the result fetch; an exchange is the identity
   on one card; a shared subtree once): host clock around a synced
   call, median of 5 after a warm-up, each fed its input computed once
   beforehand; the hash path's probe rounds and host reads of its exit
@@ -69,8 +70,10 @@ def _stages(root, batches, limb_form):
     from presto_tpu_torch import types as T
     from presto_tpu_torch.block import Batch, Column, concat_batches
     from presto_tpu_torch.ops.join import hash_join, semi_join_mask
-    from presto_tpu_torch.ops.misc import distinct, limit, mark_distinct
+    from presto_tpu_torch.ops.misc import (distinct, group_id, limit,
+                                           mark_distinct)
     from presto_tpu_torch.ops.sort import sort_batch, top_n
+    from presto_tpu_torch.ops.window import WindowSpec, specs_of, window
     from presto_tpu_torch.plan import nodes as N
     import torch
 
@@ -194,6 +197,23 @@ def _stages(root, batches, limb_form):
         if isinstance(node, N.TopNNode):
             return add("top_n", lambda x, n=node: top_n(x, n.keys, n.count),
                        walk(node.source))
+        if isinstance(node, N.WindowNode):
+            return add("window", lambda x, n=node: window(
+                x, n.partition_channels, n.order_keys,
+                specs_of(n.functions)), walk(node.source))
+        if isinstance(node, N.RowNumberNode):
+            def row_number(x, n=node):
+                out = window(x, n.partition_channels, n.order_keys,
+                             [WindowSpec("row_number")])
+                if n.max_rows_per_partition is None:
+                    return out
+                rn = out.column(out.num_columns - 1).values
+                return out.with_active(
+                    out.active & (rn <= n.max_rows_per_partition))
+            return add("row_number", row_number, walk(node.source))
+        if isinstance(node, N.GroupIdNode):
+            return add("group_id", lambda x, n=node: group_id(
+                x, n.grouping_sets, n.key_channels), walk(node.source))
         if isinstance(node, N.OutputNode):
             b = walk(node.source)
             add("result fetch", lambda x: _batch_to_result(x, root), b)
@@ -251,7 +271,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--join-sf", type=float, default=10.0)
     ap.add_argument("--queries", default="q1,q6,q3,q14,q5,q7,q8,q9",
-                    help="comma list: q1, q6, q3, q14 and corpus entries")
+                    help="comma list: q1, q6, q3, q14, corpus entries and "
+                         "tpcds_qN")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     import torch
@@ -266,7 +287,7 @@ def main(argv=None) -> int:
     from presto_tpu_torch.plan import from_json
     from presto_tpu_torch.plan.stats import capacity_nodes, scale_capacities
     from presto_tpu_torch.plan.widths import annotate_widths
-    from presto_tpu_torch.queries import load_corpus
+    from presto_tpu_torch.queries import load_corpus, load_tpcds_corpus
     chip_smoke.install_host_cache()
     dev = torch.device("cuda")
     gpu = chip_smoke._run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -277,19 +298,29 @@ def main(argv=None) -> int:
            "q6": (chip_smoke.q6_plan, args.sf, ("narrow",)),
            "q3": (chip_smoke.q3_plan, args.join_sf, ("narrow",)),
            "q14": (chip_smoke.q14_plan, args.join_sf, ("narrow",))}
-    work = [(q, *own[q]) if q in own else
-            (q, lambda q=q: from_json(corpus[q]["plan"]), corpus[q]["sf"],
-             ("narrow",)) for q in args.queries.split(",")]
-    for name, make, sf, forms in work:
+    tpcds = load_tpcds_corpus() if "tpcds_" in args.queries else {}
+
+    def entry(q):
+        """(name, plan maker, sf, limb forms, default join capacity)."""
+        if q in own:
+            return (q, *own[q], 1 << 16)
+        if q.startswith("tpcds_"):
+            e = tpcds[q[len("tpcds_"):]]
+            return (q, lambda: from_json(e["plan_timed"]), e["timed_sf"],
+                    ("narrow",), e["timed_join_capacity"])
+        return (q, lambda: from_json(corpus[q]["plan"]), corpus[q]["sf"],
+                ("narrow",), 1 << 16)
+
+    for name, make, sf, forms, jc in map(entry, args.queries.split(",")):
         root = annotate_widths(make(), sf)
         batches = stage_scans(root, sf, dev)
-        execute(root, batches)  # climbs the ladder once; the memo keeps it
+        # climbs the ladder once; the memo keeps the capacities
+        execute(root, batches, default_join_capacity=jc)
         factors = runner._CAPACITY_FEEDBACK.get(runner._fingerprint(root),
                                                 (1,))
-        scaled = capacity_plan(root)
+        scaled = capacity_plan(root, jc)
         uniform = scale_capacities(
-            root, {n.id: max(factors) for n in capacity_nodes(root)},
-            1 << 16)
+            root, {n.id: max(factors) for n in capacity_nodes(root)}, jc)
         for form in forms:
             stage_list, hash_stats = _stages(scaled, batches, form)
             stages = {label: chip_smoke.wall_ms(lambda f=fn, a=args_: f(*a))
@@ -298,16 +329,24 @@ def main(argv=None) -> int:
                    "capacity_factors": list(factors), "stage_ms": stages,
                    "hash_stats": hash_stats,
                    "profile": _profile(
-                       lambda: execute(root, batches, form))}
+                       lambda: execute(root, batches, form, jc))}
             if len(set(factors)) > 1:
-                fitted_fn = compile_plan(scaled, form).fn
-                uniform_fn = compile_plan(uniform, form).fn
-                turns = [chip_smoke.wall_ms(lambda f=f: f(batches))
-                         for f in (fitted_fn, uniform_fn, uniform_fn,
-                                   fitted_fn)]
-                rep["fitted_vs_uniform"] = {
-                    "execute_ms_in_turns": turns,
-                    "uniform_profile": _profile(lambda: uniform_fn(batches))}
+                fitted_fn = compile_plan(scaled, form, jc).fn
+                uniform_fn = compile_plan(uniform, form, jc).fn
+                try:
+                    turns = [chip_smoke.wall_ms(lambda f=f: f(batches))
+                             for f in (fitted_fn, uniform_fn, uniform_fn,
+                                       fitted_fn)]
+                    rep["fitted_vs_uniform"] = {
+                        "execute_ms_in_turns": turns,
+                        "uniform_profile": _profile(
+                            lambda: uniform_fn(batches))}
+                except torch.OutOfMemoryError as ex:
+                    # the reference ladder's plan, every capacity at the
+                    # largest factor, need not fit the card
+                    rep["fitted_vs_uniform"] = {
+                        "uniform": f"out of memory: {str(ex)[:120]}"}
+                    torch.cuda.empty_cache()
             print(json.dumps(rep))
             reports.append(rep)
         del batches

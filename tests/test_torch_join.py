@@ -32,6 +32,7 @@ from presto_tpu_torch.ops import aggregation as PA
 from presto_tpu_torch.ops import join as PJ
 from presto_tpu_torch.ops import sort as PS
 from presto_tpu_torch.plan import from_json
+from presto_tpu_torch.plan.stats import _CAPACITY_CEILING
 
 WORDS = ["", "a", "ab", "abcdefgh", "abcdefghi", "abcdefghij", "zz",
          "BUILDING", "BUILDINGS", "héllo"]
@@ -341,4 +342,4 @@ def test_ladder_raises_only_the_capacities_that_overflowed(n):
     for k in aggs:
         assert after[k] == before[k] <= SMALL_G
     for k in joins:  # the chain from the root down to the cut join
-        assert after[k] == min(before[k] * scale, 1 << 24)
+        assert after[k] == min(before[k] * scale, _CAPACITY_CEILING)

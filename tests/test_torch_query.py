@@ -157,11 +157,11 @@ def test_out_of_slice_plans_raise_naming_the_roadmap():
         assert want.row_count > 0
         assert got.rows() == want.rows()
     assert len(_port(partial).columns) == 2 + 4 + 3 * 2 + 1
-    window = {"@type": "window", "id": "w", "source": RN.to_json(limit),
-              "partitionChannels": [0], "orderKeys": [[1, False, True]],
-              "functions": []}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        from_json(window)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    unnest = {"@type": "unnest", "id": "u", "source": RN.to_json(limit),
+              "arrayChannel": 0, "outCapacity": None,
+              "withOrdinality": False}
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        from_json(unnest)
+    with pytest.raises(NotImplementedError, match="item 13"):
         run_query(from_json(RN.to_json(q6_plan())), sf=SF, device="cpu",
                   mesh=object())
