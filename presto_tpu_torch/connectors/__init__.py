@@ -14,4 +14,4 @@ def catalog(name: str):
         from . import tpcds
         return tpcds
     raise KeyError(f"no connector {name!r} in this port (ROADMAP queue 1 "
-                   "item 10 adds the others)")
+                   "item 12: the write roots and the other connectors)")

@@ -14,7 +14,9 @@ PARTIAL run `group_by` over rows, INTERMEDIATE and FINAL run
 ExchangeNode of any kind and scope is the identity, as the reference's
 lowering without a mesh: one device holds every partition. A GroupId
 node stacks one copy of its source per grouping set, so the capacity
-nodes above it see that many times the rows.
+nodes above it see that many times the rows. A ValuesNode is a leaf
+whose batch the runner stages like a scan's; a SampleNode keeps the
+rows whose slot hashes below its ratio.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ import torch
 from .. import types as T
 from ..block import Batch, Column, concat_batches
 from ..expr.compile import compile_filter, compile_projections
+from ..expr.functions import mix64
 from ..ops.aggregation import finalize_states, group_by, merge_partials
+from ..ops.keys import SIGN
 from ..ops.join import hash_join, semi_join_mask
 from ..ops.misc import distinct, group_id, limit, mark_distinct
 from ..ops.sort import sort_batch, top_n
@@ -42,23 +46,24 @@ __all__ = ["compile_plan", "CompiledPlan"]
 @dataclasses.dataclass
 class CompiledPlan:
     """fn(scan_batches) -> (Batch, overflow flags); `scan_nodes` lists the
-    TableScanNodes in the order their batches are supplied, and the
+    TableScanNodes and ValuesNodes in the order their batches are
+    supplied, and the
     flags are a bool vector, one per node of plan.stats.capacity_nodes
     of the plan, set where that node overflowed."""
     fn: Callable[[Sequence[Batch]], Tuple[Batch, torch.Tensor]]
-    scan_nodes: List[N.TableScanNode]
+    scan_nodes: List[N.PlanNode]
     output_types: List[T.Type]
 
 
-def _walk_dag(node: N.PlanNode, scans: List[N.TableScanNode],
+def _walk_dag(node: N.PlanNode, scans: List[N.PlanNode],
               uses: Counter, seen: set) -> None:
-    """The scans in preorder, and per node id the number of edges that
-    reach it: a shared subtree (one node id under several parents,
-    plan.nodes.from_json) is walked once."""
+    """The scan and values leaves in preorder, and per node id the
+    number of edges that reach it: a shared subtree (one node id under
+    several parents, plan.nodes.from_json) is walked once."""
     if node.id in seen:
         return
     seen.add(node.id)
-    if isinstance(node, N.TableScanNode):
+    if isinstance(node, (N.TableScanNode, N.ValuesNode)):
         scans.append(node)
     for s in node.sources:
         uses[s.id] += 1
@@ -69,16 +74,31 @@ def _channels(key) -> List[int]:
     return key if isinstance(key, list) else [key]
 
 
+def sample(batch: Batch, ratio: float) -> Batch:
+    """Deterministic Bernoulli: a row stays where the splitmix64 hash of
+    its slot, as an unsigned 64-bit number, is at most ratio * (2^64 -
+    1), the reference's rule (so the rows kept depend on the slots the
+    table was staged in). Unsigned order of the int64 hash patterns is
+    the signed order of `h ^ SIGN`."""
+    h = mix64(torch.arange(batch.capacity, dtype=torch.int64,
+                           device=batch.active.device))
+    thresh = int(ratio * float(2 ** 64 - 1))
+    if thresh >= 1 << 64:  # ratio 1.0 keeps every row
+        return batch
+    keep = (h ^ SIGN) <= (thresh - (1 << 63))
+    return batch.with_active(batch.active & keep)
+
+
 def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
                  default_join_capacity: int = 1 << 16) -> CompiledPlan:
-    """Lower Scan/Filter/Project/Aggregation (every step)/Join (inner,
-    left, right, full)/SemiJoin/Sort/TopN/Limit/Distinct/Union/
-    AssignUniqueId/MarkDistinct/Window/RowNumber/GroupId/Exchange/
-    Output. A join without an
+    """Lower Scan/Values/Filter/Project/Aggregation (every step)/Join
+    (inner, left, right, full)/SemiJoin/Sort/TopN/Limit/Distinct/Union/
+    Sample/AssignUniqueId/MarkDistinct/Window/RowNumber/GroupId/
+    Exchange/Output. A join without an
     out_capacity gets `default_join_capacity`; `limb_form` picks the
     stacked limb lanes of the small-table group-by sums
     (ops/aggregation.py)."""
-    scans: List[N.TableScanNode] = []
+    scans: List[N.PlanNode] = []
     uses: Counter = Counter()
     _walk_dag(root, scans, uses, set())
     capacity_ids = [n.id for n in capacity_nodes(root)]
@@ -156,6 +176,8 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
                 return distinct(src, keys)
             if isinstance(node, N.UnionNode):
                 return concat_batches([lower(s) for s in node.inputs])
+            if isinstance(node, N.SampleNode):
+                return sample(lower(node.source), node.ratio)
             if isinstance(node, N.AssignUniqueIdNode):
                 # one device and no mesh: the row slot is unique, with
                 # no worker salt in the high bits

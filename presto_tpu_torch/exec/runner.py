@@ -80,9 +80,38 @@ def _stage_scan(node: N.TableScanNode, sf: float, device) -> Batch:
                             physical_dtypes=phys, device=device)
 
 
+def _stage_values(node: N.ValuesNode, device) -> Batch:
+    """A VALUES node's rows as one batch, as the reference's
+    `_scan_batch` builds it: strings and long decimals as object
+    columns, other values at their type's dtype with NULL as 0; a
+    node without columns (a FROM-less SELECT) is its active rows
+    alone."""
+    n = len(node.rows)
+    cap = max(-(-n // _PAD) * _PAD, _PAD)
+    if not node.types:
+        active = torch.zeros(cap, dtype=torch.bool, device=device)
+        active[:n] = True
+        return Batch((), active)
+    arrays, nulls = [], []
+    for ci, ty in enumerate(node.types):
+        col = [r[ci] for r in node.rows]
+        nulls.append(np.array([v is None for v in col], dtype=bool))
+        if ty.is_string or (ty.is_decimal and not ty.is_short_decimal):
+            a = np.empty(n, dtype=object)
+            a[:] = col
+        else:
+            a = np.array([0 if v is None else v for v in col],
+                         dtype=ty.to_dtype())
+        arrays.append(a)
+    return batch_from_numpy(node.types, arrays, nulls=nulls, capacity=cap,
+                            device=device)
+
+
 def stage_scans(root: N.PlanNode, sf: float, device) -> List[Batch]:
-    """Staged batches of the plan's scans, in compile_plan's order."""
-    return [_stage_scan(n, sf, device)
+    """Staged batches of the plan's scans and VALUES, in compile_plan's
+    order."""
+    return [_stage_values(n, device) if isinstance(n, N.ValuesNode)
+            else _stage_scan(n, sf, device)
             for n in compile_plan(root).scan_nodes]
 
 
@@ -185,7 +214,7 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
     without an out_capacity starts at `default_join_capacity` rows."""
     if mesh is not None:
         raise NotImplementedError("a mesh is not ported yet (ROADMAP queue 1 "
-                                  "item 13: parallel/ and the worker tier)")
+                                  "item 14: parallel/ and the worker tier)")
     dev = resolve_device(device)
     root = annotate_widths(root, sf)
     out, scale, reruns = _dispatch_ladder(

@@ -7,6 +7,13 @@ for AND/OR/IN/IS_NULL/IF/NULL_IF/COALESCE/BETWEEN/SWITCH,
 `compile_projections`). PyTorch runs eagerly, so "compiling" an
 expression is binding it into a closure over the tree.
 
+Some calls take an argument that is plan structure, not data, and
+`evaluate` dispatches them by name as the reference does: the patterns
+of LIKE, regexp_like and regexp_replace, the zone of at_timezone, the
+format of date_format, the units of date_add, date_trunc and
+date_diff, and the delimiter and index of split_part must be
+constants. A call that gives one as an expression is refused.
+
 Null semantics are Presto's three-valued logic: a scalar call is NULL
 when any argument is; AND, OR and IN are Kleene; IF, COALESCE and
 SWITCH compute every branch and then select lanes, as the reference
@@ -22,8 +29,10 @@ import numpy as np
 import torch
 
 from .. import types as T
+from .. import tz as TZ
 from ..block import (Batch, Block, Column, Int128Column, StringColumn,
                      pad_chars, torch_dtype)
+from ..ops.regex import compile_dfa, regexp_like_kernel
 from . import functions as F
 from .ir import Call, Constant, InputReference, RowExpression, SpecialForm
 
@@ -58,8 +67,8 @@ def _constant_block(c: Constant, capacity: int, device) -> Block:
                             no_nulls.expand(capacity), ty)
     if not ty.is_fixed_width:
         raise NotImplementedError(
-            f"constant {c} is not ported yet (ROADMAP queue 1 item 10: "
-            "breadth)")
+            f"constant {c} is not ported yet (ROADMAP queue 1 item 11: "
+            "arrays, maps, rows and lambdas)")
     v = c.value
     if ty.base == "date" and isinstance(v, str):
         v = int((np.datetime64(v) - np.datetime64("1970-01-01")).astype(int))
@@ -147,22 +156,169 @@ def evaluate(expr: RowExpression, batch: Batch) -> Block:
     if isinstance(expr, SpecialForm):
         return _eval_special(expr, batch)
     if isinstance(expr, Call):
-        if expr.name.lower() == "like":
-            # the pattern is plan structure, not data
-            a = evaluate(expr.arguments[0], batch)
-            pat = expr.arguments[1]
-            if not isinstance(pat, Constant):
-                raise NotImplementedError(
-                    "LIKE with a pattern that is not a constant (ROADMAP "
-                    "queue 1 item 10: breadth)")
-            return Column(_like(a, str(pat.value)), a.nulls, expr.type)
+        name = expr.name.lower()
+        if name in _BY_NAME:
+            return _BY_NAME[name](expr, batch)
+        if name in _NESTED_CALLS:
+            raise NotImplementedError(
+                f"{name} is not ported yet (ROADMAP queue 1 item 11: "
+                "arrays, maps, rows and lambdas)")
         args = [evaluate(a, batch) for a in expr.arguments]
-        sf = F.lookup(expr.name.lower())
+        sf = F.lookup(name)
         out = sf.fn(expr.type, *args)
         if sf.null_fn is not None:
-            out = _with_nulls(out, sf.null_fn(expr.type, *args))
+            nulls = sf.null_fn(expr.type, *args)
+            if nulls is not None:  # None: the function set its own mask
+                out = _with_nulls(out, nulls)
         return out
     raise TypeError(f"cannot evaluate {type(expr)}")
+
+
+# calls the reference's evaluate dispatches by name over arrays and
+# lambdas (the nested half of the library)
+_NESTED_CALLS = ("transform", "filter", "any_match", "all_match",
+                 "none_match", "reduce", "transform_values",
+                 "transform_keys", "map_filter", "array_constructor",
+                 "sequence")
+
+
+def _constant_arg(expr: Call, i: int, what: str):
+    """The value of argument i, which must be a constant."""
+    c = expr.arguments[i]
+    if not isinstance(c, Constant):
+        raise NotImplementedError(
+            f"{expr.name} needs a constant {what}, as in the reference")
+    return c.value
+
+
+def _eval_like(expr: Call, batch: Batch) -> Block:
+    a = evaluate(expr.arguments[0], batch)
+    pat = _constant_arg(expr, 1, "pattern")
+    return Column(_like(a, str(pat)), a.nulls, expr.type)
+
+
+def _eval_regexp_like(expr: Call, batch: Batch) -> Block:
+    """The pattern compiles to a DFA on the host (a pattern the DFA
+    refuses raises RegexUnsupported); the rows scan on the device."""
+    a = evaluate(expr.arguments[0], batch)
+    table, accepting = compile_dfa(str(_constant_arg(expr, 1, "pattern")))
+    return Column(regexp_like_kernel(a.chars, a.lengths, table, accepting),
+                  a.nulls, expr.type)
+
+
+def _eval_at_timezone(expr: Call, batch: Batch) -> Block:
+    """The same instant with another zone key; a naive timestamp is a
+    UTC instant."""
+    a = evaluate(expr.arguments[0], batch)
+    key = TZ.zone_key(str(_constant_arg(expr, 1, "zone")))
+    inst = a.values.to(torch.int64)
+    if a.type.base == "timestamp with time zone":
+        inst = TZ.unpack_micros(inst)
+    return Column(TZ.pack(inst, key), a.nulls, expr.type)
+
+
+def _eval_regexp_replace(expr: Call, batch: Batch) -> Block:
+    a = evaluate(expr.arguments[0], batch)
+    pat = str(_constant_arg(expr, 1, "pattern"))
+    rep = "" if len(expr.arguments) < 3 else \
+        str(_constant_arg(expr, 2, "replacement"))
+    return F.regexp_replace(a, pat, rep, expr.type)
+
+
+def _eval_date_format(expr: Call, batch: Batch) -> Block:
+    d = evaluate(expr.arguments[0], batch)
+    chars, lengths = F.date_format_kernel(
+        d.values, d.type, str(_constant_arg(expr, 1, "format")))
+    return StringColumn(chars, lengths, d.nulls, expr.type)
+
+
+def _eval_date_add(expr: Call, batch: Batch) -> Block:
+    """date_add(unit, n, date): days and weeks add to the lanes, months
+    and years do calendar arithmetic clamped at the month's end."""
+    unit = str(_constant_arg(expr, 0, "unit"))
+    n = evaluate(expr.arguments[1], batch)
+    d = evaluate(expr.arguments[2], batch)
+    nv, dv = n.values.to(torch.int64), d.values.to(torch.int64)
+    step = {"day": 1, "week": 7}.get(unit)
+    if step is not None:
+        vals = dv + nv * step
+    elif unit in ("month", "year"):
+        vals = F._month_add(dv, nv * 12 if unit == "year" else nv)
+    else:
+        raise NotImplementedError(f"date_add unit {unit!r}")
+    return Column(vals.to(torch_dtype(d.type.to_dtype())),
+                  F._default_nulls(n, d), expr.type)
+
+
+def _eval_date_trunc(expr: Call, batch: Batch) -> Block:
+    u = str(_constant_arg(expr, 0, "unit"))
+    d = evaluate(expr.arguments[1], batch)
+    v = d.values.to(torch.int64)
+    if d.type.base == "timestamp":
+        step = {"second": 1_000_000, "minute": 60_000_000,
+                "hour": 3_600_000_000}.get(u)
+        if step is not None:
+            vals = F._fdiv(v, step) * step
+        else:  # calendar units truncate through days
+            vals = F.date_trunc_kernel(u, F._fdiv(v, F._DAY_US)) * F._DAY_US
+    elif d.type.base == "date":
+        vals = F.date_trunc_kernel(u, v)
+    else:
+        raise NotImplementedError(f"date_trunc of {d.type}")
+    return Column(vals.to(torch_dtype(d.type.to_dtype())), d.nulls,
+                  expr.type)
+
+
+def _as_micros(b: Block) -> torch.Tensor:
+    v = b.values.to(torch.int64)
+    return v * F._DAY_US if b.type.base == "date" else v
+
+
+def _eval_date_diff(expr: Call, batch: Batch) -> Block:
+    """Whole units from the first date to the second, truncated toward
+    zero. With a timestamp, sub-day units count elapsed micros, and
+    calendar units count on days with the time of day breaking a tie
+    of the day of month."""
+    u = str(_constant_arg(expr, 0, "unit"))
+    d1 = evaluate(expr.arguments[1], batch)
+    d2 = evaluate(expr.arguments[2], batch)
+    if "timestamp" in (d1.type.base, d2.type.base):
+        m1, m2 = _as_micros(d1), _as_micros(d2)
+        step = {"millisecond": 1_000, "second": 1_000_000,
+                "minute": 60_000_000, "hour": 3_600_000_000,
+                "day": F._DAY_US, "week": 7 * F._DAY_US}.get(u)
+        if step is not None:
+            vals = F._trunc_units(m2 - m1, step)
+        else:
+            day1, day2 = F._fdiv(m1, F._DAY_US), F._fdiv(m2, F._DAY_US)
+            vals = F.date_diff_kernel(u, day1, day2)
+            tie = F._civil(day1)[2] == F._civil(day2)[2]
+            tod1, tod2 = F._fmod(m1, F._DAY_US), F._fmod(m2, F._DAY_US)
+            adj = torch.where((vals > 0) & tie & (tod2 < tod1), 1,
+                              torch.where((vals < 0) & tie & (tod2 > tod1),
+                                          -1, 0))
+            vals = vals - adj
+    elif d1.type.base == "date" and d2.type.base == "date":
+        vals = F.date_diff_kernel(u, d1.values, d2.values)
+    else:
+        raise NotImplementedError(f"date_diff of {d1.type} and {d2.type}")
+    return Column(vals.to(torch_dtype(expr.type.to_dtype())),
+                  F._default_nulls(d1, d2), expr.type)
+
+
+def _eval_split_part(expr: Call, batch: Batch) -> Block:
+    a = evaluate(expr.arguments[0], batch)
+    delim = str(_constant_arg(expr, 1, "delimiter")).encode()
+    index = int(_constant_arg(expr, 2, "index"))
+    return F.split_part_kernel(a, delim, index, expr.type)
+
+
+_BY_NAME = {"like": _eval_like, "regexp_like": _eval_regexp_like,
+            "at_timezone": _eval_at_timezone,
+            "regexp_replace": _eval_regexp_replace,
+            "date_format": _eval_date_format, "date_add": _eval_date_add,
+            "date_trunc": _eval_date_trunc, "date_diff": _eval_date_diff,
+            "split_part": _eval_split_part}
 
 
 def _with_nulls(b: Block, nulls: torch.Tensor) -> Block:
@@ -256,8 +412,8 @@ def _eval_special(expr: SpecialForm, batch: Batch) -> Block:
             res = evaluate(res_expr, batch)
             out = _select(cv & ~cn, res, out, expr.type)
         return out
-    raise NotImplementedError(f"special form {form} is not ported yet "
-                              "(ROADMAP queue 1 item 10: breadth)")
+    # DEREFERENCE, ROW_CONSTRUCTOR and BIND: the reference raises too
+    raise NotImplementedError(f"special form {form}")
 
 
 def _select(take_a: torch.Tensor, a: Block, b: Block, ty: T.Type) -> Block:

@@ -1,30 +1,46 @@
-"""Scalar function registry: the functions the ported TPC-H queries
-reach.
+"""Scalar function registry: the reference's flat function library.
 
-Counterpart of presto_tpu/expr/functions.py, trimmed to comparisons of
-integers, dates, decimals and strings, decimal add/subtract/multiply/
-divide (and divide to double), `negate` and `abs`, the casts onto
-decimals, `not`, `year`, `substr`, `upper`, `concat`, and the
-substring search `contains_pattern`. A function is a name plus an
-implementation `(ret_type, *blocks) -> Block`; the compiler computes the
-default null mask (OR of argument nulls) and a function only overrides
-it through `null_fn`.
+Counterpart of presto_tpu/expr/functions.py: arithmetic (decimal,
+integral and floating), comparisons of every flat type, math and
+bitwise functions, dates, timestamps and zoned timestamps, intervals,
+strings and varbinary, casts and try_cast, the JSON, regex-capture and
+digest functions that run per row on the host, and the geo scalars.
+The 14 functions over arrays, maps and rows are not ported yet
+(ROADMAP queue 1 item 11). A function is a name plus an implementation
+`(ret_type, *blocks) -> Block`; the compiler computes the default null
+mask (OR of argument nulls) and a function only overrides it through
+`null_fn`, which may return None when the function computed its own
+mask.
 
 Decimal rules are Presto's: add/subtract rescale to the result scale,
 multiply adds scales, divide rescales the dividend and rounds half away
 from zero. Short decimals (precision <= 18) are int64 lanes; long
 decimals compute in exact 128-bit (hi, lo) lanes (int128.py).
+
+Strings are byte strings, as in the reference: length, strpos,
+reverse, codepoint and the case functions work on UTF-8 bytes, not
+code points (ROADMAP queue 3). Every function that builds a string
+keeps the chars past each row's length zero, the layout block.py
+states, so that string equality and key words can read whole rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
+import json as _json
+import math
+import re as _re
+import zlib
 from typing import Callable, Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from .. import int128 as I128
 from .. import types as T
+from .. import tz as TZ
 from ..block import (Column, Int128Column, StringColumn, pad_chars,
                      torch_dtype)
 from ..ops import kernels as K
@@ -33,7 +49,16 @@ Block = Union[Column, StringColumn, Int128Column]
 
 __all__ = ["ScalarFunction", "REGISTRY", "register", "lookup",
            "rescale_decimal", "contains_pattern", "GOLD", "mix64",
-           "hash64_block", "decimal_to_f64"]
+           "hash64_block", "decimal_to_f64", "date_format_kernel", "date_trunc_kernel", "date_diff_kernel",
+           "split_part_kernel", "host_string_kernel", "host_scalar_kernel",
+           "last_day_kernel", "NESTED"]
+
+# The reference's registered functions over arrays, maps and rows: the
+# nested half of the library, ported with the nested columns.
+NESTED = frozenset({
+    "array_distinct", "array_max", "array_min", "array_position",
+    "array_sort", "array_sum", "cardinality", "contains", "element_at",
+    "map_keys", "map_values", "row_field", "row_pack", "slice"})
 
 
 @dataclasses.dataclass
@@ -57,9 +82,12 @@ def lookup(name: str) -> ScalarFunction:
     try:
         return REGISTRY[name]
     except KeyError:
+        if name in NESTED:
+            raise NotImplementedError(
+                f"scalar function {name!r} is not ported yet (ROADMAP "
+                "queue 1 item 11: arrays, maps, rows and lambdas)") from None
         raise NotImplementedError(
-            f"scalar function {name!r} is not ported yet (ROADMAP queue 1 "
-            "item 10: breadth)") from None
+            f"scalar function {name!r} is not registered") from None
 
 
 def _default_nulls(*blocks: Block):
@@ -71,6 +99,38 @@ def _default_nulls(*blocks: Block):
 
 def _col(ret_type: T.Type, values, *args: Block) -> Column:
     return Column(values, _default_nulls(*args), ret_type)
+
+
+def _own_nulls(ret, *blocks):
+    """null_fn of a function that computes its own null mask."""
+    return None
+
+
+def _dt(ty: T.Type) -> torch.dtype:
+    return torch_dtype(ty.to_dtype())
+
+
+def _i64(b: Column) -> torch.Tensor:
+    """A column's lanes widened to int64 (narrow staged lanes too)."""
+    return b.values.to(torch.int64)
+
+
+def _fdiv(a, b):
+    """int64 floor division (the reference's `//`)."""
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _fmod(a, b):
+    """int64 floor modulo (the reference's `%`)."""
+    return torch.remainder(a, b)
+
+
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    """jnp.sign: NaN stays NaN (torch.sign gives 0)."""
+    s = torch.sign(x)
+    if x.is_floating_point():
+        s = torch.where(torch.isnan(x), x, s)
+    return s
 
 
 _POW10 = [10 ** i for i in range(19)]
@@ -92,6 +152,10 @@ def _scale_of(ty: T.Type) -> int:
     return ty.scale if ty.is_decimal else 0
 
 
+def _is_long_decimal(ty: T.Type) -> bool:
+    return ty.is_decimal and not ty.is_short_decimal
+
+
 def _any128(*blocks) -> bool:
     return any(isinstance(b, Int128Column) for b in blocks)
 
@@ -99,7 +163,7 @@ def _any128(*blocks) -> bool:
 def _needs128(ret: T.Type, *blocks) -> bool:
     """A long-decimal result or any 128-bit argument takes the exact
     128-bit path."""
-    return (ret.is_decimal and not ret.is_short_decimal) or _any128(*blocks)
+    return _is_long_decimal(ret) or _any128(*blocks)
 
 
 def _as128(b) -> tuple:
@@ -109,15 +173,40 @@ def _as128(b) -> tuple:
     return I128.from_int64(b.values)
 
 
-def _as128_at_scale(b, to_scale: int) -> tuple:
-    s = _scale_of(b.type)
-    hi, lo = _as128(b)
-    if to_scale > s:
-        hi, lo = I128.rescale128_up(hi, lo, 10 ** (to_scale - s))
-    elif to_scale < s:
-        raise NotImplementedError("long-decimal downscale (ROADMAP queue 1 "
-                                  "item 10: breadth)")
+def _downscale128(hi, lo, k: int):
+    """(hi, lo) / 10^k rounded half away from zero, exactly: the
+    magnitude is divided by 10^(k-1) truncating (18 digits a step), then
+    by 10, and the last dropped digit decides the rounding (the quotient
+    rounds up iff twice the remainder reaches 10^k, iff that digit is at
+    least 5)."""
+    neg = hi < 0
+    mh, ml = I128.neg128(hi, lo)
+    mh = torch.where(neg, mh, hi)
+    ml = torch.where(neg, ml, lo)
+    left = k - 1
+    while left > 0:
+        step = min(left, 18)
+        mh, ml, _ = I128.divmod128_by_u64(
+            mh, ml, torch.full_like(ml, 10 ** step))
+        left -= step
+    qh, ql, digit = I128.divmod128_by_u64(mh, ml, torch.full_like(ml, 10))
+    qh, ql = I128.add128(qh, ql, torch.zeros_like(qh),
+                         (digit >= 5).to(torch.int64))
+    nh, nl = I128.neg128(qh, ql)
+    return torch.where(neg, nh, qh), torch.where(neg, nl, ql)
+
+
+def _rescale128(hi, lo, from_scale: int, to_scale: int):
+    if to_scale > from_scale:
+        return I128.rescale128_up(hi, lo, 10 ** (to_scale - from_scale))
+    if to_scale < from_scale:
+        return _downscale128(hi, lo, from_scale - to_scale)
     return hi, lo
+
+
+def _as128_at_scale(b, to_scale: int) -> tuple:
+    hi, lo = _as128(b)
+    return _rescale128(hi, lo, _scale_of(b.type), to_scale)
 
 
 def _u64_to_f64(x: torch.Tensor) -> torch.Tensor:
@@ -143,38 +232,42 @@ def _int128_to_f64(b: Int128Column) -> torch.Tensor:
 
 
 def _promote(ret_type: T.Type, *blocks: Column):
-    """Bring numeric args to the ret_type's representation: decimals to
-    the result's scale as int64 lanes, or everything to float64 for a
-    floating result."""
+    """Bring numeric args to the ret_type's representation, as the
+    reference's `_promote`: decimals to the result's scale as int64
+    lanes; for a floating result everything to its dtype, decimals
+    descaled (long decimals through their magnitude); otherwise
+    decimals to scale 0 and everything to the result's dtype."""
     out = []
+    rd = _dt(ret_type)
     for b in blocks:
-        if ret_type.is_floating:
-            if ret_type != T.DOUBLE:
-                raise NotImplementedError(
-                    f"{ret_type} arithmetic is not ported yet (ROADMAP "
-                    "queue 1 item 10: breadth)")
-            if isinstance(b, Int128Column):
-                out.append(_int128_to_f64(b))
-            elif b.type.is_decimal:
-                out.append(b.values.to(torch.float64) / _POW10[b.type.scale])
-            else:
-                out.append(b.values.to(torch.float64))
-            continue
         if isinstance(b, Int128Column):
+            if ret_type.is_floating:
+                out.append(_int128_to_f64(b).to(rd))
+                continue
             raise NotImplementedError(
-                f"long-decimal lanes cannot promote to {ret_type} (ROADMAP "
-                "queue 1 item 10: breadth)")
-        if b.type.is_floating:
-            raise NotImplementedError(
-                f"floating-point arithmetic ({b.type} -> {ret_type}) is not "
-                "ported yet (ROADMAP queue 1 item 10: breadth)")
-        v = b.values.to(torch.int64)
+                f"long-decimal lanes cannot promote to {ret_type}")
+        v = b.values
         if ret_type.is_decimal:
-            v = rescale_decimal(v, _scale_of(b.type), ret_type.scale)
-        elif b.type.is_decimal:
-            v = rescale_decimal(v, b.type.scale, 0)
+            if not (b.type.is_decimal or b.type.is_integral):
+                raise NotImplementedError("float->decimal arithmetic")
+            v = rescale_decimal(v.to(torch.int64), _scale_of(b.type),
+                                ret_type.scale)
+        elif ret_type.is_floating:
+            v = v.to(rd)
+            if b.type.is_decimal:
+                v = v / _POW10[b.type.scale]
+        else:
+            if b.type.is_decimal:
+                v = rescale_decimal(v.to(torch.int64), b.type.scale, 0)
+            v = v.to(rd)
         out.append(v)
     return out
+
+
+def _f64(a) -> torch.Tensor:
+    """A numeric block as float64 (decimals descaled, integers widened)."""
+    (x,) = _promote(T.DOUBLE, a)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -217,15 +310,14 @@ def _multiply(ret, a, b):
                 bh, bl = _as128(b)
                 hi, lo = I128.mul128(ah, al, bh, bl)
             return Int128Column(hi, lo, _default_nulls(a, b), ret)
-        return _col(ret, a.values.to(torch.int64) * b.values.to(torch.int64),
-                    a, b)
+        return _col(ret, _i64(a) * _i64(b), a, b)
     x, y = _promote(ret, a, b)
     return _col(ret, x * y, a, b)
 
 
 def _widened(ret: T.Type, a: Column) -> torch.Tensor:
     """A narrow-lane column's values at the result's own dtype."""
-    return a.values.to(torch_dtype(ret.to_dtype()))
+    return a.values.to(_dt(ret))
 
 
 @register("negate")
@@ -259,26 +351,27 @@ def _div_nulls(ret, a, b):
 @register("divide", null_fn=_div_nulls)
 def _divide(ret, a, b):
     """Division by zero yields NULL (the reference raises; a device
-    kernel cannot)."""
+    kernel cannot). Integer division truncates toward zero."""
     nulls = _div_nulls(ret, a, b)
     if ret.is_decimal and (_needs128(ret, a, b) or
                            _scale_of(b.type) + ret.scale - _scale_of(a.type)
                            > 18):
         return _divide128(ret, a, b, nulls)
-    if ret.is_floating:
-        x, y = _promote(ret, a, b)
-        return Column(x / torch.where(y == 0, 1.0, y), nulls, ret)
-    if not ret.is_decimal:
-        raise NotImplementedError(
-            f"{ret} division is not ported yet (ROADMAP queue 1 item 10: "
-            "breadth)")
-    sa, sb = _scale_of(a.type), _scale_of(b.type)
-    num = a.values.to(torch.int64) * _POW10[ret.scale + sb - sa]
-    den = torch.where(b.values == 0, 1, b.values.to(torch.int64))
-    neg = (num < 0) != (den < 0)
-    an, ad = num.abs(), den.abs()
-    q = (2 * an + ad) // (2 * ad)
-    return Column(torch.where(neg, -q, q), nulls, ret)
+    if ret.is_decimal:
+        sa, sb = _scale_of(a.type), _scale_of(b.type)
+        num = _i64(a) * _POW10[ret.scale + sb - sa]
+        den = torch.where(b.values == 0, 1, _i64(b))
+        neg = (num < 0) != (den < 0)
+        an, ad = num.abs(), den.abs()
+        q = (2 * an + ad) // (2 * ad)
+        return Column(torch.where(neg, -q, q), nulls, ret)
+    if ret.is_integral:
+        x = _i64(a)
+        y = torch.where(b.values == 0, 1, _i64(b))
+        q = torch.div(x, y, rounding_mode="trunc")
+        return Column(q.to(_dt(ret)), nulls, ret)
+    x, y = _promote(ret, a, b)
+    return Column(x / torch.where(y == 0, 1.0, y), nulls, ret)
 
 
 def _divide128(ret, a, b, nulls):
@@ -293,7 +386,7 @@ def _divide128(ret, a, b, nulls):
         bv = b.lo
         bneg = b.hi < 0
     else:
-        bv = b.values.to(torch.int64)
+        bv = _i64(b)
         bneg = bv < 0
     bv = torch.where(bneg, -bv, bv)
     bv = torch.where(bv == 0, 1, bv)
@@ -310,21 +403,40 @@ def _divide128(ret, a, b, nulls):
                         nulls, ret)
 
 
+@register("modulus", null_fn=_div_nulls)
+def _modulus(ret, a, b):
+    """Floor vs truncation: torch's integer `%` floors (its sign is the
+    divisor's); SQL's modulus truncates, so the sign is the dividend's:
+    sign(x) * (|x| % |y|), as the reference computes it."""
+    x, y = _promote(ret, a, b)
+    y = torch.where(y == 0, 1, y)
+    r = _sign(x) * torch.fmod(x.abs(), y.abs())
+    return Column(r.to(_dt(ret)), _div_nulls(ret, a, b), ret)
+
+
+REGISTRY["mod"] = REGISTRY["modulus"]
+
+
 # ---------------------------------------------------------------------------
 # comparisons
 # ---------------------------------------------------------------------------
 
+_DAY_US = 86_400_000_000
+_TZ_BASE = "timestamp with time zone"
+
+
 def _cmp_values(a: Block, b: Block):
-    """Comparable lanes of two fixed-width operands: fixed-point ones as
-    int64 at one scale; with a floating operand, both as float64
-    (decimals unscaled)."""
-    if any(x.type.base in ("timestamp", "timestamp with time zone")
-           for x in (a, b)):
-        raise NotImplementedError(
-            f"comparing {a.type} with {b.type} is not ported yet (ROADMAP "
-            "queue 1 item 10: breadth)")
+    """Comparable lanes of two fixed-width operands, as the reference's
+    `_cmp_values`: decimals and integers as int64 at one scale; with a
+    floating operand, both as float64 (decimals descaled); a zoned
+    timestamp, or a date against a timestamp, as UTC micros."""
     sa, sb = _scale_of(a.type), _scale_of(b.type)
-    if a.type.is_floating or b.type.is_floating:
+    floating = a.type.is_floating or b.type.is_floating
+    if (a.type.is_decimal or b.type.is_decimal) and not floating:
+        s = max(sa, sb)
+        return (rescale_decimal(_i64(a), sa, s),
+                rescale_decimal(_i64(b), sb, s))
+    if floating:
         va = a.values.to(torch.float64)
         vb = b.values.to(torch.float64)
         if a.type.is_decimal:
@@ -332,9 +444,10 @@ def _cmp_values(a: Block, b: Block):
         if b.type.is_decimal:
             vb = vb / _POW10[sb]
         return va, vb
-    s = max(sa, sb)
-    return (rescale_decimal(a.values.to(torch.int64), sa, s),
-            rescale_decimal(b.values.to(torch.int64), sb, s))
+    bases = (a.type.base, b.type.base)
+    if _TZ_BASE in bases or ("date" in bases and "timestamp" in bases):
+        return _instant_micros(a), _instant_micros(b)
+    return a.values, b.values
 
 
 def _str_eq(a: StringColumn, b: StringColumn):
@@ -367,8 +480,8 @@ def _binary_cmp(op):
             return _col(ret, v, a, b)
         if isinstance(a, StringColumn) or isinstance(b, StringColumn):
             raise NotImplementedError(
-                f"comparing {a.type} with {b.type} is not ported yet "
-                "(ROADMAP queue 1 item 10: breadth)")
+                f"comparing {a.type} with {b.type}: the reference has no "
+                "such comparison")
         if _any128(a, b):
             s = max(_scale_of(a.type), _scale_of(b.type))
             ah, al = _as128_at_scale(a, s)
@@ -400,18 +513,324 @@ def _not(ret, a):
     return _col(ret, ~a.values, a)
 
 
+def _never_null(ret, a, b):
+    return torch.zeros_like(a.nulls)  # IS [NOT] DISTINCT FROM is never NULL
+
+
+@register("is_distinct_from", null_fn=_never_null)
+def _is_distinct_from(ret, a, b):
+    eq = _binary_cmp("eq")(T.BOOLEAN, a, b)
+    same = (a.nulls & b.nulls) | (~a.nulls & ~b.nulls & eq.values)
+    return Column(~same, torch.zeros_like(a.nulls), ret)
+
+
+@register("is_not_distinct_from", null_fn=_never_null)
+def _is_not_distinct_from(ret, a, b):
+    d = _is_distinct_from(T.BOOLEAN, a, b)
+    return Column(~d.values, torch.zeros_like(a.nulls), ret)
+
+
 # ---------------------------------------------------------------------------
-# dates (DATE = days since epoch, TIMESTAMP = micros since epoch)
+# math
 # ---------------------------------------------------------------------------
 
-def _fdiv(a, b):
-    """int64 floor division (a negative day number rounds down)."""
-    return torch.div(a, b, rounding_mode="floor")
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """IEEE square root, correctly rounded. torch's CPU sqrt of float64
+    (its AVX-512 path) can be one ulp off; CUDA's is correctly rounded.
+    The root s is moved to a neighbour whose square is nearer to x: the
+    squares' residuals x - s*s are exact enough through Dekker's
+    product (a Veltkamp split, no fused multiply-add), since two
+    neighbours' residuals differ by about 2 s ulp(s)."""
+    s = torch.sqrt(x)
+    if s.dtype != torch.float64:
+        return s
+    ok = torch.isfinite(x) & (x > 1e-290)
 
+    def residual(r):
+        c = 134217729.0 * r  # 2^27 + 1
+        hi = c - (c - r)
+        lo = r - hi
+        p = r * r
+        err = ((hi * hi - p) + 2.0 * hi * lo) + lo * lo
+        return (x - p) - err
+
+    best, best_res = s, residual(s).abs()
+    for nb in (torch.nextafter(s, torch.full_like(s, float("inf"))),
+               torch.nextafter(s, torch.zeros_like(s))):
+        res = residual(nb).abs()
+        better = ok & (res < best_res)
+        best = torch.where(better, nb, best)
+        best_res = torch.where(better, res, best_res)
+    return best
+
+
+@register("sqrt")
+def _sqrt(ret, a):
+    (x,) = _promote(ret, a)
+    return _col(ret, _sqrt_rn(torch.clamp(x, min=0.0)), a)
+
+
+@register("floor")
+def _floor(ret, a):
+    if a.type.is_decimal:
+        f = _POW10[a.type.scale]
+        v = _i64(a)
+        v = torch.where(v >= 0, v // f, -((-v + f - 1) // f))
+        return _col(ret, rescale_decimal(v, 0, _scale_of(ret)), a)
+    return _col(ret, torch.floor(a.values.to(torch.float64)).to(_dt(ret)), a)
+
+
+@register("ceil")
+@register("ceiling")
+def _ceil(ret, a):
+    if a.type.is_decimal:
+        f = _POW10[a.type.scale]
+        v = _i64(a)
+        v = torch.where(v >= 0, (v + f - 1) // f, -((-v) // f))
+        return _col(ret, rescale_decimal(v, 0, _scale_of(ret)), a)
+    return _col(ret, torch.ceil(a.values.to(torch.float64)).to(_dt(ret)), a)
+
+
+@register("round")
+def _round(ret, a, *rest):
+    """Decimals round half away from zero (Presto's rule). Doubles round
+    as the reference's `jnp.round` does: half to EVEN, where Presto
+    rounds half away from zero (ROADMAP queue 3); torch.round is half
+    to even too."""
+    if a.type.is_decimal:
+        s = a.type.scale
+        v = _i64(a)
+        if not rest:
+            return _col(ret, rescale_decimal(rescale_decimal(v, s, 0), 0,
+                                             _scale_of(ret)), a)
+        # round(decimal, d): zero the digits below 10^-d and keep the
+        # scale; each candidate scale k in 0..s, chosen per row
+        d = rest[0].values.to(torch.int32)
+        cands = [rescale_decimal(rescale_decimal(v, s, k), k, _scale_of(ret))
+                 for k in range(s + 1)]
+        out = cands[-1]
+        for k in range(s - 1, -1, -1):
+            out = torch.where(d <= k, cands[k], out)
+        return _col(ret, out, a, rest[0])
+    x = a.values.to(torch.float64)
+    if rest:
+        p = _pow10(rest[0].values)
+        return _col(ret, torch.round(x * p) / p, a, rest[0])
+    return _col(ret, torch.round(x).to(_dt(ret)), a)
+
+
+_POW10_LO, _POW10_HI = -330, 330
+
+
+def _pow10(d: torch.Tensor) -> torch.Tensor:
+    """10.0 ** d, correctly rounded for integer d (a table of Python's
+    correctly rounded powers; beyond it the values are 0 or inf). XLA's
+    pow, which the reference calls, is not always correctly rounded
+    (10^23: ROADMAP queue 3), nor is torch's (10^45)."""
+    if d.is_floating_point():
+        return torch.pow(10.0, d.to(torch.float64))
+    table = torch.tensor([float(f"1e{k}") for k in
+                          range(_POW10_LO, _POW10_HI + 1)],
+                         dtype=torch.float64, device=d.device)
+    k = d.to(torch.int64).clamp(_POW10_LO, _POW10_HI) - _POW10_LO
+    return table[k]
+
+
+@register("truncate")
+def _truncate(ret, a, *rest):
+    if a.type.is_decimal:
+        s = a.type.scale
+        v = _i64(a)
+        if not rest:
+            f = _POW10[s]
+            t = torch.where(v >= 0, v // f, -((-v) // f))
+            return _col(ret, rescale_decimal(t, 0, _scale_of(ret)), a)
+        # truncate(decimal, d): zero the digits below 10^-d, keeping the
+        # scale; a negative d zeroes digits left of the point, and d at
+        # or below -(18 - s) truncates everything to 0 (TruncateN)
+        d = rest[0].values.to(torch.int32)
+
+        def trunc_to(k):
+            f = _POW10[s - k]
+            return torch.where(v >= 0, v // f, -((-v) // f)) * f
+        k_min = -(18 - s)
+        ks = list(range(k_min, s + 1))
+        cands = {k: rescale_decimal(trunc_to(k), s, _scale_of(ret))
+                 for k in ks}
+        out = cands[ks[-1]]
+        for k in reversed(ks[:-1]):
+            out = torch.where(d <= k, cands[k], out)
+        out = torch.where(d <= k_min, 0, out)
+        return _col(ret, out, a, rest[0])
+    x = a.values.to(torch.float64)
+    if rest:
+        p = _pow10(rest[0].values)
+        return _col(ret, (torch.trunc(x * p) / p).to(_dt(ret)), a, rest[0])
+    return _col(ret, torch.trunc(x).to(_dt(ret)), a)
+
+
+@register("sign")
+def _sign_fn(ret, a):
+    return _col(ret, _sign(a.values).to(_dt(ret)), a)
+
+
+@register("power")
+@register("pow")
+def _power(ret, a, b):
+    x, y = _promote(ret, a, b)
+    return _col(ret, torch.pow(x, y), a, b)
+
+
+@register("exp")
+def _exp(ret, a):
+    (x,) = _promote(ret, a)
+    return _col(ret, torch.exp(x), a)
+
+
+@register("ln")
+def _ln(ret, a):
+    (x,) = _promote(ret, a)
+    return _col(ret, torch.log(torch.clamp(x, min=1e-300)), a)
+
+
+@register("log10")
+def _log10(ret, a):
+    (x,) = _promote(ret, a)
+    return _col(ret, torch.log10(torch.clamp(x, min=1e-300)), a)
+
+
+@register("greatest")
+def _greatest(ret, *args):
+    xs = _promote(ret, *args)
+    v = xs[0]
+    for x in xs[1:]:
+        v = torch.maximum(v, x)
+    return _col(ret, v, *args)
+
+
+@register("least")
+def _least(ret, *args):
+    xs = _promote(ret, *args)
+    v = xs[0]
+    for x in xs[1:]:
+        v = torch.minimum(v, x)
+    return _col(ret, v, *args)
+
+
+def _register_float1(name, fn):
+    @register(name)
+    def _impl(ret, a, _fn=fn):
+        return _col(ret, _fn(_f64(a)), a)
+    return _impl
+
+
+for _name, _fn in [
+        ("sin", torch.sin), ("cos", torch.cos), ("tan", torch.tan),
+        ("asin", torch.asin), ("acos", torch.acos), ("atan", torch.atan),
+        ("sinh", torch.sinh), ("cosh", torch.cosh), ("tanh", torch.tanh),
+        ("cbrt", lambda x: torch.sign(x) * torch.pow(x.abs(), 1.0 / 3.0)),
+        ("log2", torch.log2), ("degrees", torch.rad2deg),
+        ("radians", torch.deg2rad)]:
+    _register_float1(_name, _fn)
+
+
+@register("atan2")
+def _atan2(ret, y, x):
+    return _col(ret, torch.atan2(_f64(y), _f64(x)), y, x)
+
+
+@register("log")
+def _log(ret, base, x):
+    return _col(ret, torch.log(_f64(x)) / torch.log(_f64(base)), base, x)
+
+
+@register("is_nan")
+def _is_nan(ret, a):
+    return _col(ret, torch.isnan(_f64(a)), a)
+
+
+@register("is_finite")
+def _is_finite(ret, a):
+    return _col(ret, torch.isfinite(_f64(a)), a)
+
+
+@register("is_infinite")
+def _is_infinite(ret, a):
+    return _col(ret, torch.isinf(_f64(a)), a)
+
+
+def _bitwise(name, op):
+    @register(name)
+    def _impl(ret, a, b, _op=op):
+        return _col(ret, _op(_i64(a), _i64(b)), a, b)
+    return _impl
+
+
+_bitwise("bitwise_and", torch.bitwise_and)
+_bitwise("bitwise_or", torch.bitwise_or)
+_bitwise("bitwise_xor", torch.bitwise_xor)
+
+
+@register("bitwise_not")
+def _bitwise_not(ret, a):
+    return _col(ret, ~_i64(a), a)
+
+
+@register("bitwise_left_shift")
+def _shl(ret, a, b):
+    s = _i64(b) & 63  # Java/Presto shift mod 64
+    return _col(ret, _i64(a) << s, a, b)
+
+
+@register("bitwise_right_shift")
+def _shr(ret, a, b):
+    """Logical right shift of the 64-bit pattern. torch has no uint64
+    shift, so the arithmetic shift of the int64 lanes is masked to its
+    low 64 - s bits; a shift of 0 keeps the value (the mask would need
+    a shift by 64), and 63 leaves the sign bit alone."""
+    s = _i64(b) & 63
+    v = _i64(a)
+    nz = torch.where(s == 0, 1, s)
+    shifted = (v >> nz) & ((torch.ones_like(nz) << (64 - nz)) - 1)
+    return _col(ret, torch.where(s == 0, v, shifted), a, b)
+
+
+@register("bitwise_right_shift_arithmetic")
+def _sar(ret, a, b):
+    s = _i64(b) & 63
+    return _col(ret, _i64(a) >> s, a, b)
+
+
+def _popcount64(u: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 pattern (SWAR; logical shifts)."""
+    lshr = I128._lshr
+    u = u - (lshr(u, 1) & 0x5555555555555555)
+    u = (u & 0x3333333333333333) + (lshr(u, 2) & 0x3333333333333333)
+    u = (u + lshr(u, 4)) & 0x0F0F0F0F0F0F0F0F
+    return lshr(u * 0x0101010101010101, 56)
+
+
+@register("bit_count")
+def _bit_count(ret, a, bits=None):
+    u = _i64(a)
+    if bits is not None:
+        # the reference reads the width as uint64: a negative width is
+        # beyond 64 and keeps every bit
+        width = _i64(bits)
+        full = (width >= 64) | (width < 0)
+        sh = torch.where(full, 0, width)
+        u = u & torch.where(full, -1, (torch.ones_like(sh) << sh) - 1)
+    cnt = _popcount64(u)
+    return _col(ret, cnt, a) if bits is None else _col(ret, cnt, a, bits)
+
+
+# ---------------------------------------------------------------------------
+# dates (DATE = days since epoch, TIMESTAMP = micros since epoch; civil
+# dates by Howard Hinnant's algorithms, vectorized)
+# ---------------------------------------------------------------------------
 
 def _civil(days):
-    """(year, month, day) of days since epoch: Howard Hinnant's
-    civil_from_days, vectorized."""
+    """(year, month, day) of days since epoch."""
     z = days.to(torch.int64) + 719468
     era = _fdiv(torch.where(z >= 0, z, z - 146096), 146097)
     doe = z - era * 146097
@@ -425,32 +844,329 @@ def _civil(days):
     return torch.where(m <= 2, y + 1, y), m, d
 
 
+def _days_from_civil(y, m, d):
+    y = y - (m <= 2).to(torch.int64)
+    era = _fdiv(torch.where(y >= 0, y, y - 399), 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = _fdiv(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def last_day_kernel(y, m):
+    """Day of month of the last day of civil (y, m)."""
+    ny = torch.where(m == 12, y + 1, y)
+    nm = torch.where(m == 12, 1, m + 1)
+    return _civil(_days_from_civil(ny, nm, torch.ones_like(y)) - 1)[2]
+
+
 def _as_days(a: Column):
     if a.type.base == "timestamp":
-        return _fdiv(a.values.to(torch.int64), 86_400_000_000)
+        return _fdiv(_i64(a), _DAY_US)
     if a.type.base != "date":
         raise NotImplementedError(
-            f"date parts of {a.type} are not ported yet (ROADMAP queue 1 "
-            "item 10: breadth)")
-    return a.values
+            f"date fields of {a.type}: the reference reads its lanes as "
+            "days (ROADMAP queue 3)")
+    return _i64(a)
 
 
-@register("year")
-def _year(ret, a):
-    y, _, _ = _civil(_as_days(a))
-    return _col(ret, y.to(torch_dtype(ret.to_dtype())), a)
+def _date_field(name, fn):
+    @register(name)
+    def _impl(ret, a, _fn=fn):
+        return _col(ret, _fn(_as_days(a)).to(_dt(ret)), a)
+    return _impl
+
+
+_date_field("year", lambda days: _civil(days)[0])
+_date_field("month", lambda days: _civil(days)[1])
+_date_field("day", lambda days: _civil(days)[2])
+_date_field("day_of_month", lambda days: _civil(days)[2])
+_date_field("quarter", lambda days: _fdiv(_civil(days)[1] - 1, 3) + 1)
+# 1970-01-01 was a Thursday; ISO day of week Monday = 1 .. Sunday = 7
+_date_field("day_of_week", lambda days: _fmod(days + 3, 7) + 1)
+_date_field("dow", lambda days: _fmod(days + 3, 7) + 1)
+
+
+def _doy(days):
+    y = _civil(days)[0]
+    one = torch.ones_like(y)
+    return days - _days_from_civil(y, one, one) + 1
+
+
+_date_field("day_of_year", _doy)
+_date_field("doy", _doy)
+
+
+@register("last_day_of_month")
+def _last_day_of_month(ret, a):
+    y, m, _ = _civil(_as_days(a))
+    v = _days_from_civil(y, m, last_day_kernel(y, m))
+    return _col(ret, v.to(_dt(ret)), a)
+
+
+def date_format_kernel(values: torch.Tensor, ty: T.Type, fmt: str):
+    """date_format(x, 'mysql-format') -> (chars, lengths) with the
+    specifiers %Y %y %m %d %H %i %s %j %%, built as fixed-width digit
+    columns (every row has the same width)."""
+    v = values.to(torch.int64)
+    if ty.base == "timestamp":
+        days = _fdiv(v, _DAY_US)
+        secs = _fmod(_fdiv(v, 1_000_000), 86_400)
+    elif ty.base == "date":
+        days = v
+        secs = torch.zeros_like(v)
+    else:
+        raise NotImplementedError(f"date_format of {ty}")
+    y, m, d = _civil(days)
+    fields = {"Y": (y, 4), "y": (_fmod(y, 100), 2), "m": (m, 2),
+              "d": (d, 2), "H": (_fdiv(secs, 3600), 2),
+              "i": (_fmod(_fdiv(secs, 60), 60), 2), "s": (_fmod(secs, 60), 2),
+              "j": (_doy(days), 3)}
+
+    def const(ch):
+        return torch.full_like(v, ord(ch))
+
+    cols = []
+    i = 0
+    while i < len(fmt):
+        c = fmt[i]
+        if c == "%" and i + 1 < len(fmt):
+            sp = fmt[i + 1]
+            i += 2
+            if sp == "%":
+                cols.append(const("%"))
+            elif sp in fields:
+                f, k = fields[sp]
+                cols += [_fmod(_fdiv(f, 10 ** (k - 1 - j)), 10) + 48
+                         for j in range(k)]
+            else:
+                raise NotImplementedError(f"date_format %{sp}")
+        else:
+            cols.append(const(c))
+            i += 1
+    chars = torch.stack(cols, dim=1).to(torch.uint8)
+    return chars, torch.full((v.shape[0],), chars.shape[1],
+                             dtype=torch.int32, device=v.device)
+
+
+def date_trunc_kernel(unit: str, days: torch.Tensor) -> torch.Tensor:
+    days = days.to(torch.int64)
+    y, m, _ = _civil(days)
+    one = torch.ones_like(y)
+    if unit == "day":
+        return days
+    if unit == "week":  # ISO Monday
+        return days - _fmod(days + 3, 7)
+    if unit == "month":
+        return _days_from_civil(y, m, one)
+    if unit == "quarter":
+        return _days_from_civil(y, _fdiv(m - 1, 3) * 3 + 1, one)
+    if unit == "year":
+        return _days_from_civil(y, one, one)
+    raise NotImplementedError(f"date_trunc unit {unit!r}")
+
+
+def _trunc_units(delta: torch.Tensor, step: int) -> torch.Tensor:
+    """Whole `step`s in delta, truncated toward zero."""
+    return torch.sign(delta) * (delta.abs() // step)
+
+
+def date_diff_kernel(unit: str, d1, d2) -> torch.Tensor:
+    """date_diff(unit, start, end): end - start in whole units, truncated
+    toward zero; month units clamp at the end of a month (Jan 31 to Feb
+    29 is a whole month)."""
+    d1, d2 = d1.to(torch.int64), d2.to(torch.int64)
+    if unit == "day":
+        return d2 - d1
+    if unit == "week":
+        return _trunc_units(d2 - d1, 7)
+    y1, m1, dd1 = _civil(d1)
+    y2, m2, dd2 = _civil(d2)
+    months = (y2 * 12 + m2) - (y1 * 12 + m1)
+    eom2 = dd2 == last_day_kernel(y2, m2)
+    eom1 = dd1 == last_day_kernel(y1, m1)
+    partial_fwd = (dd2 < dd1) & ~eom2
+    partial_bwd = (dd2 > dd1) & ~eom1
+    adj = torch.where((months > 0) & partial_fwd, 1,
+                      torch.where((months < 0) & partial_bwd, -1, 0))
+    months = months - adj
+    if unit == "month":
+        return months
+    if unit == "quarter":
+        return _trunc_units(months, 3)
+    if unit == "year":
+        return _trunc_units(months, 12)
+    raise NotImplementedError(f"date_diff unit {unit!r}")
+
+
+@register("from_unixtime")
+def _from_unixtime(ret, a):
+    # seconds (possibly fractional) -> TIMESTAMP micros
+    return _col(ret, torch.round(_f64(a) * 1e6).to(torch.int64), a)
+
+
+@register("to_unixtime")
+def _to_unixtime(ret, a):
+    """The lanes over 1e6, as the reference computes it: for a zoned
+    timestamp that is the packed lane (ROADMAP queue 3)."""
+    return _col(ret, a.values.to(torch.float64) / 1e6, a)
+
+
+# zoned timestamps, TIME and intervals: fields and calendar arithmetic
+# work on the value's own wall clock, comparisons on the instant
+
+def _as_local_micros(a: Column) -> torch.Tensor:
+    """Wall-clock micros of a date/time/timestamp/zoned timestamp."""
+    base = a.type.base
+    if base == _TZ_BASE:
+        return TZ.local_micros(a.values)
+    if base == "date":
+        return _i64(a) * _DAY_US
+    return _i64(a)
+
+
+def _instant_micros(a: Column) -> torch.Tensor:
+    base = a.type.base
+    if base == _TZ_BASE:
+        return TZ.unpack_micros(a.values)
+    if base == "date":
+        return _i64(a) * _DAY_US
+    return _i64(a)
+
+
+def _register_tod_field(name, divisor, modulus):
+    @register(name)
+    def _field(ret, a, _d=divisor, _m=modulus):
+        us = _fmod(_as_local_micros(a), _DAY_US)
+        return _col(ret, _fmod(_fdiv(us, _d), _m).to(_dt(ret)), a)
+    return _field
+
+
+_register_tod_field("hour", 3_600_000_000, 24)
+_register_tod_field("minute", 60_000_000, 60)
+_register_tod_field("second", 1_000_000, 60)
+_register_tod_field("millisecond", 1_000, 1000)
+
+
+def _zone_minutes(a: Column, name: str) -> torch.Tensor:
+    if a.type.base != _TZ_BASE:
+        raise NotImplementedError(
+            f"{name} needs timestamp with time zone, got {a.type}")
+    return (_i64(a) & TZ.KEY_MASK) - TZ.UTC_KEY
+
+
+@register("timezone_hour")
+def _timezone_hour(ret, a):
+    return _col(ret, _trunc_units(_zone_minutes(a, "timezone_hour"), 60)
+                .to(_dt(ret)), a)
+
+
+@register("timezone_minute")
+def _timezone_minute(ret, a):
+    minutes = _zone_minutes(a, "timezone_minute")
+    return _col(ret, (torch.sign(minutes) * (minutes.abs() % 60))
+                .to(_dt(ret)), a)
+
+
+def _month_add(days, months):
+    """Calendar month arithmetic, clamped at the end of the month."""
+    y, m, d = _civil(days)
+    tot = (y * 12 + (m - 1)) + months
+    ny, nm = _fdiv(tot, 12), _fmod(tot, 12) + 1
+    return _days_from_civil(ny, nm, torch.minimum(d, last_day_kernel(ny, nm)))
+
+
+@register("datetime_interval_add")
+def _datetime_interval_add(ret, a, b):
+    """datetime a + interval b (the planner negates b to subtract).
+    Day-to-second intervals shift the instant (a zoned value keeps its
+    key); year-to-month intervals do calendar month arithmetic on the
+    value's wall clock."""
+    base = a.type.base
+    av, bv = _i64(a), _i64(b)
+    if b.type.base == "interval day to second":
+        if base == _TZ_BASE:
+            v = (((av >> 12) + bv) << 12) | (av & TZ.KEY_MASK)
+        elif base == "date":
+            v = av * _DAY_US + bv
+            if ret.base == "date":
+                v = _fdiv(v, _DAY_US)
+        elif base == "time":
+            v = _fmod(av + bv, _DAY_US)
+        else:
+            v = av + bv
+        return _col(ret, v.to(_dt(ret)), a, b)
+    if base == "date":
+        v = _month_add(av, bv)
+    elif base == "timestamp":
+        days, tod = _fdiv(av, _DAY_US), _fmod(av, _DAY_US)
+        v = _month_add(days, bv) * _DAY_US + tod
+    elif base == _TZ_BASE:
+        key = av & TZ.KEY_MASK
+        off = (key - TZ.UTC_KEY) * TZ.MICROS_PER_MINUTE
+        local = (av >> 12) + off
+        days, tod = _fdiv(local, _DAY_US), _fmod(local, _DAY_US)
+        nlocal = _month_add(days, bv) * _DAY_US + tod
+        v = ((nlocal - off) << 12) | key
+    else:
+        raise NotImplementedError(f"{base} + year-month interval")
+    return _col(ret, v.to(_dt(ret)), a, b)
+
+
+@register("datetime_diff_micros")
+def _datetime_diff_micros(ret, a, b):
+    """a - b as INTERVAL DAY TO SECOND (micros), instants compared."""
+    return _col(ret, _instant_micros(a) - _instant_micros(b), a, b)
 
 
 # ---------------------------------------------------------------------------
-# strings
+# strings (byte strings; see the module docstring)
 # ---------------------------------------------------------------------------
+
+def _positions(a: StringColumn) -> torch.Tensor:
+    return torch.arange(a.chars.shape[1], dtype=torch.int64,
+                        device=a.chars.device)[None, :]
+
+
+def _slice_rows(a: StringColumn, start: torch.Tensor, length: torch.Tensor,
+                nulls, ret) -> StringColumn:
+    """Row i's bytes [start_i, start_i + length_i) of `a`, zero padded."""
+    w = a.chars.shape[1]
+    pos = _positions(a)
+    idx = (start.to(torch.int64)[:, None] + pos).clamp(0, w - 1)
+    g = torch.gather(a.chars, 1, idx.expand(a.chars.shape[0], w))
+    out = torch.where(pos < length.to(torch.int64)[:, None], g, 0)
+    return StringColumn(out.to(torch.uint8), length.to(torch.int32), nulls,
+                        ret)
+
+
+@register("length")
+def _length(ret, a: StringColumn):
+    return _col(ret, a.lengths.to(_dt(ret)), a)
+
+
+@register("upper")
+def _upper(ret, a: StringColumn):
+    """ASCII upper case over the padded bytes; lengths are unchanged."""
+    c = a.chars
+    return StringColumn(torch.where((c >= 97) & (c <= 122), c - 32, c),
+                        a.lengths, a.nulls, ret)
+
+
+@register("lower")
+def _lower(ret, a: StringColumn):
+    c = a.chars
+    return StringColumn(torch.where((c >= 65) & (c <= 90), c + 32, c),
+                        a.lengths, a.nulls, ret)
+
 
 @register("substr")
 def _substr(ret, a: StringColumn, start: Column, *rest):
     """substr(s, start[, length]): 1-based start, a negative start
     counts from the end; start 0, or a start beyond the length either
     way, gives ''."""
-    n, w = a.chars.shape
+    w = a.chars.shape[1]
     lengths = a.lengths
     st0 = start.values.to(torch.int32)
     valid = (st0 != 0) & (st0.abs() <= lengths)
@@ -462,19 +1178,7 @@ def _substr(ret, a: StringColumn, start: Column, *rest):
         ln = lengths - st
     ln = torch.minimum(ln, lengths - st).clamp(0, w)
     ln = torch.where(valid, ln, 0)
-    pos = torch.arange(w, dtype=torch.int32, device=a.chars.device)[None, :]
-    idx = (st[:, None] + pos).clamp(0, w - 1).to(torch.int64)
-    gathered = torch.gather(a.chars, 1, idx)
-    out = torch.where(pos < ln[:, None], gathered, 0).to(torch.uint8)
-    return StringColumn(out, ln, _default_nulls(a, start, *rest[:1]), ret)
-
-
-@register("upper")
-def _upper(ret, a: StringColumn):
-    """ASCII upper case over the padded bytes; lengths are unchanged."""
-    c = a.chars
-    return StringColumn(torch.where((c >= 97) & (c <= 122), c - 32, c),
-                        a.lengths, a.nulls, ret)
+    return _slice_rows(a, st, ln, _default_nulls(a, start, *rest[:1]), ret)
 
 
 @register("concat")
@@ -500,80 +1204,658 @@ def _concat(ret, *args: StringColumn):
     return out
 
 
+def _space_bounds(a: StringColumn):
+    """(first non-space, last non-space, all spaces) per row; bytes past
+    the length count as spaces."""
+    w = a.chars.shape[1]
+    is_sp = (a.chars == 32) | (_positions(a) >= a.lengths.to(
+        torch.int64)[:, None])
+    keep = (~is_sp).to(torch.uint8)
+    first = torch.argmax(keep, dim=1)
+    last = w - 1 - torch.argmax(keep.flip(1), dim=1)
+    return first, last, is_sp.all(dim=1)
+
+
+@register("trim")
+def _trim(ret, a: StringColumn):
+    first, last, blank = _space_bounds(a)
+    st = torch.where(blank, 0, first)
+    ln = torch.where(blank, 0, last - first + 1)
+    return _slice_rows(a, st, ln, a.nulls, ret)
+
+
+@register("ltrim")
+def _ltrim(ret, a: StringColumn):
+    first, _, blank = _space_bounds(a)
+    st = torch.where(blank, 0, first)
+    ln = torch.where(blank, 0, a.lengths.to(torch.int64) - st)
+    return _slice_rows(a, st, ln, a.nulls, ret)
+
+
+@register("rtrim")
+def _rtrim(ret, a: StringColumn):
+    _, last, blank = _space_bounds(a)
+    ln = torch.where(blank, 0, last + 1)
+    return _slice_rows(a, torch.zeros_like(ln), ln, a.nulls, ret)
+
+
+@register("reverse")
+def _reverse(ret, a: StringColumn):
+    w = a.chars.shape[1]
+    pos = _positions(a)
+    idx = (a.lengths.to(torch.int64)[:, None] - 1 - pos).clamp(0, w - 1)
+    out = torch.gather(a.chars, 1, idx)
+    out = torch.where(pos < a.lengths.to(torch.int64)[:, None], out, 0)
+    return StringColumn(out.to(torch.uint8), a.lengths, a.nulls, ret)
+
+
+@register("chr")
+def _chr(ret, a: Column):
+    """One byte: the code point clamped to 0..255, as the reference."""
+    v = _i64(a).clamp(0, 255).to(torch.uint8)[:, None]
+    return StringColumn(v, torch.ones_like(v[:, 0], dtype=torch.int32),
+                        a.nulls, ret)
+
+
+@register("codepoint")
+def _codepoint(ret, a: StringColumn):
+    """The first byte, as the reference."""
+    return _col(ret, a.chars[:, 0].to(_dt(ret)), a)
+
+
+@register("starts_with")
+def _starts_with(ret, a: StringColumn, b: StringColumn):
+    L = b.max_len
+    wa = pad_chars(a, L).chars if L > a.max_len else a.chars[:, :L]
+    pos = torch.arange(L, dtype=torch.int64, device=a.chars.device)[None, :]
+    cmp = (wa == b.chars) | (pos >= b.lengths.to(torch.int64)[:, None])
+    v = cmp.all(dim=1) & (b.lengths <= a.lengths)
+    return _col(ret, v, a, b)
+
+
+@register("ends_with")
+def _ends_with(ret, a: StringColumn, b: StringColumn):
+    """The needle against each row's suffix window of b.max_len bytes
+    (the haystack padded when the needles are wider)."""
+    L = b.max_len
+    chars = pad_chars(a, L).chars if L > a.max_len else a.chars
+    w = chars.shape[1]
+    starts = (a.lengths - b.lengths).to(torch.int64).clamp(0, w - 1)
+    pos = torch.arange(L, dtype=torch.int64, device=chars.device)[None, :]
+    window = torch.gather(chars, 1, (starts[:, None] + pos).clamp(0, w - 1))
+    cmp = (window == b.chars[:, :L]) | (pos >= b.lengths.to(
+        torch.int64)[:, None])
+    v = cmp.all(dim=1) & (b.lengths <= a.lengths)
+    return _col(ret, v, a, b)
+
+
+@register("strpos")
+def _strpos(ret, a: StringColumn, b: StringColumn):
+    """1-based byte position of the first occurrence of b in a, 0 if
+    absent. Memory: the (N, windows, L) window gather, as the reference
+    builds it (about N x W x L bytes, and as many bools)."""
+    n, w = a.chars.shape
+    L = b.max_len
+    if L > w:
+        return _col(ret, torch.zeros(n, dtype=_dt(ret),
+                                     device=a.chars.device), a, b)
+    windows = w - L + 1
+    dev = a.chars.device
+    start = torch.arange(windows, dtype=torch.int64, device=dev)
+    lane = torch.arange(L, dtype=torch.int64, device=dev)
+    g = a.chars[:, start[:, None] + lane[None, :]]  # (N, windows, L)
+    blen = b.lengths.to(torch.int64)
+    match = ((g == b.chars[:, None, :]) |
+             (lane[None, None, :] >= blen[:, None, None])).all(dim=2)
+    ok = (start[None, :] + blen[:, None]) <= a.lengths.to(torch.int64)[:, None]
+    m = match & ok
+    first = torch.argmax(m.to(torch.uint8), dim=1)
+    return _col(ret, torch.where(m.any(dim=1), first + 1, 0).to(_dt(ret)),
+                a, b)
+
+
+REGISTRY["position"] = REGISTRY["strpos"]
+
+
+def split_part_kernel(a: StringColumn, delim: bytes, index: int,
+                      ret: T.Type) -> StringColumn:
+    """split_part(s, delim, n): the n-th (1-based) field, NULL past the
+    last field. The delimiter is one constant byte and n a constant of
+    at least 1, as the reference requires."""
+    if len(delim) != 1:
+        raise NotImplementedError("split_part delimiter must be 1 byte")
+    if index < 1:
+        raise ValueError("split_part index must be greater than zero")
+    lens = a.lengths.to(torch.int64)
+    in_str = _positions(a) < lens[:, None]
+    is_d = (a.chars == delim[0]) & in_str
+    field = torch.cumsum(is_d.to(torch.int64), dim=1) - is_d.to(torch.int64)
+    sel = (field == index - 1) & ~is_d & in_str
+    ln = sel.sum(dim=1)
+    st = torch.argmax(sel.to(torch.uint8), dim=1)
+    nfields = is_d.sum(dim=1) + 1
+    return _slice_rows(a, st, ln, a.nulls | (index > nfields), ret)
+
+
+# ---------------------------------------------------------------------------
+# varbinary (bytes in the string layout)
+# ---------------------------------------------------------------------------
+
+def _hex_digit(d: torch.Tensor) -> torch.Tensor:
+    return torch.where(d < 10, d + ord("0"), d - 10 + ord("A"))
+
+
+@register("to_hex")
+def _to_hex(ret, a: StringColumn):
+    n, w = a.chars.shape
+    c = a.chars.to(torch.int64)
+    chars = torch.stack([_hex_digit(c >> 4), _hex_digit(c & 0xF)],
+                        dim=2).reshape(n, 2 * w)
+    lens = a.lengths * 2
+    pos = torch.arange(2 * w, dtype=torch.int64, device=c.device)[None, :]
+    chars = torch.where(pos < lens.to(torch.int64)[:, None], chars, 0)
+    return StringColumn(chars.to(torch.uint8), lens, a.nulls, ret)
+
+
+@register("from_hex", null_fn=_own_nulls)
+def _from_hex(ret, a: StringColumn):
+    """Invalid hex (an odd length, a byte that is no hex digit) is NULL,
+    as in the reference (Presto raises)."""
+    n, w = a.chars.shape
+    c = torch.nn.functional.pad(a.chars, (0, w % 2)).to(torch.int64)
+    digit = torch.where(c >= ord("a"), c - ord("a") + 10,
+                        torch.where(c >= ord("A"), c - ord("A") + 10,
+                                    c - ord("0")))
+    lanes = torch.arange(c.shape[1], dtype=torch.int64,
+                         device=c.device)[None, :]
+    lens = a.lengths.to(torch.int64)
+    in_len = lanes < lens[:, None]
+    ok = ((digit >= 0) & (digit <= 15)) | ~in_len
+    invalid = (lens % 2 != 0) | ~ok.all(dim=1)
+    pairs = digit.reshape(n, -1, 2)
+    out_len = torch.where(invalid, 0, lens // 2)
+    vals = (pairs[:, :, 0] * 16 + pairs[:, :, 1]) & 0xFF
+    half = torch.arange(vals.shape[1], dtype=torch.int64,
+                        device=c.device)[None, :]
+    vals = torch.where(half < out_len[:, None], vals, 0)
+    return StringColumn(vals.to(torch.uint8), out_len.to(torch.int32),
+                        a.nulls | invalid, ret)
+
+
+@register("to_utf8")
+def _to_utf8(ret, a: StringColumn):
+    return StringColumn(a.chars, a.lengths, a.nulls, ret)
+
+
+@register("from_utf8")
+def _from_utf8(ret, a: StringColumn):
+    return StringColumn(a.chars, a.lengths, a.nulls, ret)
+
+
 # ---------------------------------------------------------------------------
 # casts
 # ---------------------------------------------------------------------------
 
+def _null_string(n: int, device, ret: T.Type) -> StringColumn:
+    return StringColumn(torch.zeros((n, 1), dtype=torch.uint8, device=device),
+                        torch.zeros(n, dtype=torch.int32, device=device),
+                        torch.ones(n, dtype=torch.bool, device=device), ret)
+
+
+def _cast_from128(ret, a: Int128Column):
+    ft = a.type
+    if ret.is_floating:
+        f = a.hi.to(torch.float64) * float(2 ** 64) + _u64_to_f64(a.lo)
+        return _col(ret, (f / _POW10[ft.scale]).to(_dt(ret)), a)
+    if _is_long_decimal(ret):
+        hi, lo = _rescale128(a.hi, a.lo, ft.scale, ret.scale)
+        return Int128Column(hi, lo, a.nulls, ret)
+    if ret.is_decimal or ret.is_integral:
+        # narrow through the low lane: the values must fit, as in the
+        # reference
+        v = rescale_decimal(a.lo, ft.scale, _scale_of(ret))
+        return _col(ret, v.to(_dt(ret)), a)
+    raise NotImplementedError(f"cast long decimal -> {ret}")
+
+
 @register("cast")
 def _cast(ret, a):
-    """The reference's numeric casts: long decimals to double (hi * 2^64
-    + lo, as the reference converts), to long decimals (upscale) and to
-    short decimals or integers (through the low lane); decimals and
-    integers onto each other, decimals to double, doubles rounded onto
-    decimals and integers, booleans and NULL literals onto numbers;
-    varchar to varchar. Date and time casts are not ported."""
+    """The reference's casts: numeric pairs (long decimals exactly, now
+    with the downscale the reference refuses: half away from zero),
+    booleans onto numbers, date <-> timestamp <-> timestamp with time
+    zone <-> time, varchar to varchar, typed NULLs; any other pair of
+    fixed-width types reinterprets the lanes at the target's dtype, as
+    the reference does. Varchar to anything else is refused, as in the
+    reference."""
     ft = a.type
     if isinstance(a, Int128Column):
-        if ret.is_floating:
-            f = a.hi.to(torch.float64) * float(2 ** 64) + _u64_to_f64(a.lo)
-            return _col(ret, f / _POW10[ft.scale], a)
-        if ret.is_decimal and not ret.is_short_decimal:
-            if ret.scale < ft.scale:
-                raise NotImplementedError("long-decimal downscale cast "
-                                          "(ROADMAP queue 1 item 10: "
-                                          "breadth)")
-            hi, lo = I128.rescale128_up(a.hi, a.lo,
-                                        10 ** (ret.scale - ft.scale))
-            return Int128Column(hi, lo, a.nulls, ret)
-        if ret.is_decimal or ret.is_integral:
-            v = rescale_decimal(a.lo, ft.scale, _scale_of(ret))
-            return _col(ret, v.to(torch_dtype(ret.to_dtype())), a)
-        raise NotImplementedError(f"cast {ft} -> {ret} is not ported yet "
-                                  "(ROADMAP queue 1 item 10: breadth)")
-    if isinstance(a, StringColumn) and ret.is_string:
+        return _cast_from128(ret, a)
+    if isinstance(a, StringColumn) and not ret.is_string:
+        raise NotImplementedError(
+            "CAST(varchar AS numeric) needs the string-parse kernels, which "
+            "the reference does not have either")
+    if isinstance(a, StringColumn):
         return StringColumn(a.chars, a.lengths, a.nulls, ret)
     if ft == T.UNKNOWN and ret.is_string:
-        # a typed NULL literal: a string column of NULLs
-        n = len(a)
-        return StringColumn(
-            torch.zeros((n, 1), dtype=torch.uint8, device=a.nulls.device),
-            torch.zeros(n, dtype=torch.int32, device=a.nulls.device),
-            torch.ones_like(a.nulls), ret)
-    if isinstance(a, StringColumn) or not ret.is_numeric or not (
-            ft.is_numeric or ft.base in ("boolean", "unknown")):
-        raise NotImplementedError(
-            f"cast {ft} -> {ret} is not ported yet (ROADMAP queue 1 item "
-            "10: breadth)")
-    dt = torch_dtype(ret.to_dtype())
+        return _null_string(len(a), a.nulls.device, ret)
+    if ret.is_string:
+        raise NotImplementedError(f"cast {ft} -> {ret}: the reference has "
+                                  "no such cast")
     v = a.values
+    dt = _dt(ret)
     if ft.is_decimal and ret.is_floating:
         return _col(ret, v.to(dt) / _POW10[ft.scale], a)
-    if (ft.is_decimal or ft.is_integral) and ret.is_decimal and \
-            not ret.is_short_decimal:
-        # widen onto int128 lanes, then rescale exactly
-        src_scale = _scale_of(ft)
+    if (ft.is_decimal or ft.is_integral) and _is_long_decimal(ret):
         hi, lo = I128.from_int64(v)
-        if ret.scale > src_scale:
-            hi, lo = I128.rescale128_up(hi, lo, 10 ** (ret.scale - src_scale))
-        elif ret.scale < src_scale:
-            raise NotImplementedError("long-decimal downscale cast (ROADMAP "
-                                      "queue 1 item 10: breadth)")
+        hi, lo = _rescale128(hi, lo, _scale_of(ft), ret.scale)
         return Int128Column(hi, lo, a.nulls, ret)
     if ft.is_decimal and ret.is_decimal:
-        return _col(ret, rescale_decimal(v.to(torch.int64), ft.scale,
-                                         ret.scale), a)
+        return _col(ret, rescale_decimal(_i64(a), ft.scale, ret.scale), a)
     if ft.is_decimal and ret.is_integral:
-        return _col(ret, rescale_decimal(v.to(torch.int64), ft.scale,
-                                         0).to(dt), a)
+        return _col(ret, rescale_decimal(_i64(a), ft.scale, 0).to(dt), a)
     if ft.is_integral and ret.is_decimal:
-        return _col(ret, v.to(torch.int64) * _POW10[ret.scale], a)
+        return _col(ret, _i64(a) * _POW10[ret.scale], a)
     if ft.is_floating and ret.is_decimal:
         return _col(ret, torch.round(v * _POW10[ret.scale]).to(torch.int64),
                     a)
     if ft.is_floating and ret.is_integral:
         return _col(ret, torch.round(v).to(dt), a)
-    # plain numeric widening/narrowing (booleans to numbers among them)
+    if ft.base == "date" and ret.base == "timestamp":
+        return _col(ret, _i64(a) * _DAY_US, a)
+    if ft.base == _TZ_BASE and ret.base == "timestamp":
+        return _col(ret, _as_local_micros(a), a)  # the local datetime
+    if ft.base == _TZ_BASE and ret.base == "date":
+        return _col(ret, _fdiv(_as_local_micros(a), _DAY_US).to(dt), a)
+    if ft.base == _TZ_BASE and ret.base == "time":
+        return _col(ret, _fmod(_as_local_micros(a), _DAY_US), a)
+    if ft.base in ("timestamp", "date") and ret.base == _TZ_BASE:
+        # a naive timestamp is a UTC instant (session zone UTC)
+        return _col(ret, TZ.pack(_instant_micros(a), TZ.UTC_KEY), a)
+    if ft.base == "timestamp" and ret.base == "time":
+        return _col(ret, _fmod(_i64(a), _DAY_US), a)
+    if ft.base == "timestamp" and ret.base == "date":
+        return _col(ret, _fdiv(_i64(a), _DAY_US).to(dt), a)
+    # plain widening/narrowing (booleans and typed NULLs among them)
     return _col(ret, v.to(dt), a)
+
+
+@register("try_cast")
+def _try_cast(ret, a):
+    """CAST with an out-of-range integer result NULL instead of wrapped.
+    Varchar to a number is refused, as in the reference."""
+    if isinstance(a, StringColumn) and not ret.is_string:
+        raise NotImplementedError(
+            "TRY_CAST(varchar AS numeric) needs the string-parse kernels, "
+            "which the reference does not have either")
+    out = _cast(ret, a)
+    ft = a.type
+    if ret.is_integral and isinstance(a, Int128Column):
+        lo_, hi_ = _int_range(ret)
+        h, l = _rescale128(a.hi, a.lo, ft.scale, 0)
+        fits64 = h == (l >> 63)
+        oob = ~fits64 | (l < lo_) | (l > hi_)
+        return Column(out.values, out.nulls | oob, ret)
+    if ret.is_integral and (ft.is_integral or ft.is_decimal):
+        lo_, hi_ = _int_range(ret)
+        src = _i64(a)
+        if ft.is_decimal:
+            src = rescale_decimal(src, ft.scale, 0)
+        return Column(out.values, out.nulls | (src < lo_) | (src > hi_), ret)
+    if ret.is_integral and ft.is_floating:
+        lo_, hi_ = _int_range(ret)
+        v = a.values
+        oob = (v < float(lo_)) | (v > float(hi_)) | torch.isnan(v)
+        return Column(out.values, out.nulls | oob, ret)
+    return out
+
+
+def _int_range(ty: T.Type):
+    info = np.iinfo(ty.to_dtype())
+    return int(info.min), int(info.max)
+
+
+# ---------------------------------------------------------------------------
+# host-row kernels: JSON, regex capture and digests run per row on the
+# host, as the reference runs them through jax.pure_callback. Each call
+# copies its argument columns to the host (one sync) and moves the
+# result back to their device.
+# ---------------------------------------------------------------------------
+
+def _host_values(block) -> list:
+    """A block's rows as Python values on the host (strings as bytes),
+    None for NULL."""
+    nulls = block.nulls.cpu().numpy().tolist()
+    if isinstance(block, StringColumn):
+        chars = np.ascontiguousarray(block.chars.cpu().numpy())
+        w = chars.shape[1]
+        buf = chars.tobytes()
+        vals = [buf[i * w:i * w + ln] for i, ln in
+                enumerate(block.lengths.cpu().numpy().tolist())]
+    else:
+        vals = block.values.cpu().numpy().tolist()
+    return [None if null else v for v, null in zip(vals, nulls)]
+
+
+def _host_rows(py_fn, blocks):
+    """py_fn over each row whose arguments are all non-NULL: yields (row,
+    result). A row whose function raises is SQL NULL, as in the
+    reference (the reference runs the same Python per row)."""
+    for i, vals in enumerate(zip(*[_host_values(b) for b in blocks])):
+        if None in vals:
+            continue
+        try:
+            r = py_fn(*vals)
+        except Exception:  # noqa: BLE001 - a row error is SQL NULL
+            continue
+        if r is not None:
+            yield i, r
+
+
+def host_string_kernel(py_fn, ret: T.Type, out_width: int,
+                       *blocks) -> StringColumn:
+    """py_fn(*row values) -> bytes | str | None per row, as a string
+    column `out_width` bytes wide (a longer result raises, as in the
+    reference)."""
+    n = len(blocks[0])
+    out_width = max(int(out_width), 1)
+    out = [b""] * n
+    nulls = np.ones(n, dtype=bool)
+    for i, r in _host_rows(py_fn, blocks):
+        if isinstance(r, str):
+            r = r.encode("utf-8")
+        if len(r) > out_width:
+            raise ValueError(
+                f"host kernel result exceeds static width {out_width}")
+        out[i] = r
+        nulls[i] = False
+    lengths = np.fromiter(map(len, out), dtype=np.int32, count=n)
+    chars = np.frombuffer(bytearray(b"".join(
+        r.ljust(out_width, b"\0") for r in out)), dtype=np.uint8)
+    dev = blocks[0].nulls.device
+    return StringColumn(torch.from_numpy(chars.reshape(n, out_width)).to(dev),
+                        torch.from_numpy(lengths).to(dev),
+                        torch.from_numpy(nulls).to(dev), ret)
+
+
+def host_scalar_kernel(py_fn, ret: T.Type, *blocks) -> Column:
+    """py_fn(*row values) -> int | float | bool | None per row, as a
+    fixed-width column."""
+    n = len(blocks[0])
+    values = np.zeros(n, dtype=ret.to_dtype())
+    nulls = np.ones(n, dtype=bool)
+    for i, r in _host_rows(py_fn, blocks):
+        values[i] = r
+        nulls[i] = False
+    dev = blocks[0].nulls.device
+    return Column(torch.from_numpy(values).to(dev),
+                  torch.from_numpy(nulls).to(dev), ret)
+
+
+# -- JSON ------------------------------------------------------------------
+
+def _json_loads(doc: bytes):
+    return _json.loads(doc.decode("utf-8"))
+
+
+def _json_dumps(v) -> str:
+    return _json.dumps(v, separators=(",", ":"), ensure_ascii=False)
+
+
+_JSON_PATH_STEP = _re.compile(
+    r"\.(\*|[A-Za-z_][A-Za-z_0-9]*)|\[\s*(\d+)\s*\]|\[\s*\"([^\"]*)\"\s*\]")
+
+
+@functools.lru_cache(maxsize=64)
+def _json_path_steps(path: bytes) -> tuple:
+    """The reference's JsonPath subset: $, $.key, $["key"], $[idx],
+    chained, as (kind, key or index) steps (parsed once per path)."""
+    p = path.decode("utf-8").strip()
+    if not p.startswith("$"):
+        raise ValueError(f"bad json path {p!r}")
+    pos = 1
+    steps = []
+    while pos < len(p):
+        m = _JSON_PATH_STEP.match(p, pos)
+        if m is None:
+            raise ValueError(f"bad json path {p!r}")
+        if m.group(1) is not None:
+            steps.append(("key", m.group(1)))
+        elif m.group(2) is not None:
+            steps.append(("idx", int(m.group(2))))
+        else:
+            steps.append(("key", m.group(3)))
+        pos = m.end()
+    return tuple(steps)
+
+
+def _json_path_get(v, path: bytes):
+    """The value at `path` in the parsed document: (value, found)."""
+    for kind, s in _json_path_steps(path):
+        if kind == "key":
+            if not isinstance(v, dict) or s not in v:
+                return None, False
+        elif not isinstance(v, list) or s >= len(v):
+            return None, False
+        v = v[s]
+    return v, True
+
+
+def _json_out_width(a: StringColumn) -> int:
+    """Canonical JSON can be longer than its input ('1e2' -> '100.0',
+    escapes): the reference's budget of 6x the input plus 16."""
+    return 6 * a.max_len + 16
+
+
+@register("json_parse", null_fn=_own_nulls)
+def _json_parse(ret, a: StringColumn):
+    return host_string_kernel(lambda d: _json_dumps(_json_loads(d)), ret,
+                              _json_out_width(a), a)
+
+
+@register("json_format", null_fn=_own_nulls)
+def _json_format(ret, a: StringColumn):
+    return host_string_kernel(lambda d: d, ret, a.max_len, a)
+
+
+@register("json_extract", null_fn=_own_nulls)
+def _json_extract(ret, a: StringColumn, p: StringColumn):
+    def fn(doc, path):
+        v, ok = _json_path_get(_json_loads(doc), path)
+        return _json_dumps(v) if ok else None
+    return host_string_kernel(fn, ret, _json_out_width(a), a, p)
+
+
+@register("json_extract_scalar", null_fn=_own_nulls)
+def _json_extract_scalar(ret, a: StringColumn, p: StringColumn):
+    def fn(doc, path):
+        v, ok = _json_path_get(_json_loads(doc), path)
+        if not ok or isinstance(v, (dict, list)) or v is None:
+            return None
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, float) and v == int(v):
+            return _json_dumps(v)
+        return str(v)
+    return host_string_kernel(fn, ret, _json_out_width(a), a, p)
+
+
+@register("json_array_length", null_fn=_own_nulls)
+def _json_array_length(ret, a: StringColumn):
+    def fn(doc):
+        v = _json_loads(doc)
+        return len(v) if isinstance(v, list) else None
+    return host_scalar_kernel(fn, ret, a)
+
+
+@register("json_size", null_fn=_own_nulls)
+def _json_size(ret, a: StringColumn, p: StringColumn):
+    def fn(doc, path):
+        v, ok = _json_path_get(_json_loads(doc), path)
+        if not ok:
+            return None
+        return len(v) if isinstance(v, (dict, list)) else 0
+    return host_scalar_kernel(fn, ret, a, p)
+
+
+@register("json_array_contains", null_fn=_own_nulls)
+def _json_array_contains(ret, a: StringColumn, x):
+    def fn(doc, needle):
+        v = _json_loads(doc)
+        if not isinstance(v, list):
+            return None
+        if isinstance(needle, bytes):
+            return needle.decode("utf-8") in [e for e in v
+                                              if isinstance(e, str)]
+        if isinstance(needle, bool):
+            return any(e is needle for e in v)
+        # a numeric needle matches JSON numbers only (never booleans)
+        return any(e == needle for e in v
+                   if isinstance(e, (int, float)) and not isinstance(e, bool))
+    return host_scalar_kernel(fn, ret, a, x)
+
+
+@register("is_json_scalar", null_fn=_own_nulls)
+def _is_json_scalar(ret, a: StringColumn):
+    return host_scalar_kernel(
+        lambda doc: not isinstance(_json_loads(doc), (dict, list)), ret, a)
+
+
+# -- regex capture and replace (regexp_like has the device DFA) ----------
+
+def _search(pat: bytes, s: bytes):
+    return _re.search(pat.decode("utf-8"), s.decode("utf-8"))
+
+
+@register("regexp_extract", null_fn=_own_nulls)
+def _regexp_extract(ret, a: StringColumn, p: StringColumn, *group):
+    """The first match (or its group), NULL without one."""
+    def fn(s, pat, g=0):
+        m = _search(pat, s)
+        return None if m is None else m.group(int(g))
+    return host_string_kernel(fn, ret, a.max_len, a, p, *group)
+
+
+@register("regexp_position", null_fn=_own_nulls)
+def _regexp_position(ret, a: StringColumn, p: StringColumn):
+    def fn(s, pat):
+        m = _search(pat, s)
+        return -1 if m is None else m.start() + 1
+    return host_scalar_kernel(fn, ret, a, p)
+
+
+@register("regexp_count", null_fn=_own_nulls)
+def _regexp_count(ret, a: StringColumn, p: StringColumn):
+    def fn(s, pat):
+        return sum(1 for _ in _re.finditer(pat.decode("utf-8"),
+                                           s.decode("utf-8")))
+    return host_scalar_kernel(fn, ret, a, p)
+
+
+def regexp_replace(a: StringColumn, pattern: str, replacement: str,
+                   ret: T.Type) -> StringColumn:
+    """regexp_replace with a constant pattern and replacement (Presto's
+    $g group references), the output at most len + 1 insertions of the
+    replacement wide."""
+    w = a.max_len
+    width = max(w + (w + 1) * len(replacement.encode("utf-8")), 1)
+    py_rep = _re.sub(r"\$(\d+)", r"\\\1", replacement)
+    return host_string_kernel(
+        lambda s: _re.sub(pattern, py_rep, s.decode("utf-8")), ret, width, a)
+
+
+# -- digests -----------------------------------------------------------------
+
+def _register_digest(name, width):
+    @register(name, null_fn=_own_nulls)
+    def _digest(ret, a: StringColumn, _n=name):
+        return host_string_kernel(
+            lambda data: getattr(hashlib, _n)(data).digest(), ret, width, a)
+    return _digest
+
+
+_register_digest("md5", 16)
+_register_digest("sha1", 20)
+_register_digest("sha256", 32)
+_register_digest("sha512", 64)
+
+
+@register("crc32", null_fn=_own_nulls)
+def _crc32(ret, a: StringColumn):
+    return host_scalar_kernel(zlib.crc32, ret, a)
+
+
+# ---------------------------------------------------------------------------
+# geospatial scalars over plain doubles
+# ---------------------------------------------------------------------------
+
+_EARTH_RADIUS_KM = 6371.01
+
+
+@register("great_circle_distance")
+def _great_circle_distance(ret, lat1, lon1, lat2, lon2):
+    """Haversine distance in kilometres between two (lat, lon) points in
+    degrees."""
+    to_rad = math.pi / 180.0
+    p1 = decimal_to_f64(lat1) * to_rad
+    p2 = decimal_to_f64(lat2) * to_rad
+    dphi = p2 - p1
+    dlam = (decimal_to_f64(lon2) - decimal_to_f64(lon1)) * to_rad
+    h = torch.sin(dphi / 2.0) ** 2 + \
+        torch.cos(p1) * torch.cos(p2) * torch.sin(dlam / 2.0) ** 2
+    d = 2.0 * _EARTH_RADIUS_KM * torch.asin(torch.sqrt(h.clamp(0.0, 1.0)))
+    return _col(ret, d, lat1, lon1, lat2, lon2)
+
+
+def _bing_xy(lat, lon, zoom):
+    """(lat, lon, zoom) -> integer tile (x, y) lanes (the Bing tile
+    system's Mercator mapping)."""
+    lat = lat.clamp(-85.05112878, 85.05112878)
+    lon = lon.clamp(-180.0, 180.0)
+    sin_lat = torch.sin(lat * math.pi / 180.0)
+    x_frac = (lon + 180.0) / 360.0
+    y_frac = 0.5 - torch.log((1.0 + sin_lat) / (1.0 - sin_lat)) \
+        / (4.0 * math.pi)
+    size = (torch.ones_like(zoom) << zoom).to(torch.float64)
+    tx = torch.minimum(torch.floor(x_frac * size).clamp(min=0), size - 1)
+    ty = torch.minimum(torch.floor(y_frac * size).clamp(min=0), size - 1)
+    return tx.to(torch.int64), ty.to(torch.int64)
+
+
+def _bing_args(lat, lon, zoom):
+    """Tile lanes, the zoom clamped to the system's 0..23, and the null
+    mask: a zoom outside 0..23 is NULL (Presto raises)."""
+    z = _i64(zoom)
+    tx, ty = _bing_xy(decimal_to_f64(lat), decimal_to_f64(lon),
+                      z.clamp(0, 23))
+    return tx, ty, z.clamp(0, 23), \
+        _default_nulls(lat, lon, zoom) | (z < 0) | (z > 23)
+
+
+@register("bing_tile_x", null_fn=_own_nulls)
+def _bing_tile_x(ret, lat, lon, zoom):
+    tx, _, _, nulls = _bing_args(lat, lon, zoom)
+    return Column(tx, nulls, ret)
+
+
+@register("bing_tile_y", null_fn=_own_nulls)
+def _bing_tile_y(ret, lat, lon, zoom):
+    _, ty, _, nulls = _bing_args(lat, lon, zoom)
+    return Column(ty, nulls, ret)
+
+
+@register("bing_tile_quadkey_at", null_fn=_own_nulls)
+def _bing_tile_quadkey_at(ret, lat, lon, zoom):
+    """The quadkey of the tile holding (lat, lon) at `zoom`: digit i
+    reads bit z-1-i of x and y."""
+    tx, ty, z, nulls = _bing_args(lat, lon, zoom)
+    digits = []
+    for i in range(23):
+        bit = z - 1 - i
+        b = bit.clamp(0, 62)
+        d = ((tx >> b) & 1) | (((ty >> b) & 1) << 1)
+        digits.append(torch.where(bit >= 0, d + ord("0"), 0))
+    return StringColumn(torch.stack(digits, dim=1).to(torch.uint8),
+                        z.to(torch.int32), nulls, ret)
 
 
 # ---------------------------------------------------------------------------
@@ -593,16 +1875,16 @@ def contains_pattern(a: StringColumn, needle: bytes) -> torch.Tensor:
 # hashing: splitmix64 over int64 bit patterns
 # ---------------------------------------------------------------------------
 
-def _i64(u: int) -> int:
+def _u64_const(u: int) -> int:
     """The int64 bit pattern of an unsigned 64-bit constant."""
     return u - (1 << 64) if u >= 1 << 63 else u
 
 
 # the reference's uint64 constants; add and multiply wrap the same way
 # in int64, and a right shift is logical only through int128._lshr
-GOLD = _i64(0x9E3779B97F4A7C15)
-_H1 = _i64(0xBF58476D1CE4E5B9)
-_H2 = _i64(0x94D049BB133111EB)
+GOLD = _u64_const(0x9E3779B97F4A7C15)
+_H1 = _u64_const(0xBF58476D1CE4E5B9)
+_H2 = _u64_const(0x94D049BB133111EB)
 
 
 def mix64(z: torch.Tensor) -> torch.Tensor:

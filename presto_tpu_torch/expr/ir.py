@@ -131,5 +131,5 @@ def from_json(j: dict) -> RowExpression:
     if t in ("param", "lambda", "lambdavar"):
         raise NotImplementedError(
             f"{t!r} expressions are not ported yet (ROADMAP queue 1 "
-            "item 10: breadth)")
+            "item 11: arrays, maps, rows and lambdas)")
     raise ValueError(f"unknown RowExpression kind {t!r}")

@@ -298,12 +298,39 @@ def _as_request(r) -> _Request:
     return _Request(contrib, None, 0, int(value_bits), True)
 
 
+def _source_key(src) -> tuple:
+    return tuple(map(id, src)) if isinstance(src, tuple) else (id(src),)
+
+
+def _fused_chunks(reqs: List[_Request]) -> List[List[_Request]]:
+    """The requests in order, cut where one fused_limb_sums launch would
+    take more sources, requests, limbs or shared memory than the kernel
+    holds (K.fused_fits): q1's 39 requests over 11 sources are one
+    launch, a projection of many distinct lanes (the function
+    statements' aggregates) takes more."""
+    chunks: List[List[_Request]] = []
+    srcs: dict = {}  # the last chunk's sources: key -> bytes a row
+    for r in reqs:
+        need = {_source_key(s): K.source_bytes(s) for s in
+                (r.source,) + (() if r.mask is None else (r.mask,))}
+        both = {**srcs, **need}
+        if not chunks or not K.fused_fits(
+                len(both), sum(both.values()), len(chunks[-1]) + 1,
+                sum(K.limb_count(q.bits) for q in chunks[-1] + [r])):
+            chunks.append([])
+            both = need
+        chunks[-1].append(r)
+        srcs = both
+    return chunks
+
+
 def _fused_limb_sums(ids: torch.Tensor, requests, max_groups: int,
                      limb_form: str = "narrow") -> List[torch.Tensor]:
     """Every integer seg-sum of `requests` (descriptors, or plain
     (contrib, value_bits) pairs) -> list of (G,) exact int64 totals.
-    Narrow: ONE fused_limb_sums launch over the distinct source lanes
-    (each tensor passed once), the limb split inside the kernel. Wide:
+    Narrow: one fused_limb_sums launch over the distinct source lanes
+    (each tensor passed once) per chunk of requests that fits the kernel
+    (`_fused_chunks`; q1's is one), the limb split inside the kernel. Wide:
     the requests materialise into float32 13-bit limbs stacked into an
     (n, L) matrix, ONE limb_partial_sums launch sums them per tile, the
     tiles add in int64 and the limbs recombine by shifts."""
@@ -312,21 +339,25 @@ def _fused_limb_sums(ids: torch.Tensor, requests, max_groups: int,
     reqs = [_as_request(r) for r in requests]
     ids = ids.to(torch.int32)
     if limb_form == "narrow":
-        sources: List[K.Source] = []
-        slots = {}
+        out: List[torch.Tensor] = []
+        for chunk in _fused_chunks(reqs):
+            sources: List[K.Source] = []
+            slots = {}
 
-        def slot(src) -> int:
-            key = tuple(map(id, src)) if isinstance(src, tuple) else id(src)
-            if key not in slots:
-                slots[key] = len(sources)
-                sources.append(src)
-            return slots[key]
+            def slot(src) -> int:
+                key = _source_key(src)
+                if key not in slots:
+                    slots[key] = len(sources)
+                    sources.append(src)
+                return slots[key]
 
-        kreqs = [K.LimbRequest(slot(r.source),
-                               -1 if r.mask is None else slot(r.mask),
-                               r.shift, r.bits, r.remainder) for r in reqs]
-        return list(K.fused_limb_sums(ids, sources, kreqs, max_groups)
-                    .unbind(1))
+            kreqs = [K.LimbRequest(slot(r.source),
+                                   -1 if r.mask is None else slot(r.mask),
+                                   r.shift, r.bits, r.remainder)
+                     for r in chunk]
+            out += K.fused_limb_sums(ids, sources, kreqs,
+                                     max_groups).unbind(1)
+        return out
     limb_bits = 13
     limb_cols = []
     spans = []
@@ -493,8 +524,8 @@ def _extreme(spec: AggSpec, col: Block, ids: torch.Tensor,
     if isinstance(col, Column):
         if col.values.dtype == torch.bool:
             raise NotImplementedError(
-                f"{spec.name} over {col.type} is not ported yet (ROADMAP "
-                "queue 1 item 10: breadth)")
+                f"{spec.name} over {col.type}: the reference refuses it "
+                "too")
         return Column(_seg_extreme(ids, col.values, live, g, minimize),
                       nulls, spec.output_type)
     if isinstance(col, Int128Column):
@@ -725,8 +756,8 @@ def _min_by(spec: AggSpec, col: Column, active: torch.Tensor,
     order = batch.column(spec.second_channel)
     if not isinstance(order, Column):
         raise NotImplementedError(
-            f"{spec.name} ordered by {order.type} is not ported yet "
-            "(ROADMAP queue 1 item 10: breadth)")
+            f"{spec.name} ordered by {order.type}: the reference refuses "
+            "it too")
     live = active & ~order.nulls
     words = [w ^ SIGN for w in key_words([order])[1:]]
     n = len(col)

@@ -261,6 +261,33 @@ def _source_lanes(source: Source) -> List[torch.Tensor]:
     return list(source) if isinstance(source, tuple) else [source]
 
 
+# one launch's limits, as ops/csrc/fused_limb_sums.cu checks them: its
+# sources, requests and 7-bit limbs, and the shared memory of its
+# descriptors (2,880 bytes), two stages of 1,024 rows (the int32 ids
+# and every source lane) and the limb tile (a 1,040-byte column per limb,
+# 8 a tile, and one spare)
+FUSED_MAX_SOURCES, FUSED_MAX_REQUESTS, FUSED_MAX_LIMBS = 16, 128, 256
+_FUSED_MAX_SMEM, _FUSED_CHUNK, _FUSED_COLUMN, _FUSED_DESC = \
+    232448, 1024, 1040, 2880
+
+
+def source_bytes(source: Source) -> int:
+    """Bytes a row of a source lane (a 128-bit pair: both lanes)."""
+    return sum(t.element_size() for t in _source_lanes(source))
+
+
+def fused_fits(nsources: int, row_bytes: int, nrequests: int,
+               limbs: int) -> bool:
+    """Whether one fused_limb_sums launch takes `nsources` sources of
+    `row_bytes` bytes a row together, `nrequests` requests and `limbs`
+    7-bit limbs (the kernel refuses more)."""
+    smem = _FUSED_DESC + 2 * (4 + row_bytes) * _FUSED_CHUNK + \
+        (-(-limbs // 8) * 8 + 1) * _FUSED_COLUMN + _FUSED_CHUNK
+    return (nsources <= FUSED_MAX_SOURCES and
+            nrequests <= FUSED_MAX_REQUESTS and limbs <= FUSED_MAX_LIMBS
+            and smem <= _FUSED_MAX_SMEM)
+
+
 def _check_fused_args(ids: torch.Tensor, sources: Sequence[Source],
                       requests: Sequence[LimbRequest], groups: int):
     if ids.dtype != torch.int32 or ids.dim() != 1:
@@ -296,6 +323,13 @@ def _check_fused_args(ids: torch.Tensor, sources: Sequence[Source],
         if not (0 <= r.shift <= _MAX_SHIFT and 1 <= r.bits <= 64):
             raise ValueError(f"request {r}: shift must lie in [0, 127] and "
                              "bits in [1, 64]")
+    # the kernel's own limits hold for the plain version too, so that a
+    # caller the CPU tests pass does not meet them first on the card
+    if not fused_fits(len(sources), sum(map(source_bytes, sources)),
+                      len(requests),
+                      sum(limb_count(r.bits) for r in requests)):
+        raise ValueError(f"fused_limb_sums refused: {_FUSED_REFUSED[-2]} "
+                         "or the shared memory they need")
 
 
 def _recombine(tot: torch.Tensor) -> torch.Tensor:

@@ -6,10 +6,10 @@ tuple and whose equality is key equality. Torch cannot compare uint64,
 so each word here is the int64 tensor with the same bits: equality is
 unchanged, and ordering code compares `word ^ SIGN` (ops/sort.py).
 
-* integers, dates, short decimals: one word, the value with its sign
-  bit flipped; booleans: one word, 0 or 1; doubles: one word, the IEEE
-  bits with the sign flipped (negative values complemented), -0.0 as
-  0.0, NaN above +inf;
+* integers, dates, timestamps, short decimals: one word, the value
+  with its sign bit flipped (a zoned timestamp: its instant); booleans:
+  one word, 0 or 1; doubles: one word, the IEEE bits with the sign
+  flipped (negative values complemented), -0.0 as 0.0, NaN above +inf;
 * varchar/char: big-endian packed 8-byte chunks, zero padded;
 * NULL: a leading null word per column; value words are zeroed under
   null, so NULL keys compare equal (GROUP BY semantics).
@@ -31,9 +31,9 @@ __all__ = ["key_words", "string_words", "SIGN"]
 def _fixed_words(col: Column) -> List[torch.Tensor]:
     v = col.values
     if col.type.base == "timestamp with time zone":
-        raise NotImplementedError(
-            f"{col.type} keys are not ported yet (ROADMAP queue 1 item 10: "
-            "breadth)")
+        # order and equality on the instant: the same micros in two
+        # zones are the same SQL value
+        v = v.to(torch.int64) >> 12
     if v.dtype == torch.bool:
         return [v.to(torch.int64)]
     if v.is_floating_point():

@@ -1,10 +1,10 @@
 """Plan nodes: the worker-visible plan vocabulary this port executes.
 
 Counterpart of presto_tpu/plan/nodes.py, trimmed to the nodes of the
-ported plan shapes: TableScan, Filter, Project, Aggregation (SINGLE,
-PARTIAL, INTERMEDIATE, FINAL), Join, SemiJoin, Sort, TopN, Limit,
-Distinct, Union, AssignUniqueId, MarkDistinct, Window, RowNumber,
-GroupId, Exchange and Output.
+ported plan shapes: TableScan, Values, Filter, Project, Aggregation
+(SINGLE, PARTIAL, INTERMEDIATE, FINAL), Join, SemiJoin, Sort, TopN,
+Limit, Distinct, Union, Sample, AssignUniqueId, MarkDistinct, Window,
+RowNumber, GroupId, Exchange and Output.
 Channels are already resolved to indices.
 
 `from_json` reads the dict that presto_tpu.plan.nodes.to_json writes,
@@ -25,10 +25,11 @@ from .. import types as T
 from ..expr import ir as E
 from ..ops.aggregation import AggSpec, state_types
 
-__all__ = ["PlanNode", "TableScanNode", "FilterNode", "ProjectNode",
+__all__ = ["PlanNode", "TableScanNode", "ValuesNode", "FilterNode",
+           "ProjectNode",
            "AggregationNode", "JoinNode", "SemiJoinNode", "SortNode",
            "TopNNode", "LimitNode", "DistinctNode", "UnionNode",
-           "AssignUniqueIdNode", "MarkDistinctNode", "WindowNode",
+           "SampleNode", "AssignUniqueIdNode", "MarkDistinctNode", "WindowNode",
            "RowNumberNode", "GroupIdNode", "ExchangeNode", "OutputNode",
            "from_json", "to_json"]
 
@@ -63,6 +64,18 @@ class TableScanNode(PlanNode):
 
     def output_types(self):
         return list(self.column_types)
+
+
+@dataclasses.dataclass
+class ValuesNode(PlanNode):
+    """Literal rows (VALUES, and the one row of a FROM-less SELECT, which
+    has no columns): each row a list of values in the reference's
+    constant form, None for NULL."""
+    types: List[T.Type]
+    rows: List[List[object]]
+
+    def output_types(self):
+        return list(self.types)
 
 
 @dataclasses.dataclass
@@ -238,6 +251,22 @@ class UnionNode(PlanNode):
 
 
 @dataclasses.dataclass
+class SampleNode(PlanNode):
+    """BERNOULLI sampling: each row is kept with probability `ratio`,
+    decided by a deterministic hash of its row slot, as the reference
+    decides it."""
+    source: PlanNode
+    ratio: float = 1.0
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_types(self):
+        return self.source.output_types()
+
+
+@dataclasses.dataclass
 class AssignUniqueIdNode(PlanNode):
     """`source`'s columns plus a BIGINT unique to each row."""
     source: PlanNode
@@ -376,8 +405,12 @@ class OutputNode(PlanNode):
 
 # node kinds of presto_tpu's wire format this port does not run yet
 _NOT_PORTED = {
-    "unnest": "queue 1 item 10 (breadth: ops/unnest.py)",
-    "remotesource": "queue 1 item 13 (parallel/ and the worker tier)",
+    "unnest": "queue 1 item 11 (arrays, maps, rows and lambdas: "
+              "ops/unnest.py)",
+    "remotesource": "queue 1 item 14 (parallel/ and the worker tier)",
+    **{k: "queue 1 item 12 (exec/ off the main path: the write roots and "
+          "the other connectors)"
+       for k in ("ddl", "tablewriter", "tablefinish", "tablerewrite")},
 }
 
 
@@ -412,6 +445,9 @@ def to_json(n: PlanNode) -> dict:
         if n.physical_dtypes is not None:
             j["physicalDtypes"] = list(n.physical_dtypes)
         return j
+    if isinstance(n, ValuesNode):
+        return {**base, "@type": "values", "types": [str(t) for t in n.types],
+                "rows": n.rows}
     if isinstance(n, FilterNode):
         return {**base, "@type": "filter", "source": to_json(n.source),
                 "predicate": E.to_json(n.predicate)}
@@ -450,6 +486,9 @@ def to_json(n: PlanNode) -> dict:
     if isinstance(n, UnionNode):
         return {**base, "@type": "union",
                 "inputs": [to_json(s) for s in n.inputs]}
+    if isinstance(n, SampleNode):
+        return {**base, "@type": "sample", "source": to_json(n.source),
+                "ratio": n.ratio}
     if isinstance(n, AssignUniqueIdNode):
         return {**base, "@type": "assignuniqueid",
                 "source": to_json(n.source)}
@@ -569,6 +608,11 @@ def _node_from_json(j: dict, sub) -> PlanNode:
                             j["maxGroups"], **kw)
     if t == "union":
         return UnionNode([sub(s) for s in j["inputs"]], **kw)
+    if t == "values":
+        return ValuesNode([T.parse_type(x) for x in j["types"]], j["rows"],
+                          **kw)
+    if t == "sample":
+        return SampleNode(sub(j["source"]), j["ratio"], **kw)
     if t == "assignuniqueid":
         return AssignUniqueIdNode(sub(j["source"]), **kw)
     if t == "markdistinct":
@@ -599,6 +643,4 @@ def _node_from_json(j: dict, sub) -> PlanNode:
     if t in _NOT_PORTED:
         raise NotImplementedError(
             f"plan node {t!r} is not ported yet: ROADMAP {_NOT_PORTED[t]}")
-    raise NotImplementedError(
-        f"plan node {t!r} is not ported yet: ROADMAP queue 1 item 10 "
-        "(breadth)")
+    raise ValueError(f"unknown plan node kind {t!r}")

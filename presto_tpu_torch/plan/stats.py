@@ -23,7 +23,7 @@ output channel traced to its base-table column takes the connector's
 appended id column has one value per grouping set. No code of the
 port reads it at run time: the port runs plans the reference already
 sized. It is kept, with the connectors' distinct counts, for the
-port's own planner (ROADMAP queue 1 item 12), which sizes aggregations
+port's own planner (ROADMAP queue 1 item 13), which sizes aggregations
 from it as the reference's planner does.
 """
 

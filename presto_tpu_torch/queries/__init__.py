@@ -10,6 +10,13 @@ and NULL as null. `scripts/make_tpch_corpus.py` writes the file from
 presto_tpu; this module only reads it, so the port needs nothing of
 the reference to check itself against it.
 
+`functions.json` holds the statements of the scalar function library:
+the reference's flat function tests ("statements": plan and rows at sf
+0.01), those of its tests that take arrays, maps, rows or lambdas
+("later": plan only), and the statements the card times ("timed": plan
+and rows at sf 0.01 and at SF1); `scripts/make_functions_corpus.py`
+writes it and `load_functions_corpus` reads it.
+
 `tpcds.json` holds, for each of the 99 TPC-DS queries, the reference's
 prepared plan and rows at the query's suite scale factor, and its plan
 prepared at the scale the card times it at, SF1 but for q72
@@ -30,12 +37,14 @@ import numpy as np
 
 from .. import types as T
 
-__all__ = ["CORPUS_PATH", "TPCDS_CORPUS_PATH", "load_corpus",
-           "load_tpcds_corpus", "exact_rows", "exact_value"]
+__all__ = ["CORPUS_PATH", "TPCDS_CORPUS_PATH", "FUNCTIONS_CORPUS_PATH",
+           "load_corpus", "load_tpcds_corpus", "load_functions_corpus",
+           "exact_rows", "exact_value"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CORPUS_PATH = os.path.join(_HERE, "tpch_sf1.json")
 TPCDS_CORPUS_PATH = os.path.join(_HERE, "tpcds.json")
+FUNCTIONS_CORPUS_PATH = os.path.join(_HERE, "functions.json")
 
 
 def exact_value(v, ty: T.Type):
@@ -85,3 +94,15 @@ def load_tpcds_corpus(path: str = TPCDS_CORPUS_PATH) -> Dict[str, dict]:
     return {name: {**q, **{k: _unpack(q[k])
                            for k in ("plan", "rows", "plan_timed")}}
             for name, q in data["queries"].items()}
+
+
+def load_functions_corpus(path: str = FUNCTIONS_CORPUS_PATH
+                          ) -> Dict[str, Dict[str, dict]]:
+    """{"statements", "later", "timed"} -> {name: entry} of the committed
+    function corpus. An entry has "sql", "sf" and "plan" (plan-fragment
+    JSON); statements and timed entries "names", "types" and "rows";
+    timed entries also "sf1", "plan_sf1", "rows_sf1" and "sample" (the
+    BERNOULLI ratio of a plan with a SampleNode, else None)."""
+    with open(path) as f:
+        data = json.load(f)
+    return {k: data[k] for k in ("statements", "later", "timed")}

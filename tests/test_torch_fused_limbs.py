@@ -271,3 +271,41 @@ def test_fused_pool_takes_plain_requests_too(form):
         assert got[0][g].item() == int(vn[idn == g].sum())
         assert got[1][g].item() == int(vn[(idn == g) & ln].sum())
         assert got[2][g].item() == int(((idn == g) & ln).sum())
+
+
+@pytest.mark.parametrize("nsources,width", [(17, 8), (40, 1), (12, 16)])
+def test_pool_cuts_what_one_launch_cannot_take(nsources, width):
+    """More sources, limbs or shared memory than one launch holds (a
+    projection of many distinct lanes): the wrapper refuses them on the
+    CPU as the kernel does on the card, and the pool cuts them into
+    launches that each fit, in order, with the exact sums."""
+    rng = np.random.default_rng(nsources)
+    n, groups = 999, 8
+    ids = _ids(rng, n, groups)
+    dt = {1: torch.int8, 8: torch.int64}.get(width)
+    lanes = []
+    for _ in range(nsources):
+        if width == 16:
+            v = torch.from_numpy(rng.integers(-(1 << 60), 1 << 60, n))
+            lanes.append((v >> 63, v))
+        else:
+            lanes.append(torch.from_numpy(
+                rng.integers(-100, 100, n)).to(dt))
+    bits = 64 if width == 16 else 8 * width
+    reqs = [PA._Request(s, None, 0, bits, True) for s in lanes]
+    chunks = PA._fused_chunks(reqs)
+    assert len(chunks) >= 2
+    assert [r for c in chunks for r in c] == reqs
+    for c in chunks:
+        assert K.fused_fits(len(c), sum(K.source_bytes(r.source) for r in c),
+                            len(c), sum(K.limb_count(r.bits) for r in c))
+    kreqs = [R(i, -1, 0, bits, True) for i in range(nsources)]
+    with pytest.raises(ValueError, match="refused"):
+        K.fused_limb_sums(ids, lanes, kreqs, groups)
+    got = PA._fused_limb_sums(ids, reqs, groups)
+    live = (ids >= 0) & (ids < groups)
+    for s, g in zip(lanes, got):
+        v = s[1] if isinstance(s, tuple) else s.to(torch.int64)
+        want = torch.zeros(groups, dtype=torch.int64).index_add_(
+            0, ids[live].to(torch.int64), v[live])
+        assert g.tolist() == want.tolist()

@@ -41,7 +41,7 @@ WORDS = ["", "a", "abcdefgh", "abcdefghi", "zz", "BUILDINGS", "héllo"]
 SIGS = ["bigint", "varchar(12)", "decimal(12, 2)", "decimal(38, 2)",
         "integer", "bigint"]
 # DEFAULT_CORPUS entry -> the ROADMAP queue 1 item of what it lacks
-VERIFIER_UNPORTED = {17: "item 10"}
+VERIFIER_UNPORTED = {17: "item 11"}
 VERIFIER_PORTED = [i for i in range(len(DEFAULT_CORPUS))
                    if i not in VERIFIER_UNPORTED]
 

@@ -160,8 +160,8 @@ def test_out_of_slice_plans_raise_naming_the_roadmap():
     unnest = {"@type": "unnest", "id": "u", "source": RN.to_json(limit),
               "arrayChannel": 0, "outCapacity": None,
               "withOrdinality": False}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
         from_json(unnest)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         run_query(from_json(RN.to_json(q6_plan())), sf=SF, device="cpu",
                   mesh=object())
