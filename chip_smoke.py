@@ -49,12 +49,21 @@ PyTorch version at the shapes of its path:
   presto_tpu_torch/queries/functions.json
   (scripts/make_functions_corpus.py) at sf 0.01 against the reference's
   rows (the flat statements of its function tests: math, dates,
-  timestamps and zones, strings, varbinary, JSON, regex, VALUES), the
-  nested ones refused naming their ROADMAP item, and nine statements of
-  the library over TPC-H columns at SF1 (a SampleNode among them)
-  against the reference's SF1 rows, each with its execute time, host
-  syncs, fused_limb_sums launches, peak memory and the wall time of its
-  regex DFA scans and per-row host kernels;
+  timestamps and zones, strings, varbinary, JSON, regex, VALUES), and
+  nine statements of the library over TPC-H columns at SF1 (a
+  SampleNode among them) against the reference's SF1 rows, each with
+  its execute time, host syncs, fused_limb_sums launches, peak memory
+  and the wall time of its regex DFA scans and per-row host kernels;
+* the nested half of the library (phase_nested): the 20 statements
+  over arrays and lambdas of the function corpus at sf 0.01 against the
+  reference's rows; fn_arrays (every nested name the reference's SQL
+  plans) and fn_unnest (UNNEST WITH ORDINALITY of 6.0M arrays into 24M
+  rows, then a group-by) at SF1 against the reference's SF1 rows, each
+  launching fused_limb_sums; and 6,000,000-row maps (K 8), rows and a
+  dictionary column built on the card, run through element_at,
+  cardinality, map_keys, map_values, the map lambdas, row_field, an
+  unnest of the map and a group-by over the dictionary, each held to
+  the port's CPU result on the same tensors;
 * the 99 TPC-DS queries (phase_tpcds): each at its suite scale factor
   against the reference's rows committed in
   presto_tpu_torch/queries/tpcds.json (scripts/make_tpcds_corpus.py),
@@ -895,7 +904,8 @@ def recording_fused():
 
 def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",),
                 rows=_plain_rows, fused_calls=None, same=None,
-                run_query_repeats=None, instrument=None):
+                run_query_repeats=None, instrument=None,
+                execute_repeats=QUERY_REPEATS):
     """Run one query through run_query on the card, per limb form: once
     to climb the overflow ladder, then once more, with every kernel
     count set to 0 just before, in one attempt at the capacities the
@@ -908,7 +918,8 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",),
     `run_query_repeats` 0 skips timing run_query (None: QUERY_REPEATS at
     SF1, one run above); `instrument`, a context manager factory that
     yields a dict, is entered around one more execute over the staged
-    batches, and the dict goes to the report as "instrumented"."""
+    batches, and the dict goes to the report as "instrumented";
+    `execute_repeats` timed executes follow one warm-up."""
     import torch
     from presto_tpu_torch.connectors import tpch
     from presto_tpu_torch.exec import run_query
@@ -970,7 +981,8 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",),
     report["staged_mb"] = _staged_bytes(batches) / 1e6
     report["execute_ms_by_form"], report["peak_mb_by_form"] = {}, {}
     for form in limb_forms:
-        ms = wall_ms(lambda: execute(root, batches, limb_form=form))
+        ms = wall_ms(lambda: execute(root, batches, limb_form=form),
+                     repeats=execute_repeats)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         execute(root, batches, limb_form=form)
@@ -1592,14 +1604,14 @@ def phase_functions():
     committed function corpus (presto_tpu_torch/queries/functions.json)
     at sf 0.01 through run_query, rows equal to the reference's: the
     flat statements of its function tests exactly, the timed ones with
-    doubles within rel 1e-9; the statements over arrays, maps, rows and
-    lambdas raise naming ROADMAP queue 1 item 11 (transcendental doubles
-    of the statements within rel 1e-12). Then each timed
-    statement at SF1 through phase_query against the reference's SF1
-    rows (doubles within rel 1e-9), one more execute timing the regex
-    DFA scans and the host kernels. A plan with a small-table keyed
-    aggregation must launch fused_limb_sums on the path that returns
-    its rows. Returns the reports."""
+    doubles within rel 1e-9 (transcendental doubles of the statements
+    within rel 1e-12). Then each timed statement at SF1 but those of
+    the nested half (NESTED_TIMED, phase_nested's) through phase_query
+    against the reference's SF1 rows (doubles within rel 1e-9), one
+    more execute timing the regex DFA scans and the host kernels. A
+    plan with a small-table keyed aggregation must launch
+    fused_limb_sums on the path that returns its rows. Returns the
+    reports."""
     from presto_tpu_torch.exec import run_query
     from presto_tpu_torch.plan import from_json
     from presto_tpu_torch.queries import load_functions_corpus
@@ -1612,21 +1624,15 @@ def phase_functions():
                 raise AssertionError(f"{name} at sf {e['sf']} differs from "
                                      f"the reference:\n got  {got}\n want "
                                      f"{e['rows']}")
-    for name, e in sorted(corpus["later"].items()):
-        try:
-            run_query(from_json(e["plan"]), sf=e["sf"])
-        except NotImplementedError as exc:
-            if "ROADMAP queue 1 item 11" not in str(exc):
-                raise
-        else:
-            raise AssertionError(f"{name} ran; it should name item 11")
     small_s = time.perf_counter() - t0
     print(f"functions at sf 0.01: {len(corpus['statements'])} statements "
-          f"and {len(corpus['timed'])} timed ones equal the reference, "
-          f"{len(corpus['later'])} name item 11; {small_s:.1f} s")
+          f"and {len(corpus['timed'])} timed ones equal the reference; "
+          f"{small_s:.1f} s")
 
     reports = []
     for name, e in corpus["timed"].items():
+        if name in NESTED_TIMED:
+            continue
         plan = e["plan_sf1"]
         rep = phase_query(name, lambda p=plan: from_json(p),
                           lambda _t, e=e: e["rows_sf1"],
@@ -1646,6 +1652,239 @@ def phase_functions():
         {r["query"]: {**_summary([r])[r["query"]], **r["instrumented"]}
          for r in reports}))
     return {"sf001_s": small_s, "timed": reports}
+
+
+# the timed statements of the nested half, run by phase_nested
+NESTED_TIMED = ("fn_arrays", "fn_unnest")
+# the full-size nested columns: lineitem's rows at SF1, fanout 8
+NESTED_ROWS, NESTED_K = 6_000_000, 8
+NESTED_REPEATS = 3
+
+
+def phase_nested(seed):
+    """The nested half of the function library on the card.
+
+    * The 20 statements over arrays and lambdas of the function corpus
+      ("later") at sf 0.01 through run_query, rows equal to the
+      reference's exactly (nested values in exact form).
+    * fn_arrays and fn_unnest at SF1 through phase_query against the
+      reference's SF1 rows; each groups in at most 64 slots, so each
+      must launch fused_limb_sums on the run that returns its rows.
+    * Maps, rows and a dictionary at full size (nested_full_size).
+
+    Returns the report, with the phase's seconds."""
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.plan import from_json
+    from presto_tpu_torch.queries import load_functions_corpus
+    corpus = load_functions_corpus()
+    t0 = time.perf_counter()
+    for name, e in sorted(corpus["later"].items()):
+        got = _exact_rows(run_query(from_json(e["plan"]), sf=e["sf"]))
+        if got != e["rows"]:
+            raise AssertionError(f"{name} at sf {e['sf']} differs from the "
+                                 f"reference:\n got  {got}\n want "
+                                 f"{e['rows']}")
+    small_s = time.perf_counter() - t0
+    print(f"nested at sf 0.01: {len(corpus['later'])} statements equal the "
+          f"reference; {small_s:.1f} s")
+    reports = []
+    for name in NESTED_TIMED:
+        e = corpus["timed"][name]
+        plan = e["plan_sf1"]
+        rep = phase_query(name, lambda p=plan: from_json(p),
+                          lambda _t, e=e: e["rows_sf1"],
+                          _scanned_columns(plan), e["sf1"],
+                          rows=_exact_rows, run_query_repeats=0,
+                          execute_repeats=NESTED_REPEATS)
+        small = _small_keyed_aggs(plan)
+        launches = rep["launches"]["narrow"]
+        if not small or launches["fused_limb_sums"] < 1:
+            raise AssertionError(f"{name} must group in a small table "
+                                 f"({small}) and launch fused_limb_sums "
+                                 f"on the run that returns its rows: "
+                                 f"{launches}")
+        rep["small_table_max_groups"] = small
+        reports.append(rep)
+    print("nested: " + json.dumps(_summary(reports)))
+    full = nested_full_size(seed)
+    total_s = time.perf_counter() - t0
+    print(f"phase_nested: {total_s:.1f} s (sf 0.01 {small_s:.1f} s)")
+    return {"sf001_s": small_s, "timed": reports, "full_size": full,
+            "seconds": total_s}
+
+
+def _to_device(b, dev):
+    """A block (its nested blocks too) with every tensor on `dev`."""
+    import dataclasses as dc
+    import torch
+    out = {}
+    for f in dc.fields(b):
+        v = getattr(b, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.to(dev)
+        elif f.name == "fields":  # a row's blocks
+            v = tuple(_to_device(x, dev) for x in v)
+        elif f.name == "dictionary":
+            v = _to_device(v, dev)
+        out[f.name] = v
+    return type(b)(**out)
+
+
+def _lanes(b):
+    """The block's tensors on the host with every lane that carries no
+    value zeroed (past a length, under a NULL), doubles as their bits:
+    two results are equal when these are."""
+    import torch
+    from presto_tpu_torch import block as B
+    b = B.decoded(_to_device(b, "cpu"))
+
+    def keep(t, live):
+        t = torch.where(live, t, torch.zeros((), dtype=t.dtype))
+        return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+    live = ~b.nulls
+    if isinstance(b, B.RowColumn):
+        return [b.nulls] + [t for f in b.fields for t in _lanes(f)]
+    if isinstance(b, (B.ArrayColumn, B.MapColumn)):
+        inr = (torch.arange(b.max_cardinality)[None, :]
+               < b.lengths[:, None]) & live[:, None]
+        if isinstance(b, B.ArrayColumn):
+            keys, vals, vnulls = [], b.elements, b.elem_nulls
+        else:
+            keys, vals, vnulls = [keep(b.keys, inr)], b.values, b.value_nulls
+        return [b.nulls, keep(b.lengths, live), keep(vnulls, inr),
+                keep(vals, inr & ~vnulls)] + keys
+    if isinstance(b, B.StringColumn):
+        pos = torch.arange(b.max_len)[None, :] < b.lengths[:, None]
+        return [b.nulls, keep(b.lengths, live),
+                keep(b.chars, pos & live[:, None])]
+    return [b.nulls, keep(b.values, live)]
+
+
+def _same_lanes(gpu, cpu):
+    import torch
+    a, b = _lanes(gpu), _lanes(cpu)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def nested_full_size(seed):
+    """Maps, rows and a dictionary of NESTED_ROWS rows built as tensors
+    on the card from `seed`: a map(bigint, bigint) of fanout NESTED_K
+    (keys distinct in each row, a twentieth of the values and a fiftieth
+    of the maps NULL), a probe key that hits in most rows, a row(bigint,
+    double), and a varchar dictionary of 25 words. Each operation runs
+    on the card (median of NESTED_REPEATS after one run) and on the CPU
+    over copies of the same tensors, and the two results must be equal
+    lane for lane. Returns {operation: card ms}."""
+    import torch
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.block import (Batch, Column, DictionaryColumn,
+                                        MapColumn, RowColumn, from_numpy)
+    from presto_tpu_torch.expr import call, const, input_ref
+    from presto_tpu_torch.expr.compile import evaluate
+    from presto_tpu_torch.expr.ir import Lambda, LambdaVariable
+    from presto_tpu_torch.ops import kernels as K
+    from presto_tpu_torch.ops.aggregation import (AggSpec, finalize_states,
+                                                  group_by)
+    from presto_tpu_torch.ops.unnest import unnest
+
+    n, k, dev = NESTED_ROWS, NESTED_K, torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def ints(lo, hi, *shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    big, dbl = T.BIGINT, T.DOUBLE
+    map_t = T.map_of(big, big)
+    lengths = ints(0, k + 1, n, dtype=torch.int32)
+    in_range = torch.arange(k, device=dev)[None, :] < lengths[:, None]
+    keys = ints(0, 1000, n, 1) + torch.arange(k, device=dev) * 1000
+    m = MapColumn(keys, ints(-10 ** 6, 10 ** 6, n, k),
+                  (rand(n, k) < 0.05) | ~in_range, lengths, rand(n) < 0.02,
+                  map_t)
+    probe = Column(keys[:, 0] + 1000 * ints(0, k + 2, n), rand(n) < 0.01, big)
+    wide = Column(ints(-10 ** 9, 10 ** 9, n), rand(n) < 0.05, big)
+    row = RowColumn((wide, Column(torch.randn(n, generator=g, device=dev,
+                                              dtype=torch.float64),
+                                  rand(n) < 0.05, dbl)),
+                    rand(n) < 0.03, T.row_of(big, dbl))
+    words = from_numpy(T.varchar(12), np.array([f"word{i:02d}"
+                                                for i in range(25)],
+                                               dtype=object), device=dev)
+    dictionary = DictionaryColumn(ints(0, 25, n, dtype=torch.int32), words,
+                                  rand(n) < 0.01, T.varchar(12))
+    batch = Batch((m, probe, row, wide, dictionary),
+                  torch.ones(n, dtype=torch.bool, device=dev))
+    mb = sum(t.numel() * t.element_size()
+             for t in (m.keys, m.values, m.value_nulls, m.lengths, m.nulls))
+    print(f"nested full size: {n:,} maps of fanout {k} ({mb / 1e6:.1f} MB "
+          "with their masks), a row and a dictionary column")
+
+    M, P, R, W, DI = (input_ref(i, t) for i, t in enumerate(
+        (map_t, big, T.row_of(big, dbl), big, T.varchar(12))))
+    kv = ("k", "v")
+    kk, vv = LambdaVariable(big, "k"), LambdaVariable(big, "v")
+    exprs = {
+        "element_at": call("element_at", big, M, P),
+        "cardinality": call("cardinality", big, M),
+        "map_keys": call("map_keys", T.array_of(big), M),
+        "map_values": call("map_values", T.array_of(big), M),
+        "transform_values": call("transform_values", map_t, M, Lambda(
+            big, kv, call("add", big, vv, call("multiply", big, kk, W)))),
+        "transform_keys": call("transform_keys", map_t, M, Lambda(
+            big, kv, call("multiply", big, kk, const(2, big)))),
+        "map_filter": call("map_filter", map_t, M, Lambda(
+            T.BOOLEAN, kv, call("gt", T.BOOLEAN, vv, const(0, big)))),
+        "row_field_0": call("row_field", big, R, const(0, T.INTEGER)),
+        "row_field_1": call("row_field", dbl, R, const(1, T.INTEGER)),
+    }
+    aggs = [AggSpec("sum", 1, big), AggSpec("count_star", None, big)]
+    ops = {name: (lambda b, e=e: evaluate(e, b)) for name, e in exprs.items()}
+    ops["unnest_map"] = lambda b: unnest(Batch(b.columns[:2], b.active), 0,
+                                         n * k, with_ordinality=True)[0]
+    ops["group_by_dictionary"] = lambda b: finalize_states(group_by(
+        Batch((b.columns[4], b.columns[3]), b.active), [0], aggs, 64).batch,
+        1, aggs)
+
+    def result_blocks(out):
+        if not isinstance(out, Batch):
+            return [out]
+        return list(out.columns) + [Column(
+            out.active, torch.zeros_like(out.active), T.BOOLEAN)]
+
+    cpu_batch = Batch(tuple(_to_device(c, "cpu") for c in batch.columns),
+                      batch.active.cpu())
+    times, cpu_s = {}, {}
+    for name, op in ops.items():
+        for c in K.LAUNCHES:
+            K.LAUNCHES[c] = 0
+        gpu = op(batch)
+        launches = dict(K.LAUNCHES)
+        times[name] = wall_ms(lambda: op(batch), repeats=NESTED_REPEATS)
+        t1 = time.perf_counter()
+        cpu = op(cpu_batch)
+        cpu_s[name] = time.perf_counter() - t1
+        a, b = result_blocks(gpu), result_blocks(cpu)
+        if len(a) != len(b) or not all(_same_lanes(x, y)
+                                       for x, y in zip(a, b)):
+            raise AssertionError(f"nested {name} at full size: the card's "
+                                 "result differs from the CPU's")
+        if name == "group_by_dictionary" and launches["fused_limb_sums"] < 1:
+            raise AssertionError("the group-by over the dictionary (25 "
+                                 "groups) launched no fused_limb_sums: "
+                                 f"{launches}")
+        print(f"nested {name}: {times[name]:.3f} ms on the card, equal to "
+              f"the CPU's ({cpu_s[name]:.2f} s); launches {launches}")
+        del gpu, cpu, a, b
+    del batch, cpu_batch
+    torch.cuda.empty_cache()
+    return {"rows": n, "k": k, "map_mb": mb / 1e6, "ms": times,
+            "cpu_s": cpu_s}
 
 
 Q1_TABLES = {"lineitem": ["returnflag", "linestatus", "quantity",
@@ -2022,6 +2261,7 @@ def run_phases(args, start_cpu_rows) -> int:
     two_stage = phase_two_stage()
     aggregates = phase_aggregates()
     functions = phase_functions()
+    nested = phase_nested(args.seed)
     tpcds = phase_tpcds(
         cpu_procs, args.out + ".tpcds.jsonl" if args.out else None)
 
@@ -2029,7 +2269,7 @@ def run_phases(args, start_cpu_rows) -> int:
                 "--format=csv,noheader"])
     report = {"kernels": kernel_rows, "queries": [q1, q6, q3, q14, *corpus],
               "two_stage": two_stage, "aggregates": aggregates,
-              "functions": functions, "tpcds": tpcds,
+              "functions": functions, "nested": nested, "tpcds": tpcds,
               "build_s": build_s, "host_generation_s": GEN_S, "gpu": gpu,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "total_s": time.perf_counter() - t_start}

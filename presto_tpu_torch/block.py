@@ -11,9 +11,13 @@ in place of JAX pytrees and an explicit `device` on every staging call:
   The reference's `lo` lane is uint64; torch has no unsigned 64-bit
   shifts or compares, so `lo` holds the same bits as an int64 pattern
   (int128.py does the unsigned arithmetic on those patterns).
+* A `DictionaryColumn` is indices into a flat dictionary column; the
+  operators decode it where they read values.
 * An `ArrayColumn` is a fixed-fanout array per row, an `(N, K)` element
-  matrix: only the layout of the HLL register state of approx_distinct
-  (`array(tinyint)`, K = 2048) is ported; Map/Row columns are not.
+  matrix (K the batch's largest cardinality); approx_distinct's HLL
+  registers use the same layout (`array(tinyint)`, K = 2048).
+* A `MapColumn` is the same layout with `(N, K)` keys and values, and a
+  `RowColumn` one child block per field.
 * A `Batch` is equal-capacity columns plus an `active` row mask: rows
   past the live count, and rows a filter dropped, are inactive.
 """
@@ -28,8 +32,9 @@ import torch
 
 from . import types as T
 
-__all__ = ["Column", "StringColumn", "Int128Column", "ArrayColumn", "Batch",
-           "Block",
+__all__ = ["Column", "StringColumn", "Int128Column", "DictionaryColumn",
+           "ArrayColumn", "MapColumn", "RowColumn", "Batch", "Block",
+           "decoded",
            "torch_dtype", "resolve_device", "from_numpy", "batch_from_numpy",
            "to_numpy", "gather_block", "pad_chars", "null_like",
            "concat_batches"]
@@ -93,6 +98,32 @@ class Int128Column:
 
 
 @dataclasses.dataclass
+class DictionaryColumn:
+    """Row i's value is dictionary[indices[i]]; `nulls` is the row's
+    own mask (a NULL row may point at any dictionary slot)."""
+    indices: torch.Tensor
+    dictionary: Union[Column, StringColumn]
+    nulls: torch.Tensor
+    type: T.Type
+
+    def __len__(self):
+        return self.indices.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.indices.shape[0]
+
+    def decode(self) -> Union[Column, StringColumn]:
+        """The flat column: one gather through the dictionary."""
+        d = self.dictionary
+        if isinstance(d, StringColumn):
+            return StringColumn(d.chars[self.indices],
+                                d.lengths[self.indices], self.nulls,
+                                self.type)
+        return Column(d.values[self.indices], self.nulls, self.type)
+
+
+@dataclasses.dataclass
 class ArrayColumn:
     """Fixed-fanout arrays: row i's array is elements[i, :lengths[i]];
     `elements` and `elem_nulls` (N, K), `lengths` (N,) int32, `nulls`
@@ -106,8 +137,66 @@ class ArrayColumn:
     def __len__(self):
         return self.elements.shape[0]
 
+    @property
+    def capacity(self) -> int:
+        return self.elements.shape[0]
 
-Block = Union[Column, StringColumn, Int128Column, ArrayColumn]
+    @property
+    def max_cardinality(self) -> int:
+        return self.elements.shape[1]
+
+
+@dataclasses.dataclass
+class MapColumn:
+    """Fixed-fanout maps: row i's entries are (keys[i, j], values[i, j])
+    for j < lengths[i]. Keys are never NULL (the SQL contract); keys,
+    values and `value_nulls` are (N, K)."""
+    keys: torch.Tensor
+    values: torch.Tensor
+    value_nulls: torch.Tensor
+    lengths: torch.Tensor
+    nulls: torch.Tensor
+    type: T.Type
+
+    def __len__(self):
+        return self.keys.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.keys.shape[0]
+
+    @property
+    def max_cardinality(self) -> int:
+        return self.keys.shape[1]
+
+
+@dataclasses.dataclass
+class RowColumn:
+    """A struct: one child block per field and the row's own null
+    mask."""
+    fields: Tuple["Block", ...]
+    nulls: torch.Tensor
+    type: T.Type
+
+    def __len__(self):
+        return self.nulls.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.nulls.shape[0]
+
+    def field(self, i: int) -> "Block":
+        return self.fields[i]
+
+
+Block = Union[Column, StringColumn, Int128Column, DictionaryColumn,
+              ArrayColumn, MapColumn, RowColumn]
+
+
+def decoded(b: Block) -> Block:
+    """`b` with a dictionary decoded, for the operators that read
+    values."""
+    return b.decode() if isinstance(b, DictionaryColumn) else b
 
 
 @dataclasses.dataclass
@@ -194,13 +283,21 @@ def from_numpy(ty: T.Type, values: np.ndarray,
                capacity: Optional[int] = None, physical_dtype=None,
                device=None) -> Block:
     """Stage one host column on `device` (None: CUDA). Strings arrive as an object
-    array of str, long decimals as Python ints or any int64-safe array.
-    `physical_dtype` stages a fixed-width column at a narrower
-    range-proven lane (plan/widths.py); the logical `ty` is unchanged
-    and compute sites widen first."""
+    array of str, long decimals as Python ints or any int64-safe array;
+    arrays, maps and rows as object arrays of lists, dicts and tuples,
+    None for a NULL (row or element). `physical_dtype` stages a
+    fixed-width column at a narrower range-proven lane (plan/widths.py);
+    the logical `ty` is unchanged and compute sites widen first."""
     device = resolve_device(device)
     n = values.shape[0]
     capacity = capacity or n
+    if ty.base in ("array", "map", "row"):
+        top = np.zeros(n, dtype=bool) if nulls is None else \
+            np.asarray(nulls, dtype=bool).copy()
+        top |= np.array([v is None for v in values], dtype=bool)
+        stage = {"array": _stage_array, "map": _stage_map,
+                 "row": _stage_row}[ty.base]
+        return stage(ty, list(values), top, capacity, device)
     if nulls is None:
         if values.dtype == object:
             nulls = np.array([v is None for v in values], dtype=bool)
@@ -229,6 +326,70 @@ def from_numpy(ty: T.Type, values: np.ndarray,
     return Column(_put(_pad_cast(values, capacity, dt), device), nulls_t, ty)
 
 
+def _fanout(rows) -> int:
+    """K of a fixed-fanout block: the largest cardinality, at least 1."""
+    return max((len(r) for r in rows if r is not None), default=1) or 1
+
+
+def _stage_array(ty, rows, top, capacity, device) -> "ArrayColumn":
+    k = _fanout(rows)
+    elems = np.zeros((capacity, k), dtype=ty.element_type.to_dtype())
+    enulls = np.ones((capacity, k), dtype=bool)
+    lengths = np.zeros(capacity, dtype=np.int32)
+    for i, r in enumerate(rows):
+        if top[i]:
+            continue
+        lengths[i] = len(r)
+        for j, v in enumerate(r):
+            if v is not None:
+                elems[i, j] = v
+                enulls[i, j] = False
+    return ArrayColumn(_put(elems, device), _put(enulls, device),
+                       _put(lengths, device),
+                       _put(_pad_cast(top, capacity, bool, fill=True),
+                            device), ty)
+
+
+def _stage_map(ty, rows, top, capacity, device) -> "MapColumn":
+    k = _fanout(rows)
+    keys = np.zeros((capacity, k), dtype=ty.key_type.to_dtype())
+    vals = np.zeros((capacity, k), dtype=ty.value_type.to_dtype())
+    vnulls = np.ones((capacity, k), dtype=bool)
+    lengths = np.zeros(capacity, dtype=np.int32)
+    for i, r in enumerate(rows):
+        if top[i]:
+            continue
+        lengths[i] = len(r)
+        for j, (kk, vv) in enumerate(r.items()):
+            keys[i, j] = kk
+            if vv is not None:
+                vals[i, j] = vv
+                vnulls[i, j] = False
+    return MapColumn(_put(keys, device), _put(vals, device),
+                     _put(vnulls, device), _put(lengths, device),
+                     _put(_pad_cast(top, capacity, bool, fill=True), device),
+                     ty)
+
+
+def _stage_row(ty, rows, top, capacity, device) -> "RowColumn":
+    """Each field stages as a column of its own; a NULL row's fields
+    are NULL."""
+    fields = []
+    for fi, fty in enumerate(ty.field_types):
+        col = np.empty(len(rows), dtype=object)
+        col[:] = [None if t else r[fi] for r, t in zip(rows, top)]
+        fnulls = np.array([v is None for v in col], dtype=bool)
+        if fty.is_fixed_width and not (fty.is_decimal
+                                       and not fty.is_short_decimal):
+            col = np.array([0 if v is None else v for v in col],
+                           dtype=fty.to_dtype())
+        fields.append(from_numpy(fty, col, fnulls, capacity,
+                                 device=device))
+    return RowColumn(tuple(fields),
+                     _put(_pad_cast(top, capacity, bool, fill=True), device),
+                     ty)
+
+
 def batch_from_numpy(types: Sequence[T.Type], arrays: Sequence[np.ndarray],
                      nulls: Optional[Sequence[Optional[np.ndarray]]] = None,
                      capacity: Optional[int] = None, physical_dtypes=None,
@@ -252,7 +413,10 @@ def batch_from_numpy(types: Sequence[T.Type], arrays: Sequence[np.ndarray],
 def to_numpy(block: Block) -> Tuple[np.ndarray, np.ndarray]:
     """Fetch (values, nulls) to the host. Strings come back as an object
     array of str, long decimals as an object array of Python ints,
-    arrays as an object array of lists."""
+    arrays, maps and rows as object arrays of lists, dicts (in entry
+    order) and tuples, None for NULL."""
+    if isinstance(block, DictionaryColumn):
+        return to_numpy(block.decode())
     nulls = block.nulls.cpu().numpy()
     if isinstance(block, ArrayColumn):
         elems = block.elements.cpu().numpy()
@@ -263,6 +427,27 @@ def to_numpy(block: Block) -> Tuple[np.ndarray, np.ndarray]:
             vals[i] = None if nulls[i] else [
                 None if enulls[i, j] else elems[i, j].item()
                 for j in range(lengths[i])]
+        return vals, nulls
+    if isinstance(block, MapColumn):
+        keys = block.keys.cpu().numpy()
+        mvals = block.values.cpu().numpy()
+        vnulls = block.value_nulls.cpu().numpy()
+        lengths = block.lengths.cpu().numpy()
+        vals = np.empty(len(lengths), dtype=object)
+        for i in range(len(lengths)):
+            vals[i] = None if nulls[i] else {
+                keys[i, j].item(): None if vnulls[i, j]
+                else mvals[i, j].item() for j in range(lengths[i])}
+        return vals, nulls
+    if isinstance(block, RowColumn):
+        fvals = [to_numpy(f) for f in block.fields]
+        vals = np.empty(len(nulls), dtype=object)
+        for i in range(len(nulls)):
+            vals[i] = None if nulls[i] else tuple(
+                None if fn[i] else (fv[i].item()
+                                    if isinstance(fv[i], np.generic)
+                                    else fv[i])
+                for fv, fn in fvals)
         return vals, nulls
     if isinstance(block, StringColumn):
         chars = block.chars.cpu().numpy()
@@ -291,11 +476,28 @@ def pad_chars(c: StringColumn, width: int) -> StringColumn:
                         c.lengths, c.nulls, c.type)
 
 
+def _fanout_gather(b, idx, valid, nulls, fields):
+    """gather_block of an array or map: every (N, K) tensor of `fields`
+    by row; an invalid output row is NULL and empty."""
+    lengths = b.lengths[idx]
+    if valid is not None:
+        lengths = torch.where(valid, lengths, 0)
+    return dataclasses.replace(
+        b, **{f: getattr(b, f)[idx] for f in fields}, lengths=lengths,
+        nulls=nulls)
+
+
 def gather_block(b: Block, idx: torch.Tensor,
                  valid: Optional[torch.Tensor] = None) -> Block:
     """Row gather for every Block kind. `valid=None` is a pure
-    permutation; with a mask, invalid output rows become NULL (and
-    empty, for strings)."""
+    permutation (a dictionary gathers its indices); with a mask,
+    invalid output rows become NULL (and empty, for strings, arrays
+    and maps; a row's fields NULL too)."""
+    if isinstance(b, DictionaryColumn):
+        if valid is None:
+            return DictionaryColumn(b.indices[idx], b.dictionary,
+                                    b.nulls[idx], b.type)
+        b = b.decode()
     nulls = b.nulls[idx]
     if valid is not None:
         nulls = torch.where(valid, nulls, True)
@@ -305,11 +507,14 @@ def gather_block(b: Block, idx: torch.Tensor,
             lengths = torch.where(valid, lengths, 0)
         return StringColumn(b.chars[idx], lengths, nulls, b.type)
     if isinstance(b, ArrayColumn):
-        lengths = b.lengths[idx]
-        if valid is not None:
-            lengths = torch.where(valid, lengths, 0)
-        return ArrayColumn(b.elements[idx], b.elem_nulls[idx], lengths,
-                           nulls, b.type)
+        return _fanout_gather(b, idx, valid, nulls,
+                              ("elements", "elem_nulls"))
+    if isinstance(b, MapColumn):
+        return _fanout_gather(b, idx, valid, nulls,
+                              ("keys", "values", "value_nulls"))
+    if isinstance(b, RowColumn):
+        return RowColumn(tuple(gather_block(f, idx, valid)
+                               for f in b.fields), nulls, b.type)
     if isinstance(b, Int128Column):
         return Int128Column(b.hi[idx], b.lo[idx], nulls, b.type)
     return Column(b.values[idx], nulls, b.type)
@@ -317,48 +522,65 @@ def gather_block(b: Block, idx: torch.Tensor,
 
 def null_like(b: Block) -> Block:
     """An all-NULL block with the same capacity, type and layout as `b`
-    (GroupIdNode's dropped-key columns); strings and arrays are empty."""
+    (GroupIdNode's dropped-key columns); strings, arrays and maps are
+    empty, and a row's fields NULL."""
+    b = decoded(b)
     ones = torch.ones_like(b.nulls)
     if isinstance(b, StringColumn):
         return StringColumn(b.chars, torch.zeros_like(b.lengths), ones,
                             b.type)
-    if isinstance(b, ArrayColumn):
-        return ArrayColumn(b.elements, b.elem_nulls,
-                           torch.zeros_like(b.lengths), ones, b.type)
+    if isinstance(b, (ArrayColumn, MapColumn)):
+        return dataclasses.replace(b, lengths=torch.zeros_like(b.lengths),
+                                   nulls=ones)
+    if isinstance(b, RowColumn):
+        return RowColumn(tuple(null_like(f) for f in b.fields), ones, b.type)
     if isinstance(b, Int128Column):
         return Int128Column(b.hi, b.lo, ones, b.type)
     return Column(b.values, ones, b.type)
 
 
+def _cat_fanout(blocks, fields):
+    """concat of arrays or maps: each (N, K) tensor of `fields` padded
+    to the widest K."""
+    k = max(b.max_cardinality for b in blocks)
+    return dataclasses.replace(
+        blocks[0],
+        **{f: torch.cat([torch.nn.functional.pad(
+            getattr(b, f), (0, k - b.max_cardinality)) for b in blocks])
+           for f in fields},
+        lengths=torch.cat([b.lengths for b in blocks]),
+        nulls=torch.cat([b.nulls for b in blocks]))
+
+
+def _cat_blocks(blocks: Sequence[Block]) -> Block:
+    blocks = [decoded(b) for b in blocks]
+    b0 = blocks[0]
+    nulls = torch.cat([b.nulls for b in blocks])
+    if isinstance(b0, StringColumn):
+        width = max(b.max_len for b in blocks)
+        return StringColumn(
+            torch.cat([pad_chars(b, width).chars for b in blocks]),
+            torch.cat([b.lengths for b in blocks]), nulls, b0.type)
+    if isinstance(b0, ArrayColumn):
+        return _cat_fanout(blocks, ("elements", "elem_nulls"))
+    if isinstance(b0, MapColumn):
+        return _cat_fanout(blocks, ("keys", "values", "value_nulls"))
+    if isinstance(b0, RowColumn):
+        return RowColumn(tuple(_cat_blocks([b.fields[fi] for b in blocks])
+                               for fi in range(len(b0.fields))),
+                         nulls, b0.type)
+    if isinstance(b0, Int128Column):
+        return Int128Column(torch.cat([b.hi for b in blocks]),
+                            torch.cat([b.lo for b in blocks]), nulls,
+                            b0.type)
+    # torch.cat widens narrow lanes to their common dtype
+    return Column(torch.cat([b.values for b in blocks]), nulls, b0.type)
+
+
 def concat_batches(batches: Sequence[Batch]) -> Batch:
     """The rows of `batches` one after another (UNION ALL): capacities
-    add, and string (array) columns pad to the widest chars (element)
-    matrix."""
-    cols = []
-    for ci in range(batches[0].num_columns):
-        blocks = [b.columns[ci] for b in batches]
-        b0 = blocks[0]
-        nulls = torch.cat([b.nulls for b in blocks])
-        if isinstance(b0, StringColumn):
-            width = max(b.max_len for b in blocks)
-            cols.append(StringColumn(
-                torch.cat([pad_chars(b, width).chars for b in blocks]),
-                torch.cat([b.lengths for b in blocks]), nulls, b0.type))
-        elif isinstance(b0, ArrayColumn):
-            k = max(b.elements.shape[1] for b in blocks)
-            cols.append(ArrayColumn(
-                torch.cat([torch.nn.functional.pad(
-                    b.elements, (0, k - b.elements.shape[1]))
-                    for b in blocks]),
-                torch.cat([torch.nn.functional.pad(
-                    b.elem_nulls, (0, k - b.elem_nulls.shape[1]))
-                    for b in blocks]),
-                torch.cat([b.lengths for b in blocks]), nulls, b0.type))
-        elif isinstance(b0, Int128Column):
-            cols.append(Int128Column(torch.cat([b.hi for b in blocks]),
-                                     torch.cat([b.lo for b in blocks]),
-                                     nulls, b0.type))
-        else:  # torch.cat widens narrow lanes to their common dtype
-            cols.append(Column(torch.cat([b.values for b in blocks]), nulls,
-                               b0.type))
-    return Batch(tuple(cols), torch.cat([b.active for b in batches]))
+    add, string columns pad to the widest chars matrix and arrays and
+    maps to the widest K, and dictionaries decode."""
+    return Batch(tuple(_cat_blocks([b.columns[ci] for b in batches])
+                       for ci in range(batches[0].num_columns)),
+                 torch.cat([b.active for b in batches]))

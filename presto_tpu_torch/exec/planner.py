@@ -4,8 +4,9 @@ Counterpart of presto_tpu/exec/planner.py::compile_plan for one device
 and no mesh: the plan tree becomes one Python function over the staged
 scan batches, calling the operators in turn. Join and aggregation
 overflow (more matches than a join's out_capacity, more distinct keys
-than max_groups) is returned as one device flag per capacity node; the
-runner owns the rerun-bigger policy. Distinct and MarkDistinct sort
+than max_groups, more elements than an unnest's out_capacity) is
+returned as one device flag per capacity node; the runner owns the
+rerun-bigger policy. Distinct and MarkDistinct sort
 instead of filling a table (ops/misc.py) and have no flag.
 
 Aggregation steps lower as the reference lowers them: SINGLE and
@@ -36,6 +37,7 @@ from ..ops.keys import SIGN
 from ..ops.join import hash_join, semi_join_mask
 from ..ops.misc import distinct, group_id, limit, mark_distinct
 from ..ops.sort import sort_batch, top_n
+from ..ops.unnest import unnest
 from ..ops.window import WindowSpec, specs_of, window
 from ..plan import nodes as N
 from ..plan.stats import capacity_nodes
@@ -93,9 +95,10 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
                  default_join_capacity: int = 1 << 16) -> CompiledPlan:
     """Lower Scan/Values/Filter/Project/Aggregation (every step)/Join
     (inner, left, right, full)/SemiJoin/Sort/TopN/Limit/Distinct/Union/
-    Sample/AssignUniqueId/MarkDistinct/Window/RowNumber/GroupId/
+    Sample/AssignUniqueId/MarkDistinct/Window/RowNumber/GroupId/Unnest/
     Exchange/Output. A join without an
-    out_capacity gets `default_join_capacity`; `limb_form` picks the
+    out_capacity gets `default_join_capacity`, an unnest without one
+    four times its source's rows; `limb_form` picks the
     stacked limb lanes of the small-table group-by sums
     (ops/aggregation.py)."""
     scans: List[N.PlanNode] = []
@@ -202,6 +205,13 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
                     rn = out.column(out.num_columns - 1)
                     out = out.with_active(
                         out.active & (rn.values <= node.max_rows_per_partition))
+                return out
+            if isinstance(node, N.UnnestNode):
+                src = lower(node.source)
+                cap = node.out_capacity or \
+                    src.capacity * 4 * node.capacity_factor
+                out, overflow[node.id] = unnest(
+                    src, node.array_channel, cap, node.with_ordinality)
                 return out
             if isinstance(node, N.GroupIdNode):
                 return group_id(lower(node.source), node.grouping_sets,

@@ -3,7 +3,8 @@ analog.
 
 Counterpart of presto_tpu/expr/compile.py (`evaluate`, `_eval_special`
 for AND/OR/IN/IS_NULL/IF/NULL_IF/COALESCE/BETWEEN/SWITCH,
-`_constant_block`, `_like`, `_select`, `compile_filter`,
+`_constant_block`, `_like`, `_select`, `_bind_lambda`,
+`_eval_array_lambda`, `_eval_map_lambda`, `compile_filter`,
 `compile_projections`). PyTorch runs eagerly, so "compiling" an
 expression is binding it into a closure over the tree.
 
@@ -11,8 +12,10 @@ Some calls take an argument that is plan structure, not data, and
 `evaluate` dispatches them by name as the reference does: the patterns
 of LIKE, regexp_like and regexp_replace, the zone of at_timezone, the
 format of date_format, the units of date_add, date_trunc and
-date_diff, and the delimiter and index of split_part must be
-constants. A call that gives one as an expression is refused.
+date_diff, the delimiter and index of split_part, the field index of
+row_field and the bounds of sequence must be constants. A call that
+gives one as an expression is refused. ARRAY[...] and the lambda
+functions over arrays and maps are dispatched by name too.
 
 Null semantics are Presto's three-valued logic: a scalar call is NULL
 when any argument is; AND, OR and IN are Kleene; IF, COALESCE and
@@ -30,11 +33,14 @@ import torch
 
 from .. import types as T
 from .. import tz as TZ
-from ..block import (Batch, Block, Column, Int128Column, StringColumn,
+from ..block import (ArrayColumn, Batch, Block, Column, Int128Column,
+                     MapColumn, StringColumn, decoded, gather_block,
                      pad_chars, torch_dtype)
 from ..ops.regex import compile_dfa, regexp_like_kernel
 from . import functions as F
-from .ir import Call, Constant, InputReference, RowExpression, SpecialForm
+from .ir import (Call, Constant, InputReference, Lambda, LambdaVariable,
+                 RowExpression, SpecialForm)
+from .logical import rewrite_bottom_up
 
 __all__ = ["compile_filter", "compile_projections", "evaluate"]
 
@@ -65,10 +71,6 @@ def _constant_block(c: Constant, capacity: int, device) -> Block:
                             torch.full((1,), len(b), dtype=torch.int32,
                                        device=device).expand(capacity),
                             no_nulls.expand(capacity), ty)
-    if not ty.is_fixed_width:
-        raise NotImplementedError(
-            f"constant {c} is not ported yet (ROADMAP queue 1 item 11: "
-            "arrays, maps, rows and lambdas)")
     v = c.value
     if ty.base == "date" and isinstance(v, str):
         v = int((np.datetime64(v) - np.datetime64("1970-01-01")).astype(int))
@@ -150,7 +152,7 @@ def _like(a: StringColumn, pattern: str) -> torch.Tensor:
 
 def evaluate(expr: RowExpression, batch: Batch) -> Block:
     if isinstance(expr, InputReference):
-        return batch.column(expr.channel)
+        return decoded(batch.column(expr.channel))
     if isinstance(expr, Constant):
         return _constant_block(expr, batch.capacity, batch.active.device)
     if isinstance(expr, SpecialForm):
@@ -159,10 +161,11 @@ def evaluate(expr: RowExpression, batch: Batch) -> Block:
         name = expr.name.lower()
         if name in _BY_NAME:
             return _BY_NAME[name](expr, batch)
-        if name in _NESTED_CALLS:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP queue 1 item 11: "
-                "arrays, maps, rows and lambdas)")
+        if name in _ARRAY_LAMBDAS and \
+                any(isinstance(a, Lambda) for a in expr.arguments):
+            return _eval_array_lambda(expr, batch)
+        if name in _MAP_LAMBDAS:
+            return _eval_map_lambda(expr, batch)
         args = [evaluate(a, batch) for a in expr.arguments]
         sf = F.lookup(name)
         out = sf.fn(expr.type, *args)
@@ -172,14 +175,6 @@ def evaluate(expr: RowExpression, batch: Batch) -> Block:
                 out = _with_nulls(out, nulls)
         return out
     raise TypeError(f"cannot evaluate {type(expr)}")
-
-
-# calls the reference's evaluate dispatches by name over arrays and
-# lambdas (the nested half of the library)
-_NESTED_CALLS = ("transform", "filter", "any_match", "all_match",
-                 "none_match", "reduce", "transform_values",
-                 "transform_keys", "map_filter", "array_constructor",
-                 "sequence")
 
 
 def _constant_arg(expr: Call, i: int, what: str):
@@ -313,12 +308,207 @@ def _eval_split_part(expr: Call, batch: Batch) -> Block:
     return F.split_part_kernel(a, delim, index, expr.type)
 
 
+def _eval_row_field(expr: Call, batch: Batch) -> Block:
+    """The field index is plan structure; a NULL row nulls the field."""
+    r = evaluate(expr.arguments[0], batch)
+    i = int(_constant_arg(expr, 1, "field index"))
+    rows = torch.arange(len(r), device=r.nulls.device)
+    return gather_block(r.field(i), rows, ~r.nulls)
+
+
+def _eval_array_constructor(expr: Call, batch: Batch) -> Block:
+    """ARRAY[e1, ..., ek]: the k element columns side by side, each
+    cast to the element type; ARRAY[] is empty in every row."""
+    cap, dev = batch.capacity, batch.active.device
+    elems = [evaluate(a, batch) for a in expr.arguments]
+    ety = expr.type.element_type
+    if not elems:
+        dt = torch.int64 if ety == T.UNKNOWN else torch_dtype(ety.to_dtype())
+        return ArrayColumn(torch.zeros((cap, 1), dtype=dt, device=dev),
+                           torch.ones((cap, 1), dtype=torch.bool, device=dev),
+                           torch.zeros(cap, dtype=torch.int32, device=dev),
+                           torch.zeros(cap, dtype=torch.bool, device=dev),
+                           expr.type)
+    if any(isinstance(e, StringColumn) for e in elems):
+        raise NotImplementedError("ARRAY[] of strings is not supported, as "
+                                  "in the reference")
+    dt = torch_dtype(ety.to_dtype())
+    return ArrayColumn(torch.stack([e.values.to(dt) for e in elems], dim=1),
+                       torch.stack([e.nulls for e in elems], dim=1),
+                       torch.full((cap,), len(elems), dtype=torch.int32,
+                                  device=dev),
+                       torch.zeros(cap, dtype=torch.bool, device=dev),
+                       expr.type)
+
+
+def _eval_sequence(expr: Call, batch: Batch) -> Block:
+    """sequence(lo, hi[, step]) with constant bounds: one bigint row,
+    the same in every row (a view)."""
+    cap, dev = batch.capacity, batch.active.device
+    lo = int(_constant_arg(expr, 0, "lower bound"))
+    hi = int(_constant_arg(expr, 1, "upper bound"))
+    step = int(_constant_arg(expr, 2, "step")) if len(expr.arguments) > 2 \
+        else (1 if hi >= lo else -1)
+    seq = np.arange(lo, hi + (1 if step > 0 else -1), step, dtype=np.int64)
+    k = max(len(seq), 1)
+    row = torch.from_numpy(seq if len(seq) else np.zeros(1, np.int64))
+    return ArrayColumn(row.to(dev)[None, :].expand(cap, k),
+                       torch.zeros((1, k), dtype=torch.bool,
+                                   device=dev).expand(cap, k),
+                       torch.full((1,), len(seq), dtype=torch.int32,
+                                  device=dev).expand(cap),
+                       torch.zeros(1, dtype=torch.bool,
+                                   device=dev).expand(cap), expr.type)
+
+
 _BY_NAME = {"like": _eval_like, "regexp_like": _eval_regexp_like,
             "at_timezone": _eval_at_timezone,
             "regexp_replace": _eval_regexp_replace,
             "date_format": _eval_date_format, "date_add": _eval_date_add,
             "date_trunc": _eval_date_trunc, "date_diff": _eval_date_diff,
-            "split_part": _eval_split_part}
+            "split_part": _eval_split_part, "row_field": _eval_row_field,
+            "array_constructor": _eval_array_constructor,
+            "sequence": _eval_sequence}
+_ARRAY_LAMBDAS = ("transform", "filter", "any_match", "all_match",
+                  "none_match", "reduce")
+_MAP_LAMBDAS = ("transform_values", "transform_keys", "map_filter")
+
+
+def _channels(e: RowExpression, out: set) -> set:
+    if isinstance(e, InputReference):
+        out.add(e.channel)
+    for c in e.children():
+        _channels(c, out)
+    return out
+
+
+def _bind_lambda(lam: Lambda, batch: Batch, params: Sequence[Block]
+                 ) -> Block:
+    """The lambda's body over `batch` with its parameters bound to
+    `params`, appended as channels past the batch's own."""
+    nc = batch.num_columns
+    slot = {p: nc + i for i, p in enumerate(lam.parameters)}
+
+    def sub(x):
+        if isinstance(x, LambdaVariable) and x.name in slot:
+            return InputReference(x.type, slot[x.name])
+        return x
+
+    body = rewrite_bottom_up(lam.body, sub)
+    return evaluate(body, Batch(tuple(batch.columns) + tuple(params),
+                                batch.active))
+
+
+def _element_batch(batch: Batch, lam: Lambda, lanes: torch.Tensor
+                   ) -> Batch:
+    """The batch with each row repeated once per lane of its (N, K)
+    collection, active where the lane is in range: the columns the
+    lambda's body captures are gathered, the others left out (None),
+    since nothing reads them."""
+    n, k = lanes.shape
+    rep = torch.arange(n, device=lanes.device).repeat_interleave(k)
+    used = _channels(lam, set())
+    cols = tuple(gather_block(c, rep) if ci in used else None
+                 for ci, c in enumerate(batch.columns))
+    return Batch(cols, (batch.active[:, None] & lanes).reshape(-1))
+
+
+def _eval_array_lambda(expr: Call, batch: Batch) -> Block:
+    """transform, filter, reduce, any_match, all_match and none_match.
+    The element axis is flattened: the lambda's body runs once over the
+    (N*K,) element lanes with the captured columns repeated K times;
+    reduce runs K steps, one per lane."""
+    name = expr.name.lower()
+    arr = evaluate(expr.arguments[0], batch)
+    n, k = arr.elements.shape
+    ety = expr.arguments[0].type.element_type
+    in_range = F._arr_in_range(arr)
+
+    if name == "reduce":
+        state = evaluate(expr.arguments[1], batch)
+        comb, out_lam = expr.arguments[2], expr.arguments[3]
+        for j in range(k):
+            elem = Column(arr.elements[:, j], arr.elem_nulls[:, j] | arr.nulls,
+                          ety)
+            new_state = _bind_lambda(comb, batch, [state, elem])
+            live = (arr.lengths > j) & ~arr.nulls
+            state = _select(live, new_state, state, new_state.type)
+        res = _bind_lambda(out_lam, batch, [state])
+        # a NULL array reduces to NULL
+        return dataclasses.replace(res, nulls=res.nulls | arr.nulls,
+                                   type=expr.type)
+
+    lam = expr.arguments[1]
+    flat = Column(arr.elements.reshape(-1),
+                  (arr.elem_nulls | ~in_range).reshape(-1), ety)
+    out = _bind_lambda(lam, _element_batch(batch, lam, in_range), [flat])
+    if name == "transform":
+        if isinstance(out, StringColumn):
+            raise NotImplementedError("transform to string elements is not "
+                                      "supported, as in the reference")
+        return ArrayColumn(out.values.reshape(n, k),
+                           out.nulls.reshape(n, k) | ~in_range, arr.lengths,
+                           arr.nulls, expr.type)
+    pv = (out.values & ~out.nulls).reshape(n, k) & in_range
+    pn = out.nulls.reshape(n, k) & in_range
+    if name == "filter":
+        order = torch.argsort((~pv).to(torch.uint8), dim=1, stable=True)
+        return ArrayColumn(torch.gather(arr.elements, 1, order),
+                           torch.gather(arr.elem_nulls, 1, order),
+                           pv.sum(dim=1).to(arr.lengths.dtype), arr.nulls,
+                           expr.type)
+    any_true = pv.any(dim=1)
+    any_null = pn.any(dim=1)
+    if name == "all_match":
+        any_false = ((~(out.values | out.nulls)).reshape(n, k)
+                     & in_range).any(dim=1)
+        nulls = ~any_false & any_null | arr.nulls
+        return Column(~any_false & ~nulls, nulls, expr.type)
+    v = ~any_true if name == "none_match" else any_true
+    nulls = ~any_true & any_null | arr.nulls
+    return Column(v & ~nulls, nulls, expr.type)
+
+
+def _eval_map_lambda(expr: Call, batch: Batch) -> Block:
+    """transform_values, transform_keys and map_filter: the (key,
+    value) lambda runs once over the flattened (N*K,) entry lanes, as
+    in the array path."""
+    name = expr.name.lower()
+    m = evaluate(expr.arguments[0], batch)
+    lam = expr.arguments[1]
+    n, k = m.keys.shape
+    mty = expr.arguments[0].type
+    in_range = F._arr_in_range(m)
+    flat_k = Column(m.keys.reshape(-1), (~in_range).reshape(-1), mty.key_type)
+    flat_v = Column(m.values.reshape(-1),
+                    (m.value_nulls | ~in_range).reshape(-1), mty.value_type)
+    out = _bind_lambda(lam, _element_batch(batch, lam, in_range),
+                       [flat_k, flat_v])
+    if isinstance(out, StringColumn):
+        raise NotImplementedError(f"{name} to string lanes is not "
+                                  "supported, as in the reference")
+    if name == "transform_values":
+        return MapColumn(m.keys, out.values.reshape(n, k),
+                         out.nulls.reshape(n, k) | ~in_range, m.lengths,
+                         m.nulls, expr.type)
+    if name == "transform_keys":
+        # keys must be non-NULL and distinct: Presto raises on a NULL or
+        # duplicate key; the reference, and so the port, gives a NULL map
+        nk = out.values.reshape(n, k)
+        bad = (out.nulls.reshape(n, k) & in_range).any(dim=1)
+        both = in_range[:, :, None] & in_range[:, None, :]
+        eq = (nk[:, :, None] == nk[:, None, :]) & both
+        eye = torch.eye(k, dtype=torch.bool, device=nk.device)
+        dup = (eq & ~eye[None]).any(dim=2).any(dim=1)
+        return MapColumn(nk, m.values, m.value_nulls, m.lengths,
+                         m.nulls | bad | dup, expr.type)
+    # map_filter: keep the entries whose predicate is TRUE, in order
+    keep = (out.values & ~out.nulls).reshape(n, k) & in_range
+    order = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
+    return MapColumn(torch.gather(m.keys, 1, order),
+                     torch.gather(m.values, 1, order),
+                     torch.gather(m.value_nulls, 1, order),
+                     keep.sum(dim=1).to(m.lengths.dtype), m.nulls, expr.type)
 
 
 def _with_nulls(b: Block, nulls: torch.Tensor) -> Block:

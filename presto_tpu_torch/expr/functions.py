@@ -5,8 +5,10 @@ integral and floating), comparisons of every flat type, math and
 bitwise functions, dates, timestamps and zoned timestamps, intervals,
 strings and varbinary, casts and try_cast, the JSON, regex-capture and
 digest functions that run per row on the host, and the geo scalars.
-The 14 functions over arrays, maps and rows are not ported yet
-(ROADMAP queue 1 item 11). A function is a name plus an implementation
+and the 14 functions over arrays, maps and rows (cardinality,
+element_at, contains, array_position, array_sum, array_max, array_min,
+array_sort, array_distinct, slice, map_keys, map_values, row_pack,
+row_field). A function is a name plus an implementation
 `(ret_type, *blocks) -> Block`; the compiler computes the default null
 mask (OR of argument nulls) and a function only overrides it through
 `null_fn`, which may return None when the function computed its own
@@ -41,7 +43,8 @@ import torch
 from .. import int128 as I128
 from .. import types as T
 from .. import tz as TZ
-from ..block import (Column, Int128Column, StringColumn, pad_chars,
+from ..block import (ArrayColumn, Column, Int128Column, MapColumn,
+                     RowColumn, StringColumn, gather_block, pad_chars,
                      torch_dtype)
 from ..ops import kernels as K
 
@@ -51,15 +54,7 @@ __all__ = ["ScalarFunction", "REGISTRY", "register", "lookup",
            "rescale_decimal", "contains_pattern", "GOLD", "mix64",
            "hash64_block", "decimal_to_f64", "date_format_kernel", "date_trunc_kernel", "date_diff_kernel",
            "split_part_kernel", "host_string_kernel", "host_scalar_kernel",
-           "last_day_kernel", "NESTED"]
-
-# The reference's registered functions over arrays, maps and rows: the
-# nested half of the library, ported with the nested columns.
-NESTED = frozenset({
-    "array_distinct", "array_max", "array_min", "array_position",
-    "array_sort", "array_sum", "cardinality", "contains", "element_at",
-    "map_keys", "map_values", "row_field", "row_pack", "slice"})
-
+           "last_day_kernel"]
 
 @dataclasses.dataclass
 class ScalarFunction:
@@ -82,10 +77,6 @@ def lookup(name: str) -> ScalarFunction:
     try:
         return REGISTRY[name]
     except KeyError:
-        if name in NESTED:
-            raise NotImplementedError(
-                f"scalar function {name!r} is not ported yet (ROADMAP "
-                "queue 1 item 11: arrays, maps, rows and lambdas)") from None
         raise NotImplementedError(
             f"scalar function {name!r} is not registered") from None
 
@@ -570,8 +561,18 @@ def _sqrt(ret, a):
     return _col(ret, _sqrt_rn(torch.clamp(x, min=0.0)), a)
 
 
+def _refuse_long_decimal(name: str, a) -> None:
+    """The rounding family reads int64 lanes; a long decimal's are a
+    (hi, lo) pair, which the reference cannot read either."""
+    if isinstance(a, Int128Column):
+        raise NotImplementedError(
+            f"{name} of a long decimal ({a.type}) is not ported: ROADMAP "
+            "queue 3, long-decimal round/floor/ceil/truncate/sign")
+
+
 @register("floor")
 def _floor(ret, a):
+    _refuse_long_decimal("floor", a)
     if a.type.is_decimal:
         f = _POW10[a.type.scale]
         v = _i64(a)
@@ -583,6 +584,7 @@ def _floor(ret, a):
 @register("ceil")
 @register("ceiling")
 def _ceil(ret, a):
+    _refuse_long_decimal("ceil", a)
     if a.type.is_decimal:
         f = _POW10[a.type.scale]
         v = _i64(a)
@@ -597,6 +599,7 @@ def _round(ret, a, *rest):
     as the reference's `jnp.round` does: half to EVEN, where Presto
     rounds half away from zero (ROADMAP queue 3); torch.round is half
     to even too."""
+    _refuse_long_decimal("round", a)
     if a.type.is_decimal:
         s = a.type.scale
         v = _i64(a)
@@ -638,6 +641,7 @@ def _pow10(d: torch.Tensor) -> torch.Tensor:
 
 @register("truncate")
 def _truncate(ret, a, *rest):
+    _refuse_long_decimal("truncate", a)
     if a.type.is_decimal:
         s = a.type.scale
         v = _i64(a)
@@ -671,6 +675,7 @@ def _truncate(ret, a, *rest):
 
 @register("sign")
 def _sign_fn(ret, a):
+    _refuse_long_decimal("sign", a)
     return _col(ret, _sign(a.values).to(_dt(ret)), a)
 
 
@@ -1933,3 +1938,195 @@ def decimal_to_f64(b: Column) -> torch.Tensor:
     if b.type.is_decimal:
         f = f / _POW10[b.type.scale]
     return f
+
+
+# ---------------------------------------------------------------------------
+# arrays, maps and rows (fixed-fanout (N, K) layouts, block.py)
+# ---------------------------------------------------------------------------
+
+def _arr_in_range(a) -> torch.Tensor:
+    """(N, K): lane j lies inside row i's array or map."""
+    lanes = torch.arange(a.max_cardinality, dtype=torch.int32,
+                         device=a.lengths.device)
+    return lanes[None, :] < a.lengths[:, None]
+
+
+def _first(hit: torch.Tensor) -> torch.Tensor:
+    """The first True lane of each row (0 where there is none)."""
+    return torch.argmax(hit.to(torch.uint8), dim=1)
+
+
+@register("cardinality")
+def _cardinality(ret, a):
+    return Column(a.lengths.to(_dt(ret)), a.nulls, ret)
+
+
+@register("element_at")
+def _element_at(ret, a, idx: Column):
+    """element_at(array, i): 1-based, a negative i counts from the end,
+    out of range is NULL; the index is read as int32, as the reference
+    does. element_at(map, key): the value at the key, else NULL."""
+    rows = torch.arange(len(a), device=a.nulls.device)
+    if isinstance(a, MapColumn):
+        hit = _arr_in_range(a) & (a.keys == idx.values[:, None])
+        j = _first(hit)
+        return Column(a.values[rows, j],
+                      a.nulls | idx.nulls | ~hit.any(dim=1)
+                      | a.value_nulls[rows, j], ret)
+    i0 = idx.values.to(torch.int32)
+    pos = torch.where(i0 < 0, a.lengths + i0, i0 - 1)
+    oob = (pos < 0) | (pos >= a.lengths) | (i0 == 0)
+    pc = pos.clamp(0, a.max_cardinality - 1).to(torch.int64)
+    return Column(a.elements[rows, pc],
+                  a.nulls | idx.nulls | oob | a.elem_nulls[rows, pc], ret)
+
+
+@register("row_pack")
+def _row_pack(ret, *fields):
+    """Columns packed into one ROW column."""
+    return RowColumn(tuple(fields), torch.zeros_like(fields[0].nulls), ret)
+
+
+@register("row_field")
+def _row_field(ret, r, idx: Column):
+    """0-based field access; a NULL row nulls the field. `evaluate`
+    takes the index from the plan; here it is the column's first lane."""
+    return gather_block(r.field(int(idx.values[0])),
+                        torch.arange(len(r), device=r.nulls.device), ~r.nulls)
+
+
+@register("map_keys")
+def _map_keys(ret, m):
+    return ArrayColumn(m.keys, torch.zeros_like(m.value_nulls), m.lengths,
+                       m.nulls, ret)
+
+
+@register("map_values")
+def _map_values(ret, m):
+    return ArrayColumn(m.values, m.value_nulls, m.lengths, m.nulls, ret)
+
+
+@register("contains")
+def _contains(ret, a, x: Column):
+    """TRUE on a match; else NULL if the array holds a NULL."""
+    in_len = _arr_in_range(a)
+    found = ((a.elements == x.values[:, None]) & ~a.elem_nulls
+             & in_len).any(dim=1)
+    saw_null = (a.elem_nulls & in_len).any(dim=1)
+    nulls = a.nulls | x.nulls | (~found & saw_null)
+    return Column(found & ~nulls, nulls, ret)
+
+
+def _array_extreme(ret, a, largest: bool):
+    """array_max/array_min over the non-NULL elements; NULL for a NULL,
+    empty or all-NULL array. Integer lanes widen to int64 first, so
+    the identity (the int64 extreme) fits."""
+    live = _arr_in_range(a) & ~a.elem_nulls
+    v = a.elements
+    if v.is_floating_point():
+        ident = -math.inf if largest else math.inf
+    else:
+        v = v.to(torch.int64)
+        info = torch.iinfo(torch.int64)
+        ident = info.min if largest else info.max
+    v = torch.where(live, v, ident)
+    m = v.amax(dim=1) if largest else v.amin(dim=1)
+    if v.is_floating_point():
+        # XLA orders -0.0 below 0.0; torch keeps the first of the two
+        signed = live & (v == 0) & (torch.signbit(v) != largest)
+        m = torch.where((m == 0) & signed.any(dim=1),
+                        0.0 if largest else -0.0, m)
+    return Column(m.to(_dt(ret)), a.nulls | ~live.any(dim=1), ret)
+
+
+@register("array_max")
+def _array_max(ret, a):
+    return _array_extreme(ret, a, True)
+
+
+@register("array_min")
+def _array_min(ret, a):
+    return _array_extreme(ret, a, False)
+
+
+@register("array_position")
+def _array_position(ret, a, x: Column):
+    """1-based index of the first element equal to x; 0 if absent."""
+    hit = _arr_in_range(a) & ~a.elem_nulls & (a.elements == x.values[:, None])
+    return _col(ret, torch.where(hit.any(dim=1), _first(hit) + 1, 0), a, x)
+
+
+@register("array_sum")
+def _array_sum(ret, a):
+    """The sum of the non-NULL elements: 0 plus each lane in order, the
+    order of the reference's XLA reduction, which with one lane drops
+    the 0 (so a lone -0.0 stays -0.0)."""
+    live = _arr_in_range(a) & ~a.elem_nulls
+    dt = torch.float64 if ret.is_floating else torch.int64
+    v = torch.where(live, a.elements.to(dt), 0)
+    if v.shape[1] == 1:
+        return _col(ret, v[:, 0], a)
+    s = torch.zeros(len(a), dtype=dt, device=v.device)
+    for j in range(v.shape[1]):
+        s = s + v[:, j]
+    return _col(ret, s, a)
+
+
+def _take(t: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    return torch.gather(t, 1, order)
+
+
+@register("array_sort")
+def _array_sort(ret, a):
+    """Ascending per row, NULL elements after the values and the lanes
+    past the length last: two stable sorts, by value then by that
+    class."""
+    in_range = _arr_in_range(a)
+    dead = ~in_range | a.elem_nulls
+    v = a.elements
+    top = math.inf if v.is_floating_point() else torch.iinfo(v.dtype).max
+    cls = torch.where(in_range & ~a.elem_nulls, 0,
+                      torch.where(in_range, 1, 2))
+    o1 = torch.argsort(torch.where(dead, top, v), dim=1, stable=True)
+    o2 = torch.argsort(_take(cls, o1), dim=1, stable=True)
+    order = _take(o1, o2)
+    return ArrayColumn(_take(v, order), _take(a.elem_nulls, order),
+                       a.lengths, a.nulls, ret)
+
+
+@register("array_distinct")
+def _array_distinct(ret, a):
+    """The first occurrence of each element (NULL counts once; NaN
+    equals nothing, so each NaN stays)."""
+    in_range = _arr_in_range(a)
+    v, en = a.elements, a.elem_nulls
+    eq = (v[:, :, None] == v[:, None, :]) & ~en[:, :, None] & ~en[:, None, :]
+    same = (eq | (en[:, :, None] & en[:, None, :])) \
+        & in_range[:, :, None] & in_range[:, None, :]
+    k = a.max_cardinality
+    earlier = torch.tril(torch.ones((k, k), dtype=torch.bool,
+                                    device=v.device), diagonal=-1)
+    keep = in_range & ~(same & earlier[None]).any(dim=2)
+    order = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
+    return ArrayColumn(_take(v, order), _take(en, order),
+                       keep.sum(dim=1).to(a.lengths.dtype), a.nulls, ret)
+
+
+@register("slice")
+def _array_slice(ret, a, start: Column, length: Column):
+    """slice(arr, start, length): 1-based start, a negative start counts
+    from the end. Start 0 gives NULL, as in the reference (Presto
+    raises)."""
+    k = a.max_cardinality
+    lens = a.lengths.to(torch.int64)
+    s = start.values.to(torch.int64)
+    s0 = torch.where(s > 0, s - 1, lens + s)  # 0-based start
+    cnt = length.values.to(torch.int64).clamp(min=0)
+    s0c = s0.clamp(0, k)
+    new_len = torch.where(s0 < 0, 0,
+                          torch.minimum(cnt, lens - s0c).clamp(min=0))
+    lanes = torch.arange(k, dtype=torch.int64, device=s.device)
+    idx = (s0c[:, None] + lanes[None, :]).clamp(0, k - 1)
+    nulls = _default_nulls(a, start, length) | (s == 0)
+    return ArrayColumn(_take(a.elements, idx), _take(a.elem_nulls, idx),
+                       new_len.to(a.lengths.dtype), nulls, ret)

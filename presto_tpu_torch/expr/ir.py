@@ -1,9 +1,11 @@
 """The relational expression IR: Presto's RowExpression family.
 
-The port's own copy of presto_tpu/expr/ir.py, trimmed to the node kinds
-this package evaluates (input references, constants, calls and special
-forms). The JSON shape is the reference's, so a plan fragment written
-by presto_tpu reads here unchanged.
+The port's own copy of presto_tpu/expr/ir.py: input references,
+constants, calls, special forms, and lambdas with their variables.
+The reference's batch parameter (`param`, the literal slots of
+exec/batching.py) is not ported yet. The JSON shape is the
+reference's, so a plan fragment written by presto_tpu reads here
+unchanged.
 """
 
 from __future__ import annotations
@@ -14,8 +16,8 @@ from typing import Any, Tuple
 from .. import types as T
 
 __all__ = ["RowExpression", "InputReference", "Constant", "Call",
-           "SpecialForm", "input_ref", "const", "call", "special",
-           "from_json", "to_json"]
+           "SpecialForm", "Lambda", "LambdaVariable", "input_ref", "const",
+           "call", "special", "from_json", "to_json"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +62,29 @@ class Call(RowExpression):
 
     def __str__(self):
         return f"{self.name}({', '.join(map(str, self.arguments))})"
+
+
+@dataclasses.dataclass(frozen=True)
+class LambdaVariable(RowExpression):
+    """A lambda parameter inside a Lambda body; not an input channel."""
+    name: str = ""
+
+    def __str__(self):
+        return f"{self.name}:{self.type}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Lambda(RowExpression):
+    """`parameters -> body`; `type` is the body's type. InputReferences
+    in the body capture channels of the enclosing row."""
+    parameters: Tuple[str, ...] = ()
+    body: RowExpression = None
+
+    def children(self):
+        return (self.body,)
+
+    def __str__(self):
+        return f"({', '.join(self.parameters)}) -> {self.body}"
 
 
 FORMS = ("IF", "NULL_IF", "SWITCH", "WHEN", "IS_NULL", "COALESCE", "IN",
@@ -113,6 +138,11 @@ def to_json(e: RowExpression) -> dict:
         return {"@type": "special", "form": e.form,
                 "returnType": str(e.type),
                 "arguments": [to_json(a) for a in e.arguments]}
+    if isinstance(e, Lambda):
+        return {"@type": "lambda", "returnType": str(e.type),
+                "parameters": list(e.parameters), "body": to_json(e.body)}
+    if isinstance(e, LambdaVariable):
+        return {"@type": "lambdavar", "name": e.name, "type": str(e.type)}
     raise TypeError(type(e))
 
 
@@ -128,8 +158,13 @@ def from_json(j: dict) -> RowExpression:
     if t == "special":
         return SpecialForm(T.parse_type(j["returnType"]), j["form"],
                            tuple(from_json(a) for a in j["arguments"]))
-    if t in ("param", "lambda", "lambdavar"):
+    if t == "lambda":
+        return Lambda(T.parse_type(j["returnType"]), tuple(j["parameters"]),
+                      from_json(j["body"]))
+    if t == "lambdavar":
+        return LambdaVariable(T.parse_type(j["type"]), j["name"])
+    if t == "param":
         raise NotImplementedError(
-            f"{t!r} expressions are not ported yet (ROADMAP queue 1 "
-            "item 11: arrays, maps, rows and lambdas)")
+            "'param' expressions are not ported yet (ROADMAP queue 1 "
+            "item 12: exec/batching.py)")
     raise ValueError(f"unknown RowExpression kind {t!r}")

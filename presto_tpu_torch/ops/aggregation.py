@@ -74,7 +74,7 @@ import torch
 
 from .. import types as T
 from ..block import (ArrayColumn, Batch, Block, Column, Int128Column,
-                     StringColumn, gather_block)
+                     StringColumn, decoded, gather_block)
 from ..expr.functions import GOLD, decimal_to_f64, hash64_block, lookup, mix64
 from ..int128 import (_lshr, combine_limb_totals_128, limbs13_of_128,
                       limbs13_of_i64, limbs_of_i64)
@@ -833,7 +833,8 @@ def group_by(batch: Batch, key_channels: Sequence[int],
              limb_form: str = "narrow") -> GroupByResult:
     """Grouped aggregation over one batch -> dense group table. A global
     aggregation (no keys) always yields exactly one group, even over
-    zero input rows."""
+    zero input rows. Dictionary columns decode first."""
+    batch = Batch(tuple(decoded(c) for c in batch.columns), batch.active)
     if not key_channels:
         max_groups = 1
     if max_groups > SMALL_G and _sorted_capable(batch, key_channels, aggs):

@@ -37,7 +37,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..block import Batch, Block, StringColumn, gather_block, pad_chars
+from ..block import (Batch, Block, StringColumn, decoded, gather_block,
+                     pad_chars)
 from .keys import SIGN, key_words
 from .sort import lex_permutation
 
@@ -56,9 +57,11 @@ class JoinResult:
 def _align_key_widths(p_keys: Sequence[Block], b_keys: Sequence[Block]):
     """String key columns on the two sides may declare different widths:
     their key words would then disagree in COUNT. Pad the narrower side
-    per column so both sides build identical word layouts."""
+    per column so both sides build identical word layouts. Dictionary
+    keys decode first."""
     out_p, out_b = [], []
     for pc, bc in zip(p_keys, b_keys):
+        pc, bc = decoded(pc), decoded(bc)
         if isinstance(pc, StringColumn) and isinstance(bc, StringColumn):
             w = max(pc.max_len, bc.max_len)
             pc, bc = pad_chars(pc, w), pad_chars(bc, w)

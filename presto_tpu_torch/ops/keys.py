@@ -21,7 +21,7 @@ from typing import List, Sequence, Union
 
 import torch
 
-from ..block import Block, Column, Int128Column, StringColumn
+from ..block import Block, Column, Int128Column, StringColumn, decoded
 
 SIGN = -(1 << 63)  # int64 bit pattern of the reference's uint64 1 << 63
 
@@ -65,6 +65,7 @@ def key_words(cols: Sequence[Block],
         nulls_last = [nulls_last] * len(cols)
     words: List[torch.Tensor] = []
     for col, nl in zip(cols, nulls_last):
+        col = decoded(col)
         isnull = col.nulls
         words.append(torch.where(isnull, int(nl), int(not nl)))
         if isinstance(col, StringColumn):

@@ -38,7 +38,7 @@ import torch
 
 from .. import types as T
 from ..block import (Batch, Block, Column, Int128Column, StringColumn,
-                     torch_dtype)
+                     decoded, torch_dtype)
 from ..int128 import (cmp128, combine_limb_totals_128, div128_by_count,
                       limbs13_of_128)
 from .join import _pack_ranks
@@ -112,7 +112,9 @@ def _rev_cummin(x: torch.Tensor) -> torch.Tensor:
 def window(batch: Batch, partition_channels: Sequence[int],
            order_keys: Sequence[SortKey], specs: Sequence[WindowSpec]) -> Batch:
     """Returns the input batch with one appended column per spec (same
-    row order as the input; padding rows get nulls)."""
+    row order as the input; padding rows get nulls). Dictionary columns
+    decode first."""
+    batch = Batch(tuple(decoded(c) for c in batch.columns), batch.active)
     n = batch.capacity
     dev = batch.active.device
 

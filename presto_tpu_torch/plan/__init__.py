@@ -3,11 +3,11 @@
 from .nodes import (AggregationNode, AssignUniqueIdNode, DistinctNode,
                     FilterNode, JoinNode, LimitNode, MarkDistinctNode,
                     OutputNode, PlanNode, ProjectNode, SemiJoinNode,
-                    SortNode, TableScanNode, TopNNode, UnionNode, from_json,
-                    to_json)
+                    SortNode, TableScanNode, TopNNode, UnionNode, UnnestNode,
+                    from_json, to_json)
 
 __all__ = ["PlanNode", "TableScanNode", "FilterNode", "ProjectNode",
            "AggregationNode", "JoinNode", "SemiJoinNode", "SortNode",
            "TopNNode", "LimitNode", "DistinctNode", "UnionNode",
-           "AssignUniqueIdNode", "MarkDistinctNode",
+           "AssignUniqueIdNode", "MarkDistinctNode", "UnnestNode",
            "OutputNode", "from_json", "to_json"]

@@ -4,7 +4,7 @@ Counterpart of presto_tpu/plan/nodes.py, trimmed to the nodes of the
 ported plan shapes: TableScan, Values, Filter, Project, Aggregation
 (SINGLE, PARTIAL, INTERMEDIATE, FINAL), Join, SemiJoin, Sort, TopN,
 Limit, Distinct, Union, Sample, AssignUniqueId, MarkDistinct, Window,
-RowNumber, GroupId, Exchange and Output.
+RowNumber, GroupId, Unnest, Exchange and Output.
 Channels are already resolved to indices.
 
 `from_json` reads the dict that presto_tpu.plan.nodes.to_json writes,
@@ -30,7 +30,8 @@ __all__ = ["PlanNode", "TableScanNode", "ValuesNode", "FilterNode",
            "AggregationNode", "JoinNode", "SemiJoinNode", "SortNode",
            "TopNNode", "LimitNode", "DistinctNode", "UnionNode",
            "SampleNode", "AssignUniqueIdNode", "MarkDistinctNode", "WindowNode",
-           "RowNumberNode", "GroupIdNode", "ExchangeNode", "OutputNode",
+           "RowNumberNode", "GroupIdNode", "UnnestNode", "ExchangeNode",
+           "OutputNode",
            "from_json", "to_json"]
 
 _ids = itertools.count(1)
@@ -364,6 +365,36 @@ class GroupIdNode(PlanNode):
 
 
 @dataclasses.dataclass
+class UnnestNode(PlanNode):
+    """UNNEST(array or map) [WITH ORDINALITY]: the source's columns but
+    the unnested one, then the element column (a map's key and value
+    columns), then the ordinality. Without `out_capacity` the output
+    holds four times the source's rows. `capacity_factor` is the
+    overflow ladder's multiplier of that default (not in the JSON)."""
+    source: PlanNode
+    array_channel: int
+    out_capacity: Optional[int] = None
+    with_ordinality: bool = False
+    capacity_factor: int = 1
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_types(self):
+        src = self.source.output_types()
+        arr = src[self.array_channel]
+        out = [t for i, t in enumerate(src) if i != self.array_channel]
+        if arr.base == "map":
+            out.extend([arr.key_type, arr.value_type])
+        else:
+            out.append(arr.element_type)
+        if self.with_ordinality:
+            out.append(T.BIGINT)
+        return out
+
+
+@dataclasses.dataclass
 class ExchangeNode(PlanNode):
     """A stage boundary of a distributed plan: REPARTITION (hash by
     `partition_channels`), REPLICATE, GATHER, or MERGE (of inputs each
@@ -405,8 +436,6 @@ class OutputNode(PlanNode):
 
 # node kinds of presto_tpu's wire format this port does not run yet
 _NOT_PORTED = {
-    "unnest": "queue 1 item 11 (arrays, maps, rows and lambdas: "
-              "ops/unnest.py)",
     "remotesource": "queue 1 item 14 (parallel/ and the worker tier)",
     **{k: "queue 1 item 12 (exec/ off the main path: the write roots and "
           "the other connectors)"
@@ -507,6 +536,11 @@ def to_json(n: PlanNode) -> dict:
                 "orderKeys": [list(k) for k in n.order_keys],
                 "maxRowsPerPartition": n.max_rows_per_partition,
                 "maxPartitions": n.max_partitions}
+    if isinstance(n, UnnestNode):
+        return {**base, "@type": "unnest", "source": to_json(n.source),
+                "arrayChannel": n.array_channel,
+                "outCapacity": n.out_capacity,
+                "withOrdinality": n.with_ordinality}
     if isinstance(n, GroupIdNode):
         return {**base, "@type": "groupid", "source": to_json(n.source),
                 "groupingSets": [list(s) for s in n.grouping_sets]}
@@ -629,6 +663,9 @@ def _node_from_json(j: dict, sub) -> PlanNode:
                              [tuple(k) for k in j["orderKeys"]],
                              j["maxRowsPerPartition"], j["maxPartitions"],
                              **kw)
+    if t == "unnest":
+        return UnnestNode(sub(j["source"]), j["arrayChannel"],
+                          j["outCapacity"], j["withOrdinality"], **kw)
     if t == "groupid":
         return GroupIdNode(sub(j["source"]),
                            [list(s) for s in j["groupingSets"]], **kw)

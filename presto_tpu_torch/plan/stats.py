@@ -4,7 +4,8 @@ connectors' distinct-count statistics traced through a plan.
 The port's counterpart of presto_tpu/plan/stats.py::scale_capacities
 and its ceilings. The reference multiplies every static capacity of a
 plan when a run overflows one of them; the port's runner keeps one
-factor per capacity node (group table or join output) and raises only
+factor per capacity node (group table, join output or unnest output)
+and raises only
 the factors of the nodes that overflowed, so that a join's overflow
 does not also move a small aggregation off its small-table path.
 
@@ -48,8 +49,8 @@ _CAPACITY_CEILING = 1 << 26
 
 
 def capacity_nodes(root: N.PlanNode) -> List[N.PlanNode]:
-    """The plan's aggregation and join nodes in preorder, a shared
-    subtree's once: the nodes a capacity factor applies to."""
+    """The plan's aggregation, join and unnest nodes in preorder, a
+    shared subtree's once: the nodes a capacity factor applies to."""
     out: List[N.PlanNode] = []
     seen = set()
 
@@ -57,7 +58,7 @@ def capacity_nodes(root: N.PlanNode) -> List[N.PlanNode]:
         if n.id in seen:
             return
         seen.add(n.id)
-        if isinstance(n, (N.AggregationNode, N.JoinNode)):
+        if isinstance(n, (N.AggregationNode, N.JoinNode, N.UnnestNode)):
             out.append(n)
         for s in n.sources:
             walk(s)
@@ -70,8 +71,10 @@ def scale_capacities(root: N.PlanNode, factors: Mapping[str, int],
                      default_join_capacity: int) -> N.PlanNode:
     """Rebuild the plan with each capacity node's static capacity
     multiplied by its factor in `factors` (by node id, 1 where absent):
-    group tables, and join out-capacities, a join without one starting
-    at `default_join_capacity`. Node ids and shared subtrees are kept."""
+    group tables, join out-capacities, a join without one starting at
+    `default_join_capacity`, and unnest out-capacities, an unnest
+    without one carrying the factor to the planner's default. Node ids
+    and shared subtrees are kept."""
     memo: dict = {}
 
     def walk(n: N.PlanNode) -> N.PlanNode:
@@ -96,6 +99,12 @@ def scale_capacities(root: N.PlanNode, factors: Mapping[str, int],
             if n.out_capacity is None:
                 changes["out_capacity"] = default_join_capacity * k
             elif k > 1:
+                changes["out_capacity"] = min(n.out_capacity * k,
+                                              _CAPACITY_CEILING)
+        if isinstance(n, N.UnnestNode) and k > 1:
+            if n.out_capacity is None:  # the planner's default, times k
+                changes["capacity_factor"] = k
+            else:
                 changes["out_capacity"] = min(n.out_capacity * k,
                                               _CAPACITY_CEILING)
         out = dataclasses.replace(n, **changes) if changes else n

@@ -13,8 +13,9 @@ the reference to check itself against it.
 `functions.json` holds the statements of the scalar function library:
 the reference's flat function tests ("statements": plan and rows at sf
 0.01), those of its tests that take arrays, maps, rows or lambdas
-("later": plan only), and the statements the card times ("timed": plan
-and rows at sf 0.01 and at SF1); `scripts/make_functions_corpus.py`
+("later": plan and rows at sf 0.01, nested values in the exact form of
+`exact_value`), and the statements the card times ("timed": plan and
+rows at sf 0.01 and at SF1); `scripts/make_functions_corpus.py`
 writes it and `load_functions_corpus` reads it.
 
 `tpcds.json` holds, for each of the 99 TPC-DS queries, the reference's
@@ -48,9 +49,18 @@ FUNCTIONS_CORPUS_PATH = os.path.join(_HERE, "functions.json")
 
 
 def exact_value(v, ty: T.Type):
-    """One result value in the corpus's exact, JSON-able form."""
+    """One result value in the corpus's exact, JSON-able form: an array
+    is a list of exact values, a map a list of [key, value] pairs in
+    entry order (JSON has no integer keys), and a row a list."""
     if v is None:
         return None
+    if ty.base == "array":
+        return [exact_value(x, ty.element_type) for x in v]
+    if ty.base == "map":
+        return [[exact_value(k, ty.key_type), exact_value(x, ty.value_type)]
+                for k, x in v.items()]
+    if ty.base == "row":
+        return [exact_value(x, f) for x, f in zip(v, ty.field_types)]
     if ty.is_floating:
         return float(v).hex()
     if ty.is_string:
@@ -100,7 +110,7 @@ def load_functions_corpus(path: str = FUNCTIONS_CORPUS_PATH
                           ) -> Dict[str, Dict[str, dict]]:
     """{"statements", "later", "timed"} -> {name: entry} of the committed
     function corpus. An entry has "sql", "sf" and "plan" (plan-fragment
-    JSON); statements and timed entries "names", "types" and "rows";
+    JSON) and "names", "types" and "rows";
     timed entries also "sf1", "plan_sf1", "rows_sf1" and "sample" (the
     BERNOULLI ratio of a plan with a SampleNode, else None)."""
     with open(path) as f:

@@ -15,8 +15,8 @@ presto_tpu's `plan_sql` and prepared with `prepare_plan`:
   tests/test_scalar_breadth.py. Each has the reference's plan and rows
   at sf 0.01.
 * "later": the statements of those files that take arrays, maps, rows
-  or lambdas, with the reference's plan only: the port refuses them
-  until ROADMAP queue 1 item 11.
+  or lambdas, with the reference's plan and rows at sf 0.01 (arrays,
+  maps and rows in the nested exact form of presto_tpu_torch.queries).
 * "timed": the statements of TIMED, the function library over TPC-H
   columns at SF1, each with the reference's plan and rows at sf 0.01
   and its plan and rows at SF1, computed by the reference on the CPU.
@@ -27,7 +27,7 @@ Rows are in the exact form of presto_tpu_torch.queries (scaled
 integers, days, text, float.hex, null). The SF1 rows take about 25
 minutes of CPU (the reference's per-row host kernels of fn_host over
 SF1 part about 23 of them); --no-sf1 keeps the SF1 entries of an
-existing file and takes under a minute.
+existing file, computing only those it lacks.
 """
 
 from __future__ import annotations
@@ -221,7 +221,12 @@ LATER = {
 # the reference's sign/ceil/truncate cannot read, so those take plain
 # columns; there is no cast of a number to varchar, so the JSON text is
 # built from varchar columns; there is no TABLESAMPLE, so fn_sample is a
-# SampleNode put over the scan (SAMPLES).
+# SampleNode put over the scan (SAMPLES). fn_arrays reaches every
+# nested name the reference's SQL plans (it has no type rule for
+# array_max, array_min, row_pack, row_field, map_keys, map_values or
+# element_at of a map); fn_unnest is its SQL's plan under a hand-built
+# UNNEST WITH ORDINALITY and aggregation (UNNESTS): plan_sql has no
+# UNNEST.
 TIMED = {
     "fn_dates": "SELECT year(shipdate) y, quarter(shipdate) q, "
                 "day_of_week(shipdate) dw, "
@@ -284,12 +289,39 @@ TIMED = {
                "'\", \"t\": \"', container, '\"}'), '$.t')) js "
                "FROM part",
     "fn_sample": "SELECT count(*) c, sum(quantity) q FROM lineitem",
+    "fn_arrays": "SELECT returnflag, "
+                 "sum(cardinality(filter(transform(sequence(1, 8), "
+                 "x -> x * linenumber), y -> y > 20))) fc, "
+                 "sum(reduce(sequence(1, 4), 0, (s, x) -> s + x * "
+                 "linenumber, s -> s)) rd, "
+                 "sum(array_sum(slice(ARRAY[linenumber, suppkey % 100, "
+                 "partkey % 100], 2, 2))) sl, "
+                 "sum(array_position(array_sort(ARRAY[suppkey % 5, "
+                 "linenumber, 3]), 3)) ap, "
+                 "sum(if(any_match(sequence(1, 8), x -> x * linenumber > "
+                 "30), 1, 0)) am, "
+                 "sum(if(all_match(sequence(1, 2), x -> x < linenumber), "
+                 "1, 0)) al, "
+                 "sum(if(none_match(sequence(2, 3), x -> x = linenumber), "
+                 "1, 0)) nm, "
+                 "sum(element_at(ARRAY[partkey, suppkey], -1)) ea, "
+                 "sum(if(contains(ARRAY[1, 3, 5], linenumber), 1, 0)) ct, "
+                 "sum(ARRAY[orderkey, partkey][2]) sb, "
+                 "sum(cardinality(array_distinct(ARRAY[suppkey % 3, "
+                 "linenumber % 3, 1]))) ad, count(*) c "
+                 "FROM lineitem GROUP BY returnflag ORDER BY returnflag",
+    "fn_unnest": "SELECT orderkey, transform(sequence(1, 4), "
+                 "x -> x * linenumber) a FROM lineitem",
 }
 # timed statements that run over a SampleNode: name -> BERNOULLI ratio.
 # The reference samples by a hash of the row slot; both packages stage
 # the whole table in one batch in generator order, so the slots, and
 # the rows kept, are the same.
 SAMPLES = {"fn_sample": 0.1}
+# timed statements whose array column (channel) is unnested WITH
+# ORDINALITY, then aggregated by the ordinality: sum of the elements
+# and count(*), ordered by the ordinality
+UNNESTS = {"fn_unnest": 1}
 
 
 def _with_sample(plan, ratio: float):
@@ -308,6 +340,23 @@ def _with_sample(plan, ratio: float):
     return walk(plan)
 
 
+def _with_unnest(plan, channel: int):
+    """The prepared plan's rows (below its OutputNode) unnested at
+    `channel` WITH ORDINALITY, then grouped by the ordinality: its
+    sum of the elements and count(*), in ordinality order."""
+    from presto_tpu import types as RT
+    from presto_tpu.ops.aggregation import AggSpec
+    from presto_tpu.plan import nodes as RN
+    src = plan.source
+    width = len(src.output_types())
+    u = RN.UnnestNode(src, channel, with_ordinality=True)
+    agg = RN.AggregationNode(u, [width], [
+        AggSpec("sum", width - 1, RT.BIGINT),
+        AggSpec("count_star", None, RT.BIGINT)], max_groups=16)
+    return RN.OutputNode(RN.SortNode(agg, [(0, False, False)]),
+                         ["ordinality", "s", "c"])
+
+
 def prepared(name: str, sql: str, sf: float):
     """The reference's prepared plan of a statement at `sf`."""
     from presto_tpu.exec.runner import prepare_plan
@@ -315,6 +364,8 @@ def prepared(name: str, sql: str, sf: float):
     plan = prepare_plan(plan_sql(sql), sf=sf)
     if name in SAMPLES:
         plan = _with_sample(plan, SAMPLES[name])
+    if name in UNNESTS:
+        plan = _with_unnest(plan, UNNESTS[name])
     return plan
 
 
@@ -356,11 +407,10 @@ def main(argv=None) -> int:
     for name, sql in STATEMENTS.items():
         out["statements"][name] = entry(name, sql, SF_SMALL)
     for name, sql in LATER.items():
-        out["later"][name] = {"sql": sql, "sf": SF_SMALL, "plan": RN.to_json(
-            prepared(name, sql, SF_SMALL))}
+        out["later"][name] = entry(name, sql, SF_SMALL)
     for name, sql in TIMED.items():
         e = entry(name, sql, SF_SMALL)
-        if args.no_sf1:
+        if args.no_sf1 and name in old:
             big = {k: old[name][k] for k in ("plan_sf1", "rows_sf1")}
         else:
             t0 = time.perf_counter()

@@ -9,13 +9,16 @@ at --join-sf, and q5, q7, q8 and q9 of the committed SF1 corpus
 (presto_tpu_torch/queries/tpch_sf1.json: small aggregations above join
 chains); --queries names others (a comma list of those four and any
 corpus entry: a two-stage plan such as q1_two_stage, an aggregate
-statement such as agg_hash, or a TPC-DS query as tpcds_q51, its timed
-plan of presto_tpu_torch/queries/tpcds.json). Stages each query's scans once on the card, runs it once
+statement such as agg_hash, a TPC-DS query as tpcds_q51, its timed
+plan of presto_tpu_torch/queries/tpcds.json, or a timed statement of
+presto_tpu_torch/queries/functions.json such as fn_arrays, its SF1
+plan). Stages each query's scans once on the card, runs it once
 through the overflow ladder (so the capacities that fit are known),
 then:
 
 * times every operator of the plan on its own (Filter, Project, each
-  LIKE inside them, Join, SemiJoin, the group-by (small-table ids +
+  LIKE inside them and each projected expression over arrays, maps,
+  rows or lambdas, Unnest, Join, SemiJoin, the group-by (small-table ids +
   pooled sums + kernel, the sorted large-table path, or the hash-slot
   path with its probe rounds timed apart), a FINAL step's
   merge_partials, finalize, Sort, TopN, Limit, Distinct, MarkDistinct,
@@ -59,6 +62,16 @@ def _likes(expr):
         yield from _likes(c)
 
 
+def _nested(expr):
+    """Whether the expression holds a lambda or a value of an array,
+    map or row type."""
+    from presto_tpu_torch.expr import ir as E
+    if isinstance(expr, E.Lambda) or \
+            expr.type.base in ("array", "map", "row"):
+        return True
+    return any(_nested(c) for c in expr.children())
+
+
 def _stages(root, batches, limb_form):
     """(label, fn, inputs) per operator, each fed its input batches
     (computed once, outside the timed calls)."""
@@ -73,6 +86,7 @@ def _stages(root, batches, limb_form):
     from presto_tpu_torch.ops.misc import (distinct, group_id, limit,
                                            mark_distinct)
     from presto_tpu_torch.ops.sort import sort_batch, top_n
+    from presto_tpu_torch.ops.unnest import unnest
     from presto_tpu_torch.ops.window import WindowSpec, specs_of, window
     from presto_tpu_torch.plan import nodes as N
     import torch
@@ -108,6 +122,10 @@ def _stages(root, batches, limb_form):
                 for like in _likes(e):
                     add(f"LIKE {like.arguments[1].value!r}",
                         lambda x, l=like: evaluate(l, x), b)
+                if _nested(e) and isinstance(node, N.ProjectNode):
+                    what = getattr(e, "name", None) or getattr(e, "form")
+                    add(f"expression {what}",
+                        lambda x, e=e: evaluate(e, x), b)
             if isinstance(node, N.FilterNode):
                 label = f"filter {node.source.table}" if isinstance(
                     node.source, N.TableScanNode) else "filter"
@@ -211,6 +229,11 @@ def _stages(root, batches, limb_form):
                 return out.with_active(
                     out.active & (rn <= n.max_rows_per_partition))
             return add("row_number", row_number, walk(node.source))
+        if isinstance(node, N.UnnestNode):
+            return add("unnest", lambda x, n=node: unnest(
+                x, n.array_channel, n.out_capacity
+                or x.capacity * 4 * n.capacity_factor,
+                n.with_ordinality)[0], walk(node.source))
         if isinstance(node, N.GroupIdNode):
             return add("group_id", lambda x, n=node: group_id(
                 x, n.grouping_sets, n.key_channels), walk(node.source))
@@ -271,8 +294,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--join-sf", type=float, default=10.0)
     ap.add_argument("--queries", default="q1,q6,q3,q14,q5,q7,q8,q9",
-                    help="comma list: q1, q6, q3, q14, corpus entries and "
-                         "tpcds_qN")
+                    help="comma list: q1, q6, q3, q14, corpus entries, "
+                         "tpcds_qN and timed function statements (fn_*)")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     import torch
@@ -287,7 +310,8 @@ def main(argv=None) -> int:
     from presto_tpu_torch.plan import from_json
     from presto_tpu_torch.plan.stats import capacity_nodes, scale_capacities
     from presto_tpu_torch.plan.widths import annotate_widths
-    from presto_tpu_torch.queries import load_corpus, load_tpcds_corpus
+    from presto_tpu_torch.queries import (load_corpus, load_functions_corpus,
+                                          load_tpcds_corpus)
     chip_smoke.install_host_cache()
     dev = torch.device("cuda")
     gpu = chip_smoke._run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -299,6 +323,7 @@ def main(argv=None) -> int:
            "q3": (chip_smoke.q3_plan, args.join_sf, ("narrow",)),
            "q14": (chip_smoke.q14_plan, args.join_sf, ("narrow",))}
     tpcds = load_tpcds_corpus() if "tpcds_" in args.queries else {}
+    functions = load_functions_corpus()["timed"]
 
     def entry(q):
         """(name, plan maker, sf, limb forms, default join capacity)."""
@@ -308,6 +333,10 @@ def main(argv=None) -> int:
             e = tpcds[q[len("tpcds_"):]]
             return (q, lambda: from_json(e["plan_timed"]), e["timed_sf"],
                     ("narrow",), e["timed_join_capacity"])
+        if q in functions:
+            e = functions[q]
+            return (q, lambda: from_json(e["plan_sf1"]), e["sf1"],
+                    ("narrow",), 1 << 16)
         return (q, lambda: from_json(corpus[q]["plan"]), corpus[q]["sf"],
                 ("narrow",), 1 << 16)
 

@@ -323,3 +323,31 @@ def test_sqrt_is_correctly_rounded():
     col = PB.from_numpy(DBL, x, device="cpu")
     got = PF.lookup("sqrt").fn(DBL, col).values.numpy()
     assert got.tolist() == np.sqrt(x).tolist()
+
+
+@pytest.mark.parametrize("name", ["round", "floor", "ceil", "truncate",
+                                  "sign"])
+def test_long_decimal_rounding_is_refused_naming_queue_3(name):
+    """A long decimal's lanes are a (hi, lo) pair, which the rounding
+    family does not read (the reference fails with AttributeError):
+    the port refuses naming ROADMAP queue 3's entry."""
+    _, pb = batches()
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP queue 3, long-decimal "
+                             r"round/floor/ceil/truncate/sign"):
+        PC.evaluate(port_expr(call(name, ty("decimal(38, 0)"), ref("long"))),
+                    pb)
+
+
+def test_round_of_a_long_decimal_sum_is_refused_naming_queue_3():
+    """The reference's plan of SELECT round(sum(extendedprice)) FROM
+    lineitem (sum of a decimal(12, 2) is decimal(38, 2)) at sf 0.01."""
+    from presto_tpu.exec.runner import prepare_plan
+    from presto_tpu.plan import nodes as RN
+    from presto_tpu.sql import plan_sql
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.plan import from_json
+    plan = prepare_plan(plan_sql("SELECT round(sum(extendedprice)) "
+                                 "FROM lineitem"), sf=0.01)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 3\b"):
+        run_query(from_json(RN.to_json(plan)), sf=0.01, device="cpu")

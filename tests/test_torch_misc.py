@@ -40,10 +40,8 @@ WORDS = ["", "a", "abcdefgh", "abcdefghi", "zz", "BUILDINGS", "héllo"]
 # values: bigint, varchar, short and long decimal; then two group keys
 SIGS = ["bigint", "varchar(12)", "decimal(12, 2)", "decimal(38, 2)",
         "integer", "bigint"]
-# DEFAULT_CORPUS entry -> the ROADMAP queue 1 item of what it lacks
-VERIFIER_UNPORTED = {17: "item 11"}
-VERIFIER_PORTED = [i for i in range(len(DEFAULT_CORPUS))
-                   if i not in VERIFIER_UNPORTED]
+# every DEFAULT_CORPUS entry runs through the port
+VERIFIER_PORTED = list(range(len(DEFAULT_CORPUS)))
 
 
 def _inputs(seed, n=300, distinct=12, capacity=None, inactive_share=0.1):
@@ -212,22 +210,14 @@ def _verifier_plan(i):
 @pytest.mark.parametrize("i", VERIFIER_PORTED, ids=lambda i: f"entry{i}")
 def test_verifier_statement_returns_the_reference_rows(i):
     """Among them INTERSECT (5), UNION (6), count(DISTINCT) over a
-    varchar (8), approx_distinct (9), RIGHT JOIN (19) and FULL OUTER
-    JOIN (20)."""
+    varchar (8), approx_distinct (9), a reduce lambda (17), RIGHT JOIN
+    (19) and FULL OUTER JOIN (20)."""
     plan = _verifier_plan(i)
     want = ref_run_query(RN.from_json(plan), sf=SF, prepared=True)
     got = run_query(from_json(plan), sf=SF, device="cpu")
     assert want.row_count > 0
     assert got.names == list(want.names)
     assert _exact(got) == _exact(want)
-
-
-@pytest.mark.parametrize("i", sorted(VERIFIER_UNPORTED),
-                         ids=lambda i: f"entry{i}")
-def test_unported_statement_names_its_roadmap_item(i):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1 {VERIFIER_UNPORTED[i]}\\b"):
-        run_query(from_json(_verifier_plan(i)), sf=SF, device="cpu")
 
 
 def _grouped_count(table, key, max_groups):

@@ -129,11 +129,11 @@ def _orders_between(lo, hi, cols):
 
 def test_out_of_slice_plans_raise_naming_the_roadmap():
     """A left join, a LimitNode, a count_distinct in the sorted
-    group-by, an approx_distinct and the PARTIAL step, which earlier
-    slices refused, equal the reference (a PARTIAL at the root returns
-    its state columns; the two-stage plan of q1, PARTIAL -> exchange ->
-    FINAL, returns q1's rows); what is still out of the slice raises
-    naming its ROADMAP item."""
+    group-by, an approx_distinct, the PARTIAL step and an unnest, which
+    earlier slices refused, equal the reference (a PARTIAL at the root
+    returns its state columns; the two-stage plan of q1, PARTIAL ->
+    exchange -> FINAL, returns q1's rows); what is still out of the
+    slice raises naming its ROADMAP item."""
     from presto_tpu.plan.distribute import add_exchanges
     join = RN.JoinNode(_orders_between(1, 40, ["linenumber"]),
                        _orders_between(20, 70, ["quantity"]), [0], [0],
@@ -157,11 +157,18 @@ def test_out_of_slice_plans_raise_naming_the_roadmap():
         assert want.row_count > 0
         assert got.rows() == want.rows()
     assert len(_port(partial).columns) == 2 + 4 + 3 * 2 + 1
-    unnest = {"@type": "unnest", "id": "u", "source": RN.to_json(limit),
-              "arrayChannel": 0, "outCapacity": None,
-              "withOrdinality": False}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        from_json(unnest)
+    # an unnest, which the slices before the nested half refused, runs:
+    # ARRAY[orderkey, linenumber] of the limited rows, unnested WITH
+    # ORDINALITY
+    arrays = RN.ProjectNode(limit, [
+        input_ref(0, RT.BIGINT),
+        call("array_constructor", RT.array_of(RT.BIGINT),
+             input_ref(0, RT.BIGINT), input_ref(1, RT.INTEGER))])
+    unnest = RN.to_json(RN.OutputNode(RN.UnnestNode(
+        arrays, 1, with_ordinality=True), ["orderkey", "e", "ord"]))
+    want = ref_run_query(RN.from_json(unnest), sf=SF)
+    assert want.row_count == 10
+    assert _port(unnest).rows() == want.rows()
     with pytest.raises(NotImplementedError, match="item 14"):
         run_query(from_json(RN.to_json(q6_plan())), sf=SF, device="cpu",
                   mesh=object())
