@@ -70,7 +70,17 @@ PyTorch version at the shapes of its path:
   each timed at SF1 (q72 at 0.2), and the 22 with a Window or GroupId
   node held to the port's own CPU rows of the same SF1 plan, computed
   by worker processes (--tpcds-cpu-rows) that run beside the card's
-  last phases.
+  last phases;
+* exec/ off the main path (phase_exec): dynamic filtering on and off
+  in pairs on every SF1 TPC-H corpus entry in which it finds a filter,
+  q3 and q14 at SF10 and TPC-DS q3, q42, q52, q55 (equal rows, no more
+  bytes staged on than off); q1's aggregation streamed in splits of
+  4,194,304 rows at SF1 and SF10 (against numpy_q1, the unsplit run,
+  and the peaks); at SF1 the spilled aggregation (200,000 groups, 8
+  buckets), the spilled join of lineitem and orders (4 buckets) and
+  the external sort of orders, each against the unspilled run; CTAS
+  of q1's lineitem columns into the memory connector, q1 over it
+  (numpy_q1, one fused_limb_sums launch) and a DELETE.
 
 Each query runs once to climb its overflow ladder, then once more with
 every kernel count set to 0 just before: that second run starts at the
@@ -126,7 +136,8 @@ def _run(cmd):
 # plans, built from the port's own nodes
 # ---------------------------------------------------------------------------
 
-def q1_plan():
+def q1_plan(connector="tpch", table="lineitem"):
+    """TPC-H q1 over `connector`'s `table` (lineitem's columns)."""
     from presto_tpu_torch import types as T
     from presto_tpu_torch.connectors import tpch
     from presto_tpu_torch.expr import call, const, input_ref
@@ -137,7 +148,7 @@ def q1_plan():
     d2 = T.decimal(12, 2)
     cols = ["returnflag", "linestatus", "quantity", "extendedprice",
             "discount", "tax", "shipdate"]
-    scan = TableScanNode("tpch", "lineitem", cols,
+    scan = TableScanNode(connector, table, cols,
                          [tpch.column_type("lineitem", c) for c in cols])
     qty, price = input_ref(2, d2), input_ref(3, d2)
     disc, tax = input_ref(4, d2), input_ref(5, d2)
@@ -875,6 +886,18 @@ def install_host_cache():
         module.generate_columns = cached
 
 
+def run_query_batches(root, sf, device="cuda"):
+    """The batches run_query stages for the width-annotated `root`:
+    each scan pruned by the dynamic filters run_query collects, so
+    that execute is timed over the rows run_query runs (and at the
+    capacities its ladder fitted to them)."""
+    import torch
+    from presto_tpu_torch.exec.dynfilter import collect_dynamic_filters
+    from presto_tpu_torch.exec.runner import stage_scans
+    dev = torch.device(device)
+    return stage_scans(root, sf, dev, collect_dynamic_filters(root, sf, dev))
+
+
 def _staged_bytes(batches):
     import torch
     return sum(t.numel() * t.element_size()
@@ -923,7 +946,7 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",),
     import torch
     from presto_tpu_torch.connectors import tpch
     from presto_tpu_torch.exec import run_query
-    from presto_tpu_torch.exec.runner import execute, stage_scans
+    from presto_tpu_torch.exec.runner import execute
     from presto_tpu_torch.ops import kernels as K
     from presto_tpu_torch.plan.widths import annotate_widths
 
@@ -977,7 +1000,7 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",),
     report["result"] = [list(map(str, r)) for r in want]
 
     root = annotate_widths(plan_fn(), sf)
-    batches = stage_scans(root, sf, torch.device("cuda"))
+    batches = run_query_batches(root, sf)
     report["staged_mb"] = _staged_bytes(batches) / 1e6
     report["execute_ms_by_form"], report["peak_mb_by_form"] = {}, {}
     for form in limb_forms:
@@ -1987,7 +2010,7 @@ def _tpcds_sf1_query(name, e, window_or_groupid):
     run, the counted run, three executes. Returns (report, exact rows)."""
     import torch
     from presto_tpu_torch.exec import run_query
-    from presto_tpu_torch.exec.runner import execute, stage_scans
+    from presto_tpu_torch.exec.runner import execute
     from presto_tpu_torch.ops import kernels as K
     from presto_tpu_torch.plan import from_json
     from presto_tpu_torch.plan.widths import annotate_widths
@@ -2032,7 +2055,7 @@ def _tpcds_sf1_query(name, e, window_or_groupid):
                              f"aggregations {small} but its rows came "
                              f"from no fused_limb_sums launch: {launches}")
     root = annotate_widths(plan(), sf)
-    batches = stage_scans(root, sf, torch.device("cuda"))
+    batches = run_query_batches(root, sf)
     staged_mb = _staged_bytes(batches) / 1e6
     times = []
     for _ in range(TPCDS_EXECUTE_REPEATS):
@@ -2160,6 +2183,440 @@ def phase_tpcds(cpu_procs, log_path=None):
             "cross_check_cpu_s": cross_s, "cross_check_wait_s": wait_s}
 
 
+# ---------------------------------------------------------------------------
+# exec/ off the main path: dynamic filtering, split streaming, spill,
+# the memory connector's writes
+# ---------------------------------------------------------------------------
+
+EXEC_SPLIT_ROWS = 1 << 22  # both streamed q1 runs: the peaks compare
+EXEC_SORT_SPLIT_ROWS = 1 << 18
+EXEC_TPCDS = ("q3", "q42", "q52", "q55")
+EXEC_EXECUTE_REPEATS = 3
+EXEC_TABLE = "q1_lineitem"  # the memory connector's table
+
+
+def _reset_launches():
+    from presto_tpu_torch.ops import kernels as K
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def _peak_mb(out):
+    """Within the block, the device memory peak above what was
+    allocated on entry, in MB, to out["peak_mb"]."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    yield out
+    torch.cuda.synchronize()
+    out["peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def _dyn_pair(name, plan_fn, sf, want, rows, jc=1 << 16, same=None):
+    """One query with dynamic filtering on, then off, through run_query
+    on the card: equal rows, equal to `want` (when given; `same(got,
+    want)` in place of equality), and no more bytes staged on than
+    off. The on run's filters, collect ms, rows
+    pruned, staged MB, first_run_query_ms, peak MB above the memory
+    live before it, and execute_ms over the batches it stages."""
+    import torch
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.exec.runner import execute
+    from presto_tpu_torch.plan.widths import annotate_widths
+    rep = {"query": name, "sf": sf}
+    with _peak_mb(rep):
+        t0 = time.perf_counter()
+        on = run_query(plan_fn(), sf=sf, default_join_capacity=jc)
+        rep["first_run_query_ms"] = (time.perf_counter() - t0) * 1e3
+    root = annotate_widths(plan_fn(), sf)
+    batches = run_query_batches(root, sf)
+    rep["execute_ms"] = wall_ms(lambda: execute(
+        root, batches, default_join_capacity=jc),
+        repeats=EXEC_EXECUTE_REPEATS)
+    del batches
+    t0 = time.perf_counter()
+    off = run_query(plan_fn(), sf=sf, default_join_capacity=jc,
+                    session={"dynamic_filtering": False})
+    rep["off_first_run_query_ms"] = (time.perf_counter() - t0) * 1e3
+    got_on, got_off = rows(on), rows(off)
+    if got_on != got_off:
+        raise AssertionError(f"{name}: rows with dynamic filtering on "
+                             f"differ from off:\n on  {got_on[:5]}\n off "
+                             f"{got_off[:5]}")
+    if want is not None and not (same(got_on, want) if same
+                                 else got_on == want):
+        raise AssertionError(f"{name}: rows differ from the oracle:\n got "
+                             f" {got_on[:5]}\n want {want[:5]}")
+    if on.stats["staged_bytes"] > off.stats["staged_bytes"]:
+        raise AssertionError(f"{name}: staged more with filtering on "
+                             f"({on.stats['staged_bytes']} bytes) than "
+                             f"off ({off.stats['staged_bytes']})")
+    rep.update(
+        rows=len(got_on), filters=on.stats.get("dynamic_filters", 0),
+        collect_ms=on.stats["dynamic_filter_collect_s"] * 1e3,
+        rows_pruned=on.stats.get("dynamic_filter_rows_pruned", 0),
+        rows_staged=on.stats.get("dynamic_filter_rows_staged"),
+        staged_mb=on.stats["staged_bytes"] / 1e6,
+        off_staged_mb=off.stats["staged_bytes"] / 1e6,
+        stage_ms=on.stats["scan_stage_s"] * 1e3,
+        off_stage_ms=off.stats["scan_stage_s"] * 1e3)
+    print(json.dumps(rep))
+    torch.cuda.empty_cache()
+    return rep
+
+
+def exec_dynamic_filters():
+    """Part 1: every entry of the committed SF1 TPC-H corpus in which
+    collect_dynamic_filters finds a filter (against its committed
+    rows), q3 and q14 at SF10 (against the numpy oracles; no filter
+    qualifies there), and TPC-DS q3, q42, q52 and q55 at SF1 (on
+    against off) and at their suite scale factor (against the
+    committed rows)."""
+    import torch
+    from presto_tpu_torch.exec.dynfilter import collect_dynamic_filters
+    from presto_tpu_torch.plan import from_json
+    from presto_tpu_torch.plan.widths import annotate_widths
+    from presto_tpu_torch.queries import load_corpus, load_tpcds_corpus
+    dev = torch.device("cuda")
+    reports = []
+    corpus = load_corpus()
+    for name in sorted(corpus, key=_corpus_order):
+        e = corpus[name]
+        if not collect_dynamic_filters(
+                annotate_widths(from_json(e["plan"]), e["sf"]), e["sf"],
+                dev):
+            continue
+        reports.append(_dyn_pair(name, lambda e=e: from_json(e["plan"]),
+                                 e["sf"], e["rows"], _exact_rows))
+    for name, plan_fn, oracle, tables in (
+            ("q3", q3_plan, numpy_q3, Q3_TABLES),
+            ("q14", q14_plan, numpy_q14, Q14_TABLES)):
+        want = oracle({t: host_columns(t, SF_JOIN, cols)
+                       for t, cols in tables.items()})
+        reports.append(_dyn_pair(name, plan_fn, SF_JOIN, want, _plain_rows))
+    tpcds = load_tpcds_corpus()
+    for name in EXEC_TPCDS:
+        e = tpcds[name]
+        reports.append(_dyn_pair(
+            f"tpcds_{name}", lambda e=e: from_json(e["plan"]), e["sf"],
+            e["rows"], _exact_rows, e["join_capacity"], same=_close_rows))
+        reports.append(_dyn_pair(
+            f"tpcds_{name}_sf1", lambda e=e: from_json(e["plan_timed"]),
+            e["timed_sf"], None, _exact_rows, e["timed_join_capacity"]))
+    # q3 and q14 find none at SF10, as the reference's rule decides
+    # there: q14's part build (2.0M rows) and q3's orders build (15M x
+    # the filter's 0.33) pass _MAX_BUILD_ROWS, and q3's customer join
+    # probes with a key of that build side
+    missing = [r["query"] for r in reports
+               if not r["filters"] and r["sf"] != SF_JOIN]
+    if missing:
+        raise AssertionError("queries of the dynamic-filtering part found "
+                             f"no filter on the card: {missing}")
+    return reports
+
+
+def q1_agg_plan():
+    """q1's aggregation under an Output alone (q1_plan without its
+    Sort): the shape split streaming runs."""
+    from presto_tpu_torch.plan import OutputNode
+    root = q1_plan()
+    return OutputNode(root.source.source, root.names)
+
+
+def _q1_run(sf, split_rows):
+    """q1's aggregation through run_query on the card, streamed in
+    splits of `split_rows` (None: unsplit): its rows (sorted),
+    fused_limb_sums launches, host syncs, peak MB above the memory live
+    before it, wall ms and split counters. No warm-up run: a streamed
+    run's wall is its splits' host generation, which no warm-up
+    shortens."""
+    import torch
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.ops import kernels as K
+    _reset_launches()
+    rep = {"sf": sf, "split_rows": split_rows}
+    with _peak_mb(rep):
+        t0 = time.perf_counter()
+        res, syncs = _count_syncs(lambda: run_query(
+            q1_agg_plan(), sf=sf, split_rows=split_rows))
+        rep["run_query_ms"] = (time.perf_counter() - t0) * 1e3
+    st = res.stats
+    rep.update(host_syncs=syncs,
+               fused_limb_sums=K.LAUNCHES["fused_limb_sums"],
+               splits=st.get("splits", 1))
+    if split_rows is not None:
+        # split_device_s: the device timeline of the splits (CUDA only)
+        rep.update(
+            host_stage_ms_per_split=st["split_stage_s"] * 1e3 / st["splits"],
+            device_ms_per_split=st.get("split_device_s", float("nan"))
+            * 1e3 / st["splits"],
+            host_syncs_per_split=syncs / st["splits"])
+    else:
+        rep.update(stage_ms=st["scan_stage_s"] * 1e3,
+                   execute_ms=st["execute_s"] * 1e3)
+    torch.cuda.empty_cache()
+    return sorted(_plain_rows(res)), rep
+
+
+def exec_streaming():
+    """Part 2: q1's aggregation over lineitem streamed in splits of
+    EXEC_SPLIT_ROWS at SF1 (6.0M rows, 2 splits) against numpy_q1, and
+    at SF10 (60M rows, 15 splits) against the unsplit SF10 run; the
+    SF10 streamed peak within 1.1x of the SF1 one and below the
+    unsplit SF10 peak. Each split's group-by and each running merge
+    launch fused_limb_sums (16 groups; a merge sums 128-bit states,
+    whose limbs take more than one launch's sources)."""
+    want = sorted(numpy_q1({"lineitem": host_columns(
+        "lineitem", SF, Q1_TABLES["lineitem"])}))
+    out = {}
+    for sf in (SF, SF_JOIN):
+        streamed, rs = _q1_run(sf, EXEC_SPLIT_ROWS)
+        whole, rw = _q1_run(sf, None)
+        if streamed != whole or (sf == SF and streamed != want):
+            raise AssertionError(f"q1 streamed at sf {sf}: rows differ\n "
+                                 f"streamed {streamed}\n unsplit {whole}")
+        n = -(-tpch_rows("lineitem", sf) // EXEC_SPLIT_ROWS)
+        if rs["splits"] != n or rs["fused_limb_sums"] < 2 * n - 1 or \
+                rw["fused_limb_sums"] != 1:
+            raise AssertionError(f"q1 at sf {sf}: each of {n} splits and "
+                                 f"{n - 1} merges must launch "
+                                 f"fused_limb_sums (streamed {rs}, unsplit "
+                                 f"{rw})")
+        out[f"sf{sf:g}"] = {"streamed": rs, "unsplit": rw}
+        print(f"exec streaming sf {sf:g}: streamed {json.dumps(rs)}; "
+              f"unsplit {json.dumps(rw)}")
+    p1 = out[f"sf{SF:g}"]["streamed"]["peak_mb"]
+    p10 = out[f"sf{SF_JOIN:g}"]["streamed"]["peak_mb"]
+    whole10 = out[f"sf{SF_JOIN:g}"]["unsplit"]["peak_mb"]
+    if not (p10 <= 1.1 * p1 and p10 < whole10):
+        raise AssertionError(f"streamed peaks: SF10 {p10:.1f} MB against "
+                             f"SF1 {p1:.1f} MB and unsplit SF10 "
+                             f"{whole10:.1f} MB")
+    return out
+
+
+def tpch_rows(table, sf):
+    from presto_tpu_torch.connectors import tpch
+    return tpch.table_row_count(table, sf)
+
+
+def _tpch_scan(table, cols):
+    from presto_tpu_torch.connectors import tpch
+    from presto_tpu_torch.plan import TableScanNode
+    return TableScanNode("tpch", table, cols,
+                         [tpch.column_type(table, c) for c in cols])
+
+
+def _sorted_arrays(cols):
+    """Rows of int64-able columns in lexicographic order, one array
+    each."""
+    arrs = [np.asarray(c).astype(np.int64) for c in cols]
+    perm = np.lexsort(arrs[::-1])
+    return [a[perm] for a in arrs]
+
+
+def exec_spill():
+    """Part 3, at SF1: the aggregation of lineitem by partkey (200,000
+    groups) under a budget of a quarter of its planned state table (8
+    buckets), lineitem x orders on orderkey under a budget of three
+    quarters of its planned inputs (4 buckets), and the external sort of orders by totalprice
+    descending then orderkey in splits of EXEC_SORT_SPLIT_ROWS; each
+    against the port's unspilled run."""
+    import torch
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.block import to_numpy
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.exec.spill import (plan_join_bytes,
+                                             plan_state_bytes,
+                                             run_spilled_join,
+                                             spill_bucket_count)
+    from presto_tpu_torch.exec.streaming import run_spilled_sort
+    from presto_tpu_torch.ops.aggregation import AggSpec
+    from presto_tpu_torch.plan import (AggregationNode, JoinNode, OutputNode,
+                                       SortNode)
+    dev = torch.device("cuda")
+    out = {}
+
+    agg = AggregationNode(
+        _tpch_scan("lineitem", ["partkey", "quantity", "extendedprice"]),
+        [0], [AggSpec("count_star", None, T.BIGINT),
+              AggSpec("sum", 1, T.decimal(38, 2)),
+              AggSpec("min", 2, T.decimal(12, 2))], max_groups=1 << 18)
+    plan = OutputNode(agg, ["partkey", "c", "q", "mn"])
+    budget = plan_state_bytes(agg) // 4
+    rep, base = {"budget_bytes": budget}, {}
+    with _peak_mb(base):
+        t0 = time.perf_counter()
+        whole = run_query(plan, sf=SF)
+        base["run_query_ms"] = (time.perf_counter() - t0) * 1e3
+    with _peak_mb(rep):
+        t0 = time.perf_counter()
+        spilled = run_query(plan, sf=SF, split_rows=EXEC_SPLIT_ROWS,
+                            hbm_budget_bytes=budget)
+        rep["run_query_ms"] = (time.perf_counter() - t0) * 1e3
+    if sorted(_plain_rows(spilled)) != sorted(_plain_rows(whole)) or \
+            whole.row_count != tpch_rows("part", SF):
+        raise AssertionError("the spilled aggregation's rows differ from "
+                             "the unspilled run's")
+    rep.update(buckets=spilled.stats["spill_buckets"],
+               spilled_mb=spilled.stats["spilled_bytes"] / 1e6,
+               unspilled=base)
+    if rep["buckets"] != spill_bucket_count(plan_state_bytes(agg), budget) \
+            or rep["buckets"] < 8:
+        raise AssertionError(f"spilled aggregation: {rep}")
+    out["aggregation"] = rep
+    print(f"exec spill aggregation: {json.dumps(rep)}")
+    del whole, spilled
+    torch.cuda.empty_cache()
+
+    join = JoinNode(_tpch_scan("lineitem", ["orderkey", "quantity"]),
+                    _tpch_scan("orders", ["orderkey", "totalprice"]),
+                    [0], [0], "inner")
+    rows = tpch_rows("lineitem", SF)
+    budget = 3 * plan_join_bytes(join, SF) // 4 + 1  # 4 buckets
+    rep, base, stats = {"budget_bytes": budget}, {}, {}
+    with _peak_mb(base):
+        t0 = time.perf_counter()
+        whole = run_query(OutputNode(join, ["k", "q", "k2", "tp"]), sf=SF,
+                          default_join_capacity=1 << 23)
+        base["run_query_ms"] = (time.perf_counter() - t0) * 1e3
+    with _peak_mb(rep):
+        t0 = time.perf_counter()
+        got = run_spilled_join(join, SF, EXEC_SPLIT_ROWS, budget, dev, stats)
+        rep["ms"] = (time.perf_counter() - t0) * 1e3
+    act = got.active.numpy()
+    got_cols = _sorted_arrays([to_numpy(c)[0][act] for c in got.columns])
+    want_cols = _sorted_arrays(whole.columns)
+    if whole.row_count != rows or \
+            any(not np.array_equal(a, b) for a, b in zip(got_cols,
+                                                         want_cols)):
+        raise AssertionError("the spilled join's rows differ from the "
+                             "direct join's")
+    # each side partitioned into n buckets, then n bucket joins
+    rep.update(buckets=stats["spill_buckets"] // 3,
+               spilled_mb=stats["spilled_bytes"] / 1e6, unspilled=base)
+    if rep["buckets"] != 4:
+        raise AssertionError(f"spilled join: {rep}")
+    out["join"] = rep
+    print(f"exec spill join: {json.dumps(rep)}")
+    del whole, got
+    torch.cuda.empty_cache()
+
+    sort = OutputNode(SortNode(_tpch_scan("orders", ["orderkey",
+                                                     "totalprice"]),
+                               [(1, True, True), (0, False, True)]),
+                      ["orderkey", "totalprice"])
+    rep, base = {"split_rows": EXEC_SORT_SPLIT_ROWS}, {}
+    with _peak_mb(base):
+        t0 = time.perf_counter()
+        whole = run_query(sort, sf=SF)
+        base["run_query_ms"] = (time.perf_counter() - t0) * 1e3
+    with _peak_mb(rep):
+        t0 = time.perf_counter()
+        cols, _nulls, _names = run_spilled_sort(sort, SF,
+                                                EXEC_SORT_SPLIT_ROWS, dev)
+        rep["ms"] = (time.perf_counter() - t0) * 1e3
+    if any(not np.array_equal(np.asarray(a).astype(np.int64),
+                              np.asarray(b).astype(np.int64))
+           for a, b in zip(cols, whole.columns)) or \
+            len(cols[0]) != tpch_rows("orders", SF):
+        raise AssertionError("the spilled sort's order differs from the "
+                             "device sort's")
+    rep.update(runs=-(-len(cols[0]) // EXEC_SORT_SPLIT_ROWS), unspilled=base)
+    out["sort"] = rep
+    print(f"exec spill sort: {json.dumps(rep)}")
+    del whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def exec_writes():
+    """Part 4: CTAS of q1's seven lineitem columns at SF1 (6.0M rows)
+    into the memory connector; q1 over that table against numpy_q1,
+    with one fused_limb_sums launch on the run that returns its rows;
+    then DELETE WHERE shipdate > the q1 cutoff, its count and the rows
+    left against numpy."""
+    import torch
+    from presto_tpu_torch import types as T
+    from presto_tpu_torch.connectors import memory
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.expr import call, const, input_ref
+    from presto_tpu_torch.ops import kernels as K
+    from presto_tpu_torch.plan import (OutputNode, ProjectNode,
+                                       TableFinishNode, TableRewriteNode,
+                                       TableScanNode, TableWriterNode)
+    cols = Q1_TABLES["lineitem"]
+    host = host_columns("lineitem", SF, cols)
+    rows = tpch_rows("lineitem", SF)
+    scan = _tpch_scan("lineitem", cols)
+    memory.reset()
+    rep = {}
+    writer = TableWriterNode(scan, "memory", EXEC_TABLE, list(cols))
+    ctas = OutputNode(TableFinishNode(writer, "memory", EXEC_TABLE, True,
+                                      list(cols), list(scan.column_types)),
+                      ["rows"])
+    t0 = time.perf_counter()
+    res = run_query(ctas, sf=SF)
+    rep["ctas_ms"] = (time.perf_counter() - t0) * 1e3
+    rep.update(ctas_stage_ms=res.stats["scan_stage_s"] * 1e3,
+               ctas_fetch_ms=res.stats["fetch_s"] * 1e3)
+    if res.rows() != [(rows,)] or memory.table_row_count(EXEC_TABLE) != rows:
+        raise AssertionError(f"CTAS wrote {res.rows()}, not {rows} rows")
+
+    run_query(q1_plan("memory", EXEC_TABLE), sf=SF)
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = run_query(q1_plan("memory", EXEC_TABLE), sf=SF)
+    rep.update(q1_run_query_ms=(time.perf_counter() - t0) * 1e3,
+               restage_ms=res.stats["scan_stage_s"] * 1e3,
+               q1_execute_ms=res.stats["execute_s"] * 1e3,
+               q1_fused_limb_sums=K.LAUNCHES["fused_limb_sums"])
+    if _plain_rows(res) != numpy_q1({"lineitem": host}):
+        raise AssertionError("q1 over the written table differs from "
+                             "numpy_q1")
+    if rep["q1_fused_limb_sums"] != 1:
+        raise AssertionError(f"q1 over the written table: {rep}")
+
+    cutoff = _days(Q1_CUTOFF)
+    mscan = TableScanNode("memory", EXEC_TABLE, list(cols),
+                          list(scan.column_types))
+    changed = call("gt", T.BOOLEAN, input_ref(6, T.DATE),
+                   const(Q1_CUTOFF, T.DATE))
+    delete = OutputNode(TableRewriteNode(
+        ProjectNode(mscan, [input_ref(i, t) for i, t in
+                            enumerate(mscan.column_types)] + [changed]),
+        "memory", EXEC_TABLE, "delete"), ["rows"])
+    t0 = time.perf_counter()
+    res = run_query(delete, sf=SF)
+    rep["delete_ms"] = (time.perf_counter() - t0) * 1e3
+    gone = int((host["shipdate"] > cutoff).sum())
+    if res.rows() != [(gone,)] or \
+            memory.table_row_count(EXEC_TABLE) != rows - gone:
+        raise AssertionError(f"DELETE removed {res.rows()} rows, numpy "
+                             f"{gone}; {memory.table_row_count(EXEC_TABLE)}"
+                             " left")
+    rep.update(deleted=gone, left=rows - gone)
+    memory.reset()
+    torch.cuda.empty_cache()
+    print(f"exec writes: {json.dumps(rep)}")
+    return rep
+
+
+def phase_exec():
+    """exec/ off the main path on the card, in four parts
+    (exec_dynamic_filters, exec_streaming, exec_spill, exec_writes);
+    returns their reports and the phase's seconds."""
+    t0 = time.perf_counter()
+    out = {"dynamic_filters": exec_dynamic_filters(),
+           "streaming": exec_streaming(), "spill": exec_spill(),
+           "writes": exec_writes()}
+    out["s"] = time.perf_counter() - t0
+    print(f"exec: the phase took {out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2264,12 +2721,14 @@ def run_phases(args, start_cpu_rows) -> int:
     nested = phase_nested(args.seed)
     tpcds = phase_tpcds(
         cpu_procs, args.out + ".tpcds.jsonl" if args.out else None)
+    exec_ = phase_exec()
 
     gpu = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     report = {"kernels": kernel_rows, "queries": [q1, q6, q3, q14, *corpus],
               "two_stage": two_stage, "aggregates": aggregates,
               "functions": functions, "nested": nested, "tpcds": tpcds,
+              "exec": exec_,
               "build_s": build_s, "host_generation_s": GEN_S, "gpu": gpu,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "total_s": time.perf_counter() - t_start}

@@ -24,6 +24,8 @@ in place of JAX pytrees and an explicit `device` on every staging call:
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Optional, Sequence, Tuple, Union
 
@@ -37,7 +39,7 @@ __all__ = ["Column", "StringColumn", "Int128Column", "DictionaryColumn",
            "decoded",
            "torch_dtype", "resolve_device", "from_numpy", "batch_from_numpy",
            "to_numpy", "gather_block", "pad_chars", "null_like",
-           "concat_batches"]
+           "concat_batches", "pinned_staging"]
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
@@ -245,8 +247,29 @@ def _pad_cast(arr: np.ndarray, capacity: int, dt, fill=0) -> np.ndarray:
     return out
 
 
+_PINNED = contextvars.ContextVar("pinned_staging", default=False)
+
+
+@contextlib.contextmanager
+def pinned_staging():
+    """Within the block, staging onto a CUDA device copies each host
+    array into page-locked memory and enqueues its copy to the device
+    without waiting for it, so that the host can generate the next
+    split while the card works on this one (exec/streaming.py). The
+    caching host allocator keeps a pinned buffer until its copy is
+    done."""
+    token = _PINNED.set(True)
+    try:
+        yield
+    finally:
+        _PINNED.reset(token)
+
+
 def _put(arr: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if _PINNED.get() and torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def _encode_strings(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -450,17 +473,28 @@ def to_numpy(block: Block) -> Tuple[np.ndarray, np.ndarray]:
                 for fv, fn in fvals)
         return vals, nulls
     if isinstance(block, StringColumn):
-        chars = block.chars.cpu().numpy()
-        lengths = block.lengths.cpu().numpy()
-        vals = np.array([chars[i, :lengths[i]].tobytes().decode("utf-8",
-                                                                "replace")
-                         for i in range(chars.shape[0])], dtype=object)
-        return vals, nulls
+        return _decode_strings(block.chars.cpu().numpy(),
+                               block.lengths.cpu().numpy()), nulls
     if isinstance(block, Int128Column):
         from .int128 import int128_to_python
         return int128_to_python(block.hi.cpu().numpy(),
                                 block.lo.cpu().numpy()), nulls
     return block.values.cpu().numpy(), nulls
+
+
+def _decode_strings(chars: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """(n, w) chars and lengths -> object array of str. ASCII rows with
+    no NUL inside their length decode in one vectorized pass (numpy's
+    fixed-width bytes, whose trailing NULs are padding); anything else
+    row by row as UTF-8."""
+    n, w = chars.shape
+    live = np.arange(w) < lengths[:, None]
+    text = np.where(live, chars, 0).astype(np.uint8)
+    if n and w and text.max() < 128 and not (live & (text == 0)).any():
+        return text.view(f"S{w}").ravel().astype(str).astype(object)
+    return np.array([chars[i, :lengths[i]].tobytes().decode("utf-8",
+                                                            "replace")
+                     for i in range(n)], dtype=object)
 
 
 def pad_chars(c: StringColumn, width: int) -> StringColumn:

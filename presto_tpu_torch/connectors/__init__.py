@@ -13,5 +13,9 @@ def catalog(name: str):
     if name == "tpcds":
         from . import tpcds
         return tpcds
+    if name == "memory":
+        from . import memory
+        return memory
     raise KeyError(f"no connector {name!r} in this port (ROADMAP queue 1 "
-                   "item 12: the write roots and the other connectors)")
+                   "item 12: the file connectors, system and "
+                   "information_schema)")

@@ -224,6 +224,13 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
         out = lower(root)
         dev = scan_batches[0].active.device
         flags = [overflow[i].reshape(()) for i in capacity_ids]
+        # lower and lower_node refer to each other, so this frame's
+        # dicts outlive the call until the cyclic collector runs: empty
+        # them, or every staged batch stays on the device that long (a
+        # stream of splits would hold several at once)
+        inputs.clear()
+        shared.clear()
+        overflow.clear()
         return out, (torch.stack(flags) if flags else
                      torch.zeros(0, dtype=torch.bool, device=dev))
 

@@ -1,10 +1,13 @@
 """Query runner: staging, execution, result fetch.
 
-Counterpart of presto_tpu/exec/runner.py (`QueryResult`, `run_query`,
-the staging of `stage_scan_split`, the overflow->rerun ladder of
-`_dispatch_ladder` with its per-plan capacity memo, `_batch_to_result`)
-for one device. The observability ledgers of the reference (stats,
-datapath, timeline, accuracy) are not part of this port yet.
+Counterpart of presto_tpu/exec/runner.py (`QueryResult`, `run_query`
+with its dynamic filtering, memory-pool admission and split branch,
+`stage_scan_split`, the overflow->rerun ladder of `_dispatch_ladder`
+with its per-plan capacity memo, the write roots of `_run_write_root`,
+`_batch_to_result`) for one device. The observability ledgers of the
+reference (stats, datapath, timeline, accuracy) are not part of this
+port yet, nor is its access-control check of write roots (the server
+tier, ROADMAP queue 1 item 14).
 
 `run_query` runs on CUDA unless the caller names another device, and
 raises when there is no CUDA device; it never falls back to the CPU.
@@ -14,7 +17,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, List, Sequence, Tuple
+import time
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,13 +27,17 @@ from .. import types as T
 from ..block import (Batch, batch_from_numpy, gather_block, resolve_device,
                      to_numpy)
 from ..connectors import catalog
+from ..ops.aggregation import finalize_states
 from ..plan import nodes as N
 from ..plan.stats import capacity_nodes, scale_capacities
 from ..plan.widths import annotate_widths, checked_physical_dtypes
+from .dynfilter import apply_dynamic_filters, collect_dynamic_filters
+from .memory import MemoryPool, batch_bytes
 from .planner import compile_plan
 
 __all__ = ["run_query", "QueryResult", "resolve_device", "stage_scans",
-           "execute", "capacity_plan"]
+           "stage_scan_split", "planned_scan_bytes", "execute",
+           "capacity_plan"]
 
 _PAD = 8  # staged capacities are a multiple of this
 
@@ -41,9 +49,17 @@ class QueryResult:
     names: List[str]
     row_count: int
     types: List[T.Type] = dataclasses.field(default_factory=list)
-    # "capacity_reruns" of the run's ladder and its "capacity_scale",
-    # the largest capacity factor it gave a node
-    stats: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # flat counters under the reference's names: "capacity_reruns" of
+    # the run's ladder and its "capacity_scale" (the largest capacity
+    # factor it gave a node); "dynamic_filters",
+    # "dynamic_filter_rows_pruned", "dynamic_filter_rows_staged" and
+    # "dynamic_filter_collect_s"; "reserved_bytes" and
+    # "peak_reserved_bytes" of a memory pool; "staged_bytes" and the
+    # host walls "scan_stage_s", "execute_s" (the ladder, ending in the
+    # read of its flags) and "fetch_s"; the split counters of
+    # exec/streaming.py and the spill counters of exec/spill.py; a
+    # write root's are its inner SELECT's
+    stats: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def rows(self) -> List[tuple]:
         return [tuple(None if self.nulls[c][i] else self.columns[c][i]
@@ -65,19 +81,76 @@ class QueryResult:
         return sorted(out)
 
 
-def _stage_scan(node: N.TableScanNode, sf: float, device) -> Batch:
-    """Generate one scan's host columns and stage them at the node's
-    narrow lanes, each re-proved against the actual values."""
-    conn = catalog(node.connector)
-    rows = conn.table_row_count(node.table, sf)
-    data = conn.generate_columns(node.table, sf, node.columns)
-    arrays = [data[c] for c in node.columns]
+def _host_columns(conn, node: N.TableScanNode, sf: float, start: int = 0,
+                  count: Optional[int] = None):
+    """The scan's host columns over rows [start, start + count) (the
+    whole table when count is None), and their NULL masks where the
+    connector stores NULLs (else None)."""
+    rng = () if start == 0 and count is None else (start, count)
+    data = conn.generate_columns(node.table, sf, node.columns, *rng)
+    nulls = None
+    if hasattr(conn, "generate_nulls"):  # stored tables carry NULLs
+        nmap = conn.generate_nulls(node.table, node.columns, *rng)
+        nulls = [nmap[c] for c in node.columns]
+    return data, nulls
+
+
+def _stage_arrays(node: N.TableScanNode, arrays, nulls, capacity: int,
+                  device) -> Batch:
+    """Host columns staged at the node's narrow lanes, each narrowing
+    re-proved against the actual values."""
     phys = node.physical_dtypes
     if phys:
-        phys = checked_physical_dtypes(phys, node.column_types, arrays)
-    cap = max(-(-rows // _PAD) * _PAD, _PAD)
-    return batch_from_numpy(node.column_types, arrays, capacity=cap,
-                            physical_dtypes=phys, device=device)
+        phys = checked_physical_dtypes(phys, node.column_types, arrays,
+                                       nulls=nulls)
+    return batch_from_numpy(node.column_types, arrays, nulls=nulls,
+                            capacity=capacity, physical_dtypes=phys,
+                            device=device)
+
+
+def stage_scan_split(conn, node: N.TableScanNode, sf: float, start: int,
+                     count: Optional[int], capacity: int, device) -> Batch:
+    """Stage rows [start, start + count) of one scan (the whole table
+    when count is None) at `capacity` on `device`: the shared staging
+    path of the runner and the streaming executor."""
+    data, nulls = _host_columns(conn, node, sf, start, count)
+    return _stage_arrays(node, [data[c] for c in node.columns], nulls,
+                         capacity, device)
+
+
+def _padded(rows: int) -> int:
+    return max(-(-rows // _PAD) * _PAD, _PAD)
+
+
+def _scan_batch(node: N.PlanNode, sf: float, device,
+                dyn_filters=None, stats: Optional[Dict] = None) -> Batch:
+    """One scan's or VALUES node's staged batch. With `dyn_filters`
+    (the scan's domains from exec/dynfilter.py) the host rows outside
+    them are dropped before staging, and the rows pruned and staged go
+    to `stats`."""
+    if isinstance(node, N.ValuesNode):
+        return _stage_values(node, device)
+    conn = catalog(node.connector)
+    if not dyn_filters:
+        return stage_scan_split(
+            conn, node, sf, 0, None,
+            _padded(conn.table_row_count(node.table, sf)), device)
+    data, nulls = _host_columns(conn, node, sf)
+    keep, pruned = apply_dynamic_filters(data, node.columns, dyn_filters)
+    if stats is not None:
+        _add(stats, "dynamic_filter_rows_pruned", pruned)
+        _add(stats, "dynamic_filter_rows_staged", int(keep.sum()))
+    arrays = [data[c] for c in node.columns]
+    if pruned:  # else the host arrays stage as they are, uncopied
+        arrays = [a[keep] for a in arrays]
+        if nulls is not None:
+            nulls = [n[keep] for n in nulls]
+    return _stage_arrays(node, arrays, nulls, _padded(len(arrays[0])),
+                         device)
+
+
+def _add(stats: Dict, name: str, value) -> None:
+    stats[name] = stats.get(name, 0) + value
 
 
 def _stage_values(node: N.ValuesNode, device) -> Batch:
@@ -87,7 +160,7 @@ def _stage_values(node: N.ValuesNode, device) -> Batch:
     node without columns (a FROM-less SELECT) is its active rows
     alone."""
     n = len(node.rows)
-    cap = max(-(-n // _PAD) * _PAD, _PAD)
+    cap = _padded(n)
     if not node.types:
         active = torch.zeros(cap, dtype=torch.bool, device=device)
         active[:n] = True
@@ -107,12 +180,34 @@ def _stage_values(node: N.ValuesNode, device) -> Batch:
                             device=device)
 
 
-def stage_scans(root: N.PlanNode, sf: float, device) -> List[Batch]:
+def stage_scans(root: N.PlanNode, sf: float, device,
+                dynamic_filters: Optional[Dict] = None,
+                stats: Optional[Dict] = None) -> List[Batch]:
     """Staged batches of the plan's scans and VALUES, in compile_plan's
-    order."""
-    return [_stage_values(n, device) if isinstance(n, N.ValuesNode)
-            else _stage_scan(n, sf, device)
+    order, each scan pruned by its `dynamic_filters` entry (what
+    `run_query` collects)."""
+    dynamic_filters = dynamic_filters or {}
+    return [_scan_batch(n, sf, device, dynamic_filters.get(n.id), stats)
             for n in compile_plan(root).scan_nodes]
+
+
+def planned_scan_bytes(node: N.PlanNode, sf: float) -> int:
+    """Planned device footprint of a scan or VALUES input, without
+    generating it: per padded row, the active mask, each column's
+    lane and null mask (a string its declared width, 64 bytes where
+    that is unbounded, and its length)."""
+    if isinstance(node, N.ValuesNode):
+        rows, types = len(node.rows), node.types
+    else:
+        rows = catalog(node.connector).table_row_count(node.table, sf)
+        types = node.column_types
+    per_row = 1
+    for ty in types:
+        if ty.is_string:
+            per_row += (ty.max_length if ty.max_length < 1 << 20 else 64) + 5
+        else:
+            per_row += np.dtype(ty.to_dtype()).itemsize + 1
+    return _padded(rows) * per_row
 
 
 # plan fingerprint -> the capacity factors (one per capacity node, in
@@ -161,8 +256,8 @@ def _joins_above(root: N.PlanNode, ids: List[str]) -> Dict[str, set]:
 
 
 def _dispatch_ladder(root: N.PlanNode, batches: Sequence[Batch],
-                     limb_form: str, default_join_capacity: int
-                     ) -> Tuple[Batch, int, int]:
+                     limb_form: str, default_join_capacity: int,
+                     adaptive: bool = True) -> Tuple[Batch, int, int]:
     """Run the plan; when a join or group table overflows, rerun with
     its capacity 4x larger (scale_capacities; a join without an
     out_capacity starts at `default_join_capacity`), up to 1024x, and
@@ -170,8 +265,9 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence[Batch],
     input was cut short. The reference raises every capacity of the
     plan at once; an aggregation here grows only when it overflows
     itself, so a join's overflow leaves a small aggregation on its
-    small-table path. Returns (output, largest capacity factor,
-    reruns)."""
+    small-table path. With `adaptive` off (the session property
+    adaptive_capacity false) the first overflow raises. Returns
+    (output, largest capacity factor, reruns)."""
     fp = _fingerprint(root)
     ids = [n.id for n in capacity_nodes(root)]
     above = _joins_above(root, ids)
@@ -187,7 +283,8 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence[Batch],
             if any(k > 1 for k in factors):
                 _CAPACITY_FEEDBACK[fp] = tuple(factors)
             return out, max(factors, default=1), reruns
-        if any(factors[k] >= _MAX_CAPACITY_SCALE for k in over):
+        if not adaptive or \
+                any(factors[k] >= _MAX_CAPACITY_SCALE for k in over):
             raise RuntimeError(
                 "plan execution overflowed a static bucket (join/group "
                 "capacity) beyond the adaptive rerun ceiling; rerun with "
@@ -205,23 +302,205 @@ def execute(root: N.PlanNode, batches: Sequence[Batch],
                             default_join_capacity)[0]
 
 
+def _session_get(session, name: str, default=None):
+    """A session property of a mapping, `default` where absent or
+    None."""
+    if session is None:
+        return default
+    v = session.get(name)
+    return default if v is None else v
+
+
 def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
               limb_form: str = "narrow", mesh=None,
-              default_join_capacity: int = 1 << 16) -> QueryResult:
-    """Plan -> rows, end to end: narrow-width annotation, staging of
-    the generated tables on `device` (CUDA unless asked otherwise),
+              default_join_capacity: int = 1 << 16,
+              split_rows: Optional[int] = None,
+              hbm_budget_bytes: Optional[int] = None,
+              session: Optional[Mapping] = None,
+              memory_pool: Optional[MemoryPool] = None,
+              query_id: str = "query") -> QueryResult:
+    """Plan -> rows, end to end on `device` (CUDA unless asked
+    otherwise): narrow-width annotation, dynamic filtering (the small
+    build sides run first and prune the probe scans' host rows), the
+    reservation of the planned scan bytes in `memory_pool`, staging,
     execution through the overflow ladder, result fetch. A join node
-    without an out_capacity starts at `default_join_capacity` rows."""
+    without an out_capacity starts at `default_join_capacity` rows.
+
+    With `split_rows`, a streamable aggregation (exec/streaming.py)
+    runs split by split; when twice its planned state table exceeds
+    the device budget (`hbm_budget_bytes`, or the session's), it runs
+    bucket by bucket with each finished bucket moved to host memory
+    (exec/spill.py). Any other plan takes the normal path. A write
+    root (DDL, CTAS, INSERT, DELETE, UPDATE) runs its inner SELECT
+    through run_query and writes on the host.
+
+    Session properties read (the reference's names): dynamic_filtering
+    (default on), adaptive_capacity (default on), hbm_budget_bytes,
+    spill_path and spill_file_threshold_bytes."""
     if mesh is not None:
         raise NotImplementedError("a mesh is not ported yet (ROADMAP queue 1 "
                                   "item 14: parallel/ and the worker tier)")
     dev = resolve_device(device)
+    kw = dict(sf=sf, device=dev, limb_form=limb_form,
+              default_join_capacity=default_join_capacity,
+              split_rows=split_rows, hbm_budget_bytes=hbm_budget_bytes,
+              session=session, memory_pool=memory_pool, query_id=query_id)
+    inner = root.source if isinstance(root, N.OutputNode) else root
+    if isinstance(inner, N.WRITE_ROOTS):
+        return _run_write_root(inner, **kw)
     root = annotate_widths(root, sf)
-    out, scale, reruns = _dispatch_ladder(
-        root, stage_scans(root, sf, dev), limb_form, default_join_capacity)
-    res = _batch_to_result(out, root)
-    res.stats = {"capacity_reruns": reruns, "capacity_scale": scale}
+    stats: Dict[str, float] = {}
+    if split_rows is not None:
+        res = _run_split(root, sf, dev, limb_form, split_rows,
+                         hbm_budget_bytes, session, stats)
+        if res is not None:
+            return res
+    dyn_filters = {}
+    if bool(_session_get(session, "dynamic_filtering", True)):
+        t0 = time.perf_counter()
+        dyn_filters = collect_dynamic_filters(root, sf, dev)
+        stats["dynamic_filter_collect_s"] = time.perf_counter() - t0
+        if dyn_filters:
+            stats["dynamic_filters"] = sum(len(v)
+                                           for v in dyn_filters.values())
+    reserved = 0
+    if memory_pool is not None:
+        # admission: the planned scan bytes are charged before anything
+        # is staged, so a refusal comes before the device runs out
+        reserved = sum(planned_scan_bytes(s, sf)
+                       for s in compile_plan(root).scan_nodes)
+        memory_pool.reserve(query_id, reserved)
+        stats["reserved_bytes"] = reserved
+    try:
+        t0 = time.perf_counter()
+        batches = stage_scans(root, sf, dev, dyn_filters, stats)
+        stats["staged_bytes"] = sum(batch_bytes(b) for b in batches)
+        t1 = time.perf_counter()
+        out, scale, reruns = _dispatch_ladder(
+            root, batches, limb_form, default_join_capacity,
+            adaptive=bool(_session_get(session, "adaptive_capacity", True)))
+        del batches
+        t2 = time.perf_counter()
+        res = _batch_to_result(out, root)
+        stats.update(scan_stage_s=t1 - t0, execute_s=t2 - t1,
+                     fetch_s=time.perf_counter() - t2)
+    finally:
+        if memory_pool is not None:
+            memory_pool.free(query_id, reserved)
+            stats["peak_reserved_bytes"] = \
+                memory_pool.query_peak_bytes(query_id, pop=True)
+    res.stats = {"capacity_reruns": reruns, "capacity_scale": scale, **stats}
     return res
+
+
+def _run_split(root: N.PlanNode, sf: float, device, limb_form: str,
+               split_rows: int, hbm_budget_bytes: Optional[int], session,
+               stats: Dict) -> Optional[QueryResult]:
+    """The split branch of run_query: a streamable aggregation streamed
+    (or spilled, under a budget its state table does not fit), None
+    for any other plan."""
+    from .spill import plan_state_bytes, run_spilled_agg
+    from .streaming import run_streaming_agg, streamable_agg_shape
+    shape = streamable_agg_shape(root)
+    if shape is None:
+        return None
+    agg, _scan = shape
+    budget = hbm_budget_bytes
+    if budget is None:
+        budget = _session_get(session, "hbm_budget_bytes")
+    if budget and 2 * plan_state_bytes(agg) > budget:  # 0/None: no cap
+        out = run_spilled_agg(
+            root, sf, split_rows, budget, device, stats,
+            spill_dir=_session_get(session, "spill_path") or None,
+            spill_file_threshold=int(_session_get(
+                session, "spill_file_threshold_bytes", 256 << 20)),
+            limb_form=limb_form)
+    else:
+        r = run_streaming_agg(root, sf, split_rows, device,
+                              limb_form=limb_form, stats=stats)
+        if bool(r.overflow):
+            raise RuntimeError("streaming aggregation overflowed "
+                               "max_groups; raise AggregationNode.max_groups")
+        # the splits accumulate states; the SINGLE step still finalizes
+        out = finalize_states(r.batch, len(agg.group_channels),
+                              agg.aggregates)
+    res = _batch_to_result(out, root)
+    res.stats = {"capacity_reruns": 0, "capacity_scale": 1, **stats}
+    return res
+
+
+def _count_result(rows: int, stats: Dict) -> QueryResult:
+    return QueryResult([np.array([rows], dtype=np.int64)],
+                       [np.array([False])], ["rows"], 1, types=[T.BIGINT],
+                       stats=dict(stats))
+
+
+def _run_write_root(node: N.PlanNode, **kw) -> QueryResult:
+    """Run a DdlNode, TableRewriteNode, TableWriterNode or
+    TableFinishNode root: the inner SELECT through run_query on the
+    device, the write on the host. CTAS and INSERT stage into an insert
+    handle and publish at once, aborting (a CTAS's table dropped) on
+    any failure."""
+    if isinstance(node, N.DdlNode):
+        if node.op != "drop_table":
+            raise ValueError(f"unknown DDL operation {node.op!r}")
+        catalog(node.connector).drop_table(node.table,
+                                           if_exists=node.if_exists)
+        return QueryResult([np.array([True])], [np.array([False])],
+                           ["result"], 1, types=[T.BOOLEAN])
+
+    if isinstance(node, N.TableRewriteNode):
+        # DELETE/UPDATE: new contents and the `changed` flags computed
+        # on the device, the table swapped on the host, all under the
+        # table's writer lock so that no committed insert is lost
+        mod = catalog(node.connector)
+        with mod.write_lock(node.table):
+            res = run_query(N.OutputNode(node.source, []), **kw)
+            ncols = len(res.columns) - 1
+            changed = np.asarray(res.columns[-1]).astype(bool) & \
+                ~np.asarray(res.nulls[-1], dtype=bool)
+            if node.kind == "delete":
+                keep = ~changed
+                cols = [c[keep] for c in res.columns[:ncols]]
+                nulls = [n[keep] for n in res.nulls[:ncols]]
+            else:
+                cols = list(res.columns[:ncols])
+                nulls = list(res.nulls[:ncols])
+            mod.replace_table(node.table, cols, nulls)
+        return _count_result(int(changed.sum()), res.stats)
+
+    if isinstance(node, N.TableWriterNode):
+        res = run_query(N.OutputNode(node.source, node.column_names), **kw)
+        mod = catalog(node.connector)
+        h = mod.begin_insert(node.table)
+        try:
+            mod.append(h, res.columns, res.nulls)
+            rows = mod.finish_insert(h)
+        except BaseException:
+            mod.abort_insert(h)
+            raise
+        return _count_result(rows, res.stats)
+
+    mod = catalog(node.connector)
+    src = node.source
+    while isinstance(src, N.ExchangeNode):  # one device: the identity
+        src = src.source
+    if not isinstance(src, N.TableWriterNode):
+        raise NotImplementedError(
+            "a TableFinish over per-task counts is the worker tier's "
+            "(ROADMAP queue 1 item 14)")
+    h = mod.begin_insert(
+        node.table,
+        create_columns=node.create_columns if node.create else None,
+        create_types=node.create_types if node.create else None)
+    try:
+        res = run_query(N.OutputNode(src.source, src.column_names), **kw)
+        mod.append(h, res.columns, res.nulls)
+        rows = mod.finish_insert(h)
+    except BaseException:
+        mod.abort_insert(h)
+        raise
+    return _count_result(rows, res.stats)
 
 
 def _batch_to_result(out: Batch, root: N.PlanNode) -> QueryResult:

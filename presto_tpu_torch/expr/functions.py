@@ -52,7 +52,7 @@ Block = Union[Column, StringColumn, Int128Column]
 
 __all__ = ["ScalarFunction", "REGISTRY", "register", "lookup",
            "rescale_decimal", "contains_pattern", "GOLD", "mix64",
-           "hash64_block", "decimal_to_f64", "date_format_kernel", "date_trunc_kernel", "date_diff_kernel",
+           "hash64_block", "combine_hash", "decimal_to_f64", "date_format_kernel", "date_trunc_kernel", "date_diff_kernel",
            "split_part_kernel", "host_string_kernel", "host_scalar_kernel",
            "last_day_kernel"]
 
@@ -1930,6 +1930,12 @@ def hash64_block(b: Block) -> torch.Tensor:
             v = f.view(torch.int64)
         h = mix64(v.to(torch.int64))
     return torch.where(b.nulls, GOLD, h)
+
+
+def combine_hash(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """The reference's combine of two row hashes, bit for bit: mix64 of
+    h1 ^ (h2 + GOLD + (h1 << 6) + (h1 >>> 2)), wrapping as uint64 does."""
+    return mix64(h1 ^ (h2 + GOLD + (h1 << 6) + I128._lshr(h1, 2)))
 
 
 def decimal_to_f64(b: Column) -> torch.Tensor:

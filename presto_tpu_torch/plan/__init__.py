@@ -1,13 +1,15 @@
 """Plan nodes (the plan-fragment vocabulary) and plan passes."""
 
-from .nodes import (AggregationNode, AssignUniqueIdNode, DistinctNode,
-                    FilterNode, JoinNode, LimitNode, MarkDistinctNode,
-                    OutputNode, PlanNode, ProjectNode, SemiJoinNode,
-                    SortNode, TableScanNode, TopNNode, UnionNode, UnnestNode,
-                    from_json, to_json)
+from .nodes import (AggregationNode, AssignUniqueIdNode, DdlNode,
+                    DistinctNode, FilterNode, JoinNode, LimitNode,
+                    MarkDistinctNode, OutputNode, PlanNode, ProjectNode,
+                    SemiJoinNode, SortNode, TableFinishNode,
+                    TableRewriteNode, TableScanNode, TableWriterNode,
+                    TopNNode, UnionNode, UnnestNode, from_json, to_json)
 
 __all__ = ["PlanNode", "TableScanNode", "FilterNode", "ProjectNode",
            "AggregationNode", "JoinNode", "SemiJoinNode", "SortNode",
            "TopNNode", "LimitNode", "DistinctNode", "UnionNode",
            "AssignUniqueIdNode", "MarkDistinctNode", "UnnestNode",
-           "OutputNode", "from_json", "to_json"]
+           "OutputNode", "DdlNode", "TableRewriteNode", "TableWriterNode",
+           "TableFinishNode", "from_json", "to_json"]

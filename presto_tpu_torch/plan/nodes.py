@@ -4,7 +4,9 @@ Counterpart of presto_tpu/plan/nodes.py, trimmed to the nodes of the
 ported plan shapes: TableScan, Values, Filter, Project, Aggregation
 (SINGLE, PARTIAL, INTERMEDIATE, FINAL), Join, SemiJoin, Sort, TopN,
 Limit, Distinct, Union, Sample, AssignUniqueId, MarkDistinct, Window,
-RowNumber, GroupId, Unnest, Exchange and Output.
+RowNumber, GroupId, Unnest, Exchange and Output, and the write roots
+Ddl, TableRewrite, TableWriter and TableFinish, which the runner
+executes on the host around an inner SELECT (exec/runner.py).
 Channels are already resolved to indices.
 
 `from_json` reads the dict that presto_tpu.plan.nodes.to_json writes,
@@ -31,8 +33,8 @@ __all__ = ["PlanNode", "TableScanNode", "ValuesNode", "FilterNode",
            "TopNNode", "LimitNode", "DistinctNode", "UnionNode",
            "SampleNode", "AssignUniqueIdNode", "MarkDistinctNode", "WindowNode",
            "RowNumberNode", "GroupIdNode", "UnnestNode", "ExchangeNode",
-           "OutputNode",
-           "from_json", "to_json"]
+           "OutputNode", "DdlNode", "TableRewriteNode", "TableWriterNode",
+           "TableFinishNode", "WRITE_ROOTS", "from_json", "to_json"]
 
 _ids = itertools.count(1)
 
@@ -418,6 +420,78 @@ class ExchangeNode(PlanNode):
 
 
 @dataclasses.dataclass
+class DdlNode(PlanNode):
+    """Data definition run on the host against a connector's metadata:
+    `op` is drop_table."""
+    op: str
+    connector: str
+    table: str
+    if_exists: bool = False
+
+    def output_types(self):
+        return [T.BOOLEAN]
+
+
+@dataclasses.dataclass
+class TableRewriteNode(PlanNode):
+    """DELETE or UPDATE as a rewrite of a stored table: `source` yields
+    the table's columns and a trailing BOOLEAN `changed`; delete drops
+    the changed rows, update keeps every row (the changed ones already
+    projected to their new values). Outputs the affected rows."""
+    source: PlanNode
+    connector: str
+    table: str
+    kind: str = "delete"  # delete | update
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_types(self):
+        return [T.BIGINT]
+
+
+@dataclasses.dataclass
+class TableWriterNode(PlanNode):
+    """Writes its source's rows into a connector table, on the host
+    after the source ran on the device. Outputs the rows written."""
+    source: PlanNode
+    connector: str
+    table: str
+    column_names: List[str] = dataclasses.field(default_factory=list)
+    insert_handle: Optional[str] = None
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_types(self):
+        return [T.BIGINT]
+
+
+@dataclasses.dataclass
+class TableFinishNode(PlanNode):
+    """The commit point of a write: publishes the staged insert at
+    once; `create_*` carry a CTAS's table metadata."""
+    source: PlanNode
+    connector: str
+    table: str
+    create: bool = False
+    create_columns: List[str] = dataclasses.field(default_factory=list)
+    create_types: List[T.Type] = dataclasses.field(default_factory=list)
+
+    @property
+    def sources(self):
+        return (self.source,)
+
+    def output_types(self):
+        return [T.BIGINT]
+
+
+WRITE_ROOTS = (DdlNode, TableRewriteNode, TableWriterNode, TableFinishNode)
+
+
+@dataclasses.dataclass
 class OutputNode(PlanNode):
     source: PlanNode
     names: List[str]
@@ -437,9 +511,6 @@ class OutputNode(PlanNode):
 # node kinds of presto_tpu's wire format this port does not run yet
 _NOT_PORTED = {
     "remotesource": "queue 1 item 14 (parallel/ and the worker tier)",
-    **{k: "queue 1 item 12 (exec/ off the main path: the write roots and "
-          "the other connectors)"
-       for k in ("ddl", "tablewriter", "tablefinish", "tablerewrite")},
 }
 
 
@@ -551,6 +622,23 @@ def to_json(n: PlanNode) -> dict:
                 "slotCapacity": n.slot_capacity,
                 "sortKeys": [list(k) for k in n.sort_keys]
                 if n.sort_keys is not None else None}
+    if isinstance(n, DdlNode):
+        return {**base, "@type": "ddl", "op": n.op,
+                "connector": n.connector, "table": n.table,
+                "ifExists": n.if_exists}
+    if isinstance(n, TableRewriteNode):
+        return {**base, "@type": "tablerewrite", "source": to_json(n.source),
+                "connector": n.connector, "table": n.table, "kind": n.kind}
+    if isinstance(n, TableWriterNode):
+        return {**base, "@type": "tablewriter", "source": to_json(n.source),
+                "connector": n.connector, "table": n.table,
+                "columnNames": n.column_names,
+                "insertHandle": n.insert_handle}
+    if isinstance(n, TableFinishNode):
+        return {**base, "@type": "tablefinish", "source": to_json(n.source),
+                "connector": n.connector, "table": n.table,
+                "create": n.create, "createColumns": n.create_columns,
+                "createTypes": [str(t) for t in n.create_types]}
     if isinstance(n, OutputNode):
         return {**base, "@type": "output", "source": to_json(n.source),
                 "names": n.names}
@@ -675,6 +763,21 @@ def _node_from_json(j: dict, sub) -> PlanNode:
                             j["partitionChannels"], j["slotCapacity"],
                             [tuple(k) for k in keys] if keys is not None
                             else None, **kw)
+    if t == "ddl":
+        return DdlNode(j["op"], j["connector"], j["table"],
+                       j.get("ifExists", False), **kw)
+    if t == "tablerewrite":
+        return TableRewriteNode(sub(j["source"]), j["connector"],
+                                j["table"], j["kind"], **kw)
+    if t == "tablewriter":
+        return TableWriterNode(sub(j["source"]), j["connector"],
+                               j["table"], j["columnNames"],
+                               j.get("insertHandle"), **kw)
+    if t == "tablefinish":
+        return TableFinishNode(sub(j["source"]), j["connector"],
+                               j["table"], j["create"], j["createColumns"],
+                               [T.parse_type(s) for s in j["createTypes"]],
+                               **kw)
     if t == "output":
         return OutputNode(sub(j["source"]), j["names"], **kw)
     if t in _NOT_PORTED:

@@ -21,11 +21,13 @@ the identity).
 `estimate_distinct` is the reference's (presto_tpu/plan/stats.py): an
 output channel traced to its base-table column takes the connector's
 `column_distinct_count` (tpcds has one, tpch none), and a GroupId's
-appended id column has one value per grouping set. No code of the
-port reads it at run time: the port runs plans the reference already
-sized. It is kept, with the connectors' distinct counts, for the
-port's own planner (ROADMAP queue 1 item 13), which sizes aggregations
-from it as the reference's planner does.
+appended id column has one value per grouping set.
+`estimate_group_bound` multiplies those bounds over a key tuple, and
+`estimate_rows` is the reference's heuristic row estimate (a filter
+keeps `_FILTER_SELECTIVITY` of its input, an equi-join the larger
+side). Dynamic filtering (exec/dynfilter.py) reads `estimate_rows` at
+run time to decide which build sides are small enough to run first;
+the numbers are the reference's, so the same joins qualify.
 """
 
 from __future__ import annotations
@@ -37,7 +39,10 @@ from ..expr import ir as E
 from . import nodes as N
 
 __all__ = ["capacity_nodes", "scale_capacities", "column_source",
-           "estimate_distinct"]
+           "estimate_distinct", "estimate_group_bound", "estimate_rows"]
+
+# guessed fraction of rows surviving one filter (the reference's value)
+_FILTER_SELECTIVITY = 0.33
 
 _MAX_GROUPS_CEILING = 1 << 23
 # The reference stops a join's out_capacity at 1 << 24 rows, sized for
@@ -130,7 +135,8 @@ def column_source(node: N.PlanNode, channel: int
             return column_source(node.source, e.channel)
         return None
     if isinstance(node, (N.FilterNode, N.SortNode, N.TopNNode, N.LimitNode,
-                         N.DistinctNode, N.ExchangeNode, N.OutputNode)):
+                         N.DistinctNode, N.SampleNode, N.ExchangeNode,
+                         N.OutputNode)):
         return column_source(node.sources[0], channel)
     if isinstance(node, N.JoinNode):
         nleft = len(node.left.output_types())
@@ -177,3 +183,76 @@ def estimate_distinct(node: N.PlanNode, channel: int,
         return fn(table, column, sf)
     except KeyError:
         return None
+
+
+def estimate_group_bound(node: N.PlanNode, channels, sf: float,
+                         nullable_slack: int = 1) -> Optional[int]:
+    """Upper bound on the distinct key tuples over `channels`: the
+    product of the channels' bounds, each plus `nullable_slack` for a
+    NULL group; None when a channel has no bound or the product passes
+    2^30."""
+    bound = 1
+    for ch in channels:
+        ndv = estimate_distinct(node, ch, sf)
+        if ndv is None:
+            return None
+        bound *= ndv + nullable_slack
+        if bound > 1 << 30:
+            return None
+    return bound
+
+
+def estimate_rows(node: N.PlanNode, sf: float) -> Optional[float]:
+    """Heuristic output-row estimate, for relative cost choices only;
+    None where a leaf has no row count."""
+    if isinstance(node, N.TableScanNode):
+        from ..connectors import catalog
+        try:
+            return float(catalog(node.connector)
+                         .table_row_count(node.table, sf))
+        except KeyError:  # an unknown connector or table
+            return None
+    if isinstance(node, N.ValuesNode):
+        return float(len(node.rows))
+    if isinstance(node, N.FilterNode):
+        r = estimate_rows(node.source, sf)
+        return None if r is None else r * _FILTER_SELECTIVITY
+    if isinstance(node, N.SemiJoinNode):
+        return estimate_rows(node.source, sf)
+    if isinstance(node, N.JoinNode):
+        left = estimate_rows(node.left, sf)
+        right = estimate_rows(node.right, sf)
+        if left is None or right is None:
+            return None
+        return max(left, right)  # the PK-FK case: the larger side
+    if isinstance(node, N.AggregationNode):
+        r = estimate_rows(node.source, sf)
+        bound = estimate_group_bound(node.source, node.group_channels, sf)
+        if not node.group_channels:
+            return 1.0
+        if bound is not None and r is not None:
+            return float(min(r, bound))
+        return r
+    if isinstance(node, N.DistinctNode):
+        return estimate_rows(node.source, sf)
+    if isinstance(node, (N.TopNNode, N.LimitNode)):
+        r = estimate_rows(node.sources[0], sf)
+        cnt = float(node.count)
+        return cnt if r is None else min(r, cnt)
+    if isinstance(node, N.UnionNode):
+        parts = [estimate_rows(s, sf) for s in node.inputs]
+        if any(p is None for p in parts):
+            return None
+        return sum(parts)
+    if isinstance(node, N.UnnestNode):
+        r = estimate_rows(node.source, sf)
+        return None if r is None else r * 4.0
+    if isinstance(node, N.SampleNode):
+        r = estimate_rows(node.source, sf)
+        return None if r is None else r * node.ratio
+    if isinstance(node, N.GroupIdNode):
+        r = estimate_rows(node.source, sf)
+        return None if r is None else r * len(node.grouping_sets)
+    if node.sources:
+        return estimate_rows(node.sources[0], sf)
+    return None

@@ -81,19 +81,27 @@ def infer_table_widths(connector: str, table: str, columns: Sequence[str],
     return tuple(out)
 
 
-def annotate_widths(root: N.PlanNode, sf: float) -> N.PlanNode:
+def annotate_widths(root: N.PlanNode, sf: float, _memo=None) -> N.PlanNode:
     """Rewrite every range-proven TableScanNode with its
     `physical_dtypes` annotation; a scan that already carries one (a
-    plan prepared by the reference) keeps it."""
+    plan prepared by the reference) keeps it. A shared subtree stays
+    one node (the rewrite is memoized by identity), so that the plan
+    DAG's readers stay what dynamic filtering sees."""
+    if _memo is None:
+        _memo = {}
+    if id(root) in _memo:
+        return _memo[id(root)]
+    orig = id(root)
     replaced = {}
     for f in dataclasses.fields(root):
         v = getattr(root, f.name)
         if isinstance(v, N.PlanNode):
-            nv = annotate_widths(v, sf)
+            nv = annotate_widths(v, sf, _memo)
             if nv is not v:
                 replaced[f.name] = nv
         elif isinstance(v, list) and v and isinstance(v[0], N.PlanNode):
-            nv = [annotate_widths(x, sf) for x in v]  # a UnionNode's inputs
+            # a UnionNode's inputs
+            nv = [annotate_widths(x, sf, _memo) for x in v]
             if any(a is not b for a, b in zip(nv, v)):
                 replaced[f.name] = nv
     if replaced:
@@ -103,6 +111,7 @@ def annotate_widths(root: N.PlanNode, sf: float) -> N.PlanNode:
                                     root.column_types, sf)
         if widths is not None:
             root = dataclasses.replace(root, physical_dtypes=widths)
+    _memo[orig] = root
     return root
 
 

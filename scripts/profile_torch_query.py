@@ -305,8 +305,7 @@ def main(argv=None) -> int:
     import chip_smoke
     from presto_tpu_torch.exec import runner
     from presto_tpu_torch.exec.planner import compile_plan
-    from presto_tpu_torch.exec.runner import (capacity_plan, execute,
-                                              stage_scans)
+    from presto_tpu_torch.exec.runner import capacity_plan, execute
     from presto_tpu_torch.plan import from_json
     from presto_tpu_torch.plan.stats import capacity_nodes, scale_capacities
     from presto_tpu_torch.plan.widths import annotate_widths
@@ -342,7 +341,8 @@ def main(argv=None) -> int:
 
     for name, make, sf, forms, jc in map(entry, args.queries.split(",")):
         root = annotate_widths(make(), sf)
-        batches = stage_scans(root, sf, dev)
+        # pruned by run_query's dynamic filters, as run_query stages
+        batches = chip_smoke.run_query_batches(root, sf, dev)
         # climbs the ladder once; the memo keeps the capacities
         execute(root, batches, default_join_capacity=jc)
         factors = runner._CAPACITY_FEEDBACK.get(runner._fingerprint(root),

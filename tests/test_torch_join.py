@@ -290,11 +290,14 @@ def test_ladder_scales_capacities_like_the_reference():
     got = run_query(from_json(RN.to_json(_wide_q1(16))), sf=0.01,
                     device="cpu")
     assert got.rows() == want.rows()
-    assert got.stats == {"capacity_reruns": 3, "capacity_scale": 64}
+    ladder = ("capacity_reruns", "capacity_scale")
+    assert {k: got.stats[k] for k in ladder} == \
+        {"capacity_reruns": 3, "capacity_scale": 64}
     again = run_query(from_json(RN.to_json(_wide_q1(16))), sf=0.01,
                       device="cpu")
     assert again.rows() == want.rows()
-    assert again.stats == {"capacity_reruns": 0, "capacity_scale": 64}
+    assert {k: again.stats[k] for k in ladder} == \
+        {"capacity_reruns": 0, "capacity_scale": 64}
 
 
 @pytest.mark.parametrize("n", [12, 5], ids=lambda n: f"q{n}")
