@@ -75,12 +75,22 @@ PyTorch version at the shapes of its path:
   in pairs on every SF1 TPC-H corpus entry in which it finds a filter,
   q3 and q14 at SF10 and TPC-DS q3, q42, q52, q55 (equal rows, no more
   bytes staged on than off); q1's aggregation streamed in splits of
-  4,194,304 rows at SF1 and SF10 (against numpy_q1, the unsplit run,
-  and the peaks); at SF1 the spilled aggregation (200,000 groups, 8
+  4,194,304 rows at SF1 (against numpy_q1 and the unsplit run) and
+  SF10 (its totals against numpy; the peaks); at SF1 the spilled
+  aggregation (200,000 groups, 8
   buckets), the spilled join of lineitem and orders (4 buckets) and
   the external sort of orders, each against the unspilled run; CTAS
   of q1's lineitem columns into the memory connector, q1 over it
-  (numpy_q1, one fused_limb_sums launch) and a DELETE.
+  (numpy_q1, one fused_limb_sums launch) and a DELETE;
+* the port's own SQL front door (phase_sql): every corpus entry with
+  SQL text planned and prepared through presto_tpu_torch.sql's
+  planner, each plan equal to the committed one (the reference's);
+  then statements typed as text through `presto_tpu_torch.sql` at SF1:
+  q1 (one fused_limb_sums launch) and q6 against numpy, q3 and q14
+  against the committed rows, TPC-DS q47 against the card's rows of
+  its committed plan, two function statements against the reference's
+  SF1 rows, q6 as PREPARE/EXECUTE, SHOW COLUMNS, and CTAS into
+  memory.l, q1 over it (one launch) and DROP TABLE.
 
 Each query runs once to climb its overflow ladder, then once more with
 every kernel count set to 0 just before: that second run starts at the
@@ -871,6 +881,19 @@ def host_columns(table, sf, columns, connector="tpch"):
     return {c: cache[c] for c in columns}
 
 
+_ORACLE_ROWS = {}
+
+
+def oracle_rows(oracle, tables, sf):
+    """oracle({table: host columns}) at `sf`, computed once per process
+    (numpy_q1 takes seconds at SF1, and phase_sql asks for it again)."""
+    key = (oracle, sf)
+    if key not in _ORACLE_ROWS:
+        _ORACLE_ROWS[key] = oracle({t: host_columns(t, sf, cols)
+                                    for t, cols in tables.items()})
+    return _ORACLE_ROWS[key]
+
+
 def install_host_cache():
     import importlib
     for connector in ("tpch", "tpcds"):
@@ -884,6 +907,16 @@ def install_host_cache():
             return host_columns(table, sf, columns, connector)
 
         module.generate_columns = cached
+
+
+def as_built(plan, sf):
+    """A hand-built plan as run_query ran it before it prepared plans
+    itself: the scans' narrow lanes annotated, no other pass, so that
+    its checks and times stay comparable with earlier runs. Run it with
+    prepared=True, as the committed plans (which the reference
+    prepared) are run."""
+    from presto_tpu_torch.plan.widths import annotate_widths
+    return annotate_widths(plan, sf)
 
 
 def run_query_batches(root, sf, device="cuda"):
@@ -950,8 +983,7 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",),
     from presto_tpu_torch.ops import kernels as K
     from presto_tpu_torch.plan.widths import annotate_widths
 
-    want = oracle({t: host_columns(t, sf, cols)
-                   for t, cols in tables.items()})
+    want = oracle_rows(oracle, tables, sf)
     rows_in = tpch.table_row_count("lineitem", sf)
     report = {"query": name, "sf": sf, "rows": rows_in, "launches": {},
               "first_run_launches": {}, "host_syncs": {},
@@ -961,14 +993,16 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",),
             K.LAUNCHES[k] = 0
         t0 = time.perf_counter()
         first, first_syncs = _count_syncs(
-            lambda: run_query(plan_fn(), sf=sf, limb_form=form))
+            lambda: run_query(as_built(plan_fn(), sf), sf=sf,
+                              limb_form=form, prepared=True))
         first_ms = (time.perf_counter() - t0) * 1e3
         first_launches = dict(K.LAUNCHES)
         for k in K.LAUNCHES:
             K.LAUNCHES[k] = 0
         with recording_fused() as calls:
             res, syncs = _count_syncs(
-                lambda: run_query(plan_fn(), sf=sf, limb_form=form))
+                lambda: run_query(as_built(plan_fn(), sf), sf=sf,
+                              limb_form=form, prepared=True))
         launches = dict(K.LAUNCHES)
         if fused_calls is not None:
             fused_calls.extend(calls)
@@ -1028,7 +1062,8 @@ def phase_query(name, plan_fn, oracle, tables, sf, limb_forms=("narrow",),
     report["rows_per_s_execute"] = rows_in / (report["execute_ms"] / 1e3)
     report["run_query_ms"] = report["rows_per_s_run_query"] = None
     if run_query_repeats:
-        report["run_query_ms"] = wall_ms(lambda: run_query(plan_fn(), sf=sf),
+        report["run_query_ms"] = wall_ms(lambda: run_query(
+            as_built(plan_fn(), sf), sf=sf, prepared=True),
                                          repeats=run_query_repeats)
         report["rows_per_s_run_query"] = rows_in / (report["run_query_ms"]
                                                     / 1e3)
@@ -1642,7 +1677,8 @@ def phase_functions():
     t0 = time.perf_counter()
     for group, rel in (("statements", 1e-12), ("timed", 1e-9)):
         for name, e in sorted(corpus[group].items()):
-            got = _exact_rows(run_query(from_json(e["plan"]), sf=e["sf"]))
+            got = _exact_rows(run_query(from_json(e["plan"]), sf=e["sf"],
+                                        prepared=True))
             if not _close_rows(got, e["rows"], rel):
                 raise AssertionError(f"{name} at sf {e['sf']} differs from "
                                      f"the reference:\n got  {got}\n want "
@@ -1702,7 +1738,8 @@ def phase_nested(seed):
     corpus = load_functions_corpus()
     t0 = time.perf_counter()
     for name, e in sorted(corpus["later"].items()):
-        got = _exact_rows(run_query(from_json(e["plan"]), sf=e["sf"]))
+        got = _exact_rows(run_query(from_json(e["plan"]), sf=e["sf"],
+                                        prepared=True))
         if got != e["rows"]:
             raise AssertionError(f"{name} at sf {e['sf']} differs from the "
                                  f"reference:\n got  {got}\n want "
@@ -1996,7 +2033,7 @@ def tpcds_cpu_rows(claim_dir, out):
         e = corpus[name]
         t0 = time.perf_counter()
         res = run_query(from_json(e["plan_timed"]), sf=e["timed_sf"],
-                        device="cpu",
+                        device="cpu", prepared=True,
                         default_join_capacity=e["timed_join_capacity"])
         rows[name] = {"rows": _exact_rows(res),
                       "s": time.perf_counter() - t0}
@@ -2029,14 +2066,14 @@ def _tpcds_sf1_query(name, e, window_or_groupid):
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
     t1 = time.perf_counter()
-    first = run_query(plan(), sf=sf, default_join_capacity=jc)
+    first = run_query(plan(), sf=sf, default_join_capacity=jc, prepared=True)
     first_ms = (time.perf_counter() - t1) * 1e3
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     res, syncs = _count_syncs(lambda: run_query(
-        plan(), sf=sf, default_join_capacity=jc))
+        plan(), sf=sf, default_join_capacity=jc, prepared=True))
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     launches = dict(K.LAUNCHES)
     if res.stats["capacity_reruns"]:
@@ -2078,7 +2115,7 @@ def _tpcds_sf1_query(name, e, window_or_groupid):
             "window_or_groupid": window_or_groupid}, rows
 
 
-def phase_tpcds(cpu_procs, log_path=None):
+def phase_tpcds(log_path=None):
     """The 99 TPC-DS queries of the committed corpus
     (presto_tpu_torch/queries/tpcds.json) through run_query on the card.
 
@@ -2100,12 +2137,13 @@ def phase_tpcds(cpu_procs, log_path=None):
       on that attempt; none may launch contains_bytes.
     * Cross-check at SF1: each of the 22 plans with a Window or GroupId
       node runs again through run_query(device="cpu") on this host, in
-      the worker processes of `cpu_procs` (start_tpcds_cpu_rows), which
-      ran beside the card's phases; its rows must equal the card's
-      (doubles within rel 1e-9).
+      the worker processes that start_tpcds_cpu_rows started, beside
+      the card's phases; tpcds_cross_check holds their rows to the
+      card's (doubles within rel 1e-9) after phase_exec.
 
     Each timed query's report is also appended to `log_path` (JSON
-    lines) as it comes, when given. Returns the reports."""
+    lines) as it comes, when given. Returns the reports and the card's
+    rows of the 22 cross-checked SF1 plans, by query."""
     import torch
     from presto_tpu_torch.exec import run_query
     from presto_tpu_torch.plan import from_json
@@ -2118,7 +2156,7 @@ def phase_tpcds(cpu_procs, log_path=None):
     t0 = time.perf_counter()
     for name in names:
         e = corpus[name]
-        res = run_query(from_json(e["plan"]), sf=e["sf"],
+        res = run_query(from_json(e["plan"]), sf=e["sf"], prepared=True,
                         default_join_capacity=e["join_capacity"])
         got = _exact_rows(res)
         if res.names != e["names"] or not _close_rows(got, e["rows"]):
@@ -2153,7 +2191,23 @@ def phase_tpcds(cpu_procs, log_path=None):
     if failed:
         raise AssertionError(f"{len(failed)} TPC-DS SF1 plans failed on the "
                              f"card: {sorted(failed, key=_tpcds_order)}")
+    print("tpcds: " + json.dumps(
+        {r["query"]: {k: r[k] for k in (
+            "rows", "host_generation_ms", "first_run_query_ms",
+            "capacity_reruns",
+            "capacity_scale", "execute_ms", "host_syncs", "peak_mb",
+            "staged_mb", "fused_limb_sums")} for r in reports}))
+    return {"queries": reports, "exactness_s": exact_s}, card_rows
 
+
+def tpcds_cross_check(cpu_procs, card_rows):
+    """The end of phase_tpcds's cross-check: wait for the CPU workers
+    (`cpu_procs`) and hold the card's rows of the 22 Window/GroupId SF1
+    plans (`card_rows`) to theirs, doubles within rel 1e-9. It runs
+    after phase_exec, so that the workers' tail overlaps phase_exec
+    instead of idling the card, and before phase_sql, whose statements
+    are timed on a host the workers no longer load. Returns the
+    workers' CPU seconds per query and the seconds waited."""
     t0 = time.perf_counter()
     cpu = {}
     for proc, path in cpu_procs:
@@ -2163,6 +2217,7 @@ def phase_tpcds(cpu_procs, log_path=None):
         with open(path) as f:
             cpu.update(json.load(f))
     wait_s = time.perf_counter() - t0
+    cross = sorted(card_rows, key=_tpcds_order)
     if sorted(cpu) != sorted(cross):
         raise AssertionError(f"the CPU workers ran {sorted(cpu)}")
     for name in cross:
@@ -2173,14 +2228,7 @@ def phase_tpcds(cpu_procs, log_path=None):
     print(f"tpcds: the {len(cross)} Window/GroupId queries at SF1 equal "
           f"the port's CPU rows (CPU seconds each {cross_s}; waited "
           f"{wait_s:.1f} s for the workers)")
-    print("tpcds: " + json.dumps(
-        {r["query"]: {k: r[k] for k in (
-            "rows", "host_generation_ms", "first_run_query_ms",
-            "capacity_reruns",
-            "capacity_scale", "execute_ms", "host_syncs", "peak_mb",
-            "staged_mb", "fused_limb_sums")} for r in reports}))
-    return {"queries": reports, "exactness_s": exact_s,
-            "cross_check_cpu_s": cross_s, "cross_check_wait_s": wait_s}
+    return {"cross_check_cpu_s": cross_s, "cross_check_wait_s": wait_s}
 
 
 # ---------------------------------------------------------------------------
@@ -2228,7 +2276,8 @@ def _dyn_pair(name, plan_fn, sf, want, rows, jc=1 << 16, same=None):
     rep = {"query": name, "sf": sf}
     with _peak_mb(rep):
         t0 = time.perf_counter()
-        on = run_query(plan_fn(), sf=sf, default_join_capacity=jc)
+        on = run_query(as_built(plan_fn(), sf), sf=sf,
+                       default_join_capacity=jc, prepared=True)
         rep["first_run_query_ms"] = (time.perf_counter() - t0) * 1e3
     root = annotate_widths(plan_fn(), sf)
     batches = run_query_batches(root, sf)
@@ -2237,7 +2286,8 @@ def _dyn_pair(name, plan_fn, sf, want, rows, jc=1 << 16, same=None):
         repeats=EXEC_EXECUTE_REPEATS)
     del batches
     t0 = time.perf_counter()
-    off = run_query(plan_fn(), sf=sf, default_join_capacity=jc,
+    off = run_query(as_built(plan_fn(), sf), sf=sf, prepared=True,
+                    default_join_capacity=jc,
                     session={"dynamic_filtering": False})
     rep["off_first_run_query_ms"] = (time.perf_counter() - t0) * 1e3
     got_on, got_off = rows(on), rows(off)
@@ -2340,7 +2390,8 @@ def _q1_run(sf, split_rows):
     with _peak_mb(rep):
         t0 = time.perf_counter()
         res, syncs = _count_syncs(lambda: run_query(
-            q1_agg_plan(), sf=sf, split_rows=split_rows))
+            as_built(q1_agg_plan(), sf), sf=sf, split_rows=split_rows,
+            prepared=True))
         rep["run_query_ms"] = (time.perf_counter() - t0) * 1e3
     st = res.stats
     rep.update(host_syncs=syncs,
@@ -2355,46 +2406,95 @@ def _q1_run(sf, split_rows):
             host_syncs_per_split=syncs / st["splits"])
     else:
         rep.update(stage_ms=st["scan_stage_s"] * 1e3,
-                   execute_ms=st["execute_s"] * 1e3)
+                   execute_ms=st["execute_s"] * 1e3,
+                   staged_mb=st["staged_bytes"] / 1e6)
     torch.cuda.empty_cache()
     return sorted(_plain_rows(res)), rep
 
 
-def exec_streaming():
+def exec_streaming(sf10_rows=None):
     """Part 2: q1's aggregation over lineitem streamed in splits of
-    EXEC_SPLIT_ROWS at SF1 (6.0M rows, 2 splits) against numpy_q1, and
-    at SF10 (60M rows, 15 splits) against the unsplit SF10 run; the
-    SF10 streamed peak within 1.1x of the SF1 one and below the
-    unsplit SF10 peak. Each split's group-by and each running merge
-    launch fused_limb_sums (16 groups; a merge sums 128-bit states,
-    whose limbs take more than one launch's sources)."""
-    want = sorted(numpy_q1({"lineitem": host_columns(
-        "lineitem", SF, Q1_TABLES["lineitem"])}))
+    EXEC_SPLIT_ROWS at SF1 (6.0M rows, 2 splits), against numpy_q1 and
+    the unsplit SF1 run, and at SF10 (60M rows, 15 splits) against
+    numpy_q1 at SF10: `sf10_rows()` returns those rows (None: computed
+    here; chip_smoke.py's full run has a worker compute them beside the
+    earlier phases). One SF10 run, not two, to keep the whole run within
+    its time: the unsplit SF10 run took about a minute. The SF10
+    streamed peak must stay within 1.1x of the SF1 one, and below the
+    bytes an unsplit SF10 run must stage at once (the unsplit SF1 run's
+    staged bytes a padded row, times SF10's rows), a floor of the
+    unsplit peak. Each split's group-by and each running merge launch
+    fused_limb_sums (16 groups; a merge sums 128-bit states, whose limbs
+    take more than one launch's sources)."""
+    from presto_tpu_torch.exec.runner import _padded
+    want = sorted(oracle_rows(numpy_q1, Q1_TABLES, SF))
     out = {}
-    for sf in (SF, SF_JOIN):
-        streamed, rs = _q1_run(sf, EXEC_SPLIT_ROWS)
-        whole, rw = _q1_run(sf, None)
-        if streamed != whole or (sf == SF and streamed != want):
-            raise AssertionError(f"q1 streamed at sf {sf}: rows differ\n "
-                                 f"streamed {streamed}\n unsplit {whole}")
+    streamed, rs = _q1_run(SF, EXEC_SPLIT_ROWS)
+    whole, rw = _q1_run(SF, None)
+    if streamed != whole or streamed != want:
+        raise AssertionError(f"q1 streamed at sf {SF}: rows differ\n "
+                             f"streamed {streamed}\n unsplit {whole}")
+    if rw["fused_limb_sums"] != 1:
+        raise AssertionError(f"q1 unsplit at sf {SF}: {rw}")
+    out[f"sf{SF:g}"] = {"streamed": rs, "unsplit": rw}
+    streamed10, rs10 = _q1_run(SF_JOIN, EXEC_SPLIT_ROWS)
+    want10 = sorted(sf10_rows() if sf10_rows is not None
+                    else oracle_rows(numpy_q1, Q1_TABLES, SF_JOIN))
+    if streamed10 != want10:
+        raise AssertionError(f"q1 streamed at sf {SF_JOIN:g}: rows differ "
+                             f"from numpy_q1\n streamed {streamed10}\n "
+                             f"numpy {want10}")
+    out[f"sf{SF_JOIN:g}"] = {"streamed": rs10}
+    for sf, rep in ((SF, rs), (SF_JOIN, rs10)):
         n = -(-tpch_rows("lineitem", sf) // EXEC_SPLIT_ROWS)
-        if rs["splits"] != n or rs["fused_limb_sums"] < 2 * n - 1 or \
-                rw["fused_limb_sums"] != 1:
+        if rep["splits"] != n or rep["fused_limb_sums"] < 2 * n - 1:
             raise AssertionError(f"q1 at sf {sf}: each of {n} splits and "
                                  f"{n - 1} merges must launch "
-                                 f"fused_limb_sums (streamed {rs}, unsplit "
-                                 f"{rw})")
-        out[f"sf{sf:g}"] = {"streamed": rs, "unsplit": rw}
-        print(f"exec streaming sf {sf:g}: streamed {json.dumps(rs)}; "
-              f"unsplit {json.dumps(rw)}")
-    p1 = out[f"sf{SF:g}"]["streamed"]["peak_mb"]
-    p10 = out[f"sf{SF_JOIN:g}"]["streamed"]["peak_mb"]
-    whole10 = out[f"sf{SF_JOIN:g}"]["unsplit"]["peak_mb"]
-    if not (p10 <= 1.1 * p1 and p10 < whole10):
-        raise AssertionError(f"streamed peaks: SF10 {p10:.1f} MB against "
-                             f"SF1 {p1:.1f} MB and unsplit SF10 "
-                             f"{whole10:.1f} MB")
+                                 f"fused_limb_sums (streamed {rep})")
+        print(f"exec streaming sf {sf:g}: {json.dumps(out[f'sf{sf:g}'])}")
+    if not rs10["peak_mb"] <= 1.1 * rs["peak_mb"]:
+        raise AssertionError(f"streamed peaks: SF10 {rs10['peak_mb']:.1f} "
+                             f"MB against SF1 {rs['peak_mb']:.1f} MB")
+    unsplit10_mb = (rw["staged_mb"] / _padded(tpch_rows("lineitem", SF))
+                    * tpch_rows("lineitem", SF_JOIN))
+    if not rs10["peak_mb"] < unsplit10_mb:
+        raise AssertionError(f"q1 streamed at sf {SF_JOIN:g} peaks at "
+                             f"{rs10['peak_mb']:.1f} MB, not below the "
+                             f"{unsplit10_mb:.1f} MB an unsplit run stages")
+    out[f"sf{SF_JOIN:g}"]["unsplit_staged_mb_floor"] = unsplit10_mb
     return out
+
+
+def start_q1_rows(out_dir, sf):
+    """Start a worker (this script with --q1-rows) that computes
+    numpy_q1's rows at `sf` from host columns it generates itself, to a
+    file in `out_dir`. Returns (process, path)."""
+    path = os.path.join(out_dir, f"q1_rows_sf{sf:g}.json")
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--q1-rows", str(sf),
+         "--out", path]), path
+
+
+def q1_rows(sf, out):
+    """The worker: numpy_q1's rows at `sf`, as JSON, to `out`."""
+    os.nice(10)  # the card's host work comes first
+    rows = numpy_q1({"lineitem": host_columns("lineitem", sf,
+                                              Q1_TABLES["lineitem"])})
+    with open(out, "w") as f:
+        json.dump(rows, f)
+
+
+def wait_q1_rows(worker):
+    """The rows of a start_q1_rows worker, once it has exited."""
+    proc, path = worker
+    t0 = time.perf_counter()
+    if proc.wait() != 0:
+        raise AssertionError(f"the q1 rows worker exited {proc.returncode}")
+    with open(path) as f:
+        rows = [tuple(r) for r in json.load(f)]
+    print(f"exec streaming: waited {time.perf_counter() - t0:.1f} s for "
+          f"numpy_q1's rows")
+    return rows
 
 
 def tpch_rows(table, sf):
@@ -2449,11 +2549,12 @@ def exec_spill():
     rep, base = {"budget_bytes": budget}, {}
     with _peak_mb(base):
         t0 = time.perf_counter()
-        whole = run_query(plan, sf=SF)
+        whole = run_query(as_built(plan, SF), sf=SF, prepared=True)
         base["run_query_ms"] = (time.perf_counter() - t0) * 1e3
     with _peak_mb(rep):
         t0 = time.perf_counter()
-        spilled = run_query(plan, sf=SF, split_rows=EXEC_SPLIT_ROWS,
+        spilled = run_query(as_built(plan, SF), sf=SF, prepared=True,
+                            split_rows=EXEC_SPLIT_ROWS,
                             hbm_budget_bytes=budget)
         rep["run_query_ms"] = (time.perf_counter() - t0) * 1e3
     if sorted(_plain_rows(spilled)) != sorted(_plain_rows(whole)) or \
@@ -2479,7 +2580,8 @@ def exec_spill():
     rep, base, stats = {"budget_bytes": budget}, {}, {}
     with _peak_mb(base):
         t0 = time.perf_counter()
-        whole = run_query(OutputNode(join, ["k", "q", "k2", "tp"]), sf=SF,
+        whole = run_query(as_built(OutputNode(join, ["k", "q", "k2", "tp"]),
+                                   SF), sf=SF, prepared=True,
                           default_join_capacity=1 << 23)
         base["run_query_ms"] = (time.perf_counter() - t0) * 1e3
     with _peak_mb(rep):
@@ -2511,7 +2613,7 @@ def exec_spill():
     rep, base = {"split_rows": EXEC_SORT_SPLIT_ROWS}, {}
     with _peak_mb(base):
         t0 = time.perf_counter()
-        whole = run_query(sort, sf=SF)
+        whole = run_query(as_built(sort, SF), sf=SF, prepared=True)
         base["run_query_ms"] = (time.perf_counter() - t0) * 1e3
     with _peak_mb(rep):
         t0 = time.perf_counter()
@@ -2565,10 +2667,12 @@ def exec_writes():
     if res.rows() != [(rows,)] or memory.table_row_count(EXEC_TABLE) != rows:
         raise AssertionError(f"CTAS wrote {res.rows()}, not {rows} rows")
 
-    run_query(q1_plan("memory", EXEC_TABLE), sf=SF)
+    run_query(as_built(q1_plan("memory", EXEC_TABLE), SF), sf=SF,
+              prepared=True)
     _reset_launches()
     t0 = time.perf_counter()
-    res = run_query(q1_plan("memory", EXEC_TABLE), sf=SF)
+    res = run_query(as_built(q1_plan("memory", EXEC_TABLE), SF), sf=SF,
+                    prepared=True)
     rep.update(q1_run_query_ms=(time.perf_counter() - t0) * 1e3,
                restage_ms=res.stats["scan_stage_s"] * 1e3,
                q1_execute_ms=res.stats["execute_s"] * 1e3,
@@ -2604,16 +2708,355 @@ def exec_writes():
     return rep
 
 
-def phase_exec():
+def phase_exec(q1_sf10_rows=None):
     """exec/ off the main path on the card, in four parts
     (exec_dynamic_filters, exec_streaming, exec_spill, exec_writes);
-    returns their reports and the phase's seconds."""
+    `q1_sf10_rows` goes to exec_streaming. Returns their reports and
+    the phase's seconds."""
     t0 = time.perf_counter()
     out = {"dynamic_filters": exec_dynamic_filters(),
-           "streaming": exec_streaming(), "spill": exec_spill(),
+           "streaming": exec_streaming(q1_sf10_rows), "spill": exec_spill(),
            "writes": exec_writes()}
     out["s"] = time.perf_counter() - t0
     print(f"exec: the phase took {out['s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the port's SQL front door: plans from text, rows from text
+# ---------------------------------------------------------------------------
+
+# TPC-H q1 as SQL text: the columns q1_plan computes and numpy_q1 checks
+SQL_Q1 = ("SELECT returnflag, linestatus, sum(quantity) AS sum_qty, "
+          "sum(extendedprice) AS sum_base_price, "
+          "sum(extendedprice * (1 - discount)) AS sum_disc_price, "
+          "sum(extendedprice * (1 - discount) * (1 + tax)) AS sum_charge, "
+          "avg(quantity) AS avg_qty, avg(extendedprice) AS avg_price, "
+          "avg(discount) AS avg_disc, count(*) AS count_order "
+          "FROM {table} WHERE shipdate <= date '1998-12-01' - interval "
+          "'90' day GROUP BY returnflag, linestatus "
+          "ORDER BY returnflag, linestatus")
+# q6 with its date and discount as parameters of a prepared statement
+SQL_Q6_PREPARE = ("PREPARE q6 FROM SELECT sum(extendedprice * discount) AS "
+                  "revenue FROM lineitem WHERE shipdate >= ? AND shipdate "
+                  "< date '1995-01-01' AND discount BETWEEN ? - 0.01 AND "
+                  "? + 0.01 AND quantity < 24")
+SQL_Q6_EXECUTE = "EXECUTE q6 USING date '1994-01-01', 0.06, 0.06"
+SQL_TABLE = "memory.l"  # phase_sql's CTAS target
+# corpus entries whose committed plan is not prepare_plan(plan_sql(sql)):
+# fn_sample puts a SampleNode over the reference's plan and fn_unnest an
+# UNNEST (scripts/make_functions_corpus.py::SAMPLES, UNNESTS)
+SQL_HAND_BUILT = ("fn_sample", "fn_unnest")
+SQL_TPCDS_SESSIONS = {"q24": {"join_reordering_strategy": "NONE"}}
+SQL_REPEATS = 3
+
+
+def canonical_plan(j):
+    """Plan JSON with each node id replaced by the index of its first
+    appearance (depth first, keys in order): two plans that are equal
+    but for their ids' spelling compare equal; a wrong sharing does
+    not."""
+    ids = {}
+
+    def walk(v):
+        if isinstance(v, dict):
+            return {k: ids.setdefault(x, len(ids)) if k == "id" else walk(x)
+                    for k, x in v.items()}
+        if isinstance(v, list):
+            return [walk(x) for x in v]
+        return v
+    return walk(j)
+
+
+def plan_difference(got, want, path="", ulps=None):
+    """The first place two canonical plans differ, or None. A folded
+    double one ulp from the reference's is no difference (the
+    reference folds under XLA, whose transcendentals are not all
+    correctly rounded); it goes to `ulps`."""
+    import math
+    if type(got) is not type(want):
+        return f"{path}: {got!r} != {want!r}"
+    if isinstance(got, dict):
+        if set(got) != set(want):
+            return f"{path}: keys {sorted(got)} != {sorted(want)}"
+        for k in got:
+            d = plan_difference(got[k], want[k], f"{path}.{k}", ulps)
+            if d:
+                return d
+        return None
+    if isinstance(got, list):
+        if len(got) != len(want):
+            return f"{path}: {len(got)} items != {len(want)}"
+        for i, (a, b) in enumerate(zip(got, want)):
+            d = plan_difference(a, b, f"{path}[{i}]", ulps)
+            if d:
+                return d
+        return None
+    if isinstance(got, float) and got != want and math.isfinite(want) \
+            and abs(got - want) <= math.ulp(want):
+        if ulps is not None:
+            ulps.append(path)
+        return None
+    return None if got == want else f"{path}: {got!r} != {want!r}"
+
+
+def _sql_plan_cases():
+    """(name, text, sf, planning keywords, committed plan JSON) of every
+    corpus entry with SQL text: the single-stage TPC-H entries at SF1,
+    the 99 TPC-DS queries at their suite and timed scales, the function
+    statements at their sf and the timed ones at SF1."""
+    from presto_tpu_torch.queries import (load_corpus, load_functions_corpus,
+                                          load_tpcds_corpus)
+    out = []
+    for name, e in sorted(load_corpus().items()):
+        if not name.endswith("_two_stage"):
+            out.append((name, e["sql"], e["sf"], {
+                "max_groups": e["max_groups"],
+                "join_capacity": e["join_capacity"]}, e["plan"]))
+    for name, e in sorted(load_tpcds_corpus().items(), key=lambda kv:
+                          _tpcds_order(kv[0])):
+        kw = {"catalog": "tpcds", "session": SQL_TPCDS_SESSIONS.get(name)}
+        out.append((f"tpcds_{name}", e["sql"], e["sf"], {
+            **kw, "max_groups": e["max_groups"],
+            "join_capacity": e["join_capacity"]}, e["plan"]))
+        out.append((f"tpcds_{name}_timed", e["sql"], e["timed_sf"], {
+            **kw, "max_groups": e["timed_max_groups"],
+            "join_capacity": e["timed_join_capacity"]}, e["plan_timed"]))
+    for group, entries in load_functions_corpus().items():
+        for name, e in sorted(entries.items()):
+            if name in SQL_HAND_BUILT:
+                continue
+            out.append((name, e["sql"], e["sf"], {}, e["plan"]))
+            if group == "timed":
+                out.append((f"{name}_sf1", e["sql"], e["sf1"], {},
+                            e["plan_sf1"]))
+    return out
+
+
+def _sql_plan_times(text, sf, kw):
+    """(prepared plan, parse ms, plan ms, prepare ms) of one text through
+    the port: parse_sql alone, then plan_sql (its parse included), then
+    prepare_plan."""
+    from presto_tpu_torch.exec.runner import prepare_plan
+    from presto_tpu_torch.sql import parse_sql, plan_sql
+    session = kw.get("session")
+    kw = {k: v for k, v in kw.items() if k != "session"}
+    t0 = time.perf_counter()
+    parse_sql(text)
+    t1 = time.perf_counter()
+    plan = plan_sql(text, **kw)
+    t2 = time.perf_counter()
+    plan = prepare_plan(plan, sf, session=session)
+    t3 = time.perf_counter()
+    return plan, (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3
+
+
+def _sql_time_summary(times):
+    """{sum, median, slowest} of {name: ms}."""
+    slowest = max(times, key=times.get)
+    return {"sum_ms": sum(times.values()),
+            "median_ms": statistics.median(times.values()),
+            "slowest": slowest, "slowest_ms": times[slowest]}
+
+
+def sql_plans_from_text():
+    """Part 1: every corpus entry with SQL text planned and prepared by
+    the port, each plan equal to the committed one (the reference's)
+    under canonical_plan, doubles within one ulp."""
+    from presto_tpu_torch.plan import from_json, to_json
+    cases = _sql_plan_cases()
+    times = {"parse": {}, "plan": {}, "prepare": {}}
+    differ, ulps = {}, {}
+    for name, text, sf, kw, committed in cases:
+        plan, parse_ms, plan_ms, prepare_ms = _sql_plan_times(text, sf, kw)
+        for k, v in (("parse", parse_ms), ("plan", plan_ms),
+                     ("prepare", prepare_ms)):
+            times[k][name] = v
+        near = []
+        d = plan_difference(canonical_plan(to_json(plan)), canonical_plan(
+            to_json(from_json(committed))), ulps=near)
+        if d:
+            differ[name] = d
+        if near:
+            ulps[name] = near
+    rep = {"plans": len(cases), "equal": len(cases) - len(differ),
+           "one_ulp": ulps,
+           **{k: _sql_time_summary(v) for k, v in times.items()}}
+    print(f"sql plans: {rep['equal']} of {rep['plans']} equal the "
+          f"committed plans; " + json.dumps(rep))
+    if differ:
+        raise AssertionError(f"{len(differ)} plans from text differ from "
+                             f"the committed ones: {differ}")
+    return rep
+
+
+def _sql_statement(name, text, check, sf=SF, repeats=SQL_REPEATS,
+                   launches=None, **kw):
+    """One statement through presto_tpu_torch.sql on the card: its parse,
+    plan and prepare ms, a first run, then `repeats` runs (the first of
+    them with every kernel count at 0 and its host syncs counted),
+    run_query_ms their median; `check(result)` must hold for every run,
+    and with `launches` the counted run must launch fused_limb_sums
+    that many times."""
+    import torch
+    from presto_tpu_torch import sql
+    from presto_tpu_torch.ops import kernels as K
+    from presto_tpu_torch.sql.statements import (_DEFAULT_PREPARED,
+                                                 PreparedStatements,
+                                                 preprocess)
+    rep = {"statement": name}
+    # the text sql() plans (a copy of its prepared statements, so that a
+    # PREPARE here registers nothing)
+    pre = preprocess(text, catalog=kw.get("catalog") or "tpch",
+                     prepared=PreparedStatements(_DEFAULT_PREPARED))
+    if pre.text is not None:
+        _, rep["parse_ms"], rep["plan_ms"], rep["prepare_ms"] = \
+            _sql_plan_times(pre.text, sf, kw)
+    t0 = time.perf_counter()
+    res = sql(text, sf=sf, **kw)
+    torch.cuda.synchronize()
+    rep["first_run_query_ms"] = (time.perf_counter() - t0) * 1e3
+    # 0 where the ladder's memo already held this plan's fingerprint
+    rep["first_capacity_reruns"] = res.stats.get("capacity_reruns")
+    check(res)
+    times, stats = [], []
+    for i in range(repeats):
+        if i == 0:
+            _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            res, rep["host_syncs"] = _count_syncs(
+                lambda: sql(text, sf=sf, **kw))
+            rep["fused_limb_sums"] = K.LAUNCHES["fused_limb_sums"]
+        else:
+            res = sql(text, sf=sf, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        stats.append(res.stats)
+        check(res)
+    if times:
+        rep["run_query_ms"] = statistics.median(times)
+        rep.update(run_split(stats))
+    if launches is not None and rep.get("fused_limb_sums") != launches:
+        raise AssertionError(f"{name}: {rep.get('fused_limb_sums')} "
+                             f"fused_limb_sums launches, not {launches}")
+    print(f"sql: {json.dumps(rep)}")
+    return rep
+
+
+def run_split(stats):
+    """Medians of run_query's stage, execute and fetch ms and its staged
+    MB over QueryResult.stats of several runs (keys a run lacks, as a
+    meta statement's, are left out)."""
+    out = {}
+    for key, name, scale in (("scan_stage_s", "stage_ms", 1e3),
+                             ("execute_s", "execute_ms", 1e3),
+                             ("fetch_s", "fetch_ms", 1e3),
+                             ("staged_bytes", "staged_mb", 1e-6)):
+        vals = [st[key] for st in stats if key in st]
+        if vals:
+            out[name] = statistics.median(vals) * scale
+    return out
+
+
+def sql_rows_from_text(tpcds_rows):
+    """Part 2: statements as SQL text through presto_tpu_torch.sql at SF1,
+    each checked on the card: q1 and q6 against the numpy oracles (q1
+    with one fused_limb_sums launch), q3 and q14 against the committed
+    rows of their two-stage entries, TPC-DS q47 against the card's rows
+    of its committed plan (`tpcds_rows`), fn_dates and fn_math against
+    the reference's SF1 rows, q6 as PREPARE/EXECUTE, SHOW COLUMNS,
+    then CREATE TABLE memory.l AS SELECT of q1's lineitem columns, q1
+    over it (numpy_q1, one launch) and DROP TABLE."""
+    from presto_tpu_torch import sql
+    from presto_tpu_torch.connectors import memory
+    from presto_tpu_torch.connectors.tpch import TPCH_SCHEMA
+    from presto_tpu_torch.queries import (load_corpus, load_functions_corpus,
+                                          load_tpcds_corpus)
+    corpus, functions = load_corpus(), load_functions_corpus()["timed"]
+    q47 = load_tpcds_corpus()["q47"]
+
+    def equal_to(want, exact=True):
+        def check(res):
+            got = _exact_rows(res) if exact else _plain_rows(res)
+            if not (_close_rows(got, want) if exact else got == want):
+                raise AssertionError(f"rows differ:\n got  {got[:5]}\n "
+                                     f"want {want[:5]}")
+        return check
+
+    q1_rows = oracle_rows(numpy_q1, Q1_TABLES, SF)
+    q6_rows = oracle_rows(numpy_q6, Q6_TABLES, SF)
+    # q1's own max_groups (TPC-H q1's in the corpus): over memory.l the
+    # connector proves no distinct count, so the planner's default table
+    # of 65,536 groups would stay, off the small-table path
+    q1_groups = corpus["q1_two_stage"]["max_groups"]
+    out = [
+        _sql_statement("q1", SQL_Q1.format(table="lineitem"),
+                       equal_to(q1_rows, exact=False), launches=1,
+                       max_groups=q1_groups),
+        _sql_statement("q6", corpus["q6_two_stage"]["sql"],
+                       equal_to(q6_rows, exact=False))]
+    for q in ("q3", "q14"):
+        e = corpus[f"{q}_two_stage"]
+        out.append(_sql_statement(q, e["sql"], equal_to(e["rows"]),
+                                  max_groups=e["max_groups"],
+                                  join_capacity=e["join_capacity"]))
+    out.append(_sql_statement(
+        "tpcds_q47", q47["sql"], equal_to(tpcds_rows), sf=q47["timed_sf"],
+        catalog="tpcds", max_groups=q47["timed_max_groups"],
+        join_capacity=q47["timed_join_capacity"]))
+    for name in ("fn_dates", "fn_math"):
+        e = functions[name]
+        out.append(_sql_statement(name, e["sql"], equal_to(e["rows_sf1"]),
+                                  sf=e["sf1"]))
+
+    def ack(word):
+        def check(res):
+            if res.names != [word] or res.row_count:
+                raise AssertionError(f"not the {word} ack: {res.names}")
+        return check
+
+    out.append(_sql_statement("prepare_q6", SQL_Q6_PREPARE, ack("PREPARE"),
+                              repeats=0))
+    out.append(_sql_statement("execute_q6", SQL_Q6_EXECUTE,
+                              equal_to(q6_rows, exact=False)))
+    sql("DEALLOCATE PREPARE q6", sf=SF)
+    schema = [(c, str(t)) for c, t in TPCH_SCHEMA["lineitem"]]
+
+    def columns(res):
+        if [(r[0], r[1]) for r in res.rows()] != schema:
+            raise AssertionError(f"SHOW COLUMNS: {res.rows()}")
+    out.append(_sql_statement("show_columns", "SHOW COLUMNS FROM lineitem",
+                              columns))
+    memory.reset()
+    rows = tpch_rows("lineitem", SF)
+    cols = ", ".join(Q1_TABLES["lineitem"])
+    out.append(_sql_statement(
+        "ctas", f"CREATE TABLE {SQL_TABLE} AS SELECT {cols} FROM lineitem",
+        equal_to([[rows]]), repeats=0))
+    out.append(_sql_statement("q1_memory", SQL_Q1.format(table=SQL_TABLE),
+                              equal_to(q1_rows, exact=False), launches=1,
+                              max_groups=q1_groups))
+    out.append(_sql_statement("drop", f"DROP TABLE {SQL_TABLE}",
+                              equal_to([[True]]), repeats=0))
+    if memory.table_names():
+        raise AssertionError(f"tables left: {memory.table_names()}")
+    return out
+
+
+def phase_sql(tpcds_rows):
+    """The port's own SQL front door on the card: sql_plans_from_text,
+    then sql_rows_from_text (`tpcds_rows`: phase_tpcds's card rows of
+    TPC-DS q47's committed SF1 plan). Returns the reports and the
+    phase's seconds."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"plans": sql_plans_from_text(),
+           "statements": sql_rows_from_text(tpcds_rows)}
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"sql: the phase took {out['s']:.1f} s")
     return out
 
 
@@ -2624,6 +3067,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tpcds-cpu-rows", metavar="DIR",
                     help="a cross-check worker: run the SF1 plans it "
                          "claims in DIR on the CPU, their rows to --out")
+    ap.add_argument("--q1-rows", metavar="SF", type=float,
+                    help="a worker: numpy_q1's rows at SF to --out")
     args = ap.parse_args(argv)
 
     import torch
@@ -2636,16 +3081,21 @@ def main(argv=None) -> int:
     if args.tpcds_cpu_rows:
         tpcds_cpu_rows(args.tpcds_cpu_rows, args.out)
         return 0
+    if args.q1_rows is not None:
+        q1_rows(args.q1_rows, args.out)
+        return 0
 
     import tempfile
     cpu_procs = []
     with tempfile.TemporaryDirectory() as tmp:
-        def start_cpu_rows():
-            cpu_procs.extend(start_tpcds_cpu_rows(tmp))
-            return cpu_procs
+        def start_cpu_workers():
+            tpcds = start_tpcds_cpu_rows(tmp)
+            q1 = start_q1_rows(tmp, SF_JOIN)
+            cpu_procs.extend([*tpcds, q1])
+            return tpcds, q1
 
         try:
-            return run_phases(args, start_cpu_rows)
+            return run_phases(args, start_cpu_workers)
         finally:
             for proc, _ in cpu_procs:
                 if proc.poll() is None:
@@ -2653,11 +3103,12 @@ def main(argv=None) -> int:
                     proc.wait()
 
 
-def run_phases(args, start_cpu_rows) -> int:
-    """The phases in order. `start_cpu_rows()` starts phase_tpcds's CPU
-    workers and returns them: after the last kernel timed by its device
-    time, so that their load on the host's cores does not reach the
-    kernels' timed windows."""
+def run_phases(args, start_cpu_workers) -> int:
+    """The phases in order. `start_cpu_workers()` starts phase_tpcds's
+    CPU workers and the worker of exec_streaming's SF10 numpy_q1 rows
+    and returns them: after the last kernel timed by its device time, so
+    that their load on the host's cores does not reach the kernels'
+    timed windows."""
     import torch
     from presto_tpu_torch.ops import kernels as K
 
@@ -2714,21 +3165,23 @@ def run_phases(args, start_cpu_rows) -> int:
         "narrow"]["fused_limb_sums"], SECOND_G_QUERY))
     del second_call
     torch.cuda.empty_cache()
-    cpu_procs = start_cpu_rows()
+    cpu_procs, q1_worker = start_cpu_workers()
     two_stage = phase_two_stage()
     aggregates = phase_aggregates()
     functions = phase_functions()
     nested = phase_nested(args.seed)
-    tpcds = phase_tpcds(
-        cpu_procs, args.out + ".tpcds.jsonl" if args.out else None)
-    exec_ = phase_exec()
+    tpcds, tpcds_rows = phase_tpcds(
+        args.out + ".tpcds.jsonl" if args.out else None)
+    exec_ = phase_exec(lambda: wait_q1_rows(q1_worker))
+    tpcds.update(tpcds_cross_check(cpu_procs, tpcds_rows))
+    sql_ = phase_sql(tpcds_rows["q47"])
 
     gpu = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     report = {"kernels": kernel_rows, "queries": [q1, q6, q3, q14, *corpus],
               "two_stage": two_stage, "aggregates": aggregates,
               "functions": functions, "nested": nested, "tpcds": tpcds,
-              "exec": exec_,
+              "exec": exec_, "sql": sql_,
               "build_s": build_s, "host_generation_s": GEN_S, "gpu": gpu,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "total_s": time.perf_counter() - t_start}

@@ -6,3 +6,6 @@ from .stats import column_distinct_count
 
 __all__ = ["TPCDS_SCHEMA", "table_row_count", "generate_columns",
            "column_type", "column_distinct_count"]
+
+SCHEMA = TPCDS_SCHEMA  # the registry's uniform name (connectors.catalogs)
+__all__ = __all__ + ["SCHEMA"]

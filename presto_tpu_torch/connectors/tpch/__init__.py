@@ -2,7 +2,10 @@
 
 from .generator import (TPCH_SCHEMA, column_type, generate_columns,
                         table_row_count)
-from .stats import column_range
+from .stats import column_distinct_count, column_range
 
 __all__ = ["TPCH_SCHEMA", "table_row_count", "generate_columns",
-           "column_type", "column_range"]
+           "column_type", "column_distinct_count", "column_range"]
+
+SCHEMA = TPCH_SCHEMA  # the registry's uniform name (connectors.catalogs)
+__all__ = __all__ + ["SCHEMA"]

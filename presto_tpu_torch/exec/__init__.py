@@ -1,5 +1,5 @@
-"""Execution: plan lowering and the query runner."""
+"""Execution: plan preparation, lowering and the query runner."""
 
-from .runner import QueryResult, run_query
+from .runner import QueryResult, prepare_plan, run_query
 
-__all__ = ["run_query", "QueryResult"]
+__all__ = ["run_query", "prepare_plan", "QueryResult"]

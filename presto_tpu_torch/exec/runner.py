@@ -1,10 +1,10 @@
-"""Query runner: staging, execution, result fetch.
+"""Query runner: plan preparation, staging, execution, result fetch.
 
-Counterpart of presto_tpu/exec/runner.py (`QueryResult`, `run_query`
-with its dynamic filtering, memory-pool admission and split branch,
-`stage_scan_split`, the overflow->rerun ladder of `_dispatch_ladder`
-with its per-plan capacity memo, the write roots of `_run_write_root`,
-`_batch_to_result`) for one device. The observability ledgers of the
+Counterpart of presto_tpu/exec/runner.py (`prepare_plan`, `QueryResult`,
+`run_query` with its dynamic filtering, memory-pool admission and split
+branch, `stage_scan_split`, the overflow->rerun ladder of
+`_dispatch_ladder` with its per-plan capacity memo, the write roots of
+`_run_write_root`, `_batch_to_result`) for one device. The observability ledgers of the
 reference (stats, datapath, timeline, accuracy) are not part of this
 port yet, nor is its access-control check of write roots (the server
 tier, ROADMAP queue 1 item 14).
@@ -30,14 +30,15 @@ from ..connectors import catalog
 from ..ops.aggregation import finalize_states
 from ..plan import nodes as N
 from ..plan.stats import capacity_nodes, scale_capacities
-from ..plan.widths import annotate_widths, checked_physical_dtypes
+from ..plan.widths import checked_physical_dtypes
+from ..utils.config import session_flag, session_value
 from .dynfilter import apply_dynamic_filters, collect_dynamic_filters
 from .memory import MemoryPool, batch_bytes
 from .planner import compile_plan
 
-__all__ = ["run_query", "QueryResult", "resolve_device", "stage_scans",
-           "stage_scan_split", "planned_scan_bytes", "execute",
-           "capacity_plan"]
+__all__ = ["run_query", "prepare_plan", "QueryResult", "resolve_device",
+           "stage_scans", "stage_scan_split", "planned_scan_bytes",
+           "execute", "capacity_plan"]
 
 _PAD = 8  # staged capacities are a multiple of this
 
@@ -302,13 +303,58 @@ def execute(root: N.PlanNode, batches: Sequence[Batch],
                             default_join_capacity)[0]
 
 
-def _session_get(session, name: str, default=None):
-    """A session property of a mapping, `default` where absent or
-    None."""
-    if session is None:
-        return default
-    v = session.get(name)
-    return default if v is None else v
+def prepare_plan(root: N.PlanNode, sf: float = 0.01,
+                 session=None) -> N.PlanNode:
+    """The plan-shaping pipeline run_query applies before lowering, in
+    the reference's order and under its session properties: rule-based
+    simplification and channel pruning (iterative_optimizer), cost-based
+    join reordering and a second simplification sweep
+    (join_reordering_strategy), distinct-count capacity refinement
+    (stats_capacity_refinement), narrow-width annotation
+    (narrow_width_execution) and the plan checker. Write and DDL roots
+    pass through untouched: their inner SELECT is prepared when the
+    writer re-enters run_query.
+
+    Last, every distinct node object gets its own id by the rule
+    `from_json` reads plan JSON with: the same id with the same content
+    is one shared node, the same id with other content becomes `id.k`.
+    The passes copy nodes with dataclasses.replace, which keeps the id
+    of a node they change, and everything keyed by node id (lowering,
+    the capacity ladder, dynamic filters) needs one node per id.
+
+    Three passes of the reference's pipeline are not here:
+    `push_scan_predicates` marks pushdown-capable scans, which no
+    catalog of the port has (it comes with the file connectors, ROADMAP
+    queue 1 item 12.5); `add_exchanges` runs only with a mesh (item
+    14, which adds the mesh parameter with it); `stamp_estimates` feeds
+    the observability ledgers (item 15)."""
+    inner = root.source if isinstance(root, N.OutputNode) else root
+    if isinstance(inner, N.WRITE_ROOTS):
+        return root
+    from ..plan.reorder import reorder_joins
+    from ..plan.rules import optimize_plan
+    from ..plan.stats import refine_capacities
+    from ..plan.validator import validate_plan
+    from ..plan.widths import annotate_widths, narrow_enabled
+
+    iterative = session_flag(session, "iterative_optimizer", True)
+    if iterative:
+        root = optimize_plan(root)
+    if session_value(session, "join_reordering_strategy",
+                     "AUTOMATIC") != "NONE":
+        rr = reorder_joins(root, sf)
+        if rr is not root and iterative:
+            rr = optimize_plan(rr)
+        root = rr
+    if session_flag(session, "stats_capacity_refinement", True):
+        root = refine_capacities(root, sf)
+    if narrow_enabled(session):
+        root = annotate_widths(root, sf)
+    violations = validate_plan(root)
+    if violations:
+        raise ValueError("plan not executable by the engine "
+                         f"(PlanChecker): {violations}")
+    return N.from_json(N.to_json(root))
 
 
 def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
@@ -318,10 +364,12 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
               hbm_budget_bytes: Optional[int] = None,
               session: Optional[Mapping] = None,
               memory_pool: Optional[MemoryPool] = None,
-              query_id: str = "query") -> QueryResult:
+              query_id: str = "query",
+              prepared: bool = False) -> QueryResult:
     """Plan -> rows, end to end on `device` (CUDA unless asked
-    otherwise): narrow-width annotation, dynamic filtering (the small
-    build sides run first and prune the probe scans' host rows), the
+    otherwise): `prepare_plan` unless `prepared`, dynamic filtering
+    (the small build sides run first and prune the probe scans' host
+    rows), the
     reservation of the planned scan bytes in `memory_pool`, staging,
     execution through the overflow ladder, result fetch. A join node
     without an out_capacity starts at `default_join_capacity` rows.
@@ -334,9 +382,10 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
     root (DDL, CTAS, INSERT, DELETE, UPDATE) runs its inner SELECT
     through run_query and writes on the host.
 
-    Session properties read (the reference's names): dynamic_filtering
-    (default on), adaptive_capacity (default on), hbm_budget_bytes,
-    spill_path and spill_file_threshold_bytes."""
+    Session properties read (the reference's names): those of
+    prepare_plan, dynamic_filtering (default on), adaptive_capacity
+    (default on), hbm_budget_bytes, spill_path and
+    spill_file_threshold_bytes."""
     if mesh is not None:
         raise NotImplementedError("a mesh is not ported yet (ROADMAP queue 1 "
                                   "item 14: parallel/ and the worker tier)")
@@ -348,7 +397,8 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
     inner = root.source if isinstance(root, N.OutputNode) else root
     if isinstance(inner, N.WRITE_ROOTS):
         return _run_write_root(inner, **kw)
-    root = annotate_widths(root, sf)
+    if not prepared:
+        root = prepare_plan(root, sf, session=session)
     stats: Dict[str, float] = {}
     if split_rows is not None:
         res = _run_split(root, sf, dev, limb_form, split_rows,
@@ -356,7 +406,7 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
         if res is not None:
             return res
     dyn_filters = {}
-    if bool(_session_get(session, "dynamic_filtering", True)):
+    if session_flag(session, "dynamic_filtering", True):
         t0 = time.perf_counter()
         dyn_filters = collect_dynamic_filters(root, sf, dev)
         stats["dynamic_filter_collect_s"] = time.perf_counter() - t0
@@ -378,7 +428,7 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
         t1 = time.perf_counter()
         out, scale, reruns = _dispatch_ladder(
             root, batches, limb_form, default_join_capacity,
-            adaptive=bool(_session_get(session, "adaptive_capacity", True)))
+            adaptive=session_flag(session, "adaptive_capacity", True))
         del batches
         t2 = time.perf_counter()
         res = _batch_to_result(out, root)
@@ -407,12 +457,12 @@ def _run_split(root: N.PlanNode, sf: float, device, limb_form: str,
     agg, _scan = shape
     budget = hbm_budget_bytes
     if budget is None:
-        budget = _session_get(session, "hbm_budget_bytes")
+        budget = session_value(session, "hbm_budget_bytes")
     if budget and 2 * plan_state_bytes(agg) > budget:  # 0/None: no cap
         out = run_spilled_agg(
             root, sf, split_rows, budget, device, stats,
-            spill_dir=_session_get(session, "spill_path") or None,
-            spill_file_threshold=int(_session_get(
+            spill_dir=session_value(session, "spill_path") or None,
+            spill_file_threshold=int(session_value(
                 session, "spill_file_threshold_bytes", 256 << 20)),
             limb_form=limb_form)
     else:

@@ -910,6 +910,31 @@ def _last_day_of_month(ret, a):
     return _col(ret, v.to(_dt(ret)), a)
 
 
+_DATE_FMT_WIDTHS = {"Y": 4, "y": 2, "m": 2, "d": 2, "H": 2, "i": 2,
+                    "s": 2, "j": 3, "%": 1}
+
+
+def date_format_width(fmt: str) -> int:
+    """Output width of a date_format pattern; raises NotImplementedError
+    on a specifier `date_format_kernel` does not write (the planner
+    sizes the result with it, and the validator refuses such a format
+    at plan time). %e (the unpadded day) is one of them: its width
+    varies mid-string, which a fixed-width char matrix cannot hold."""
+    width = 0
+    i = 0
+    while i < len(fmt):
+        if fmt[i] == "%" and i + 1 < len(fmt):
+            sp = fmt[i + 1]
+            if sp not in _DATE_FMT_WIDTHS:
+                raise NotImplementedError(f"date_format %{sp}")
+            width += _DATE_FMT_WIDTHS[sp]
+            i += 2
+        else:
+            width += 1
+            i += 1
+    return max(width, 1)
+
+
 def date_format_kernel(values: torch.Tensor, ty: T.Type, fmt: str):
     """date_format(x, 'mysql-format') -> (chars, lengths) with the
     specifiers %Y %y %m %d %H %i %s %j %%, built as fixed-width digit

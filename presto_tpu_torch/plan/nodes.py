@@ -665,7 +665,8 @@ def from_json(j: dict) -> PlanNode:
     every parent. The same passes also keep the id of a node they
     change (a pruned projection of one side of a self-join, TPC-DS q47),
     so a repeated id with other content is another node: it reads
-    under the id with ".k" appended, k counting the variants."""
+    under the id with ".k" appended, k counting the variants. A shape
+    is computed only once its id comes again: most ids come once."""
     memo: dict = {}
 
     def read(x: dict) -> PlanNode:
@@ -673,13 +674,16 @@ def from_json(j: dict) -> PlanNode:
         variants = memo.setdefault(nid, []) if nid else None
         if variants:
             shape = _shape(x)
-            for node, known in variants:
+            for i, (node, known) in enumerate(variants):
+                if isinstance(known, dict):  # its JSON, not yet its shape
+                    known = _shape(known)
+                    variants[i] = (node, known)
                 if known == shape:
                     return node
             x = {**x, "id": f"{nid}.{len(variants)}"}
         node = _node_from_json(x, read)
         if nid:
-            variants.append((node, _shape(x)))
+            variants.append((node, x))
         return node
 
     return read(j)

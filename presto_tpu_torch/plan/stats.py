@@ -20,7 +20,7 @@ the identity).
 
 `estimate_distinct` is the reference's (presto_tpu/plan/stats.py): an
 output channel traced to its base-table column takes the connector's
-`column_distinct_count` (tpcds has one, tpch none), and a GroupId's
+`column_distinct_count`, and a GroupId's
 appended id column has one value per grouping set.
 `estimate_group_bound` multiplies those bounds over a key tuple, and
 `estimate_rows` is the reference's heuristic row estimate (a filter
@@ -39,7 +39,8 @@ from ..expr import ir as E
 from . import nodes as N
 
 __all__ = ["capacity_nodes", "scale_capacities", "column_source",
-           "estimate_distinct", "estimate_group_bound", "estimate_rows"]
+           "estimate_distinct", "estimate_group_bound", "estimate_rows",
+           "refine_capacities"]
 
 # guessed fraction of rows surviving one filter (the reference's value)
 _FILTER_SELECTIVITY = 0.33
@@ -200,6 +201,51 @@ def estimate_group_bound(node: N.PlanNode, channels, sf: float,
         if bound > 1 << 30:
             return None
     return bound
+
+
+def refine_capacities(node: N.PlanNode, sf: float, _memo=None) -> N.PlanNode:
+    """Capacity pass of prepare_plan (sf known): shrink group-table
+    capacities to the distinct-count bound the connector proves, which
+    puts a group-by with few groups on the small-table path
+    (ops/aggregation.py, the `fused_limb_sums` kernel). Bounds are upper
+    bounds, so shrinking cannot overflow; a capacity never grows.
+    Memoized by identity, so a shared subtree stays one node."""
+    _dc = dataclasses
+
+    if _memo is None:
+        _memo = {}
+    if id(node) in _memo:
+        return _memo[id(node)]
+    orig_key = id(node)
+
+    replaced = {}
+    for f in _dc.fields(node):
+        v = getattr(node, f.name)
+        if isinstance(v, N.PlanNode):
+            nv = refine_capacities(v, sf, _memo)
+            if nv is not v:
+                replaced[f.name] = nv
+        elif isinstance(v, list) and v and isinstance(v[0], N.PlanNode):
+            nl = [refine_capacities(s, sf, _memo) for s in v]
+            if any(a is not b for a, b in zip(nl, v)):
+                replaced[f.name] = nl
+    if replaced:
+        node = _dc.replace(node, **replaced)
+
+    if isinstance(node, N.AggregationNode) and node.group_channels:
+        bound = estimate_group_bound(node.source, node.group_channels, sf)
+        if bound is not None:
+            cap = max(-(-bound // 8) * 8, 8)
+            if cap < node.max_groups:
+                node = _dc.replace(node, max_groups=cap)
+    elif isinstance(node, N.DistinctNode) and node.key_channels is not None:
+        bound = estimate_group_bound(node.source, node.key_channels, sf)
+        if bound is not None:
+            cap = max(-(-bound // 8) * 8, 8)
+            if cap < node.max_groups:
+                node = _dc.replace(node, max_groups=cap)
+    _memo[orig_key] = node
+    return node
 
 
 def estimate_rows(node: N.PlanNode, sf: float) -> Optional[float]:

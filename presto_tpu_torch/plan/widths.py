@@ -1,9 +1,10 @@
 """Narrow-width execution: plan-level physical-lane inference.
 
 Counterpart of presto_tpu/plan/widths.py (`infer_table_widths`,
-`annotate_widths`, `checked_physical_dtypes`). Each scan column whose
-value range the connector proves stages at the narrowest integer lane
-that holds it (int8/int16/int32); the logical type is unchanged and
+`annotate_widths`, `checked_physical_dtypes`, `narrow_enabled`). Each
+scan column whose value range the connector proves stages at the
+narrowest integer lane that holds it (int8/int16/int32); prepare_plan
+annotates the scans. The logical type is unchanged and
 every compute site widens before arithmetic, so results stay exact.
 The staging site re-checks the actual host values, so a stale
 statistic makes a column stage wide instead of wrapping.
@@ -19,8 +20,16 @@ import numpy as np
 from .. import types as T
 from . import nodes as N
 
-__all__ = ["infer_column_width", "infer_table_widths", "annotate_widths",
-           "checked_physical_dtypes"]
+__all__ = ["narrow_enabled", "infer_column_width", "infer_table_widths",
+           "annotate_widths", "checked_physical_dtypes"]
+
+
+def narrow_enabled(session=None) -> bool:
+    """Whether prepare_plan annotates narrow lanes: on unless the
+    session sets narrow_width_execution to false."""
+    from ..utils.config import session_flag
+    return session_flag(session, "narrow_width_execution", True)
+
 
 _CANDIDATES = (np.dtype(np.int8), np.dtype(np.int16), np.dtype(np.int32))
 _NARROWABLE_BASES = ("tinyint", "smallint", "integer", "bigint", "date",

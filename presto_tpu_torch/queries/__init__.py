@@ -2,8 +2,9 @@
 committed as data.
 
 `tpch_sf1.json` holds, for each query of the corpus that the port runs,
-the plan-fragment JSON that presto_tpu prepares for it at SF1 and the
-rows presto_tpu's run_query returns for that plan, in an exact form:
+its SQL text ("sql"), the plan-fragment JSON that presto_tpu prepares
+for it at SF1 and the rows presto_tpu's run_query returns for that
+plan, in an exact form:
 integers and decimals as their scaled integers, dates as days since
 epoch, strings as text, booleans as booleans, doubles as `float.hex`
 and NULL as null. `scripts/make_tpch_corpus.py` writes the file from
@@ -18,8 +19,9 @@ the reference's flat function tests ("statements": plan and rows at sf
 rows at sf 0.01 and at SF1); `scripts/make_functions_corpus.py`
 writes it and `load_functions_corpus` reads it.
 
-`tpcds.json` holds, for each of the 99 TPC-DS queries, the reference's
-prepared plan and rows at the query's suite scale factor, and its plan
+`tpcds.json` holds, for each of the 99 TPC-DS queries, its SQL text
+("sql"), the reference's prepared plan and rows at the query's suite
+scale factor, and its plan
 prepared at the scale the card times it at, SF1 but for q72
 (`scripts/make_tpcds_corpus.py` writes it; plans and
 rows are zlib-compressed, base64-encoded JSON, decoded by

@@ -72,7 +72,8 @@ def main(argv=None) -> int:
 
     K.fused_limb_sums = recording
     try:
-        run_query(chip_smoke.q1_plan(), sf=args.sf)
+        run_query(chip_smoke.as_built(chip_smoke.q1_plan(), args.sf),
+                  sf=args.sf, prepared=True)
     finally:
         K.fused_limb_sums = fused
     ids, sources, requests, groups = calls[0]

@@ -2,10 +2,14 @@
 
     python scripts/make_tpcds_corpus.py [--out PATH] [--jobs N]
                                         [--queries q3,q12]
+    python scripts/make_tpcds_corpus.py --add-sql [--out PATH]
 
 For each of the 99 queries of presto_tpu/queries/tpcds_queries.py::
 TPCDS_QUERIES the file holds:
 
+* "sql": the query's text, from which chip_smoke.py plans it through
+  the port's own front door (`--add-sql` writes only this field into
+  the existing file, planning and running nothing);
 * "plan": the reference's prepared plan-fragment JSON at the query's
   suite scale factor (tests/test_tpcds_suite.py's FAST_CASES and
   SLOW_CASES, 0.02 for a query they do not list), planned with the
@@ -110,7 +114,9 @@ def make_entry(name: str, sf: float) -> dict:
     big = prepared(name, timed_sf, TIMED_MAX_GROUPS, TIMED_JOIN_CAPACITY)
     print(f"{name}: {len(rows)} rows at sf {sf} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return {"sf": sf, "plan": pack(RN.to_json(small)),
+    from presto_tpu.queries.tpcds_queries import TPCDS_QUERIES
+    return {"sql": TPCDS_QUERIES[name], "sf": sf,
+            "plan": pack(RN.to_json(small)),
             "names": names, "types": types, "rows": pack(rows),
             "max_groups": SMALL_MAX_GROUPS,
             "join_capacity": SMALL_JOIN_CAPACITY,
@@ -126,9 +132,19 @@ def main(argv=None) -> int:
     ap.add_argument("--jobs", type=int, default=1)
     ap.add_argument("--queries", default="",
                     help="comma-separated names to rewrite in --out")
+    ap.add_argument("--add-sql", action="store_true",
+                    help="only write each query's SQL text into --out")
     args = ap.parse_args(argv)
 
     from presto_tpu.queries.tpcds_queries import TPCDS_QUERIES
+    if args.add_sql:
+        with open(args.out) as f:
+            queries = json.load(f)["queries"]
+        for name, q in queries.items():
+            q["sql"] = TPCDS_QUERIES[name]
+        write(args.out, queries)
+        print(f"wrote the SQL texts into {args.out}")
+        return 0
     sfs = suite_sf()
     names = (args.queries.split(",") if args.queries
              else sorted(TPCDS_QUERIES, key=lambda q: int(q[1:])))

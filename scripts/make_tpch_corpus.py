@@ -1,6 +1,7 @@
 """Write presto_tpu_torch/queries/tpch_sf1.json from the reference.
 
     python scripts/make_tpch_corpus.py [--out PATH]
+    python scripts/make_tpch_corpus.py --add-sql [--out PATH]
 
 Entries, each with a `kind`:
 
@@ -28,6 +29,12 @@ records the plan-fragment JSON and the rows in the exact form of
 presto_tpu_torch.queries (scaled integers, days, text, float.hex).
 chip_smoke.py runs each plan through the port on the card and holds its
 rows equal to these. A run takes about a quarter of an hour of CPU.
+
+Each entry also holds its SQL text as "sql" (`entry_source`; a
+two-stage entry the text of the statement it distributes), from which
+chip_smoke.py plans it through the port's own front door. `--add-sql`
+writes only that field into the existing file, planning and running
+nothing: every plan and row stays as it is.
 """
 
 from __future__ import annotations
@@ -170,11 +177,33 @@ def check_two_stage_rows(sf: float = 0.01) -> None:
     print(f"two-stage rows equal the single plans' at sf {sf}", flush=True)
 
 
+def add_sql(path: str) -> None:
+    """Write each entry's SQL text as "sql" into the corpus file at
+    `path`, changing nothing else."""
+    with open(path) as f:
+        data = json.load(f)
+    for name, q in data["queries"].items():
+        q["sql"] = entry_source(name)[0]
+    _write(path, data)
+
+
+def _write(path: str, data: dict) -> None:
+    with open(path, "w") as f:
+        json.dump(data, f, separators=(",", ":"), sort_keys=True)
+        f.write("\n")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(
         REPO, "presto_tpu_torch", "queries", "tpch_sf1.json"))
+    ap.add_argument("--add-sql", action="store_true",
+                    help="only write each entry's SQL text into --out")
     args = ap.parse_args(argv)
+    if args.add_sql:
+        add_sql(args.out)
+        print(f"wrote the SQL texts into {args.out}")
+        return 0
 
     import presto_tpu  # noqa: F401  (jax x64 first)
     from presto_tpu.exec import run_query
@@ -200,6 +229,7 @@ def main(argv=None) -> int:
             names, types = list(res.names), [str(t) for t in types]
         _, max_groups, join_capacity = entry_source(name)
         queries[name] = {
+            "sql": entry_source(name)[0],
             "plan": RN.to_json(prepared), "names": names, "types": types,
             "rows": rows, "kind": entry_kind(name),
             "max_groups": max_groups, "join_capacity": join_capacity}
@@ -214,9 +244,7 @@ def main(argv=None) -> int:
                       "add_exchanges for the two-stage entries, "
                       "run_query) on the CPU",
             "queries": queries}
-    with open(args.out, "w") as f:
-        json.dump(data, f, separators=(",", ":"), sort_keys=True)
-        f.write("\n")
+    _write(args.out, data)
     print(f"wrote {args.out} ({os.path.getsize(args.out)} bytes)")
     return 0
 

@@ -54,7 +54,8 @@ def test_aggregate_statement_returns_the_reference_rows(name):
     prepared = prepared_entry(name, SF)
     want = ref_run_query(prepared, sf=SF, prepared=True)
     assert want.row_count > 0
-    got = run_query(from_json(RN.to_json(prepared)), sf=SF, device="cpu")
+    got = run_query(from_json(RN.to_json(prepared)), sf=SF, device="cpu",
+                    prepared=True)
     assert got.names == list(want.names)
     assert [str(t) for t in got.types] == [str(t) for t in want.types]
     _same_rows(_exact(got), _exact(want))
@@ -140,6 +141,7 @@ def test_intermediate_step_matches_the_reference():
         # the FINAL now reads the INTERMEDIATE's merged states
         final.source = inter
         want = ref_run_query(plan, sf=SF, prepared=True)
-        got = run_query(from_json(RN.to_json(plan)), sf=SF, device="cpu")
+        got = run_query(from_json(RN.to_json(plan)), sf=SF, device="cpu",
+                        prepared=True)
         assert '"INTERMEDIATE"' in json.dumps(RN.to_json(plan))
         _same_rows(_exact(got), _exact(want))

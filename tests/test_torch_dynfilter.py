@@ -134,8 +134,8 @@ def _exact(res):
 
 
 def _on_off(plan_json, sf):
-    on = run_query(from_json(plan_json), sf=sf, device="cpu")
-    off = run_query(from_json(plan_json), sf=sf, device="cpu",
+    on = run_query(from_json(plan_json), sf=sf, device="cpu", prepared=True)
+    off = run_query(from_json(plan_json), sf=sf, device="cpu", prepared=True,
                     session={"dynamic_filtering": False})
     assert _exact(on) == _exact(off)
     assert "dynamic_filters" not in off.stats

@@ -350,4 +350,5 @@ def test_round_of_a_long_decimal_sum_is_refused_naming_queue_3():
     plan = prepare_plan(plan_sql("SELECT round(sum(extendedprice)) "
                                  "FROM lineitem"), sf=0.01)
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 3\b"):
-        run_query(from_json(RN.to_json(plan)), sf=0.01, device="cpu")
+        run_query(from_json(RN.to_json(plan)), sf=0.01, device="cpu",
+                  prepared=True)

@@ -61,7 +61,7 @@ def one_thread():
 
 
 def _port_rows(plan_json, sf):
-    res = run_query(from_json(plan_json), sf=sf, device="cpu")
+    res = run_query(from_json(plan_json), sf=sf, device="cpu", prepared=True)
     return exact_rows(res.columns, res.nulls, res.types, res.row_count)
 
 

@@ -187,7 +187,7 @@ def _exact(res):
 
 def _both(plan_json, sf=SF):
     want = ref_run_query(RN.from_json(plan_json), sf=sf, prepared=True)
-    got = run_query(from_json(plan_json), sf=sf, device="cpu")
+    got = run_query(from_json(plan_json), sf=sf, device="cpu", prepared=True)
     assert got.names == list(want.names)
     assert _exact(got) == _exact(want)
     return got

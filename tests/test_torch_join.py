@@ -331,7 +331,7 @@ def test_ladder_raises_only_the_capacities_that_overflowed(n):
     nodes[deepest].out_capacity = 64
     plan = to_json(root)
     runner._CAPACITY_FEEDBACK.clear()
-    got = run_query(from_json(plan), sf=0.01, device="cpu")
+    got = run_query(from_json(plan), sf=0.01, device="cpu", prepared=True)
     assert got.rows() == want.rows()
     assert got.stats["capacity_reruns"] > 0
     scale = got.stats["capacity_scale"]

@@ -214,7 +214,7 @@ def test_verifier_statement_returns_the_reference_rows(i):
     (19) and FULL OUTER JOIN (20)."""
     plan = _verifier_plan(i)
     want = ref_run_query(RN.from_json(plan), sf=SF, prepared=True)
-    got = run_query(from_json(plan), sf=SF, device="cpu")
+    got = run_query(from_json(plan), sf=SF, device="cpu", prepared=True)
     assert want.row_count > 0
     assert got.names == list(want.names)
     assert _exact(got) == _exact(want)

@@ -61,7 +61,8 @@ def _plain(rows):
 @pytest.mark.parametrize("name", ["q3", "q14"])
 def test_reference_planned_query_matches_reference(reference, name):
     prepared, want = reference[name]
-    got = run_query(from_json(RN.to_json(prepared)), sf=SF, device="cpu")
+    got = run_query(from_json(RN.to_json(prepared)), sf=SF, device="cpu",
+                    prepared=True)
     assert got.names == want.names
     assert [str(t) for t in got.types] == [str(t) for t in want.types]
     assert _plain(got.rows()) == _plain(want.rows())  # the double bitwise

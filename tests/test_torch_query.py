@@ -101,7 +101,7 @@ def test_sql_planned_q1_matches_reference():
     assert plan.source.source.max_groups == 16
     assert plan.source.source.source.source.source.physical_dtypes
     want = ref_run_query(prepared, sf=SF, prepared=True)
-    got = run_query(plan, sf=SF, device="cpu")
+    got = run_query(plan, sf=SF, device="cpu", prepared=True)
     assert got.rows() == want.rows()
     assert got.canonical_rows() == want.canonical_rows()
 

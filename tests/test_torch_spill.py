@@ -89,11 +89,12 @@ def test_spilled_agg_equals_unspilled_and_the_reference(agg_plan):
     assert plan_state_bytes(agg) == ref_state_bytes(ragg)
     budget = plan_state_bytes(agg) // 4
     assert spill_bucket_count(plan_state_bytes(agg), budget) >= 8
-    got = run_query(from_json(j), sf=SF, device="cpu", split_rows=8192,
+    got = run_query(from_json(j), sf=SF, device="cpu", prepared=True,
+                    split_rows=8192,
                     hbm_budget_bytes=budget)
     ref = ref_run_query(rplan, sf=SF, prepared=True, split_rows=8192,
                         hbm_budget_bytes=budget)
-    unspilled = run_query(from_json(j), sf=SF, device="cpu")
+    unspilled = run_query(from_json(j), sf=SF, device="cpu", prepared=True)
     assert _exact(got) == _exact(ref) == _exact(unspilled) == want
     assert got.stats["spill_buckets"] == ref.stats["spill_buckets"]["total"]
     assert got.stats["spill_buckets"] >= 8
@@ -103,12 +104,14 @@ def test_spilled_agg_equals_unspilled_and_the_reference(agg_plan):
 
 def test_spilled_agg_through_the_session_property(agg_plan):
     j, want = agg_plan
-    got = run_query(from_json(j), sf=SF, device="cpu", split_rows=8192,
+    got = run_query(from_json(j), sf=SF, device="cpu", prepared=True,
+                    split_rows=8192,
                     session={"hbm_budget_bytes": 1 << 17})
     assert got.stats["spilled_bytes"] > 0
     assert _exact(got) == want
     # under a budget the table fits, the aggregation streams unspilled
-    roomy = run_query(from_json(j), sf=SF, device="cpu", split_rows=8192,
+    roomy = run_query(from_json(j), sf=SF, device="cpu", prepared=True,
+                      split_rows=8192,
                       session={"hbm_budget_bytes": 1 << 40})
     assert "spilled_bytes" not in roomy.stats and roomy.stats["splits"] > 1
     assert _exact(roomy) == want
@@ -152,6 +155,7 @@ def test_disk_spill_tier_round_trips_and_leaves_no_run_file(tmp_path):
     session = {"hbm_budget_bytes": 1 << 16, "spill_path": spill_dir,
                "spill_file_threshold_bytes": 1 << 12}
     got = run_query(from_json(RN.to_json(plan)), sf=SF, device="cpu",
+                    prepared=True,
                     split_rows=4096, session=session)
     assert _exact(got) == _exact(want)
     assert got.stats["spilled_to_disk_bytes"] > 0
@@ -199,7 +203,8 @@ def test_memory_pool_sequence_leaves_the_reference_state():
 def test_run_query_reserves_the_reference_scan_bytes(agg_plan):
     j, want = agg_plan
     pool, rpool = PM.MemoryPool(1 << 30), RM.MemoryPool(1 << 30)
-    got = run_query(from_json(j), sf=SF, device="cpu", memory_pool=pool,
+    got = run_query(from_json(j), sf=SF, device="cpu", prepared=True,
+                    memory_pool=pool,
                     query_id="a")
     ref = ref_run_query(RN.from_json(j), sf=SF, prepared=True,
                         memory_pool=rpool, query_id="a")
@@ -212,5 +217,6 @@ def test_run_query_reserves_the_reference_scan_bytes(agg_plan):
     # a pool too small for the planned scan refuses before staging
     small = PM.MemoryPool(got.stats["reserved_bytes"] - 1)
     with pytest.raises(PM.MemoryReservationError):
-        run_query(from_json(j), sf=SF, device="cpu", memory_pool=small)
+        run_query(from_json(j), sf=SF, device="cpu", prepared=True,
+                  memory_pool=small)
     assert small.reserved_bytes == 0

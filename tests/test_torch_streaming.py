@@ -97,12 +97,13 @@ def test_streamed_rows_equal_the_reference(q1_like, split_rows):
     plan_json, whole = q1_like
     want = ref_run_query(RN.from_json(plan_json), sf=SF, prepared=True,
                          split_rows=split_rows)
-    got = run_query(from_json(plan_json), sf=SF, device="cpu",
+    got = run_query(from_json(plan_json), sf=SF, device="cpu", prepared=True,
                     split_rows=split_rows)
     rows = rtpch.table_row_count("lineitem", SF)
     assert got.stats["splits"] == -(-rows // split_rows)
     assert _exact(got) == _exact(want) == whole
-    unsplit = run_query(from_json(plan_json), sf=SF, device="cpu")
+    unsplit = run_query(from_json(plan_json), sf=SF, device="cpu",
+                        prepared=True)
     assert "splits" not in unsplit.stats
     assert _exact(unsplit) == whole
 
@@ -168,7 +169,7 @@ def test_verifier_statement_under_split_rows_equals_the_reference(i):
                         sf=CORPUS_SF)
     want = ref_run_query(plan, sf=CORPUS_SF, prepared=True, split_rows=4096)
     got = run_query(from_json(RN.to_json(plan)), sf=CORPUS_SF,
-                    device="cpu", split_rows=4096)
+                    device="cpu", prepared=True, split_rows=4096)
     assert got.names == list(want.names)
     assert _exact(got) == _exact(want)
     assert ("splits" in got.stats) == \

@@ -66,6 +66,7 @@ def check_query(name):
     returns the reference's committed rows."""
     e = CORPUS[name]
     res = run_query(from_json(e["plan"]), sf=e["sf"], device="cpu",
+                    prepared=True,
                     default_join_capacity=e["join_capacity"])
     assert res.names == e["names"]
     assert [str(t) for t in res.types] == e["types"]

@@ -92,7 +92,7 @@ def test_corpus_partition():
 @pytest.mark.parametrize("n", PORTED, ids=lambda n: f"q{n}")
 def test_query_returns_the_reference_rows(reference, n):
     plan, want = reference[n]
-    got = run_query(from_json(plan), sf=SF, device="cpu")
+    got = run_query(from_json(plan), sf=SF, device="cpu", prepared=True)
     assert got.names == list(want.names)
     assert [str(t) for t in got.types] == [str(t) for t in want.types]
     assert got.row_count == want.row_count
@@ -104,7 +104,8 @@ def test_probe_returns_the_reference_rows(name):
     prepared = _prepared_entry(name, SF)
     want = ref_run_query(prepared, sf=SF, prepared=True)
     assert want.row_count > 0
-    got = run_query(from_json(RN.to_json(prepared)), sf=SF, device="cpu")
+    got = run_query(from_json(RN.to_json(prepared)), sf=SF, device="cpu",
+                    prepared=True)
     assert _exact(got) == _exact(want)
 
 

@@ -54,7 +54,7 @@ def _two_stage_json(name):
 def test_two_stage_query_returns_the_single_rows(single_rows, n):
     plan = _two_stage_json(f"q{n}")
     assert '"exchange"' in json.dumps(plan)
-    got = run_query(from_json(plan), sf=SF, device="cpu")
+    got = run_query(from_json(plan), sf=SF, device="cpu", prepared=True)
     assert _exact(got) == single_rows[n]
 
 
@@ -72,7 +72,7 @@ def test_chip_smoke_oracles_hold_the_two_stage_plans(n):
     oracle's row); the same oracles hold them here at sf 0.01."""
     oracle, tables = ORACLES[n]
     got = run_query(from_json(_two_stage_json(f"q{n}")), sf=SF,
-                    device="cpu")
+                    device="cpu", prepared=True)
     want = oracle({t: generator.generate_columns(t, SF, cols)
                    for t, cols in tables.items()})
     assert chip_smoke._plain_rows(got) == want

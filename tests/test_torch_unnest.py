@@ -150,7 +150,8 @@ def test_unnest_plan_returns_the_reference_rows(hi, out_capacity, reruns):
     want = ref_run_query(_unnest_plan(sql, 2, out_capacity or
                                       (64 if reruns else None)),
                          sf=SF, prepared=True)
-    got = run_query(from_json(RN.to_json(plan)), sf=SF, device="cpu")
+    got = run_query(from_json(RN.to_json(plan)), sf=SF, device="cpu",
+                    prepared=True)
     assert want.row_count == 5 * hi
     assert got.rows() == want.rows()
     assert got.stats["capacity_reruns"] == reruns
@@ -163,6 +164,7 @@ def test_unnest_under_an_aggregation_returns_the_reference_rows():
                         "x -> x <= orderkey % 7) a FROM orders", 1,
                         keys=[2])
     want = ref_run_query(plan, sf=SF, prepared=True)
-    got = run_query(from_json(RN.to_json(plan)), sf=SF, device="cpu")
+    got = run_query(from_json(RN.to_json(plan)), sf=SF, device="cpu",
+                    prepared=True)
     assert want.row_count == 6
     assert got.rows() == want.rows()

@@ -46,7 +46,7 @@ def _both(plan, sf=SF):
     its JSON."""
     want = _exact(ref_run_query(plan, sf=sf, prepared=True))
     got = _exact(run_query(from_json(RN.to_json(plan)), sf=sf,
-                           device="cpu"))
+                           device="cpu", prepared=True))
     return want, got
 
 
@@ -147,7 +147,7 @@ def test_a_ratio_of_one_keeps_every_row():
     with pytest.raises(OverflowError):
         ref_run_query(plan, sf=SF, prepared=True)
     got = _exact(run_query(from_json(RN.to_json(plan)), sf=SF,
-                           device="cpu"))
+                           device="cpu", prepared=True))
     whole = _exact(ref_run_query(prepare_plan(plan_sql(
         "SELECT count(*) c, sum(totalprice) s, min(orderdate) m "
         "FROM orders"), sf=SF), sf=SF, prepared=True))

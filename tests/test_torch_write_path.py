@@ -107,7 +107,8 @@ def both(text, sf=SF, catalog=None, max_groups=1 << 16, session=None,
     plan = plan_sql(text, max_groups=max_groups, catalog=catalog)
     wire = _wire(plan, sf)
     want = ref_run_query(plan, sf=sf, session=session, **kw)
-    got = run_query(from_json(wire), sf=sf, device="cpu", session=session,
+    got = run_query(from_json(wire), sf=sf, device="cpu", prepared=True,
+                    session=session,
                     **kw)
     assert got.names == list(want.names)
     assert _exact(got) == _exact(want)
