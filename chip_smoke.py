@@ -33,12 +33,19 @@ PyTorch version at the shapes of its path:
   the reference prepared for it, through `run_query`; fused_limb_sums
   again on the lanes q9 handed it (32 groups), timed beside its plain
   version;
-* the two-stage plans of all 22 TPC-H queries (the reference's
-  add_exchanges: PARTIAL -> exchange -> FINAL, the exchange the
-  identity on one card) at scale factor 1, q1, q3, q6 and q14 against
-  the numpy oracles, the rest against their single plans' committed
-  rows; two-stage q1 launches fused_limb_sums in its PARTIAL and its
-  FINAL;
+* the two-stage plans of q1 and q3 (the reference's add_exchanges:
+  PARTIAL -> exchange -> FINAL, the exchange the identity on one
+  device) at scale factor 1 against the numpy oracles; two-stage q1
+  launches fused_limb_sums in its PARTIAL and its FINAL;
+* the mesh (phase_mesh): four workers on the card
+  (`make_mesh(4, devices=("cuda:0",) * 4)`), each REMOTE exchange
+  moving rows between them: q1 at SF1 through the port's own
+  add_exchanges against numpy_q1, fused_limb_sums launched in each
+  worker's PARTIAL and FINAL, its execute timed in turns with
+  one-device q1; q3 and q14 at SF10 with PARTITIONED joins against
+  their oracles, each worker's rows received by each exchange (all
+  non-zero), the reruns, the peak and execute; the 22 two-stage plans
+  at SF1 against their single plans' committed rows;
 * the aggregate statements of the committed corpus: the hash-slot
   group-by (min_by, max_by, checksum, corr, geometric_mean over 6.0M
   rows and 200,000 groups; a 524,288-slot table) alone and two-stage,
@@ -84,7 +91,9 @@ PyTorch version at the shapes of its path:
   (numpy_q1, one fused_limb_sums launch) and a DELETE;
 * the port's own SQL front door (phase_sql): every corpus entry with
   SQL text planned and prepared through presto_tpu_torch.sql's
-  planner, each plan equal to the committed one (the reference's);
+  planner (the 23 two-stage entries prepared for a mesh, through the
+  port's add_exchanges), each plan equal to the committed one (the
+  reference's);
   then statements typed as text through `presto_tpu_torch.sql` at SF1:
   q1 (one fused_limb_sums launch) and q6 against numpy, q3 and q14
   against the committed rows, TPC-DS q47 against the card's rows of
@@ -1447,13 +1456,13 @@ def phase_corpus():
     return reports, second_g[0]
 
 
-# two-stage entries checked against the numpy oracles: the SQL q1
-# keeps columns 0-4 and 9 of numpy_q1's row
-TWO_STAGE_ORACLES = {
-    "q1": (lambda t: [r[:5] + r[9:] for r in numpy_q1(t)], "Q1_TABLES"),
-    "q3": (lambda t: numpy_q3(t), "Q3_TABLES"),
-    "q6": (lambda t: numpy_q6(t), "Q6_TABLES"),
-    "q14": (lambda t: numpy_q14(t), "Q14_TABLES")}
+# the two-stage plans run on one device, each held to its numpy oracle
+# (the SQL q1 keeps columns 0-4 and 9 of numpy_q1's row); phase_mesh
+# runs all 22 on four workers
+TWO_STAGE_ONE_DEVICE = {
+    "q1_two_stage": (lambda t: [r[:5] + r[9:] for r in numpy_q1(t)],
+                     "Q1_TABLES"),
+    "q3_two_stage": (lambda t: numpy_q3(t), "Q3_TABLES")}
 
 
 def _summary(reports):
@@ -1470,30 +1479,23 @@ def _summary(reports):
 def phase_two_stage():
     """The reference's two-stage plan (add_exchanges: PARTIAL -> REMOTE
     exchange -> FINAL, partial TopN/Limit under a GATHER, MERGE over a
-    local Sort) of each of the 22 TPC-H queries through run_query on
-    the card (phase_query, run_query not timed): q1, q3, q6 and q14
-    held to the numpy oracles, the other 18 to the committed rows of
-    their single plans, exactly. Each PARTIAL and FINAL with a keyed
+    local Sort) of q1 and q3 through run_query on one device, where
+    every exchange is the identity (phase_query, run_query not timed),
+    held to the numpy oracles. Each PARTIAL and FINAL with a keyed
     table of <= 64 groups launches fused_limb_sums: two-stage q1 twice.
-    Returns the reports."""
+    phase_mesh runs all 22 two-stage plans on four workers. Returns the
+    reports."""
     from presto_tpu_torch.plan import from_json
     from presto_tpu_torch.queries import load_corpus
     corpus = {k: v for k, v in load_corpus().items()
-              if v["kind"] == "two_stage"}
+              if k in TWO_STAGE_ONE_DEVICE}
     reports = []
     for name in sorted(corpus, key=_corpus_order):
         entry = corpus[name]
-        base = name.split("_")[0]
         small = _small_keyed_aggs(entry["plan"])
-        if base in TWO_STAGE_ORACLES:
-            oracle, tables = TWO_STAGE_ORACLES[base]
-            tables, rows = globals()[tables], _plain_rows
-        else:
-            oracle, tables, rows = (lambda _t, e=entry: e["rows"],
-                                    _scanned_columns(entry["plan"]),
-                                    _exact_rows)
+        oracle, tables = TWO_STAGE_ONE_DEVICE[name]
         rep = phase_query(name, lambda e=entry: from_json(e["plan"]),
-                          oracle, tables, entry["sf"], rows=rows,
+                          oracle, globals()[tables], entry["sf"],
                           run_query_repeats=0)
         launches = rep["launches"]["narrow"]
         rep["small_table_max_groups"] = small
@@ -1508,10 +1510,237 @@ def phase_two_stage():
             raise AssertionError("two-stage q1 must launch fused_limb_sums "
                                  f"in its PARTIAL and its FINAL: {launches}")
         reports.append(rep)
-    if len(reports) != 22:
-        raise AssertionError(f"{len(reports)} two-stage plans, not 22")
+    if len(reports) != len(TWO_STAGE_ONE_DEVICE):
+        raise AssertionError(f"{len(reports)} two-stage plans, not "
+                             f"{len(TWO_STAGE_ONE_DEVICE)}")
     print("two-stage: " + json.dumps(_summary(reports)))
     return reports
+
+
+# ---------------------------------------------------------------------------
+# the mesh: four workers on one card
+# ---------------------------------------------------------------------------
+
+MESH_WORKERS = 4  # the four-chip layout; here all four share cuda:0
+MESH_REPEATS = 5
+
+
+def mesh_plan(plan, sf, join_strategy="broadcast"):
+    """A hand-built plan as_built, distributed by the port's own
+    add_exchanges, its ids relabelled as prepare_plan leaves them."""
+    from presto_tpu_torch.plan import from_json, to_json
+    from presto_tpu_torch.plan.distribute import add_exchanges
+    return from_json(to_json(add_exchanges(
+        as_built(plan, sf), join_strategy=join_strategy, sf=sf)))
+
+
+@contextlib.contextmanager
+def recording_received():
+    """Within the block, each exchange's active rows received by each
+    worker (parallel/exchange.py RECEIVED); yields the list of
+    {"kind", "rows"} filled when the block ends."""
+    from presto_tpu_torch.parallel import exchange as X
+    X.RECEIVED, out = [], []
+    try:
+        yield out
+        out.extend({"kind": kind, "rows": [int(c) for c in counts]}
+                   for kind, counts in X.RECEIVED)
+    finally:
+        X.RECEIVED = None
+
+
+def in_turns(fns, repeats=MESH_REPEATS):
+    """{name: median host wall ms} of each synced fn(), one warm-up run
+    each, then `repeats` rounds that run every fn once in turn."""
+    import torch
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for _ in range(repeats):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def mesh_q1(mesh, sf=SF):
+    """q1 through the port's add_exchanges (PARTIAL -> hash exchange of
+    the partial tables -> FINAL, a MERGE over the Sort) on the mesh: a
+    first run for the ladder, then a counted run; both equal numpy_q1.
+    Every worker's PARTIAL over its quarter of lineitem and every
+    worker's FINAL over the states it received launch fused_limb_sums;
+    the counted run must launch it once in each worker's PARTIAL. Then
+    execute over staged batches against one-device q1, in turns."""
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.exec.runner import execute, stage_scans
+    from presto_tpu_torch.ops import kernels as K
+    want = oracle_rows(numpy_q1, Q1_TABLES, sf)
+    root = mesh_plan(q1_plan(), sf)
+    t0 = time.perf_counter()
+    first = run_query(root, sf=sf, mesh=mesh, prepared=True)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    _reset_launches()
+    with recording_fused() as calls:
+        res = run_query(root, sf=sf, mesh=mesh, prepared=True)
+    launches = dict(K.LAUNCHES)
+    for what, r in (("first run", first), ("counted run", res)):
+        if _plain_rows(r) != want:
+            raise AssertionError(f"mesh q1 ({what}) rows differ from "
+                                 f"numpy_q1:\n got  {_plain_rows(r)}\n "
+                                 f"want {want}")
+    call_rows = [int(c[0].shape[0]) for c in calls]
+    # the kernel against its plain version at the mesh's own shapes: one
+    # worker's PARTIAL over its shard, one FINAL over received states
+    partial_call = next(c for c in calls if c[0].shape[0] > 16 * mesh.size)
+    final_call = next(c for c in calls if c[0].shape[0] <= 16 * mesh.size)
+    plain_err = {
+        "partial": check_fused(*partial_call, "mesh q1's PARTIAL lanes"),
+        "final": check_fused(*final_call, "mesh q1's FINAL states")}
+    del calls, partial_call, final_call
+    partial = [n for n in call_rows if n > 16 * mesh.size]
+    if len(partial) != mesh.size or \
+            launches["fused_limb_sums"] != len(call_rows):
+        raise AssertionError(
+            f"mesh q1 must launch fused_limb_sums once in each of the "
+            f"{mesh.size} workers' PARTIAL: rows of its calls {call_rows}, "
+            f"launches {launches}")
+    single = as_built(q1_plan(), sf)
+    one_batches = run_query_batches(single, sf)
+    mesh_batches = stage_scans(root, sf, mesh.devices[0], mesh=mesh)
+    ms = in_turns({"one_device": lambda: execute(single, one_batches),
+                   "mesh": lambda: execute(root, mesh_batches, mesh=mesh)})
+    del one_batches, mesh_batches
+    rep = {"query": "q1", "sf": sf, "rows": len(want),
+           "first_run_query_ms": first_ms,
+           "capacity_reruns": first.stats["capacity_reruns"],
+           "exchange_slot_reruns": first.stats["exchange_slot_reruns"],
+           "fused_limb_sums": launches["fused_limb_sums"],
+           "fused_limb_sums_rows": call_rows,
+           "fused_limb_sums_max_abs_err": plain_err,
+           "launches": launches, "execute_ms": ms["mesh"],
+           "one_device_execute_ms": ms["one_device"]}
+    print(f"mesh q1: equals numpy_q1 ({len(want)} rows); fused_limb_sums "
+          f"{launches['fused_limb_sums']} launches, of {call_rows} rows "
+          f"(one in each worker's PARTIAL over its shard, then those of "
+          f"each worker's FINAL over the states it received; a PARTIAL "
+          f"and a FINAL call equal the plain version, max abs err "
+          f"{plain_err}); execute "
+          f"{ms['mesh']:.3f}"
+          f" ms on {mesh.size} workers against {ms['one_device']:.3f} ms "
+          f"on one device, in turns")
+    return rep
+
+
+def mesh_join(mesh, name, plan_fn, oracle, tables, sf=SF_JOIN):
+    """A join query with PARTITIONED joins (both sides of each join
+    repartitioned by its keys) on the mesh: run_query's rows against
+    the oracle (its ladder climbed), then one execute over staged
+    batches counting each worker's rows received by each exchange (all
+    must be non-zero) and the device peak, then execute timed."""
+    import torch
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.exec.runner import execute, stage_scans
+    want = oracle_rows(oracle, tables, sf)
+    root = mesh_plan(plan_fn(), sf, "partitioned")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = run_query(root, sf=sf, mesh=mesh, prepared=True)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    first_peak = torch.cuda.max_memory_allocated() / 1e6
+    if _plain_rows(first) != want:
+        raise AssertionError(f"mesh {name} rows differ from the oracle:\n"
+                             f" got  {_plain_rows(first)}\n want {want}")
+    batches = stage_scans(root, sf, mesh.devices[0], mesh=mesh)
+    staged_mb = _staged_bytes([b for ws in batches for b in ws]) / 1e6
+    peak = {}
+    with recording_received() as received, _peak_mb(peak):
+        execute(root, batches, mesh=mesh)
+    empty = [(i, e["kind"]) for i, e in enumerate(received)
+             if not all(e["rows"])]
+    if not received or empty:
+        raise AssertionError(f"mesh {name}: an exchange left a worker "
+                             f"without rows: {received}")
+    ms = wall_ms(lambda: execute(root, batches, mesh=mesh), repeats=2)
+    del batches
+    torch.cuda.empty_cache()
+    rep = {"query": name, "sf": sf, "join_distribution": "PARTITIONED",
+           "rows": len(want), "first_run_query_ms": first_ms,
+           "capacity_reruns": first.stats["capacity_reruns"],
+           "capacity_scale": first.stats["capacity_scale"],
+           "exchange_slot_reruns": first.stats["exchange_slot_reruns"],
+           "received": received, "staged_mb": staged_mb,
+           "execute_peak_mb_above_staged": peak["peak_mb"],
+           "first_run_peak_mb": first_peak, "execute_ms": ms}
+    print(f"mesh {name}: equals its oracle ({len(want)} rows); rows each "
+          f"worker received per exchange {received}; capacity reruns "
+          f"{rep['capacity_reruns']}, exchange slot reruns "
+          f"{rep['exchange_slot_reruns']}; staged {staged_mb:.1f} MB, peak "
+          f"{first_peak:.1f} MB in the first run, {peak['peak_mb']:.1f} MB "
+          f"above the staged batches in execute; execute {ms:.1f} ms")
+    return rep
+
+
+def mesh_two_stage(mesh):
+    """The committed two-stage plans of the 22 TPC-H queries (the
+    reference's add_exchanges) on the mesh at their scale factor (SF1):
+    each equal to the committed rows of its single plan, exactly."""
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.ops import kernels as K
+    from presto_tpu_torch.plan import from_json
+    from presto_tpu_torch.queries import load_corpus
+    corpus = {k: v for k, v in load_corpus().items()
+              if v["kind"] == "two_stage"}
+    out = {}
+    for name in sorted(corpus, key=_corpus_order):
+        e = corpus[name]
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = run_query(from_json(e["plan"]), sf=e["sf"], mesh=mesh,
+                        prepared=True)
+        got = _exact_rows(res)
+        if got != e["rows"]:
+            raise AssertionError(f"mesh {name} rows differ from the "
+                                 f"committed rows:\n got  {got}\n want "
+                                 f"{e['rows']}")
+        out[name] = {"rows": len(got),
+                     "run_query_ms": (time.perf_counter() - t0) * 1e3,
+                     "capacity_reruns": res.stats["capacity_reruns"],
+                     "exchange_slot_reruns": res.stats[
+                         "exchange_slot_reruns"],
+                     "fused_limb_sums": K.LAUNCHES["fused_limb_sums"]}
+    if len(out) != 22:
+        raise AssertionError(f"{len(out)} two-stage plans, not 22")
+    print("mesh two-stage: all 22 equal the committed rows; "
+          + json.dumps(out))
+    return out
+
+
+def phase_mesh():
+    """The mesh tier on the card: make_mesh(4, devices=("cuda:0",) * 4)
+    (four workers on one card: real routing, packing and overflow, each
+    exchange's moves within the card): q1 at SF1 through the port's
+    add_exchanges (mesh_q1), q3 and q14 at SF10 with PARTITIONED joins
+    (mesh_join; BASELINE config 2's partitioned exchange), and the 22
+    two-stage plans at SF1 (mesh_two_stage). Returns the reports and
+    the phase's seconds."""
+    import torch
+    from presto_tpu_torch.parallel import make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh(MESH_WORKERS, devices=("cuda:0",) * MESH_WORKERS)
+    out = {"workers": mesh.size, "q1": mesh_q1(mesh)}
+    torch.cuda.empty_cache()
+    for name, plan_fn, oracle, tables in (
+            ("q3", q3_plan, numpy_q3, Q3_TABLES),
+            ("q14", q14_plan, numpy_q14, Q14_TABLES)):
+        out[name] = mesh_join(mesh, name, plan_fn, oracle, tables)
+    out["two_stage"] = mesh_two_stage(mesh)
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"mesh: the phase took {out['s']:.1f} s")
+    return out
 
 
 def _close_rows(got, want, rel=1e-9):
@@ -2802,17 +3031,19 @@ def plan_difference(got, want, path="", ulps=None):
 
 def _sql_plan_cases():
     """(name, text, sf, planning keywords, committed plan JSON) of every
-    corpus entry with SQL text: the single-stage TPC-H entries at SF1,
-    the 99 TPC-DS queries at their suite and timed scales, the function
-    statements at their sf and the timed ones at SF1."""
+    corpus entry with SQL text: the TPC-H entries at SF1 (a two-stage
+    one prepared for a mesh, so that the port's own add_exchanges
+    distributes it), the 99 TPC-DS queries at their suite and timed
+    scales, the function statements at their sf and the timed ones at
+    SF1."""
     from presto_tpu_torch.queries import (load_corpus, load_functions_corpus,
                                           load_tpcds_corpus)
     out = []
     for name, e in sorted(load_corpus().items()):
-        if not name.endswith("_two_stage"):
-            out.append((name, e["sql"], e["sf"], {
-                "max_groups": e["max_groups"],
-                "join_capacity": e["join_capacity"]}, e["plan"]))
+        out.append((name, e["sql"], e["sf"], {
+            "max_groups": e["max_groups"],
+            "join_capacity": e["join_capacity"],
+            "mesh": name.endswith("_two_stage")}, e["plan"]))
     for name, e in sorted(load_tpcds_corpus().items(), key=lambda kv:
                           _tpcds_order(kv[0])):
         kw = {"catalog": "tpcds", "session": SQL_TPCDS_SESSIONS.get(name)}
@@ -2836,17 +3067,21 @@ def _sql_plan_cases():
 def _sql_plan_times(text, sf, kw):
     """(prepared plan, parse ms, plan ms, prepare ms) of one text through
     the port: parse_sql alone, then plan_sql (its parse included), then
-    prepare_plan."""
+    prepare_plan (for a mesh of MESH_WORKERS workers where kw["mesh"]:
+    add_exchanges among its passes)."""
     from presto_tpu_torch.exec.runner import prepare_plan
+    from presto_tpu_torch.parallel import make_mesh
     from presto_tpu_torch.sql import parse_sql, plan_sql
     session = kw.get("session")
-    kw = {k: v for k, v in kw.items() if k != "session"}
+    mesh = make_mesh(MESH_WORKERS, devices=("cuda:0",) * MESH_WORKERS) \
+        if kw.get("mesh") else None
+    kw = {k: v for k, v in kw.items() if k not in ("session", "mesh")}
     t0 = time.perf_counter()
     parse_sql(text)
     t1 = time.perf_counter()
     plan = plan_sql(text, **kw)
     t2 = time.perf_counter()
-    plan = prepare_plan(plan, sf, session=session)
+    plan = prepare_plan(plan, sf, session=session, mesh=mesh)
     t3 = time.perf_counter()
     return plan, (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3
 
@@ -3114,10 +3349,20 @@ def run_phases(args, start_cpu_workers) -> int:
 
     t_start = time.perf_counter()
     install_host_cache()
-    build_s = phase_environment()
-    kernel_rows = phase_kernels(args.seed, Q1_KERNEL_SHAPES)
+    phase_s = {}
 
-    phase_fused(args.seed)
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            phase_s[name] = time.perf_counter() - t0
+
+    build_s = timed("environment", phase_environment)
+    kernel_rows = timed("kernels", phase_kernels, args.seed,
+                        Q1_KERNEL_SHAPES)
+
+    timed("fused", phase_fused, args.seed)
 
     # the shapes and lanes the main path really hands the kernels
     seen, fused_calls = [], []
@@ -3131,8 +3376,8 @@ def run_phases(args, start_cpu_workers) -> int:
 
     K.limb_partial_sums = recording
     try:
-        q1 = phase_query("q1", q1_plan, numpy_q1, Q1_TABLES, SF,
-                         ("narrow", "wide"), fused_calls=fused_calls)
+        q1 = timed("q1", phase_query, "q1", q1_plan, numpy_q1, Q1_TABLES,
+                   SF, ("narrow", "wide"), fused_calls=fused_calls)
     finally:
         K.limb_partial_sums = per_tile
     print(f"main path per-tile kernel shapes: {sorted(set(seen))}")
@@ -3155,37 +3400,46 @@ def run_phases(args, start_cpu_workers) -> int:
                                     narrow["fused_limb_sums"]))
     del fused_calls
     torch.cuda.empty_cache()
-    q6 = phase_query("q6", q6_plan, numpy_q6, Q6_TABLES, SF)
-    kernel_rows += phase_contains(args.seed)
-    q3 = phase_query("q3", q3_plan, numpy_q3, Q3_TABLES, SF_JOIN)
-    q14 = phase_query("q14", q14_plan, numpy_q14, Q14_TABLES, SF_JOIN)
-    corpus, second_call = phase_corpus()
+    q6 = timed("q6", phase_query, "q6", q6_plan, numpy_q6, Q6_TABLES, SF)
+    kernel_rows += timed("contains", phase_contains, args.seed)
+    q3 = timed("q3", phase_query, "q3", q3_plan, numpy_q3, Q3_TABLES,
+               SF_JOIN)
+    q14 = timed("q14", phase_query, "q14", q14_plan, numpy_q14,
+                Q14_TABLES, SF_JOIN)
+    corpus, second_call = timed("corpus", phase_corpus)
     second = next(r for r in corpus if r["query"] == SECOND_G_QUERY)
     kernel_rows.insert(1, fused_row(second_call, second["launches"][
         "narrow"]["fused_limb_sums"], SECOND_G_QUERY))
     del second_call
     torch.cuda.empty_cache()
     cpu_procs, q1_worker = start_cpu_workers()
-    two_stage = phase_two_stage()
-    aggregates = phase_aggregates()
-    functions = phase_functions()
-    nested = phase_nested(args.seed)
-    tpcds, tpcds_rows = phase_tpcds(
+    two_stage = timed("two_stage", phase_two_stage)
+    mesh = timed("mesh", phase_mesh)
+    aggregates = timed("aggregates", phase_aggregates)
+    functions = timed("functions", phase_functions)
+    nested = timed("nested", phase_nested, args.seed)
+    tpcds, tpcds_rows = timed(
+        "tpcds", phase_tpcds,
         args.out + ".tpcds.jsonl" if args.out else None)
-    exec_ = phase_exec(lambda: wait_q1_rows(q1_worker))
-    tpcds.update(tpcds_cross_check(cpu_procs, tpcds_rows))
-    sql_ = phase_sql(tpcds_rows["q47"])
+    exec_ = timed("exec", phase_exec, lambda: wait_q1_rows(q1_worker))
+    tpcds.update(timed("tpcds_cross_check", tpcds_cross_check, cpu_procs,
+                       tpcds_rows))
+    sql_ = timed("sql", phase_sql, tpcds_rows["q47"])
 
     gpu = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     report = {"kernels": kernel_rows, "queries": [q1, q6, q3, q14, *corpus],
-              "two_stage": two_stage, "aggregates": aggregates,
+              "two_stage": two_stage, "mesh": mesh,
+              "aggregates": aggregates,
               "functions": functions, "nested": nested, "tpcds": tpcds,
               "exec": exec_, "sql": sql_,
-              "build_s": build_s, "host_generation_s": GEN_S, "gpu": gpu,
+              "build_s": build_s, "phase_s": phase_s,
+              "host_generation_s": GEN_S, "gpu": gpu,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "total_s": time.perf_counter() - t_start}
-    print(f"host generation: {GEN_S}; total {report['total_s']:.1f} s")
+    print(f"host generation: {GEN_S}")
+    print(f"seconds by phase: {json.dumps(phase_s)}; total "
+          f"{report['total_s']:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -275,22 +275,21 @@ def _put(arr: np.ndarray, device) -> torch.Tensor:
 def _encode_strings(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Object array of str/None -> ((n, w) uint8 chars, (n,) int32
     lengths), UTF-8, None as the empty string. ASCII text takes a
-    vectorized path through numpy's fixed-width unicode (whose trailing
+    vectorized path through numpy's fixed-width bytes (whose trailing
     NULs are padding, as in any staged chars matrix); anything
     else encodes row by row."""
     n = values.shape[0]
     if n == 0:
         return np.zeros((0, 1), np.uint8), np.zeros(0, np.int32)
-    text = np.where(np.equal(values, None), "", values).astype(str)
-    codes = text.view(np.uint32).reshape(n, -1)
-    if not (codes >= 128).any():
-        chars = codes.astype(np.uint8)
-        nonzero = chars != 0
-        lengths = np.where(nonzero.any(axis=1),
-                           chars.shape[1] - np.argmax(nonzero[:, ::-1],
-                                                      axis=1),
-                           0).astype(np.int32)
-        return chars, lengths
+    missing = np.equal(values, None)
+    text = np.where(missing, "", values) if missing.any() else values
+    try:
+        fixed = text.astype(np.bytes_)
+    except UnicodeEncodeError:
+        fixed = None
+    if fixed is not None:
+        chars = fixed.view(np.uint8).reshape(n, fixed.dtype.itemsize)
+        return chars, np.char.str_len(fixed).astype(np.int32)
     encoded = [b"" if v is None else str(v).encode("utf-8") for v in values]
     max_len = max((len(b) for b in encoded), default=1) or 1
     chars = np.zeros((n, max_len), dtype=np.uint8)
@@ -323,7 +322,7 @@ def from_numpy(ty: T.Type, values: np.ndarray,
         return stage(ty, list(values), top, capacity, device)
     if nulls is None:
         if values.dtype == object:
-            nulls = np.array([v is None for v in values], dtype=bool)
+            nulls = np.equal(values, None).astype(bool)
         else:
             nulls = np.zeros(n, dtype=bool)
     nulls_t = _put(_pad_cast(np.asarray(nulls, dtype=bool), capacity, bool,

@@ -3,14 +3,17 @@
 Counterpart of presto_tpu/exec/runner.py (`prepare_plan`, `QueryResult`,
 `run_query` with its dynamic filtering, memory-pool admission and split
 branch, `stage_scan_split`, the overflow->rerun ladder of
-`_dispatch_ladder` with its per-plan capacity memo, the write roots of
-`_run_write_root`, `_batch_to_result`) for one device. The observability ledgers of the
-reference (stats, datapath, timeline, accuracy) are not part of this
-port yet, nor is its access-control check of write roots (the server
-tier, ROADMAP queue 1 item 14).
+`_dispatch_ladder` with its per-plan capacity memo and, on a mesh, its
+exchange-slot reruns, the write roots of `_run_write_root`,
+`_batch_to_result`) on one device or a mesh of workers
+(parallel/mesh.py). The observability ledgers of the reference (stats,
+datapath, timeline, accuracy) are not part of this port yet, nor is
+its access-control check of write roots (the worker tier, ROADMAP
+queue 1 item 14b).
 
-`run_query` runs on CUDA unless the caller names another device, and
-raises when there is no CUDA device; it never falls back to the CPU.
+`run_query` runs on CUDA unless the caller names another device (or a
+mesh, whose devices it runs on), and raises when there is no CUDA
+device; it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from ..block import (Batch, batch_from_numpy, gather_block, resolve_device,
                      to_numpy)
 from ..connectors import catalog
 from ..ops.aggregation import finalize_states
+from ..parallel.exchange import move_batch, slice_batch
 from ..plan import nodes as N
 from ..plan.stats import capacity_nodes, scale_capacities
 from ..plan.widths import checked_physical_dtypes
@@ -38,7 +42,7 @@ from .planner import compile_plan
 
 __all__ = ["run_query", "prepare_plan", "QueryResult", "resolve_device",
            "stage_scans", "stage_scan_split", "planned_scan_bytes",
-           "execute", "capacity_plan"]
+           "execute", "capacity_plan", "shard_batch", "gather_outputs"]
 
 _PAD = 8  # staged capacities are a multiple of this
 
@@ -55,7 +59,8 @@ class QueryResult:
     # factor it gave a node); "dynamic_filters",
     # "dynamic_filter_rows_pruned", "dynamic_filter_rows_staged" and
     # "dynamic_filter_collect_s"; "reserved_bytes" and
-    # "peak_reserved_bytes" of a memory pool; "staged_bytes" and the
+    # "peak_reserved_bytes" of a memory pool; on a mesh
+    # "exchange_slot_reruns"; "staged_bytes" and the
     # host walls "scan_stage_s", "execute_s" (the ladder, ending in the
     # read of its flags) and "fetch_s"; the split counters of
     # exec/streaming.py and the spill counters of exec/spill.py; a
@@ -119,23 +124,28 @@ def stage_scan_split(conn, node: N.TableScanNode, sf: float, start: int,
                          capacity, device)
 
 
-def _padded(rows: int) -> int:
-    return max(-(-rows // _PAD) * _PAD, _PAD)
+def _padded(rows: int, pad: int = _PAD) -> int:
+    return max(-(-rows // pad) * pad, pad)
 
 
 def _scan_batch(node: N.PlanNode, sf: float, device,
-                dyn_filters=None, stats: Optional[Dict] = None) -> Batch:
-    """One scan's or VALUES node's staged batch. With `dyn_filters`
-    (the scan's domains from exec/dynfilter.py) the host rows outside
-    them are dropped before staging, and the rows pruned and staged go
-    to `stats`."""
+                dyn_filters=None, stats: Optional[Dict] = None,
+                pad: int = _PAD) -> Batch:
+    """One scan's or VALUES node's staged batch, its capacity a multiple
+    of `pad`. With `dyn_filters` (the scan's domains from
+    exec/dynfilter.py) the host rows outside them are dropped before
+    staging, and the rows pruned and staged go to `stats`."""
+    if isinstance(node, N.RemoteSourceNode):
+        raise NotImplementedError(
+            "a RemoteSourceNode's rows come from an upstream fragment's "
+            "task: the worker tier (ROADMAP queue 1 item 14b)")
     if isinstance(node, N.ValuesNode):
-        return _stage_values(node, device)
+        return _stage_values(node, device, pad)
     conn = catalog(node.connector)
     if not dyn_filters:
         return stage_scan_split(
             conn, node, sf, 0, None,
-            _padded(conn.table_row_count(node.table, sf)), device)
+            _padded(conn.table_row_count(node.table, sf), pad), device)
     data, nulls = _host_columns(conn, node, sf)
     keep, pruned = apply_dynamic_filters(data, node.columns, dyn_filters)
     if stats is not None:
@@ -154,14 +164,14 @@ def _add(stats: Dict, name: str, value) -> None:
     stats[name] = stats.get(name, 0) + value
 
 
-def _stage_values(node: N.ValuesNode, device) -> Batch:
+def _stage_values(node: N.ValuesNode, device, pad: int = _PAD) -> Batch:
     """A VALUES node's rows as one batch, as the reference's
     `_scan_batch` builds it: strings and long decimals as object
     columns, other values at their type's dtype with NULL as 0; a
     node without columns (a FROM-less SELECT) is its active rows
     alone."""
     n = len(node.rows)
-    cap = _padded(n)
+    cap = _padded(n, pad)
     if not node.types:
         active = torch.zeros(cap, dtype=torch.bool, device=device)
         active[:n] = True
@@ -181,22 +191,41 @@ def _stage_values(node: N.ValuesNode, device) -> Batch:
                             device=device)
 
 
+def shard_batch(b: Batch, mesh) -> List[Batch]:
+    """A staged batch (capacity a multiple of the mesh's size) cut into
+    contiguous equal shards, worker w's on its own device: the
+    reference's `P(WORKERS_AXIS)` split of axis 0."""
+    step = b.capacity // mesh.size
+    return [slice_batch(b, w * step, (w + 1) * step, d)
+            for w, d in enumerate(mesh.devices)]
+
+
 def stage_scans(root: N.PlanNode, sf: float, device,
                 dynamic_filters: Optional[Dict] = None,
-                stats: Optional[Dict] = None) -> List[Batch]:
+                stats: Optional[Dict] = None, mesh=None) -> List:
     """Staged batches of the plan's scans and VALUES, in compile_plan's
     order, each scan pruned by its `dynamic_filters` entry (what
-    `run_query` collects)."""
+    `run_query` collects). With a mesh each is padded to a multiple of
+    8 x its size, encoded once on the host (one string width and one
+    lane per column for every worker) and cut into the workers' shards,
+    each copied to its worker's device alone (`shard_batch`): one list
+    of batches per scan."""
     dynamic_filters = dynamic_filters or {}
-    return [_scan_batch(n, sf, device, dynamic_filters.get(n.id), stats)
+    if mesh is None:
+        return [_scan_batch(n, sf, device, dynamic_filters.get(n.id),
+                            stats)
+                for n in compile_plan(root).scan_nodes]
+    host = torch.device("cpu")
+    return [shard_batch(_scan_batch(n, sf, host, None, stats,
+                                    pad=_PAD * mesh.size), mesh)
             for n in compile_plan(root).scan_nodes]
 
 
-def planned_scan_bytes(node: N.PlanNode, sf: float) -> int:
+def planned_scan_bytes(node: N.PlanNode, sf: float, pad: int = _PAD) -> int:
     """Planned device footprint of a scan or VALUES input, without
-    generating it: per padded row, the active mask, each column's
-    lane and null mask (a string its declared width, 64 bytes where
-    that is unbounded, and its length)."""
+    generating it: per row padded to a multiple of `pad`, the active
+    mask, each column's lane and null mask (a string its declared
+    width, 64 bytes where that is unbounded, and its length)."""
     if isinstance(node, N.ValuesNode):
         rows, types = len(node.rows), node.types
     else:
@@ -208,7 +237,7 @@ def planned_scan_bytes(node: N.PlanNode, sf: float) -> int:
             per_row += (ty.max_length if ty.max_length < 1 << 20 else 64) + 5
         else:
             per_row += np.dtype(ty.to_dtype()).itemsize + 1
-    return _padded(rows) * per_row
+    return _padded(rows, pad) * per_row
 
 
 # plan fingerprint -> the capacity factors (one per capacity node, in
@@ -256,9 +285,10 @@ def _joins_above(root: N.PlanNode, ids: List[str]) -> Dict[str, set]:
     return out
 
 
-def _dispatch_ladder(root: N.PlanNode, batches: Sequence[Batch],
+def _dispatch_ladder(root: N.PlanNode, batches: Sequence,
                      limb_form: str, default_join_capacity: int,
-                     adaptive: bool = True) -> Tuple[Batch, int, int]:
+                     adaptive: bool = True, mesh=None
+                     ) -> Tuple[object, int, int, int]:
     """Run the plan; when a join or group table overflows, rerun with
     its capacity 4x larger (scale_capacities; a join without an
     out_capacity starts at `default_join_capacity`), up to 1024x, and
@@ -267,23 +297,45 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence[Batch],
     plan at once; an aggregation here grows only when it overflows
     itself, so a join's overflow leaves a small aggregation on its
     small-table path. With `adaptive` off (the session property
-    adaptive_capacity false) the first overflow raises. Returns
-    (output, largest capacity factor, reruns)."""
+    adaptive_capacity false) the first overflow raises. On a mesh an
+    exchange slot that overflowed (and no capacity) reruns the plan
+    with every slot twice as large, as the reference's ladder does (a
+    capacity rerun starts the slots again at their base). Returns
+    (output, largest capacity factor, capacity reruns, slot reruns);
+    on a mesh the output is the workers' batches."""
     fp = _fingerprint(root)
+    if mesh is not None:
+        # a fitted capacity is per worker: its memo is per mesh size
+        fp = f"{fp}@{mesh.size}"
     ids = [n.id for n in capacity_nodes(root)]
     above = _joins_above(root, ids)
     factors = list(_CAPACITY_FEEDBACK.get(fp, (1,) * len(ids)))
-    reruns = 0
+    reruns = slot_reruns = 0
+    slot_scale = 1
     while True:
         plan = compile_plan(
             scale_capacities(root, dict(zip(ids, factors)),
-                             default_join_capacity), limb_form)
-        out, flags = plan.fn(batches)
-        over = [k for k, o in enumerate(flags.tolist()) if o]
-        if not over:
+                             default_join_capacity), limb_form,
+            mesh=mesh, exchange_slot_scale=slot_scale)
+        if mesh is None:
+            out, flags = plan.fn(batches)
+            read = flags.tolist()
+        else:
+            out, flags, slots = plan.fn(batches)
+            read = torch.cat([flags, slots.reshape(1)]).tolist()
+            slots = read.pop()
+        over = [k for k, o in enumerate(read) if o]
+        if not over and (mesh is None or not slots):
             if any(k > 1 for k in factors):
                 _CAPACITY_FEEDBACK[fp] = tuple(factors)
-            return out, max(factors, default=1), reruns
+            return out, max(factors, default=1), reruns, slot_reruns
+        if not over:
+            if slot_scale >= 1 << 20:
+                raise RuntimeError("exchange slot overflow did not "
+                                   "converge")
+            slot_scale *= 2
+            slot_reruns += 1
+            continue
         if not adaptive or \
                 any(factors[k] >= _MAX_CAPACITY_SCALE for k in over):
             raise RuntimeError(
@@ -293,25 +345,41 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence[Batch],
         for k in set(over).union(*(above[ids[k]] for k in over)):
             factors[k] = min(factors[k] * 4, _MAX_CAPACITY_SCALE)
         reruns += 1
+        slot_scale = 1
 
 
-def execute(root: N.PlanNode, batches: Sequence[Batch],
+def execute(root: N.PlanNode, batches: Sequence,
             limb_form: str = "narrow",
-            default_join_capacity: int = 1 << 16) -> Batch:
-    """Run the plan over staged batches through the overflow ladder."""
-    return _dispatch_ladder(root, batches, limb_form,
-                            default_join_capacity)[0]
+            default_join_capacity: int = 1 << 16, mesh=None) -> Batch:
+    """Run the plan over staged batches (on a mesh, stage_scans' lists)
+    through the overflow ladder; a mesh's outputs come back as one
+    batch, the workers' rows in worker order on the first device."""
+    out = _dispatch_ladder(root, batches, limb_form, default_join_capacity,
+                           mesh=mesh)[0]
+    return out if mesh is None else gather_outputs(out, mesh)
+
+
+def gather_outputs(outs: Sequence[Batch], mesh) -> Batch:
+    """The workers' output batches one after another in worker order,
+    on the mesh's first device: the reference's concatenation of the
+    `P(WORKERS_AXIS)` shards."""
+    from ..block import concat_batches
+    dev = mesh.devices[0]
+    return concat_batches([move_batch(b, dev) for b in outs])
 
 
 def prepare_plan(root: N.PlanNode, sf: float = 0.01,
-                 session=None) -> N.PlanNode:
+                 session=None, mesh=None) -> N.PlanNode:
     """The plan-shaping pipeline run_query applies before lowering, in
     the reference's order and under its session properties: rule-based
     simplification and channel pruning (iterative_optimizer), cost-based
     join reordering and a second simplification sweep
     (join_reordering_strategy), distinct-count capacity refinement
     (stats_capacity_refinement), narrow-width annotation
-    (narrow_width_execution) and the plan checker. Write and DDL roots
+    (narrow_width_execution), with a mesh the exchanges of
+    plan/distribute.py::add_exchanges (join_distribution_type
+    BROADCAST, the default, PARTITIONED or AUTOMATIC), and the plan
+    checker (its distributed rules with a mesh). Write and DDL roots
     pass through untouched: their inner SELECT is prepared when the
     writer re-enters run_query.
 
@@ -322,12 +390,11 @@ def prepare_plan(root: N.PlanNode, sf: float = 0.01,
     of a node they change, and everything keyed by node id (lowering,
     the capacity ladder, dynamic filters) needs one node per id.
 
-    Three passes of the reference's pipeline are not here:
+    Two passes of the reference's pipeline are not here:
     `push_scan_predicates` marks pushdown-capable scans, which no
-    catalog of the port has (it comes with the file connectors, ROADMAP
-    queue 1 item 12.5); `add_exchanges` runs only with a mesh (item
-    14, which adds the mesh parameter with it); `stamp_estimates` feeds
-    the observability ledgers (item 15)."""
+    catalog of the port has (it comes with the file connectors, which
+    wait for pyarrow, ROADMAP queue 1 item 12.5); `stamp_estimates`
+    feeds the observability ledgers (item 15)."""
     inner = root.source if isinstance(root, N.OutputNode) else root
     if isinstance(inner, N.WRITE_ROOTS):
         return root
@@ -350,7 +417,13 @@ def prepare_plan(root: N.PlanNode, sf: float = 0.01,
         root = refine_capacities(root, sf)
     if narrow_enabled(session):
         root = annotate_widths(root, sf)
-    violations = validate_plan(root)
+    if mesh is not None:
+        from ..plan.distribute import add_exchanges
+        jd = session_value(session, "join_distribution_type")
+        strategy = {"PARTITIONED": "partitioned",
+                    "AUTOMATIC": "automatic"}.get(jd, "broadcast")
+        root = add_exchanges(root, join_strategy=strategy, sf=sf)
+    violations = validate_plan(root, distributed=mesh is not None)
     if violations:
         raise ValueError("plan not executable by the engine "
                          f"(PlanChecker): {violations}")
@@ -385,12 +458,18 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
     Session properties read (the reference's names): those of
     prepare_plan, dynamic_filtering (default on), adaptive_capacity
     (default on), hbm_budget_bytes, spill_path and
-    spill_file_threshold_bytes."""
-    if mesh is not None:
-        raise NotImplementedError("a mesh is not ported yet (ROADMAP queue 1 "
-                                  "item 14: parallel/ and the worker tier)")
-    dev = resolve_device(device)
-    kw = dict(sf=sf, device=dev, limb_form=limb_form,
+    spill_file_threshold_bytes.
+
+    With a `mesh` (parallel/mesh.py::make_mesh) the plan runs on its
+    workers, on the mesh's devices (`device` is not read):
+    prepare_plan adds the exchanges, each scan is padded to a multiple
+    of 8 x the mesh's size and cut into contiguous shards, one a worker
+    (`shard_batch`), the ladder also reruns with larger exchange slots
+    (`exchange_slot_reruns`), and the result is the workers' rows in
+    worker order. Dynamic filtering and split streaming stay off, as in
+    the reference."""
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
+    kw = dict(sf=sf, device=dev, limb_form=limb_form, mesh=mesh,
               default_join_capacity=default_join_capacity,
               split_rows=split_rows, hbm_budget_bytes=hbm_budget_bytes,
               session=session, memory_pool=memory_pool, query_id=query_id)
@@ -398,15 +477,15 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
     if isinstance(inner, N.WRITE_ROOTS):
         return _run_write_root(inner, **kw)
     if not prepared:
-        root = prepare_plan(root, sf, session=session)
+        root = prepare_plan(root, sf, session=session, mesh=mesh)
     stats: Dict[str, float] = {}
-    if split_rows is not None:
+    if split_rows is not None and mesh is None:
         res = _run_split(root, sf, dev, limb_form, split_rows,
                          hbm_budget_bytes, session, stats)
         if res is not None:
             return res
     dyn_filters = {}
-    if session_flag(session, "dynamic_filtering", True):
+    if mesh is None and session_flag(session, "dynamic_filtering", True):
         t0 = time.perf_counter()
         dyn_filters = collect_dynamic_filters(root, sf, dev)
         stats["dynamic_filter_collect_s"] = time.perf_counter() - t0
@@ -417,19 +496,26 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
     if memory_pool is not None:
         # admission: the planned scan bytes are charged before anything
         # is staged, so a refusal comes before the device runs out
-        reserved = sum(planned_scan_bytes(s, sf)
+        pad = _PAD * (mesh.size if mesh is not None else 1)
+        reserved = sum(planned_scan_bytes(s, sf, pad)
                        for s in compile_plan(root).scan_nodes)
         memory_pool.reserve(query_id, reserved)
         stats["reserved_bytes"] = reserved
     try:
         t0 = time.perf_counter()
-        batches = stage_scans(root, sf, dev, dyn_filters, stats)
-        stats["staged_bytes"] = sum(batch_bytes(b) for b in batches)
+        batches = stage_scans(root, sf, dev, dyn_filters, stats, mesh=mesh)
+        stats["staged_bytes"] = sum(
+            batch_bytes(b) for b in (batches if mesh is None else
+                                     [w for ws in batches for w in ws]))
         t1 = time.perf_counter()
-        out, scale, reruns = _dispatch_ladder(
+        out, scale, reruns, slot_reruns = _dispatch_ladder(
             root, batches, limb_form, default_join_capacity,
-            adaptive=session_flag(session, "adaptive_capacity", True))
+            adaptive=session_flag(session, "adaptive_capacity", True),
+            mesh=mesh)
         del batches
+        if mesh is not None:
+            out = gather_outputs(out, mesh)
+            stats["exchange_slot_reruns"] = slot_reruns
         t2 = time.perf_counter()
         res = _batch_to_result(out, root)
         stats.update(scan_stage_s=t1 - t0, execute_s=t2 - t1,
@@ -538,7 +624,7 @@ def _run_write_root(node: N.PlanNode, **kw) -> QueryResult:
     if not isinstance(src, N.TableWriterNode):
         raise NotImplementedError(
             "a TableFinish over per-task counts is the worker tier's "
-            "(ROADMAP queue 1 item 14)")
+            "(ROADMAP queue 1 item 14b)")
     h = mod.begin_insert(
         node.table,
         create_columns=node.create_columns if node.create else None,

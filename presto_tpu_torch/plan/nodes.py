@@ -1,7 +1,7 @@
 """Plan nodes: the worker-visible plan vocabulary this port executes.
 
 Counterpart of presto_tpu/plan/nodes.py, trimmed to the nodes of the
-ported plan shapes: TableScan, Values, Filter, Project, Aggregation
+ported plan shapes: TableScan, Values, RemoteSource, Filter, Project, Aggregation
 (SINGLE, PARTIAL, INTERMEDIATE, FINAL), Join, SemiJoin, Sort, TopN,
 Limit, Distinct, Union, Sample, AssignUniqueId, MarkDistinct, Window,
 RowNumber, GroupId, Unnest, Exchange and Output, and the write roots
@@ -11,9 +11,7 @@ Channels are already resolved to indices.
 
 `from_json` reads the dict that presto_tpu.plan.nodes.to_json writes,
 and `to_json` writes the same dict: that JSON is the plan-fragment wire
-format a worker parses, so the port reads it as data. Node kinds the
-port does not run yet raise NotImplementedError naming the ROADMAP item
-that ports them.
+format a worker parses, so the port reads it as data.
 """
 
 from __future__ import annotations
@@ -27,7 +25,8 @@ from .. import types as T
 from ..expr import ir as E
 from ..ops.aggregation import AggSpec, state_types
 
-__all__ = ["PlanNode", "TableScanNode", "ValuesNode", "FilterNode",
+__all__ = ["PlanNode", "TableScanNode", "ValuesNode", "RemoteSourceNode",
+           "FilterNode",
            "ProjectNode",
            "AggregationNode", "JoinNode", "SemiJoinNode", "SortNode",
            "TopNNode", "LimitNode", "DistinctNode", "UnionNode",
@@ -67,6 +66,20 @@ class TableScanNode(PlanNode):
 
     def output_types(self):
         return list(self.column_types)
+
+
+@dataclasses.dataclass
+class RemoteSourceNode(PlanNode):
+    """Input fed by the output of an upstream plan fragment
+    (plan/fragment.py cuts a plan at its REMOTE exchanges and names the
+    producer by `fragment_id`). On the mesh no plan is cut: a fragment's
+    batch arrives only through the worker tier (ROADMAP queue 1 item
+    14b), so lowering one raises."""
+    types: List[T.Type]
+    fragment_id: int = -1
+
+    def output_types(self):
+        return list(self.types)
 
 
 @dataclasses.dataclass
@@ -508,12 +521,6 @@ class OutputNode(PlanNode):
 # JSON (the plan-fragment wire shape)
 # ---------------------------------------------------------------------------
 
-# node kinds of presto_tpu's wire format this port does not run yet
-_NOT_PORTED = {
-    "remotesource": "queue 1 item 14 (parallel/ and the worker tier)",
-}
-
-
 def _agg_to_json(a: AggSpec) -> dict:
     out = {"name": a.name, "input": a.input_channel,
            "type": str(a.output_type)}
@@ -545,6 +552,10 @@ def to_json(n: PlanNode) -> dict:
         if n.physical_dtypes is not None:
             j["physicalDtypes"] = list(n.physical_dtypes)
         return j
+    if isinstance(n, RemoteSourceNode):
+        return {**base, "@type": "remotesource",
+                "types": [str(t) for t in n.types],
+                "fragmentId": n.fragment_id}
     if isinstance(n, ValuesNode):
         return {**base, "@type": "values", "types": [str(t) for t in n.types],
                 "rows": n.rows}
@@ -734,6 +745,9 @@ def _node_from_json(j: dict, sub) -> PlanNode:
                             j["maxGroups"], **kw)
     if t == "union":
         return UnionNode([sub(s) for s in j["inputs"]], **kw)
+    if t == "remotesource":
+        return RemoteSourceNode([T.parse_type(x) for x in j["types"]],
+                                j["fragmentId"], **kw)
     if t == "values":
         return ValuesNode([T.parse_type(x) for x in j["types"]], j["rows"],
                           **kw)
@@ -784,7 +798,4 @@ def _node_from_json(j: dict, sub) -> PlanNode:
                                **kw)
     if t == "output":
         return OutputNode(sub(j["source"]), j["names"], **kw)
-    if t in _NOT_PORTED:
-        raise NotImplementedError(
-            f"plan node {t!r} is not ported yet: ROADMAP {_NOT_PORTED[t]}")
     raise ValueError(f"unknown plan node kind {t!r}")

@@ -35,6 +35,8 @@ def _cases():
                              dtype=object), None, None),
         ("char(1)", np.array(["A", "N", "R", "A", "N", "F"], dtype=object),
          None, None),
+        ("varchar(8)", np.array(["ab", None, "", "xyz  ", None, "A"],
+                                dtype=object), None, None),
         ("boolean", np.array([True, False, True, True, False, False]),
          None, None),
         ("double", np.array([0.5, -1.25, 1e300, -0.0, 3.0, 7.0]), None,

@@ -53,7 +53,9 @@ def test_sources_found():
                    "ops/aggregation.py", "plan/stats.py", "plan/nodes.py",
                    "expr/compile.py", "expr/functions.py",
                    "connectors/tpch/generator.py", "exec/planner.py",
-                   "exec/runner.py"):
+                   "exec/runner.py", "parallel/mesh.py",
+                   "parallel/exchange.py", "parallel/stages.py",
+                   "plan/distribute.py", "plan/fragment.py", "verifier.py"):
         assert os.path.join("presto_tpu_torch", *module.split("/")) in names
 
 

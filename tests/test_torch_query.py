@@ -20,8 +20,10 @@ from presto_tpu.plan import nodes as RN
 from presto_tpu.queries.tpch_queries import Q1_COLUMNS, Q6_COLUMNS
 
 import presto_tpu_torch
+from presto_tpu_torch import types as PT
 from presto_tpu_torch.exec import run_query
 from presto_tpu_torch.plan import from_json
+from presto_tpu_torch.plan import nodes as PN
 
 SF = 0.01
 D2 = RT.decimal(12, 2)
@@ -169,6 +171,12 @@ def test_out_of_slice_plans_raise_naming_the_roadmap():
     want = ref_run_query(RN.from_json(unnest), sf=SF)
     assert want.row_count == 10
     assert _port(unnest).rows() == want.rows()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        run_query(from_json(RN.to_json(q6_plan())), sf=SF, device="cpu",
-                  mesh=object())
+    # a mesh, which earlier slices refused, runs q6 on two CPU workers;
+    # a fragment's remote source is the worker tier's (item 14b)
+    from presto_tpu_torch.parallel import make_mesh
+    mesh = run_query(from_json(RN.to_json(q6_plan())), sf=SF,
+                     mesh=make_mesh(2, devices=("cpu", "cpu")))
+    assert mesh.rows() == ref_run_query(q6_plan(), sf=SF).rows()
+    remote = PN.OutputNode(PN.RemoteSourceNode([PT.BIGINT], 0), ["x"])
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        run_query(remote, sf=SF, device="cpu", prepared=True)
