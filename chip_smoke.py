@@ -99,7 +99,22 @@ PyTorch version at the shapes of its path:
   against the committed rows, TPC-DS q47 against the card's rows of
   its committed plan, two function statements against the reference's
   SF1 rows, q6 as PREPARE/EXECUTE, SHOW COLUMNS, and CTAS into
-  memory.l, q1 over it (one launch) and DROP TABLE.
+  memory.l, q1 over it (one launch) and DROP TABLE;
+* the worker tier (phase_cluster, last): a DiscoveryServer and two
+  HTTP workers (presto_tpu_torch.server.TpuWorkerServer) on the card,
+  the Coordinator scheduling plan fragments on the workers discovery
+  finds, rows moving between them as SerializedPages over HTTP: q1 at
+  SF1 through distribute_simple_agg (each worker's PARTIAL over its
+  half of lineitem launches fused_limb_sums once, the FINAL over the
+  pulled pages 1-3 times; one call of each against the plain version),
+  in turns with q1 on one device; q3 at SF1 with PARTITIONED joins
+  across the workers against numpy_q3; q1 from add_exchanges (HASH
+  exchange, FINAL, a SORTED gather merged on the host) against
+  numpy_q1 in order; "all_at_once" against "phased"; a task failed
+  once by the worker.run_task failpoint and retried; and a worker in a
+  child process (`chip_smoke.py --cluster-worker URL`). Each task's
+  rows, page bytes, pages pulled, serialize and pull ms and execute ms
+  are printed, and the coordinator's wall.
 
 Each query runs once to climb its overflow ladder, then once more with
 every kernel count set to 0 just before: that second run starts at the
@@ -1743,6 +1758,313 @@ def phase_mesh():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the worker tier: HTTP workers on the card, scheduled by the coordinator
+# ---------------------------------------------------------------------------
+
+CLUSTER_WORKERS = 2
+CLUSTER_ROUNDS = 2  # q1 on the cluster and on one device, in turns
+# the counted runs must execute: a replay from a worker's fragment
+# result cache would launch nothing
+CLUSTER_SESSION = {"fragment_result_cache": False}
+
+
+@contextlib.contextmanager
+def recording_fused_by_task():
+    """Within the block, every fused_limb_sums call on the card with the
+    task that made it (a worker runs task <id> on a thread named
+    task-<id>); yields the list of (task id, call)."""
+    import threading
+    from presto_tpu_torch.ops import kernels as K
+    fused, calls = K.fused_limb_sums, []
+
+    def recording(ids, sources, requests, groups, **kw):
+        if ids.is_cuda:
+            name = threading.current_thread().name
+            calls.append((name[len("task-"):] if name.startswith("task-")
+                          else name, (ids, sources, requests, groups)))
+        return fused(ids, sources, requests, groups, **kw)
+
+    K.fused_limb_sums = recording
+    try:
+        yield calls
+    finally:
+        K.fused_limb_sums = fused
+
+
+def cluster_rows(cols, names):
+    """The coordinator's columns in numpy_q1's form."""
+    from presto_tpu_torch.exec.runner import QueryResult
+    return _plain_rows(QueryResult([v for v, _ in cols],
+                                   [m for _, m in cols], names,
+                                   len(cols[0][0]) if cols else 0))
+
+
+def task_report(coord):
+    """Each task of the coordinator's last query: its fragment and
+    worker, the rows and page bytes it produced, its staging and
+    execute ms, and its exchange: pages and bytes pulled and sent, the
+    pull's and the serialization's ms."""
+    out = []
+    for t in coord.last_task_stats:
+        st = t["stats"]
+        qs = st.get("queryStats") or {}
+        out.append({
+            "fragment": t["fragment"], "task": t["task"],
+            "worker": t["url"], "rows": st.get("outputRows"),
+            "bytes": st.get("outputBytes"),
+            "run_query_ms": st.get("wallSeconds", 0.0) * 1e3,
+            "stage_ms": qs.get("scan_stage_s", 0.0) * 1e3,
+            "execute_ms": qs.get("execute_s", 0.0) * 1e3,
+            "fetch_ms": qs.get("fetch_s", 0.0) * 1e3,
+            "pages_in": qs.get("exchange_pages_in", 0),
+            "page_bytes_in": qs.get("exchange_page_bytes_in", 0),
+            "pull_ms": qs.get("exchange_pull_s", 0.0) * 1e3,
+            "pages_out": qs.get("exchange_pages_out", 0),
+            "page_bytes_out": qs.get("exchange_page_bytes_out", 0),
+            "serialize_ms": qs.get("exchange_serialize_s", 0.0) * 1e3})
+    return out
+
+
+def _print_tasks(name, rep):
+    for t in rep["tasks"]:
+        print(f"cluster {name}: f{t['fragment']} {t['task']} on "
+              f"{t['worker']}: {t['rows']} rows, {t['bytes']} page bytes "
+              f"out in {t['pages_out']} pages (serialize "
+              f"{t['serialize_ms']:.3f} ms); {t['pages_in']} pages, "
+              f"{t['page_bytes_in']} bytes pulled in {t['pull_ms']:.3f} ms; "
+              f"stage {t['stage_ms']:.3f} ms, execute "
+              f"{t['execute_ms']:.3f} ms")
+    print(f"cluster {name}: coordinator wall {rep['wall_ms']:.3f} ms")
+
+
+def cluster_run(coord, name, plan, want, **kw):
+    """One query through the coordinator: its rows against `want` (in
+    order) and its tasks' report."""
+    t0 = time.perf_counter()
+    cols, names = coord.execute(plan, sf=SF, session=CLUSTER_SESSION, **kw)
+    wall = (time.perf_counter() - t0) * 1e3
+    got = cluster_rows(cols, names)
+    if got != want:
+        raise AssertionError(f"cluster {name} rows differ from the "
+                             f"oracle:\n got  {got}\n want {want}")
+    rep = {"query": name, "rows": len(got), "wall_ms": wall,
+           "tasks": task_report(coord)}
+    _print_tasks(name, rep)
+    return rep
+
+
+def cluster_q1(coord):
+    """q1 at SF1 through distribute_simple_agg: a PARTIAL task per
+    worker over its half of lineitem, a FINAL task over their pages.
+    Round by round, in turns with run_query of q1 on one device. The
+    first round is counted: each PARTIAL task launches fused_limb_sums
+    once over its ~3.0M rows, the FINAL 1-3 times; one PARTIAL and one
+    FINAL call equal the plain version."""
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.ops import kernels as K
+    from presto_tpu_torch.plan.fragment import distribute_simple_agg
+    want = oracle_rows(numpy_q1, Q1_TABLES, SF)
+    plan = distribute_simple_agg(q1_plan())
+    rounds = []
+    counted = None
+    for r in range(CLUSTER_ROUNDS):
+        _reset_launches()
+        with recording_fused_by_task() as calls:
+            rep = cluster_run(coord, f"q1 round {r}", plan, want)
+        launches = K.LAUNCHES["fused_limb_sums"]
+        if counted is None:
+            counted = (rep, calls, launches)
+        else:
+            del calls
+        t0 = time.perf_counter()
+        one = run_query(q1_plan(), sf=SF)
+        one_ms = (time.perf_counter() - t0) * 1e3
+        if _plain_rows(one) != want:
+            raise AssertionError("one-device q1 rows differ from numpy_q1")
+        rep.update(one_device_run_query_ms=one_ms,
+                   one_device_execute_ms=one.stats["execute_s"] * 1e3)
+        rounds.append(rep)
+        print(f"cluster q1 round {r}: coordinator {rep['wall_ms']:.3f} ms, "
+              f"one-device run_query {one_ms:.3f} ms (execute "
+              f"{rep['one_device_execute_ms']:.3f} ms)")
+    rep, calls, launches = counted
+    per_task = {}
+    for tid, call in calls:
+        per_task.setdefault(tid, []).append(int(call[0].shape[0]))
+    frag_of = {t["task"]: t["fragment"] for t in rep["tasks"]}
+    partial = {t: n for t, n in per_task.items() if frag_of.get(t) == 0}
+    final = {t: n for t, n in per_task.items() if frag_of.get(t) == 1}
+    from presto_tpu_torch.connectors import tpch
+    share = tpch.table_row_count("lineitem", SF) // CLUSTER_WORKERS
+    if launches != len(calls) or len(partial) != CLUSTER_WORKERS \
+            or any(len(n) != 1 for n in partial.values()) \
+            or not all(share <= n[0] < share + 16
+                       for n in partial.values()) \
+            or len(final) != 1 \
+            or not all(1 <= len(n) <= 3 for n in final.values()) \
+            or set(per_task) - set(frag_of):
+        raise AssertionError(
+            f"cluster q1 must launch fused_limb_sums once in each of the "
+            f"{CLUSTER_WORKERS} PARTIAL tasks over ~3.0M rows and 1-3 times "
+            f"in the FINAL: rows of each task's calls {per_task}, tasks "
+            f"{frag_of}, launches {launches}")
+    part_call = next(c for t, c in calls if t in partial)
+    final_call = next(c for t, c in calls if t in final)
+    err = {"partial": check_fused(*part_call, "cluster q1's PARTIAL lanes"),
+           "final": check_fused(*final_call, "cluster q1's FINAL pages")}
+    del calls, part_call, final_call
+    print(f"cluster q1: equals numpy_q1; fused_limb_sums launches per task "
+          f"{per_task} ({launches} in all), a PARTIAL and a FINAL call "
+          f"equal the plain version (max abs err {err})")
+    return {"rounds": rounds, "fused_limb_sums": launches,
+            "fused_limb_sums_rows_by_task": per_task,
+            "fused_limb_sums_max_abs_err": err}
+
+
+def _arm_failpoint(url, site, spec):
+    import urllib.request
+    req = urllib.request.Request(
+        f"{url}/v1/failpoint", method="POST",
+        data=json.dumps({"site": site, "spec": spec}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=10) as r:
+        return json.loads(r.read())
+
+
+def start_cluster_worker(discovery_url):
+    """A worker in a process of its own (chip_smoke.py --cluster-worker),
+    on the card, announcing to `discovery_url`. Returns (process, its
+    URL) once it serves."""
+    import queue
+    import threading
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cluster-worker",
+         discovery_url], stdout=subprocess.PIPE, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    deadline = time.time() + 180
+    while time.time() < deadline:
+        try:
+            line = lines.get(timeout=1.0)
+        except queue.Empty:
+            if proc.poll() is not None:
+                break
+            continue
+        if line.startswith("cluster worker "):
+            return proc, line.split()[-1]
+    proc.kill()
+    proc.wait()
+    raise RuntimeError("the child worker did not start serving")
+
+
+def serve_cluster_worker(discovery_url):
+    """The child of start_cluster_worker: a worker on the card that
+    serves until it is killed."""
+    import threading
+    from presto_tpu_torch.server import TpuWorkerServer
+    w = TpuWorkerServer(sf=SF, discovery_url=discovery_url,
+                        announce_interval_s=0.5).start()
+    print(f"cluster worker {w.url}", flush=True)
+    threading.Event().wait()
+
+
+def phase_cluster():
+    """The worker tier on the card: a DiscoveryServer and two
+    TpuWorkerServers on cuda:0 announcing to it, the Coordinator taking
+    its workers from alive_nodes. q1 at SF1 through
+    distribute_simple_agg (cluster_q1, counted launches); q3 at SF1 from
+    the port's add_exchanges with PARTITIONED joins against numpy_q3; q1
+    again from add_exchanges (PARTIAL, HASH exchange, FINAL, a SORTED
+    gather merged by merge_permutation) against numpy_q1 in order;
+    "all_at_once" against "phased"; worker.run_task armed to fail once
+    on one worker (POST /v1/failpoint), the rows unchanged; a worker in
+    a child process, q1 across the process boundary. Returns the
+    reports and the phase's seconds."""
+    import torch
+    from presto_tpu_torch import failpoints
+    from presto_tpu_torch.plan.distribute import add_exchanges
+    from presto_tpu_torch.plan.fragment import (distribute_simple_agg,
+                                                fragment_plan)
+    from presto_tpu_torch.server import Coordinator, TpuWorkerServer
+    from presto_tpu_torch.server.discovery import (DiscoveryServer,
+                                                   alive_nodes)
+    t0 = time.perf_counter()
+    disc = DiscoveryServer().start()
+    workers, child = [], None
+    try:
+        workers = [TpuWorkerServer(sf=SF, discovery_url=disc.url,
+                                   announce_interval_s=0.5).start()
+                   for _ in range(CLUSTER_WORKERS)]
+        deadline = time.time() + 30
+        while len(alive_nodes(disc.url)) < CLUSTER_WORKERS:
+            if time.time() > deadline:
+                raise RuntimeError("the workers did not announce")
+            time.sleep(0.05)
+        coord = Coordinator(discovery_url=disc.url)
+        out = {"workers": CLUSTER_WORKERS, "q1": cluster_q1(coord)}
+        torch.cuda.empty_cache()
+
+        want_q3 = oracle_rows(numpy_q3, Q3_TABLES, SF)
+        q3 = add_exchanges(q3_plan(), join_strategy="partitioned", sf=SF)
+        hashed = sum(f.partitioning == "HASH" for f in fragment_plan(q3))
+        if hashed < 3:
+            raise AssertionError(f"q3's plan has {hashed} HASH fragments")
+        out["q3"] = cluster_run(coord, "q3", q3, want_q3)
+        out["q3"]["hash_fragments"] = hashed
+        torch.cuda.empty_cache()
+
+        want_q1 = oracle_rows(numpy_q1, Q1_TABLES, SF)
+        q1x = add_exchanges(q1_plan(), sf=SF)
+        parts = [f.partitioning for f in fragment_plan(q1x)]
+        if parts != ["HASH", "SORTED", "SINGLE"]:
+            raise AssertionError(f"q1 from add_exchanges: fragments {parts}")
+        out["q1_exchanges"] = cluster_run(coord, "q1 (add_exchanges)", q1x,
+                                          want_q1)
+        out["q1_exchanges"]["fragments"] = parts
+
+        simple = distribute_simple_agg(q1_plan())
+        out["q1_all_at_once"] = cluster_run(
+            coord, "q1 (all_at_once)", simple, want_q1, policy="all_at_once")
+
+        _arm_failpoint(workers[1].url, "worker.run_task",
+                       "error(RuntimeError):once")
+        try:
+            out["q1_failover"] = cluster_run(coord, "q1 (failover)", simple,
+                                             want_q1)
+            fired = failpoints.active()["worker.run_task"]["fires"]
+        finally:
+            failpoints.disarm_all()
+        retried = [t["task"] for t in out["q1_failover"]["tasks"]
+                   if ".r" in t["task"]]
+        if fired != 1 or not retried:
+            raise AssertionError(f"failover: worker.run_task fired {fired} "
+                                 f"times, retried tasks {retried}")
+        out["q1_failover"]["retried"] = retried
+
+        t1 = time.perf_counter()
+        child, child_url = start_cluster_worker(disc.url)
+        out["child_start_s"] = time.perf_counter() - t1
+        across = Coordinator([workers[0].url, child_url])
+        out["q1_child_process"] = cluster_run(across, "q1 (child process)",
+                                              simple, want_q1)
+        if child_url not in {t["worker"] for t in
+                             out["q1_child_process"]["tasks"]}:
+            raise AssertionError("no task ran in the child process")
+    finally:
+        if child is not None:
+            child.kill()
+            child.wait()
+        for w in workers:
+            w.stop()
+        disc.stop()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"cluster: the phase took {out['s']:.1f} s")
+    return out
+
+
 def _close_rows(got, want, rel=1e-9):
     """Rows in exact form equal, doubles (float.hex) within `rel`: the
     moment sums add in another order on the card."""
@@ -3304,6 +3626,9 @@ def main(argv=None) -> int:
                          "claims in DIR on the CPU, their rows to --out")
     ap.add_argument("--q1-rows", metavar="SF", type=float,
                     help="a worker: numpy_q1's rows at SF to --out")
+    ap.add_argument("--cluster-worker", metavar="DISCOVERY_URL",
+                    help="a worker of phase_cluster: serve on the card, "
+                         "announced to DISCOVERY_URL, until killed")
     args = ap.parse_args(argv)
 
     import torch
@@ -3318,6 +3643,9 @@ def main(argv=None) -> int:
         return 0
     if args.q1_rows is not None:
         q1_rows(args.q1_rows, args.out)
+        return 0
+    if args.cluster_worker:
+        serve_cluster_worker(args.cluster_worker)
         return 0
 
     import tempfile
@@ -3425,6 +3753,7 @@ def run_phases(args, start_cpu_workers) -> int:
     tpcds.update(timed("tpcds_cross_check", tpcds_cross_check, cpu_procs,
                        tpcds_rows))
     sql_ = timed("sql", phase_sql, tpcds_rows["q47"])
+    cluster = timed("cluster", phase_cluster)
 
     gpu = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
@@ -3432,7 +3761,7 @@ def run_phases(args, start_cpu_workers) -> int:
               "two_stage": two_stage, "mesh": mesh,
               "aggregates": aggregates,
               "functions": functions, "nested": nested, "tpcds": tpcds,
-              "exec": exec_, "sql": sql_,
+              "exec": exec_, "sql": sql_, "cluster": cluster,
               "build_s": build_s, "phase_s": phase_s,
               "host_generation_s": GEN_S, "gpu": gpu,
               "torch": torch.__version__, "cuda": torch.version.cuda,

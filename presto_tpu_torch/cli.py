@@ -7,7 +7,7 @@ presto_tpu/cli.py: the statement runs in this process through
   python -m presto_tpu_torch.cli              # REPL
 
 EXPLAIN (`plan/explain.py`, ROADMAP queue 1 item 15), `--trace` (the
-tracer, item 15) and `--server` (the client protocol, item 14b) are not
+tracer, item 15) and `--server` (the client protocol, item 14c) are not
 ported yet and raise NotImplementedError.
 """
 
@@ -90,8 +90,8 @@ def main(argv=None) -> int:
                                   "queue 1 item 15: the tracer)")
     if args.server:
         raise NotImplementedError("--server is not ported yet (ROADMAP "
-                                  "queue 1 item 14b: the client protocol "
-                                  "and the worker tier)")
+                                  "queue 1 item 14c: the client protocol "
+                                  "and the statement server)")
 
     if args.query:
         return run_one(args.query, args.sf, args.device, args.catalog)

@@ -32,7 +32,8 @@ __all__ = ["SCHEMA", "create_table", "drop_table", "reset",
            "table_row_count", "generate_columns", "generate_nulls",
            "generate_batch", "column_type", "column_range",
            "begin_insert", "append", "finish_insert", "abort_insert",
-           "replace_table", "write_lock", "table_version", "table_names"]
+           "replace_table", "write_lock", "table_version", "table_names",
+           "data_version"]
 
 
 class _Table:
@@ -287,6 +288,12 @@ def abort_insert(handle: str) -> None:
         st = _pending.pop(handle, None)
         if st is not None and st["created"]:
             _tables.pop(st["table"], None)
+
+
+def data_version(table: str) -> int:
+    """The fragment result cache's key part: the table's mutation
+    counter."""
+    return table_version(table)
 
 
 def replace_table(name: str, columns: Sequence[np.ndarray],

@@ -9,3 +9,12 @@ __all__ = ["TPCH_SCHEMA", "table_row_count", "generate_columns",
 
 SCHEMA = TPCH_SCHEMA  # the registry's uniform name (connectors.catalogs)
 __all__ = __all__ + ["SCHEMA"]
+
+
+def data_version(table: str) -> int:
+    """The fragment result cache's key part: generated data is a pure
+    function of (table, sf), so the version never changes."""
+    return 0
+
+
+__all__ = __all__ + ["data_version"]

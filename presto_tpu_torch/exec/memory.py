@@ -21,6 +21,7 @@ from typing import Dict, Optional
 
 import torch
 
+from .. import failpoints
 from ..block import Batch
 
 __all__ = ["MemoryPool", "MemoryContext", "MemoryReservationError",
@@ -122,7 +123,14 @@ class MemoryPool:
     def reserve(self, query_id: str, bytes_: int):
         """Reserve, revoking spillable state first when the pool is
         full; when the pool is only contended (the request alone fits)
-        and admission_timeout_s is set, wait for releases; then raise."""
+        and admission_timeout_s is set, wait for releases; then raise.
+        An injected `oom` at the memory.reserve failpoint raises this
+        pool's own refusal."""
+        if failpoints.ARMED:
+            try:
+                failpoints.hit("memory.reserve")
+            except failpoints.InjectedOOM as e:
+                raise MemoryReservationError(str(e)) from None
         deadline = time.time() + self.admission_timeout_s
         revoke_tried = False
         while True:

@@ -8,8 +8,10 @@ exchange-slot reruns, the write roots of `_run_write_root`,
 `_batch_to_result`) on one device or a mesh of workers
 (parallel/mesh.py). The observability ledgers of the reference (stats,
 datapath, timeline, accuracy) are not part of this port yet, nor is
-its access-control check of write roots (the worker tier, ROADMAP
-queue 1 item 14b).
+its access-control check of write roots (ROADMAP queue 1 item 14c).
+A plan fragment runs through `run_query` too: its scans staged over
+the row ranges of `scan_ranges` and its RemoteSourceNodes fed by the
+batches of `remote_sources` (server/worker.py pulls them).
 
 `run_query` runs on CUDA unless the caller names another device (or a
 mesh, whose devices it runs on), and raises when there is no CUDA
@@ -130,18 +132,19 @@ def _padded(rows: int, pad: int = _PAD) -> int:
 
 def _scan_batch(node: N.PlanNode, sf: float, device,
                 dyn_filters=None, stats: Optional[Dict] = None,
-                pad: int = _PAD) -> Batch:
+                pad: int = _PAD, scan_range=None) -> Batch:
     """One scan's or VALUES node's staged batch, its capacity a multiple
-    of `pad`. With `dyn_filters` (the scan's domains from
+    of `pad`. A `scan_range` (start, count) stages only those rows of
+    the table. With `dyn_filters` (the scan's domains from
     exec/dynfilter.py) the host rows outside them are dropped before
     staging, and the rows pruned and staged go to `stats`."""
-    if isinstance(node, N.RemoteSourceNode):
-        raise NotImplementedError(
-            "a RemoteSourceNode's rows come from an upstream fragment's "
-            "task: the worker tier (ROADMAP queue 1 item 14b)")
     if isinstance(node, N.ValuesNode):
         return _stage_values(node, device, pad)
     conn = catalog(node.connector)
+    if scan_range is not None:
+        start, count = scan_range
+        return stage_scan_split(conn, node, sf, start, count,
+                                _padded(count, pad), device)
     if not dyn_filters:
         return stage_scan_split(
             conn, node, sf, 0, None,
@@ -202,32 +205,54 @@ def shard_batch(b: Batch, mesh) -> List[Batch]:
 
 def stage_scans(root: N.PlanNode, sf: float, device,
                 dynamic_filters: Optional[Dict] = None,
-                stats: Optional[Dict] = None, mesh=None) -> List:
-    """Staged batches of the plan's scans and VALUES, in compile_plan's
-    order, each scan pruned by its `dynamic_filters` entry (what
-    `run_query` collects). With a mesh each is padded to a multiple of
+                stats: Optional[Dict] = None, mesh=None,
+                scan_ranges: Optional[Mapping] = None,
+                remote_sources: Optional[Mapping] = None) -> List:
+    """Staged batches of the plan's scans, VALUES and remote sources, in
+    compile_plan's order, each scan pruned by its `dynamic_filters`
+    entry (what `run_query` collects) and cut to its `scan_ranges`
+    entry (start, count), each RemoteSourceNode the batch of its
+    `remote_sources` entry. With a mesh each is padded to a multiple of
     8 x its size, encoded once on the host (one string width and one
     lane per column for every worker) and cut into the workers' shards,
     each copied to its worker's device alone (`shard_batch`): one list
     of batches per scan."""
     dynamic_filters = dynamic_filters or {}
-    if mesh is None:
-        return [_scan_batch(n, sf, device, dynamic_filters.get(n.id),
-                            stats)
-                for n in compile_plan(root).scan_nodes]
-    host = torch.device("cpu")
-    return [shard_batch(_scan_batch(n, sf, host, None, stats,
-                                    pad=_PAD * mesh.size), mesh)
-            for n in compile_plan(root).scan_nodes]
+    scan_ranges = scan_ranges or {}
+    remote_sources = remote_sources or {}
+    host = torch.device("cpu") if mesh is not None else device
+    pad = _PAD * (mesh.size if mesh is not None else 1)
+    out = []
+    for n in compile_plan(root).scan_nodes:
+        if isinstance(n, N.RemoteSourceNode):
+            if n.id not in remote_sources:
+                raise KeyError(f"no remote source batch supplied for "
+                               f"node {n.id}")
+            b = remote_sources[n.id]
+        else:
+            b = _scan_batch(n, sf, host,
+                            dynamic_filters.get(n.id) if mesh is None
+                            else None, stats, pad=pad,
+                            scan_range=scan_ranges.get(n.id))
+        out.append(b if mesh is None else shard_batch(b, mesh))
+    return out
 
 
-def planned_scan_bytes(node: N.PlanNode, sf: float, pad: int = _PAD) -> int:
-    """Planned device footprint of a scan or VALUES input, without
-    generating it: per row padded to a multiple of `pad`, the active
-    mask, each column's lane and null mask (a string its declared
-    width, 64 bytes where that is unbounded, and its length)."""
+def planned_scan_bytes(node: N.PlanNode, sf: float, pad: int = _PAD,
+                       scan_range=None, remote_sources=None) -> int:
+    """Planned device footprint of a scan, VALUES or remote input,
+    without generating it: per row padded to a multiple of `pad`
+    (a `scan_range`'s count of rows), the active mask, each column's
+    lane and null mask (a string its declared width, 64 bytes where
+    that is unbounded, and its length). A remote source's batch is
+    already staged: its bytes."""
+    if isinstance(node, N.RemoteSourceNode):
+        b = (remote_sources or {}).get(node.id)
+        return 0 if b is None else batch_bytes(b)
     if isinstance(node, N.ValuesNode):
         rows, types = len(node.rows), node.types
+    elif scan_range is not None:
+        rows, types = scan_range[1], node.column_types
     else:
         rows = catalog(node.connector).table_row_count(node.table, sf)
         types = node.column_types
@@ -438,7 +463,10 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
               session: Optional[Mapping] = None,
               memory_pool: Optional[MemoryPool] = None,
               query_id: str = "query",
-              prepared: bool = False) -> QueryResult:
+              prepared: bool = False,
+              scan_ranges: Optional[Mapping[str, Tuple[int, int]]] = None,
+              remote_sources: Optional[Mapping[str, Batch]] = None
+              ) -> QueryResult:
     """Plan -> rows, end to end on `device` (CUDA unless asked
     otherwise): `prepare_plan` unless `prepared`, dynamic filtering
     (the small build sides run first and prune the probe scans' host
@@ -467,25 +495,35 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
     (`shard_batch`), the ladder also reruns with larger exchange slots
     (`exchange_slot_reruns`), and the result is the workers' rows in
     worker order. Dynamic filtering and split streaming stay off, as in
-    the reference."""
+    the reference.
+
+    A plan fragment of the worker tier names its inputs by node id:
+    `scan_ranges` maps a TableScanNode to the (start, count) rows it
+    stages, `remote_sources` a RemoteSourceNode to its batch (on the
+    run's device; on a mesh, padded to a multiple of 8 x its size).
+    Dynamic filtering and split streaming stay off for such a
+    fragment."""
     dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     kw = dict(sf=sf, device=dev, limb_form=limb_form, mesh=mesh,
               default_join_capacity=default_join_capacity,
               split_rows=split_rows, hbm_budget_bytes=hbm_budget_bytes,
-              session=session, memory_pool=memory_pool, query_id=query_id)
+              session=session, memory_pool=memory_pool, query_id=query_id,
+              scan_ranges=scan_ranges, remote_sources=remote_sources)
+    fragment = bool(scan_ranges) or bool(remote_sources)
     inner = root.source if isinstance(root, N.OutputNode) else root
     if isinstance(inner, N.WRITE_ROOTS):
         return _run_write_root(inner, **kw)
     if not prepared:
         root = prepare_plan(root, sf, session=session, mesh=mesh)
     stats: Dict[str, float] = {}
-    if split_rows is not None and mesh is None:
+    if split_rows is not None and mesh is None and not fragment:
         res = _run_split(root, sf, dev, limb_form, split_rows,
                          hbm_budget_bytes, session, stats)
         if res is not None:
             return res
     dyn_filters = {}
-    if mesh is None and session_flag(session, "dynamic_filtering", True):
+    if mesh is None and not fragment and \
+            session_flag(session, "dynamic_filtering", True):
         t0 = time.perf_counter()
         dyn_filters = collect_dynamic_filters(root, sf, dev)
         stats["dynamic_filter_collect_s"] = time.perf_counter() - t0
@@ -497,13 +535,16 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
         # admission: the planned scan bytes are charged before anything
         # is staged, so a refusal comes before the device runs out
         pad = _PAD * (mesh.size if mesh is not None else 1)
-        reserved = sum(planned_scan_bytes(s, sf, pad)
-                       for s in compile_plan(root).scan_nodes)
+        reserved = sum(planned_scan_bytes(
+            s, sf, pad, (scan_ranges or {}).get(s.id), remote_sources)
+            for s in compile_plan(root).scan_nodes)
         memory_pool.reserve(query_id, reserved)
         stats["reserved_bytes"] = reserved
     try:
         t0 = time.perf_counter()
-        batches = stage_scans(root, sf, dev, dyn_filters, stats, mesh=mesh)
+        batches = stage_scans(root, sf, dev, dyn_filters, stats, mesh=mesh,
+                              scan_ranges=scan_ranges,
+                              remote_sources=remote_sources)
         stats["staged_bytes"] = sum(
             batch_bytes(b) for b in (batches if mesh is None else
                                      [w for ws in batches for w in ws]))
@@ -576,7 +617,9 @@ def _run_write_root(node: N.PlanNode, **kw) -> QueryResult:
     TableFinishNode root: the inner SELECT through run_query on the
     device, the write on the host. CTAS and INSERT stage into an insert
     handle and publish at once, aborting (a CTAS's table dropped) on
-    any failure."""
+    any failure. A TableFinish whose source is no writer is the commit
+    task of a distributed write: its source delivers the writer tasks'
+    row counts, which it sums."""
     if isinstance(node, N.DdlNode):
         if node.op != "drop_table":
             raise ValueError(f"unknown DDL operation {node.op!r}")
@@ -622,9 +665,10 @@ def _run_write_root(node: N.PlanNode, **kw) -> QueryResult:
     while isinstance(src, N.ExchangeNode):  # one device: the identity
         src = src.source
     if not isinstance(src, N.TableWriterNode):
-        raise NotImplementedError(
-            "a TableFinish over per-task counts is the worker tier's "
-            "(ROADMAP queue 1 item 14b)")
+        res = run_query(N.OutputNode(node.source, ["rows"]), **kw)
+        total = int(sum(int(v) for v, nl in zip(res.columns[0],
+                                                 res.nulls[0]) if not nl))
+        return _count_result(total, res.stats)
     h = mod.begin_insert(
         node.table,
         create_columns=node.create_columns if node.create else None,

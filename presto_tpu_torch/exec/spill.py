@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import failpoints
 from .. import types as T
 from ..block import Batch, batch_from_numpy, pinned_staging, to_numpy
 from ..connectors import catalog
@@ -122,6 +123,9 @@ class _HostRows:
     def _flush_run(self, stats: Optional[Dict]):
         if self.rows == 0 or not self._cols[0]:
             return
+        if failpoints.ARMED:
+            # a full or broken spill disk at run-flush time
+            failpoints.hit("spill.write")
         os.makedirs(self.disk_dir, exist_ok=True)
         path = os.path.join(self.disk_dir,
                             f"spill_{uuid.uuid4().hex[:12]}.npz")
@@ -142,6 +146,9 @@ class _HostRows:
     def columns(self) -> Tuple[List[np.ndarray], List[np.ndarray]]:
         cols_runs: List[List[np.ndarray]] = [[] for _ in self.types]
         nulls_runs: List[List[np.ndarray]] = [[] for _ in self.types]
+        if failpoints.ARMED and self._runs:
+            # a run file that vanished or rotted between write and read
+            failpoints.hit("spill.read")
         for path in self._runs:
             with np.load(path, allow_pickle=True) as z:
                 for c in range(len(self.types)):

@@ -127,7 +127,8 @@ class AggSpec:
     pair moments take x from, `second_channel`; `parameter` is
     approx_percentile's fraction; `mask_channel` a BOOLEAN column that
     restricts the rows this aggregate consumes (NULL excludes). The
-    plan JSON carries neither `parameter` nor `mask_channel`."""
+    reference's plan JSON carries neither `parameter` nor
+    `mask_channel`; the port's writes both where set."""
     name: str
     input_channel: Optional[int]
     output_type: T.Type

@@ -3,11 +3,13 @@
 Counterpart of presto_tpu/plan/fragment.py (`PlanFragment`,
 `fragment_plan`, `distribute_simple_agg`; PlanFragmenter.java:48):
 the optimized plan split at its REMOTE ExchangeNodes into
-PlanFragments, each the unit a stage of tasks would run. The mesh does
-not need them: it lowers the whole distributed plan as one program,
-its exchanges moving rows between the workers (exec/planner.py). The
-fragments are the shape the worker tier ships to workers (ROADMAP
-queue 1 item 14b) and are kept equal to the reference's.
+PlanFragments, each the unit a stage of tasks runs. The mesh does not
+need them: it lowers the whole distributed plan as one program, its
+exchanges moving rows between the workers (exec/planner.py). The
+coordinator (server/coordinator.py::Coordinator.execute) cuts a plan
+with `fragment_plan` and runs each fragment as a stage of tasks on the
+HTTP workers; `distribute_simple_agg` makes the two-fragment plan of a
+single aggregation. The fragments are kept equal to the reference's.
 """
 
 from __future__ import annotations

@@ -72,9 +72,10 @@ class TableScanNode(PlanNode):
 class RemoteSourceNode(PlanNode):
     """Input fed by the output of an upstream plan fragment
     (plan/fragment.py cuts a plan at its REMOTE exchanges and names the
-    producer by `fragment_id`). On the mesh no plan is cut: a fragment's
-    batch arrives only through the worker tier (ROADMAP queue 1 item
-    14b), so lowering one raises."""
+    producer by `fragment_id`). Its batch is a leaf input of the
+    lowering, like a scan's: the worker pulls it from the upstream
+    tasks (server/http_exchange.py) and hands it to run_query by this
+    node's id (`remote_sources`)."""
     types: List[T.Type]
     fragment_id: int = -1
 
@@ -522,11 +523,19 @@ class OutputNode(PlanNode):
 # ---------------------------------------------------------------------------
 
 def _agg_to_json(a: AggSpec) -> dict:
+    """The reference's keys; and, where set, `maskChannel` and
+    `parameter`, which the reference's JSON leaves out (its plans
+    from SQL never set them; a Presto coordinator's fragment does,
+    server/protocol.py)."""
     out = {"name": a.name, "input": a.input_channel,
            "type": str(a.output_type)}
     if a.second_channel is not None:
         out["secondChannel"] = a.second_channel
         out["secondType"] = str(a.second_type) if a.second_type else None
+    if a.mask_channel is not None:
+        out["maskChannel"] = a.mask_channel
+    if a.parameter is not None:
+        out["parameter"] = a.parameter
     return out
 
 
@@ -534,7 +543,9 @@ def _agg_from_json(j: dict) -> AggSpec:
     st = j.get("secondType")
     return AggSpec(j["name"], j["input"], T.parse_type(j["type"]),
                    second_channel=j.get("secondChannel"),
-                   second_type=T.parse_type(st) if st else None)
+                   second_type=T.parse_type(st) if st else None,
+                   parameter=j.get("parameter"),
+                   mask_channel=j.get("maskChannel"))
 
 
 def _frame_from_json(frame):

@@ -351,6 +351,8 @@ def _prune(nd: N.PlanNode, needed: Set[int]
                 need_src.add(a.input_channel)
             if a.second_channel is not None:
                 need_src.add(a.second_channel)
+            if a.mask_channel is not None:
+                need_src.add(a.mask_channel)
         if not need_src:
             need_src = {0}
         src, m = _prune(nd.source, need_src)
@@ -362,7 +364,9 @@ def _prune(nd: N.PlanNode, needed: Set[int]
                 input_channel=None if a.input_channel is None
                 else m[a.input_channel],
                 second_channel=None if a.second_channel is None
-                else m[a.second_channel]))
+                else m[a.second_channel],
+                mask_channel=None if a.mask_channel is None
+                else m[a.mask_channel]))
         new = dataclasses.replace(
             nd, source=src, group_channels=[m[c] for c in nd.group_channels],
             aggregates=aggs)

@@ -5,7 +5,9 @@ Counterpart of presto_tpu/verifier.py (`verify_corpus`, `DEFAULT_CORPUS`,
 `TPCDS_CORPUS`, `check_plan_determinism`; presto-verifier's replay of a
 corpus against a control and a test cluster). The configurations are
 those of one engine: "control" (one device), "streaming" (splits of
-`split_rows`) and "mesh" (the workers of a mesh, parallel/mesh.py).
+`split_rows`), "mesh" (the workers of a mesh, parallel/mesh.py) and
+"cluster" (the fragments of the statement's distributed plan,
+scheduled by server/coordinator.py on the workers of `cluster_urls`).
 Rows must match exactly: decimals are scaled integers, so the sorted
 row sets compare with plain equality.
 """
@@ -39,12 +41,8 @@ def verify_corpus(corpus: Sequence[str], sf: float = 0.01,
     """Run each statement under every configuration that applies (the
     control on `device`, CUDA unless named) and compare the sorted row
     sets for exact equality. A failed run is recorded, not raised.
-    `cluster_urls` (the coordinator-scheduled worker tier) is not
-    ported yet."""
-    if cluster_urls:
-        raise NotImplementedError(
-            "verify_corpus(cluster_urls=) needs the worker tier (ROADMAP "
-            "queue 1 item 14b)")
+    With `cluster_urls` the statement's add_exchanges plan also runs
+    through the coordinator on those workers."""
     from .sql import sql
 
     out: List[VerifierResult] = []
@@ -64,6 +62,12 @@ def verify_corpus(corpus: Sequence[str], sf: float = 0.01,
             attempt("streaming", device=device, split_rows=split_rows)
         if mesh is not None:
             attempt("mesh", mesh=mesh)
+        if cluster_urls:
+            try:
+                runs["cluster"] = _canon(_run_on_cluster(
+                    text, sf, max_groups, cluster_urls))
+            except Exception as e:  # noqa: BLE001 - the verifier records drift
+                errors["cluster"] = f"{type(e).__name__}: {e}"
         if errors:
             out.append(VerifierResult(text, list(runs) + list(errors), False,
                                       f"errors: {errors}"))
@@ -76,6 +80,19 @@ def verify_corpus(corpus: Sequence[str], sf: float = 0.01,
         else:
             out.append(VerifierResult(text, names, True))
     return out
+
+
+def _run_on_cluster(text: str, sf: float, max_groups: int, urls):
+    """A statement's add_exchanges plan through the coordinator, its
+    rows as a QueryResult."""
+    from .exec.runner import QueryResult
+    from .plan.distribute import add_exchanges
+    from .server import Coordinator
+    from .sql import plan_sql
+    plan = add_exchanges(plan_sql(text, max_groups=max_groups))
+    cols, names = Coordinator(list(urls)).execute(plan, sf=sf)
+    return QueryResult([v for v, _ in cols], [n for _, n in cols], names,
+                       len(cols[0][0]) if cols else 0)
 
 
 DEFAULT_CORPUS = [

@@ -55,7 +55,13 @@ def test_sources_found():
                    "connectors/tpch/generator.py", "exec/planner.py",
                    "exec/runner.py", "parallel/mesh.py",
                    "parallel/exchange.py", "parallel/stages.py",
-                   "plan/distribute.py", "plan/fragment.py", "verifier.py"):
+                   "plan/distribute.py", "plan/fragment.py", "verifier.py",
+                   "serde/pages.py", "failpoints/__init__.py",
+                   "failpoints/sites.py", "server/buffers.py",
+                   "server/worker.py", "server/client.py",
+                   "server/http_exchange.py", "server/discovery.py",
+                   "server/coordinator.py", "server/protocol.py",
+                   "server/protocol_structs.py", "utils/backoff.py"):
         assert os.path.join("presto_tpu_torch", *module.split("/")) in names
 
 

@@ -7,6 +7,7 @@ presto_tpu_torch.plan.from_json), so both packages run the same plan.
 Rows must be equal exactly.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -172,11 +173,19 @@ def test_out_of_slice_plans_raise_naming_the_roadmap():
     assert want.row_count == 10
     assert _port(unnest).rows() == want.rows()
     # a mesh, which earlier slices refused, runs q6 on two CPU workers;
-    # a fragment's remote source is the worker tier's (item 14b)
+    # a fragment's remote source, which earlier slices refused, reads
+    # the batch the worker tier hands it, and names a missing one
+    from presto_tpu_torch.block import batch_from_numpy
     from presto_tpu_torch.parallel import make_mesh
     mesh = run_query(from_json(RN.to_json(q6_plan())), sf=SF,
                      mesh=make_mesh(2, devices=("cpu", "cpu")))
     assert mesh.rows() == ref_run_query(q6_plan(), sf=SF).rows()
-    remote = PN.OutputNode(PN.RemoteSourceNode([PT.BIGINT], 0), ["x"])
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    src = PN.RemoteSourceNode([PT.BIGINT], 0)
+    remote = PN.OutputNode(src, ["x"])
+    with pytest.raises(KeyError, match="no remote source batch"):
         run_query(remote, sf=SF, device="cpu", prepared=True)
+    fed = batch_from_numpy([PT.BIGINT], [np.arange(3, dtype=np.int64)],
+                           capacity=8, device="cpu")
+    assert run_query(remote, sf=SF, device="cpu", prepared=True,
+                     remote_sources={src.id: fed}).rows() == \
+        [(0,), (1,), (2,)]
