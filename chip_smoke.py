@@ -100,6 +100,24 @@ PyTorch version at the shapes of its path:
   its committed plan, two function statements against the reference's
   SF1 rows, q6 as PREPARE/EXECUTE, SHOW COLUMNS, and CTAS into
   memory.l, q1 over it (one launch) and DROP TABLE;
+* the file connectors (phase_files): SF1 customer written as CSV,
+  read through the localfile connector and joined with SF1 orders,
+  grouped by market segment (5 groups, one fused_limb_sums launch),
+  against the same statement over tpch.customer; where pyarrow
+  imports, SF1 lineitem's q1 and q6 columns written as parquet (row
+  groups of 1,048,576 rows): q1 and q6 as text over parquet.lineitem
+  against numpy_q1 and numpy_q6, a count whose orderkey range prunes
+  row groups, a CTAS of q1's columns into parquet and q1 over it, and
+  q6 over an ORC copy, each with its row groups read and decode ms
+  (without pyarrow the import error is printed and those parts alone
+  are skipped);
+* the statement tier (phase_statement): a StatementServer on the card
+  answering the full q1 text at SF1 over POST /v1/statement (its
+  rendered rows against numpy_q1, one fused_limb_sums launch equal to
+  the plain version, the wall from the POST to the last nextUri
+  against sql() in turns), q6 through a DB-API cursor, START
+  TRANSACTION and COMMIT, SHOW CATALOGS, system.queries, and a
+  rejection by a full resource-group queue;
 * the worker tier (phase_cluster, last): a DiscoveryServer and two
   HTTP workers (presto_tpu_torch.server.TpuWorkerServer) on the card,
   the Coordinator scheduling plan fragments on the workers discovery
@@ -3617,6 +3635,381 @@ def phase_sql(tpcds_rows):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the file connectors and the statement tier
+# ---------------------------------------------------------------------------
+
+FILES_ROW_GROUP = 1 << 20  # rows a parquet row group
+# q1's and q6's lineitem columns, and orderkey for a pruned count
+FILES_COLUMNS = ["orderkey", "returnflag", "linestatus", "quantity",
+                 "extendedprice", "discount", "tax", "shipdate"]
+# a tenth of the orders: at SF1 the first of six row groups
+FILES_PRUNED = "SELECT count(*) FROM lineitem WHERE orderkey < {bound}"
+FILES_CSV_JOIN = ("SELECT c.mktsegment, count(*) AS orders, "
+                  "sum(o.totalprice) AS total FROM {customer} c "
+                  "JOIN orders o ON o.custkey = c.custkey "
+                  "GROUP BY c.mktsegment ORDER BY c.mktsegment")
+FILES_JOIN_CAPACITY = 1 << 21  # >= orders' 1.5M rows at SF1
+# the CSV join's group table: localfile proves no distinct count, so
+# without it the planner's default of 65,536 groups stays, off the
+# small-table path (phase_sql's q1 over memory.l passes its own too)
+FILES_JOIN_GROUPS = 16
+STATEMENT_ROUNDS = 3  # q1 over the wire and through sql(), in turns
+
+
+def _pyarrow_missing():
+    """Why pyarrow does not import here, or None where it does."""
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def _files_statement(name, text, want, launches=None, **kw):
+    """One statement through sql() at SF1 with the kernel counts at 0
+    and fused_limb_sums' calls recorded, in one attempt (its
+    capacities fit at the first: max_groups and the join capacity are
+    given, so no first run climbs the ladder): rows (plain form) equal
+    to `want` (or `want(result)` raising where they differ); with
+    `launches`, at least that many fused_limb_sums launches (a pushdown
+    scan stages wide lanes, which may take more than one), the first
+    call equal to the plain version. Returns its report."""
+    import torch
+    from presto_tpu_torch import sql
+    from presto_tpu_torch.connectors import parquet
+    from presto_tpu_torch.ops import kernels as K
+    rep = {"statement": name}
+    parquet.read_stats.update(groups_total=0, groups_read=0)
+    decode_s = parquet.decode_stats["seconds"]
+    _reset_launches()
+    with recording_fused() as calls:
+        t0 = time.perf_counter()
+        res = sql(text, sf=SF, **kw)
+        torch.cuda.synchronize()
+        rep["ms"] = (time.perf_counter() - t0) * 1e3
+        rep["fused_limb_sums"] = K.LAUNCHES["fused_limb_sums"]
+        if launches is not None:
+            if rep["fused_limb_sums"] < launches:
+                raise AssertionError(f"files {name}: fused_limb_sums "
+                                     f"launched {rep['fused_limb_sums']} "
+                                     f"times, not {launches}")
+            rep["fused_limb_sums_max_abs_err"] = check_fused(
+                *calls[0], f"files {name}'s lanes")
+    if res.stats.get("capacity_reruns"):
+        raise AssertionError(f"files {name}: {res.stats['capacity_reruns']}"
+                             " capacity reruns, not one attempt")
+    got = want(res) if callable(want) else _plain_rows(res)
+    if not callable(want) and got != want:
+        raise AssertionError(f"files {name}: rows differ:\n got  "
+                             f"{got[:5]}\n want {want[:5]}")
+    rep["row_groups"] = dict(parquet.read_stats)
+    rep["decode_ms"] = (parquet.decode_stats["seconds"] - decode_s) * 1e3
+    rep.update(run_split([res.stats]))
+    print(f"files: {json.dumps(rep)}")
+    return rep
+
+
+def files_csv_join(d):
+    """SF1 customer written as CSV, registered in localfile and joined
+    with the generator's SF1 orders, grouped by market segment (5
+    groups: fused_limb_sums runs): its rows equal the same statement
+    over tpch.customer."""
+    import csv
+    from presto_tpu_torch import sql
+    from presto_tpu_torch.connectors import localfile, tpch
+    cols = ["custkey", "mktsegment"]
+    t0 = time.perf_counter()
+    cust = host_columns("customer", SF, cols)
+    path = os.path.join(d, "customer.csv")
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(cols)
+        w.writerows(zip(cust["custkey"].tolist(),
+                        cust["mktsegment"].tolist()))
+    write_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    localfile.register_table("customer", path, schema={
+        c: tpch.column_type("customer", c) for c in cols})
+    register_ms = (time.perf_counter() - t0) * 1e3
+    if localfile.table_row_count("customer") != len(cust["custkey"]):
+        raise AssertionError("localfile.customer lost rows")
+    kw = {"join_capacity": FILES_JOIN_CAPACITY,
+          "max_groups": FILES_JOIN_GROUPS}
+    want = _exact_rows(sql(FILES_CSV_JOIN.format(customer="tpch.customer"),
+                           sf=SF, **kw))
+    if len(want) != 5:
+        raise AssertionError(f"the CSV join has {len(want)} groups, not 5")
+
+    def same(res):
+        got = _exact_rows(res)
+        if got != want:
+            raise AssertionError(f"files csv_join: rows differ:\n got  "
+                                 f"{got}\n want {want}")
+        return got
+    rep = _files_statement("csv_join",
+                           FILES_CSV_JOIN.format(customer="localfile.customer"),
+                           same, launches=1, **kw)
+    rep.update(csv_write_ms=write_ms, csv_register_ms=register_ms,
+               csv_rows=len(cust["custkey"]))
+    localfile.reset()
+    return rep
+
+
+def files_lake(d):
+    """SF1 lineitem's q1 and q6 columns (and orderkey) written as
+    parquet, row groups of FILES_ROW_GROUP rows: q1 and q6 as text over
+    parquet.lineitem against numpy_q1 and numpy_q6, a count that prunes
+    row groups by orderkey, a CTAS of q1's columns into parquet and q1
+    over it, then q6 over an ORC copy."""
+    from presto_tpu_torch import sql
+    from presto_tpu_torch.connectors import orc, parquet, tpch
+    from presto_tpu_torch.queries import load_corpus
+    corpus = load_corpus()
+    q1_groups = corpus["q1_two_stage"]["max_groups"]
+    q6_sql = corpus["q6_two_stage"]["sql"]
+    q1_rows = oracle_rows(numpy_q1, Q1_TABLES, SF)
+    q6_rows = oracle_rows(numpy_q6, Q6_TABLES, SF)
+    types = {c: tpch.column_type("lineitem", c) for c in FILES_COLUMNS}
+    cols = host_columns("lineitem", SF, FILES_COLUMNS)
+    out = {}
+    t0 = time.perf_counter()
+    path = os.path.join(d, "lineitem.parquet")
+    parquet.write_table(path, cols, types, row_group_size=FILES_ROW_GROUP)
+    parquet.register_table("lineitem", path)
+    out["parquet_write_ms"] = (time.perf_counter() - t0) * 1e3
+    pruned_sql = FILES_PRUNED.format(bound=int(600_000 * SF))
+    out["statements"] = [
+        _files_statement("q1_parquet", SQL_Q1.format(table="lineitem"),
+                         q1_rows, launches=1, catalog="parquet",
+                         max_groups=q1_groups),
+        _files_statement("q6_parquet", q6_sql, q6_rows, catalog="parquet"),
+        _files_statement("pruned_count", pruned_sql,
+                         _plain_rows(sql(pruned_sql, sf=SF)),
+                         catalog="parquet")]
+    pruned = out["statements"][-1]["row_groups"]
+    if not pruned["groups_read"] < pruned["groups_total"]:
+        raise AssertionError(f"{pruned_sql} pruned no row group: {pruned}")
+    parquet.set_warehouse(d)
+    q1_cols = ", ".join(Q1_TABLES["lineitem"])
+    t0 = time.perf_counter()
+    res = sql(f"CREATE TABLE parquet.q1_lineitem AS SELECT {q1_cols} "
+              "FROM tpch.lineitem", sf=SF)
+    out["ctas_ms"] = (time.perf_counter() - t0) * 1e3
+    if _plain_rows(res) != [(tpch_rows("lineitem", SF),)]:
+        raise AssertionError(f"CTAS into parquet: {_plain_rows(res)}")
+    out["statements"].append(_files_statement(
+        "q1_parquet_ctas", SQL_Q1.format(table="parquet.q1_lineitem"),
+        q1_rows, launches=1, max_groups=q1_groups))
+    sql("DROP TABLE parquet.q1_lineitem", sf=SF)
+    t0 = time.perf_counter()
+    q6_cols = Q6_TABLES["lineitem"]
+    orc_path = os.path.join(d, "lineitem.orc")
+    orc.write_table(orc_path, {c: cols[c] for c in q6_cols},
+                    {c: types[c] for c in q6_cols})
+    orc.register_table("lineitem", orc_path)
+    out["orc_write_ms"] = (time.perf_counter() - t0) * 1e3
+    out["statements"].append(_files_statement("q6_orc", q6_sql, q6_rows,
+                                              catalog="orc"))
+    parquet.set_warehouse(None)
+    parquet.reset()
+    orc.reset()
+    return out
+
+
+def phase_files():
+    """The file connectors on the card: files_csv_join always, and
+    files_lake where pyarrow imports (else the import error is printed
+    and those parts alone are skipped). Returns the reports and the
+    phase's seconds."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        out["csv"] = files_csv_join(d)
+        missing = _pyarrow_missing()
+        if missing is None:
+            import pyarrow
+            print(f"files: pyarrow {pyarrow.__version__} imports")
+            out["pyarrow"] = pyarrow.__version__
+            out["lake"] = files_lake(d)
+        else:
+            print(f"files: parquet and ORC skipped, pyarrow does not "
+                  f"import: {missing}")
+            out["lake"] = {"skipped": missing}
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"files: the phase took {out['s']:.1f} s")
+    return out
+
+
+def _get_json(url):
+    import urllib.request
+    with urllib.request.urlopen(url) as r:
+        return json.loads(r.read())
+
+
+def _rendered(rows, columns):
+    """Engine rows rendered as the statement protocol renders them."""
+    from presto_tpu_torch.server.statement import render_value
+    from presto_tpu_torch.types import parse_type
+    types = [parse_type(c["type"]) for c in columns]
+    return [[render_value(v, v is None, t) for v, t in zip(r, types)]
+            for r in rows]
+
+
+def statement_q1(srv):
+    """q1 at SF1 over the wire: POST /v1/statement with the full text,
+    in one attempt (its 4 groups fit the 16 of q1's max_groups), the
+    rendered rows against numpy_q1 rendered, fused_limb_sums launched
+    once and one call equal to the plain version; then the wall from
+    the POST to the last nextUri against sql() on the same text, in
+    turns."""
+    import torch
+    from presto_tpu_torch import sql
+    from presto_tpu_torch.client import execute
+    from presto_tpu_torch.ops import kernels as K
+    from presto_tpu_torch.queries import load_corpus
+    groups = load_corpus()["q1_two_stage"]["max_groups"]
+    text = SQL_Q1.format(table="lineitem")
+    session = {"sf": str(SF), "max_groups": str(groups)}
+    want = oracle_rows(numpy_q1, Q1_TABLES, SF)
+    _reset_launches()
+    with recording_fused() as calls:
+        c = execute(srv.url, text, session=session)
+        launches = K.LAUNCHES["fused_limb_sums"]
+        if launches != 1:
+            raise AssertionError(f"statement q1 launched fused_limb_sums "
+                                 f"{launches} times, not once")
+        err = check_fused(*calls[0], "statement q1's lanes")
+    stats = _get_json(f"{srv.url}/v1/query/{c.query_id}")["queryStats"]
+    if stats["capacity_reruns"]:  # q1's 4 groups fit its 16 at once
+        raise AssertionError(f"statement q1 reran: {stats}")
+    if c.data != _rendered(want, c.columns):
+        raise AssertionError(f"statement q1: rows differ:\n got  "
+                             f"{c.data[:3]}\n want "
+                             f"{_rendered(want, c.columns)[:3]}")
+    wire, direct = [], []
+    for _ in range(STATEMENT_ROUNDS):
+        t0 = time.perf_counter()
+        execute(srv.url, text, session=session)
+        wire.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        res = sql(text, sf=SF, max_groups=groups)
+        torch.cuda.synchronize()
+        direct.append((time.perf_counter() - t0) * 1e3)
+        if _plain_rows(res) != want:
+            raise AssertionError("sql() q1 rows differ from numpy_q1")
+    rep = {"query_id": c.query_id, "fused_limb_sums": launches,
+           "fused_limb_sums_max_abs_err": err, "wire_ms": wire,
+           "sql_ms": direct, "wire_median_ms": statistics.median(wire),
+           "sql_median_ms": statistics.median(direct)}
+    print(f"statement q1: equals numpy_q1, one fused_limb_sums launch "
+          f"equal to the plain version; POST to the last nextUri "
+          f"{rep['wire_median_ms']:.1f} ms against sql() "
+          f"{rep['sql_median_ms']:.1f} ms (medians of {STATEMENT_ROUNDS}, "
+          f"in turns)")
+    return rep
+
+
+def statement_queue_full():
+    """A resource group of concurrency 1 and queue 1: with one statement
+    running and one queued, a third is rejected QUERY_QUEUE_FULL; the
+    two admitted ones then finish."""
+    import threading
+    from presto_tpu_torch import sql
+    from presto_tpu_torch.client import QueryError, StatementClient, execute
+    from presto_tpu_torch.server.dispatcher import Dispatcher, ResourceGroup
+    from presto_tpu_torch.server.statement import StatementServer
+    group = ResourceGroup("global", hard_concurrency_limit=1, max_queued=1)
+    started, gate = threading.Event(), threading.Event()
+
+    def held(text, session, qid, tid):
+        started.set()
+        gate.wait(120)
+        return sql("SELECT count(*) AS n FROM region", sf=SF)
+
+    with StatementServer(sf=SF, dispatcher=Dispatcher([group]),
+                         device="cuda:0") as srv:
+        srv._executor = held
+        first = StatementClient(srv.url, "SELECT count(*) AS n FROM region")
+        if not started.wait(60):
+            raise AssertionError("the first statement never ran")
+        second = StatementClient(srv.url, "SELECT count(*) AS n FROM region")
+        deadline = time.time() + 60
+        while group.stats()["queued"] != 1 and time.time() < deadline:
+            time.sleep(0.01)
+        rejected = None
+        try:
+            execute(srv.url, "SELECT count(*) AS n FROM nation")
+        except QueryError as e:
+            rejected = e.error_name
+        gate.set()
+        done = [first.drain().data, second.drain().data]
+    if rejected != "QUERY_QUEUE_FULL" or done != [[[5]], [[5]]]:
+        raise AssertionError(f"queue-full: third statement {rejected}, the "
+                             f"admitted ones {done}")
+    print("statement: a third statement in a group of concurrency 1 and "
+          "queue 1 is rejected QUERY_QUEUE_FULL")
+    return rejected
+
+
+def phase_statement():
+    """The statement tier on the card: a StatementServer on cuda:0
+    (port 0) answering statement_q1, q6 through a DB-API cursor against
+    numpy_q6, START TRANSACTION and COMMIT, SHOW CATALOGS (system, and
+    parquet and orc where pyarrow imports), system.queries holding the
+    q1 query, and statement_queue_full. Returns the reports and the
+    phase's seconds."""
+    import torch
+    from presto_tpu_torch import dbapi
+    from presto_tpu_torch.client import execute
+    from presto_tpu_torch.queries import load_corpus
+    from presto_tpu_torch.server.statement import StatementServer
+    t0 = time.perf_counter()
+    out = {}
+    q6_sql = load_corpus()["q6_two_stage"]["sql"]
+    with StatementServer(sf=SF, device="cuda:0") as srv:
+        out["q1"] = statement_q1(srv)
+        conn = dbapi.connect(server=srv.url, sf=SF, user="smoke")
+        cur = conn.cursor()
+        t1 = time.perf_counter()
+        cur.execute(q6_sql)
+        out["q6_dbapi_ms"] = (time.perf_counter() - t1) * 1e3
+        got = [[str(v) for v in r] for r in cur.fetchall()]
+        want = _rendered(oracle_rows(numpy_q6, Q6_TABLES, SF),
+                         [{"type": d[1]} for d in cur.description])
+        if got != want or conn._txn_id is None:
+            raise AssertionError(f"DB-API q6: {got} != {want}")
+        conn.commit()
+        conn.close()
+        tid = execute(srv.url, "START TRANSACTION").started_transaction_id
+        in_txn = execute(srv.url, "SELECT count(*) FROM region",
+                         transaction_id=tid, session={"sf": str(SF)}).data
+        commit = execute(srv.url, "COMMIT", transaction_id=tid)
+        if not tid or in_txn != [[5]] or not commit.clear_transaction:
+            raise AssertionError(f"transaction: {tid} {in_txn} "
+                                 f"{commit.update_type}")
+        catalogs = [r[0] for r in execute(srv.url, "SHOW CATALOGS").data]
+        lake = {"parquet", "orc"} <= set(catalogs)
+        if "system" not in catalogs or lake != (_pyarrow_missing() is None):
+            raise AssertionError(f"SHOW CATALOGS: {catalogs}")
+        queries = execute(srv.url, "SELECT query_id, state FROM "
+                          "system.queries").data
+        if [out["q1"]["query_id"], "FINISHED"] not in queries:
+            raise AssertionError("system.queries does not hold the q1 "
+                                 "statement")
+        out["catalogs"] = catalogs
+    out["queue_full"] = statement_queue_full()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"statement: DB-API q6 equals numpy_q6, a transaction commits, "
+          f"SHOW CATALOGS {catalogs}, system.queries holds q1; the phase "
+          f"took {out['s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3753,6 +4146,8 @@ def run_phases(args, start_cpu_workers) -> int:
     tpcds.update(timed("tpcds_cross_check", tpcds_cross_check, cpu_procs,
                        tpcds_rows))
     sql_ = timed("sql", phase_sql, tpcds_rows["q47"])
+    files = timed("files", phase_files)
+    statement = timed("statement", phase_statement)
     cluster = timed("cluster", phase_cluster)
 
     gpu = _run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3761,7 +4156,8 @@ def run_phases(args, start_cpu_workers) -> int:
               "two_stage": two_stage, "mesh": mesh,
               "aggregates": aggregates,
               "functions": functions, "nested": nested, "tpcds": tpcds,
-              "exec": exec_, "sql": sql_, "cluster": cluster,
+              "exec": exec_, "sql": sql_, "files": files,
+              "statement": statement, "cluster": cluster,
               "build_s": build_s, "phase_s": phase_s,
               "host_generation_s": GEN_S, "gpu": gpu,
               "torch": torch.__version__, "cuda": torch.version.cuda,

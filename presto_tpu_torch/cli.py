@@ -1,14 +1,17 @@
-"""Command-line SQL client over the port, the local path of
+"""Command-line SQL client over the port, the counterpart of
 presto_tpu/cli.py: the statement runs in this process through
-`presto_tpu_torch.sql`, on CUDA unless `--device` names another.
+`presto_tpu_torch.sql`, on CUDA unless `--device` names another, or,
+with `--server URL`, on a statement server over the client protocol
+(client.py; the port's server/statement.py or the reference's).
 
   python -m presto_tpu_torch.cli "SELECT ... FROM lineitem ..." [--sf 0.1]
         [--device cpu] [--catalog tpcds]
+  python -m presto_tpu_torch.cli --server http://127.0.0.1:8080 \
+        [--user alice] "SELECT ..."
   python -m presto_tpu_torch.cli              # REPL
 
-EXPLAIN (`plan/explain.py`, ROADMAP queue 1 item 15), `--trace` (the
-tracer, item 15) and `--server` (the client protocol, item 14c) are not
-ported yet and raise NotImplementedError.
+EXPLAIN (`plan/explain.py`, ROADMAP queue 1 item 15) and `--trace` (the
+tracer, item 15) are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -69,6 +72,26 @@ def run_one(query: str, sf: float, device=None, catalog=None) -> int:
     return 0
 
 
+def run_one_remote(query: str, server: str, user: str = "presto",
+                   session=None) -> int:
+    """Run one statement on a statement server (POST /v1/statement and
+    its nextUri hops) and print its rows, which arrive rendered."""
+    from .client import QueryError, execute
+    t0 = time.time()
+    try:
+        client = execute(server, query, user=user, session=session or {})
+    except QueryError as e:
+        print(f"error [{e.error_name}]: {e}", file=sys.stderr)
+        return 1
+    dt = time.time() - t0
+    names = [c["name"] for c in (client.columns or [])]
+    rows = [tuple(r) for r in client.data]
+    print(_format_table(names, rows))
+    extra = f", {client.update_type}" if client.update_type else ""
+    print(f"({len(rows)} rows in {dt:.2f}s via {client.query_id}{extra})")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="presto-tpu-torch")
     ap.add_argument("query", nargs="?", help="SQL to run (omit for a REPL)")
@@ -80,7 +103,10 @@ def main(argv=None) -> int:
                     help="catalog searched first for unqualified tables")
     ap.add_argument("--explain", action="store_true")
     ap.add_argument("--trace", action="store_true")
-    ap.add_argument("--server", default=None)
+    ap.add_argument("--server", default=None,
+                    help="statement server URL: statements go over the "
+                         "client protocol instead of this process")
+    ap.add_argument("--user", default="presto")
     args = ap.parse_args(argv)
     if args.explain:
         raise NotImplementedError("EXPLAIN is not ported yet (ROADMAP "
@@ -88,13 +114,15 @@ def main(argv=None) -> int:
     if args.trace:
         raise NotImplementedError("--trace is not ported yet (ROADMAP "
                                   "queue 1 item 15: the tracer)")
-    if args.server:
-        raise NotImplementedError("--server is not ported yet (ROADMAP "
-                                  "queue 1 item 14c: the client protocol "
-                                  "and the statement server)")
+
+    def run(stmt: str) -> int:
+        if args.server:
+            return run_one_remote(stmt, args.server, args.user,
+                                  {"sf": str(args.sf)})
+        return run_one(stmt, args.sf, args.device, args.catalog)
 
     if args.query:
-        return run_one(args.query, args.sf, args.device, args.catalog)
+        return run(args.query)
 
     print("presto-tpu-torch> (end statements with ';', \\q to quit)")
     buf = []
@@ -110,7 +138,7 @@ def main(argv=None) -> int:
             stmt = "\n".join(buf).rstrip().rstrip(";")
             buf = []
             try:
-                run_one(stmt, args.sf, args.device, args.catalog)
+                run(stmt)
             except Exception as e:  # noqa: BLE001 - the REPL reports and goes on
                 print(f"error: {type(e).__name__}: {e}", file=sys.stderr)
     return 0

@@ -11,15 +11,29 @@ __all__ = ["catalog", "catalogs", "schema_of"]
 _CATALOGS = None
 
 
+def _load() -> dict:
+    from . import (information_schema, localfile, memory, system, tpcds,
+                   tpch)
+    cats = {"tpch": tpch, "tpcds": tpcds, "memory": memory,
+            "system": system, "information_schema": information_schema,
+            "localfile": localfile}
+    try:
+        import pyarrow  # noqa: F401  (the file connectors import it lazily)
+    except ImportError:
+        return cats  # without pyarrow there are no parquet or orc catalogs
+    from . import orc, parquet
+    cats["parquet"] = parquet
+    cats["orc"] = orc
+    return cats
+
+
 def catalogs() -> dict:
-    """Catalog name -> connector module, for every catalog of the port:
-    tpch, tpcds, memory and information_schema. The reference's system
-    and file connectors are not ported yet (ROADMAP queue 1 item 12)."""
+    """Catalog name -> connector module: tpch, tpcds, memory, system,
+    information_schema and localfile, and parquet and orc where pyarrow
+    imports, as in the reference."""
     global _CATALOGS
     if _CATALOGS is None:
-        from . import information_schema, memory, tpcds, tpch
-        _CATALOGS = {"tpch": tpch, "tpcds": tpcds, "memory": memory,
-                     "information_schema": information_schema}
+        _CATALOGS = _load()
     return _CATALOGS
 
 
@@ -28,8 +42,7 @@ def catalog(name: str):
     try:
         return catalogs()[name]
     except KeyError:
-        raise KeyError(f"no connector {name!r} in this port (ROADMAP queue "
-                       "1 item 12: the file connectors and system)") from None
+        raise KeyError(f"unknown connector/catalog {name!r}") from None
 
 
 def schema_of(name: str):

@@ -6,9 +6,11 @@ branch, `stage_scan_split`, the overflow->rerun ladder of
 `_dispatch_ladder` with its per-plan capacity memo and, on a mesh, its
 exchange-slot reruns, the write roots of `_run_write_root`,
 `_batch_to_result`) on one device or a mesh of workers
-(parallel/mesh.py). The observability ledgers of the reference (stats,
-datapath, timeline, accuracy) are not part of this port yet, nor is
-its access-control check of write roots (ROADMAP queue 1 item 14c).
+(parallel/mesh.py), with the access-control check of
+server/access.py on every plan and write root before anything is
+staged. The observability ledgers of the reference (stats, datapath,
+timeline, accuracy) are not part of this port yet (ROADMAP queue 1
+item 15).
 A plan fragment runs through `run_query` too: its scans staged over
 the row ranges of `scan_ranges` and its RemoteSourceNodes fed by the
 batches of `remote_sources` (server/worker.py pulls them).
@@ -120,7 +122,16 @@ def stage_scan_split(conn, node: N.TableScanNode, sf: float, start: int,
                      count: Optional[int], capacity: int, device) -> Batch:
     """Stage rows [start, start + count) of one scan (the whole table
     when count is None) at `capacity` on `device`: the shared staging
-    path of the runner and the streaming executor."""
+    path of the runner and the streaming executor. A scan without
+    narrow lanes over a connector that stages its own batches (the
+    stored and file tables) takes the connector's `generate_batch`, as
+    in the reference: a file is then decoded once, not once for its
+    values and again for its NULLs."""
+    if not any(node.physical_dtypes or ()) and \
+            hasattr(conn, "generate_batch"):
+        return conn.generate_batch(node.table, sf, node.columns,
+                                   start=start, count=count,
+                                   capacity=capacity, device=device)
     data, nulls = _host_columns(conn, node, sf, start, count)
     return _stage_arrays(node, [data[c] for c in node.columns], nulls,
                          capacity, device)
@@ -137,7 +148,10 @@ def _scan_batch(node: N.PlanNode, sf: float, device,
     of `pad`. A `scan_range` (start, count) stages only those rows of
     the table. With `dyn_filters` (the scan's domains from
     exec/dynfilter.py) the host rows outside them are dropped before
-    staging, and the rows pruned and staged go to `stats`."""
+    staging, and the rows pruned and staged go to `stats`. Otherwise a
+    scan with a `pushdown` range over a connector that prunes row
+    groups (parquet) stages only the matching row groups, at the
+    capacity of the whole table."""
     if isinstance(node, N.ValuesNode):
         return _stage_values(node, device, pad)
     conn = catalog(node.connector)
@@ -146,9 +160,18 @@ def _scan_batch(node: N.PlanNode, sf: float, device,
         return stage_scan_split(conn, node, sf, start, count,
                                 _padded(count, pad), device)
     if not dyn_filters:
-        return stage_scan_split(
-            conn, node, sf, 0, None,
-            _padded(conn.table_row_count(node.table, sf), pad), device)
+        rows = conn.table_row_count(node.table, sf)
+        if node.pushdown is not None and \
+                hasattr(conn, "row_groups_matching"):
+            # the connector skips the row groups its statistics prove
+            # outside the range (the Filter above still runs); the
+            # capacity stays the table's, as in the reference
+            return conn.generate_batch(node.table, sf, node.columns,
+                                       capacity=_padded(rows, pad),
+                                       predicate=tuple(node.pushdown),
+                                       device=device)
+        return stage_scan_split(conn, node, sf, 0, None,
+                                _padded(rows, pad), device)
     data, nulls = _host_columns(conn, node, sf)
     keep, pruned = apply_dynamic_filters(data, node.columns, dyn_filters)
     if stats is not None:
@@ -399,7 +422,9 @@ def prepare_plan(root: N.PlanNode, sf: float = 0.01,
     the reference's order and under its session properties: rule-based
     simplification and channel pruning (iterative_optimizer), cost-based
     join reordering and a second simplification sweep
-    (join_reordering_strategy), distinct-count capacity refinement
+    (join_reordering_strategy), connector predicate pushdown
+    (scan_predicate_pushdown: plan/pushdown.py marks the scans whose
+    connector prunes row groups), distinct-count capacity refinement
     (stats_capacity_refinement), narrow-width annotation
     (narrow_width_execution), with a mesh the exchanges of
     plan/distribute.py::add_exchanges (join_distribution_type
@@ -415,11 +440,8 @@ def prepare_plan(root: N.PlanNode, sf: float = 0.01,
     of a node they change, and everything keyed by node id (lowering,
     the capacity ladder, dynamic filters) needs one node per id.
 
-    Two passes of the reference's pipeline are not here:
-    `push_scan_predicates` marks pushdown-capable scans, which no
-    catalog of the port has (it comes with the file connectors, which
-    wait for pyarrow, ROADMAP queue 1 item 12.5); `stamp_estimates`
-    feeds the observability ledgers (item 15)."""
+    One pass of the reference's pipeline is not here: `stamp_estimates`
+    feeds the observability ledgers (ROADMAP queue 1 item 15)."""
     inner = root.source if isinstance(root, N.OutputNode) else root
     if isinstance(inner, N.WRITE_ROOTS):
         return root
@@ -438,6 +460,9 @@ def prepare_plan(root: N.PlanNode, sf: float = 0.01,
         if rr is not root and iterative:
             rr = optimize_plan(rr)
         root = rr
+    if session_flag(session, "scan_predicate_pushdown", True):
+        from ..plan.pushdown import push_scan_predicates
+        root = push_scan_predicates(root)
     if session_flag(session, "stats_capacity_refinement", True):
         root = refine_capacities(root, sf)
     if narrow_enabled(session):
@@ -483,8 +508,12 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
     root (DDL, CTAS, INSERT, DELETE, UPDATE) runs its inner SELECT
     through run_query and writes on the host.
 
+    A plan that the access control (server/access.py::
+    set_access_control) refuses for the session's `user` raises
+    AccessDeniedException before anything is staged.
+
     Session properties read (the reference's names): those of
-    prepare_plan, dynamic_filtering (default on), adaptive_capacity
+    prepare_plan, user, dynamic_filtering (default on), adaptive_capacity
     (default on), hbm_budget_bytes, spill_path and
     spill_file_threshold_bytes.
 
@@ -512,9 +541,11 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
     fragment = bool(scan_ranges) or bool(remote_sources)
     inner = root.source if isinstance(root, N.OutputNode) else root
     if isinstance(inner, N.WRITE_ROOTS):
+        _check_access(root, session)
         return _run_write_root(inner, **kw)
     if not prepared:
         root = prepare_plan(root, sf, session=session, mesh=mesh)
+    _check_access(root, session)
     stats: Dict[str, float] = {}
     if split_rows is not None and mesh is None and not fragment:
         res = _run_split(root, sf, dev, limb_form, split_rows,
@@ -568,6 +599,16 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
                 memory_pool.query_peak_bytes(query_id, pop=True)
     res.stats = {"capacity_reruns": reruns, "capacity_scale": scale, **stats}
     return res
+
+
+def _check_access(root: N.PlanNode, session) -> None:
+    """The process-wide access control (server/access.py), if one is
+    set, on the plan for the session's user: before anything is
+    staged."""
+    from ..server.access import get_access_control
+    acl = get_access_control()
+    if acl is not None:
+        acl.check_plan(root, (session or {}).get("user", ""))
 
 
 def _run_split(root: N.PlanNode, sf: float, device, limb_form: str,

@@ -3,11 +3,12 @@
 Counterpart of presto_tpu/failpoints/sites.py. Each row is a
 ``<layer>.<verb>`` name with its layer and what it injects; the admin
 document of ``GET /v1/failpoint`` serves it. A site whose module the
-port has not taken yet (the statement tier, the dispatcher, batching,
-region fusion, buffer donation, the timeline, the worker's drain and
-the resource-manager heartbeat: ROADMAP queue 1 items 14c, 15 and 16)
+port has not taken yet (batching's collapse, region fusion, buffer
+donation, the timeline, the worker's drain, the unannouncement and the
+resource-manager heartbeat: ROADMAP queue 1 items 12.4, 14e, 15 and 16)
 stays listed, as in the reference, and is hooked where that module
-arrives.
+arrives. The statement tier hooks `statement.execute` and the
+dispatcher `dispatcher.admit`.
 """
 
 from __future__ import annotations

@@ -60,6 +60,10 @@ class TableScanNode(PlanNode):
     table: str
     columns: List[str]
     column_types: List[T.Type]
+    # connector predicate pushdown (plan/pushdown.py): a (column, lo,
+    # hi) range the connector may prune row groups by; the Filter above
+    # still applies exactly, and a None bound is unbounded
+    pushdown: Optional[Tuple[str, object, object]] = None
     # narrow-width execution (plan/widths.py): per-column physical lane
     # dtype names ("int16", ...; None = logical width)
     physical_dtypes: Optional[Tuple[Optional[str], ...]] = None
@@ -560,6 +564,8 @@ def to_json(n: PlanNode) -> dict:
         j = {**base, "@type": "tablescan", "connector": n.connector,
              "table": n.table, "columns": n.columns,
              "columnTypes": [str(t) for t in n.column_types]}
+        if n.pushdown is not None:
+            j["pushdown"] = list(n.pushdown)
         if n.physical_dtypes is not None:
             j["physicalDtypes"] = list(n.physical_dtypes)
         return j
@@ -716,11 +722,11 @@ def _node_from_json(j: dict, sub) -> PlanNode:
     nid = j.get("id")
     kw = {"id": nid} if nid else {}
     if t == "tablescan":
-        # "pushdown" (a connector pruning range; the Filter above still
-        # applies exactly) is not needed by the generated tables
+        pd = j.get("pushdown")
         phys = j.get("physicalDtypes")
         return TableScanNode(j["connector"], j["table"], j["columns"],
                              [T.parse_type(s) for s in j["columnTypes"]],
+                             pushdown=tuple(pd) if pd else None,
                              physical_dtypes=tuple(phys) if phys else None,
                              **kw)
     if t == "filter":

@@ -115,13 +115,27 @@ def annotate_widths(root: N.PlanNode, sf: float, _memo=None) -> N.PlanNode:
                 replaced[f.name] = nv
     if replaced:
         root = dataclasses.replace(root, **replaced)
-    if isinstance(root, N.TableScanNode) and root.physical_dtypes is None:
+    if isinstance(root, N.TableScanNode) and root.physical_dtypes is None \
+            and not _pushdown_bypasses_staging(root):
         widths = infer_table_widths(root.connector, root.table, root.columns,
                                     root.column_types, sf)
         if widths is not None:
             root = dataclasses.replace(root, physical_dtypes=widths)
     _memo[orig] = root
     return root
+
+
+def _pushdown_bypasses_staging(node: N.TableScanNode) -> bool:
+    """A scan with a connector pushdown range stages through the
+    connector's own row-group reader (exec/runner.py::_scan_batch),
+    which does not read narrow lanes: such a scan gets none."""
+    if node.pushdown is None:
+        return False
+    from ..connectors import catalog
+    try:
+        return hasattr(catalog(node.connector), "row_groups_matching")
+    except KeyError:
+        return False
 
 
 def checked_physical_dtypes(phys: Sequence[Optional[str]],

@@ -6,7 +6,7 @@ tail goes to one append-only spool file per buffer, and readers get
 the pages back from it transparently. Acked pages release memory at
 once and disk space when the buffer clears (task end). The reference's
 drain-migration helpers (export and restore of a buffer's pages) come
-with the worker's drain (ROADMAP queue 1 item 14c).
+with the worker's drain (ROADMAP queue 1 item 14e).
 """
 
 from __future__ import annotations

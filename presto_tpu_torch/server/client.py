@@ -8,7 +8,7 @@ connection per client and thread. A stale keep-alive socket is
 retried once on a fresh connection after a short seeded backoff.
 The reference's authentication, TLS, drain redirects and the
 cluster-document pulls (profile, history, datapath) come with their
-tiers (ROADMAP queue 1 items 14c and 15).
+tiers (ROADMAP queue 1 items 14e and 15).
 """
 
 from __future__ import annotations

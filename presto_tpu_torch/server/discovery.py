@@ -11,7 +11,8 @@ HeartbeatProber: probes each node's /v1/info and keeps its failure rate.
 alive_nodes(): the nodes announced within `max_age_s`, the
 scheduler's eligible set.
 The reference's fleet-membership counters, goodbye registry and
-authentication come with the client tier (ROADMAP queue 1 item 14c).
+authentication come with the cluster operations (ROADMAP queue 1 item
+14e).
 """
 
 from __future__ import annotations

@@ -25,9 +25,12 @@ pool of `task_concurrency` slots, on the worker's device: CUDA unless
 the caller passes device="cpu" or a mesh. Results buffer as
 SerializedPages with increasing tokens per buffer, dropped on ack.
 
-Not here yet: the worker's drain and page migration, its metrics,
-authentication, TLS and the stuck-task watchdog (ROADMAP queue 1 item
-14c); spans and the flight recorder (item 15). A coordinator's
+Each task's end fires a TaskCompleted event (server/events.py), and
+the task manager registers for the `system.tasks` table.
+
+Not here yet: the worker's drain and page migration, authentication,
+TLS and the stuck-task watchdog (ROADMAP queue 1 item 14e); its
+metrics, spans and the flight recorder (item 15). A coordinator's
 `traceparent` is accepted and not read.
 """
 
@@ -49,6 +52,7 @@ from ..plan import nodes as N
 from ..serde import PageCodec, serialize_page
 from ..utils.config import session_flag, session_value
 from .buffers import SpoolingOutputBuffer
+from .events import event_listeners
 
 __all__ = ["TpuWorkerServer", "TaskManager", "FragmentResultCache"]
 
@@ -257,6 +261,8 @@ class TaskManager:
             "tasks_created": 0, "tasks_finished": 0, "tasks_failed": 0,
             "tasks_aborted": 0, "rows_produced": 0, "exchange_bytes": 0}
         self._counters_lock = threading.Lock()
+        from ..connectors.system import register_task_manager
+        register_task_manager(self)  # system.tasks
 
     def _count(self, name: str, delta: int = 1):
         with self._counters_lock:
@@ -306,6 +312,8 @@ class TaskManager:
                     task.error = f"{type(e).__name__}: {e}"
                 task.finished_at = time.time()
             self._count("tasks_aborted" if aborted else "tasks_failed")
+            event_listeners().task_completed(
+                task.task_id, "ABORTED" if aborted else "FAILED")
 
     def _pull_remote_sources(self, body: dict, codec: PageCodec):
         """The batches of the fragment's RemoteSourceNodes, pulled from
@@ -346,6 +354,8 @@ class TaskManager:
             task.finished_at = time.time()
         self._count("tasks_finished")
         self._count("rows_produced", hit["rows"])
+        event_listeners().task_completed(task.task_id, "FINISHED",
+                                         hit["rows"])
 
     def _run_task(self, task: _Task, body: dict, session: dict):
         from ..exec.runner import run_query
@@ -432,6 +442,8 @@ class TaskManager:
         self._count("exchange_bytes", total_bytes)
         if ckey is not None:
             self.fragment_cache.put(ckey, pages, res.row_count, task.stats)
+        event_listeners().task_completed(task.task_id, "FINISHED",
+                                         res.row_count)
 
     def get(self, task_id: str) -> Optional[_Task]:
         with self._tasks_lock:

@@ -7,11 +7,10 @@ and DROP FUNCTION), or the text untouched. Prepared statements
 substitute `?` parameters textually with the EXECUTE ... USING
 expressions before parsing.
 
-SHOW CATALOGS reads the catalogs from `information_schema.schemata`:
-the reference reads its `system.catalogs` table, and the system
-connector is not ported yet (ROADMAP queue 1 item 12), so the port
-lists its own four catalogs. SHOW SESSION and SHOW FUNCTIONS read
-system tables and raise until then.
+SHOW CATALOGS, SHOW SESSION and SHOW FUNCTIONS read the system
+connector's `catalogs`, `session_properties` and `functions` tables,
+as in the reference; SHOW SCHEMAS, TABLES and COLUMNS and DESCRIBE
+read information_schema.
 """
 
 from __future__ import annotations
@@ -191,8 +190,7 @@ def preprocess(text: str, catalog: str = "tpch",
         rest = m.group(2).strip().rstrip(";").strip()
         if kind == "catalogs":
             return Preprocessed(text=(
-                "SELECT catalog_name AS Catalog FROM "
-                "information_schema.schemata GROUP BY catalog_name "
+                "SELECT catalog_name AS Catalog FROM system.catalogs "
                 "ORDER BY catalog_name"))
         if kind == "schemas":
             cat, like = _from_and_like(rest, catalog)

@@ -8,10 +8,6 @@
 * Each pass alone and constant folding: tests/test_torch_sql_passes.py.
 
 Left out of the comparisons, by name:
-* SHOW CATALOGS: the port lists its catalogs from information_schema
-  (the system connector is not ported; ROADMAP queue 3);
-* SHOW SESSION and SHOW FUNCTIONS read the reference's system tables,
-  which the port does not have yet (ROADMAP queue 1 item 12.5);
 * PREPARE, DEALLOCATE and EXECUTE have no plan of their own (their rows
   are held in tests/test_torch_sql.py); `SHOW TABLES WHERE x` is
   malformed in both.
@@ -48,9 +44,6 @@ TPCDS_TIMED = dict(max_groups=1 << 16, join_capacity=1 << 22)
 # reference's (XLA's cbrt(27.0) is 3.0000000000000004; the port's 3.0)
 ONE_ULP = {"fn_statements_scalar_math"}
 NOT_COMPARED = {
-    "test_meta_statements::test_show_catalogs_lists_registry",
-    "test_meta_statements::test_show_session_and_functions",
-    "test_meta_statements::test_show_session_and_functions#1",
     "test_meta_statements::test_prepare_execute_end_to_end",
     "test_meta_statements::test_prepare_execute_end_to_end#1",
     "test_meta_statements::test_prepare_execute_end_to_end#2",
@@ -95,7 +88,7 @@ def test_every_corpus_is_compared():
     assert len([n for n in names if n.startswith("tpcds_")]) == 99
     assert len([n for n in names if n.startswith("verifier_")]) == 22
     assert len([n for n in names if n.startswith("fn_")]) == 94
-    assert len(STATEMENT_TEXTS) - len(NOT_COMPARED) == 48
+    assert len(STATEMENT_TEXTS) - len(NOT_COMPARED) == 51
 
 
 @pytest.mark.parametrize("name,text,kw", CASES, ids=[c[0] for c in CASES])
