@@ -118,7 +118,7 @@ PyTorch version at the shapes of its path:
   against sql() in turns), q6 through a DB-API cursor, START
   TRANSACTION and COMMIT, SHOW CATALOGS, system.queries, and a
   rejection by a full resource-group queue;
-* the worker tier (phase_cluster, last): a DiscoveryServer and two
+* the worker tier (phase_cluster): a DiscoveryServer and two
   HTTP workers (presto_tpu_torch.server.TpuWorkerServer) on the card,
   the Coordinator scheduling plan fragments on the workers discovery
   finds, rows moving between them as SerializedPages over HTTP: q1 at
@@ -126,13 +126,30 @@ PyTorch version at the shapes of its path:
   half of lineitem launches fused_limb_sums once, the FINAL over the
   pulled pages 1-3 times; one call of each against the plain version),
   in turns with q1 on one device; q3 at SF1 with PARTITIONED joins
-  across the workers against numpy_q3; q1 from add_exchanges (HASH
-  exchange, FINAL, a SORTED gather merged on the host) against
-  numpy_q1 in order; "all_at_once" against "phased"; a task failed
-  once by the worker.run_task failpoint and retried; and a worker in a
-  child process (`chip_smoke.py --cluster-worker URL`). Each task's
+  across the workers against numpy_q3, then the serde on its largest
+  task's pages (pack and unpack by the host library against numpy in
+  turns, and lz4 against zstd: bytes, serialize and decode ms); q1
+  from add_exchanges (HASH exchange, FINAL, a SORTED gather merged on
+  the host) against numpy_q1 in order; "all_at_once" against
+  "phased"; a task failed once by the worker.run_task failpoint and
+  retried; and a worker in a child process (`chip_smoke.py --cluster-worker URL`). Each task's
   rows, page bytes, pages pulled, serialize and pull ms and execute ms
-  are printed, and the coordinator's wall.
+  are printed, and the coordinator's wall;
+* the cluster operations (phase_fleet, last), q1 at SF1 throughout:
+  discovery, two workers on the card and the Coordinator with one
+  shared secret (JWT bearers) and TLS where cryptography imports, q1
+  through distribute_simple_agg with lz4 pages (5 fused_limb_sums
+  launches; the first lz4 page round trips), a request without a
+  bearer answered 401, a task's status as thrift against its JSON;
+  q1's PARTIALs on both workers, then a drain of one into the other
+  (POST /v1/worker/drain): its lz4 pages migrated once (stream
+  checksums), DRAINED, out of alive_nodes, and the FINAL pulling them
+  through the redirect; a router in front of a primary and a standby statement server whose
+  dispatchers admit against a resource manager: q1 through the router,
+  then a wedged primary whose heartbeats are lost
+  (coordinator.heartbeat_lapse) and the standby adopting its q1 once;
+  a catalog server as the remote catalog rtpch (SHOW TABLES, DESCRIBE,
+  row counts, a refused scan).
 
 Each query runs once to climb its overflow ladder, then once more with
 every kernel count set to 0 just before: that second run starts at the
@@ -172,7 +189,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1.979e15  # H100 SXM data sheet, dense int8 tensor cores
 WARMUP = 3
 REPEATS = 10
-QUERY_REPEATS = 5
+QUERY_REPEATS = 3
 
 
 def _days(iso: str) -> int:
@@ -1781,7 +1798,9 @@ def phase_mesh():
 # ---------------------------------------------------------------------------
 
 CLUSTER_WORKERS = 2
-CLUSTER_ROUNDS = 2  # q1 on the cluster and on one device, in turns
+# q1 on the cluster and on one device, in turns; one round keeps the
+# full run, phase_fleet included, near 1,000 s
+CLUSTER_ROUNDS = 1
 # the counted runs must execute: a replay from a worker's fragment
 # result cache would launch nothing
 CLUSTER_SESSION = {"fragment_result_cache": False}
@@ -1822,7 +1841,7 @@ def task_report(coord):
     """Each task of the coordinator's last query: its fragment and
     worker, the rows and page bytes it produced, its staging and
     execute ms, and its exchange: pages and bytes pulled and sent, the
-    pull's and the serialization's ms."""
+    pull's, the decode's and the serialization's ms."""
     out = []
     for t in coord.last_task_stats:
         st = t["stats"]
@@ -1838,6 +1857,7 @@ def task_report(coord):
             "pages_in": qs.get("exchange_pages_in", 0),
             "page_bytes_in": qs.get("exchange_page_bytes_in", 0),
             "pull_ms": qs.get("exchange_pull_s", 0.0) * 1e3,
+            "decode_ms": qs.get("exchange_decode_s", 0.0) * 1e3,
             "pages_out": qs.get("exchange_pages_out", 0),
             "page_bytes_out": qs.get("exchange_page_bytes_out", 0),
             "serialize_ms": qs.get("exchange_serialize_s", 0.0) * 1e3})
@@ -1850,17 +1870,20 @@ def _print_tasks(name, rep):
               f"{t['worker']}: {t['rows']} rows, {t['bytes']} page bytes "
               f"out in {t['pages_out']} pages (serialize "
               f"{t['serialize_ms']:.3f} ms); {t['pages_in']} pages, "
-              f"{t['page_bytes_in']} bytes pulled in {t['pull_ms']:.3f} ms; "
+              f"{t['page_bytes_in']} bytes pulled in {t['pull_ms']:.3f} ms "
+              f"(decode {t['decode_ms']:.3f} ms); "
               f"stage {t['stage_ms']:.3f} ms, execute "
               f"{t['execute_ms']:.3f} ms")
     print(f"cluster {name}: coordinator wall {rep['wall_ms']:.3f} ms")
 
 
-def cluster_run(coord, name, plan, want, **kw):
-    """One query through the coordinator: its rows against `want` (in
-    order) and its tasks' report."""
+def cluster_run(coord, name, plan, want, session=None, **kw):
+    """One query through the coordinator (CLUSTER_SESSION under
+    `session`): its rows against `want` (in order) and its tasks'
+    report."""
     t0 = time.perf_counter()
-    cols, names = coord.execute(plan, sf=SF, session=CLUSTER_SESSION, **kw)
+    cols, names = coord.execute(plan, sf=SF, session={
+        **CLUSTER_SESSION, **(session or {})}, **kw)
     wall = (time.perf_counter() - t0) * 1e3
     got = cluster_rows(cols, names)
     if got != want:
@@ -1870,6 +1893,129 @@ def cluster_run(coord, name, plan, want, **kw):
            "tasks": task_report(coord)}
     _print_tasks(name, rep)
     return rep
+
+
+@contextlib.contextmanager
+def capturing_pages():
+    """Within the block, the columns of every page a worker of this
+    process serializes, with its task (the thread task-<id>) and its
+    bytes; yields the list of (task id, columns, page bytes)."""
+    import threading
+    from presto_tpu_torch.server import worker as W
+    serialize, pages = W.serialize_page, []
+
+    def capturing(columns, codec):
+        page = serialize(columns, codec)
+        name = threading.current_thread().name
+        pages.append((name[len("task-"):] if name.startswith("task-")
+                      else name, list(columns), len(page)))
+        return page
+
+    W.serialize_page = capturing
+    try:
+        yield pages
+    finally:
+        W.serialize_page = serialize
+
+
+def _numpy_serde():
+    """serde/pages.py's host library with pack and unpack replaced by
+    their numpy definitions (the plain version the library is timed
+    against)."""
+    import types
+    from presto_tpu_torch.native import kernels as nk
+
+    def pack(values, nulls):
+        return np.ascontiguousarray(values[~np.asarray(nulls, bool)]).tobytes()
+
+    def unpack(packed, nulls):
+        nulls = np.asarray(nulls, bool)
+        out = np.zeros(nulls.shape[0], dtype=packed.dtype)
+        out[~nulls] = packed
+        return out
+
+    return types.SimpleNamespace(pack_nonnull=pack, unpack_nonnull=unpack,
+                                 lz4_compress=nk.lz4_compress,
+                                 lz4_decompress=nk.lz4_decompress)
+
+
+# pack and unpack through numpy and the host library, in turns; then
+# lz4 either side of zstd (zlib where zstandard does not import: about
+# 3 s on 45 MB, so once)
+SERDE_TURNS = ("numpy", "library", "library", "numpy") * 2
+CODEC_TURNS = ("lz4", "zstd", "lz4")
+
+
+def serde_on_pages(captured):
+    """The exchange's serde on the pages of the task that serialized
+    the most bytes (`captured`, from capturing_pages): serialize_page
+    and deserialize_page with pack and unpack through the host library
+    and through numpy, in turns, the bytes and the decoded columns
+    equal; then the same pages with lz4 and with zstd, in turns: bytes,
+    serialize and decode ms, the decoded columns equal."""
+    from presto_tpu_torch.serde import (PageCodec, deserialize_page,
+                                        serialize_page)
+    from presto_tpu_torch.serde import pages as P
+    by_task = {}
+    for tid, cols, nbytes in captured:
+        by_task.setdefault(tid, []).append((cols, nbytes))
+    tid, pages = max(by_task.items(),
+                     key=lambda kv: sum(b for _, b in kv[1]))
+    types = [c[0] for c in pages[0][0]]
+    rows = sum(len(cols[0][1]) for cols, _ in pages)
+
+    def run(codec):
+        t0 = time.perf_counter()
+        bufs = [serialize_page(cols, codec) for cols, _ in pages]
+        t1 = time.perf_counter()
+        decoded = [deserialize_page(b, types, codec) for b in bufs]
+        t2 = time.perf_counter()
+        return bufs, decoded, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    def same(a, b):
+        return all((x.tolist() == y.tolist() if x.dtype == object
+                    else x.tobytes() == y.tobytes()) and
+                   np.array_equal(xm, ym)
+                   for pa, pb in zip(a, b)
+                   for (x, xm), (y, ym) in zip(pa, pb))
+
+    out = {"task": tid, "pages": len(pages), "rows": rows}
+    plain_ns, library = _numpy_serde(), P.nk
+    first = {}
+    for path in SERDE_TURNS:
+        P.nk = plain_ns if path == "numpy" else library
+        try:
+            bufs, decoded, ser, dec = run(PageCodec(None))
+        finally:
+            P.nk = library
+        if path not in first:
+            first[path] = (bufs, decoded)
+        rep = out.setdefault(path, {"serialize_ms": [], "decode_ms": []})
+        rep["serialize_ms"].append(ser)
+        rep["decode_ms"].append(dec)
+    (nb, nd), (lb, ld) = first["numpy"], first["library"]
+    if nb != lb or not same(nd, ld):
+        raise AssertionError(f"serde on {tid}'s pages: the host library "
+                             f"and numpy differ")
+    out["page_bytes"] = sum(len(b) for b in lb)
+    out["zstd_module"] = "zstandard" if P._zstd() else "zlib"
+    for codec in CODEC_TURNS:
+        bufs, decoded, ser, dec = run(PageCodec(codec))
+        if not same(decoded, ld):
+            raise AssertionError(f"serde on {tid}'s pages: {codec} pages "
+                                 f"decode to other columns")
+        rep = out.setdefault(codec, {"bytes": sum(len(b) for b in bufs),
+                                     "serialize_ms": [], "decode_ms": []})
+        rep["serialize_ms"].append(ser)
+        rep["decode_ms"].append(dec)
+        del bufs, decoded
+    del first, nb, nd, lb, ld
+    for path in ("numpy", "library", "lz4", "zstd"):
+        for k in ("serialize_ms", "decode_ms"):
+            out[path][f"median_{k}"] = statistics.median(out[path][k])
+    print(f"serde on {tid}'s {len(pages)} pages ({rows} rows, "
+          f"{out['page_bytes']} bytes): {json.dumps(out)}")
+    return out
 
 
 def cluster_q1(coord):
@@ -1907,10 +2053,25 @@ def cluster_q1(coord):
               f"one-device run_query {one_ms:.3f} ms (execute "
               f"{rep['one_device_execute_ms']:.3f} ms)")
     rep, calls, launches = counted
+    per_task, err = check_q1_task_launches(
+        "cluster q1", {t["task"]: t["fragment"] for t in rep["tasks"]},
+        calls, launches)
+    del calls
+    return {"rounds": rounds, "fused_limb_sums": launches,
+            "fused_limb_sums_rows_by_task": per_task,
+            "fused_limb_sums_max_abs_err": err}
+
+
+def check_q1_task_launches(name, frag_of, calls, launches):
+    """q1 through distribute_simple_agg on CLUSTER_WORKERS workers:
+    fused_limb_sums launched once in each PARTIAL task (fragment 0)
+    over its ~3.0M rows and 1-3 times in the FINAL (fragment 1), and
+    nowhere else; a PARTIAL and a FINAL call equal the plain version.
+    `frag_of`: task id -> fragment. Returns the rows of each task's
+    calls and the max abs errors."""
     per_task = {}
     for tid, call in calls:
         per_task.setdefault(tid, []).append(int(call[0].shape[0]))
-    frag_of = {t["task"]: t["fragment"] for t in rep["tasks"]}
     partial = {t: n for t, n in per_task.items() if frag_of.get(t) == 0}
     final = {t: n for t, n in per_task.items() if frag_of.get(t) == 1}
     from presto_tpu_torch.connectors import tpch
@@ -1923,21 +2084,18 @@ def cluster_q1(coord):
             or not all(1 <= len(n) <= 3 for n in final.values()) \
             or set(per_task) - set(frag_of):
         raise AssertionError(
-            f"cluster q1 must launch fused_limb_sums once in each of the "
+            f"{name} must launch fused_limb_sums once in each of the "
             f"{CLUSTER_WORKERS} PARTIAL tasks over ~3.0M rows and 1-3 times "
             f"in the FINAL: rows of each task's calls {per_task}, tasks "
             f"{frag_of}, launches {launches}")
     part_call = next(c for t, c in calls if t in partial)
     final_call = next(c for t, c in calls if t in final)
-    err = {"partial": check_fused(*part_call, "cluster q1's PARTIAL lanes"),
-           "final": check_fused(*final_call, "cluster q1's FINAL pages")}
-    del calls, part_call, final_call
-    print(f"cluster q1: equals numpy_q1; fused_limb_sums launches per task "
+    err = {"partial": check_fused(*part_call, f"{name}'s PARTIAL lanes"),
+           "final": check_fused(*final_call, f"{name}'s FINAL pages")}
+    print(f"{name}: equals numpy_q1; fused_limb_sums launches per task "
           f"{per_task} ({launches} in all), a PARTIAL and a FINAL call "
           f"equal the plain version (max abs err {err})")
-    return {"rounds": rounds, "fused_limb_sums": launches,
-            "fused_limb_sums_rows_by_task": per_task,
-            "fused_limb_sums_max_abs_err": err}
+    return per_task, err
 
 
 def _arm_failpoint(url, site, spec):
@@ -1998,8 +2156,9 @@ def phase_cluster():
     gather merged by merge_permutation) against numpy_q1 in order;
     "all_at_once" against "phased"; worker.run_task armed to fail once
     on one worker (POST /v1/failpoint), the rows unchanged; a worker in
-    a child process, q1 across the process boundary. Returns the
-    reports and the phase's seconds."""
+    a child process, q1 across the process boundary. After q3,
+    serde_on_pages times the codec on q3's largest task's pages.
+    Returns the reports and the phase's seconds."""
     import torch
     from presto_tpu_torch import failpoints
     from presto_tpu_torch.plan.distribute import add_exchanges
@@ -2029,9 +2188,12 @@ def phase_cluster():
         hashed = sum(f.partitioning == "HASH" for f in fragment_plan(q3))
         if hashed < 3:
             raise AssertionError(f"q3's plan has {hashed} HASH fragments")
-        out["q3"] = cluster_run(coord, "q3", q3, want_q3)
+        with capturing_pages() as captured:
+            out["q3"] = cluster_run(coord, "q3", q3, want_q3)
         out["q3"]["hash_fragments"] = hashed
         torch.cuda.empty_cache()
+        out["q3_serde"] = serde_on_pages(captured)
+        del captured
 
         want_q1 = oracle_rows(numpy_q1, Q1_TABLES, SF)
         q1x = add_exchanges(q1_plan(), sf=SF)
@@ -2080,6 +2242,492 @@ def phase_cluster():
     torch.cuda.empty_cache()
     out["s"] = time.perf_counter() - t0
     print(f"cluster: the phase took {out['s']:.1f} s")
+    return out
+
+
+FLEET_SECRET = "chip-smoke-fleet-secret"
+# the fleet's exchange ships lz4 pages (the host library's LZ4 codec)
+FLEET_SESSION = {**CLUSTER_SESSION, "exchange_compression": "lz4"}
+
+
+def fleet_certs(directory):
+    """A self-signed cluster CA (server/tls.py) trusted by this
+    process's clients, as (cert, key); None where the cryptography
+    package does not import (the import error is printed on a line of
+    its own, and the cluster runs on plain HTTP with its secret)."""
+    from presto_tpu_torch.server import tls
+    try:
+        import cryptography  # noqa: F401  (generate_self_signed needs it)
+    except ImportError as e:
+        print(f"fleet: cryptography does not import: {e!r}")
+        return None
+    cert, key = tls.generate_self_signed(directory)
+    tls.trust(cert)
+    return cert, key
+
+
+def _bearer():
+    from presto_tpu_torch.server.auth import (InternalAuthenticator,
+                                              bearer_headers)
+    return bearer_headers(InternalAuthenticator(FLEET_SECRET, "smoke"))
+
+
+def _http_status(url, headers=None):
+    """The status code of a GET (urllib raises on >= 400)."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(urllib.request.Request(
+                url, headers=headers or {}), timeout=30) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def fleet_run(coord, name, plan, session=None):
+    """q1 through `coord` (cluster_run), the counts at 0 just before:
+    every fused_limb_sums launch of its tasks checked."""
+    from presto_tpu_torch.ops import kernels as K
+    _reset_launches()
+    with recording_fused_by_task() as calls:
+        rep = cluster_run(coord, f"fleet {name}", plan,
+                          oracle_rows(numpy_q1, Q1_TABLES, SF), session)
+        launches = K.LAUNCHES["fused_limb_sums"]
+    frag_of = {t["task"]: t["fragment"] for t in rep["tasks"]}
+    rep["fused_limb_sums_rows_by_task"], rep["fused_limb_sums_max_abs_err"] \
+        = check_q1_task_launches(f"fleet {name}", frag_of, calls, launches)
+    rep["fused_limb_sums"] = launches
+    del calls
+    return rep
+
+
+def fleet_thrift_status(url, task_id):
+    """One task's status as thrift (Accept: application/x-thrift),
+    decoded, against its JSON status."""
+    from presto_tpu_torch.serde.thrift import (TASK_STATUS_SCHEMA,
+                                               decode_task_status)
+    base = f"{url}/v1/task/{task_id}/status"
+    code, body, _ = _http_status(base, _bearer())
+    jdoc = json.loads(body)
+    code2, raw, headers = _http_status(
+        base, {**_bearer(), "Accept": "application/x-thrift"})
+    tdoc = decode_task_status(raw)
+    failures = [f.get("message", "") for f in jdoc.get("failures", [])]
+    same = {k: jdoc[k] for k in TASK_STATUS_SCHEMA if k in jdoc}
+    got = {k: tdoc[k] for k in same}
+    if (code, code2) != (200, 200) or \
+            headers.get("Content-Type") != "application/x-thrift" or \
+            got != same or tdoc["taskId"] != task_id or \
+            [f["message"] for f in tdoc["failures"]] != failures:
+        raise AssertionError(f"thrift status of {task_id}: {tdoc} against "
+                             f"{jdoc} ({code}, {code2}, {headers})")
+    print(f"fleet thrift: {task_id}'s status as {len(raw)} thrift bytes "
+          f"equals its JSON status ({len(body)} bytes): {got}")
+    return {"thrift_bytes": len(raw), "json_bytes": len(body),
+            "state": tdoc["state"]}
+
+
+def fleet_drain(workers, disc_url):
+    """q1's PARTIAL tasks on both workers, with lz4 pages; before the
+    FINAL pulls, the first worker drains into the second (POST
+    /v1/worker/drain with migrateTo): its pages move once (its stream
+    checksum before equals the peer's after), it reaches DRAINED and
+    leaves alive_nodes; the FINAL on the peer pulls the drained
+    worker's task through the redirect, and its rows equal numpy_q1."""
+    from presto_tpu_torch.connectors import tpch
+    from presto_tpu_torch.ops import kernels as K
+    from presto_tpu_torch.plan import nodes as N
+    from presto_tpu_torch.plan.fragment import (distribute_simple_agg,
+                                                fragment_plan)
+    from presto_tpu_torch.serde import PageCodec
+    from presto_tpu_torch.server import WorkerClient
+    from presto_tpu_torch.server.discovery import alive_nodes
+    drained, peer = workers
+    partial, final = fragment_plan(distribute_simple_agg(q1_plan()))
+    out_names = [f"c{i}" for i in range(len(partial.root.output_types()))]
+    scan = next(n for n in _walk_nodes(partial.root)
+                if isinstance(n, N.TableScanNode))
+    total = tpch.table_row_count("lineitem", SF)
+    tids = ["fleet.drain.p0", "fleet.drain.p1"]
+    clients = [WorkerClient(w.url, 600.0, shared_secret=FLEET_SECRET)
+               for w in workers]
+    want = oracle_rows(numpy_q1, Q1_TABLES, SF)
+    _reset_launches()
+    with recording_fused_by_task() as calls:
+        t0 = time.perf_counter()
+        for w, (c, tid) in enumerate(zip(clients, tids)):
+            lo = total * w // 2
+            c.submit_body(tid, {
+                "plan": N.to_json(N.OutputNode(partial.root, out_names)),
+                "sf": SF, "session": FLEET_SESSION,
+                "scanRanges": {scan.id: [lo, total * (w + 1) // 2 - lo]}})
+        for c, tid in zip(clients, tids):
+            info = c.wait(tid, 600.0)
+            if info["state"] != "FINISHED":
+                raise AssertionError(f"PARTIAL {tid}: {info}")
+        partial_ms = (time.perf_counter() - t0) * 1e3
+        task = drained.manager.get(tids[0])
+        with task.lock:
+            pre = {b: buf.stream_checksum() for b, buf in task.buffers.items()}
+            pages = sum(len(b) for b in task.buffers.values())
+        t1 = time.perf_counter()
+        st = clients[0].drain(migrate_to=peer.url, timeout_ms=60000)
+        deadline = time.time() + 120
+        while st["state"] != "DRAINED":
+            if time.time() > deadline:
+                raise AssertionError(f"the drain did not finish: {st}")
+            time.sleep(0.02)
+            st = clients[0].drain_status()
+        drain_ms = (time.perf_counter() - t1) * 1e3
+        while any(n["uri"] == drained.url for n in
+                  alive_nodes(disc_url, shared_secret=FLEET_SECRET)):
+            if time.time() > deadline:
+                raise AssertionError("the drained worker is still alive")
+            time.sleep(0.02)
+        adopted = peer.manager.get(tids[0])
+        with adopted.lock:
+            post = {b: buf.stream_checksum()
+                    for b, buf in adopted.buffers.items()}
+        peer_st = clients[1].drain_status()
+        if post != pre or st["migratedPages"] != pages or \
+                st["unreplayedPages"] != 0 or peer_st["adoptedTasks"] != 1:
+            raise AssertionError(f"migration: checksums {pre} -> {post}, "
+                                 f"{pages} pages, drain {st}, peer {peer_st}")
+        rn = next(n for n in _walk_nodes(final.root)
+                  if isinstance(n, N.RemoteSourceNode))
+        t2 = time.perf_counter()
+        clients[1].submit_body("fleet.drain.f", {
+            "plan": N.to_json(final.root), "sf": SF,
+            "session": FLEET_SESSION,
+            "remoteSources": {rn.id: {
+                "sources": [w.url for w in workers], "taskIds": tids,
+                "types": [str(t) for t in rn.types], "ack": False,
+                "timeoutS": 600.0}}})
+        if clients[1].wait("fleet.drain.f", 600.0)["state"] != "FINISHED":
+            raise AssertionError("the FINAL after the drain failed")
+        cols = clients[1].fetch_results("fleet.drain.f",
+                                        final.root.output_types(),
+                                        PageCodec("lz4"))
+        final_ms = (time.perf_counter() - t2) * 1e3
+        launches = K.LAUNCHES["fused_limb_sums"]
+    got = cluster_rows(cols, final.root.names)
+    if got != want:
+        raise AssertionError(f"fleet drain: FINAL rows differ from "
+                             f"numpy_q1:\n got  {got}\n want {want}")
+    frag_of = {tids[0]: 0, tids[1]: 0, "fleet.drain.f": 1}
+    per_task, err = check_q1_task_launches("fleet drain", frag_of, calls,
+                                           launches)
+    del calls
+    final_stats = peer.manager.get("fleet.drain.f").stats["queryStats"]
+    print(f"fleet drain: PARTIALs {partial_ms:.1f} ms; {pages} pages of "
+          f"{drained.node_id} migrated once in {drain_ms:.1f} ms "
+          f"(checksums equal), DRAINED and out of alive_nodes; the FINAL "
+          f"pulled {final_stats['exchange_pages_in']} pages through the "
+          f"redirect in {final_ms:.1f} ms, rows equal numpy_q1")
+    return {"migrated_pages": pages, "partial_ms": partial_ms,
+            "drain_ms": drain_ms, "final_ms": final_ms,
+            "final_pages_in": final_stats["exchange_pages_in"],
+            "fused_limb_sums": launches,
+            "fused_limb_sums_rows_by_task": per_task,
+            "fused_limb_sums_max_abs_err": err}
+
+
+def _walk_nodes(root):
+    out, stack = [], [root]
+    while stack:
+        n = stack.pop()
+        out.append(n)
+        stack.extend(n.sources)
+    return out
+
+
+@contextlib.contextmanager
+def recording_first_lz4_page():
+    """Within the block, the first page the host library compresses
+    with lz4 and its block; yields the list that holds them. After the
+    block the block must decompress to the page's bytes."""
+    from presto_tpu_torch.native import kernels as nk
+    compress, seen = nk.lz4_compress, []
+
+    def recording(data):
+        block = compress(data)
+        if not seen:
+            seen.append((bytes(data), block))
+        return block
+
+    nk.lz4_compress = recording
+    try:
+        yield seen
+    finally:
+        nk.lz4_compress = compress
+    if not seen or nk.lz4_decompress(seen[0][1], len(seen[0][0])) != \
+            seen[0][0]:
+        raise AssertionError("the first lz4 page does not decompress to "
+                             "the bytes that were compressed")
+    print(f"fleet lz4: the first page, {len(seen[0][0])} -> "
+          f"{len(seen[0][1])} bytes, round trips")
+
+
+def fleet_failover():
+    """A ResourceManager; a primary and a standby StatementServer on
+    cuda:0, each admitting through a Dispatcher against the cluster's
+    load and heartbeating through a ClusterStateSender; a RouterServer
+    in front. q1 (the full text) POSTed through the router equals
+    numpy_q1 with one fused_limb_sums launch. Then the primary's
+    executor is wedged under an in-flight q1 and every heartbeat is lost
+    (coordinator.heartbeat_lapse): the standby's check_once adopts the
+    q1 once, and its rows equal numpy_q1 with one launch."""
+    import threading
+    from presto_tpu_torch import failpoints
+    from presto_tpu_torch.client import StatementClient, execute
+    from presto_tpu_torch.ops import kernels as K
+    from presto_tpu_torch.queries import load_corpus
+    from presto_tpu_torch.server.dispatcher import Dispatcher
+    from presto_tpu_torch.server.resource_manager import (
+        ClusterStateSender, ResourceManager, StandbyCoordinator,
+        failover_totals, reset_failover_totals)
+    from presto_tpu_torch.server.router import RouterServer
+    from presto_tpu_torch.server.statement import StatementServer
+    text = SQL_Q1.format(table="lineitem")
+    groups = load_corpus()["q1_two_stage"]["max_groups"]
+    session = {"sf": str(SF), "max_groups": str(groups)}
+    want = oracle_rows(numpy_q1, Q1_TABLES, SF)
+    out, servers, senders = {}, [], []
+    gate = threading.Event()
+    reset_failover_totals()
+    try:
+        rm = ResourceManager(heartbeat_ttl_s=1.0).start()
+        servers.append(rm)
+        for cid in ("primary", "standby"):
+            srv = StatementServer(sf=SF, device="cuda:0", queue_poll_s=0.05,
+                                  dispatcher=Dispatcher(
+                                      resource_manager_url=rm.url,
+                                      coordinator_id=cid,
+                                      cluster_limits={"global": 4})).start()
+            servers.append(srv)
+            senders.append(ClusterStateSender(
+                rm.url, cid, srv.dispatcher, interval_s=0.1,
+                inflight_fn=srv.inflight_doc).start())
+        primary, standby = servers[1], servers[2]
+        router = RouterServer([{"url": primary.url},
+                               {"url": standby.url, "kind": "standby"}],
+                              health_ttl_s=0.0).start()
+        servers.append(router)
+        _reset_launches()
+        with recording_fused() as calls:
+            t0 = time.perf_counter()
+            c = execute(router.url, text, session=session)
+            out["router_ms"] = (time.perf_counter() - t0) * 1e3
+            launches = K.LAUNCHES["fused_limb_sums"]
+            if launches != 1:
+                raise AssertionError(f"q1 through the router launched "
+                                     f"fused_limb_sums {launches} times")
+            out["router_max_abs_err"] = check_fused(
+                *calls[0], "q1 through the router")
+        if c.data != _rendered(want, c.columns) or \
+                [d["queryId"] for d in primary.queries_doc()] != \
+                [c.query_id]:
+            raise AssertionError(f"router q1: {c.data[:2]} on "
+                                 f"{primary.queries_doc()}")
+
+        def wedged(text, session_values, query_id, txn_id):
+            gate.wait(600)
+            raise RuntimeError("the wedged primary was released after "
+                               "the failover")
+
+        primary._executor = wedged
+        monitor = StandbyCoordinator(rm.url, "primary", standby, ttl_s=0.5)
+        sc = StatementClient(primary.url, text, session=session)
+        qid = sc.query_id
+        deadline = time.time() + 60
+        while not any(q["queryId"] == qid for q in primary.inflight_doc()):
+            if time.time() > deadline:
+                raise AssertionError("the primary's q1 is not in flight")
+            time.sleep(0.01)
+        senders[0].send_once()  # the manifest rides a heartbeat
+        if monitor.check_once():
+            raise AssertionError("failover while the primary heartbeats")
+        failpoints.arm("coordinator.heartbeat_lapse", "error(OSError)")
+        time.sleep(1.2)  # the primary's heartbeats lapse past the ttl
+        _reset_launches()
+        with recording_fused() as calls:
+            t1 = time.perf_counter()
+            fired = monitor.check_once()
+            again = monitor.check_once()
+            with primary._qlock:
+                slug = primary._queries[qid].slug
+            q = standby.get_query(qid, slug)
+            if q is None:
+                raise AssertionError("the standby did not adopt q1 under "
+                                     "its id and slug")
+            q.machine.wait_done(600)
+            out["failover_ms"] = (time.perf_counter() - t1) * 1e3
+            launches = K.LAUNCHES["fused_limb_sums"]
+            if launches != 1:
+                raise AssertionError(f"the adopted q1 launched "
+                                     f"fused_limb_sums {launches} times")
+            out["standby_max_abs_err"] = check_fused(
+                *calls[0], "the standby's adopted q1")
+        lapses = failpoints.active()["coordinator.heartbeat_lapse"]["fires"]
+        if not fired or again or failover_totals() != 1 or \
+                q.machine.state != "FINISHED" or \
+                q.rows != _rendered(want, q.columns) or lapses < 1:
+            raise AssertionError(
+                f"failover: fired {fired}, again {again}, totals "
+                f"{failover_totals()}, state {q.machine.state}, "
+                f"lapses {lapses}, rows {q.rows[:2]}")
+        out.update(failovers=failover_totals(), heartbeat_lapses=lapses)
+        print(f"fleet router: q1 through the router {out['router_ms']:.1f} "
+              f"ms, one launch; after {lapses} lost heartbeats the standby "
+              f"adopted the wedged q1 once and answered it in "
+              f"{out['failover_ms']:.1f} ms, rows equal numpy_q1")
+    finally:
+        failpoints.disarm_all()
+        gate.set()
+        for snd in senders:
+            snd.stop()
+        for srv in reversed(servers):
+            srv.stop()
+    return out
+
+
+def fleet_catalog_server():
+    """A CatalogServer over this process's catalogs, registered as the
+    remote catalog rtpch: SHOW TABLES and DESCRIBE lineitem through it,
+    the planner's row counts equal the local ones, a scan refused."""
+    from presto_tpu_torch import sql
+    from presto_tpu_torch.connectors import tpch
+    from presto_tpu_torch.plan import nodes as N
+    from presto_tpu_torch.plan.stats import estimate_rows
+    from presto_tpu_torch.server.catalog_server import (
+        CatalogServer, register_remote_catalog, unregister_remote_catalog)
+    with CatalogServer() as srv:
+        register_remote_catalog("rtpch", srv.url, "tpch")
+        try:
+            tables = sorted(r[0] for r in sql("SHOW TABLES FROM rtpch",
+                                              sf=SF).rows())
+            cols = [r[0] for r in sql("DESCRIBE rtpch.lineitem",
+                                      sf=SF).rows()]
+            counts = {}
+            for t in tables:
+                col, ty = tpch.TPCH_SCHEMA[t][0]
+                counts[t] = tuple(estimate_rows(N.TableScanNode(
+                    cat, t, [col], [ty]), SF) for cat in ("rtpch", "tpch"))
+            refused = None
+            try:
+                sql("SELECT count(*) FROM rtpch.region", sf=SF)
+            except NotImplementedError as e:
+                refused = str(e)
+        finally:
+            unregister_remote_catalog("rtpch")
+    if tables != sorted(tpch.TPCH_SCHEMA) or \
+            cols != [c for c, _ in tpch.TPCH_SCHEMA["lineitem"]] or \
+            any(a != b for a, b in counts.values()) or \
+            not refused or "METADATA" not in refused:
+        raise AssertionError(f"catalog server: {tables}, {cols}, {counts}, "
+                             f"scan refusal {refused!r}")
+    print(f"fleet catalog server: SHOW TABLES {len(tables)}, DESCRIBE "
+          f"lineitem {len(cols)} columns, row counts equal "
+          f"({counts['lineitem'][0]:.0f} lineitem), a scan refused: "
+          f"{refused}")
+    return {"tables": len(tables), "lineitem_rows": counts["lineitem"][0]}
+
+
+def phase_fleet():
+    """The cluster operations on the card, q1 at SF1 throughout: a
+    DiscoveryServer, two TpuWorkerServers on cuda:0 and the Coordinator,
+    all with one shared secret and TLS (where cryptography imports): q1
+    through distribute_simple_agg (5 launches), a request without a
+    bearer answered 401, one task's status as thrift; q1's PARTIALs, a
+    drain with page migration, the FINAL through the redirect, every
+    exchange with lz4 pages (the first one checked to round trip); the
+    router, the resource manager and the standby's adoption; the
+    catalog server. Returns each step's report and wall seconds."""
+    import tempfile
+    import torch
+    from presto_tpu_torch.plan.fragment import distribute_simple_agg
+    from presto_tpu_torch.server import Coordinator, TpuWorkerServer, tls
+    from presto_tpu_torch.server.auth import set_shared_secret
+    from presto_tpu_torch.server.discovery import (DiscoveryServer,
+                                                   alive_nodes,
+                                                   reset_fleet_state)
+    t0 = time.perf_counter()
+    out, step_s = {}, {}
+    disc, workers = None, []
+    reset_fleet_state()
+    with tempfile.TemporaryDirectory() as tmp:
+        certs = fleet_certs(tmp)
+        out["tls"] = certs is not None
+        set_shared_secret(FLEET_SECRET)  # the process's internal clients
+        try:
+            t = time.perf_counter()
+            disc = DiscoveryServer(shared_secret=FLEET_SECRET,
+                                   tls=certs).start()
+
+            def worker():
+                w = TpuWorkerServer(sf=SF, discovery_url=disc.url,
+                                    announce_interval_s=0.5,
+                                    shared_secret=FLEET_SECRET,
+                                    tls=certs).start()
+                workers.append(w)
+                return w
+
+            def wait_alive(n):
+                deadline = time.time() + 60
+                while len(alive_nodes(disc.url,
+                                      shared_secret=FLEET_SECRET)) != n:
+                    if time.time() > deadline:
+                        raise RuntimeError(f"{n} workers did not announce")
+                    time.sleep(0.05)
+
+            first = [worker() for _ in range(CLUSTER_WORKERS)]
+            wait_alive(CLUSTER_WORKERS)
+            scheme = {w.url.split(":")[0] for w in first + [disc]}
+            if scheme != {"https" if certs else "http"}:
+                raise AssertionError(f"the cluster serves {scheme}")
+            coord = Coordinator(discovery_url=disc.url)
+            with recording_first_lz4_page() as seen:
+                out["secured_q1"] = fleet_run(
+                    coord, "q1 (secured, lz4 pages)",
+                    distribute_simple_agg(q1_plan()), FLEET_SESSION)
+            out["first_lz4_page"] = [len(seen[0][0]), len(seen[0][1])]
+            del seen
+            code, _, _ = _http_status(f"{first[0].url}/v1/info")
+            if code != 401:
+                raise AssertionError(f"a request without a bearer got {code}")
+            out["unauthenticated_status"] = code
+            step_s["secured"] = time.perf_counter() - t
+
+            t = time.perf_counter()
+            task = next(x for x in out["secured_q1"]["tasks"]
+                        if x["fragment"] == 0)
+            out["thrift"] = fleet_thrift_status(task["worker"], task["task"])
+            step_s["thrift"] = time.perf_counter() - t
+            torch.cuda.empty_cache()
+
+            t = time.perf_counter()
+            out["drain"] = fleet_drain(first, disc.url)
+            step_s["drain"] = time.perf_counter() - t
+        finally:
+            for w in workers:
+                w.stop()
+            if disc is not None:
+                disc.stop()
+            set_shared_secret(None)
+            tls.clear_trust()
+            reset_fleet_state()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["failover"] = fleet_failover()
+    step_s["router_failover"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["catalog_server"] = fleet_catalog_server()
+    step_s["catalog_server"] = time.perf_counter() - t
+    out["step_s"] = step_s
+    out["s"] = time.perf_counter() - t0
+    print(f"fleet: steps {json.dumps(step_s)}; the phase took "
+          f"{out['s']:.1f} s")
     return out
 
 
@@ -2537,7 +3185,7 @@ Q1_KERNEL_SHAPES = {"int16x8": (6_000_000, 16, 70),
                     "f32x13": (6_000_000, 16, 39)}
 
 
-TPCDS_EXECUTE_REPEATS = 3
+TPCDS_EXECUTE_REPEATS = 2
 # processes (and torch threads each) that compute the CPU side of
 # phase_tpcds's cross-check while the card runs the other phases
 TPCDS_CPU_WORKERS, TPCDS_CPU_THREADS = 3, 2
@@ -3317,7 +3965,7 @@ SQL_TABLE = "memory.l"  # phase_sql's CTAS target
 # UNNEST (scripts/make_functions_corpus.py::SAMPLES, UNNESTS)
 SQL_HAND_BUILT = ("fn_sample", "fn_unnest")
 SQL_TPCDS_SESSIONS = {"q24": {"join_reordering_strategy": "NONE"}}
-SQL_REPEATS = 3
+SQL_REPEATS = 2
 
 
 def canonical_plan(j):
@@ -3654,7 +4302,7 @@ FILES_JOIN_CAPACITY = 1 << 21  # >= orders' 1.5M rows at SF1
 # without it the planner's default of 65,536 groups stays, off the
 # small-table path (phase_sql's q1 over memory.l passes its own too)
 FILES_JOIN_GROUPS = 16
-STATEMENT_ROUNDS = 3  # q1 over the wire and through sql(), in turns
+STATEMENT_ROUNDS = 2  # q1 over the wire and through sql(), in turns
 
 
 def _pyarrow_missing():
@@ -4149,6 +4797,7 @@ def run_phases(args, start_cpu_workers) -> int:
     files = timed("files", phase_files)
     statement = timed("statement", phase_statement)
     cluster = timed("cluster", phase_cluster)
+    fleet = timed("fleet", phase_fleet)
 
     gpu = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
@@ -4157,7 +4806,7 @@ def run_phases(args, start_cpu_workers) -> int:
               "aggregates": aggregates,
               "functions": functions, "nested": nested, "tpcds": tpcds,
               "exec": exec_, "sql": sql_, "files": files,
-              "statement": statement, "cluster": cluster,
+              "statement": statement, "cluster": cluster, "fleet": fleet,
               "build_s": build_s, "phase_s": phase_s,
               "host_generation_s": GEN_S, "gpu": gpu,
               "torch": torch.__version__, "cuda": torch.version.cuda,

@@ -4,11 +4,12 @@ Counterpart of presto_tpu/failpoints/sites.py. Each row is a
 ``<layer>.<verb>`` name with its layer and what it injects; the admin
 document of ``GET /v1/failpoint`` serves it. A site whose module the
 port has not taken yet (batching's collapse, region fusion, buffer
-donation, the timeline, the worker's drain, the unannouncement and the
-resource-manager heartbeat: ROADMAP queue 1 items 12.4, 14e, 15 and 16)
+donation and the timeline: ROADMAP queue 1 items 12.4, 15 and 16)
 stays listed, as in the reference, and is hooked where that module
-arrives. The statement tier hooks `statement.execute` and the
-dispatcher `dispatcher.admit`.
+arrives. The statement tier hooks `statement.execute`, the dispatcher
+`dispatcher.admit`, the worker's drain `worker.drain_stall`, the
+announcer's goodbye `discovery.unannounce_lost` and the resource
+manager's heartbeat `coordinator.heartbeat_lapse`.
 """
 
 from __future__ import annotations

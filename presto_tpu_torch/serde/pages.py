@@ -15,14 +15,13 @@ A page is byte-equal to the reference's for the same columns and
 codec, so either package reads the other's pages.
 
 Encodings: BYTE/SHORT/INT/LONG/INT128_ARRAY, VARIABLE_WIDTH, ARRAY,
-MAP and ROW both ways; DICTIONARY and RLE are read. The reference
-packs non-null values and unpacks them through its C++ host kernels
-(presto_tpu/native) where they are built and numpy otherwise; the
-port keeps the numpy path, which writes the same bytes. Compression:
-zstd through `zstandard` where it imports, else zlib (the reference's
-rule, with the same codec flags), and zlib. The reference's "lz4"
-goes only through its native library, which the port has not copied
-(ROADMAP queue 1, the host serde kernels).
+MAP and ROW both ways; DICTIONARY and RLE are read. Non-null fixed
+width values are packed and unpacked by the host serde kernels
+(native/serde_kernels.cpp, built at first use), as the reference does
+where its library is built. Compression: zstd through `zstandard`
+where it imports, else zlib (the reference's rule, with the same codec
+flags), zlib, and lz4, the LZ4 block codec of the same host library
+(a page is byte-equal to the reference's).
 """
 
 from __future__ import annotations
@@ -37,6 +36,7 @@ import numpy as np
 from .. import failpoints
 from .. import types as T
 from ..block import Batch, to_numpy
+from ..native import kernels as nk
 
 __all__ = ["PageCodec", "serialize_page", "deserialize_page",
            "serialize_batch", "deserialize_to_arrays", "deserialize_block"]
@@ -81,13 +81,6 @@ def _bounded_zlib(payload: bytes, uncompressed_size: int) -> bytes:
     return out
 
 
-def _no_lz4():
-    raise NotImplementedError(
-        "lz4 pages need the reference's native serde kernels "
-        "(native/serde_kernels.cpp), not ported yet (ROADMAP queue 1, "
-        "the host serde kernels)")
-
-
 _FIXED_ENC = {1: b"BYTE_ARRAY", 2: b"SHORT_ARRAY", 4: b"INT_ARRAY",
               8: b"LONG_ARRAY", 16: b"INT128_ARRAY"}
 _ENC_WIDTH = {v: k for k, v in _FIXED_ENC.items()}
@@ -108,7 +101,7 @@ class PageCodec:
         if self.compression == "zlib":
             return zlib.compress(payload)
         if self.compression == "lz4":
-            _no_lz4()
+            return nk.lz4_compress(payload)
         raise ValueError(self.compression)
 
     def decompress(self, payload: bytes, uncompressed_size: int) -> bytes:
@@ -127,7 +120,7 @@ class PageCodec:
         if self.compression == "zlib":
             return _bounded_zlib(payload, uncompressed_size)
         if self.compression == "lz4":
-            _no_lz4()
+            return nk.lz4_decompress(payload, uncompressed_size)
         raise ValueError(self.compression)
 
 
@@ -153,7 +146,7 @@ def _serialize_fixed(values: np.ndarray, nulls: np.ndarray) -> bytes:
     return b"".join([_enc(_FIXED_ENC[values.dtype.itemsize]),
                      struct.pack("<i", values.shape[0]),
                      _bitpack_nulls(nulls),
-                     np.ascontiguousarray(values[~nulls]).tobytes()])
+                     nk.pack_nonnull(values, nulls)])
 
 
 def _serialize_int128(vals: np.ndarray, nulls: np.ndarray) -> bytes:
@@ -362,8 +355,7 @@ def _decode_fixed(mv, pos, width, ty):
                         dtype=dt if dt.itemsize == width
                         else _INT_OF_WIDTH[width])
     pos += n_nonnull * width
-    vals = np.zeros(rows, dtype=raw.dtype)
-    vals[~nulls] = raw
+    vals = nk.unpack_nonnull(raw, nulls)
     if dt == np.bool_:
         vals = vals.astype(bool)
     elif vals.dtype != dt and dt.itemsize == width:

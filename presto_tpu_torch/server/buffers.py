@@ -4,13 +4,17 @@ Counterpart of presto_tpu/server/buffers.py (SpoolingOutputBuffer.java):
 when a task's finished result pages outgrow the memory budget, the
 tail goes to one append-only spool file per buffer, and readers get
 the pages back from it transparently. Acked pages release memory at
-once and disk space when the buffer clears (task end). The reference's
-drain-migration helpers (export and restore of a buffer's pages) come
-with the worker's drain (ROADMAP queue 1 item 14e).
+once and disk space when the buffer clears (task end). A worker's
+graceful drain moves a buffer's live pages to a peer: `export_pages`
+writes them as base64 strings (the migration's wire format),
+`restore_pages` appends them on the peer, and `stream_checksum` is the
+order-sensitive digest that shows the pages arrived once and intact.
 """
 
 from __future__ import annotations
 
+import base64
+import hashlib
 import os
 import tempfile
 from typing import List, Optional
@@ -72,6 +76,36 @@ class SpoolingOutputBuffer:
             self._file.seek(off)
             return self._file.read(length)
         return e
+
+    def stream_checksum(self) -> str:
+        """SHA-256 over the live pages in order, each preceded by its
+        length (8 bytes, little-endian): equal before a migration and
+        after it when every page moved once, byte for byte."""
+        h = hashlib.sha256()
+        for i in range(len(self._entries)):
+            page = self.get(i)
+            h.update(len(page).to_bytes(8, "little"))
+            h.update(page)
+        return h.hexdigest()
+
+    def export_pages(self) -> List[str]:
+        """The live (unacked) pages as base64 strings, spooled ones
+        read back from the spool file; the acked prefix is gone and is
+        not exported, so a consumer resuming mid-stream never re-reads
+        a page."""
+        return [base64.b64encode(self.get(i)).decode("ascii")
+                for i in range(len(self._entries))]
+
+    def restore_pages(self, encoded: List[str]) -> int:
+        """Append a migrated page stream (export_pages' output) and
+        return its bytes; pages past the memory budget spool here as
+        any append does."""
+        total = 0
+        for s in encoded:
+            page = base64.b64decode(s)
+            self.append(page)
+            total += len(page)
+        return total
 
     def drop_prefix(self, n: int) -> None:
         """Release the first n pages (the consumer acked them): memory

@@ -83,11 +83,15 @@ class Coordinator:
                  discovery_url: Optional[str] = None,
                  prober=None,
                  writer_min_rows_per_task: int = 1 << 20,
+                 ttl_horizon_s: float = 60.0,
                  speculation_threshold_ms: Optional[float] = None):
         """`prober`: a discovery.HeartbeatProber; workers it marks
         failed take no tasks and no retries. `writer_min_rows_per_task`:
         a writer fragment gets ceil(estimated rows / this) tasks, capped
-        by the cluster (scaled writers). `speculation_threshold_ms`: a
+        by the cluster (scaled writers). `ttl_horizon_s`: a node whose
+        announced ttlEpochSeconds falls within this many seconds takes
+        no new task (it would take a running query down with it; 0 is
+        off). `speculation_threshold_ms`: a
         task still running this long gets one speculative copy on
         another worker (None: the session property
         speculative_execution_threshold_ms, else the
@@ -97,6 +101,7 @@ class Coordinator:
         self.discovery_url = discovery_url
         self.prober = prober
         self.writer_min_rows_per_task = max(1, writer_min_rows_per_task)
+        self.ttl_horizon_s = ttl_horizon_s
         self.speculation_threshold_ms = speculation_threshold_ms
         # each task's stats document of this thread's last execute()
         self._stats_tls = threading.local()
@@ -127,6 +132,19 @@ class Coordinator:
         else:
             nodes = alive_nodes(self.discovery_url)
             assert nodes, "no alive workers in discovery"
+            # a DRAINING node stays announced while its pages are served
+            # or migrated, but takes no new task; never filter down to
+            # an empty cluster
+            nodes = [n for n in nodes
+                     if str(n.get("state", "ACTIVE")).upper()
+                     != "DRAINING"] or nodes
+            if self.ttl_horizon_s:
+                # TTL-aware placement: no new task on a node that leaves
+                # within the horizon; never filter down to nothing
+                cutoff = time.time() + self.ttl_horizon_s
+                nodes = [n for n in nodes
+                         if n.get("ttlEpochSeconds") is None
+                         or float(n["ttlEpochSeconds"]) > cutoff] or nodes
             urls = [n["uri"] for n in nodes]
         if self.prober is not None:
             healthy = set(self.prober.healthy())

@@ -9,10 +9,21 @@ DiscoveryServer: an HTTP service holding node announcements.
 Announcer: a worker-side thread re-announcing on an interval.
 HeartbeatProber: probes each node's /v1/info and keeps its failure rate.
 alive_nodes(): the nodes announced within `max_age_s`, the
-scheduler's eligible set.
-The reference's fleet-membership counters, goodbye registry and
-authentication come with the cluster operations (ROADMAP queue 1 item
-14e).
+scheduler's eligible set. An announcement carries the node's fleet
+state, ACTIVE or DRAINING: a DRAINING node stays announced while its
+pages are served or migrated, and the Coordinator places no new task
+on it.
+
+The fleet's membership is process-wide: every discovery server and
+announcer of the process counts joins, leaves and announce retries
+(`fleet_membership_totals`, `announce_retry_totals`), and a graceful
+goodbye marks the node's url in the goodbye registry
+(`note_unannounced`), cleared when it announces again. With a
+`shared_secret` (or the process-wide one of server/auth.py) every
+request carries and every server checks the internal bearer; with
+`tls=(cert, key)` the server speaks https. Counting suppressed errors
+and exporting the counters as metric families wait for ROADMAP queue 1
+item 15.
 """
 
 from __future__ import annotations
@@ -26,8 +37,73 @@ from typing import Dict, List, Optional
 
 from .. import failpoints
 from ..utils.backoff import Backoff
+from .auth import authorize_request, bearer_headers, make_authenticator
 
-__all__ = ["DiscoveryServer", "Announcer", "HeartbeatProber", "alive_nodes"]
+__all__ = ["DiscoveryServer", "Announcer", "HeartbeatProber", "alive_nodes",
+           "fleet_membership_totals", "announce_retry_totals",
+           "note_unannounced", "clear_unannounced", "recently_unannounced",
+           "reset_fleet_state"]
+
+# the process-wide fleet membership, under one lock (the reference's
+# OrderedLock; ROADMAP queue 1 item 16 brings its witness)
+_FLEET_LOCK = threading.RLock()
+_FLEET = {"joined": 0, "left": 0, "announce_retries": 0}
+# url -> the time of its goodbye; cleared when the node announces again
+# and forgotten after the ttl, so that a new process reusing the port
+# later does not inherit the goodbye
+_UNANNOUNCED: Dict[str, float] = {}
+_UNANNOUNCED_TTL_S = 60.0
+
+
+def fleet_membership_totals() -> Dict[str, int]:
+    with _FLEET_LOCK:
+        return {"joined": _FLEET["joined"], "left": _FLEET["left"]}
+
+
+def announce_retry_totals() -> int:
+    with _FLEET_LOCK:
+        return _FLEET["announce_retries"]
+
+
+def _count_fleet(key: str, delta: int = 1) -> None:
+    with _FLEET_LOCK:
+        _FLEET[key] += delta
+
+
+def note_unannounced(uri: Optional[str]) -> None:
+    """Record a graceful goodbye of the worker at `uri`."""
+    if not uri:
+        return
+    with _FLEET_LOCK:
+        _UNANNOUNCED[uri.rstrip("/")] = time.time()
+
+
+def clear_unannounced(uri: Optional[str]) -> None:
+    """Drop the goodbye mark of `uri`: a node announcing again clears
+    its own, and a new worker server bound to the same url clears a
+    drained predecessor's."""
+    if not uri:
+        return
+    with _FLEET_LOCK:
+        _UNANNOUNCED.pop(uri.rstrip("/"), None)
+
+
+def recently_unannounced() -> Dict[str, float]:
+    """{url: the time of its goodbye} of the workers that said goodbye
+    within the ttl and have not announced since."""
+    now = time.time()
+    with _FLEET_LOCK:
+        for uri in [u for u, ts in _UNANNOUNCED.items()
+                    if now - ts > _UNANNOUNCED_TTL_S]:
+            del _UNANNOUNCED[uri]
+        return dict(_UNANNOUNCED)
+
+
+def reset_fleet_state() -> None:
+    """Counters and goodbye registry back to empty (test isolation)."""
+    with _FLEET_LOCK:
+        _FLEET.update({"joined": 0, "left": 0, "announce_retries": 0})
+        _UNANNOUNCED.clear()
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -38,9 +114,13 @@ class _Handler(BaseHTTPRequestHandler):
     disable_nagle_algorithm = True
     nodes: Dict[str, dict] = {}  # set per server on the bound subclass
     lock = threading.Lock()
+    authenticator = None  # an InternalAuthenticator when a secret is set
 
     def log_message(self, fmt, *args):
         pass
+
+    def _authorized(self) -> bool:
+        return authorize_request(self, self.authenticator, self._json)
 
     def _json(self, obj, code=200):
         body = json.dumps(obj).encode()
@@ -57,17 +137,26 @@ class _Handler(BaseHTTPRequestHandler):
         return None
 
     def do_PUT(self):  # noqa: N802  /v1/announcement/{node_id}
+        if not self._authorized():
+            return
         node = self._announcement()
         if node is None:
             return self._json({"error": "bad path"}, 404)
         length = int(self.headers.get("Content-Length", "0"))
         body = json.loads(self.rfile.read(length) or b"{}")
         with self.lock:
+            joined = node not in self.nodes
             self.nodes[node] = {**body, "nodeId": node,
                                 "lastSeen": time.time()}
+        if joined:
+            _count_fleet("joined")
+        # an announcing node is back in the fleet
+        clear_unannounced(body.get("uri"))
         return self._json({"announced": True}, 202)
 
     def do_GET(self):  # noqa: N802  /v1/service/presto-tpu
+        if not self._authorized():
+            return
         parts = [p for p in self.path.split("/") if p]
         if len(parts) >= 2 and parts[:2] == ["v1", "service"]:
             now = time.time()
@@ -78,21 +167,39 @@ class _Handler(BaseHTTPRequestHandler):
         return self._json({"error": "bad path"}, 404)
 
     def do_DELETE(self):  # noqa: N802  a graceful goodbye
+        if not self._authorized():
+            return
         node = self._announcement()
         if node is None:
             return self._json({"error": "bad path"}, 404)
         with self.lock:
-            self.nodes.pop(node, None)
+            gone = self.nodes.pop(node, None)
+        if gone is not None:
+            _count_fleet("left")
+            note_unannounced(gone.get("uri"))
         return self._json({"removed": True})
 
 
 class DiscoveryServer:
-    def __init__(self, port: int = 0):
-        handler = type("BoundDiscovery", (_Handler,),
-                       {"nodes": {}, "lock": threading.Lock()})
+    """The discovery service on 127.0.0.1:`port` (0: a free port);
+    `shared_secret` requires the internal bearer on every request,
+    `tls=(cert, key)` serves https."""
+
+    def __init__(self, port: int = 0, shared_secret: Optional[str] = None,
+                 tls: Optional[tuple] = None):
+        handler = type("BoundDiscovery", (_Handler,), {
+            "nodes": {}, "lock": threading.Lock(),
+            "authenticator": make_authenticator(shared_secret,
+                                                "discovery")})
         self.httpd = ThreadingHTTPServer(("127.0.0.1", port), handler)
+        scheme = "http"
+        if tls is not None:
+            from .tls import server_context
+            self.httpd.socket = server_context(*tls).wrap_socket(
+                self.httpd.socket, server_side=True)
+            scheme = "https"
         self.port = self.httpd.server_address[1]
-        self.url = f"http://127.0.0.1:{self.port}"
+        self.url = f"{scheme}://127.0.0.1:{self.port}"
 
     def start(self):
         threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
@@ -106,22 +213,40 @@ class DiscoveryServer:
 class Announcer:
     """Worker-side periodic announcement (Announcer.cpp analog). A
     failed announcement retries on a seeded backoff instead of waiting
-    out a whole interval."""
+    out a whole interval, and counts as an announce retry."""
 
     def __init__(self, discovery_url: str, node_id: str, worker_url: str,
-                 interval_s: float = 1.0, environment: str = "tpu"):
+                 interval_s: float = 1.0, environment: str = "tpu",
+                 shared_secret: Optional[str] = None,
+                 ttl_epoch_s: Optional[float] = None):
         self.discovery_url = discovery_url.rstrip("/")
         self.node_id = node_id
         self.worker_url = worker_url
-        self.body = json.dumps({"uri": worker_url, "environment": environment,
-                                "coordinator": False,
-                                "state": "ACTIVE"}).encode()
+        self._body_doc = {"uri": worker_url, "environment": environment,
+                          "coordinator": False, "state": "ACTIVE"}
+        if ttl_epoch_s is not None:
+            # the instant this node expects to leave the cluster
+            self._body_doc["ttlEpochSeconds"] = float(ttl_epoch_s)
         self.interval = interval_s
+        self._auth = make_authenticator(shared_secret, node_id)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
+    @property
+    def body(self) -> bytes:
+        return json.dumps(self._body_doc).encode()
+
+    def set_state(self, state: str) -> None:
+        """The announced fleet state, ACTIVE or DRAINING, from the next
+        announcement on."""
+        self._body_doc["state"] = str(state)
+
     def _url(self) -> str:
         return f"{self.discovery_url}/v1/announcement/{self.node_id}"
+
+    def _headers(self) -> dict:
+        return {"Content-Type": "application/json",
+                **bearer_headers(self._auth)}
 
     def announce_once(self):
         if failpoints.ARMED:
@@ -129,7 +254,7 @@ class Announcer:
             failpoints.hit("discovery.announce")
         req = urllib.request.Request(
             self._url(), data=self.body, method="PUT",
-            headers={"Content-Type": "application/json"})
+            headers=self._headers())
         urllib.request.urlopen(req, timeout=5).read()
 
     def start(self):
@@ -142,11 +267,23 @@ class Announcer:
                     backoff.attempt = 0
                     self._stop.wait(self.interval)
                 except Exception:  # noqa: BLE001 - discovery is down:
-                    # keep trying, as airlift does
+                    # keep trying, as airlift does, and count the retry
+                    # (the suppressed-error count is item 15's)
+                    _count_fleet("announce_retries")
                     self._stop.wait(backoff.next_delay())
         self._thread = threading.Thread(target=loop, daemon=True)
         self._thread.start()
         return self
+
+    def unannounce_once(self):
+        """One goodbye DELETE; raises when it fails."""
+        if failpoints.ARMED:
+            # a lost goodbye: the node lingers in discovery until its
+            # announcement ages out
+            failpoints.hit("discovery.unannounce_lost")
+        req = urllib.request.Request(self._url(), method="DELETE",
+                                     headers=self._headers())
+        urllib.request.urlopen(req, timeout=5).read()
 
     def stop(self, unannounce: bool = True):
         self._stop.set()
@@ -156,10 +293,10 @@ class Announcer:
             self._thread.join(timeout=6)
         if unannounce:
             try:
-                urllib.request.urlopen(urllib.request.Request(
-                    self._url(), method="DELETE"), timeout=5).read()
+                self.unannounce_once()
             except Exception:  # noqa: BLE001 - a best-effort goodbye;
-                # the announcement ages out otherwise
+                # the announcement ages out otherwise (the suppressed-
+                # error count is item 15's)
                 pass
 
 
@@ -171,7 +308,10 @@ class HeartbeatProber:
 
     def __init__(self, urls_fn, interval_s: float = 0.5,
                  decay: float = 0.7, threshold: float = 0.5,
-                 probe_timeout_s: float = 2.0):
+                 probe_timeout_s: float = 2.0,
+                 shared_secret: Optional[str] = None):
+        self._auth = make_authenticator(shared_secret, "prober") \
+            if shared_secret is not None else None
         self._urls_fn = urls_fn if callable(urls_fn) else (lambda: urls_fn)
         self.interval = interval_s
         self.decay = decay
@@ -187,8 +327,9 @@ class HeartbeatProber:
             if failpoints.ARMED:
                 # an injected failure counts as a missed probe
                 failpoints.hit("discovery.probe")
-            with urllib.request.urlopen(f"{url.rstrip('/')}/v1/info",
-                                        timeout=self.probe_timeout):
+            req = urllib.request.Request(f"{url.rstrip('/')}/v1/info",
+                                         headers=bearer_headers(self._auth))
+            with urllib.request.urlopen(req, timeout=self.probe_timeout):
                 return True
         except Exception:  # noqa: BLE001 - any failure counts
             return False
@@ -239,11 +380,17 @@ class HeartbeatProber:
             self._thread.join(timeout=self.probe_timeout + 1)
 
 
-def alive_nodes(discovery_url: str, max_age_s: float = 5.0) -> List[dict]:
+def alive_nodes(discovery_url: str, max_age_s: float = 5.0,
+                shared_secret: Optional[str] = None) -> List[dict]:
     """The failure detector's view: the nodes announced within
-    `max_age_s` (a stale node has failed)."""
-    with urllib.request.urlopen(
-            f"{discovery_url.rstrip('/')}/v1/service/presto-tpu",
-            timeout=5) as resp:
+    `max_age_s` (a stale node has failed), each with its announced
+    `state` (ACTIVE or DRAINING). Without `shared_secret` the request
+    carries the process-wide secret's bearer, if there is one."""
+    auth = make_authenticator(shared_secret, "detector") \
+        if shared_secret is not None else None
+    req = urllib.request.Request(
+        f"{discovery_url.rstrip('/')}/v1/service/presto-tpu",
+        headers=bearer_headers(auth))
+    with urllib.request.urlopen(req, timeout=5) as resp:
         services = json.loads(resp.read())["services"]
     return [s for s in services if s["ageSeconds"] <= max_age_s]

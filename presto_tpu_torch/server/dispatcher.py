@@ -8,9 +8,13 @@ cap; a selector picks a group from the session; a query blocks in its
 group's queue until a slot frees, runs through its executor, and fires
 QueryCreated and QueryCompleted (server/events.py).
 
-The reference's cluster-wide admission across coordinators (a resource
-manager's view) belongs to the cluster operations (ROADMAP queue 1
-item 14e), and its queue-wait histogram to the metrics (item 15).
+With `resource_manager_url` and `cluster_limits` ({group path:
+cluster-wide concurrency}), admission also waits while the other
+coordinators' running queries, as the resource manager aggregates them
+(server/resource_manager.py), fill a cluster limit of the group or of
+any ancestor; when the resource manager cannot be reached, admission
+is local only (the reference's degraded mode). The queue-wait
+histogram waits for the metrics (ROADMAP queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -233,11 +237,11 @@ class Dispatcher:
     def __init__(self, groups: Optional[List[ResourceGroup]] = None,
                  selector: Optional[Callable[[Dict], str]] = None,
                  resource_manager_url: Optional[str] = None,
+                 coordinator_id: Optional[str] = None,
                  cluster_limits: Optional[Dict[str, int]] = None):
-        if resource_manager_url is not None or cluster_limits:
-            raise NotImplementedError(
-                "cluster-wide admission through a resource manager is not "
-                "ported yet (ROADMAP queue 1 item 14e: cluster operations)")
+        self.resource_manager_url = resource_manager_url
+        self.coordinator_id = coordinator_id or f"coord-{id(self):x}"
+        self.cluster_limits = dict(cluster_limits or {})
         # each group of each tree under its dotted path, and its name
         self.groups: Dict[str, ResourceGroup] = {}
         for root in (groups or [ResourceGroup("global")]):
@@ -264,6 +268,45 @@ class Dispatcher:
         """The group path the selector routes this session to."""
         return self._selector(session or {})
 
+    def _await_cluster_slot(self, group_name: str,
+                            deadline: Optional[float]) -> None:
+        """The cluster-wide gate: wait (polling the resource manager)
+        while the other coordinators' running queries leave no room
+        under a cluster limit of the selected group or of any ancestor
+        path; QueryRejected at `deadline`. An unreachable resource
+        manager opens the gate (local admission only)."""
+        if self.resource_manager_url is None:
+            return
+        parts = group_name.split(".")
+        gates = []
+        for i in range(len(parts)):
+            prefix = ".".join(parts[:i + 1])
+            limit = self.cluster_limits.get(prefix)
+            if limit is not None and prefix in self.groups:
+                gates.append((prefix, limit, self.groups[prefix]))
+        if not gates:
+            return
+        from .resource_manager import remote_group_load
+        while True:
+            try:
+                blocked = None
+                for prefix, limit, g in gates:
+                    remote = remote_group_load(self.resource_manager_url,
+                                               prefix, self.coordinator_id)
+                    if remote + g.stats()["running"] >= limit:
+                        blocked = (prefix, limit)
+                        break
+            except Exception:  # noqa: BLE001 - the resource manager is
+                # down: local admission only (counting it is item 15's)
+                return
+            if blocked is None:
+                return
+            if deadline is not None and time.time() >= deadline:
+                raise QueryRejected(
+                    f"cluster limit {blocked[1]} for group "
+                    f"{blocked[0]!r} held by other coordinators")
+            time.sleep(0.05)
+
     def group_stats(self) -> Dict[str, Dict[str, int]]:
         return {name: g.stats() for name, g in self.groups.items()
                 if "." in name or not g.parent}
@@ -289,7 +332,12 @@ class Dispatcher:
             failpoints.hit("dispatcher.admit")
         mem = parse_size(session["query_max_memory"]) \
             if "query_max_memory" in session else 0
-        group.acquire(queue_timeout, mem=mem)
+        # one deadline covers the cluster gate and the local queue
+        deadline = None if queue_timeout is None \
+            else time.time() + queue_timeout
+        self._await_cluster_slot(group_name, deadline)
+        group.acquire(None if deadline is None
+                      else max(deadline - time.time(), 0.001), mem=mem)
         t0 = time.time()
         try:
             result = executor(query_id)

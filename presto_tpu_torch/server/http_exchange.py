@@ -63,7 +63,8 @@ def fetch_remote_batch(sources: Sequence[str], task_ids: Sequence[str],
     that did not finish fails the pull. With `merge_keys` the upstream
     streams are sorted runs and are merged by those keys. `codec` is
     the producers' (the session's exchange_compression). `stats`, if
-    given, gains the pages and page bytes pulled."""
+    given, gains the pages and page bytes pulled and the seconds spent
+    decoding them."""
     if failpoints.ARMED:
         # an injected error here is a consumer-side upstream failure:
         # the task fails and the coordinator's resubmission takes over
@@ -86,6 +87,8 @@ def fetch_remote_batch(sources: Sequence[str], task_ids: Sequence[str],
                 client.pulled["pages"]
             stats["page_bytes_in"] = stats.get("page_bytes_in", 0) + \
                 client.pulled["bytes"]
+            stats["decode_s"] = stats.get("decode_s", 0.0) + \
+                client.pulled["decode_s"]
         total += len(cols[0][0]) if cols else 0
         for c, (v, m) in enumerate(cols):
             if len(v):  # an empty page's default dtype would leak in

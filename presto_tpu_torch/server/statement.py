@@ -31,8 +31,14 @@ item: EXPLAIN and EXPLAIN ANALYZE, /v1/cluster, /v1/metrics,
 /v1/profile, /v1/history, /v1/datapath, /v1/accuracy, /v1/timeline and
 /v1/trace (item 15, the observability ledgers: the reference's trace
 spans and flight recorder have no stand-in, since no document of the
-protocol reads them); TLS, the stuck-query watchdog and a standby's
-adoption of queries (item 14e).
+protocol reads them), and the stuck-query watchdog (item 15, which
+reads the live progress registry).
+
+With `tls=(cert, key)` the server speaks https. For a standby
+coordinator (server/resource_manager.py), `inflight_doc` lists the
+statements not yet done (the manifest a ClusterStateSender heartbeats)
+and `adopt_query` runs one of a lapsed primary's statements here under
+its original id and slug, once.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ from .. import types as T
 from ..block import resolve_device
 from ..transaction import TransactionManager
 from .dispatcher import Dispatcher, QueryRejected
-from .query_state import QueryState, QueryStateMachine
+from .query_state import TERMINAL_STATES, QueryState, QueryStateMachine
 
 __all__ = ["StatementServer", "render_value"]
 
@@ -158,10 +164,6 @@ class StatementServer:
                  executor=None, page_rows: int = 1024,
                  queue_poll_s: float = 1.0, query_ttl_s: float = 600.0,
                  device=None, tls: Optional[tuple] = None):
-        if tls is not None:
-            raise NotImplementedError(
-                "TLS is not ported yet (ROADMAP queue 1 item 14e: "
-                "cluster operations)")
         self.sf = sf
         self.device = resolve_device(device)
         from ..sql.statements import PreparedStatements
@@ -178,8 +180,14 @@ class StatementServer:
         self._qlock = threading.RLock()
         self._httpd = ThreadingHTTPServer(("127.0.0.1", port),
                                           _make_handler(self))
+        scheme = "http"
+        if tls is not None:
+            from .tls import server_context
+            self._httpd.socket = server_context(*tls).wrap_socket(
+                self._httpd.socket, server_side=True)
+            scheme = "https"
         self.port = self._httpd.server_address[1]
-        self.url = f"http://127.0.0.1:{self.port}"
+        self.url = f"{scheme}://127.0.0.1:{self.port}"
         self._thread: Optional[threading.Thread] = None
 
     # -- lifecycle ------------------------------------------------------
@@ -255,6 +263,39 @@ class StatementServer:
         with self._qlock:
             self._reap_locked()
             self._queries[q.id] = q
+        threading.Thread(target=self._run, args=(q,), daemon=True).start()
+        return q
+
+    def inflight_doc(self) -> List[dict]:
+        """One entry for each statement not yet done: the failover
+        manifest a ClusterStateSender heartbeats to the resource
+        manager, for a StandbyCoordinator to adopt."""
+        with self._qlock:
+            queries = list(self._queries.values())
+        out = []
+        for q in queries:
+            state = q.machine.state
+            if state in TERMINAL_STATES:
+                continue
+            out.append({"queryId": q.id, "slug": q.slug, "query": q.text,
+                        "user": q.user, "state": state,
+                        "sessionProperties": q.session_values})
+        return out
+
+    def adopt_query(self, query_id: str, slug: str, text: str,
+                    user: str, session_values: Dict) -> _Query:
+        """Run `text` here under the original query id and slug, so that
+        a client that polls this server (through the router, or its url)
+        drains the same statement. Idempotent per query id: a failover
+        fired again never runs an adopted statement twice."""
+        q = _Query(query_id, slug, text, dict(session_values or {}), user,
+                   None)
+        with self._qlock:
+            existing = self._queries.get(query_id)
+            if existing is not None:
+                return existing
+            self._reap_locked()
+            self._queries[query_id] = q
         threading.Thread(target=self._run, args=(q,), daemon=True).start()
         return q
 

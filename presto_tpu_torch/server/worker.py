@@ -12,12 +12,20 @@ TaskManager analog; worker-protocol.rst, TaskResource.java:79):
                                       TaskUpdateRequest is translated
                                       (server/protocol.py)
   GET    /v1/task/{taskId}            TaskInfo JSON (state, stats)
-  GET    /v1/task/{taskId}/status     the spec's TaskStatus
+  GET    /v1/task/{taskId}/status     the spec's TaskStatus (thrift
+                                      bytes under Accept:
+                                      application/x-thrift)
   GET    /v1/task/{taskId}/results/{bufferId}/{token}
                                       SerializedPage bytes; token/ack
                                       pull with X-Presto-Page-* headers
   GET    /v1/task/{taskId}/results/{bufferId}/{token}/acknowledge
   DELETE /v1/task/{taskId}            abort
+  POST   /v1/task/{taskId}/migrate    adopt a draining peer's finished
+                                      task and its buffered pages
+  POST   /v1/worker/drain             graceful drain ({"migrateTo":
+                                      url, "timeoutMs": ms})
+  GET    /v1/worker/drain             the drain's state and pages
+  PUT    /v1/info/state               "SHUTTING_DOWN": refuse new tasks
   GET, POST, DELETE /v1/failpoint     the failpoint admin surface
 
 Each task runs `run_query` on a thread of its own, admitted through a
@@ -28,10 +36,21 @@ SerializedPages with increasing tokens per buffer, dropped on ack.
 Each task's end fires a TaskCompleted event (server/events.py), and
 the task manager registers for the `system.tasks` table.
 
-Not here yet: the worker's drain and page migration, authentication,
-TLS and the stuck-task watchdog (ROADMAP queue 1 item 14e); its
-metrics, spans and the flight recorder (item 15). A coordinator's
-`traceparent` is accepted and not read.
+With `shared_secret` (or the process-wide secret of server/auth.py)
+every route requires the internal bearer (401 otherwise); with
+`tls=(cert, key)` the worker serves https.
+
+A graceful drain (TpuWorkerServer.begin_drain) refuses new tasks,
+announces DRAINING, waits for the running ones, moves every finished
+task's buffered pages to the `migrateTo` peer (which adopts them at
+their absolute tokens; a consumer's pull here is redirected there),
+and unannounces once no page is left: ACTIVE -> DRAINING -> DRAINED.
+A failed migration keeps the pages served here until consumed.
+
+Not here yet: the stuck-progress watchdog, which reads the live
+progress registry, and the worker's metrics, spans and flight
+recorder (ROADMAP queue 1 item 15). A coordinator's `traceparent` is
+accepted and not read.
 """
 
 from __future__ import annotations
@@ -51,6 +70,7 @@ from ..block import batch_from_numpy, resolve_device
 from ..plan import nodes as N
 from ..serde import PageCodec, serialize_page
 from ..utils.config import session_flag, session_value
+from .auth import authorize_request, make_authenticator
 from .buffers import SpoolingOutputBuffer
 from .events import event_listeners
 
@@ -106,6 +126,11 @@ def _mesh_fragment(node: N.PlanNode) -> N.PlanNode:
 class _GoneError(Exception):
     """The requested pages were acked away by an earlier consumer
     (HTTP 410)."""
+
+
+class _MovedError(Exception):
+    """The task's pages were migrated by a drain: the argument is the
+    url of the peer that adopted them."""
 
 
 class FragmentResultCache:
@@ -208,6 +233,8 @@ class _Task:
         self.created_at = time.time()
         self.finished_at: Optional[float] = None
         self.stats: Dict[str, object] = {}
+        # the adopting peer's url once a drain migrated the pages
+        self.moved_to: Optional[str] = None
         self.lock = threading.Lock()
 
     def _new_buffer(self) -> SpoolingOutputBuffer:
@@ -215,7 +242,7 @@ class _Task:
 
     def info(self) -> dict:
         with self.lock:
-            return {
+            doc = {
                 "taskId": self.task_id,
                 "state": self.state,
                 "error": self.error,
@@ -226,6 +253,9 @@ class _Task:
                 "stats": dict(self.stats),
                 "elapsedSeconds": round(time.time() - self.created_at, 3),
             }
+            if self.moved_to is not None:
+                doc["movedTo"] = self.moved_to
+            return doc
 
 
 class TaskManager:
@@ -233,7 +263,9 @@ class TaskManager:
     analog). Execution admits through `task_concurrency` slots (the
     TaskExecutor analog): a long task holds one slot while short ones
     pass through the others; the staged bytes of every task reserve
-    from one MemoryPool."""
+    from one MemoryPool. `draining` and `drained` change under the
+    tasks lock, so that refusing a new task is atomic with creating
+    one."""
 
     def __init__(self, sf: float = 0.01, mesh=None, device=None,
                  memory_bytes: int = 12 << 30,
@@ -247,6 +279,8 @@ class TaskManager:
         self.device = mesh.devices[0] if mesh is not None \
             else resolve_device(device)
         self.tasks: Dict[str, _Task] = {}
+        self.draining = False  # refuses new tasks (SHUTTING_DOWN)
+        self.drained = False   # every buffered page replayed or migrated
         # concurrent tasks wait (bounded) for admission rather than fail
         self.memory_pool = MemoryPool(memory_bytes,
                                       admission_timeout_s=60.0)
@@ -259,7 +293,8 @@ class TaskManager:
         self.fragment_cache = FragmentResultCache()
         self.counters: Dict[str, int] = {
             "tasks_created": 0, "tasks_finished": 0, "tasks_failed": 0,
-            "tasks_aborted": 0, "rows_produced": 0, "exchange_bytes": 0}
+            "tasks_aborted": 0, "tasks_adopted": 0, "pages_migrated": 0,
+            "rows_produced": 0, "exchange_bytes": 0}
         self._counters_lock = threading.Lock()
         from ..connectors.system import register_task_manager
         register_task_manager(self)  # system.tasks
@@ -267,6 +302,137 @@ class TaskManager:
     def _count(self, name: str, delta: int = 1):
         with self._counters_lock:
             self.counters[name] = self.counters.get(name, 0) + delta
+
+    def drain(self) -> None:
+        """Enter SHUTTING_DOWN: refuse new tasks, let running ones
+        finish."""
+        with self._tasks_lock:
+            self.draining = True
+
+    def mark_drained(self) -> None:
+        """The drain is complete: every buffered page was replayed or
+        migrated."""
+        with self._tasks_lock:
+            self.draining = True
+            self.drained = True
+
+    @property
+    def drain_state(self) -> str:
+        """ACTIVE, DRAINING or DRAINED: the fleet state of /v1/status
+        and /v1/worker/drain."""
+        with self._tasks_lock:
+            if self.drained:
+                return "DRAINED"
+            return "DRAINING" if self.draining else "ACTIVE"
+
+    def unreplayed_pages(self) -> int:
+        """Buffered result pages this worker still owns (migrated tasks
+        excluded): what a drain must bring to zero before the node
+        unannounces."""
+        with self._tasks_lock:
+            tasks = list(self.tasks.values())
+        total = 0
+        for t in tasks:
+            with t.lock:
+                if t.moved_to is None:
+                    total += sum(len(b) for b in t.buffers.values())
+        return total
+
+    def migrate_buffers(self, peer_url: str, timeout: float = 30.0,
+                        secret: Optional[str] = None) -> int:
+        """Move every finished task's remaining buffered pages (the
+        spooled tail included) to `peer_url`; returns the pages moved.
+        A task's export and its `moved_to` flip happen in one critical
+        section of its lock, so no consumer can ack a page here after
+        its copy left. A failed POST is probed: only an adoption the
+        peer confirms absent rolls the flip back, and the pages stay
+        served here; a drain never loses or doubles a page."""
+        from .client import WorkerClient
+        with self._tasks_lock:
+            tasks = list(self.tasks.values())
+        # an internal hop like any other: on a secured cluster it
+        # carries the secret, or every adoption answers 401
+        client = WorkerClient(peer_url, timeout=timeout,
+                              shared_secret=secret)
+        moved = 0
+        for task in tasks:
+            with task.lock:
+                if task.moved_to is not None or task.state != "FINISHED" \
+                        or not task.no_more_pages:
+                    continue
+                npages = sum(len(b) for b in task.buffers.values())
+                if npages == 0:
+                    continue
+                doc = {"state": task.state, "noMorePages": True,
+                       "stats": dict(task.stats),
+                       "firstToken": {str(b): task.first_token.get(b, 0)
+                                      for b in task.buffers},
+                       "buffers": {str(b): buf.export_pages()
+                                   for b, buf in task.buffers.items()}}
+                # consumers are redirected from here on; the peer's
+                # adoption races them by at most a short retry
+                task.moved_to = peer_url.rstrip("/")
+            try:
+                client.migrate(task.task_id, doc)
+            except Exception:  # noqa: BLE001 - the peer refused or died
+                # a timed-out POST may still have landed: roll back only
+                # when the peer has no copy, or two nodes would serve
+                # the same pages (the suppressed-error counts are item
+                # 15's)
+                adopted = False
+                try:
+                    adopted = client.task_info(task.task_id) is not None
+                except Exception:  # noqa: BLE001 - 404 or a dead peer
+                    adopted = False
+                if not adopted:
+                    with task.lock:
+                        task.moved_to = None
+                    continue
+            with task.lock:
+                for b in task.buffers.values():
+                    b.clear()
+                task.buffers = {}
+            moved += npages
+            self._count("pages_migrated", npages)
+        return moved
+
+    def adopt_task(self, task_id: str, doc: dict) -> dict:
+        """Adopt a draining peer's finished task: its buffered pages at
+        their original absolute tokens, so that redirected consumers
+        resume here. Idempotent; refused while this worker drains."""
+        with self._tasks_lock:
+            self._prune_locked()
+            task = self.tasks.get(task_id)
+            if task is None:
+                if self.draining:
+                    raise RuntimeError(
+                        "worker is SHUTTING_DOWN: not adopting tasks")
+                task = _Task(task_id, self.output_spool_threshold_bytes,
+                             self.output_spool_dir)
+                self.tasks[task_id] = task
+                adopted = True
+            else:
+                adopted = False
+        if not adopted:
+            return task.info()
+        # restored (and perhaps spooled to disk) outside the task lock:
+        # only this thread adopts the task, and a consumer that comes
+        # first sees an empty task and retries
+        buffers: Dict[int, SpoolingOutputBuffer] = {}
+        for bid, pages in (doc.get("buffers") or {}).items():
+            buf = task._new_buffer()
+            buf.restore_pages(pages)
+            buffers[int(bid)] = buf
+        with task.lock:
+            task.buffers = buffers or {0: task._new_buffer()}
+            task.first_token = {int(b): int(t) for b, t in
+                                (doc.get("firstToken") or {}).items()}
+            task.no_more_pages = bool(doc.get("noMorePages", True))
+            task.stats = dict(doc.get("stats") or {})
+            task.state = str(doc.get("state", "FINISHED"))
+            task.finished_at = time.time()
+        self._count("tasks_adopted")
+        return task.info()
 
     def _prune_locked(self):
         """Drop terminal tasks older than the TTL: coordinators DELETE
@@ -281,6 +447,11 @@ class TaskManager:
             self._prune_locked()
             task = self.tasks.get(task_id)
             if task is None:
+                # a drain refuses only new tasks: a repeated POST of a
+                # running one still answers
+                if self.draining:
+                    raise RuntimeError(
+                        "worker is SHUTTING_DOWN: not accepting tasks")
                 task = _Task(task_id, self.output_spool_threshold_bytes,
                              self.output_spool_dir)
                 self.tasks[task_id] = task
@@ -317,12 +488,13 @@ class TaskManager:
 
     def _pull_remote_sources(self, body: dict, codec: PageCodec):
         """The batches of the fragment's RemoteSourceNodes, pulled from
-        the upstream tasks, and the pull's seconds, rows and pages."""
+        the upstream tasks, and the pull's seconds, rows, pages and
+        decode seconds."""
         from ..types import parse_type
         from .http_exchange import fetch_remote_batch
         pad = (self.mesh.size if self.mesh is not None else 1) * 8
         remote, stats = {}, {"pull_s": 0.0, "rows_in": 0, "pages_in": 0,
-                             "page_bytes_in": 0}
+                             "page_bytes_in": 0, "decode_s": 0.0}
         for node_id, spec in (body.get("remoteSources") or {}).items():
             t0 = time.perf_counter()
             remote[node_id] = fetch_remote_batch(
@@ -423,6 +595,7 @@ class TaskManager:
               "exchange_rows_in": pull["rows_in"],
               "exchange_pages_in": pull["pages_in"],
               "exchange_page_bytes_in": pull["page_bytes_in"],
+              "exchange_decode_s": pull["decode_s"],
               "exchange_serialize_s": serialize_s,
               "exchange_pages_out": sum(len(ps) for ps in pages.values()),
               "exchange_page_bytes_out": total_bytes}
@@ -457,6 +630,10 @@ class TaskManager:
         if task is None:
             raise KeyError(task_id)
         with task.lock:
+            if task.moved_to is not None:
+                # migrated by a drain: the consumer goes on at the peer
+                # with the same absolute tokens
+                raise _MovedError(task.moved_to)
             pages = task.buffers.get(buffer_id)
             npages = 0 if pages is None else len(pages)
             first = task.first_token.get(buffer_id, 0)
@@ -475,6 +652,8 @@ class TaskManager:
         if task is None:
             return
         with task.lock:
+            if task.moved_to is not None:
+                return  # the pages live at the peer: acks land there
             first = task.first_token.get(buffer_id, 0)
             pages = task.buffers.get(buffer_id)
             if token - first > 0 and pages is not None:
@@ -508,9 +687,16 @@ class _Handler(BaseHTTPRequestHandler):
     manager: TaskManager = None
     node_id: str = ""
     started_at: float = 0.0
+    authenticator = None  # an InternalAuthenticator when a secret is set
+    worker_server = None  # the TpuWorkerServer (the drain routes)
 
     def log_message(self, fmt, *args):  # quiet
         pass
+
+    def _authorized(self) -> bool:
+        """With a cluster secret, every route requires a valid internal
+        bearer (the InternalAuthenticationFilter analog)."""
+        return authorize_request(self, self.authenticator, self._send_json)
 
     def _body(self):
         length = int(self.headers.get("Content-Length", "0"))
@@ -547,6 +733,8 @@ class _Handler(BaseHTTPRequestHandler):
         return True
 
     def do_GET(self):  # noqa: N802
+        if not self._authorized():
+            return
         parts = [p for p in self.path.split("/") if p]
         m = self.manager
         if parts == ["v1", "info"]:
@@ -557,13 +745,20 @@ class _Handler(BaseHTTPRequestHandler):
                 "state": "ACTIVE"})
         if parts == ["v1", "failpoint"]:
             return self._send_json(failpoints.admin_get_doc())
+        if parts == ["v1", "worker", "drain"]:
+            return self._send_json(self.worker_server.drain_status())
         if parts == ["v1", "status"]:
             pool = m.memory_pool
             return self._send_json({
                 "nodeId": self.node_id,
                 "activeTasks": m.active_task_count(),
                 "uptimeSeconds": round(time.time() - self.started_at, 1),
-                "state": "ACTIVE", "device": str(m.device),
+                # the flat state keeps the reference's SHUTTING_DOWN
+                # spelling; fleetState is ACTIVE, DRAINING or DRAINED
+                "state": "SHUTTING_DOWN" if m.draining else "ACTIVE",
+                "fleetState": m.drain_state,
+                "unreplayedPages": m.unreplayed_pages(),
+                "device": str(m.device),
                 "memory": {"reservedBytes": pool.reserved_bytes,
                            "capacityBytes": pool.capacity},
                 "counters": dict(m.counters)})
@@ -586,9 +781,16 @@ class _Handler(BaseHTTPRequestHandler):
             if task is None:
                 return self._send_json({"error": "no such task"}, 404)
             from .protocol import task_status_json
-            return self._send_json(task_status_json(
+            doc = task_status_json(
                 parts[2], task.state, f"http://{self.node_id}",
-                failures=[task.error] if task.error else None))
+                failures=[task.error] if task.error else None)
+            if "application/x-thrift" in self.headers.get("Accept", ""):
+                # the reference's thrift transport of the status poll
+                from ..serde.thrift import encode_task_status
+                return self._send_bytes(
+                    encode_task_status(doc, parts[2]),
+                    {"Content-Type": "application/x-thrift"})
+            return self._send_json(doc)
         if len(parts) == 7 and parts[:2] == ["v1", "task"] and \
                 parts[3] == "results" and parts[6] == "acknowledge":
             m.acknowledge(parts[2], int(parts[5]), int(parts[4]))
@@ -607,6 +809,15 @@ class _Handler(BaseHTTPRequestHandler):
                     {"error": f"no such task {task_id}"}, 404)
             except _GoneError as e:
                 return self._send_json({"error": str(e)}, 410)
+            except _MovedError as e:
+                # drained away: the consumer resumes at the adopting peer
+                # (WorkerClient.fetch_results follows this header)
+                return self._send_bytes(b"", {
+                    "X-Presto-Task-Instance-Id": task_id,
+                    "X-Presto-Task-Moved": str(e),
+                    "X-Presto-Page-Token": str(token),
+                    "X-Presto-Page-Next-Token": str(token),
+                    "X-Presto-Buffer-Complete": "false"})
             task = m.get(task_id)
             if task is not None and task.state == "FAILED":
                 return self._send_json({"error": task.error}, 500)
@@ -618,21 +829,58 @@ class _Handler(BaseHTTPRequestHandler):
         return self._send_json({"error": f"unknown path {self.path}"}, 404)
 
     def do_POST(self):  # noqa: N802
+        if not self._authorized():
+            return
         parts = [p for p in self.path.split("/") if p]
         if parts == ["v1", "failpoint"]:
             doc, code = failpoints.admin_post(self._body())
             return self._send_json(doc, code)
+        if parts == ["v1", "worker", "drain"]:
+            body = self._body()
+            timeout_ms = body.get("timeoutMs")
+            return self._send_json(self.worker_server.begin_drain(
+                migrate_to=body.get("migrateTo"),
+                timeout_s=(float(timeout_ms) / 1000.0
+                           if timeout_ms is not None else None)))
+        if len(parts) == 4 and parts[:2] == ["v1", "task"] and \
+                parts[3] == "migrate":
+            body = self._body()
+            try:
+                return self._send_json(
+                    self.manager.adopt_task(parts[2], body))
+            except RuntimeError as e:  # this worker drains too
+                return self._send_json({"error": str(e)}, 503)
         if len(parts) == 3 and parts[:2] == ["v1", "task"]:
             body = self._body()
             if "outputIds" in body or "extraCredentials" in body:
                 body, err = _translate_presto_request(body)
                 if err is not None:
                     return self._send_json(err, 400)
-            return self._send_json(
-                self.manager.create_or_update(parts[2], body))
+            try:
+                info = self.manager.create_or_update(parts[2], body)
+            except RuntimeError as e:  # draining
+                return self._send_json({"error": str(e)}, 503)
+            return self._send_json(info)
+        return self._send_json({"error": f"unknown path {self.path}"}, 404)
+
+    def do_PUT(self):  # noqa: N802  the graceful-shutdown request
+        if not self._authorized():
+            return
+        parts = [p for p in self.path.split("/") if p]
+        if parts == ["v1", "info", "state"]:
+            body = json.loads(self.rfile.read(int(
+                self.headers.get("Content-Length", "0"))) or b'""')
+            if str(body).upper().replace('"', "") == "SHUTTING_DOWN":
+                # GracefulShutdownHandler: refuse new tasks, finish the
+                # running ones
+                self.manager.drain()
+                return self._send_json({"state": "SHUTTING_DOWN"})
+            return self._send_json({"error": f"unknown state {body}"}, 400)
         return self._send_json({"error": f"unknown path {self.path}"}, 404)
 
     def do_DELETE(self):  # noqa: N802
+        if not self._authorized():
+            return
         parts = [p for p in self.path.split("/") if p]
         if parts[:2] == ["v1", "failpoint"] and len(parts) in (2, 3):
             return self._send_json(failpoints.admin_delete(
@@ -677,28 +925,50 @@ class TpuWorkerServer:
     """The HTTP worker (PrestoServer.cpp:493 registerHttpEndpoints
     analog): start() binds a port on 127.0.0.1 and serves on
     background threads; with `discovery_url` it announces itself there
-    every `announce_interval_s`."""
+    every `announce_interval_s`. `shared_secret` requires the internal
+    bearer on every route and carries it on the drain's migration hop;
+    `tls=(cert, key)` serves https."""
 
     def __init__(self, port: int = 0, sf: float = 0.01, mesh=None,
                  device=None, node_id: Optional[str] = None,
                  discovery_url: Optional[str] = None,
                  announce_interval_s: float = 1.0,
-                 task_concurrency: int = 4):
+                 shared_secret: Optional[str] = None,
+                 task_concurrency: int = 4,
+                 tls: Optional[tuple] = None):
         self.manager = TaskManager(sf=sf, mesh=mesh, device=device,
                                    task_concurrency=task_concurrency)
         self.node_id = node_id or f"tpu-worker-{uuid.uuid4().hex[:8]}"
         handler = type("BoundHandler", (_Handler,), {
             "manager": self.manager, "node_id": self.node_id,
-            "started_at": time.time()})
+            "started_at": time.time(),
+            "authenticator": make_authenticator(shared_secret, self.node_id),
+            "worker_server": self})
         self.httpd = ThreadingHTTPServer(("127.0.0.1", port), handler)
+        scheme = "http"
+        if tls is not None:
+            from .tls import server_context
+            self.httpd.socket = server_context(*tls).wrap_socket(
+                self.httpd.socket, server_side=True)
+            scheme = "https"
         self.port = self.httpd.server_address[1]
-        self.url = f"http://127.0.0.1:{self.port}"
+        self.url = f"{scheme}://127.0.0.1:{self.port}"
+        # a new worker on this url supersedes a drained predecessor's
+        # goodbye
+        from .discovery import clear_unannounced
+        clear_unannounced(self.url)
+        self._shared_secret = shared_secret  # the migration hop's
+        self._drain_lock = threading.Lock()
+        self._drain_thread: Optional[threading.Thread] = None
+        self._drain_migrated = 0
+        self._stop_drain = threading.Event()
         self._announcer = None
         if discovery_url:
             from .discovery import Announcer
             self._announcer = Announcer(discovery_url, self.node_id,
                                         self.url,
-                                        interval_s=announce_interval_s)
+                                        interval_s=announce_interval_s,
+                                        shared_secret=shared_secret)
 
     def start(self):
         threading.Thread(target=self.httpd.serve_forever,
@@ -710,7 +980,99 @@ class TpuWorkerServer:
     def stop(self, unannounce: bool = True):
         """Stop serving; `unannounce` False is a crash, not a goodbye:
         discovery notices only when the announcement ages out."""
+        self._stop_drain.set()  # releases a waiting drain thread
         if self._announcer:
             self._announcer.stop(unannounce=unannounce)
         self.httpd.shutdown()
         self.httpd.server_close()
+
+    # -- graceful drain (POST /v1/worker/drain) ---------------------------
+
+    def begin_drain(self, migrate_to: Optional[str] = None,
+                    timeout_s: Optional[float] = None) -> dict:
+        """Start the drain (idempotent): refuse new tasks, announce
+        DRAINING at once, then on a thread of its own wait for the
+        running tasks, migrate the buffered pages to `migrate_to` (if
+        given) and unannounce once no unreplayed page is left. Past the
+        budget `timeout_s` (the drain_timeout_ms session property's
+        default when None) it keeps waiting at a slower pace, and the
+        pages stay served here until consumed."""
+        with self._drain_lock:
+            already = self._drain_thread is not None
+            if not already:
+                self.manager.drain()
+                if self._announcer is not None:
+                    self._announcer.set_state("DRAINING")
+                self._drain_thread = threading.Thread(
+                    target=self._drain, args=(migrate_to, timeout_s),
+                    name=f"drain-{self.node_id}", daemon=True)
+        if already:
+            return self.drain_status()
+        if self._announcer is not None:
+            try:
+                # placement reacts now, not at the next interval
+                self._announcer.announce_once()
+            except Exception:  # noqa: BLE001 - discovery may be down;
+                # the drain goes on (the suppressed-error count is item
+                # 15's)
+                pass
+        self._drain_thread.start()
+        return self.drain_status()
+
+    def _drain(self, migrate_to: Optional[str],
+               timeout_s: Optional[float]) -> None:
+        if timeout_s is None:
+            from ..utils.config import SESSION_PROPERTIES
+            timeout_s = float(SESSION_PROPERTIES.properties[
+                "drain_timeout_ms"].default) / 1e3
+        deadline = time.time() + max(float(timeout_s), 0.0)
+        # 1. the running tasks finish (only new ones are refused)
+        while time.time() < deadline and \
+                self.manager.active_task_count() > 0:
+            time.sleep(0.05)
+        # 2. the buffered pages move to the peer
+        moved = 0
+        try:
+            if failpoints.ARMED:
+                # delay/hang: a drain stuck behind a slow peer; error: a
+                # migration hop that dies (the pages stay served here)
+                failpoints.hit("worker.drain_stall")
+            if migrate_to:
+                moved = self.manager.migrate_buffers(
+                    migrate_to, secret=self._shared_secret)
+        except Exception:  # noqa: BLE001 - a failed migration degrades
+            # the drain to serving until consumed, never to a lost page
+            # (the suppressed-error count is item 15's)
+            pass
+        with self._drain_lock:
+            self._drain_migrated = moved
+        # 3. unannounce only once no page is left; past the budget keep
+        # waiting, slower, so a slow consumer cannot wedge the node
+        exhausted = False
+        while self.manager.unreplayed_pages() > 0 or \
+                self.manager.active_task_count() > 0:
+            if not exhausted and time.time() >= deadline:
+                exhausted = True
+            if self._stop_drain.wait(0.25 if exhausted else 0.05):
+                return  # the server stops: the state stays as it is
+        self.manager.mark_drained()
+        if self._announcer is not None:
+            self._announcer.stop(unannounce=True)
+        # a cluster of explicit urls has no announcer: the goodbye
+        # registry still drops this node
+        from .discovery import note_unannounced
+        note_unannounced(self.url)
+
+    def drain_status(self) -> dict:
+        """The drain's document (POST and GET /v1/worker/drain): its
+        state and the page accounting (a DRAINED worker reports zero
+        unreplayed pages)."""
+        m = self.manager
+        with self._drain_lock:
+            migrated = self._drain_migrated
+        with m._counters_lock:
+            adopted = m.counters.get("tasks_adopted", 0)
+        return {"nodeId": self.node_id, "state": m.drain_state,
+                "activeTasks": m.active_task_count(),
+                "unreplayedPages": m.unreplayed_pages(),
+                "migratedPages": migrated, "adoptedTasks": adopted}

@@ -533,8 +533,13 @@ def test_dispatcher_resolves_dotted_groups_and_queue_caps():
 
 
 def test_dispatcher_refuses_a_resource_manager_naming_item_14e():
-    with pytest.raises(NotImplementedError, match="item 14e"):
-        Dispatcher(resource_manager_url="http://127.0.0.1:1")
+    """Cluster-wide admission is ported now (tests/test_torch_cluster_
+    ops.py): a resource manager that cannot be reached no longer
+    refuses the dispatcher, it leaves admission local."""
+    d = Dispatcher(resource_manager_url="http://127.0.0.1:1",
+                   cluster_limits={"global": 1})
+    assert d.resource_manager_url == "http://127.0.0.1:1"
+    assert d.submit(lambda qid: "ok", queue_timeout=2.0) == "ok"
 
 
 def test_group_admission_stress_no_lost_wakeups():

@@ -61,7 +61,10 @@ def test_sources_found():
                    "server/worker.py", "server/client.py",
                    "server/http_exchange.py", "server/discovery.py",
                    "server/coordinator.py", "server/protocol.py",
-                   "server/protocol_structs.py", "utils/backoff.py"):
+                   "server/protocol_structs.py", "utils/backoff.py",
+                   "server/auth.py", "server/tls.py", "serde/thrift.py",
+                   "server/resource_manager.py", "server/router.py",
+                   "server/catalog_server.py", "native/kernels.py"):
         assert os.path.join("presto_tpu_torch", *module.split("/")) in names
 
 

@@ -3,8 +3,9 @@ reference's (presto_tpu/serde).
 
 The cases of tests/test_serde.py, but the native-library ones, run
 against the port; then, for seeded columns of every block kind, with
-and without NULLs, under no codec, zstd and zlib, the two packages
-must write byte-equal pages, and each must decode the other's.
+and without NULLs, under no codec, zstd, zlib and lz4, the two
+packages must write byte-equal pages, and each must decode the
+other's.
 """
 
 import zlib
@@ -123,9 +124,17 @@ def test_serialize_batch_compacts_active():
 
 
 def test_lz4_names_the_native_serde_kernels():
-    with pytest.raises(NotImplementedError, match="serde_kernels"):
-        serialize_page([(T.BIGINT, np.zeros(64, np.int64),
-                         np.zeros(64, bool))], PageCodec(compression="lz4"))
+    """An lz4 page's payload is one block of the host serde kernels'
+    LZ4 codec, the library built from native/serde_kernels.cpp."""
+    import os
+    from presto_tpu_torch.native import kernels as nk
+    assert os.path.basename(nk.build_library()).startswith("serde_kernels-")
+    cols = [(T.BIGINT, np.arange(4096, dtype=np.int64) % 7,
+             np.zeros(4096, bool))]
+    plain = serialize_page(cols, PageCodec())[21:]
+    packed = serialize_page(cols, PageCodec(compression="lz4"))[21:]
+    assert len(packed) < len(plain) // 4
+    assert nk.lz4_decompress(packed, len(plain)) == plain
 
 
 def test_wire_format_roundtrip():
@@ -201,7 +210,7 @@ def _column(kind: str, rng):
 KINDS = ["boolean", "tinyint", "smallint", "integer", "bigint", "double",
          "real", "date", "decimal(12,2)", "decimal(38,2)", "varchar(25)",
          "array(bigint)", "map(bigint,double)", "row(bigint,varchar)"]
-CODECS = [None, "zstd", "zlib"]
+CODECS = [None, "zstd", "zlib", "lz4"]
 
 
 def _cols(kinds, with_nulls, seed):
