@@ -117,7 +117,20 @@ PyTorch version at the shapes of its path:
   the plain version, the wall from the POST to the last nextUri
   against sql() in turns), q6 through a DB-API cursor, START
   TRANSACTION and COMMIT, SHOW CATALOGS, system.queries, and a
-  rejection by a full resource-group queue;
+  rejection by a full resource-group queue; after its q1 the server's
+  ledger routes (/v1/metrics, /v1/cluster, /v1/profile, /v1/history,
+  /v1/datapath, /v1/accuracy, /v1/timeline) and q1's trace
+  (/v1/trace/{queryId}) are read, no new query run;
+* the observability ledgers (phase_observe): q1 at SF1 through
+  run_query with every ledger on (rows against numpy_q1, one
+  fused_limb_sums launch equal to the plain version), its stage walls
+  (staging, compile, execute, fetch), datapath hops, timeline
+  occupancy and bubble verdict, profiler row and estimate-vs-actual
+  records printed; the ledgers on against off (continuous_profiling
+  and timeline off) in 3 pairs in turns, run_query_ms, host syncs and
+  launches of each (launches equal, the fewest syncs of each mode
+  equal); EXPLAIN
+  ANALYZE of q1 and q3 from their text at SF1, every section present;
 * the worker tier (phase_cluster): a DiscoveryServer and two
   HTTP workers (presto_tpu_torch.server.TpuWorkerServer) on the card,
   the Coordinator scheduling plan fragments on the workers discovery
@@ -134,7 +147,9 @@ PyTorch version at the shapes of its path:
   "phased"; a task failed once by the worker.run_task failpoint and
   retried; and a worker in a child process (`chip_smoke.py --cluster-worker URL`). Each task's
   rows, page bytes, pages pulled, serialize and pull ms and execute ms
-  are printed, and the coordinator's wall;
+  are printed, and the coordinator's wall; after q1 the coordinator's
+  merged QueryStats and its stitched trace (task spans from both
+  workers) are checked and both workers' ledger routes read;
 * the cluster operations (phase_fleet, last), q1 at SF1 throughout:
   discovery, two workers on the card and the Coordinator with one
   shared secret (JWT bearers) and TLS where cryptography imports, q1
@@ -903,18 +918,44 @@ def fused_row(call, launches, query="q1"):
     return row
 
 
-def _count_syncs(fn):
+def _count_syncs(fn, sites=None):
     """Host-device synchronizations fn() makes (torch's sync debug mode
-    warns once per synchronizing call)."""
+    warns once per synchronizing call, in the thread that makes it).
+    Only warnings raised while fn() runs count: the first call that
+    turns the mode on in a process warns once itself. With a list
+    `sites`, each sync appends its site: the thread's name and the
+    innermost Python frames of the call (file:line function)."""
+    import threading
     import torch
-    with warnings.catch_warnings(record=True) as caught:
+    count = [0]
+    armed = [False]
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if not armed[0] or "synchroniz" not in str(message):
+            return
+        count[0] += 1
+        if sites is not None:
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if not f.filename.endswith("warnings.py")]
+            sites.append(threading.current_thread().name + " | " + " < ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                for f in reversed(frames[-SYNC_SITE_FRAMES:])))
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = hook
         torch.cuda.set_sync_debug_mode("warn")
+        armed[0] = True
         try:
             out = fn()
         finally:
+            armed[0] = False
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return out, count[0]
+
+
+# innermost Python frames kept for a sync's site (_count_syncs)
+SYNC_SITE_FRAMES = 6
 
 
 # host tables: generated once per process (the package generates them
@@ -1845,7 +1886,7 @@ def task_report(coord):
     out = []
     for t in coord.last_task_stats:
         st = t["stats"]
-        qs = st.get("queryStats") or {}
+        qs = st.get("runtimeStats") or {}
         out.append({
             "fragment": t["fragment"], "task": t["task"],
             "worker": t["url"], "rows": st.get("outputRows"),
@@ -2062,6 +2103,43 @@ def cluster_q1(coord):
             "fused_limb_sums_max_abs_err": err}
 
 
+def cluster_observed(coord, tracer, workers):
+    """After cluster_q1's last round, with no new query: the
+    coordinator's merged QueryStats (every task's), its stitched trace
+    (task spans of both workers under one coordinator.execute), and
+    both workers' ledger routes."""
+    qs = coord.last_query_stats
+    tasks = coord.last_task_stats
+    if qs is None or qs.task_count != len(tasks):
+        raise AssertionError(f"cluster q1: merged QueryStats of "
+                             f"{qs and qs.task_count} tasks, "
+                             f"{len(tasks)} ran")
+    # the newest trace the coordinator rooted (one-device runs of q1
+    # in between hang their stage spans in traces of their own)
+    trace_id = next(t for t in reversed(tracer.traces)
+                    if any(sp["name"] == "coordinator.execute"
+                           for sp in tracer.spans(t)))
+    doc = tracer.trace_doc(trace_id)
+    names = [sp["name"] for sp in doc["spans"]]
+    by_worker = {}
+    for t in tasks:
+        if f"task.{t['task']}" in names:
+            by_worker.setdefault(t["url"], []).append(t["task"])
+    if len(by_worker) != len(workers) or \
+            names.count("coordinator.execute") != 1:
+        raise AssertionError(f"cluster q1 trace: task spans by worker "
+                             f"{by_worker}, spans {sorted(set(names))}")
+    print(f"cluster q1: merged QueryStats of {qs.task_count} tasks "
+          f"(execute {qs.stage_us('execute') / 1e3:.3f} ms summed, "
+          f"staged {qs.stages['staging'].bytes} bytes); trace {trace_id} "
+          f"stitched {len(names)} spans, task spans from "
+          f"{len(by_worker)} workers")
+    routes = {w.url: ledger_routes(w.url, "worker") for w in workers}
+    return {"task_count": qs.task_count, "trace_spans": len(names),
+            "task_spans_by_worker": by_worker, "routes": routes,
+            "execute_ms": qs.stage_us("execute") / 1e3}
+
+
 def check_q1_task_launches(name, frag_of, calls, launches):
     """q1 through distribute_simple_agg on CLUSTER_WORKERS workers:
     fused_limb_sums launched once in each PARTIAL task (fragment 0)
@@ -2167,6 +2245,7 @@ def phase_cluster():
     from presto_tpu_torch.server import Coordinator, TpuWorkerServer
     from presto_tpu_torch.server.discovery import (DiscoveryServer,
                                                    alive_nodes)
+    from presto_tpu_torch.server.tracing import RecordingTracer, set_tracer
     t0 = time.perf_counter()
     disc = DiscoveryServer().start()
     workers, child = [], None
@@ -2180,7 +2259,13 @@ def phase_cluster():
                 raise RuntimeError("the workers did not announce")
             time.sleep(0.05)
         coord = Coordinator(discovery_url=disc.url)
-        out = {"workers": CLUSTER_WORKERS, "q1": cluster_q1(coord)}
+        tracer = RecordingTracer()
+        set_tracer(tracer)
+        try:
+            out = {"workers": CLUSTER_WORKERS, "q1": cluster_q1(coord)}
+            out["q1_observed"] = cluster_observed(coord, tracer, workers)
+        finally:
+            set_tracer(None)
         torch.cuda.empty_cache()
 
         want_q3 = oracle_rows(numpy_q3, Q3_TABLES, SF)
@@ -2418,7 +2503,7 @@ def fleet_drain(workers, disc_url):
     per_task, err = check_q1_task_launches("fleet drain", frag_of, calls,
                                            launches)
     del calls
-    final_stats = peer.manager.get("fleet.drain.f").stats["queryStats"]
+    final_stats = peer.manager.get("fleet.drain.f").stats["runtimeStats"]
     print(f"fleet drain: PARTIALs {partial_ms:.1f} ms; {pages} pages of "
           f"{drained.node_id} migrated once in {drain_ms:.1f} ms "
           f"(checksums equal), DRAINED and out of alive_nodes; the FINAL "
@@ -4531,7 +4616,7 @@ def statement_q1(srv):
             raise AssertionError(f"statement q1 launched fused_limb_sums "
                                  f"{launches} times, not once")
         err = check_fused(*calls[0], "statement q1's lanes")
-    stats = _get_json(f"{srv.url}/v1/query/{c.query_id}")["queryStats"]
+    stats = _get_json(f"{srv.url}/v1/query/{c.query_id}")["runtimeStats"]
     if stats["capacity_reruns"]:  # q1's 4 groups fit its 16 at once
         raise AssertionError(f"statement q1 reran: {stats}")
     if c.data != _rendered(want, c.columns):
@@ -4603,6 +4688,278 @@ def statement_queue_full():
     return rejected
 
 
+LEDGER_ROUTES = ("metrics", "profile", "history", "datapath", "accuracy",
+                 "timeline")
+
+
+def ledger_routes(base, tier, trace_of=None):
+    """GET a server's ledger routes (and /v1/cluster on the statement
+    tier, /v1/trace/{trace_of} where given): each must answer 200 with
+    its document; returns their sizes in bytes and the trace's span
+    names. No query runs."""
+    import urllib.request
+    from presto_tpu_torch.server.metrics import parse_prometheus
+    routes = list(LEDGER_ROUTES) + (["cluster"] if tier == "statement"
+                                    else [])
+    if trace_of is not None:
+        routes.append(f"trace/{trace_of}")
+    sizes, spans = {}, []
+    for route in routes:
+        deadline = time.time() + 5
+        while True:
+            with urllib.request.urlopen(f"{base}/v1/{route}") as r:
+                body = r.read()
+            # a statement's root span lands a beat after its last
+            # document: the trace is read again until it has it
+            if not route.startswith("trace/") or time.time() > deadline \
+                    or b'"name": "query"' in body:
+                break
+            time.sleep(0.05)
+        sizes[route] = len(body)
+        if route == "metrics":
+            fams = parse_prometheus(body.decode())
+            for fam in ("presto_tpu_stage_seconds_count",
+                        "presto_tpu_datapath_bytes_total",
+                        "presto_tpu_q_error_count"):
+                if fam not in fams:
+                    raise AssertionError(f"{tier} /v1/metrics lacks {fam}")
+            continue
+        doc = json.loads(body)
+        if route == "profile" and not doc["kernels"]:
+            raise AssertionError(f"{tier} /v1/profile has no kernel row")
+        if route == "datapath" and \
+                not doc["hops"]["device_put"]["bytes"]:
+            raise AssertionError(f"{tier} /v1/datapath has no device_put")
+        if route.startswith("trace/"):
+            spans = [sp["name"] for sp in doc["spans"]]
+            for want in ("query", "stage.staging", "stage.execute",
+                         "stage.fetch"):
+                if want not in spans:
+                    raise AssertionError(f"{tier} trace lacks {want}: "
+                                         f"{spans}")
+    print(f"{tier}: ledger routes answer ({sizes})"
+          + (f"; the trace of {trace_of} has spans {sorted(set(spans))}"
+             if trace_of is not None else ""))
+    return {"bytes": sizes, "spans": spans}
+
+
+def observe_q1():
+    """q1 at SF1 through run_query with every ledger on: rows against
+    numpy_q1, one fused_limb_sums launch equal to the plain version;
+    the run's stage walls, datapath hops, timeline occupancy and
+    verdict, profiler row and accuracy records, printed."""
+    import torch
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.exec.plan_cache import plan_fingerprint
+    from presto_tpu_torch.exec.profiler import profile_snapshot
+    from presto_tpu_torch.exec.timeline import bubble_verdict, occupancy
+    from presto_tpu_torch.ops import kernels as K
+    want = oracle_rows(numpy_q1, Q1_TABLES, SF)
+    plan = as_built(q1_plan(), SF)
+    run_query(plan, sf=SF, prepared=True, query_id="observe.warm")
+    _reset_launches()
+    with recording_fused() as calls:
+        res = run_query(plan, sf=SF, prepared=True, query_id="observe.q1")
+        launches = dict(K.LAUNCHES)
+        if launches["fused_limb_sums"] != 1:
+            raise AssertionError(f"observe q1 launches {launches}")
+        err = check_fused(*calls[0], "observe q1's lanes")
+    del calls
+    if _plain_rows(res) != want:
+        raise AssertionError("observe q1 rows differ from numpy_q1")
+    qs = res.query_stats
+    stages = {k: qs.stage_us(k) / 1e3
+              for k in ("staging", "compile", "execute", "fetch")}
+    hops = {k: {"bytes": h.bytes, "wall_ms": h.wall_us / 1e3,
+                "invocations": h.invocations}
+            for k, h in qs.datapath.items()}
+    occ = occupancy(qs.timeline.intervals)
+    verdict = bubble_verdict(qs.timeline.intervals, occ)
+    fp = plan_fingerprint(plan)
+    row = next(p for p in profile_snapshot() if p["fingerprint"] == fp)
+    accuracy = {k: {"est": r.est, "actual": r.actual}
+                for k, r in qs.accuracy.items()}
+    skew = qs.counters.get("device_anchor_skew_us")
+    on_card = res.query_stats.timeline.totals.get("kernel") is not None \
+        and torch.cuda.is_available()
+    if qs.datapath["kernel"].invocations != 1 or (on_card and skew is None):
+        raise AssertionError(f"observe q1: kernel hop "
+                             f"{qs.datapath['kernel']}, anchor skew {skew}")
+    print(f"observe q1: equals numpy_q1, one fused_limb_sums launch "
+          f"(max abs err {err}); stage ms {stages}; wall "
+          f"{qs.wall_us / 1e3:.3f} ms")
+    print(f"observe q1 datapath: {json.dumps(hops)}")
+    print(f"observe q1 timeline: outside the dispatch spans "
+          f"{occ['deviceIdleFraction']:.4f} of {occ['wallUs']} us "
+          f"(dispatch span {occ['lanes']['device']['busyUs']} us, event "
+          f"anchor within {skew} us); {verdict['message']}")
+    print(f"observe q1 profiler row: dispatch spans {row['device_us']} us "
+          f"over {row['calls']} calls of this plan in the process, rows "
+          f"in {row['rows_in']}, out {row['rows_out']}, bytes in "
+          f"{row['bytes_in']}")
+    print(f"observe q1 accuracy: {json.dumps(accuracy)}")
+    return {"stage_ms": stages, "wall_ms": qs.wall_us / 1e3,
+            "datapath": hops, "occupancy": occ, "verdict": verdict,
+            "profile": row, "accuracy": accuracy,
+            "anchor_skew_us": skew, "launches": launches,
+            "fused_limb_sums_max_abs_err": err,
+            "staged_bytes": res.stats["staged_bytes"]}
+
+
+def observe_span():
+    """How much of q1's dispatch span is work on the card: one run of
+    q1 at SF1 through run_query inside a torch.profiler window. The
+    span is the run's `kernel` hop, the stream time between the CUDA
+    events around its dispatch. The work is the run's device events
+    other than host <-> device copies (kernels, memsets, device copies;
+    staging makes few of them, its time is the copies): their count,
+    summed time and the union of their intervals. The copies are
+    counted and timed apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from presto_tpu_torch.exec import run_query
+    plan = as_built(q1_plan(), SF)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = run_query(plan, sf=SF, prepared=True,
+                        query_id="observe.span")
+        torch.cuda.synchronize()
+    span_ms = res.query_stats.datapath["kernel"].wall_us / 1e3
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = {d: [e for e in evs if d in e.name] for d in ("HtoD", "DtoH")}
+    work = [e for e in evs if "HtoD" not in e.name and "DtoH" not in e.name]
+    sum_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
+    union_us, end = 0, None
+    for e in sorted(work, key=lambda e: e.time_range.start):
+        t0, t1 = e.time_range.start, e.time_range.end
+        if end is None or t0 > end:
+            union_us += t1 - t0
+            end = t1
+        elif t1 > end:
+            union_us += t1 - end
+            end = t1
+    out = {"span_ms": span_ms, "work_sum_ms": sum_ms,
+           "work_union_ms": union_us / 1e3, "work_events": len(work),
+           "busy_share": union_us / 1e3 / span_ms if span_ms else None,
+           **{f"{d}_{k}": v for d, es in copies.items() for k, v in (
+               ("copies", len(es)),
+               ("ms", sum(e.time_range.elapsed_us() for e in es) / 1e3))}}
+    if not work:
+        raise AssertionError(f"observe span: the profiler saw no device "
+                             f"work ({len(evs)} events)")
+    print(f"observe q1 span: dispatch span {span_ms:.3f} ms (CUDA events); "
+          f"device work of the same run (torch.profiler, {len(work)} "
+          f"events, copies left out) summed {sum_ms:.3f} ms, union "
+          f"{union_us / 1e3:.3f} ms ({out['busy_share']:.4f} of the span); "
+          f"host to device copies {out['HtoD_copies']} in "
+          f"{out['HtoD_ms']:.3f} ms, device to host {out['DtoH_copies']} "
+          f"in {out['DtoH_ms']:.3f} ms")
+    return out
+
+
+LEDGER_PAIRS = 3
+LEDGERS_OFF = {"continuous_profiling": False, "timeline": False}
+
+
+def observe_cost():
+    """The ledgers' cost on q1 at SF1: run_query with them on (the
+    default) against off (LEDGERS_OFF: the two ledgers with a session
+    gate, as in the reference; progress, datapath, accuracy and stats
+    have none), after a warm run of each, LEDGER_PAIRS pairs in turns,
+    each timed to the rows on the host and counting its host syncs and
+    kernel launches (torch's sync-debug warnings on, in both modes
+    alike). Every run's launches and host syncs must equal those of
+    its pair in the other mode; where they do not, the sync sites that
+    the two runs do not share are named. Prints where the first on
+    run's syncs come from."""
+    import collections
+    from presto_tpu_torch.exec import run_query
+    from presto_tpu_torch.ops import kernels as K
+    plan = as_built(q1_plan(), SF)
+    modes = (("on", None), ("off", LEDGERS_OFF))
+    out = {"on_ms": [], "off_ms": [], "syncs": {"on": [], "off": []},
+           "launches": {"on": [], "off": []}, "sites": {"on": [], "off": []}}
+    for _, session in modes:
+        run_query(plan, sf=SF, prepared=True, session=session)
+    for _ in range(LEDGER_PAIRS):
+        for mode, session in modes:
+            _reset_launches()
+            sites = []
+            t0 = time.perf_counter()
+            _, syncs = _count_syncs(lambda: run_query(
+                plan, sf=SF, prepared=True, session=session), sites)
+            out[f"{mode}_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["syncs"][mode].append(syncs)
+            out["launches"][mode].append(dict(K.LAUNCHES))
+            out["sites"][mode].append(sites)
+    where = collections.Counter(
+        site.split(" | ", 1)[1].split(" < ")[0]
+        for site in out["sites"]["on"][0])
+    print(f"observe: the first on run's {out['syncs']['on'][0]} host syncs "
+          f"by innermost frame: {json.dumps(dict(where))}")
+    for i, (on, off) in enumerate(zip(out["sites"]["on"],
+                                      out["sites"]["off"])):
+        if len(on) != len(off) or out["launches"]["on"][i] != \
+                out["launches"]["off"][i]:
+            only_on = collections.Counter(on) - collections.Counter(off)
+            only_off = collections.Counter(off) - collections.Counter(on)
+            raise AssertionError(
+                f"the ledgers change q1's warm run, pair {i}: syncs on "
+                f"{out['syncs']['on']} off {out['syncs']['off']}, "
+                f"launches {out['launches']}; sync sites only on "
+                f"{dict(only_on)}, only off {dict(only_off)}")
+    out["sites"] = {"on_first": out["sites"]["on"][0]}
+    print(f"observe: run_query_ms ledgers on {out['on_ms']} against off "
+          f"{out['off_ms']} (in turns); host syncs on "
+          f"{out['syncs']['on']}, off {out['syncs']['off']}; launches "
+          f"{out['launches']['on'][0]} in each")
+    return out
+
+
+def observe_explain():
+    """EXPLAIN ANALYZE of q1 and of q3 from their text at SF1 on the
+    card: the executed tree with its host-visible rows, then every
+    section."""
+    from presto_tpu_torch import sql
+    from presto_tpu_torch.queries import load_corpus
+    out = {}
+    corpus = load_corpus()
+    for name, entry in (("q1", corpus["q1_two_stage"]),
+                        ("q3", corpus["q3_two_stage"])):
+        kw = {"max_groups": entry["max_groups"]}
+        if entry.get("join_capacity"):
+            kw["join_capacity"] = entry["join_capacity"]
+        t0 = time.perf_counter()
+        res = sql("EXPLAIN ANALYZE " + entry["sql"], sf=SF, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        lines = [str(v) for v in res.columns[0]]
+        for section in ("-- stages --", "-- kernels", "-- datapath --",
+                        "-- accuracy --", "-- timeline --"):
+            if not any(ln.startswith(section) for ln in lines):
+                raise AssertionError(f"EXPLAIN ANALYZE {name} lacks "
+                                     f"{section}:\n" + "\n".join(lines))
+        if "rows=" not in lines[0]:
+            raise AssertionError(f"EXPLAIN ANALYZE {name}: {lines[0]}")
+        out[name] = {"ms": ms, "lines": len(lines)}
+        print(f"observe: EXPLAIN ANALYZE {name} at SF1, {len(lines)} "
+              f"lines in {ms:.1f} ms:\n" + "\n".join(lines))
+    return out
+
+
+def phase_observe():
+    """The observability ledgers on the card: observe_q1, observe_span,
+    observe_cost and observe_explain. Returns the reports and the
+    phase's seconds."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"q1": observe_q1(), "span": observe_span(),
+           "cost": observe_cost(), "explain": observe_explain()}
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"observe: the phase took {out['s']:.1f} s")
+    return out
+
+
 def phase_statement():
     """The statement tier on the card: a StatementServer on cuda:0
     (port 0) answering statement_q1, q6 through a DB-API cursor against
@@ -4615,11 +4972,15 @@ def phase_statement():
     from presto_tpu_torch.client import execute
     from presto_tpu_torch.queries import load_corpus
     from presto_tpu_torch.server.statement import StatementServer
+    from presto_tpu_torch.server.tracing import RecordingTracer, set_tracer
     t0 = time.perf_counter()
     out = {}
     q6_sql = load_corpus()["q6_two_stage"]["sql"]
+    set_tracer(RecordingTracer())
     with StatementServer(sf=SF, device="cuda:0") as srv:
         out["q1"] = statement_q1(srv)
+        out["routes"] = ledger_routes(srv.url, "statement",
+                                      trace_of=out["q1"]["query_id"])
         conn = dbapi.connect(server=srv.url, sf=SF, user="smoke")
         cur = conn.cursor()
         t1 = time.perf_counter()
@@ -4649,6 +5010,7 @@ def phase_statement():
             raise AssertionError("system.queries does not hold the q1 "
                                  "statement")
         out["catalogs"] = catalogs
+    set_tracer(None)
     out["queue_full"] = statement_queue_full()
     torch.cuda.empty_cache()
     out["s"] = time.perf_counter() - t0
@@ -4796,6 +5158,7 @@ def run_phases(args, start_cpu_workers) -> int:
     sql_ = timed("sql", phase_sql, tpcds_rows["q47"])
     files = timed("files", phase_files)
     statement = timed("statement", phase_statement)
+    observe = timed("observe", phase_observe)
     cluster = timed("cluster", phase_cluster)
     fleet = timed("fleet", phase_fleet)
 
@@ -4806,7 +5169,8 @@ def run_phases(args, start_cpu_workers) -> int:
               "aggregates": aggregates,
               "functions": functions, "nested": nested, "tpcds": tpcds,
               "exec": exec_, "sql": sql_, "files": files,
-              "statement": statement, "cluster": cluster, "fleet": fleet,
+              "statement": statement, "observe": observe,
+              "cluster": cluster, "fleet": fleet,
               "build_s": build_s, "phase_s": phase_s,
               "host_generation_s": GEN_S, "gpu": gpu,
               "torch": torch.__version__, "cuda": torch.version.cuda,

@@ -429,7 +429,11 @@ def batch_from_numpy(types: Sequence[T.Type], arrays: Sequence[np.ndarray],
                                        physical_dtypes))
     active = np.zeros(capacity, dtype=bool)
     active[:n] = True
-    return Batch(cols, _put(active, device))
+    b = Batch(cols, _put(active, device))
+    # the live row count, known here on the host: what the ledgers
+    # record for a staged scan without reading the mask back
+    b.live_rows = n
+    return b
 
 
 def to_numpy(block: Block) -> Tuple[np.ndarray, np.ndarray]:

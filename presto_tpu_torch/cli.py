@@ -10,8 +10,11 @@ with `--server URL`, on a statement server over the client protocol
         [--user alice] "SELECT ..."
   python -m presto_tpu_torch.cli              # REPL
 
-EXPLAIN (`plan/explain.py`, ROADMAP queue 1 item 15) and `--trace` (the
-tracer, item 15) are not ported yet and raise NotImplementedError.
+`EXPLAIN [ANALYZE] ...` (or `--explain`) prints the plan (plan/
+explain.py); `--stats` prints the QueryStats summary; `--trace` renders
+the query's trace as a waterfall (traceview.py): the in-process
+tracer's, or the server's GET /v1/trace/{queryId}, under a trace
+context the client sends.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import re
 import sys
 import time
 
-_EXPLAIN_RE = re.compile(r"\s*explain\b", re.IGNORECASE)
+_EXPLAIN_RE = re.compile(r"\s*explain(\s+analyze)?\b", re.IGNORECASE)
 
 
 def _render(v, ty):
@@ -57,29 +60,99 @@ def _format_table(names, rows, types=None, max_rows=50):
     return "\n".join(out)
 
 
-def run_one(query: str, sf: float, device=None, catalog=None) -> int:
-    """Run one statement and print its rows as a table."""
-    from .sql import sql
+def _print_trace(doc) -> None:
+    from .traceview import render_waterfall
+    print(render_waterfall(doc))
 
-    if _EXPLAIN_RE.match(query):
-        raise NotImplementedError("EXPLAIN is not ported yet (ROADMAP "
-                                  "queue 1 item 15: plan/explain.py)")
+
+def run_one(query: str, sf: float, device=None, catalog=None,
+            explain_only: bool = False, stats: bool = False,
+            trace: bool = False) -> int:
+    """Run one statement and print its rows as a table (its plan for
+    EXPLAIN or `explain_only`)."""
+    import uuid
+
+    from .plan.explain import explain, explain_analyze
+    from .sql import plan_sql, sql
+
+    m = _EXPLAIN_RE.match(query)
+    if m and m.group(1):
+        print(explain_analyze(plan_sql(query[m.end():].strip(),
+                                       catalog=catalog),
+                              sf=sf, device=device))
+        return 0
+    if explain_only or m:
+        q = query[m.end():].strip() if m else query
+        print(explain(plan_sql(q, catalog=catalog), sf=sf))
+        return 0
+    kwargs = {"query_id": f"cli_{uuid.uuid4().hex[:8]}"}
+    if trace:
+        # a tracer, so that the stage spans land somewhere to render
+        from .server.tracing import RecordingTracer, get_tracer, set_tracer
+        if get_tracer() is None:
+            set_tracer(RecordingTracer())
     t0 = time.time()
-    res = sql(query, sf=sf, device=device, catalog=catalog)
+    res = sql(query, sf=sf, device=device, catalog=catalog, **kwargs)
     dt = time.time() - t0
     print(_format_table(res.names, res.rows(), res.types))
     print(f"({res.row_count} rows in {dt:.2f}s)")
+    if stats and res.query_stats is not None:
+        print(f"stats: {res.query_stats.summary()}")
+    if trace:
+        from .server.tracing import get_tracer, trace_doc_of
+        doc = trace_doc_of(get_tracer(), kwargs["query_id"])
+        if doc is None:
+            print("(no spans recorded for this query)")
+        else:
+            _print_trace(doc)
     return 0
 
 
+def _watch_line(stats: dict, elapsed: float) -> str:
+    """One line of the live ticker from a poll's stats: state, stage,
+    rows, percent, elapsed."""
+    return (f"{stats.get('state', 'QUEUED'):>9s} | "
+            f"{stats.get('stage', '-'):<8s} | "
+            f"rows {int(stats.get('processedRows', 0)):>12,} | "
+            f"{float(stats.get('progressPercent', 0.0)):5.1f}% | "
+            f"{elapsed:6.1f}s")
+
+
 def run_one_remote(query: str, server: str, user: str = "presto",
-                   session=None) -> int:
+                   session=None, stats: bool = False,
+                   trace: bool = False, watch: bool = False) -> int:
     """Run one statement on a statement server (POST /v1/statement and
-    its nextUri hops) and print its rows, which arrive rendered."""
-    from .client import QueryError, execute
+    its nextUri hops) and print its rows, which arrive rendered; with
+    `trace`, under a trace context of the client's, whose stitched
+    trace it then fetches and renders; with `watch`, a one-line ticker
+    of the live progress on stderr while it runs."""
+    from .client import QueryError, StatementClient, execute
+    extra_headers = None
+    if trace:
+        from .server.tracing import (TRACE_HEADER, TraceContext,
+                                     new_span_id, new_trace_id)
+        ctx = TraceContext(new_trace_id(), new_span_id())
+        extra_headers = {TRACE_HEADER: ctx.header()}
     t0 = time.time()
     try:
-        client = execute(server, query, user=user, session=session or {})
+        if watch:
+            client = StatementClient(server, query, user=user,
+                                     session=session or {},
+                                     extra_headers=extra_headers)
+            try:
+                while True:
+                    print("\r" + _watch_line(client.stats or {},
+                                             time.time() - t0),
+                          end="", file=sys.stderr, flush=True)
+                    if not client.advance():
+                        break
+            finally:
+                print(file=sys.stderr)
+            client.drain()
+        else:
+            client = execute(server, query, user=user,
+                             session=session or {},
+                             extra_headers=extra_headers)
     except QueryError as e:
         print(f"error [{e.error_name}]: {e}", file=sys.stderr)
         return 1
@@ -89,6 +162,26 @@ def run_one_remote(query: str, server: str, user: str = "presto",
     print(_format_table(names, rows))
     extra = f", {client.update_type}" if client.update_type else ""
     print(f"({len(rows)} rows in {dt:.2f}s via {client.query_id}{extra})")
+    if stats and client.stats:
+        s = client.stats
+        parts = [f"wall {s.get('elapsedTimeMillis', 0) / 1e3:.3f}s"]
+        if "compileTimeMicros" in s:
+            parts.append(f"compile {s['compileTimeMicros'] / 1e6:.3f}s")
+        if "executeTimeMicros" in s:
+            parts.append(f"execute {s['executeTimeMicros'] / 1e6:.3f}s")
+        parts.append(f"rows {s.get('processedRows', len(rows))}")
+        parts.append(f"bytes {s.get('processedBytes', 0)}")
+        print("stats: " + ", ".join(parts))
+    if trace and client.query_id:
+        from .traceview import fetch_trace
+        try:
+            doc = fetch_trace(server, client.query_id)
+        except OSError as e:
+            print(f"(no trace for {client.query_id} from {server}: "
+                  f"{type(e).__name__}: {e}; is a tracer installed on "
+                  f"the server?)", file=sys.stderr)
+            return 0
+        _print_trace(doc)
     return 0
 
 
@@ -101,25 +194,31 @@ def main(argv=None) -> int:
                     help="torch device to run on (default cuda)")
     ap.add_argument("--catalog", default=None,
                     help="catalog searched first for unqualified tables")
-    ap.add_argument("--explain", action="store_true")
-    ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--explain", action="store_true",
+                    help="print the plan instead of running it")
+    ap.add_argument("--stats", action="store_true",
+                    help="print the QueryStats summary after each query")
+    ap.add_argument("--trace", action="store_true",
+                    help="render the query's trace as a waterfall")
+    ap.add_argument("--watch", action="store_true",
+                    help="with --server: a one-line live progress "
+                         "ticker while the statement runs")
     ap.add_argument("--server", default=None,
                     help="statement server URL: statements go over the "
                          "client protocol instead of this process")
     ap.add_argument("--user", default="presto")
     args = ap.parse_args(argv)
-    if args.explain:
-        raise NotImplementedError("EXPLAIN is not ported yet (ROADMAP "
-                                  "queue 1 item 15: plan/explain.py)")
-    if args.trace:
-        raise NotImplementedError("--trace is not ported yet (ROADMAP "
-                                  "queue 1 item 15: the tracer)")
 
     def run(stmt: str) -> int:
         if args.server:
+            if args.explain and not _EXPLAIN_RE.match(stmt):
+                stmt = f"EXPLAIN {stmt}"  # the server's EXPLAIN
             return run_one_remote(stmt, args.server, args.user,
-                                  {"sf": str(args.sf)})
-        return run_one(stmt, args.sf, args.device, args.catalog)
+                                  {"sf": str(args.sf)}, stats=args.stats,
+                                  trace=args.trace, watch=args.watch)
+        return run_one(stmt, args.sf, args.device, args.catalog,
+                       explain_only=args.explain, stats=args.stats,
+                       trace=args.trace)
 
     if args.query:
         return run(args.query)

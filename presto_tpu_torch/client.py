@@ -4,9 +4,10 @@ Counterpart of presto_tpu/client.py (presto-client's StatementClientV1:
 the constructor POSTs /v1/statement, advance() follows `nextUri` until
 it is gone, gathering the data pages; the X-Presto-Set-Session,
 X-Presto-Started-Transaction-Id and X-Presto-Clear-Transaction-Id
-response headers change the client's session). Standard-library HTTP
-only and no engine import, so it drives the port's statement server
-(server/statement.py) or the reference's, which speak one protocol.
+response headers change the client's session). Standard-library HTTP,
+so it drives the port's statement server (server/statement.py) or the
+reference's, which speak one protocol. Each response body's read is
+the `client_drain` hop of the datapath ledger (exec/datapath.py).
 """
 
 from __future__ import annotations
@@ -37,6 +38,12 @@ class QueryError(RuntimeError):
         self.error_type = error.get("errorType", "INTERNAL_ERROR")
 
 
+def _note_drain(nbytes: int, seconds: float) -> None:
+    """The client_drain hop of the datapath ledger."""
+    from .exec.datapath import record_hop
+    record_hop("client_drain", nbytes, seconds)
+
+
 def _wire_error(message: str) -> dict:
     return {"message": str(message), "errorCode": 16,
             "errorName": "PROTOCOL_ERROR", "errorType": "EXTERNAL"}
@@ -49,10 +56,13 @@ class StatementClient:
                  session: Optional[Dict[str, str]] = None,
                  transaction_id: Optional[str] = None,
                  timeout: float = 120.0,
-                 deadline_s: Optional[float] = None):
+                 deadline_s: Optional[float] = None,
+                 extra_headers: Optional[Dict[str, str]] = None):
         """`timeout` bounds each HTTP request, `deadline_s` the whole
         statement (None: PRESTO_TPU_CLIENT_DEADLINE_S, else
-        DEFAULT_DEADLINE_S; 0: no bound)."""
+        DEFAULT_DEADLINE_S; 0: no bound). `extra_headers` ride the POST
+        (X-Presto-Trace: the caller's trace context, under which the
+        server hangs the statement's spans)."""
         self.server_url = server_url.rstrip("/")
         self.timeout = timeout
         if deadline_s is None:
@@ -79,6 +89,7 @@ class StatementClient:
                 f"{k}={v}" for k, v in session.items())
         if transaction_id:
             headers["X-Presto-Transaction-Id"] = transaction_id
+        headers.update(extra_headers or {})
         doc, _ = self._request(f"{self.server_url}/v1/statement",
                                method="POST", body=text.encode(),
                                headers=headers, follow_307=True)
@@ -93,7 +104,12 @@ class StatementClient:
                                      headers=headers or {})
         try:
             with urllib.request.urlopen(req, timeout=self.timeout) as resp:
-                return json.loads(resp.read().decode()), dict(resp.headers)
+                # the body's read is the client_drain hop
+                # (exec/datapath.py)
+                t0 = time.time()
+                raw = resp.read()
+                _note_drain(len(raw), time.time() - t0)
+                return json.loads(raw.decode()), dict(resp.headers)
         except urllib.error.HTTPError as e:
             if e.code == 307 and follow_307 and e.headers.get("Location"):
                 # a router sent the statement on: POST it there
@@ -171,8 +187,11 @@ def execute(server_url: str, text: str, user: str = "presto",
             session: Optional[Dict[str, str]] = None,
             transaction_id: Optional[str] = None,
             timeout: float = 120.0,
-            deadline_s: Optional[float] = None) -> StatementClient:
+            deadline_s: Optional[float] = None,
+            extra_headers: Optional[Dict[str, str]] = None
+            ) -> StatementClient:
     """POST and drain: the finished client (columns, data, stats)."""
     return StatementClient(server_url, text, user=user, session=session,
                            transaction_id=transaction_id, timeout=timeout,
-                           deadline_s=deadline_s).drain()
+                           deadline_s=deadline_s,
+                           extra_headers=extra_headers).drain()

@@ -17,8 +17,8 @@ Tables register explicitly (`register_table(name, path)`); the engine
 types come from the parquet schema (decimals as scaled integers, date32
 as day numbers, strings as varchar). `read_stats` counts the row groups
 read out of the total, `decode_stats` the seconds and engine bytes of
-the decode (the reference feeds both to its data-path ledger, ROADMAP
-queue 1 item 15). CTAS, INSERT, DELETE and UPDATE write through the
+the decode, which is also the `decode` hop of the datapath ledger
+(exec/datapath.py). CTAS, INSERT, DELETE and UPDATE write through the
 shared LakeSink (lake_sink.py).
 """
 
@@ -207,9 +207,11 @@ def _record_decode(cols: Dict[str, Tuple[np.ndarray, np.ndarray]],
                    seconds: float) -> None:
     """Add one decode's seconds and engine bytes to `decode_stats`
     (shared with the ORC reader)."""
+    nbytes = sum(v.nbytes + n.nbytes for v, n in cols.values())
     decode_stats["seconds"] += seconds
-    decode_stats["bytes"] += sum(v.nbytes + n.nbytes
-                                 for v, n in cols.values())
+    decode_stats["bytes"] += nbytes
+    from ..exec.datapath import record_hop
+    record_hop("decode", nbytes, seconds)
 
 
 def _empty(columns: Sequence[str]):

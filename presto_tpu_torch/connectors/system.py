@@ -10,13 +10,14 @@ the host, and no table holds device data.
     SELECT task_id, state, rows FROM system.tasks
     SELECT * FROM system.catalogs
 
-The tables that read the observability ledgers (plan_cache, kernels,
-datapath, cardinality, occupancy and query_history) keep their columns
-and raise naming ROADMAP queue 1 item 15, which ports those ledgers;
-so do the ledger-fed columns of `queries` (bytes, memory, compile time,
-progress) and `live_tasks` (splits, rows, bytes), which read 0 until
-then. `live_tasks` lists the registered servers' queries and tasks
-that have not ended.
+The tables of the observability ledgers read them as the reference's
+do: `kernels` (exec/profiler.py), `datapath` (exec/datapath.py),
+`cardinality` (exec/accuracy.py), `occupancy` (exec/timeline.py) and
+`query_history` (server/history.py); `queries` takes its bytes, memory,
+compile time and progress from each statement's QueryStats and live
+progress, and `live_tasks` lists every in-flight entry of the progress
+registry (exec/progress.py). `plan_cache` keeps its columns and
+raises: the compiled-plan cache is ROADMAP queue 1 item 12.4.
 """
 
 from __future__ import annotations
@@ -144,22 +145,32 @@ SCHEMA = {
                       "misestimated_node": _V},
 }
 
-# the tables fed by the observability ledgers, and the ledger each reads
-_LEDGER_TABLES = {"plan_cache": "exec/plan_cache.py",
-                  "kernels": "exec/profiler.py",
-                  "datapath": "exec/datapath.py",
-                  "cardinality": "exec/accuracy.py",
-                  "occupancy": "exec/timeline.py",
-                  "query_history": "server/history.py"}
+def _compile_us_of(qs: dict) -> int:
+    """Total compile micros of a QueryStats JSON document."""
+    return int(sum(int(st.get("compile_us", 0))
+                   for st in (qs.get("stages") or {}).values()))
 
 
 def _query_rows() -> List[tuple]:
     with _lock:
         servers = _live(_statement_servers)
-    return [(d["queryId"], d["state"], d["user"], d["query"],
-             int(d.get("elapsedTimeMillis", 0)), 0, 0, 0, 0, 0, 0.0, "", 0,
-             str(d.get("resourceGroup", "")), int(d.get("batchSize", 0)))
-            for s in servers for d in s.queries_doc()]
+    out = []
+    for s in servers:
+        for doc in s.queries_doc():
+            qs = doc.get("queryStats") or {}
+            prog = doc.get("progress") or {}
+            out.append((doc["queryId"], doc["state"], doc["user"],
+                        doc["query"], int(doc.get("elapsedTimeMillis", 0)),
+                        int(qs.get("outputBytes", 0)),
+                        int(qs.get("peakMemoryBytes", 0)),
+                        _compile_us_of(qs), int(prog.get("rows", 0)),
+                        int(prog.get("bytes", 0)),
+                        float(prog.get("progressPercent", 0.0)),
+                        str(prog.get("stage", "")),
+                        int(prog.get("lastAdvanceAgeMs", 0)),
+                        str(doc.get("resourceGroup", "")),
+                        int(doc.get("batchSize", 0))))
+    return out
 
 
 def _task_infos() -> List[dict]:
@@ -174,25 +185,82 @@ def _task_infos() -> List[dict]:
 
 
 def _live_task_rows() -> List[tuple]:
+    from ..exec.progress import live_snapshots
+    return [(e["key"], e["query"], e["kind"], e["worker"] or "",
+             e["state"], e["stage"], int(e["splitsDone"]),
+             int(e["splitsPlanned"]), int(e["rows"]), int(e["bytes"]),
+             int(e["peakMemoryBytes"]), float(e["progressPercent"]),
+             int(e["elapsedMs"]), int(e["lastAdvanceAgeMs"]),
+             bool(e.get("speculative", False)))
+            for e in live_snapshots()]
+
+
+def _history_rows() -> List[tuple]:
+    from ..server.history import get_history_archive
     out = []
-    for r in _query_rows():
-        if r[1] not in ("FINISHED", "FAILED", "CANCELED"):
-            out.append((r[0], r[0], "query", "", r[1], "", 0, 0, 0, 0, 0,
-                        0.0, r[4], 0, False))
-    for i in _task_infos():
-        if i["state"] in ("PLANNED", "RUNNING"):
-            out.append((i["taskId"], i["taskId"].split(".")[0], "task", "",
-                        i["state"], "", 0, 0, 0, 0, 0, 0.0,
-                        int(i["elapsedSeconds"] * 1000), 0, False))
+    for r in get_history_archive().records():
+        st = r.get("stats") or {}
+        out.append((r.get("queryId", ""), r.get("state", ""),
+                    r.get("user", ""), r.get("query", ""),
+                    r.get("fingerprint", ""), r.get("traceId", ""),
+                    int(r.get("tsUs", 0)), int(st.get("wall_us", 0)),
+                    int(st.get("compile_us", 0)),
+                    int(st.get("execute_us", 0)),
+                    int(st.get("staged_bytes", 0)),
+                    int(st.get("narrowed_bytes_saved", 0)),
+                    int(st.get("retraces", 0)),
+                    int(st.get("spill_bytes", 0)),
+                    int(st.get("peak_memory_bytes", 0)),
+                    int(st.get("output_rows", 0)),
+                    int(r.get("failpointHits", 0)),
+                    ",".join(r.get("regressions") or ()),
+                    float(st.get("max_q_error", 0.0)),
+                    r.get("misestimatedNode", "")))
     return out
 
 
+def _ledger_rows(table: str) -> List[tuple]:
+    """The rows of one ledger-fed table, as the reference builds them."""
+    if table == "query_history":
+        return _history_rows()
+    if table == "datapath":
+        from ..exec.datapath import snapshot
+        return [(r["hop"], int(r["bytes"]), int(r["wall_us"]),
+                 int(r["invocations"]), float(r["achievedBPerS"]),
+                 float(r["ceilingBPerS"]), float(r["utilization"]))
+                for r in snapshot()]
+    if table == "cardinality":
+        from ..exec.accuracy import snapshot
+        return [(r["queryId"], r["node"], r["node_type"], r["unit"],
+                 float(r["est"]) if r["est"] is not None else 0.0,
+                 float(r["actual"]) if r["actual"] is not None else 0.0,
+                 float(r["qError"]) if r["qError"] is not None else 0.0,
+                 r["direction"], int(r["tasks"]))
+                for r in snapshot()]
+    if table == "occupancy":
+        from ..exec.timeline import snapshot
+        return [(r["queryId"], r["lane"], int(r["busyUs"]),
+                 float(r["busyFraction"]), int(r["wallUs"]),
+                 float(r["overlapFraction"]), int(r["deviceIdleUs"]),
+                 r["bubbleHop"])
+                for r in snapshot()]
+    from ..exec.profiler import profile_snapshot
+    return [(p["fingerprint"], p["label"], p["tables"], int(p["calls"]),
+             int(p["device_us"]), int(p["max_device_us"]),
+             int(p["rows_in"]), int(p["bytes_in"]), int(p["rows_out"]),
+             int(p["bytes_out"]), int(p["retraces"]),
+             int(p["footprint_bytes"]))
+            for p in profile_snapshot()]
+
+
 def _rows_of(table: str) -> List[tuple]:
-    if table in _LEDGER_TABLES:
+    if table == "plan_cache":
         raise NotImplementedError(
-            f"system.{table} reads {_LEDGER_TABLES[table]}, which is not "
-            "ported yet (ROADMAP queue 1 item 15: the observability "
-            "ledgers)")
+            "system.plan_cache reads exec/plan_cache.py's compiled-plan "
+            "cache, which is not ported yet (ROADMAP queue 1 item 12.4)")
+    if table in ("kernels", "datapath", "cardinality", "occupancy",
+                 "query_history"):
+        return _ledger_rows(table)
     if table == "queries":
         return _query_rows()
     if table == "live_tasks":
@@ -201,10 +269,12 @@ def _rows_of(table: str) -> List[tuple]:
         out = []
         for i in _task_infos():
             st = i.get("stats") or {}
+            qs = st.get("queryStats") or {}
             out.append((i["taskId"], i["state"],
                         int(st.get("outputRows", 0)), i["bufferedPages"],
                         i["elapsedSeconds"], int(st.get("outputBytes", 0)),
-                        0, 0))
+                        int(qs.get("peakMemoryBytes", 0)),
+                        _compile_us_of(qs)))
         return out
     if table == "nodes":
         from ..server.discovery import alive_nodes

@@ -49,7 +49,7 @@ from ..parallel.exchange import (any_flag, broadcast_build, exchange_by_hash,
 from ..plan import nodes as N
 from ..plan.stats import capacity_nodes
 
-__all__ = ["compile_plan", "CompiledPlan"]
+__all__ = ["compile_plan", "CompiledPlan", "scan_leaves"]
 
 
 @dataclasses.dataclass
@@ -80,6 +80,30 @@ def _walk_dag(node: N.PlanNode, scans: List[N.PlanNode],
     for s in node.sources:
         uses[s.id] += 1
         _walk_dag(s, scans, uses, seen)
+
+
+def _note_exchange(kind: str) -> None:
+    """One mesh exchange run: the QueryStats counters `exchange.<kind>`
+    and `exchanges` of the ambient collector (EXPLAIN ANALYZE's
+    collectives section), and an `exchange_shape` flight event. The
+    reference counts its exchanges once per traced program; the port
+    runs its closures on every dispatch and counts per dispatch."""
+    from .stats import current_collector
+    c = current_collector()
+    if c is not None:
+        c.note(f"exchange.{kind}")
+        c.note("exchanges")
+        from ..server.flight_recorder import record_event
+        record_event("exchange_shape", query_id=c.query_id, shape=kind)
+
+
+def scan_leaves(root: N.PlanNode) -> List[N.PlanNode]:
+    """The plan's scan, values and remote-source leaves in the order
+    compile_plan takes their batches (a shared subtree once), without
+    lowering it."""
+    scans: List[N.PlanNode] = []
+    _walk_dag(root, scans, Counter(), set())
+    return scans
 
 
 def _channels(key) -> List[int]:
@@ -332,6 +356,9 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
             GATHER gather_to_root, active on worker 0 alone."""
             if not dist or node.scope != "REMOTE":
                 return lower(node.source)
+            _note_exchange({"MERGE": "range", "REPARTITION": "hash",
+                            "REPLICATE": "broadcast",
+                            "GATHER": "gather"}.get(node.kind, node.kind))
             if node.kind == "MERGE":
                 src = node.source
                 if isinstance(src, N.SortNode):

@@ -8,9 +8,17 @@ exchange-slot reruns, the write roots of `_run_write_root`,
 `_batch_to_result`) on one device or a mesh of workers
 (parallel/mesh.py), with the access-control check of
 server/access.py on every plan and write root before anything is
-staged. The observability ledgers of the reference (stats, datapath,
-timeline, accuracy) are not part of this port yet (ROADMAP queue 1
-item 15).
+staged. Every run keeps the reference's observability ledgers: a
+live-progress entry (exec/progress.py), the datapath hops
+(exec/datapath.py), the timeline (exec/timeline.py), the
+estimate-vs-actual records (exec/accuracy.py), the structured
+QueryStats with its stages staging, compile, execute, exchange and
+fetch (exec/stats.py, on `QueryResult.query_stats`), the per-plan
+profile (exec/profiler.py), one span per stage (server/tracing.py)
+and the stage histograms (server/metrics.py). None of them adds a
+host-device synchronization: each dispatch's span on the device
+(stream time, host enqueue waits included) is a CUDA event pair read
+after the run's fetch (datapath.device_hop).
 A plan fragment runs through `run_query` too: its scans staged over
 the row ranges of `scan_ranges` and its RemoteSourceNodes fed by the
 batches of `remote_sources` (server/worker.py pulls them).
@@ -22,6 +30,7 @@ device; it never falls back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -41,8 +50,11 @@ from ..plan.stats import capacity_nodes, scale_capacities
 from ..plan.widths import checked_physical_dtypes
 from ..utils.config import session_flag, session_value
 from .dynfilter import apply_dynamic_filters, collect_dynamic_filters
+from .datapath import device_hop, now_us, record_hop, timed_hop
 from .memory import MemoryPool, batch_bytes
-from .planner import compile_plan
+from .planner import compile_plan, scan_leaves
+from .stats import QueryStats, StatsCollector, collecting, \
+    current_collector
 
 __all__ = ["run_query", "prepare_plan", "QueryResult", "resolve_device",
            "stage_scans", "stage_scan_split", "planned_scan_bytes",
@@ -70,6 +82,9 @@ class QueryResult:
     # exec/streaming.py and the spill counters of exec/spill.py; a
     # write root's are its inner SELECT's
     stats: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # the structured telemetry (stages/operators/counters/ledgers with
+    # a merge law, exec/stats.py); `stats` above stays the flat view
+    query_stats: Optional["QueryStats"] = None
 
     def rows(self) -> List[tuple]:
         return [tuple(None if self.nulls[c][i] else self.columns[c][i]
@@ -105,17 +120,42 @@ def _host_columns(conn, node: N.TableScanNode, sf: float, start: int = 0,
     return data, nulls
 
 
+def _host_bytes(arrays, nulls=None) -> int:
+    """Host bytes of generated columns (object lanes count pointer
+    bytes, as in the reference)."""
+    total = sum(getattr(a, "nbytes", 0) for a in arrays)
+    return total + sum(getattr(n, "nbytes", 0) for n in nulls or ())
+
+
 def _stage_arrays(node: N.TableScanNode, arrays, nulls, capacity: int,
                   device) -> Batch:
     """Host columns staged at the node's narrow lanes, each narrowing
-    re-proved against the actual values."""
+    re-proved against the actual values (the narrow_cast hop), then
+    copied to the device (the device_put hop). The batch carries its
+    live row count, known on the host, as `live_rows`."""
     phys = node.physical_dtypes
     if phys:
-        phys = checked_physical_dtypes(phys, node.column_types, arrays,
-                                       nulls=nulls)
-    return batch_from_numpy(node.column_types, arrays, nulls=nulls,
-                            capacity=capacity, physical_dtypes=phys,
-                            device=device)
+        with timed_hop("narrow_cast", _host_bytes(arrays, nulls)):
+            phys = checked_physical_dtypes(phys, node.column_types, arrays,
+                                           nulls=nulls)
+    with timed_hop("device_put") as t_put:
+        b = batch_from_numpy(node.column_types, arrays, nulls=nulls,
+                             capacity=capacity, physical_dtypes=phys,
+                             device=device)
+        t_put.bytes = batch_bytes(b)
+    return b
+
+
+def _connector_batch(conn, node: N.TableScanNode, sf: float, **kw) -> Batch:
+    """A batch the connector stages itself: its whole read and copy
+    attribute to the connector_read hop (coarse, as in the
+    reference)."""
+    t0 = now_us()
+    b = conn.generate_batch(node.table, sf, node.columns, **kw)
+    end = now_us()
+    record_hop("connector_read", batch_bytes(b), (end - t0) / 1e6,
+               end_us=end)
+    return b
 
 
 def stage_scan_split(conn, node: N.TableScanNode, sf: float, start: int,
@@ -129,12 +169,13 @@ def stage_scan_split(conn, node: N.TableScanNode, sf: float, start: int,
     values and again for its NULLs."""
     if not any(node.physical_dtypes or ()) and \
             hasattr(conn, "generate_batch"):
-        return conn.generate_batch(node.table, sf, node.columns,
-                                   start=start, count=count,
-                                   capacity=capacity, device=device)
-    data, nulls = _host_columns(conn, node, sf, start, count)
-    return _stage_arrays(node, [data[c] for c in node.columns], nulls,
-                         capacity, device)
+        return _connector_batch(conn, node, sf, start=start, count=count,
+                                capacity=capacity, device=device)
+    with timed_hop("connector_read") as t_read:
+        data, nulls = _host_columns(conn, node, sf, start, count)
+        arrays = [data[c] for c in node.columns]
+        t_read.bytes = _host_bytes(arrays, nulls)
+    return _stage_arrays(node, arrays, nulls, capacity, device)
 
 
 def _padded(rows: int, pad: int = _PAD) -> int:
@@ -166,13 +207,15 @@ def _scan_batch(node: N.PlanNode, sf: float, device,
             # the connector skips the row groups its statistics prove
             # outside the range (the Filter above still runs); the
             # capacity stays the table's, as in the reference
-            return conn.generate_batch(node.table, sf, node.columns,
-                                       capacity=_padded(rows, pad),
-                                       predicate=tuple(node.pushdown),
-                                       device=device)
+            return _connector_batch(conn, node, sf,
+                                    capacity=_padded(rows, pad),
+                                    predicate=tuple(node.pushdown),
+                                    device=device)
         return stage_scan_split(conn, node, sf, 0, None,
                                 _padded(rows, pad), device)
-    data, nulls = _host_columns(conn, node, sf)
+    with timed_hop("connector_read") as t_read:
+        data, nulls = _host_columns(conn, node, sf)
+        t_read.bytes = _host_bytes(list(data.values()), nulls)
     keep, pruned = apply_dynamic_filters(data, node.columns, dyn_filters)
     if stats is not None:
         _add(stats, "dynamic_filter_rows_pruned", pruned)
@@ -201,7 +244,9 @@ def _stage_values(node: N.ValuesNode, device, pad: int = _PAD) -> Batch:
     if not node.types:
         active = torch.zeros(cap, dtype=torch.bool, device=device)
         active[:n] = True
-        return Batch((), active)
+        b = Batch((), active)
+        b.live_rows = n
+        return b
     arrays, nulls = [], []
     for ci, ty in enumerate(node.types):
         col = [r[ci] for r in node.rows]
@@ -230,7 +275,9 @@ def stage_scans(root: N.PlanNode, sf: float, device,
                 dynamic_filters: Optional[Dict] = None,
                 stats: Optional[Dict] = None, mesh=None,
                 scan_ranges: Optional[Mapping] = None,
-                remote_sources: Optional[Mapping] = None) -> List:
+                remote_sources: Optional[Mapping] = None,
+                collector: Optional[StatsCollector] = None,
+                prog=None) -> List:
     """Staged batches of the plan's scans, VALUES and remote sources, in
     compile_plan's order, each scan pruned by its `dynamic_filters`
     entry (what `run_query` collects) and cut to its `scan_ranges`
@@ -239,26 +286,64 @@ def stage_scans(root: N.PlanNode, sf: float, device,
     8 x its size, encoded once on the host (one string width and one
     lane per column for every worker) and cut into the workers' shards,
     each copied to its worker's device alone (`shard_batch`): one list
-    of batches per scan."""
+    of batches per scan.
+
+    Each scan's staging hops attribute to its split index on the
+    timeline; with a `collector` each scan gets its operator row
+    (structural key `scan[i]:<label>`, wall, rows, bytes) and its
+    estimate-vs-actual record, and `prog` advances one split per scan.
+    Rows are the host-known live counts (`Batch.live_rows`): nothing is
+    read back from the device."""
+    from .accuracy import est_rows_of, record_node
+    from .timeline import split_scope
     dynamic_filters = dynamic_filters or {}
     scan_ranges = scan_ranges or {}
     remote_sources = remote_sources or {}
     host = torch.device("cpu") if mesh is not None else device
     pad = _PAD * (mesh.size if mesh is not None else 1)
     out = []
-    for n in compile_plan(root).scan_nodes:
+    for si, n in enumerate(compile_plan(root).scan_nodes):
+        t0 = time.perf_counter()
         if isinstance(n, N.RemoteSourceNode):
             if n.id not in remote_sources:
                 raise KeyError(f"no remote source batch supplied for "
                                f"node {n.id}")
             b = remote_sources[n.id]
         else:
-            b = _scan_batch(n, sf, host,
-                            dynamic_filters.get(n.id) if mesh is None
-                            else None, stats, pad=pad,
-                            scan_range=scan_ranges.get(n.id))
+            with split_scope(si):
+                b = _scan_batch(n, sf, host,
+                                dynamic_filters.get(n.id) if mesh is None
+                                else None, stats, pad=pad,
+                                scan_range=scan_ranges.get(n.id))
+        rows = getattr(b, "live_rows", None)
+        nbytes = batch_bytes(b)
         out.append(b if mesh is None else shard_batch(b, mesh))
+        if collector is not None:
+            key = _scan_key(si, n)
+            collector.operator(key, _scan_label(n),
+                               wall_us=int((time.perf_counter() - t0) * 1e6),
+                               output_rows=rows or 0, output_bytes=nbytes)
+            collector.bump_stage("staging", rows=rows or 0, bytes=nbytes)
+            record_node(key, _scan_label(n), unit="rows",
+                        est=est_rows_of(n, sf), actual=rows)
+        if prog is not None:  # one split staged = one heartbeat
+            prog.advance(splits=1, rows=rows or 0, bytes=nbytes)
     return out
+
+
+def _scan_key(index: int, node: N.PlanNode) -> str:
+    """Structural operator key of the index-th scan leaf (staging
+    order): it lines up across workers running the same fragment, so
+    per-node rows merge by key, as in the reference."""
+    return f"scan[{index}]:{_scan_label(node)}"
+
+
+def _scan_label(node: N.PlanNode) -> str:
+    if isinstance(node, N.TableScanNode):
+        return f"TableScan[{node.connector}.{node.table}]"
+    if isinstance(node, N.RemoteSourceNode):
+        return "RemoteSource"
+    return type(node).__name__
 
 
 def planned_scan_bytes(node: N.PlanNode, sf: float, pad: int = _PAD,
@@ -335,8 +420,9 @@ def _joins_above(root: N.PlanNode, ids: List[str]) -> Dict[str, set]:
 
 def _dispatch_ladder(root: N.PlanNode, batches: Sequence,
                      limb_form: str, default_join_capacity: int,
-                     adaptive: bool = True, mesh=None
-                     ) -> Tuple[object, int, int, int]:
+                     adaptive: bool = True, mesh=None,
+                     staged_bytes: int = 0, hops: Optional[List] = None,
+                     prog=None) -> Tuple[object, int, int, int]:
     """Run the plan; when a join or group table overflows, rerun with
     its capacity 4x larger (scale_capacities; a join without an
     out_capacity starts at `default_join_capacity`), up to 1024x, and
@@ -350,7 +436,14 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence,
     with every slot twice as large, as the reference's ladder does (a
     capacity rerun starts the slots again at their base). Returns
     (output, largest capacity factor, capacity reruns, slot reruns);
-    on a mesh the output is the workers' batches."""
+    on a mesh the output is the workers' batches.
+
+    Each rung's lowering (compile_plan), and the kernel builds a
+    dispatch paid (ops/kernels.py's BUILD_SECONDS delta), are compile
+    time of the ambient collector; each dispatch is one `kernel` hop
+    over `staged_bytes` (datapath.device_hop: CUDA events, resolved
+    after the fetch), its hop object appended to `hops`, and `prog`
+    advances per dispatch."""
     fp = _fingerprint(root)
     if mesh is not None:
         # a fitted capacity is per worker: its memo is per mesh size
@@ -360,16 +453,34 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence,
     factors = list(_CAPACITY_FEEDBACK.get(fp, (1,) * len(ids)))
     reruns = slot_reruns = 0
     slot_scale = 1
+    collector = current_collector()
+    device = mesh.devices[0] if mesh is not None else \
+        _batches_device(batches)
     while True:
+        t0 = time.perf_counter()
         plan = compile_plan(
             scale_capacities(root, dict(zip(ids, factors)),
                              default_join_capacity), limb_form,
             mesh=mesh, exchange_slot_scale=slot_scale)
+        if collector is not None:
+            collector.add_compile_seconds(time.perf_counter() - t0)
+        built0 = _build_seconds()
+        with device_hop("kernel", staged_bytes, device) as hop:
+            if mesh is None:
+                out, flags = plan.fn(batches)
+            else:
+                out, flags, slots = plan.fn(batches)
+        # a first launch that built its kernel paid that inside the hop
+        hop.compile_s = _build_seconds() - built0
+        if collector is not None:
+            collector.add_compile_seconds(hop.compile_s)
+        if hops is not None:
+            hops.append(hop)
+        if prog is not None:  # each dispatch advances
+            prog.advance()
         if mesh is None:
-            out, flags = plan.fn(batches)
             read = flags.tolist()
         else:
-            out, flags, slots = plan.fn(batches)
             read = torch.cat([flags, slots.reshape(1)]).tolist()
             slots = read.pop()
         over = [k for k, o in enumerate(read) if o]
@@ -394,6 +505,20 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence,
             factors[k] = min(factors[k] * 4, _MAX_CAPACITY_SCALE)
         reruns += 1
         slot_scale = 1
+
+
+def _batches_device(batches: Sequence):
+    """The device of the first staged batch (None without one)."""
+    for b in batches:
+        return b.active.device
+    return None
+
+
+def _build_seconds() -> float:
+    """Seconds this process has spent building CUDA kernels
+    (ops/kernels.py), for the hops that paid a build inside them."""
+    from ..ops import kernels
+    return kernels.BUILD_SECONDS["total"]
 
 
 def execute(root: N.PlanNode, batches: Sequence,
@@ -440,8 +565,11 @@ def prepare_plan(root: N.PlanNode, sf: float = 0.01,
     of a node they change, and everything keyed by node id (lowering,
     the capacity ladder, dynamic filters) needs one node per id.
 
-    One pass of the reference's pipeline is not here: `stamp_estimates`
-    feeds the observability ledgers (ROADMAP queue 1 item 15)."""
+    Then, as in the reference, every node gets its planner row estimate
+    as `est_rows` (exec/accuracy.py::stamp_estimates), which EXPLAIN
+    and the estimate-vs-actual ledger read. It runs after the
+    relabelling: `est_rows` is an attribute, not a JSON field, and the
+    round trip through JSON would drop it."""
     inner = root.source if isinstance(root, N.OutputNode) else root
     if isinstance(inner, N.WRITE_ROOTS):
         return root
@@ -477,7 +605,36 @@ def prepare_plan(root: N.PlanNode, sf: float = 0.01,
     if violations:
         raise ValueError("plan not executable by the engine "
                          f"(PlanChecker): {violations}")
-    return N.from_json(N.to_json(root))
+    from .accuracy import stamp_estimates
+    root = N.from_json(N.to_json(root))
+    stamp_estimates(root, sf)
+    return root
+
+
+@contextlib.contextmanager
+def _query_ledgers(query_id: str, session: Optional[Mapping]):
+    """One run_query invocation's live-progress entry (released FINISHED
+    or FAILED) and its ambient datapath, accuracy and timeline ledgers:
+    yields (progress entry, datapath, accuracy, timeline)."""
+    from .accuracy import AccuracyLedger
+    from .accuracy import recording as acc_recording
+    from .datapath import DatapathLedger
+    from .datapath import recording as dp_recording
+    from .progress import begin as progress_begin
+    from .timeline import TimelineLedger, timeline_enabled
+    from .timeline import recording as tl_recording
+    prog = progress_begin(query_id)
+    dp = DatapathLedger()
+    acc = AccuracyLedger()
+    tl = TimelineLedger(query_id=query_id,
+                        enabled=timeline_enabled(session))
+    try:
+        with dp_recording(dp), acc_recording(acc), tl_recording(tl):
+            yield prog, dp, acc, tl
+    except BaseException:
+        prog.release(state="FAILED")
+        raise
+    prog.release(state="FINISHED")
 
 
 def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
@@ -490,8 +647,8 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
               query_id: str = "query",
               prepared: bool = False,
               scan_ranges: Optional[Mapping[str, Tuple[int, int]]] = None,
-              remote_sources: Optional[Mapping[str, Batch]] = None
-              ) -> QueryResult:
+              remote_sources: Optional[Mapping[str, Batch]] = None,
+              trace_id=None) -> QueryResult:
     """Plan -> rows, end to end on `device` (CUDA unless asked
     otherwise): `prepare_plan` unless `prepared`, dynamic filtering
     (the small build sides run first and prune the probe scans' host
@@ -531,74 +688,275 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
     stages, `remote_sources` a RemoteSourceNode to its batch (on the
     run's device; on a mesh, padded to a multiple of 8 x its size).
     Dynamic filtering and split streaming stay off for such a
-    fragment."""
+    fragment.
+
+    The ledgers: a live-progress entry keyed by `query_id`
+    (exec/progress.py) that a status poll, /v1/cluster and the
+    stuck-progress watchdog read while the query runs (a write root's
+    inner SELECT shares its outer entry), and an ambient datapath,
+    accuracy and timeline ledger for the whole invocation. The result
+    carries `query_stats` (exec/stats.py). `trace_id` is a plain
+    grouping string or a server.tracing.TraceContext, whose span the
+    stage spans hang under. Session properties of the ledgers:
+    continuous_profiling and timeline (both on by default)."""
     dev = mesh.devices[0] if mesh is not None else resolve_device(device)
-    kw = dict(sf=sf, device=dev, limb_form=limb_form, mesh=mesh,
-              default_join_capacity=default_join_capacity,
-              split_rows=split_rows, hbm_budget_bytes=hbm_budget_bytes,
-              session=session, memory_pool=memory_pool, query_id=query_id,
-              scan_ranges=scan_ranges, remote_sources=remote_sources)
-    fragment = bool(scan_ranges) or bool(remote_sources)
-    inner = root.source if isinstance(root, N.OutputNode) else root
-    if isinstance(inner, N.WRITE_ROOTS):
+    with _query_ledgers(query_id, session) as (prog, dp, acc, tl):
+        kw = dict(sf=sf, device=dev, limb_form=limb_form, mesh=mesh,
+                  default_join_capacity=default_join_capacity,
+                  split_rows=split_rows, hbm_budget_bytes=hbm_budget_bytes,
+                  session=session, memory_pool=memory_pool, query_id=query_id,
+                  scan_ranges=scan_ranges, remote_sources=remote_sources,
+                  trace_id=trace_id)
+        fragment = bool(scan_ranges) or bool(remote_sources)
+        inner = root.source if isinstance(root, N.OutputNode) else root
+        if isinstance(inner, N.WRITE_ROOTS):
+            _check_access(root, session)
+            return _run_write_root(inner, **kw)
+        if not prepared:
+            root = prepare_plan(root, sf, session=session, mesh=mesh)
+        prog.advance(stage="plan")
         _check_access(root, session)
-        return _run_write_root(inner, **kw)
-    if not prepared:
-        root = prepare_plan(root, sf, session=session, mesh=mesh)
-    _check_access(root, session)
-    stats: Dict[str, float] = {}
-    if split_rows is not None and mesh is None and not fragment:
-        res = _run_split(root, sf, dev, limb_form, split_rows,
-                         hbm_budget_bytes, session, stats)
-        if res is not None:
-            return res
-    dyn_filters = {}
-    if mesh is None and not fragment and \
-            session_flag(session, "dynamic_filtering", True):
-        t0 = time.perf_counter()
-        dyn_filters = collect_dynamic_filters(root, sf, dev)
-        stats["dynamic_filter_collect_s"] = time.perf_counter() - t0
-        if dyn_filters:
-            stats["dynamic_filters"] = sum(len(v)
-                                           for v in dyn_filters.values())
-    reserved = 0
-    if memory_pool is not None:
-        # admission: the planned scan bytes are charged before anything
-        # is staged, so a refusal comes before the device runs out
-        pad = _PAD * (mesh.size if mesh is not None else 1)
-        reserved = sum(planned_scan_bytes(
-            s, sf, pad, (scan_ranges or {}).get(s.id), remote_sources)
-            for s in compile_plan(root).scan_nodes)
-        memory_pool.reserve(query_id, reserved)
-        stats["reserved_bytes"] = reserved
-    try:
-        t0 = time.perf_counter()
-        batches = stage_scans(root, sf, dev, dyn_filters, stats, mesh=mesh,
-                              scan_ranges=scan_ranges,
-                              remote_sources=remote_sources)
-        stats["staged_bytes"] = sum(
-            batch_bytes(b) for b in (batches if mesh is None else
-                                     [w for ws in batches for w in ws]))
-        t1 = time.perf_counter()
-        out, scale, reruns, slot_reruns = _dispatch_ladder(
-            root, batches, limb_form, default_join_capacity,
-            adaptive=session_flag(session, "adaptive_capacity", True),
-            mesh=mesh)
-        del batches
-        if mesh is not None:
-            out = gather_outputs(out, mesh)
-            stats["exchange_slot_reruns"] = slot_reruns
-        t2 = time.perf_counter()
-        res = _batch_to_result(out, root)
-        stats.update(scan_stage_s=t1 - t0, execute_s=t2 - t1,
-                     fetch_s=time.perf_counter() - t2)
-    finally:
+        stats: Dict[str, float] = {}
+        collector = StatsCollector(query_id)
+        t_query0 = time.time()
+        if split_rows is not None and mesh is None and not fragment:
+            built0 = _build_seconds()
+            with collecting(collector), collector.stage("execute"):
+                prog.advance(stage="execute")
+                res = _run_split(root, sf, dev, limb_form, split_rows,
+                                 hbm_budget_bytes, session, stats)
+            collector.add_compile_seconds(_build_seconds() - built0)
+            if res is not None:
+                _finalize_query_stats(collector, res, t_query0, 0, root,
+                                      trace_id, dp=dp, acc=acc, tl=tl, sf=sf)
+                return res
+            # not a streamable aggregation: the normal path below
+            collector = StatsCollector(query_id)
+        dyn_filters = {}
+        if mesh is None and not fragment and \
+                session_flag(session, "dynamic_filtering", True):
+            t0 = time.perf_counter()
+            dyn_filters = collect_dynamic_filters(root, sf, dev)
+            stats["dynamic_filter_collect_s"] = time.perf_counter() - t0
+            if dyn_filters:
+                stats["dynamic_filters"] = sum(len(v)
+                                               for v in dyn_filters.values())
+        reserved = 0
+        scan_nodes = scan_leaves(root)
         if memory_pool is not None:
-            memory_pool.free(query_id, reserved)
-            stats["peak_reserved_bytes"] = \
-                memory_pool.query_peak_bytes(query_id, pop=True)
-    res.stats = {"capacity_reruns": reruns, "capacity_scale": scale, **stats}
-    return res
+            # admission: the planned scan bytes are charged before anything
+            # is staged, so a refusal comes before the device runs out
+            pad = _PAD * (mesh.size if mesh is not None else 1)
+            reserved = sum(planned_scan_bytes(
+                s, sf, pad, (scan_ranges or {}).get(s.id), remote_sources)
+                for s in scan_nodes)
+            memory_pool.reserve(query_id, reserved)
+            stats["reserved_bytes"] = reserved
+            prog.note_memory(reserved)
+        from .profiler import profiling_enabled
+        prof_on = profiling_enabled(session)
+        built0 = _build_seconds()
+        hops: List = []
+        res = None
+        peak_reserved = 0
+        try:
+            prog.set_planned(len(scan_nodes))
+            prog.advance(stage="staging")
+            t0 = time.perf_counter()
+            with collector.stage("staging"):
+                batches = stage_scans(root, sf, dev, dyn_filters, stats,
+                                      mesh=mesh, scan_ranges=scan_ranges,
+                                      remote_sources=remote_sources,
+                                      collector=collector, prog=prog)
+            flat = batches if mesh is None else [w for ws in batches
+                                                 for w in ws]
+            staged = sum(batch_bytes(b) for b in flat)
+            stats["staged_bytes"] = staged
+            _note_narrowed(flat, stats, collector, query_id)
+            t1 = time.perf_counter()
+            prog.advance(stage="execute")
+            with collecting(collector), collector.stage("execute"):
+                out, scale, reruns, slot_reruns = _dispatch_ladder(
+                    root, batches, limb_form, default_join_capacity,
+                    adaptive=session_flag(session, "adaptive_capacity", True),
+                    mesh=mesh, staged_bytes=staged, hops=hops, prog=prog)
+            del batches, flat
+            if mesh is not None:
+                out = gather_outputs(out, mesh)
+                stats["exchange_slot_reruns"] = slot_reruns
+            t2 = time.perf_counter()
+            prog.advance(stage="fetch")
+            with collector.stage("fetch"):
+                res = _batch_to_result(out, root)
+            stats.update(scan_stage_s=t1 - t0, execute_s=t2 - t1,
+                         fetch_s=time.perf_counter() - t2)
+        finally:
+            if memory_pool is not None:
+                memory_pool.free(query_id, reserved)
+                peak_reserved = memory_pool.query_peak_bytes(query_id,
+                                                             pop=True)
+                stats["peak_reserved_bytes"] = peak_reserved
+            # the dispatches' spans: after the fetch the stream is
+            # drained and the events resolve without a wait; on a failure
+            # they are dropped unread (a failed run may not have drained)
+            device_us = compile_in_us = 0
+            if res is not None:
+                resolved = _resolve_hops(dp, hops, collector)
+                device_us, compile_in_us = resolved
+            if prof_on:
+                _profile_call(root, collector, query_id, trace_id, device_us,
+                              compile_in_us, stats.get("staged_bytes", 0),
+                              res, retraced=_build_seconds() > built0)
+        res.stats = {"capacity_reruns": reruns, "capacity_scale": scale,
+                     **stats}
+        _finalize_query_stats(collector, res, t_query0, peak_reserved, root,
+                              trace_id, dp=dp, acc=acc, tl=tl, sf=sf)
+        return res
+
+
+def _resolve_hops(dp, hops: List, collector: StatsCollector
+                  ) -> Tuple[int, int]:
+    """(device micros, compile micros paid inside them) of the run's
+    kernel hops: CUDA event pairs resolved now, after the fetch, plus
+    the host walls of hops on other devices. The anchor's skew rides
+    QueryStats' counters as `device_anchor_skew_us`."""
+    from .datapath import resolve_device_hops
+    got = resolve_device_hops(dp)
+    if got["hops"]:
+        collector.note("device_anchor_skew_us", got["anchorSkewUs"])
+    device_us = got["deviceUs"] + sum(h.dur_us for h in hops
+                                      if not h.cuda)
+    compile_us = got["compileUs"] + sum(int(h.compile_s * 1e6)
+                                        for h in hops if not h.cuda)
+    return device_us, compile_us
+
+
+def _profile_call(root, collector, query_id: str, trace_id,
+                  device_us: int, compile_in_us: int, staged_bytes: int,
+                  res, retraced: bool) -> None:
+    """Attribute the run to its plan fingerprint in the continuous
+    profiler, on success and failure: the dispatch spans less the
+    compile paid inside the dispatches. `retraced` where the run built
+    a kernel: the port lowers every run's plan afresh (a host wall of
+    the compile stage, there being no plan cache yet), so only a build
+    marks a cold run, as an XLA compile does in the reference."""
+    from ..server.tracing import TraceContext
+    from .plan_cache import plan_fingerprint
+    from .profiler import plan_label, plan_tables, record_call
+    staging = collector.stats.stages.get("staging")
+    record_call(
+        plan_fingerprint(root), label=plan_label(root),
+        tables=plan_tables(root),
+        device_us=max(device_us - compile_in_us, 0),
+        rows_in=staging.rows if staging is not None else 0,
+        bytes_in=staged_bytes,
+        rows_out=res.row_count if res is not None else 0,
+        bytes_out=_result_bytes(res) if res is not None else 0,
+        retraced=retraced,
+        query_id=query_id,
+        trace_id=trace_id.trace_id if isinstance(trace_id, TraceContext)
+        else (trace_id or query_id))
+
+
+def _note_narrowed(batches: Sequence, stats: Dict,
+                   collector: StatsCollector, query_id: str) -> None:
+    """The staged bytes narrow lanes saved against the logical ones:
+    a flat counter, QueryStats counters, the process totals of
+    /v1/metrics and one flight-recorder event."""
+    from ..plan.widths import batch_narrowed_bytes_saved, note_narrowed
+    cols = saved = 0
+    for b in batches:
+        c, n = batch_narrowed_bytes_saved(b)
+        cols += c
+        saved += n
+    if not saved:
+        return
+    stats["narrowed_bytes_saved"] = saved
+    collector.note("narrowed_bytes_saved", saved)
+    collector.note("narrowed_columns", cols)
+    note_narrowed(cols, saved)
+    from ..server.flight_recorder import record_event
+    record_event("narrow_width", query_id=query_id, columns=cols,
+                 bytes_saved=saved)
+
+
+def _result_bytes(res: QueryResult) -> int:
+    return sum(getattr(v, "nbytes", 0) + getattr(n, "nbytes", 0)
+               for v, n in zip(res.columns, res.nulls))
+
+
+def _finalize_query_stats(collector: StatsCollector, res: QueryResult,
+                          t0: float, peak_reserved_bytes: int,
+                          root: Optional[N.PlanNode], trace_id=None,
+                          dp=None, acc=None, tl=None,
+                          sf: float = 0.01) -> None:
+    """Close out the structured stats of one run_query invocation, as
+    the reference does: the datapath hops and timeline slice ride
+    QueryStats and the per-query registries, the compile seconds become
+    the `compile` stage (anchored at the start of execute and clamped
+    to its wall), the output operator and the root's estimate-vs-actual
+    record close the ledgers, one span per stage goes to the tracer
+    (children of the TraceContext's span when `trace_id` is one) and
+    each stage's wall to the stage histogram."""
+    from ..server.metrics import observe_histogram
+    from ..server.tracing import TraceContext
+    from .accuracy import est_rows_of
+    from .accuracy import finalize_query as acc_finalize
+    from .accuracy import merge_record_maps
+    from .datapath import merge_hop_maps
+    from .datapath import note_query as dp_note
+    from .timeline import note_query as tl_note
+    qs = collector.stats
+    tid = trace_id.trace_id if isinstance(trace_id, TraceContext) \
+        else (trace_id or collector.query_id)
+    if dp is not None:
+        hops = dp.snapshot_hops()
+        if hops:
+            qs.datapath = merge_hop_maps(qs.datapath, hops)
+            dp_note(collector.query_id, hops)
+    if tl is not None:
+        sl = tl.snapshot_slice()
+        if not sl.is_empty():
+            qs.timeline = qs.timeline.merge(sl)
+            tl_note(collector.query_id, sl, trace_id=tid)
+    compile_us = collector.take_compile_us()
+    exec_stage = qs.stages.get("execute")
+    if exec_stage is not None and exec_stage.wall_us:
+        compile_us = min(compile_us, exec_stage.wall_us)
+    if compile_us:
+        anchor = collector.stage_span_start("execute") or t0
+        collector.record_stage("compile", anchor, anchor + compile_us / 1e6,
+                               compile_us=compile_us)
+    qs.wall_us = int((time.time() - t0) * 1e6)
+    qs.output_rows = res.row_count
+    qs.output_bytes = _result_bytes(res)
+    staging = qs.stages.get("staging")
+    qs.peak_memory_bytes = max(qs.peak_memory_bytes,
+                               staging.bytes if staging else 0,
+                               peak_reserved_bytes)
+    if root is not None:
+        collector.operator("output", type(root).__name__,
+                           output_rows=res.row_count,
+                           output_bytes=qs.output_bytes,
+                           wall_us=qs.stage_us("fetch"))
+    if acc is not None:
+        if root is not None:
+            acc.record("output", node_type=type(root).__name__,
+                       unit="rows", est=est_rows_of(root, sf),
+                       actual=float(res.row_count))
+        recs = acc.snapshot_records()
+        if recs:
+            qs.accuracy = merge_record_maps(qs.accuracy, recs)
+            acc_finalize(collector.query_id, recs)
+    res.query_stats = qs
+    if isinstance(trace_id, TraceContext):
+        collector.emit_spans(trace_id.trace_id, parent_id=trace_id.span_id)
+    else:
+        collector.emit_spans(tid)
+    for name, st in qs.stages.items():
+        if st.wall_us:
+            observe_histogram("presto_tpu_stage_seconds", st.wall_us / 1e6,
+                              labels={"stage": name}, trace_id=tid)
 
 
 def _check_access(root: N.PlanNode, session) -> None:

@@ -5,9 +5,10 @@ Counterpart of presto_tpu/failpoints (the registry, `parse_spec`,
 and the admin documents of ``/v1/failpoint``): named sites in the hot
 paths, free until armed, driven by an expression grammar so that a
 test can make exactly the k-th page pull fail, run after run. The
-reference also logs each fired fault to its flight recorder and
-metrics; those ledgers are not ported yet (ROADMAP queue 1 item 15),
-so a fired fault is counted here only.
+fired fault is counted per (site, action), exported as
+``presto_tpu_failpoint_hits_total{site,action}`` on both tiers'
+/v1/metrics, and logged as a flight-recorder ``failpoint`` event
+cross-linked to the ambient trace.
 
 The site idiom (a disarmed hot path pays one module-attribute test)::
 
@@ -427,6 +428,17 @@ def _corrupt(payload: bytes) -> bytes:
     return bytes(buf)
 
 
+def _record_fire(site: str, action, seq: int) -> None:
+    """The flight-recorder ``failpoint`` event of one fired fault,
+    cross-linked to the ambient trace (the history archive counts a
+    query's by it)."""
+    from ..server.flight_recorder import record_event
+    from ..server.tracing import current_context
+    ctx = current_context()
+    record_event("failpoint", site=site, action=action.kind, seq=seq,
+                 trace=ctx.trace_id if ctx is not None else None)
+
+
 def hit(site: str, payload=None):
     """Evaluate `site`; perform the armed fault when its trigger fires.
     Returns `payload` (corrupted for ``corrupt_page``); raises for
@@ -437,6 +449,7 @@ def hit(site: str, payload=None):
     if fired is None:
         return payload
     action, seq = fired
+    _record_fire(site, action, seq)
     if action.kind == "error":
         raise action.arg(f"failpoint {site} (injected, fire #{seq})")
     if action.kind in ("delay", "hang"):

@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List, NamedTuple, Sequence, Tuple, Union
 
 import torch
@@ -113,15 +114,23 @@ KERNELS = tuple(_SIGNATURES)
 _build_locks = {name: threading.Lock() for name in KERNELS}
 
 
+# seconds this process has spent building and loading kernel libraries
+# (a first use pays nvcc, or the load of a cached build); the runner
+# reads the delta around each dispatch as the query's compile time
+BUILD_SECONDS = {"total": 0.0}
+
+
 def _library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
+        t0 = time.perf_counter()
         lib = ctypes.CDLL(build_library(name))
         for fn, argtypes in _SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
         _libs[name] = lib
+        BUILD_SECONDS["total"] += time.perf_counter() - t0
     return lib
 
 

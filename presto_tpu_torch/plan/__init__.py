@@ -8,6 +8,7 @@ from .nodes import (AggregationNode, AssignUniqueIdNode, DdlNode,
                     TableFinishNode, TableRewriteNode, TableScanNode,
                     TableWriterNode, TopNNode, UnionNode, UnnestNode,
                     ValuesNode, from_json, to_json)
+from .explain import explain, explain_analyze, explain_distributed
 
 __all__ = ["PlanNode", "TableScanNode", "ValuesNode", "RemoteSourceNode",
            "FilterNode", "ProjectNode", "AggregationNode", "JoinNode",
@@ -16,4 +17,5 @@ __all__ = ["PlanNode", "TableScanNode", "ValuesNode", "RemoteSourceNode",
            "MarkDistinctNode", "UnnestNode", "ExchangeNode", "OutputNode",
            "DdlNode", "TableRewriteNode", "TableWriterNode",
            "TableFinishNode", "from_json", "to_json", "PlanFragment",
-           "fragment_plan"]
+           "fragment_plan", "explain", "explain_analyze",
+           "explain_distributed"]

@@ -1,7 +1,10 @@
 """Narrow-width execution: plan-level physical-lane inference.
 
 Counterpart of presto_tpu/plan/widths.py (`infer_table_widths`,
-`annotate_widths`, `checked_physical_dtypes`, `narrow_enabled`). Each
+`annotate_widths`, `checked_physical_dtypes`, `narrow_enabled`, and
+for EXPLAIN and the metrics `widths_summary`,
+`batch_narrowed_bytes_saved` and the process-lifetime narrowing
+totals). Each
 scan column whose value range the connector proves stages at the
 narrowest integer lane that holds it (int8/int16/int32); prepare_plan
 annotates the scans. The logical type is unchanged and
@@ -13,7 +16,8 @@ statistic makes a column stage wide instead of wrapping.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -162,3 +166,51 @@ def checked_physical_dtypes(phys: Sequence[Optional[str]],
         lo, hi = int(live.min()), int(live.max())
         out.append(dt if info.min <= lo and hi <= info.max else None)
     return tuple(out)
+
+
+def widths_summary(node: N.TableScanNode) -> str:
+    """`col:int16,...` rendering of a scan's narrowed lanes (EXPLAIN /
+    EXPLAIN ANALYZE node annotation)."""
+    phys = node.physical_dtypes
+    if not phys:
+        return ""
+    return ",".join(f"{c}:{d}" for c, d in zip(node.columns, phys) if d)
+
+
+def batch_narrowed_bytes_saved(batch) -> Tuple[int, int]:
+    """(columns narrowed, staged bytes saved against the logical lanes)
+    of one staged Batch: the QueryStats `narrowed_bytes_saved` source,
+    read from the tensors' dtypes and shapes on the host."""
+    from ..block import Column
+    cols = saved = 0
+    for b in batch.columns:
+        if not isinstance(b, Column) or not b.type.is_fixed_width:
+            continue
+        try:
+            logical = np.dtype(b.type.to_dtype())
+        except (TypeError, ValueError):
+            continue
+        itemsize = b.values.element_size()
+        if not b.values.dtype.is_floating_point and \
+                logical.kind in "iu" and itemsize < logical.itemsize:
+            cols += 1
+            saved += (logical.itemsize - itemsize) * b.values.shape[0]
+    return cols, saved
+
+
+# process-lifetime narrowing totals (the /v1/metrics families)
+_totals_lock = threading.Lock()
+_TOTALS: Dict[str, int] = {"bytes_saved": 0, "columns": 0}
+
+
+def note_narrowed(columns: int, bytes_saved: int) -> None:
+    if not columns and not bytes_saved:
+        return
+    with _totals_lock:
+        _TOTALS["columns"] += int(columns)
+        _TOTALS["bytes_saved"] += int(bytes_saved)
+
+
+def narrowing_totals() -> Dict[str, int]:
+    with _totals_lock:
+        return dict(_TOTALS)

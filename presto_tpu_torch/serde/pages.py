@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import struct
+import time
 import zlib
 from typing import List, Optional, Sequence, Tuple
 
@@ -269,10 +270,24 @@ def _checksum(payload: bytes, codec_flags: int, rows: int,
     return zlib.crc32(struct.pack("<i", uncompressed), crc)
 
 
+def _observe_serde(op: str, seconds: float, nbytes: int) -> None:
+    """A page's serde work, as in the reference: the
+    presto_tpu_page_serde_seconds histogram, and the datapath hop
+    (serialization `exchange_serialize`, deserialization `decode`) over
+    the page's wire bytes."""
+    from ..exec.datapath import record_hop
+    from ..server.metrics import observe_histogram
+    observe_histogram("presto_tpu_page_serde_seconds", seconds,
+                      labels={"op": op})
+    record_hop("exchange_serialize" if op == "serialize" else "decode",
+               nbytes, seconds)
+
+
 def serialize_page(columns: Sequence[Tuple[T.Type, np.ndarray, np.ndarray]],
                    codec: PageCodec = PageCodec()) -> bytes:
     """(type, values, nulls) per column -> one SerializedPage. The
     payload is compressed only where that makes it smaller."""
+    t_page0 = time.time()
     rows = len(columns[0][1]) if columns else 0
     payload = b"".join([struct.pack("<i", len(columns))] +
                        [_serialize_column(ty, v, n)
@@ -293,6 +308,7 @@ def serialize_page(columns: Sequence[Tuple[T.Type, np.ndarray, np.ndarray]],
     if failpoints.ARMED:
         # corrupt_page flips payload bytes after the checksum is stamped
         page = failpoints.hit("serde.serialize", page)
+    _observe_serde("serialize", time.time() - t_page0, len(page))
     return page
 
 
@@ -458,6 +474,7 @@ def deserialize_page(buf: bytes, types: Sequence[T.Type],
                      ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """One page -> (values, nulls) per column; the checksum is checked
     before anything is decoded."""
+    t_page0 = time.time()
     if failpoints.ARMED:
         buf = failpoints.hit("serde.deserialize", buf)
     rows, flags, uncompressed, size, checksum = \
@@ -478,6 +495,7 @@ def deserialize_page(buf: bytes, types: Sequence[T.Type],
         col, pos = deserialize_block(mv, pos,
                                      types[ci] if ci < len(types) else None)
         out.append(col)
+    _observe_serde("deserialize", time.time() - t_page0, len(buf))
     return out
 
 

@@ -10,9 +10,14 @@ Every request carries the internal bearer of `shared_secret` (else of
 the process-wide secret, server/auth.py); an https url connects with
 the trusted cluster CA (server/tls.py). The results pull follows a
 drained worker's redirect (`X-Presto-Task-Moved`) to the peer that
-adopted its pages and resumes there at the same absolute token. The
-reference's cluster-document pulls (profile, history, datapath) come
-with ROADMAP queue 1 item 15.
+adopted its pages and resumes there at the same absolute token. Every
+request made on a query's behalf carries the thread's ambient trace
+(server/tracing.py, `X-Presto-Trace`); a task poll folds the worker's
+shipped progress into this process's registry (exec/progress.py); a
+stale socket's retry is a flight-recorder event. `pull_worker_docs` is
+the one best-effort pull of the cluster-merged ledger documents
+(/v1/profile, /v1/history, /v1/datapath, /v1/accuracy, /v1/timeline,
+/v1/status).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from ..serde import PageCodec, deserialize_page
 from ..utils.backoff import Backoff
 from .auth import bearer_headers, make_authenticator
 
-__all__ = ["WorkerClient"]
+__all__ = ["WorkerClient", "pull_worker_docs"]
 
 
 class _HttpStatusError(urllib.error.HTTPError):
@@ -78,9 +83,13 @@ class WorkerClient:
                                           timeout=self.timeout)
 
     def _request(self, method: str, path: str, body: Optional[bytes] = None):
+        from .tracing import TRACE_HEADER, current_context
         headers = dict(bearer_headers(self._auth))
         if body is not None:
             headers["Content-Type"] = "application/json"
+        ctx = current_context()
+        if ctx is not None:
+            headers[TRACE_HEADER] = ctx.header()
         for attempt in (0, 1):
             conn = getattr(self._local, "conn", None)
             if conn is None:
@@ -99,11 +108,14 @@ class WorkerClient:
                     raise _HttpStatusError(resp.status, data, path)
                 return data, dict(resp.getheaders())
             except (http.client.HTTPException, ConnectionError,
-                    TimeoutError):
+                    TimeoutError) as e:
                 self._local.conn = None
                 conn.close()
                 if attempt == 1:
                     raise
+                from .flight_recorder import record_event
+                record_event("http_retry", path=path,
+                             error=f"{type(e).__name__}: {e}")
                 Backoff(base_s=0.02, cap_s=0.25, seed=path).sleep()
 
     def info(self) -> dict:
@@ -113,6 +125,30 @@ class WorkerClient:
     def status(self) -> dict:
         data, _ = self._request("GET", "/v1/status")
         return json.loads(data)
+
+    def _doc(self, path: str) -> dict:
+        data, _ = self._request("GET", path)
+        return json.loads(data)
+
+    def profile(self) -> dict:
+        """The worker's per-plan profile slice (GET /v1/profile)."""
+        return self._doc("/v1/profile")
+
+    def history(self) -> dict:
+        """The worker's completed-query history slice."""
+        return self._doc("/v1/history")
+
+    def datapath(self) -> dict:
+        """The worker's per-hop datapath slice."""
+        return self._doc("/v1/datapath")
+
+    def accuracy(self) -> dict:
+        """The worker's estimate-accuracy slice."""
+        return self._doc("/v1/accuracy")
+
+    def timeline(self) -> dict:
+        """The worker's execution-timeline slice."""
+        return self._doc("/v1/timeline")
 
     def submit(self, task_id: str, plan: N.PlanNode, sf: float = 0.01,
                session: Optional[dict] = None) -> dict:
@@ -159,11 +195,26 @@ class WorkerClient:
         info = None
         while time.time() < deadline:
             info = self.task_info(task_id)
+            self._note_progress(task_id, info)
             if info["state"] in ("FINISHED", "FAILED", "ABORTED"):
                 return info
             time.sleep(0.02)
         state = info["state"] if info else "<never polled>"
         raise TimeoutError(f"task {task_id} still {state}")
+
+    def _note_progress(self, task_id: str, info: dict) -> None:
+        """Fold the progress snapshot riding a TaskInfo poll into this
+        process's registry, tagged with the ambient trace id; a terminal
+        state finishes the entry (the poll that sees it is the last)."""
+        from ..exec.progress import finish_task, note_remote
+        from .tracing import current_context
+        doc = info.get("progress")
+        if doc:
+            ctx = current_context()
+            note_remote(task_id, doc, worker=self.base,
+                        query=ctx.trace_id if ctx is not None else None)
+        if info.get("state") in ("FINISHED", "FAILED", "ABORTED"):
+            finish_task(task_id, info["state"])
 
     def fetch_results(self, task_id: str, types: Sequence[T.Type],
                       codec: PageCodec = PageCodec(), buffer_id: int = 0,
@@ -250,3 +301,38 @@ class WorkerClient:
         data, _ = self._request("DELETE", f"/v1/task/{task_id}")
         return json.loads(data)
 
+
+def pull_worker_docs(worker_urls, timeout: float, fetch,
+                     component: str, site: str = "cluster_pull",
+                     parallel: bool = False, placeholder=None):
+    """The best-effort cluster pull the merged surfaces share: one
+    document per reachable worker through `fetch(WorkerClient)`,
+    an unreachable one skipped and counted (record_suppressed), never
+    an error. Returns (docs in url order, reachable workers).
+    `parallel` pulls on a small thread pool (one dead worker costs one
+    timeout, not one each); `placeholder(url)` keeps an unreachable
+    worker in the list as a document of its own (the fleet view's DEAD
+    rows)."""
+    from .metrics import record_suppressed
+
+    def pull(url):
+        try:
+            return fetch(WorkerClient(str(url), timeout))
+        except Exception as e:  # noqa: BLE001 - a dead worker must not
+            # fail the cluster view; the gap is counted
+            record_suppressed(component, site, e)
+            return None
+    urls = list(worker_urls or ())
+    if parallel and len(urls) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=min(8, len(urls))) as pool:
+            results = list(pool.map(pull, urls))
+    else:
+        results = [pull(u) for u in urls]
+    alive = sum(1 for d in results if d is not None)
+    if placeholder is not None:
+        docs = [d if d is not None else placeholder(str(u))
+                for u, d in zip(urls, results)]
+    else:
+        docs = [d for d in results if d is not None]
+    return docs, alive

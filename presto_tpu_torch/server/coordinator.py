@@ -22,9 +22,16 @@ the discovery service:
 
 `execute` returns the last fragment's rows as (values, nulls) per
 column and the names. The coordinator is host-only: it runs no
-kernel. Not here yet: its spans and the merged QueryStats (ROADMAP
-queue 1 item 15); `last_task_stats` keeps each task's own stats
-document instead.
+kernel. Each query runs under one trace (the caller's `trace_ctx`, else
+a fresh `query.<id>` one): a `coordinator.execute` span, one
+`fragment.f<id>` span per fragment under it, and each task's body
+carries its fragment's span as `traceparent`, so the workers' task
+spans hang under it. At the end the coordinator pulls every produced
+task's final status, stitches the spans the workers shipped into the
+process tracer and folds their QueryStats into one by the merge law
+(`last_query_stats`); `last_task_stats` keeps each task's own stats
+document. The workers' live progress, riding every status poll, folds
+into this process's progress registry under the query's trace id.
 """
 
 from __future__ import annotations
@@ -44,6 +51,9 @@ from ..serde import PageCodec
 from ..utils.backoff import Backoff
 from .client import WorkerClient
 from .discovery import alive_nodes
+from .flight_recorder import record_event
+from .metrics import record_suppressed
+from .tracing import TraceContext, emit_span, new_span_id, trace_context
 
 __all__ = ["Coordinator", "speculation_totals", "reset_speculation_totals"]
 
@@ -71,11 +81,14 @@ def _count_spec(key: str) -> None:
 
 
 def _quiet_abort(url: str, tid: str, timeout: float) -> None:
-    """Best-effort DELETE: the worker may be the dead one."""
+    """Best-effort DELETE (the worker may be the dead one); the task's
+    live progress entry here ends with it."""
+    from ..exec.progress import finish_task
     try:
         WorkerClient(url, timeout).abort(tid)
-    except Exception:  # noqa: BLE001 - cleanup never fails a query
-        pass
+    except Exception as e:  # noqa: BLE001 - cleanup never fails a query
+        record_suppressed("coordinator", "task_cleanup", e)
+    finish_task(tid, "ABORTED")
 
 
 class Coordinator:
@@ -103,7 +116,8 @@ class Coordinator:
         self.writer_min_rows_per_task = max(1, writer_min_rows_per_task)
         self.ttl_horizon_s = ttl_horizon_s
         self.speculation_threshold_ms = speculation_threshold_ms
-        # each task's stats document of this thread's last execute()
+        # each task's stats document, and their merged QueryStats, of
+        # this thread's last execute()
         self._stats_tls = threading.local()
 
     @property
@@ -112,6 +126,13 @@ class Coordinator:
         execute(), the tasks whose results were used, in fragment
         order."""
         return getattr(self._stats_tls, "stats", None)
+
+    @property
+    def last_query_stats(self):
+        """The QueryStats of this thread's last execute(): every
+        produced task's folded by the merge law (None when no task
+        shipped one)."""
+        return getattr(self._stats_tls, "query_stats", None)
 
     def _speculation_ms(self, session=None) -> float:
         raw = None
@@ -204,6 +225,7 @@ class Coordinator:
             for u, t, client in list(attempts):
                 try:
                     info = client.task_info(t)
+                    client._note_progress(t, info)
                     poll_fails[t] = 0
                 except Exception:  # noqa: BLE001 - attempt unreachable
                     if len(attempts) == 1:
@@ -222,8 +244,11 @@ class Coordinator:
                             _quiet_abort(lu, lt, poll_to)
                     if t != tid and race:
                         _count_spec("wins")
+                        record_event("speculative_win", task=tid,
+                                     attempt=t)
                     elif t == tid and race and launched_spec:
                         _count_spec("losses")
+                        record_event("speculative_loss", task=tid)
                     return info, u, t
                 if state in ("FAILED", "ABORTED"):
                     if len(attempts) == 1:
@@ -245,13 +270,16 @@ class Coordinator:
                                                  body, timeout)
                         launched_spec = True
                         _count_spec("launched")
+                        record_event("speculative_submit", task=tid,
+                                     attempt=st, worker=su)
                         if register is not None:
                             register(st, key)
                         submitted.append((su, st))
                         attempts.append((su, st, WorkerClient(su, poll_to)))
-                except Exception:  # noqa: BLE001 - nowhere to
+                except Exception as e:  # noqa: BLE001 - nowhere to
                     # speculate: the original keeps running
-                    pass
+                    record_suppressed("coordinator", "speculative_submit",
+                                      e)
             time.sleep(0.02)
         raise TimeoutError(f"task {tid} still not terminal after "
                            f"{timeout}s")
@@ -302,7 +330,7 @@ class Coordinator:
 
     def execute(self, root: N.PlanNode, sf: float = 0.01,
                 timeout: float = 120.0, policy: str = "phased",
-                session=None):
+                session=None, trace_ctx: Optional[TraceContext] = None):
         """Run a (possibly multi-fragment) plan. Returns (cols, names):
         (values, nulls) per output column of the final tasks.
 
@@ -311,29 +339,60 @@ class Coordinator:
         another worker; "all_at_once" submits every stage's tasks at
         once under predicted task ids, consumers waiting for their
         upstreams inside the worker, and a failed task fails the
-        query. `session` is sent with every task."""
+        query. `session` is sent with every task. `trace_ctx` joins
+        the query to a caller's trace (the statement tier's query
+        span)."""
         workers = self.workers()
         fragments = fragment_plan(root)
         qid = uuid.uuid4().hex[:8]
+        trace_id = trace_ctx.trace_id if trace_ctx is not None \
+            else f"query.{qid}"
+        exec_ctx = TraceContext(trace_id, new_span_id())
+        t_exec0 = time.time()
         produced: Dict[int, List[Tuple[str, str]]] = {}
         # every task this query submitted, failed attempts included:
         # all are aborted at the end
         submitted: List[Tuple[str, str]] = []
         self._stats_tls.stats = None
+        self._stats_tls.query_stats = None
         try:
-            return self._execute_fragments(
-                workers, fragments, produced, submitted, qid, sf, timeout,
-                policy, dict(session or {}),
-                self._speculation_ms(session))
+            # every request this thread makes carries the trace
+            with trace_context(exec_ctx):
+                return self._execute_fragments(
+                    workers, fragments, produced, submitted, qid, sf,
+                    timeout, policy, dict(session or {}),
+                    self._speculation_ms(session), exec_ctx)
         finally:
-            self._stats_tls.stats = _task_stats(fragments, produced,
-                                                min(timeout, 5.0))
+            # stitch before the cleanup drops the workers' tasks, on a
+            # failure too (the failed query is the one to trace)
+            with trace_context(exec_ctx):
+                docs = _task_stats(fragments, produced, min(timeout, 5.0))
+            self._stats_tls.stats = docs
+            self._stats_tls.query_stats = _merge_stitch(docs, trace_id)
+            emit_span(trace_id, "coordinator.execute", t_exec0, time.time(),
+                      {"fragments": len(fragments), "policy": policy,
+                       "workers": len(workers)},
+                      span_id=exec_ctx.span_id,
+                      parent_id=trace_ctx.span_id if trace_ctx else None)
             # the buffers of a finished query are freed with its tasks
             for url, tid in submitted:
                 _quiet_abort(url, tid, min(timeout, 5.0))
 
     def _execute_fragments(self, workers, fragments, produced, submitted,
-                           qid, sf, timeout, policy, session, spec_ms):
+                           qid, sf, timeout, policy, session, spec_ms,
+                           exec_ctx: TraceContext):
+        trace_id = exec_ctx.trace_id
+        # one span per fragment (under coordinator.execute); its tasks
+        # hang under it through the traceparent of their bodies
+        frag_spans: Dict[int, Tuple[str, float]] = {}
+
+        def close_fragment(fid: int, tasks: int) -> None:
+            sid, t_f0 = frag_spans[fid]
+            emit_span(trace_id, f"fragment.f{fid}", t_f0, time.time(),
+                      {"tasks": tasks,
+                       "partitioning": frag_by_id[fid].partitioning},
+                      span_id=sid, parent_id=exec_ctx.span_id)
+
         frag_by_id = {f.id: f for f in fragments}
         parent_of: Dict[int, int] = {}
         for f in fragments:
@@ -413,8 +472,12 @@ class Coordinator:
             bodies = {}
             pending = []
             plan_json = N.to_json(frag_plan)
+            frag_spans[frag.id] = (new_span_id(), time.time())
+            traceparent = TraceContext(trace_id,
+                                       frag_spans[frag.id][0]).header()
             for w in range(ntasks):
-                body = {"plan": plan_json, "sf": sf, "session": session}
+                body = {"plan": plan_json, "sf": sf, "session": session,
+                        "traceparent": traceparent}
                 if out_part:
                     body["outputPartitions"] = out_part
                 if scans:
@@ -455,6 +518,7 @@ class Coordinator:
                     tid, (f, k)),
                 spec_ms=spec_ms)
             produced[frag.id] = [done[w] for w in sorted(done)]
+            close_fragment(frag.id, len(done))
 
         for url, tid in all_pending:
             info = WorkerClient(url, timeout).wait(tid, timeout)
@@ -462,9 +526,14 @@ class Coordinator:
                 raise RuntimeError(
                     f"all_at_once task {tid} at {url} is "
                     f"{info['state']}: {info.get('error')}")
+        if policy == "all_at_once":
+            # the stages overlapped: their spans close together
+            for frag in fragments:
+                close_fragment(frag.id, len(produced[frag.id]))
 
         # the final tasks' buffers, one after another (a hash-
         # distributed root fragment returns disjoint slices)
+        t_pull0 = time.time()
         last = fragments[-1]
         types = last.root.output_types()
         compression = session.get("exchange_compression", "none")
@@ -506,6 +575,11 @@ class Coordinator:
                                np.array([], dtype=bool)))
         names = last.root.names if isinstance(last.root, N.OutputNode) \
             else [f"c{i}" for i in range(len(types))]
+        emit_span(trace_id, "coordinator.fetch_results", t_pull0,
+                  time.time(),
+                  {"tasks": len(produced[last.id]),
+                   "rows": len(merged[0][0]) if merged else 0},
+                  parent_id=exec_ctx.span_id)
         return merged, names
 
     @staticmethod
@@ -568,17 +642,45 @@ class Coordinator:
 
 
 def _task_stats(fragments, produced, timeout: float) -> List[dict]:
-    """Each produced task's stats document, best effort."""
+    """Each produced task's stats document and the spans it shipped,
+    best effort. A worker pins the spans a beat after it flips the task
+    terminal: one short re-poll closes that window."""
     out = []
     for frag in fragments:
         for url, tid in produced.get(frag.id, ()):
+            client = WorkerClient(url, timeout)
             try:
-                info = WorkerClient(url, timeout).task_info(tid)
-            except Exception:  # noqa: BLE001 - a worker that is gone
+                info = client.task_info(tid)
+                if not info.get("spans") and \
+                        info.get("state") in ("FINISHED", "FAILED"):
+                    time.sleep(0.05)
+                    info = client.task_info(tid)
+            except Exception as e:  # noqa: BLE001 - a worker that is gone
+                record_suppressed("coordinator", "stats_stitch", e)
                 continue
             out.append({"fragment": frag.id, "task": tid, "url": url,
-                        "stats": info.get("stats") or {}})
+                        "stats": info.get("stats") or {},
+                        "spans": info.get("spans") or []})
     return out
+
+
+def _merge_stitch(docs: List[dict], trace_id: str):
+    """The tasks' QueryStats folded into one (None when none shipped
+    one), and their spans stitched into the process tracer under
+    `trace_id` (add_spans drops spans it already has, so a worker that
+    shares this process's tracer delivers safely twice)."""
+    from ..exec.stats import QueryStats
+    from .tracing import get_tracer
+    merged = None
+    tracer = get_tracer()
+    for d in docs:
+        qs_doc = d["stats"].get("queryStats")
+        if qs_doc:
+            qs = QueryStats.from_json(qs_doc)
+            merged = qs if merged is None else merged.merge(qs)
+        if tracer is not None and d["spans"]:
+            tracer.add_spans(trace_id, d["spans"])
+    return merged
 
 
 def _collect(node: N.PlanNode, kinds) -> List[N.PlanNode]:

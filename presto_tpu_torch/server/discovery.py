@@ -21,9 +21,9 @@ goodbye marks the node's url in the goodbye registry
 (`note_unannounced`), cleared when it announces again. With a
 `shared_secret` (or the process-wide one of server/auth.py) every
 request carries and every server checks the internal bearer; with
-`tls=(cert, key)` the server speaks https. Counting suppressed errors
-and exporting the counters as metric families wait for ROADMAP queue 1
-item 15.
+`tls=(cert, key)` the server speaks https. Survived errors are counted
+(server/metrics.py::record_suppressed), and the counters are metric
+families of both tiers' /v1/metrics (metrics.fleet_families).
 """
 
 from __future__ import annotations
@@ -266,9 +266,10 @@ class Announcer:
                     self.announce_once()
                     backoff.attempt = 0
                     self._stop.wait(self.interval)
-                except Exception:  # noqa: BLE001 - discovery is down:
-                    # keep trying, as airlift does, and count the retry
-                    # (the suppressed-error count is item 15's)
+                except Exception as e:  # noqa: BLE001 - discovery is
+                    # down: keep trying, as airlift does, and count it
+                    from .metrics import record_suppressed
+                    record_suppressed("discovery", "announce", e)
                     _count_fleet("announce_retries")
                     self._stop.wait(backoff.next_delay())
         self._thread = threading.Thread(target=loop, daemon=True)
@@ -294,10 +295,10 @@ class Announcer:
         if unannounce:
             try:
                 self.unannounce_once()
-            except Exception:  # noqa: BLE001 - a best-effort goodbye;
-                # the announcement ages out otherwise (the suppressed-
-                # error count is item 15's)
-                pass
+            except Exception as e:  # noqa: BLE001 - a best-effort
+                # goodbye; the announcement ages out otherwise
+                from .metrics import record_suppressed
+                record_suppressed("discovery", "unannounce", e)
 
 
 class HeartbeatProber:

@@ -13,8 +13,9 @@ cluster-wide concurrency}), admission also waits while the other
 coordinators' running queries, as the resource manager aggregates them
 (server/resource_manager.py), fill a cluster limit of the group or of
 any ancestor; when the resource manager cannot be reached, admission
-is local only (the reference's degraded mode). The queue-wait
-histogram waits for the metrics (ROADMAP queue 1 item 15).
+is local only (the reference's degraded mode), counted. Each
+admission's wait feeds the `presto_tpu_dispatch_queue_wait_seconds`
+histogram of /v1/metrics, labelled by its resource group.
 """
 
 from __future__ import annotations
@@ -296,8 +297,10 @@ class Dispatcher:
                     if remote + g.stats()["running"] >= limit:
                         blocked = (prefix, limit)
                         break
-            except Exception:  # noqa: BLE001 - the resource manager is
-                # down: local admission only (counting it is item 15's)
+            except Exception as e:  # noqa: BLE001 - the resource manager
+                # is down: local admission only, counted
+                from .metrics import record_suppressed
+                record_suppressed("dispatcher", "cluster_gate", e)
                 return
             if blocked is None:
                 return
@@ -335,9 +338,17 @@ class Dispatcher:
         # one deadline covers the cluster gate and the local queue
         deadline = None if queue_timeout is None \
             else time.time() + queue_timeout
-        self._await_cluster_slot(group_name, deadline)
-        group.acquire(None if deadline is None
-                      else max(deadline - time.time(), 0.001), mem=mem)
+        t_queue0 = time.time()
+        try:
+            self._await_cluster_slot(group_name, deadline)
+            group.acquire(None if deadline is None
+                          else max(deadline - time.time(), 0.001), mem=mem)
+        finally:
+            # the admission wait, refused waits included, per group
+            from .metrics import observe_histogram
+            observe_histogram("presto_tpu_dispatch_queue_wait_seconds",
+                              time.time() - t_queue0,
+                              labels={"group": group_name})
         t0 = time.time()
         try:
             result = executor(query_id)

@@ -6,8 +6,8 @@ completion; EventListenerManager). Events are plain dicts; listeners
 register on the process-wide manager. The dispatcher fires
 QueryCreated and QueryCompleted around each query and the worker
 TaskCompleted. A listener that raises never fails a query: its error
-is counted in `listener_errors` (the reference counts it on its
-metrics page, ROADMAP queue 1 item 15).
+is counted in `listener_errors` and as a suppressed error of
+/v1/metrics (server/metrics.py::record_suppressed).
 """
 
 from __future__ import annotations
@@ -46,9 +46,12 @@ class EventListenerManager:
         for cb in listeners:
             try:
                 cb(name, payload)
-            except Exception:  # noqa: BLE001 - observers never fail queries
+            except Exception as e:  # noqa: BLE001 - observers never fail
+                # queries
                 with self._lock:
                     self.listener_errors += 1
+                from .metrics import record_suppressed
+                record_suppressed("events", name, e)
 
     def query_created(self, query_id: str, text: str = "", user: str = ""):
         self.fire("QueryCreated", {"queryId": query_id, "query": text,

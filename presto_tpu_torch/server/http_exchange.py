@@ -13,6 +13,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
+import time
+
 import numpy as np
 
 from .. import failpoints
@@ -64,7 +66,14 @@ def fetch_remote_batch(sources: Sequence[str], task_ids: Sequence[str],
     streams are sorted runs and are merged by those keys. `codec` is
     the producers' (the session's exchange_compression). `stats`, if
     given, gains the pages and page bytes pulled and the seconds spent
-    decoding them."""
+    decoding them.
+
+    The pull, decode and restage (the upstream's completion wait left
+    out) are the `exchange_fetch` hop of the datapath ledger; the
+    whole call feeds the presto_tpu_exchange_fetch_seconds histogram,
+    exemplar-linked to the ambient trace."""
+    t_fetch0 = time.time()
+    move_s = 0.0
     if failpoints.ARMED:
         # an injected error here is a consumer-side upstream failure:
         # the task fails and the coordinator's resubmission takes over
@@ -80,8 +89,10 @@ def fetch_remote_batch(sources: Sequence[str], task_ids: Sequence[str],
             # result
             raise RuntimeError(f"upstream task {tid} at {base} is "
                                f"{info['state']}: {info.get('error')}")
+        t_move0 = time.time()
         cols = client.fetch_results(tid, types, codec, buffer_id=buffer_id,
                                     ack=ack)
+        move_s += time.time() - t_move0
         if stats is not None:
             stats["pages_in"] = stats.get("pages_in", 0) + \
                 client.pulled["pages"]
@@ -94,6 +105,7 @@ def fetch_remote_batch(sources: Sequence[str], task_ids: Sequence[str],
             if len(v):  # an empty page's default dtype would leak in
                 all_cols[c].append(v)
                 all_nulls[c].append(m)
+    t_stage0 = time.time()
     arrays, nulls = [], []
     for c, ty in enumerate(types):
         if all_cols[c]:
@@ -108,5 +120,16 @@ def fetch_remote_batch(sources: Sequence[str], task_ids: Sequence[str],
         arrays = [a[perm] for a in arrays]
         nulls = [m[perm] for m in nulls]
     cap = max(-(-total // pad_multiple) * pad_multiple, pad_multiple)
-    return batch_from_numpy(types, arrays, nulls, capacity=cap,
-                            device=device)
+    out = batch_from_numpy(types, arrays, nulls, capacity=cap,
+                           device=device)
+    from ..exec.datapath import record_hop
+    from .metrics import observe_histogram
+    from .tracing import current_context
+    ctx = current_context()
+    observe_histogram("presto_tpu_exchange_fetch_seconds",
+                      time.time() - t_fetch0,
+                      trace_id=ctx.trace_id if ctx else None)
+    record_hop("exchange_fetch",
+               sum(a.nbytes for a in arrays) + sum(m.nbytes for m in nulls),
+               move_s + (time.time() - t_stage0))
+    return out

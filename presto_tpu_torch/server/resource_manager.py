@@ -24,8 +24,10 @@ that N coordinators enforce cluster-wide resource-group limits):
   * failover_totals        -- the failovers of this process
 
 The reference's locks are `OrderedLock`s (their witness is ROADMAP
-queue 1 item 16; `threading.RLock`s here); its flight events, the
-suppressed-error counts and the failover metric family are item 15's.
+queue 1 item 16; `threading.RLock`s here). A failover is a
+`coordinator_failover` flight event and counts in the
+`presto_tpu_coordinator_failovers_total` family; survived errors are
+counted (server/metrics.py::record_suppressed).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ __all__ = ["ResourceManager", "ClusterStateSender", "remote_group_load",
            "StandbyCoordinator", "failover_totals",
            "reset_failover_totals"]
 
-# failovers, process-wide (exporting them as a metric family is item 15's)
+# failovers, process-wide (metrics.fleet_families exports them)
 _FAILOVER_LOCK = threading.RLock()
 _FAILOVER = {"count": 0}
 
@@ -199,9 +201,10 @@ class ClusterStateSender:
             while not self._stop.is_set():
                 try:
                     self.send_once()
-                except Exception:  # noqa: BLE001 - RM outage: keep
-                    # trying (counting it is item 15's)
-                    pass
+                except Exception as e:  # noqa: BLE001 - RM outage: keep
+                    # trying, counted
+                    from .metrics import record_suppressed
+                    record_suppressed("resource_manager", "heartbeat", e)
                 self._stop.wait(self.interval)
         self._thread = threading.Thread(target=loop, daemon=True)
         self._thread.start()
@@ -290,29 +293,32 @@ class StandbyCoordinator:
     def _take_over(self, manifest: List[dict]) -> None:
         with _FAILOVER_LOCK:
             _FAILOVER["count"] += 1
-        # (the coordinator_failover flight event is item 15's)
         adoptable = [q for q in manifest
                      if q.get("state") not in ("FINISHED", "FAILED",
                                                "CANCELED")]
+        from .flight_recorder import record_event
+        record_event("coordinator_failover", queries=len(adoptable))
         for q in adoptable:
             try:
                 self.statement_server.adopt_query(
                     q["queryId"], q.get("slug", ""), q.get("query", ""),
                     q.get("user", "failover"),
                     q.get("sessionProperties") or {})
-            except Exception:  # noqa: BLE001 - one unadoptable statement
-                # must not strand the rest of the manifest (counting it
-                # is item 15's)
-                pass
+            except Exception as e:  # noqa: BLE001 - one unadoptable
+                # statement must not strand the rest of the manifest
+                from .metrics import record_suppressed
+                record_suppressed("resource_manager", "adopt_query", e)
 
     def start(self) -> "StandbyCoordinator":
         def loop():
             while not self._stop.is_set():
                 try:
                     self.check_once()
-                except Exception:  # noqa: BLE001 - RM outage: the
-                    # monitor keeps watching (counting it is item 15's)
-                    pass
+                except Exception as e:  # noqa: BLE001 - RM outage: the
+                    # monitor keeps watching, counted
+                    from .metrics import record_suppressed
+                    record_suppressed("resource_manager", "standby_check",
+                                      e)
                 self._stop.wait(self.poll_s)
         self._thread = threading.Thread(target=loop, daemon=True)
         self._thread.start()

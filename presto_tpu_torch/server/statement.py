@@ -23,16 +23,28 @@ timestamps as strings).
   DELETE /v1/statement/.../{id}/{slug}/...     cancel
   GET    /v1/query, /v1/query/{id}             the queries' documents
   GET    /v1/info                              the coordinator's info
+  GET    /v1/cluster                           the fleet overview
+  GET    /v1/metrics                           Prometheus text (or
+                                               OpenMetrics on Accept)
+  GET    /v1/{profile,history,datapath,accuracy,timeline}
+                                               the ledgers, this
+                                               process's slice merged
+                                               with every worker's of
+                                               `profile_workers`
+  GET    /v1/trace/{queryId}                   the stitched trace
   GET    /ui, /ui/query/{id}                   the web pages
   GET, POST, DELETE /v1/failpoint              the failpoint admin
 
-Not here yet, and answered with a refusal naming their ROADMAP queue 1
-item: EXPLAIN and EXPLAIN ANALYZE, /v1/cluster, /v1/metrics,
-/v1/profile, /v1/history, /v1/datapath, /v1/accuracy, /v1/timeline and
-/v1/trace (item 15, the observability ledgers: the reference's trace
-spans and flight recorder have no stand-in, since no document of the
-protocol reads them), and the stuck-query watchdog (item 15, which
-reads the live progress registry).
+EXPLAIN renders the plan as execution shapes it, EXPLAIN ANALYZE runs
+it and annotates it (plan/explain.py), each as one varchar column. A
+statement carries a trace: the client's `X-Presto-Trace` context when
+one came, else the query id; the query's root span, its state spans,
+the engine's stage spans and the client's fetch span hang in it. The
+live progress of every statement (exec/progress.py) rides its `stats`
+while it runs; a stuck-progress watchdog (server/watchdog.py) scans
+the running ones. At its end each statement is accounted on
+/v1/metrics, dumped by the flight recorder when it failed or ran past
+`slow_query_threshold_ms`, and archived in the query history.
 
 With `tls=(cert, key)` the server speaks https. For a standby
 coordinator (server/resource_manager.py), `inflight_doc` lists the
@@ -59,14 +71,23 @@ from .. import types as T
 from ..block import resolve_device
 from ..transaction import TransactionManager
 from .dispatcher import Dispatcher, QueryRejected
+from .flight_recorder import get_flight_recorder, record_event
 from .query_state import TERMINAL_STATES, QueryState, QueryStateMachine
+from .tracing import TraceContext, new_span_id
 
 __all__ = ["StatementServer", "render_value"]
 
-_ITEM_15 = "ROADMAP queue 1 item 15"
-# the GET routes of the reference that read item 15's ledgers
-_LEDGER_ROUTES = ("cluster", "metrics", "profile", "history", "datapath",
-                  "accuracy", "timeline", "trace")
+# the cluster-merged ledger routes: path -> StatementServer method
+_LEDGER_DOCS = {"profile": "profile_doc", "history": "history_doc",
+                "datapath": "datapath_doc", "accuracy": "accuracy_doc",
+                "timeline": "timeline_doc"}
+
+
+def _max_q_error_of(query_id: str):
+    """Worst finalized q-error of one query id, or None."""
+    from ..exec.accuracy import query_max_q_error
+    q = query_max_q_error(query_id)
+    return round(q, 2) if q is not None else None
 
 
 def render_value(v, null: bool, ty: T.Type):
@@ -119,7 +140,8 @@ class _Query:
     """One statement's lifecycle and its rendered rows."""
 
     def __init__(self, query_id: str, slug: str, text: str,
-                 session_values: Dict, user: str, txn_id: Optional[str]):
+                 session_values: Dict, user: str, txn_id: Optional[str],
+                 client_ctx: Optional[TraceContext] = None):
         self.id = query_id
         self.slug = slug
         self.text = text
@@ -127,12 +149,25 @@ class _Query:
         self.user = user
         self.txn_id = txn_id
         self.machine = QueryStateMachine(query_id)
+        # the query's trace: the client's trace id when one came, else
+        # the query id; span_id is the query's root span
+        self.trace_ctx = TraceContext(
+            client_ctx.trace_id if client_ctx else query_id, new_span_id())
+        self.client_parent = client_ctx.span_id if client_ctx else None
         self.columns: Optional[List[dict]] = None
         self.rows: List[list] = []
+        # the client's drain of the results (the trace's client.fetch)
+        self.first_fetch_at: Optional[float] = None
+        self.fetch_span_done = False
         self.update_type: Optional[str] = None
         self.update_count: Optional[int] = None
-        # the engine's QueryResult.stats once it ran
-        self.result_stats: Optional[Dict[str, float]] = None
+        # the engine's QueryStats and flat QueryResult.stats once it ran
+        self.result_stats = None
+        self.runtime_stats: Optional[Dict[str, float]] = None
+        # the client-visible progress never goes back (its high-water
+        # marks, per query)
+        self.progress_hwm = {"pct": 0.0, "rows": 0, "bytes": 0,
+                             "peak": 0}
         # response-header changes for the client to apply
         self.set_session: Dict[str, str] = {}
         self.started_txn: Optional[str] = None
@@ -163,9 +198,19 @@ class StatementServer:
                  dispatcher: Optional[Dispatcher] = None,
                  executor=None, page_rows: int = 1024,
                  queue_poll_s: float = 1.0, query_ttl_s: float = 600.0,
-                 device=None, tls: Optional[tuple] = None):
+                 device=None, tls: Optional[tuple] = None,
+                 profile_workers=None):
+        """`profile_workers`: the worker base URLs (a list, or a
+        callable that returns one) whose ledger slices the /v1/profile,
+        /v1/history, /v1/datapath, /v1/accuracy and /v1/timeline routes
+        merge with this process's, and whose /v1/status rows
+        /v1/cluster probes; None serves this process alone."""
         self.sf = sf
         self.device = resolve_device(device)
+        self._profile_workers = profile_workers
+        # every engine log record carries the ambient trace/query ids
+        from ..utils.log import ensure_log_context
+        ensure_log_context()
         from ..sql.statements import PreparedStatements
         # prepared statements per user (the reference scopes them per
         # session)
@@ -178,6 +223,19 @@ class StatementServer:
         self._executor = executor or self._default_executor
         self._queries: Dict[str, _Query] = {}
         self._qlock = threading.RLock()
+        self._started_at = time.time()
+        # lifetime roll-ups of terminal queries for /v1/metrics
+        self._metrics_lock = threading.Lock()
+        self._queries_by_state: Dict[str, int] = {}
+        self._totals = {"rows": 0, "bytes": 0, "wall_us": 0,
+                        "compile_us": 0, "execute_us": 0,
+                        "peak_memory_bytes": 0}
+        # the last /v1/cluster probe's view (None: never probed)
+        self._workers_alive: Optional[int] = None
+        self._workers_draining = 0
+        from .watchdog import StuckProgressWatchdog
+        self._watchdog = StuckProgressWatchdog(self._stuck_candidates,
+                                               tier="statement")
         self._httpd = ThreadingHTTPServer(("127.0.0.1", port),
                                           _make_handler(self))
         scheme = "http"
@@ -198,9 +256,11 @@ class StatementServer:
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True)
         self._thread.start()
+        self._watchdog.start()
         return self
 
     def stop(self) -> None:
+        self._watchdog.stop()
         self._httpd.shutdown()
         self._httpd.server_close()
 
@@ -231,6 +291,10 @@ class StatementServer:
             return QueryResult([], [], [pre.ack], 0)
         session = dict(session_values)
         session.setdefault("user", user)
+        # the engine's stage spans hang under the query's root span
+        ctx = self._trace_ctx_of(query_id)
+        if ctx is not None:
+            kwargs["trace_id"] = ctx
         return run_sql(pre.text, sf=sf, device=self.device, session=session,
                        query_id=query_id, **kwargs)
 
@@ -238,6 +302,29 @@ class StatementServer:
         with self._qlock:
             q = self._queries.get(query_id)
         return q.user if q is not None else ""
+
+    def _trace_ctx_of(self, query_id: str) -> Optional[TraceContext]:
+        with self._qlock:
+            q = self._queries.get(query_id)
+        return q.trace_ctx if q is not None else None
+
+    def _emit_trace(self, q: _Query) -> None:
+        """The terminal-state hook of the trace: the query's root span
+        (queued -> terminal) and one span per state under it."""
+        from .tracing import emit_span, get_tracer, spans_from_state_timings
+        if get_tracer() is None:
+            return
+        timings = q.machine.timings()
+        start = timings.get(QueryState.QUEUED, time.time())
+        end = timings.get(q.machine.state, time.time())
+        emit_span(q.trace_ctx.trace_id, "query", start, end,
+                  {"queryId": q.id, "user": q.user,
+                   "state": q.machine.state, "query": q.text[:200]},
+                  span_id=q.trace_ctx.span_id, parent_id=q.client_parent)
+        spans_from_state_timings(
+            q.trace_ctx.trace_id, timings,
+            ["QUEUED", "PLANNING", "RUNNING", "FINISHING", "FINISHED",
+             "FAILED"], {"user": q.user}, parent_id=q.trace_ctx.span_id)
 
     def _reap_locked(self) -> None:
         """Drop terminal queries, and their rows, older than
@@ -249,7 +336,8 @@ class StatementServer:
             del self._queries[qid]
 
     def create_query(self, text: str, user: str, session_values: Dict,
-                     txn_id: Optional[str]) -> _Query:
+                     txn_id: Optional[str],
+                     client_ctx: Optional[TraceContext] = None) -> _Query:
         """Register a statement and start running it."""
         # rule-based defaults under, the client's values over
         from .session_properties import get_session_property_manager
@@ -259,7 +347,12 @@ class StatementServer:
                 user, session_values.get("source", ""),
                 session_values.get("clientTags")), **session_values}
         q = _Query(f"{time.strftime('%Y%m%d')}_{uuid.uuid4().hex[:12]}",
-                   uuid.uuid4().hex[:12], text, session_values, user, txn_id)
+                   uuid.uuid4().hex[:12], text, session_values, user, txn_id,
+                   client_ctx=client_ctx)
+        # every state transition lands in the flight recorder's ring
+        q.machine.add_listener(
+            lambda old, new, qid=q.id: record_event(
+                "query_state", query_id=qid, frm=old, to=new))
         with self._qlock:
             self._reap_locked()
             self._queries[q.id] = q
@@ -300,6 +393,86 @@ class StatementServer:
         return q
 
     def _run(self, q: _Query):
+        try:
+            self._run_inner(q)
+        finally:
+            if q.machine.is_done():
+                self._emit_trace(q)
+                self._account_query(q)
+                self._maybe_flight_dump(q)
+                self._record_history(q)
+
+    def _slow_threshold_ms(self, q: _Query) -> float:
+        """slow_query_threshold_ms session property, env fallback
+        PRESTO_TPU_SLOW_QUERY_MS; 0 or unset: no slow dumps."""
+        import os
+        raw = q.session_values.get(
+            "slow_query_threshold_ms",
+            os.environ.get("PRESTO_TPU_SLOW_QUERY_MS", "0"))
+        try:
+            return float(raw)
+        except (TypeError, ValueError):
+            return 0.0
+
+    def _maybe_flight_dump(self, q: _Query) -> None:
+        """One flight-recorder dump of a failed or slow statement."""
+        state = q.machine.state
+        reason = None
+        if state == QueryState.FAILED:
+            reason = "failed"
+        else:
+            thresh = self._slow_threshold_ms(q)
+            if thresh > 0 and q.machine.elapsed_ms() >= thresh:
+                reason = "slow"
+        if reason is not None:
+            get_flight_recorder().maybe_dump(
+                q.id, reason,
+                extra={"state": state, "user": q.user,
+                       "elapsedMs": q.machine.elapsed_ms(),
+                       "traceId": q.trace_ctx.trace_id,
+                       "query": q.text[:200]})
+
+    def _record_history(self, q: _Query) -> None:
+        """Archive the terminal statement (server/history.py), after
+        the flight-dump check so a failed or slow dump keeps the
+        query's one dump."""
+        from .history import QueryHistoryArchive, get_history_archive
+        session = dict(q.session_values)
+        session.setdefault("sf", self.sf)
+        get_history_archive().add(QueryHistoryArchive.record_of(
+            q.id, q.machine.state, q.user, q.text, q.machine.elapsed_ms(),
+            q.trace_ctx.trace_id, query_stats=q.result_stats,
+            session=session))
+
+    def _account_query(self, q: _Query) -> None:
+        """Roll the terminal statement into the /v1/metrics totals, once,
+        and feed its end-to-end and per-state latency histograms."""
+        from .metrics import observe_histogram
+        tid = q.trace_ctx.trace_id
+        observe_histogram("presto_tpu_query_latency_seconds",
+                          q.machine.elapsed_ms() / 1e3, trace_id=tid)
+        entered = sorted(q.machine.timings().items(), key=lambda x: x[1])
+        for i, (state, start) in enumerate(entered):
+            if state not in ("QUEUED", "PLANNING", "RUNNING", "FINISHING"):
+                continue
+            end = entered[i + 1][1] if i + 1 < len(entered) else time.time()
+            observe_histogram("presto_tpu_query_state_seconds",
+                              max(end - start, 0.0),
+                              labels={"state": state}, trace_id=tid)
+        qs = q.result_stats
+        with self._metrics_lock:
+            st = q.machine.state
+            self._queries_by_state[st] = self._queries_by_state.get(st, 0) + 1
+            self._totals["rows"] += len(q.rows)
+            self._totals["wall_us"] += q.machine.elapsed_ms() * 1000
+            if qs is not None:
+                self._totals["bytes"] += qs.output_bytes
+                self._totals["compile_us"] += qs.compile_us
+                self._totals["execute_us"] += qs.stage_us("execute")
+                self._totals["peak_memory_bytes"] = max(
+                    self._totals["peak_memory_bytes"], qs.peak_memory_bytes)
+
+    def _run_inner(self, q: _Query):
         m = _SESSION_STMT.match(q.text)
         try:
             if m:
@@ -329,9 +502,10 @@ class StatementServer:
             # planning
             failpoints.hit("statement.execute")
         q.machine.to_planning()
-        if re.match(r"\s*explain\b", q.text, re.IGNORECASE):
-            raise NotImplementedError(
-                f"EXPLAIN is not ported yet ({_ITEM_15}: plan/explain.py)")
+        m = re.match(r"\s*explain(\s+analyze)?\b", q.text, re.IGNORECASE)
+        if m:
+            self._run_explain(q, q.text[m.end():].strip(), bool(m.group(1)))
+            return None
         q.machine.to_running()
         wm = _WRITE_STMT.match(q.text)
         if q.txn_id is not None:
@@ -351,9 +525,10 @@ class StatementServer:
             if res.types and res.types[0].base == "bigint" and \
                     res.row_count == 1:
                 q.update_count = int(res.columns[0][0])
-        q.result_stats = {k: (v.item() if hasattr(v, "item") else v)
-                          for k, v in (getattr(res, "stats", None)
-                                       or {}).items()}
+        q.result_stats = getattr(res, "query_stats", None)
+        q.runtime_stats = {k: (v.item() if hasattr(v, "item") else v)
+                           for k, v in (getattr(res, "stats", None)
+                                        or {}).items()}
         q.columns = [{"name": n, "type": str(t)}
                      for n, t in zip(res.names, res.types)]
         q.rows = [[render_value(res.columns[c][i], bool(res.nulls[c][i]),
@@ -362,6 +537,26 @@ class StatementServer:
                   for i in range(res.row_count)]
         q.machine.to_finished()
         return res
+
+    def _run_explain(self, q: _Query, inner: str, analyze: bool) -> None:
+        """EXPLAIN [ANALYZE] as one varchar column of plan text: the
+        plan as execution shapes it, or run and annotated."""
+        from ..plan.explain import explain, explain_analyze
+        from ..sql import plan_sql
+        sf = float(q.session_values.get("sf", self.sf))
+        session = {"user": q.user, **q.session_values}
+        q.machine.to_running()
+        if analyze:
+            text = explain_analyze(plan_sql(inner), sf=sf, session=session,
+                                   device=self.device, query_id=q.id,
+                                   trace_id=q.trace_ctx)
+        else:
+            text = explain(plan_sql(inner), session=session, sf=sf,
+                           prepare=True)
+        q.columns = [{"name": "Query Plan", "type": "varchar"}]
+        q.rows = [[line] for line in text.splitlines()]
+        q.machine.to_finishing()
+        q.machine.to_finished()
 
     def _run_session_statement(self, q: _Query, kind: str):
         q.machine.to_planning()
@@ -435,6 +630,8 @@ class StatementServer:
             doc["nextUri"] = self._uri("executing", q, token)
             return doc
         doc["columns"] = q.columns
+        if q.first_fetch_at is None:
+            q.first_fetch_at = time.time()
         lo = token * self.page_rows
         hi = lo + self.page_rows
         page = q.rows[lo:hi]
@@ -446,10 +643,24 @@ class StatementServer:
             doc["updateCount"] = q.update_count
         if hi < len(q.rows):
             doc["nextUri"] = self._uri("executing", q, token + 1)
+        elif not q.fetch_span_done:
+            # the last page is out: the client-drain leg of the trace
+            q.fetch_span_done = True
+            from .tracing import emit_span
+            emit_span(q.trace_ctx.trace_id, "client.fetch",
+                      q.first_fetch_at or time.time(), time.time(),
+                      {"rows": len(q.rows), "pages": token + 1},
+                      parent_id=q.trace_ctx.span_id)
         return doc
 
+    def _progress_doc(self, q: _Query) -> Optional[dict]:
+        """The statement's live progress: its own engine entry and every
+        remote task entry tagged with its trace id (exec/progress.py)."""
+        from ..exec.progress import aggregate_query_progress
+        return aggregate_query_progress({q.id, q.trace_ctx.trace_id})
+
     def _base_doc(self, q: _Query, state: str) -> dict:
-        return {
+        doc = {
             "id": q.id,
             "infoUri": f"{self.url}/v1/query/{q.id}",
             "stats": {
@@ -458,13 +669,38 @@ class StatementServer:
                 "scheduled": state not in (QueryState.QUEUED,
                                            QueryState.PLANNING),
                 "elapsedTimeMillis": q.machine.elapsed_ms(),
-                "processedRows": len(q.rows),
-                "processedBytes": 0,
-                "peakMemoryBytes": 0,
-                "progressPercent": 100.0
-                if state == QueryState.FINISHED else 0.0,
             },
         }
+        stats = doc["stats"]
+        prog = self._progress_doc(q)
+        hwm = q.progress_hwm
+        if prog is not None:
+            # live counters, clamped to the query's high-water marks so
+            # that what a client sees never goes back
+            hwm["rows"] = max(hwm["rows"], prog["rows"])
+            hwm["bytes"] = max(hwm["bytes"], prog["bytes"])
+            hwm["peak"] = max(hwm["peak"], prog["peakMemoryBytes"])
+            hwm["pct"] = max(hwm["pct"], prog["progressPercent"])
+            stats["stage"] = prog["stage"]
+            stats["lastAdvanceAgeMs"] = prog["lastAdvanceAgeMs"]
+            stats["liveTasks"] = prog["runningTasks"]
+            stats["splitsDone"] = prog["splitsDone"]
+            stats["splitsPlanned"] = prog["splitsPlanned"]
+        stats["processedRows"] = max(len(q.rows), hwm["rows"])
+        stats["processedBytes"] = hwm["bytes"]
+        stats["peakMemoryBytes"] = hwm["peak"]
+        stats["progressPercent"] = 100.0 \
+            if state == QueryState.FINISHED else round(hwm["pct"], 1)
+        qs = q.result_stats
+        if qs is not None:
+            stats["processedBytes"] = max(stats["processedBytes"],
+                                          qs.output_bytes)
+            stats["peakMemoryBytes"] = max(stats["peakMemoryBytes"],
+                                           qs.peak_memory_bytes)
+            stats["compileTimeMicros"] = qs.compile_us
+            stats["executeTimeMicros"] = qs.stage_us("execute")
+            stats["queryStats"] = qs.to_json()
+        return doc
 
     def cancel(self, q: _Query) -> None:
         q.machine.to_canceled()
@@ -482,12 +718,234 @@ class StatementServer:
                 "errorInfo": q.machine.error,
                 "resourceGroup": q.resource_group,
                 "batchSize": 0,  # every statement runs serially
-                "queryStats": q.result_stats}
+                "progress": self._progress_doc(q),
+                "queryStats": q.result_stats.to_json()
+                if q.result_stats is not None else None,
+                # QueryResult.stats, the port's flat counters
+                "runtimeStats": q.runtime_stats}
 
     def queries_doc(self) -> List[dict]:
         with self._qlock:
             ids = list(self._queries)
         return [d for d in (self.admin_doc(i) for i in ids) if d is not None]
+
+    def trace_doc(self, query_or_trace_id: str) -> Optional[dict]:
+        """The stitched trace of GET /v1/trace/{id}: a query id (its
+        trace) or a raw trace id."""
+        from .tracing import get_tracer, trace_doc_of
+        with self._qlock:
+            q = self._queries.get(query_or_trace_id)
+        tid = q.trace_ctx.trace_id if q is not None else query_or_trace_id
+        doc = trace_doc_of(get_tracer(), tid)
+        if doc is not None and q is not None:
+            doc["queryId"] = q.id
+            doc["state"] = q.machine.state
+        return doc
+
+    def _stuck_candidates(self):
+        """The running statements offered to the stuck-progress
+        watchdog: threshold from the session (env fallback), last
+        advance the freshest of the state transitions and the progress
+        heartbeats."""
+        from ..exec.progress import aggregate_query_progress
+        from .watchdog import StuckCandidate, resolve_stuck_threshold_ms
+        with self._qlock:
+            queries = list(self._queries.values())
+        out = []
+        now = time.time()
+        for q in queries:
+            state = q.machine.state
+            if state == QueryState.QUEUED or state in TERMINAL_STATES:
+                continue
+            thr = resolve_stuck_threshold_ms(q.session_values)
+            if thr <= 0:
+                continue
+            last = max(q.machine.timings().values())
+            prog = aggregate_query_progress({q.id, q.trace_ctx.trace_id})
+            if prog is not None:
+                last = max(last, now - prog["lastAdvanceAgeMs"] / 1000.0)
+            out.append(StuckCandidate(
+                q.id, thr, last, trace_id=q.trace_ctx.trace_id,
+                extra={"state": state, "user": q.user,
+                       "query": q.text[:200]}))
+        return out
+
+    def cluster_doc(self) -> dict:
+        """GET /v1/cluster, the fleet overview (ClusterStatsResource
+        analog), in the reference's shape: live queries with their
+        progress, one /v1/status row per worker of `profile_workers`
+        (DEAD where it does not answer), throughput, resource-group
+        queues, the watchdog's total and the ledgers' cheap summaries.
+        The port runs every statement serially, so its `batching` entry
+        is the reference's idle shape (ROADMAP queue 1 item 12.4)."""
+        from ..exec.accuracy import accuracy_summary
+        from ..exec.datapath import staging_summary
+        from ..exec.progress import live_snapshots, live_task_count
+        from ..exec.timeline import timeline_summary
+        from .client import pull_worker_docs
+        from .discovery import recently_unannounced
+        from .watchdog import stuck_totals
+        now = time.time()
+        with self._qlock:
+            queries = list(self._queries.values())
+        queued = running = 0
+        running_docs = []
+        for q in queries:
+            state = q.machine.state
+            if state in TERMINAL_STATES:
+                continue
+            if state == QueryState.QUEUED:
+                queued += 1
+            else:
+                running += 1
+            running_docs.append({
+                "queryId": q.id, "user": q.user, "state": state,
+                "elapsedMs": q.machine.elapsed_ms(), "query": q.text[:120],
+                "traceId": q.trace_ctx.trace_id,
+                "progress": self._progress_doc(q),
+                "maxQError": _max_q_error_of(q.id)})
+        groups = self.dispatcher.group_stats()
+        blocked = sum(int(g.get("queued", 0)) for g in groups.values())
+        all_urls = self._worker_urls()
+        # a worker that said goodbye leaves the probed set at once
+        gone = set(recently_unannounced())
+        urls = [u for u in all_urls if str(u).rstrip("/") not in gone]
+        workers, alive = pull_worker_docs(
+            urls, 2.0, lambda c: {**c.status(), "uri": c.base},
+            "statement", "cluster_status", parallel=True,
+            placeholder=lambda u: {"uri": u, "nodeId": u, "state": "DEAD",
+                                   "fleetState": "DEAD", "memory": {}})
+        for w in workers:
+            w.setdefault("fleetState",
+                         "DRAINING" if w.get("state") == "SHUTTING_DOWN"
+                         else str(w.get("state", "ACTIVE")))
+        draining = sum(1 for w in workers
+                       if w.get("fleetState") == "DRAINING")
+        with self._metrics_lock:
+            self._workers_alive = alive
+            self._workers_draining = draining
+            by_state = dict(self._queries_by_state)
+            totals = dict(self._totals)
+        live = live_snapshots()
+        rows_per_s = sum(e["rows"] / max(e["elapsedMs"] / 1000.0, 1e-3)
+                         for e in live)
+        return {
+            "tsUs": int(now * 1e6),
+            "nodeVersion": {"version": "presto-tpu-0.4"},
+            "uptimeSeconds": round(now - self._started_at, 1),
+            "queries": {"queued": queued, "running": running,
+                        "blocked": blocked,
+                        "finishedTotal": by_state.get("FINISHED", 0),
+                        "failedTotal": by_state.get("FAILED", 0),
+                        "canceledTotal": by_state.get("CANCELED", 0)},
+            "runningQueries": running_docs,
+            "liveTasks": live_task_count(),
+            "rowsPerSecond": round(rows_per_s, 1),
+            "totals": {"rows": totals["rows"], "bytes": totals["bytes"],
+                       "wallSeconds": round(totals["wall_us"] / 1e6, 3)},
+            "resourceGroups": groups,
+            "batching": {"batchingEnabled": False, "occupancy": 0,
+                         "forming": {}},
+            "workers": workers,
+            "workersAlive": alive,
+            "workersConfigured": len(all_urls),
+            "workersDraining": draining,
+            "workersDead": sum(1 for w in workers
+                               if w.get("fleetState") == "DEAD"),
+            "workersUnannounced": len(all_urls) - len(urls),
+            "stuckQueriesTotal": stuck_totals(),
+            "datapath": staging_summary(),
+            "accuracy": accuracy_summary(),
+            "timeline": timeline_summary(),
+        }
+
+    def _workers_alive_view(self) -> int:
+        """The workers-alive gauge: the last /v1/cluster probe's count,
+        the configured count before any probe."""
+        with self._metrics_lock:
+            alive = self._workers_alive
+        return len(self._worker_urls()) if alive is None else alive
+
+    def metric_families(self):
+        """The coordinator's /v1/metrics families, in the reference's
+        order, less the four whose sources are not ported (see
+        server/metrics.py)."""
+        from . import metrics as M
+        MF = M.MetricFamily
+        with self._qlock:
+            live = [q.machine.state for q in self._queries.values()]
+        queued = sum(1 for st in live if st == QueryState.QUEUED)
+        running = sum(1 for st in live
+                      if st not in (QueryState.QUEUED, *TERMINAL_STATES))
+        with self._metrics_lock:
+            by_state = dict(self._queries_by_state)
+            totals = dict(self._totals)
+            draining = self._workers_draining
+        fam_q = MF("presto_tpu_queries_total", "counter",
+                   "terminal queries by final state")
+        for st in sorted(by_state):
+            fam_q.add(by_state[st], {"state": st})
+        if not by_state:
+            fam_q.add(0, {"state": "FINISHED"})
+        fams = [
+            fam_q,
+            MF("presto_tpu_queries_queued", "gauge",
+               "queries currently QUEUED").add(queued),
+            MF("presto_tpu_queries_running", "gauge",
+               "queries currently executing").add(running),
+            MF("presto_tpu_query_rows_total", "counter",
+               "result rows returned to clients").add(totals["rows"]),
+            MF("presto_tpu_query_bytes_total", "counter",
+               "result bytes produced").add(totals["bytes"]),
+            MF("presto_tpu_query_wall_seconds_total", "counter",
+               "wall time of terminal queries").add(
+                   totals["wall_us"] / 1e6),
+            MF("presto_tpu_query_compile_seconds_total", "counter",
+               "compile time across queries (plan lowering and kernel "
+               "builds)").add(totals["compile_us"] / 1e6),
+            MF("presto_tpu_query_execute_seconds_total", "counter",
+               "execute stage time across queries").add(
+                   totals["execute_us"] / 1e6),
+            MF("presto_tpu_query_peak_memory_bytes", "gauge",
+               "largest per-query peak memory seen").add(
+                   totals["peak_memory_bytes"]),
+            M.uptime_family(self._started_at, "coordinator"),
+        ]
+        fams.extend(M.live_introspection_families(
+            workers_alive=self._workers_alive_view()))
+        fams.extend(M.fleet_families(workers_draining=draining))
+        for build in (M.narrowing_families, M.datapath_families,
+                      M.accuracy_families, M.suppressed_error_families,
+                      M.tracing_families, M.flight_recorder_families,
+                      M.failpoint_families, M.timeline_families,
+                      M.lock_families, M.query_history_families,
+                      M.histogram_families):
+            fams.extend(build())
+        return fams
+
+    def profile_doc(self) -> dict:
+        from ..exec.profiler import cluster_profile_doc
+        return cluster_profile_doc(self._worker_urls())
+
+    def history_doc(self) -> dict:
+        from .history import cluster_history_doc
+        return cluster_history_doc(self._worker_urls())
+
+    def datapath_doc(self) -> dict:
+        from ..exec.datapath import cluster_datapath_doc
+        return cluster_datapath_doc(self._worker_urls())
+
+    def accuracy_doc(self) -> dict:
+        from ..exec.accuracy import cluster_accuracy_doc
+        return cluster_accuracy_doc(self._worker_urls())
+
+    def timeline_doc(self) -> dict:
+        from ..exec.timeline import cluster_timeline_doc
+        return cluster_timeline_doc(self._worker_urls())
+
+    def _worker_urls(self) -> list:
+        pw = self._profile_workers
+        return list(pw() if callable(pw) else (pw or ()))
 
 
 def _render_ui(server: StatementServer, parts: List[str]) -> str:
@@ -597,7 +1055,10 @@ def _make_handler(server: StatementServer):
             txn = self.headers.get("X-Presto-Transaction-Id")
             if txn in (None, "", "NONE"):
                 txn = None
-            q = server.create_query(text, user, session_values, txn)
+            from .tracing import TRACE_HEADER, parse_traceparent
+            client_ctx = parse_traceparent(self.headers.get(TRACE_HEADER))
+            q = server.create_query(text, user, session_values, txn,
+                                    client_ctx=client_ctx)
             # a fast statement leaves QUEUED within a beat: one poll saved
             q.machine.wait_past_queued(0.05)
             self._send(server.queued_doc(q, 0))
@@ -628,11 +1089,30 @@ def _make_handler(server: StatementServer):
                             headers["X-Presto-Clear-Transaction-Id"] = "true"
                 self._send(doc, headers=headers)
                 return
-            if len(parts) >= 2 and parts[0] == "v1" and \
-                    parts[1] in _LEDGER_ROUTES:
-                self._send({"error": f"/v1/{parts[1]} is not ported yet "
-                                     f"({_ITEM_15}: the observability "
-                                     "ledgers)"}, 501)
+            if parts == ["v1", "cluster"]:
+                self._send(server.cluster_doc())
+                return
+            if len(parts) == 2 and parts[0] == "v1" and \
+                    parts[1] in _LEDGER_DOCS:
+                self._send(getattr(server, _LEDGER_DOCS[parts[1]])())
+                return
+            if len(parts) == 3 and parts[:2] == ["v1", "trace"]:
+                doc = server.trace_doc(parts[2])
+                self._send(doc if doc else
+                           {"error": f"no trace for {parts[2]} (is a "
+                                     f"tracer installed?)"},
+                           200 if doc else 404)
+                return
+            if parts == ["v1", "metrics"]:
+                from .metrics import negotiate_exposition, render_prometheus
+                om, ctype = negotiate_exposition(self.headers.get("Accept"))
+                body = render_prometheus(server.metric_families(),
+                                         openmetrics=om)
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
                 return
             if parts == ["v1", "failpoint"]:
                 self._send(failpoints.admin_get_doc())

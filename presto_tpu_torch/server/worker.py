@@ -5,6 +5,12 @@ TaskManager analog; worker-protocol.rst, TaskResource.java:79):
 
   GET    /v1/info                     node id, state, uptime
   GET    /v1/status                   node status (memory, tasks)
+  GET    /v1/metrics, /v1/info/metrics
+                                      Prometheus text (OpenMetrics on
+                                      Accept)
+  GET    /v1/{profile,datapath,accuracy,timeline,history}
+                                      this process's ledger slices
+  GET    /v1/trace/{traceId}          the spans this process recorded
   POST   /v1/task/{taskId}            create or update: the plan JSON
                                       and its scan ranges, remote
                                       sources and output partitions;
@@ -47,10 +53,17 @@ their absolute tokens; a consumer's pull here is redirected there),
 and unannounces once no page is left: ACTIVE -> DRAINING -> DRAINED.
 A failed migration keeps the pages served here until consumed.
 
-Not here yet: the stuck-progress watchdog, which reads the live
-progress registry, and the worker's metrics, spans and flight
-recorder (ROADMAP queue 1 item 15). A coordinator's `traceparent` is
-accepted and not read.
+A task runs under the coordinator's trace: the body's `traceparent`
+(else its `traceId`, else the task id) names the trace, the task's
+span hangs under the propagated span, and the engine's stage spans and
+the exchange fetches hang under the task's span. The spans the task
+recorded ride its final TaskInfo (`spans`) for the coordinator to
+stitch, and its QueryStats ride `stats.queryStats` in the reference's
+JSON shape (the port's flat counters beside it as
+`stats.runtimeStats`). A task's live progress (exec/progress.py)
+rides every TaskInfo poll from the moment it runs, and a stuck-progress
+watchdog (server/watchdog.py) scans the running tasks. A failed task
+leaves a flight-recorder dump.
 """
 
 from __future__ import annotations
@@ -73,6 +86,7 @@ from ..utils.config import session_flag, session_value
 from .auth import authorize_request, make_authenticator
 from .buffers import SpoolingOutputBuffer
 from .events import event_listeners
+from .flight_recorder import record_event
 
 __all__ = ["TpuWorkerServer", "TaskManager", "FragmentResultCache"]
 
@@ -219,8 +233,13 @@ class _Task:
     thread share is written under `lock`."""
 
     def __init__(self, task_id: str, spool_threshold: int = 64 << 20,
-                 spool_dir: Optional[str] = None):
+                 spool_dir: Optional[str] = None, session_stuck_ms=None):
         self.task_id = task_id
+        # the task session's stuck_query_threshold_ms (None: the
+        # PRESTO_TPU_STUCK_MS environment variable at scan time)
+        self.session_stuck_ms = session_stuck_ms
+        # the spans the task recorded, set once it is terminal
+        self.spans: List[dict] = []
         self.state = "PLANNED"  # -> RUNNING -> FINISHED | FAILED | ABORTED
         self.error: Optional[str] = None
         self._spool_threshold = spool_threshold
@@ -255,7 +274,15 @@ class _Task:
             }
             if self.moved_to is not None:
                 doc["movedTo"] = self.moved_to
-            return doc
+            if self.spans:
+                doc["spans"] = list(self.spans)
+        # the live progress rides every poll (the coordinator folds it
+        # into its own registry)
+        from ..exec.progress import get_progress
+        ent = get_progress(self.task_id)
+        if ent is not None:
+            doc["progress"] = ent.snapshot()
+        return doc
 
 
 class TaskManager:
@@ -294,7 +321,8 @@ class TaskManager:
         self.counters: Dict[str, int] = {
             "tasks_created": 0, "tasks_finished": 0, "tasks_failed": 0,
             "tasks_aborted": 0, "tasks_adopted": 0, "pages_migrated": 0,
-            "rows_produced": 0, "exchange_bytes": 0}
+            "rows_produced": 0, "exchange_bytes": 0, "compile_us": 0,
+            "execute_us": 0}
         self._counters_lock = threading.Lock()
         from ..connectors.system import register_task_manager
         register_task_manager(self)  # system.tasks
@@ -452,8 +480,12 @@ class TaskManager:
                 if self.draining:
                     raise RuntimeError(
                         "worker is SHUTTING_DOWN: not accepting tasks")
+                sess = body.get("session") \
+                    if isinstance(body.get("session"), dict) else {}
                 task = _Task(task_id, self.output_spool_threshold_bytes,
-                             self.output_spool_dir)
+                             self.output_spool_dir,
+                             session_stuck_ms=sess.get(
+                                 "stuck_query_threshold_ms"))
                 self.tasks[task_id] = task
                 self._count("tasks_created")
                 threading.Thread(target=self._run, args=(task, body),
@@ -467,29 +499,99 @@ class TaskManager:
             return sum(1 for t in self.tasks.values()
                        if t.state in ("PLANNED", "RUNNING"))
 
+    def _stuck_candidates(self):
+        """The RUNNING tasks offered to the stuck-progress watchdog:
+        threshold from the task's session (env fallback at scan time),
+        last advance from its progress entry (its creation where the
+        runner registered nothing yet)."""
+        from ..exec.progress import get_progress
+        from .watchdog import StuckCandidate, resolve_stuck_threshold_ms
+        with self._tasks_lock:
+            tasks = list(self.tasks.values())
+        out = []
+        for t in tasks:
+            with t.lock:
+                state = t.state
+            if state != "RUNNING":
+                continue
+            sess = None if t.session_stuck_ms is None else \
+                {"stuck_query_threshold_ms": t.session_stuck_ms}
+            thr = resolve_stuck_threshold_ms(sess)
+            if thr <= 0:
+                continue
+            ent = get_progress(t.task_id)
+            snap = ent.snapshot() if ent is not None else None
+            out.append(StuckCandidate(
+                t.task_id, thr,
+                snap["lastAdvanceTsUs"] / 1e6 if snap else t.created_at,
+                trace_id=snap["query"] if snap else None,
+                extra={"stage": snap["stage"] if snap else "start"}))
+        return out
+
     def _run(self, task: _Task, body: dict):
-        # the `failpoints` session property arms a schedule for this
-        # task's whole scope (pull, serde, execution), undone after
+        """The task under its trace: the propagated context parsed,
+        the task run with a span buffer and the context installed, then
+        the task's span emitted and the recorded spans pinned to the
+        task for its final status."""
+        from ..exec.progress import finish_task
+        from .flight_recorder import get_flight_recorder
+        from .metrics import observe_histogram
+        from .tracing import (TraceContext, emit_span, new_span_id,
+                              parse_traceparent, span_buffer,
+                              trace_context)
         session = body.get("session") if isinstance(body.get("session"),
                                                     dict) else {}
-        try:
-            with failpoints.session_scope(session.get("failpoints")):
-                self._run_task(task, body, session)
-        except Exception as e:  # noqa: BLE001 - a task's failure is data
-            with task.lock:
-                aborted = task.state == "ABORTED"
-                if not aborted:
-                    task.state = "FAILED"
-                    task.error = f"{type(e).__name__}: {e}"
-                task.finished_at = time.time()
-            self._count("tasks_aborted" if aborted else "tasks_failed")
-            event_listeners().task_completed(
-                task.task_id, "ABORTED" if aborted else "FAILED")
+        ctx = parse_traceparent(body.get("traceparent"))
+        trace_id = (ctx.trace_id if ctx else None) or \
+            body.get("traceId") or task.task_id
+        task_ctx = TraceContext(trace_id, new_span_id())
+        t_start = time.time()
+        with span_buffer() as buf, trace_context(task_ctx):
+            try:
+                # the `failpoints` session property arms a schedule for
+                # this task's whole scope (pull, serde, execution)
+                with failpoints.session_scope(session.get("failpoints")):
+                    self._run_task(task, body, session, task_ctx)
+            except Exception as e:  # noqa: BLE001 - a task's failure is data
+                with task.lock:
+                    aborted = task.state == "ABORTED"
+                    if not aborted:
+                        task.state = "FAILED"
+                        task.error = f"{type(e).__name__}: {e}"
+                    task.finished_at = time.time()
+                self._count("tasks_aborted" if aborted else "tasks_failed")
+                record_event("task_state", query_id=task.task_id,
+                             state="ABORTED" if aborted else "FAILED",
+                             error=f"{type(e).__name__}: {e}"[:200])
+                event_listeners().task_completed(
+                    task.task_id, "ABORTED" if aborted else "FAILED")
+            finally:
+                # the task's state machine owns its finality: its
+                # progress entry ends with it
+                with task.lock:
+                    state = task.state
+                    tstats = dict(task.stats)
+                finish_task(task.task_id, state)
+                emit_span(trace_id, f"task.{task.task_id}", t_start,
+                          time.time(),
+                          {"state": state,
+                           "rows": tstats.get("outputRows", 0),
+                           "bytes": tstats.get("outputBytes", 0)},
+                          span_id=task_ctx.span_id,
+                          parent_id=ctx.span_id if ctx else None)
+                observe_histogram("presto_tpu_task_seconds",
+                                  time.time() - t_start, trace_id=trace_id)
+        with task.lock:
+            task.spans = buf.spans
+        if state == "FAILED":
+            get_flight_recorder().maybe_dump(task.task_id, "failed")
 
-    def _pull_remote_sources(self, body: dict, codec: PageCodec):
+    def _pull_remote_sources(self, body: dict, codec: PageCodec, task_ctx):
         """The batches of the fragment's RemoteSourceNodes, pulled from
         the upstream tasks, and the pull's seconds, rows, pages and
-        decode seconds."""
+        decode seconds; one `exchange.fetch` span per source under the
+        task's span."""
+        from .tracing import emit_span
         from ..types import parse_type
         from .http_exchange import fetch_remote_batch
         pad = (self.mesh.size if self.mesh is not None else 1) * 8
@@ -497,6 +599,7 @@ class TaskManager:
                              "page_bytes_in": 0, "decode_s": 0.0}
         for node_id, spec in (body.get("remoteSources") or {}).items():
             t0 = time.perf_counter()
+            t_span0 = time.time()
             remote[node_id] = fetch_remote_batch(
                 spec["sources"], spec["taskIds"],
                 [parse_type(t) for t in spec["types"]], codec,
@@ -506,7 +609,13 @@ class TaskManager:
                 merge_keys=spec.get("mergeKeys"),
                 timeout=float(spec.get("timeoutS", 60.0)), stats=stats)
             stats["pull_s"] += time.perf_counter() - t0
-            stats["rows_in"] += int(remote[node_id].active.sum())
+            rows_in = int(remote[node_id].active.sum())
+            stats["rows_in"] += rows_in
+            emit_span(task_ctx.trace_id, "exchange.fetch", t_span0,
+                      time.time(),
+                      {"node": node_id, "rows": rows_in,
+                       "upstreams": len(spec.get("taskIds", []))},
+                      parent_id=task_ctx.span_id)
         return remote, stats
 
     def _replay(self, task: _Task, hit: dict) -> None:
@@ -518,9 +627,19 @@ class TaskManager:
             for pid, pages in hit["buffers"].items():
                 task.buffers.setdefault(pid, task._new_buffer()).extend(pages)
             task.no_more_pages = True
+            # the replay did no device work: rows and bytes are the
+            # original run's, its compile and execute micros are not
+            orig = hit["stats"].get("queryStats") or {}
             task.stats = {**{k: v for k, v in hit["stats"].items()
-                             if k != "queryStats"},
-                          "queryStats": {"fragment_cache_replay": 1},
+                             if k not in ("queryStats", "runtimeStats")},
+                          "queryStats": {
+                              "wallUs": 0,
+                              "outputRows": int(orig.get("outputRows", 0)),
+                              "outputBytes": int(orig.get("outputBytes",
+                                                          0)),
+                              "taskCount": 1,
+                              "counters": {"fragment_cache_replay": 1}},
+                          "runtimeStats": {"fragment_cache_replay": 1},
                           "fragmentCacheHit": 1}
             task.state = "FINISHED"
             task.finished_at = time.time()
@@ -529,12 +648,18 @@ class TaskManager:
         event_listeners().task_completed(task.task_id, "FINISHED",
                                          hit["rows"])
 
-    def _run_task(self, task: _Task, body: dict, session: dict):
+    def _run_task(self, task: _Task, body: dict, session: dict, task_ctx):
+        from ..exec.progress import begin as progress_begin
         from ..exec.runner import run_query
+        from ..exec.stats import StageStats
         with task.lock:
             if task.state == "ABORTED":
                 return
             task.state = "RUNNING"
+        record_event("task_state", query_id=task.task_id, state="RUNNING")
+        # the progress entry exists before any failpoint or staging, so
+        # a task wedged here still shows, with a stalling age
+        progress_begin(task.task_id, kind="task", query=task_ctx.trace_id)
         if failpoints.ARMED:
             # error = a crash mid-task, hang/delay = a wedged or slow
             # worker
@@ -555,7 +680,8 @@ class TaskManager:
         out_part = body.get("outputPartitions")
         # the session's codec on both sides of every exchange (the
         # reference's consumer reads compressed pages with none)
-        remote, pull = self._pull_remote_sources(body, codec)
+        remote, pull = self._pull_remote_sources(body, codec, task_ctx)
+        remote_ids = list(remote)
         ckey = None
         if session_flag(session, "fragment_result_cache", True) \
                 and not body.get("remoteSources"):
@@ -563,15 +689,19 @@ class TaskManager:
                                               out_part, compression)
         if ckey is not None:
             hit = self.fragment_cache.get(ckey)
+            record_event("fragment_cache", query_id=task.task_id,
+                         hit=hit is not None)
             if hit is not None:
                 self._replay(task, hit)
                 return
         t0 = time.perf_counter()
         with self._exec_slots:
+            # the stage spans hang under this task's span
             res = run_query(plan, sf=sf, device=self.device, mesh=self.mesh,
                             scan_ranges=scan_ranges, remote_sources=remote,
                             memory_pool=self.memory_pool,
-                            query_id=task.task_id, session=session)
+                            query_id=task.task_id, session=session,
+                            trace_id=task_ctx)
         wall = time.perf_counter() - t0
         del remote
         types = plan.output_types()
@@ -591,7 +721,18 @@ class TaskManager:
                  for i in range(len(res.columns))], codec)]}
         serialize_s = time.perf_counter() - t_pack
         total_bytes = sum(len(p) for ps in pages.values() for p in ps)
-        qs = {**res.stats, "exchange_pull_s": pull["pull_s"],
+        # the exchange's pack and unpack sides are the task's exchange
+        # stage, as in the reference
+        qs = getattr(res, "query_stats", None)
+        if qs is not None:
+            ex = StageStats("exchange",
+                            wall_us=int((serialize_s + pull["pull_s"]) * 1e6),
+                            invocations=1 + len(remote_ids),
+                            rows=pull["rows_in"], bytes=total_bytes)
+            qs.stages["exchange"] = ex.merge(qs.stages["exchange"]) \
+                if "exchange" in qs.stages else ex
+            qs.output_bytes = max(qs.output_bytes, total_bytes)
+        flat = {**res.stats, "exchange_pull_s": pull["pull_s"],
               "exchange_rows_in": pull["rows_in"],
               "exchange_pages_in": pull["pages_in"],
               "exchange_page_bytes_in": pull["page_bytes_in"],
@@ -607,12 +748,20 @@ class TaskManager:
             task.no_more_pages = True
             task.stats = {"wallSeconds": round(wall, 4),
                           "outputRows": res.row_count,
-                          "outputBytes": total_bytes, "queryStats": qs}
+                          "outputBytes": total_bytes,
+                          "runtimeStats": flat}
+            if qs is not None:
+                task.stats["queryStats"] = qs.to_json()
             task.state = "FINISHED"
             task.finished_at = time.time()
         self._count("tasks_finished")
         self._count("rows_produced", res.row_count)
         self._count("exchange_bytes", total_bytes)
+        if qs is not None:
+            self._count("compile_us", qs.compile_us)
+            self._count("execute_us", qs.stage_us("execute"))
+        record_event("task_state", query_id=task.task_id, state="FINISHED",
+                     rows=res.row_count)
         if ckey is not None:
             self.fragment_cache.put(ckey, pages, res.row_count, task.stats)
         event_listeners().task_completed(task.task_id, "FINISHED",
@@ -675,6 +824,28 @@ class TaskManager:
                 task.finished_at = time.time()
 
 
+# GET /v1/<name>: this process's slice of each ledger, which the
+# statement tier merges cluster-wide
+_LEDGER_SLICES = ("profile", "datapath", "accuracy", "timeline", "history")
+
+
+def _ledger_slice(name: str) -> dict:
+    if name == "profile":
+        from ..exec.profiler import profile_doc
+        return profile_doc()
+    if name == "datapath":
+        from ..exec.datapath import datapath_doc
+        return datapath_doc()
+    if name == "accuracy":
+        from ..exec.accuracy import accuracy_doc
+        return accuracy_doc()
+    if name == "timeline":
+        from ..exec.timeline import timeline_doc
+        return timeline_doc()
+    from .history import get_history_archive
+    return get_history_archive().history_doc()
+
+
 class _Handler(BaseHTTPRequestHandler):
     server_version = "presto-tpu-torch/0.1"
     protocol_version = "HTTP/1.1"
@@ -732,6 +903,56 @@ class _Handler(BaseHTTPRequestHandler):
             return False
         return True
 
+    def _metric_families(self):
+        """The worker's /v1/metrics families, in the reference's order,
+        less the four whose sources are not ported (server/metrics.py)."""
+        from . import metrics as M
+        MF = M.MetricFamily
+        m = self.manager
+        fams = [
+            MF("presto_tpu_active_tasks", "gauge",
+               "tasks in PLANNED/RUNNING state").add(m.active_task_count()),
+            MF("presto_tpu_memory_reserved_bytes", "gauge",
+               "admission pool reserved").add(m.memory_pool.reserved_bytes),
+            MF("presto_tpu_memory_capacity_bytes", "gauge",
+               "admission pool capacity").add(m.memory_pool.capacity),
+            MF("presto_tpu_memory_revoked_bytes", "gauge",
+               "bytes freed by spill revocation").add(
+                   m.memory_pool.revoked_bytes),
+            MF("presto_tpu_memory_peak_bytes", "gauge",
+               "admission pool high-water mark").add(
+                   m.memory_pool.peak_bytes),
+            M.uptime_family(self.started_at, "worker"),
+            MF("presto_tpu_fragment_cache_hits_total", "counter",
+               "fragment result cache hits").add(m.fragment_cache.hits),
+            MF("presto_tpu_fragment_cache_misses_total", "counter",
+               "fragment result cache misses").add(m.fragment_cache.misses),
+        ]
+        with m._counters_lock:
+            counters = dict(m.counters)
+        for k in sorted(counters):
+            if k in ("compile_us", "execute_us"):
+                # in seconds, as the coordinator's *_seconds_total
+                fams.append(MF(f"presto_tpu_{k[:-3]}_seconds_total",
+                               "counter", f"lifetime task {k[:-3]} time")
+                            .add(counters[k] / 1e6))
+                continue
+            fams.append(MF(f"presto_tpu_{k}_total", "counter",
+                           f"lifetime {k}").add(counters[k]))
+        for build in (M.narrowing_families, M.datapath_families,
+                      M.accuracy_families, M.suppressed_error_families,
+                      M.tracing_families, M.flight_recorder_families,
+                      M.failpoint_families, M.timeline_families,
+                      M.lock_families, M.query_history_families):
+            fams.extend(build())
+        # a worker's alive view is itself; its draining gauge its own
+        # drain (DRAINED is not DRAINING)
+        fams.extend(M.live_introspection_families(workers_alive=1))
+        fams.extend(M.fleet_families(
+            workers_draining=1 if m.drain_state == "DRAINING" else 0))
+        fams.extend(M.histogram_families())
+        return fams
+
     def do_GET(self):  # noqa: N802
         if not self._authorized():
             return
@@ -745,13 +966,37 @@ class _Handler(BaseHTTPRequestHandler):
                 "state": "ACTIVE"})
         if parts == ["v1", "failpoint"]:
             return self._send_json(failpoints.admin_get_doc())
+        if parts in (["v1", "metrics"], ["v1", "info", "metrics"]):
+            # /v1/info/metrics is the legacy alias; exemplars only under
+            # an OpenMetrics Accept
+            from .metrics import negotiate_exposition, render_prometheus
+            om, ctype = negotiate_exposition(self.headers.get("Accept"))
+            return self._send_bytes(
+                render_prometheus(self._metric_families(), openmetrics=om),
+                {"Content-Type": ctype})
+        if len(parts) == 2 and parts[0] == "v1" and \
+                parts[1] in _LEDGER_SLICES:
+            return self._send_json(_ledger_slice(parts[1]))
+        if len(parts) == 3 and parts[:2] == ["v1", "trace"]:
+            # the spans this process recorded (the coordinator serves
+            # the stitched whole)
+            from .tracing import get_tracer, trace_doc_of
+            doc = trace_doc_of(get_tracer(), parts[2])
+            return self._send_json(
+                doc if doc else {"error": f"no trace {parts[2]}"},
+                200 if doc else 404)
         if parts == ["v1", "worker", "drain"]:
             return self._send_json(self.worker_server.drain_status())
         if parts == ["v1", "status"]:
             pool = m.memory_pool
+            # the NodeStatus row of the statement tier's /v1/cluster, in
+            # the reference's shape (the flat memory keys for older
+            # pollers)
             return self._send_json({
                 "nodeId": self.node_id,
+                "nodeVersion": {"version": "presto-tpu-0.4"},
                 "activeTasks": m.active_task_count(),
+                "runningTasks": m.active_task_count(),
                 "uptimeSeconds": round(time.time() - self.started_at, 1),
                 # the flat state keeps the reference's SHUTTING_DOWN
                 # spelling; fleetState is ACTIVE, DRAINING or DRAINED
@@ -760,7 +1005,11 @@ class _Handler(BaseHTTPRequestHandler):
                 "unreplayedPages": m.unreplayed_pages(),
                 "device": str(m.device),
                 "memory": {"reservedBytes": pool.reserved_bytes,
-                           "capacityBytes": pool.capacity},
+                           "capacityBytes": pool.capacity,
+                           "peakBytes": pool.peak_bytes,
+                           "revokedBytes": pool.revoked_bytes},
+                "memoryReservedBytes": pool.reserved_bytes,
+                "memoryCapacityBytes": pool.capacity,
                 "counters": dict(m.counters)})
         if len(parts) == 3 and parts[:2] == ["v1", "task"]:
             tid, _, query = parts[2].partition("?")
@@ -773,7 +1022,8 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._send_json(task_info_json(
                     tid, task.state, f"http://{self.node_id}",
                     self.node_id, int(time.time() * 1000),
-                    rows=tstats.get("outputRows", 0)))
+                    rows=tstats.get("outputRows", 0),
+                    query_stats=tstats.get("queryStats")))
             return self._send_json(task.info())
         if len(parts) == 4 and parts[:2] == ["v1", "task"] and \
                 parts[3] == "status":
@@ -936,6 +1186,9 @@ class TpuWorkerServer:
                  shared_secret: Optional[str] = None,
                  task_concurrency: int = 4,
                  tls: Optional[tuple] = None):
+        # task threads log under the propagated trace context
+        from ..utils.log import ensure_log_context
+        ensure_log_context()
         self.manager = TaskManager(sf=sf, mesh=mesh, device=device,
                                    task_concurrency=task_concurrency)
         self.node_id = node_id or f"tpu-worker-{uuid.uuid4().hex[:8]}"
@@ -962,6 +1215,9 @@ class TpuWorkerServer:
         self._drain_thread: Optional[threading.Thread] = None
         self._drain_migrated = 0
         self._stop_drain = threading.Event()
+        from .watchdog import StuckProgressWatchdog
+        self._watchdog = StuckProgressWatchdog(
+            self.manager._stuck_candidates, tier="worker")
         self._announcer = None
         if discovery_url:
             from .discovery import Announcer
@@ -973,6 +1229,7 @@ class TpuWorkerServer:
     def start(self):
         threading.Thread(target=self.httpd.serve_forever,
                          daemon=True).start()
+        self._watchdog.start()
         if self._announcer:
             self._announcer.start()
         return self
@@ -983,6 +1240,7 @@ class TpuWorkerServer:
         self._stop_drain.set()  # releases a waiting drain thread
         if self._announcer:
             self._announcer.stop(unannounce=unannounce)
+        self._watchdog.stop()
         self.httpd.shutdown()
         self.httpd.server_close()
 
@@ -1012,10 +1270,10 @@ class TpuWorkerServer:
             try:
                 # placement reacts now, not at the next interval
                 self._announcer.announce_once()
-            except Exception:  # noqa: BLE001 - discovery may be down;
-                # the drain goes on (the suppressed-error count is item
-                # 15's)
-                pass
+            except Exception as e:  # noqa: BLE001 - discovery may be
+                # down; the drain goes on, counted
+                from .metrics import record_suppressed
+                record_suppressed("worker", "drain_announce", e)
         self._drain_thread.start()
         return self.drain_status()
 
@@ -1040,10 +1298,13 @@ class TpuWorkerServer:
             if migrate_to:
                 moved = self.manager.migrate_buffers(
                     migrate_to, secret=self._shared_secret)
-        except Exception:  # noqa: BLE001 - a failed migration degrades
-            # the drain to serving until consumed, never to a lost page
-            # (the suppressed-error count is item 15's)
-            pass
+        except Exception as e:  # noqa: BLE001 - a failed migration
+            # degrades the drain to serving until consumed, never to a
+            # lost page; counted, and on the flight recorder's timeline
+            from .metrics import record_suppressed
+            record_suppressed("worker", "drain_migrate", e)
+            record_event("drain_migrate_failed", node=self.node_id,
+                         error=f"{type(e).__name__}: {e}"[:200])
         with self._drain_lock:
             self._drain_migrated = moved
         # 3. unannounce only once no page is left; past the budget keep

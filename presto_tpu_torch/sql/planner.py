@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import contextvars
 import dataclasses
+import re
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -2690,9 +2691,17 @@ def sql(query_text: str, sf: float = 0.01, device=None,
     statements (PREPARE, EXECUTE, DEALLOCATE, SHOW, DESCRIBE, CREATE
     and DROP FUNCTION), then `plan_sql`, then `run_query` on `device`
     (CUDA unless the caller names another), which prepares the plan.
-    PREPARE and DEALLOCATE return an empty result."""
+    PREPARE and DEALLOCATE return an empty result. `EXPLAIN` and
+    `EXPLAIN ANALYZE` return the plan text (plan/explain.py) as one
+    varchar column, "Query Plan", a row per line, as the statement
+    server answers them."""
     from ..exec import run_query
     from .statements import _DEFAULT_PREPARED, preprocess
+    m = re.match(r"\s*explain(\s+analyze)?\b", query_text, re.IGNORECASE)
+    if m:
+        return _explain_result(query_text[m.end():].strip(),
+                               bool(m.group(1)), sf, device, max_groups,
+                               join_capacity, catalog, kwargs)
     pre = preprocess(query_text, catalog=catalog or "tpch",
                      prepared=_DEFAULT_PREPARED)
     if pre.ack is not None:
@@ -2704,3 +2713,24 @@ def sql(query_text: str, sf: float = 0.01, device=None,
     if join_capacity is not None:
         kwargs.setdefault("default_join_capacity", join_capacity)
     return run_query(root, sf=sf, device=device, **kwargs)
+
+
+def _explain_result(inner: str, analyze: bool, sf: float, device,
+                    max_groups: int, join_capacity: Optional[int],
+                    catalog: Optional[str], kwargs: dict):
+    """sql()'s EXPLAIN [ANALYZE]: the plan shaped as execution shapes
+    it (or run and annotated) as a one-column varchar result."""
+    from ..exec.runner import QueryResult
+    from ..plan.explain import explain, explain_analyze
+    root = plan_sql(inner, max_groups=max_groups,
+                    join_capacity=join_capacity, catalog=catalog)
+    if analyze:
+        text = explain_analyze(root, sf=sf, device=device, **kwargs)
+    else:
+        text = explain(root, session=kwargs.get("session"), sf=sf,
+                       prepare=True)
+    lines = text.splitlines()
+    vals = np.empty(len(lines), dtype=object)
+    vals[:] = lines
+    return QueryResult([vals], [np.zeros(len(lines), dtype=bool)],
+                       ["Query Plan"], len(lines), types=[T.varchar()])

@@ -9,9 +9,9 @@ The cases of tests/test_dbapi.py, test_transaction.py,
 test_system_tables.py, test_access_resource_groups.py and
 test_dispatcher_events_metrics.py, through the port. Where a case runs
 SQL, the reference runs the same statement and the rows must be equal.
-Left out, by ROADMAP queue 1 item: the system tables fed by the
-observability ledgers (plan_cache and the others refuse naming item 15)
-and the worker's metrics page (item 15).
+The system tables fed by the observability ledgers answer with the
+reference's columns; `plan_cache` refuses, naming ROADMAP queue 1 item
+12.4 (the compiled-plan cache).
 """
 
 import threading
@@ -285,8 +285,16 @@ def test_live_tasks_lists_queries_that_have_not_ended():
         gate = threading.Event()
 
         def held(text, sess, qid, tid):
-            gate.wait(60)
-            return port("SELECT 1 AS x")
+            # live_tasks lists the progress registry's in-flight
+            # entries: this stand-in registers the query as the
+            # engine's run_query does, and holds it there
+            from presto_tpu_torch.exec import progress
+            entry = progress.begin(qid)
+            try:
+                gate.wait(60)
+                return port("SELECT 1 AS x")
+            finally:
+                entry.release(state="FINISHED")
 
         s._executor = held
         c = StatementClient(s.url, "SELECT 1 AS x")
@@ -305,9 +313,29 @@ def test_live_tasks_lists_queries_that_have_not_ended():
 @pytest.mark.parametrize("table", ["plan_cache", "kernels", "datapath",
                                    "cardinality", "occupancy",
                                    "query_history"])
-def test_ledger_tables_refuse_naming_item_15(table):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        port(f"SELECT * FROM system.{table}")
+def test_ledger_tables_answer_in_the_reference_columns(table):
+    """The five ledger tables have the reference's columns and answer
+    a scan (after a query has fed the ledgers); plan_cache refuses,
+    naming ROADMAP queue 1 item 12.4."""
+    from presto_tpu.connectors.system import SCHEMA as REF_SCHEMA
+
+    from presto_tpu_torch.connectors.system import SCHEMA
+    if table == "plan_cache":
+        with pytest.raises(NotImplementedError, match="item 12.4"):
+            port(f"SELECT * FROM system.{table}")
+        return
+    assert [(k, str(v)) for k, v in SCHEMA[table].items()] == \
+        [(k, str(v)) for k, v in REF_SCHEMA[table].items()]
+    from presto_tpu_torch.server.history import get_history_archive
+    from presto_tpu_torch.server.statement import StatementServer
+    with StatementServer(sf=SF, device="cpu") as s:
+        from presto_tpu_torch.client import execute
+        execute(s.url, "SELECT count(*) FROM nation")
+    assert get_history_archive().size() > 0
+    cols = ", ".join(SCHEMA[table])
+    res = port(f"SELECT {cols} FROM system.{table}")
+    assert res.names == list(SCHEMA[table])
+    assert res.row_count > 0
 
 
 # ---- access control (tests/test_access_resource_groups.py) ----------------
@@ -663,7 +691,7 @@ def test_listener_errors_do_not_fail_queries():
 
 def test_worker_fires_task_events():
     """The task events of test_worker_prometheus_metrics_and_task_events
-    (its metrics page is item 15)."""
+    (its metrics page: tests/test_torch_telemetry.py)."""
     from presto_tpu_torch.connectors import tpch
     from presto_tpu_torch.plan import nodes as N
     from presto_tpu_torch.server import TpuWorkerServer, WorkerClient

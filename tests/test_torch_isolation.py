@@ -64,7 +64,15 @@ def test_sources_found():
                    "server/protocol_structs.py", "utils/backoff.py",
                    "server/auth.py", "server/tls.py", "serde/thrift.py",
                    "server/resource_manager.py", "server/router.py",
-                   "server/catalog_server.py", "native/kernels.py"):
+                   "server/catalog_server.py", "native/kernels.py",
+                   # the observability ledgers
+                   "utils/log.py", "server/tracing.py", "exec/datapath.py",
+                   "exec/timeline.py", "exec/accuracy.py", "exec/stats.py",
+                   "exec/progress.py", "exec/profiler.py",
+                   "exec/plan_cache.py", "exec/perfgate.py",
+                   "server/flight_recorder.py", "server/history.py",
+                   "server/metrics.py", "server/watchdog.py",
+                   "plan/explain.py", "traceview.py"):
         assert os.path.join("presto_tpu_torch", *module.split("/")) in names
 
 

@@ -210,12 +210,26 @@ def test_cli_prints_the_reference_table():
     assert lines[-1].startswith(f"({want.row_count} rows in ")
 
 
-def test_cli_refuses_what_is_not_ported():
+def test_cli_explain_and_trace_answer(capsys):
+    """EXPLAIN prints the reference's plan lines, and --trace renders
+    the query's trace as a waterfall."""
+    from presto_tpu.plan import explain as ref_explain
+    from presto_tpu.sql import plan_sql as ref_plan_sql
+
     from presto_tpu_torch import cli
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cli.main(["EXPLAIN SELECT 1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cli.main(["SELECT 1", "--trace"])
+    from presto_tpu_torch.server.tracing import get_tracer, set_tracer
+    assert cli.main(["EXPLAIN SELECT 1", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    want = ref_explain(ref_plan_sql("SELECT 1"), regions=False, sf=0.01)
+    assert out.rstrip("\n").split("\n") == want.split("\n")
+    before = get_tracer()
+    try:
+        assert cli.main(["SELECT count(*) FROM region", "--trace",
+                         "--device", "cpu"]) == 0
+        out = capsys.readouterr().out
+        assert "stage.execute" in out and "critical path" in out
+    finally:
+        set_tracer(before)
     # --server now speaks the client protocol: with nothing listening,
     # the connection is refused
     with pytest.raises(OSError):

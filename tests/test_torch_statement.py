@@ -8,8 +8,10 @@ StatementServer(device="cpu") with the port's client, their rows held
 to the reference's `sql()`. Across packages, the reference's client
 reads the port's server and the port's client the reference's server:
 both servers must give equal documents, apart from ids, URIs, timings
-and the stats that the reference feeds from its observability ledgers
-(ROADMAP queue 1 item 15). Every server binds port 0.
+and the stats fed by the observability ledgers (processed rows and
+bytes, progress), which depend on when a poll lands. EXPLAIN and the
+ledger routes answer as the reference's do. Every server binds port
+0.
 """
 
 import datetime
@@ -254,20 +256,67 @@ def test_cancel(server):
                               "PLANNING", "FINISHING")
 
 
-def test_remote_explain_refuses_naming_item_15(server):
-    with pytest.raises(QueryError, match="item 15"):
-        execute(server.url, "EXPLAIN SELECT count(*) AS n FROM nation",
+def test_remote_explain_equals_the_reference(server):
+    """The remote EXPLAIN is the plan as execution shapes it, one line
+    a row, as the reference's explain(..., regions=False) renders the
+    reference's shaped plan."""
+    from presto_tpu.exec.runner import prepare_plan as ref_prepare
+    from presto_tpu.plan import explain as ref_explain
+    from presto_tpu.sql import plan_sql as ref_plan_sql
+    text = "SELECT count(*) AS n FROM nation WHERE regionkey < 3"
+    c = execute(server.url, f"EXPLAIN {text}", session={"sf": str(SF)})
+    assert c.columns == [{"name": "Query Plan", "type": "varchar"}]
+    want = ref_explain(ref_prepare(ref_plan_sql(text), sf=SF),
+                       regions=False, sf=SF)
+    assert [r[0] for r in c.data] == want.splitlines()
+    c = execute(server.url, f"EXPLAIN ANALYZE {text}",
                 session={"sf": str(SF)})
+    lines = [r[0] for r in c.data]
+    assert lines[0].startswith("- Output") and "rows=1" in lines[0]
+    for section in ("-- stages --", "-- datapath --", "-- accuracy --",
+                    "-- timeline --"):
+        assert section in lines
+
+
+def _get_doc(url: str):
+    with urllib.request.urlopen(url) as r:
+        body = r.read()
+        return r.status, r.headers.get("Content-Type", ""), body
 
 
 @pytest.mark.parametrize("route", ["cluster", "metrics", "profile",
                                    "history", "datapath", "accuracy",
                                    "timeline", "trace/abc"])
-def test_ledger_routes_refuse_naming_item_15(server, route):
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        urllib.request.urlopen(f"{server.url}/v1/{route}")
-    assert ei.value.code == 501
-    assert "item 15" in json.loads(ei.value.read())["error"]
+def test_ledger_routes_answer_in_the_reference_shape(server, ref_server,
+                                                      route):
+    """Each route answers as the reference's: the same top-level keys
+    (/v1/trace of an unknown id: 404 in both), and /v1/metrics every
+    family of the reference's but the four whose sources are not
+    ported (plan cache and batching: item 12.4; kernel audit and
+    donation: item 16)."""
+    from presto_tpu.server.metrics import parse_prometheus
+    execute(server.url, "SELECT count(*) FROM region",
+            session={"sf": str(SF)})
+    if route.startswith("trace/"):
+        for base in (server.url, ref_server.url):
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                urllib.request.urlopen(f"{base}/v1/{route}")
+            assert ei.value.code == 404
+        return
+    status, ctype, body = _get_doc(f"{server.url}/v1/{route}")
+    _, ref_ctype, ref_body = _get_doc(f"{ref_server.url}/v1/{route}")
+    assert status == 200 and ctype == ref_ctype
+    if route == "metrics":
+        left_out = ("presto_tpu_plan_cache_", "presto_tpu_batch",
+                    "presto_tpu_kernel_audit_", "presto_tpu_donat",
+                    "presto_tpu_donation")
+        got = set(parse_prometheus(body.decode()))
+        want = {f for f in parse_prometheus(ref_body.decode())
+                if not f.startswith(left_out)}
+        assert want <= got
+        return
+    doc, ref_doc = json.loads(body), json.loads(ref_body)
+    assert set(doc) == set(ref_doc)
 
 
 def test_web_ui_pages(server):
@@ -326,8 +375,8 @@ CROSS = [
 
 def _summary(client) -> dict:
     """What both servers must agree on: ids and timings left out, and
-    the stats fed from the reference's ledgers (processed rows and
-    bytes, progress: item 15)."""
+    the stats fed by the ledgers (processed rows and bytes, progress),
+    which depend on when a poll lands."""
     return {"columns": client.columns, "data": client.data,
             "updateType": client.update_type,
             "setSession": client.set_session,
