@@ -131,6 +131,17 @@ PyTorch version at the shapes of its path:
   launches of each (launches equal, the fewest syncs of each mode
   equal); EXPLAIN
   ANALYZE of q1 and q3 from their text at SF1, every section present;
+* concurrent-query batching (phase_batching, scripts/batching_phase.py):
+  the lookup, dashboard and lineitem families of scripts/loadgen.py at
+  SF1 as formed batches of 5 and 64 through
+  BatchingExecutor.bench_dispatch, every member against a numpy oracle,
+  four a family against their serial run_query bit for bit,
+  fused_limb_sums launched once per dashboard member (its first call
+  against the plain version), no error or overflow collapse, the scans
+  staged once a batch, the host syncs of a batch equal at both sizes;
+  a batch of three dashboard statements formed by the statement
+  server's threads, and the dashboard with fusion off through the
+  region executor;
 * the worker tier (phase_cluster): a DiscoveryServer and two
   HTTP workers (presto_tpu_torch.server.TpuWorkerServer) on the card,
   the Coordinator scheduling plan fragments on the workers discovery
@@ -4960,6 +4971,16 @@ def phase_observe():
     return out
 
 
+def phase_batching(seed):
+    """Concurrent-query batching on the card at SF1:
+    scripts/batching_phase.py::phase_batching over this module's host
+    tables and helpers. Returns its report and seconds."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import batching_phase
+    return batching_phase.phase_batching(sys.modules[__name__], seed)
+
+
 def phase_statement():
     """The statement tier on the card: a StatementServer on cuda:0
     (port 0) answering statement_q1, q6 through a DB-API cursor against
@@ -5159,6 +5180,7 @@ def run_phases(args, start_cpu_workers) -> int:
     files = timed("files", phase_files)
     statement = timed("statement", phase_statement)
     observe = timed("observe", phase_observe)
+    batching = timed("batching", phase_batching, args.seed)
     cluster = timed("cluster", phase_cluster)
     fleet = timed("fleet", phase_fleet)
 
@@ -5170,7 +5192,7 @@ def run_phases(args, start_cpu_workers) -> int:
               "functions": functions, "nested": nested, "tpcds": tpcds,
               "exec": exec_, "sql": sql_, "files": files,
               "statement": statement, "observe": observe,
-              "cluster": cluster, "fleet": fleet,
+              "batching": batching, "cluster": cluster, "fleet": fleet,
               "build_s": build_s, "phase_s": phase_s,
               "host_generation_s": GEN_S, "gpu": gpu,
               "torch": torch.__version__, "cuda": torch.version.cuda,

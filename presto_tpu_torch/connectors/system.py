@@ -16,8 +16,8 @@ do: `kernels` (exec/profiler.py), `datapath` (exec/datapath.py),
 `query_history` (server/history.py); `queries` takes its bytes, memory,
 compile time and progress from each statement's QueryStats and live
 progress, and `live_tasks` lists every in-flight entry of the progress
-registry (exec/progress.py). `plan_cache` keeps its columns and
-raises: the compiled-plan cache is ROADMAP queue 1 item 12.4.
+registry (exec/progress.py), and `plan_cache` the compiled-plan
+cache's entries, hits and misses (exec/plan_cache.py).
 """
 
 from __future__ import annotations
@@ -255,9 +255,9 @@ def _ledger_rows(table: str) -> List[tuple]:
 
 def _rows_of(table: str) -> List[tuple]:
     if table == "plan_cache":
-        raise NotImplementedError(
-            "system.plan_cache reads exec/plan_cache.py's compiled-plan "
-            "cache, which is not ported yet (ROADMAP queue 1 item 12.4)")
+        from ..exec.plan_cache import cache_stats
+        st = cache_stats()
+        return [(st["entries"], st["hits"], st["misses"])]
     if table in ("kernels", "datapath", "cardinality", "occupancy",
                  "query_history"):
         return _ledger_rows(table)

@@ -65,7 +65,7 @@ from typing import Dict, List, Optional
 __all__ = ["HOPS", "CEILING_KEYS", "HOP_CEILING", "HopStats",
            "DatapathLedger", "recording", "record_hop", "timed_hop",
            "now_us",
-           "device_hop", "resolve_device_hops",
+           "device_hop", "hop_device_us", "resolve_device_hops",
            "merge_hop_maps", "hop_map_to_json", "hop_map_from_json",
            "probe_ceilings", "ceilings_cached", "achieved_b_per_s",
            "bottleneck_verdict", "datapath_doc", "merge_datapath_docs",
@@ -355,7 +355,7 @@ class device_hop:
                        end_us=end, split_id=self.split_id)
             return False
         import torch
-        e1 = torch.cuda.Event(enable_timing=True)
+        e1 = self.e1 = torch.cuda.Event(enable_timing=True)
         e1.record()
         ledger = _current_ledger()
         if ledger is not None:
@@ -363,6 +363,15 @@ class device_hop:
                 ledger.pending.append((self.hop, self.bytes, self.e0, e1,
                                        self.split_id, self.compile_s))
         return False
+
+
+def hop_device_us(hop: "device_hop") -> int:
+    """One device hop's span in microseconds: the host wall off CUDA,
+    else its event pair's elapsed time (read only once the stream has
+    drained, as resolve_device_hops does)."""
+    if not hop.cuda:
+        return hop.dur_us
+    return max(int(round(hop.e0.elapsed_time(hop.e1) * 1000)), 0)
 
 
 def resolve_device_hops(ledger: Optional[DatapathLedger]) -> dict:

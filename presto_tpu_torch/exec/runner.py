@@ -422,7 +422,8 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence,
                      limb_form: str, default_join_capacity: int,
                      adaptive: bool = True, mesh=None,
                      staged_bytes: int = 0, hops: Optional[List] = None,
-                     prog=None) -> Tuple[object, int, int, int]:
+                     prog=None, use_cache: bool = False
+                     ) -> Tuple[object, int, int, int, int]:
     """Run the plan; when a join or group table overflows, rerun with
     its capacity 4x larger (scale_capacities; a join without an
     out_capacity starts at `default_join_capacity`), up to 1024x, and
@@ -435,15 +436,17 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence,
     exchange slot that overflowed (and no capacity) reruns the plan
     with every slot twice as large, as the reference's ladder does (a
     capacity rerun starts the slots again at their base). Returns
-    (output, largest capacity factor, capacity reruns, slot reruns);
-    on a mesh the output is the workers' batches.
+    (output, largest capacity factor, capacity reruns, slot reruns,
+    lowerings paid); on a mesh the output is the workers' batches.
 
-    Each rung's lowering (compile_plan), and the kernel builds a
-    dispatch paid (ops/kernels.py's BUILD_SECONDS delta), are compile
-    time of the ambient collector; each dispatch is one `kernel` hop
-    over `staged_bytes` (datapath.device_hop: CUDA events, resolved
-    after the fetch), its hop object appended to `hops`, and `prog`
-    advances per dispatch."""
+    With `use_cache` each rung's plan is lowered through the
+    compiled-plan cache (exec/plan_cache.py), and only a miss pays a
+    lowering. A lowering, and the kernel builds a dispatch paid
+    (ops/kernels.py's BUILD_SECONDS delta), are compile time of the
+    ambient collector; each dispatch is one `kernel` hop over
+    `staged_bytes` (datapath.device_hop: CUDA events, resolved after
+    the fetch), its hop object appended to `hops`, and `prog` advances
+    per dispatch."""
     fp = _fingerprint(root)
     if mesh is not None:
         # a fitted capacity is per worker: its memo is per mesh size
@@ -451,19 +454,27 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence,
     ids = [n.id for n in capacity_nodes(root)]
     above = _joins_above(root, ids)
     factors = list(_CAPACITY_FEEDBACK.get(fp, (1,) * len(ids)))
-    reruns = slot_reruns = 0
+    reruns = slot_reruns = lowered = 0
     slot_scale = 1
     collector = current_collector()
     device = mesh.devices[0] if mesh is not None else \
         _batches_device(batches)
     while True:
         t0 = time.perf_counter()
-        plan = compile_plan(
-            scale_capacities(root, dict(zip(ids, factors)),
-                             default_join_capacity), limb_form,
-            mesh=mesh, exchange_slot_scale=slot_scale)
-        if collector is not None:
-            collector.add_compile_seconds(time.perf_counter() - t0)
+        scaled = scale_capacities(root, dict(zip(ids, factors)),
+                                  default_join_capacity)
+        if use_cache:
+            from .plan_cache import cached_compile
+            plan, _lock, hit = cached_compile(
+                scaled, mesh, default_join_capacity, slot_scale, limb_form)
+        else:
+            plan, hit = compile_plan(scaled, limb_form, mesh=mesh,
+                                     exchange_slot_scale=slot_scale), False
+        if not hit:
+            lowered += 1
+            if collector is not None:  # a lowering is at least 1 us
+                collector.add_compile_seconds(
+                    max(time.perf_counter() - t0, 1e-6))
         built0 = _build_seconds()
         with device_hop("kernel", staged_bytes, device) as hop:
             if mesh is None:
@@ -487,7 +498,8 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence,
         if not over and (mesh is None or not slots):
             if any(k > 1 for k in factors):
                 _CAPACITY_FEEDBACK[fp] = tuple(factors)
-            return out, max(factors, default=1), reruns, slot_reruns
+            return (out, max(factors, default=1), reruns, slot_reruns,
+                    lowered)
         if not over:
             if slot_scale >= 1 << 20:
                 raise RuntimeError("exchange slot overflow did not "
@@ -528,7 +540,7 @@ def execute(root: N.PlanNode, batches: Sequence,
     through the overflow ladder; a mesh's outputs come back as one
     batch, the workers' rows in worker order on the first device."""
     out = _dispatch_ladder(root, batches, limb_form, default_join_capacity,
-                           mesh=mesh)[0]
+                           mesh=mesh, use_cache=True)[0]
     return out if mesh is None else gather_outputs(out, mesh)
 
 
@@ -683,6 +695,15 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
     worker order. Dynamic filtering and split streaming stay off, as in
     the reference.
 
+    The plan is cut into pipeline regions (exec/regions.py): one, the
+    whole plan, with fusion on and nothing refused or demoted; else
+    each region runs through the ladder in turn, its output handed to
+    the next on the device (`fusion_regions`, and per region
+    `fusion_region_<tag>_device_us`, in `stats`). Each rung of the
+    ladder lowers its plan through the compiled-plan cache
+    (exec/plan_cache.py), except for a plan fragment, whose inputs are
+    named by node id; only a miss pays a lowering, the compile stage.
+
     A plan fragment of the worker tier names its inputs by node id:
     `scan_ranges` maps a TableScanNode to the (start, count) rows it
     stages, `remote_sources` a RemoteSourceNode to its batch (on the
@@ -755,10 +776,15 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
             prog.note_memory(reserved)
         from .profiler import profiling_enabled
         prof_on = profiling_enabled(session)
+        rplan = _partition(root, session, sf, mesh, stats, collector,
+                           query_id)
+        multi_region = len(rplan.regions) > 1
         built0 = _build_seconds()
         hops: List = []
+        region_hops: List = []
         res = None
         peak_reserved = 0
+        lowered = 0
         try:
             prog.set_planned(len(scan_nodes))
             prog.advance(stage="staging")
@@ -775,11 +801,22 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
             _note_narrowed(flat, stats, collector, query_id)
             t1 = time.perf_counter()
             prog.advance(stage="execute")
+            adaptive = session_flag(session, "adaptive_capacity", True)
             with collecting(collector), collector.stage("execute"):
-                out, scale, reruns, slot_reruns = _dispatch_ladder(
-                    root, batches, limb_form, default_join_capacity,
-                    adaptive=session_flag(session, "adaptive_capacity", True),
-                    mesh=mesh, staged_bytes=staged, hops=hops, prog=prog)
+                if multi_region:
+                    out, scale, reruns, lowered = _execute_regions(
+                        rplan, scan_nodes, batches, limb_form,
+                        default_join_capacity, adaptive, staged,
+                        region_hops, prog)
+                    slot_reruns = 0
+                    hops = [h for _reg, hs, _lw in region_hops for h in hs]
+                else:
+                    out, scale, reruns, slot_reruns, lowered = \
+                        _dispatch_ladder(
+                            root, batches, limb_form, default_join_capacity,
+                            adaptive=adaptive, mesh=mesh,
+                            staged_bytes=staged, hops=hops, prog=prog,
+                            use_cache=not fragment)
             del batches, flat
             if mesh is not None:
                 out = gather_outputs(out, mesh)
@@ -803,15 +840,155 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
             if res is not None:
                 resolved = _resolve_hops(dp, hops, collector)
                 device_us, compile_in_us = resolved
-            if prof_on:
-                _profile_call(root, collector, query_id, trace_id, device_us,
-                              compile_in_us, stats.get("staged_bytes", 0),
-                              res, retraced=_build_seconds() > built0)
+            retraced = lowered > 0 or _build_seconds() > built0
+            fused_sample = res is not None and rplan.fused and \
+                mesh is None and not multi_region and \
+                rplan.regions[0].ops > 1
+            fp = None
+            if not multi_region and (prof_on or fused_sample):
+                from .plan_cache import plan_fingerprint
+                fp = plan_fingerprint(root)
+            if multi_region:
+                if res is not None:
+                    _note_regions(rplan, region_hops, stats, prof_on,
+                                  query_id, trace_id)
+            elif prof_on:
+                _profile_call(root, fp, collector, query_id, trace_id,
+                              device_us, compile_in_us,
+                              stats.get("staged_bytes", 0), res,
+                              retraced=retraced)
+            if fused_sample:
+                _note_fused(fp, device_us - compile_in_us, stats,
+                            collector, query_id)
         res.stats = {"capacity_reruns": reruns, "capacity_scale": scale,
                      **stats}
         _finalize_query_stats(collector, res, t_query0, peak_reserved, root,
                               trace_id, dp=dp, acc=acc, tl=tl, sf=sf)
         return res
+
+
+def _partition(root: N.PlanNode, session, sf: float, mesh, stats: Dict,
+               collector: StatsCollector, query_id: str):
+    """The plan's pipeline regions (exec/regions.py). Where the
+    `fusion.demote` failpoint is armed and the plan is one fused region
+    of several operators, an injected error demotes the span mid-query:
+    counted as a demotion and a forced one, a `fusion_demotion` flight
+    event, and the plan partitioned again, materialised."""
+    from .. import failpoints
+    from .regions import fusion_memory, partition_regions
+    rplan = partition_regions(root, session=session, sf=sf, mesh=mesh)
+    if failpoints.ARMED and rplan.fused and mesh is None \
+            and len(rplan.regions) == 1 and rplan.regions[0].ops > 1:
+        try:
+            failpoints.hit("fusion.demote")
+        except Exception as e:  # noqa: BLE001 - any injected error class
+            from ..server.flight_recorder import record_event
+            from .plan_cache import plan_fingerprint
+            fusion_memory().demote(plan_fingerprint(rplan.regions[0].root),
+                                   f"failpoint ({type(e).__name__})")
+            _add(stats, "fusion_demotions", 1)
+            _add(stats, "fusion_forced_demotions", 1)
+            collector.note("fusion_demotions")
+            record_event("fusion_demotion", query_id=query_id,
+                         reason="failpoint")
+            rplan = partition_regions(root, session=session, sf=sf,
+                                      mesh=mesh)
+    if len(rplan.regions) > 1:
+        stats["fusion_regions"] = len(rplan.regions)
+        collector.note("fusion_regions", len(rplan.regions))
+    return rplan
+
+
+def _execute_regions(rplan, scan_nodes: Sequence, batches: Sequence,
+                     limb_form: str, default_join_capacity: int,
+                     adaptive: bool, staged_bytes: int,
+                     region_hops: List, prog) -> Tuple[Batch, int, int, int]:
+    """The region executor (the reference's `_execute_regions`): each
+    region's root lowered alone through the compiled-plan cache and run
+    through the overflow ladder in producer order, its cut children fed
+    as remote-source inputs: their output batches, which stay on the
+    device (a materialised handoff, no host round trip), and are dropped
+    after their last consumer ran. Appends (region, its dispatch hops,
+    the lowerings it paid) to `region_hops`. Returns (the last region's output, the largest
+    capacity factor, the capacity reruns, the lowerings paid)."""
+    staged_by_id = {id(n): b for n, b in zip(scan_nodes, batches)}
+    outputs: Dict[int, Batch] = {}
+    consumers: Dict[int, int] = {}
+    for reg in rplan.regions:
+        for i in reg.inputs:
+            if i.kind == "region":
+                consumers[i.region] = consumers.get(i.region, 0) + 1
+    scale, reruns, lowered = 1, 0, 0
+    for reg in rplan.regions:
+        rbatches = [staged_by_id[id(i.node)] if i.kind == "scan"
+                    else outputs[i.region] for i in reg.inputs]
+        hops: List = []
+        out, k, r, _slots, lw = _dispatch_ladder(
+            reg.root, rbatches, limb_form, default_join_capacity,
+            adaptive=adaptive, staged_bytes=staged_bytes, hops=hops,
+            prog=prog, use_cache=True)
+        region_hops.append((reg, hops, lw))
+        scale, reruns, lowered = max(scale, k), reruns + r, lowered + lw
+        outputs[reg.index] = out
+        for i in reg.inputs:  # drop intermediates past their last use
+            if i.kind == "region":
+                consumers[i.region] -= 1
+                if not consumers[i.region]:
+                    outputs.pop(i.region, None)
+    return outputs[rplan.regions[-1].index], scale, reruns, lowered
+
+
+def _note_regions(rplan, region_hops: List, stats: Dict, prof_on: bool,
+                  query_id: str, trace_id) -> None:
+    """After the fetch: each region's device microseconds (its dispatch
+    spans less the kernel builds paid inside them) as the flat counter
+    `fusion_region_<tag>_device_us` and, with profiling on, a profiler
+    row under the region's fingerprint tagged `[region Rk/n]`
+    (retraced where it paid a lowering or a build); their
+    sum is the materialised sample of the span the whole plan fuses to
+    (FusionMemory.note_unfused)."""
+    from ..server.tracing import TraceContext
+    from .datapath import hop_device_us
+    from .plan_cache import plan_fingerprint
+    from .profiler import plan_label, plan_tables, record_call
+    from .regions import fusion_memory
+    nreg = len(rplan.regions)
+    total = 0
+    for reg, hops, lowered in region_hops:
+        cu = sum(int(h.compile_s * 1e6) for h in hops)
+        dev_us = max(sum(hop_device_us(h) for h in hops) - cu, 0)
+        total += dev_us
+        stats[f"fusion_region_{reg.tag}_device_us"] = dev_us
+        if prof_on:
+            record_call(
+                plan_fingerprint(reg.root),
+                label=(f"{plan_label(reg.root, max_len=120)} "
+                       f"[region {reg.tag}/{nreg}]"),
+                tables=plan_tables(reg.root), device_us=dev_us,
+                retraced=lowered > 0 or cu > 0, query_id=query_id,
+                trace_id=trace_id.trace_id
+                if isinstance(trace_id, TraceContext)
+                else (trace_id or query_id))
+    fusion_memory().note_unfused(plan_fingerprint(rplan.root), total)
+
+
+def _note_fused(fp: str, device_us: int, stats: Dict,
+                collector: StatsCollector, query_id: str) -> None:
+    """The fused side of the demotion comparator: this run's device
+    microseconds of the fused span, whose fingerprint is `fp`. When the
+    profiler's samples show it slower than the span run materialised,
+    beyond the perfgate band, the span demotes and the next submission
+    runs materialised."""
+    from .regions import fusion_memory
+    mem = fusion_memory()
+    mem.note_fused(fp, max(device_us, 0))
+    verdict = mem.maybe_demote(fp)
+    if verdict is not None:
+        from ..server.flight_recorder import record_event
+        _add(stats, "fusion_demotions", 1)
+        collector.note("fusion_demotions")
+        record_event("fusion_demotion", query_id=query_id,
+                     reason="profiler", ratio=verdict.get("ratio"))
 
 
 def _resolve_hops(dp, hops: List, collector: StatsCollector
@@ -831,21 +1008,19 @@ def _resolve_hops(dp, hops: List, collector: StatsCollector
     return device_us, compile_us
 
 
-def _profile_call(root, collector, query_id: str, trace_id,
+def _profile_call(root, fp: str, collector, query_id: str, trace_id,
                   device_us: int, compile_in_us: int, staged_bytes: int,
                   res, retraced: bool) -> None:
-    """Attribute the run to its plan fingerprint in the continuous
+    """Attribute the run to its plan fingerprint `fp` in the continuous
     profiler, on success and failure: the dispatch spans less the
-    compile paid inside the dispatches. `retraced` where the run built
-    a kernel: the port lowers every run's plan afresh (a host wall of
-    the compile stage, there being no plan cache yet), so only a build
-    marks a cold run, as an XLA compile does in the reference."""
+    compile paid inside the dispatches. `retraced` where the run paid
+    a lowering (a miss of the compiled-plan cache) or built a kernel,
+    as an XLA compile marks a cold run in the reference."""
     from ..server.tracing import TraceContext
-    from .plan_cache import plan_fingerprint
     from .profiler import plan_label, plan_tables, record_call
     staging = collector.stats.stages.get("staging")
     record_call(
-        plan_fingerprint(root), label=plan_label(root),
+        fp, label=plan_label(root),
         tables=plan_tables(root),
         device_us=max(device_us - compile_in_us, 0),
         rows_in=staging.rows if staging is not None else 0,

@@ -21,11 +21,24 @@ Null semantics are Presto's three-valued logic: a scalar call is NULL
 when any argument is; AND, OR and IN are Kleene; IF, COALESCE and
 SWITCH compute every branch and then select lanes, as the reference
 does.
+
+A template plan of exec/batching.py carries BatchParam leaves where the
+plan had literals: `evaluate` reads slot `index` of the parameter
+vector bound on this thread by `bound_params`, and refuses outside one,
+as the reference does. The batching executor binds, for each member of
+a batch, 0-d tensor views of its column of the batch's [P, B] values
+and nulls tensors, already on the device: a parameter block is a view
+of one element expanded to the batch's capacity, with no read on the
+host. Inside `shared_constants` the broadcast blocks of literals are
+built once and reused, so that the members of a batch do not each
+copy a string literal to the device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Callable, Sequence
 
 import numpy as np
@@ -38,45 +51,113 @@ from ..block import (ArrayColumn, Batch, Block, Column, Int128Column,
                      pad_chars, torch_dtype)
 from ..ops.regex import compile_dfa, regexp_like_kernel
 from . import functions as F
-from .ir import (Call, Constant, InputReference, Lambda, LambdaVariable,
-                 RowExpression, SpecialForm)
+from .ir import (BatchParam, Call, Constant, InputReference, Lambda,
+                 LambdaVariable, RowExpression, SpecialForm)
 from .logical import rewrite_bottom_up
 
-__all__ = ["compile_filter", "compile_projections", "evaluate"]
+__all__ = ["compile_filter", "compile_projections", "evaluate",
+           "bound_params", "shared_constants"]
+
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def bound_params(values: Sequence):
+    """Bind the parameter vector that BatchParam leaves read on this
+    thread: a sequence of (value, is_null) pairs, each a Python scalar
+    or a 0-d tensor on the batch's device (a value of a floating type
+    as the int64 bit pattern of its float64, see exec/batching.py)."""
+    prev = getattr(_SCOPE, "params", None)
+    _SCOPE.params = values
+    try:
+        yield
+    finally:
+        _SCOPE.params = prev
+
+
+@contextlib.contextmanager
+def shared_constants():
+    """Reuse each literal's one-element block across the evaluations
+    inside this scope (the members of one batch)."""
+    prev = getattr(_SCOPE, "constants", None)
+    _SCOPE.constants = {}
+    try:
+        yield
+    finally:
+        _SCOPE.constants = prev
+
+
+def _param_block(p: BatchParam, capacity: int, device) -> Block:
+    params = getattr(_SCOPE, "params", None)
+    if params is None:
+        raise RuntimeError(
+            "BatchParam evaluated outside a bound_params scope: template "
+            "plans only execute through exec/batching.py")
+    v, null = params[p.index]
+    dt = torch_dtype(p.type.to_dtype())
+    if isinstance(v, torch.Tensor):
+        v = v.reshape(1).to(device)
+        if dt.is_floating_point:
+            v = v.view(torch.float64)  # the float64's bit pattern
+        values = v.to(dt)
+    else:
+        values = torch.full((1,), v, dtype=dt, device=device)
+    nulls = null.reshape(1).to(device) if isinstance(null, torch.Tensor) \
+        else torch.full((1,), bool(null), dtype=torch.bool, device=device)
+    return Column(values.expand(capacity), nulls.to(torch.bool)
+                  .expand(capacity), p.type)
 
 
 def _constant_block(c: Constant, capacity: int, device) -> Block:
     """A literal broadcast to the batch: one element expanded to
     `capacity` rows (a view, no per-row storage)."""
+    memo = getattr(_SCOPE, "constants", None)
+    if memo is None:
+        return _expand(_one_constant(c, device), capacity)
+    key = (str(c.type), repr(c.value), str(device))
+    one = memo.get(key)
+    if one is None:
+        one = memo[key] = _one_constant(c, device)
+    return _expand(one, capacity)
+
+
+def _expand(block: Block, capacity: int) -> Block:
+    """A one-row constant block expanded to `capacity` rows (views)."""
+    if isinstance(block, StringColumn):
+        return StringColumn(block.chars.expand(capacity,
+                                               block.chars.shape[1]),
+                            block.lengths.expand(capacity),
+                            block.nulls.expand(capacity), block.type)
+    return Column(block.values.expand(capacity),
+                  block.nulls.expand(capacity), block.type)
+
+
+def _one_constant(c: Constant, device) -> Block:
+    """The literal as a one-row block."""
     ty = c.type
     if c.value is None:
         nulls = torch.ones(1, dtype=torch.bool, device=device)
         if ty.is_string:
             return StringColumn(
-                torch.zeros((1, 1), dtype=torch.uint8,
-                            device=device).expand(capacity, 1),
-                torch.zeros(1, dtype=torch.int32,
-                            device=device).expand(capacity),
-                nulls.expand(capacity), ty)
+                torch.zeros((1, 1), dtype=torch.uint8, device=device),
+                torch.zeros(1, dtype=torch.int32, device=device), nulls, ty)
         dt = torch_dtype(np.bool_ if ty == T.UNKNOWN else ty.to_dtype())
-        return Column(torch.zeros(1, dtype=dt, device=device).expand(capacity),
-                      nulls.expand(capacity), ty)
+        return Column(torch.zeros(1, dtype=dt, device=device), nulls, ty)
     no_nulls = torch.zeros(1, dtype=torch.bool, device=device)
     if ty.is_string:
         b = str(c.value).encode("utf-8")
         w = max(len(b), 1)
         chars = torch.tensor(list(b.ljust(w, b"\x00")), dtype=torch.uint8,
                              device=device)
-        return StringColumn(chars[None, :].expand(capacity, w),
+        return StringColumn(chars[None, :],
                             torch.full((1,), len(b), dtype=torch.int32,
-                                       device=device).expand(capacity),
-                            no_nulls.expand(capacity), ty)
+                                       device=device), no_nulls, ty)
     v = c.value
     if ty.base == "date" and isinstance(v, str):
         v = int((np.datetime64(v) - np.datetime64("1970-01-01")).astype(int))
     values = torch.full((1,), v, dtype=torch_dtype(ty.to_dtype()),
                         device=device)
-    return Column(values.expand(capacity), no_nulls.expand(capacity), ty)
+    return Column(values, no_nulls, ty)
 
 
 def _like(a: StringColumn, pattern: str) -> torch.Tensor:
@@ -155,6 +236,8 @@ def evaluate(expr: RowExpression, batch: Batch) -> Block:
         return decoded(batch.column(expr.channel))
     if isinstance(expr, Constant):
         return _constant_block(expr, batch.capacity, batch.active.device)
+    if isinstance(expr, BatchParam):
+        return _param_block(expr, batch.capacity, batch.active.device)
     if isinstance(expr, SpecialForm):
         return _eval_special(expr, batch)
     if isinstance(expr, Call):

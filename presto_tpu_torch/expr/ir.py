@@ -1,11 +1,10 @@
 """The relational expression IR: Presto's RowExpression family.
 
 The port's own copy of presto_tpu/expr/ir.py: input references,
-constants, calls, special forms, and lambdas with their variables.
-The reference's batch parameter (`param`, the literal slots of
-exec/batching.py) is not ported yet. The JSON shape is the
-reference's, so a plan fragment written by presto_tpu reads here
-unchanged.
+constants, calls, special forms, lambdas with their variables, and
+the batch parameter (`param`, a literal lifted out of a co-batchable
+plan by exec/batching.py). The JSON shape is the reference's, so a
+plan fragment written by presto_tpu reads here unchanged.
 """
 
 from __future__ import annotations
@@ -15,7 +14,8 @@ from typing import Any, Tuple
 
 from .. import types as T
 
-__all__ = ["RowExpression", "InputReference", "Constant", "Call",
+__all__ = ["RowExpression", "InputReference", "Constant", "BatchParam",
+           "Call",
            "SpecialForm", "Lambda", "LambdaVariable", "input_ref", "const",
            "call", "special", "from_json", "to_json"]
 
@@ -49,6 +49,19 @@ class Constant(RowExpression):
 
     def __str__(self):
         return f"{self.value!r}:{self.type}"
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchParam(RowExpression):
+    """A literal lifted out of a co-batchable plan (exec/batching.py):
+    slot `index` of the parameter vector bound by
+    expr/compile.py::bound_params. It carries the type and the index,
+    never the value, so two plans that differ only in lifted literals
+    rewrite to one template with one plan fingerprint."""
+    index: int = 0
+
+    def __str__(self):
+        return f"$param{self.index}:{self.type}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +141,8 @@ def special(form: str, ty: T.Type, *args: RowExpression) -> SpecialForm:
 def to_json(e: RowExpression) -> dict:
     if isinstance(e, InputReference):
         return {"@type": "input", "channel": e.channel, "type": str(e.type)}
+    if isinstance(e, BatchParam):
+        return {"@type": "param", "index": e.index, "type": str(e.type)}
     if isinstance(e, Constant):
         return {"@type": "constant", "value": e.value, "type": str(e.type)}
     if isinstance(e, Call):
@@ -150,6 +165,8 @@ def from_json(j: dict) -> RowExpression:
     t = j["@type"]
     if t == "input":
         return InputReference(T.parse_type(j["type"]), j["channel"])
+    if t == "param":
+        return BatchParam(T.parse_type(j["type"]), j["index"])
     if t == "constant":
         return Constant(T.parse_type(j["type"]), j["value"])
     if t == "call":
@@ -163,8 +180,4 @@ def from_json(j: dict) -> RowExpression:
                       from_json(j["body"]))
     if t == "lambdavar":
         return LambdaVariable(T.parse_type(j["type"]), j["name"])
-    if t == "param":
-        raise NotImplementedError(
-            "'param' expressions are not ported yet (ROADMAP queue 1 "
-            "item 12: exec/batching.py)")
     raise ValueError(f"unknown RowExpression kind {t!r}")

@@ -3,13 +3,15 @@
 Counterpart of presto_tpu/failpoints/sites.py. Each row is a
 ``<layer>.<verb>`` name with its layer and what it injects; the admin
 document of ``GET /v1/failpoint`` serves it. A site whose module the
-port has not taken yet (batching's collapse, region fusion, buffer
-donation and the timeline: ROADMAP queue 1 items 12.4, 15 and 16)
-stays listed, as in the reference, and is hooked where that module
-arrives. The statement tier hooks `statement.execute`, the dispatcher
-`dispatcher.admit`, the worker's drain `worker.drain_stall`, the
-announcer's goodbye `discovery.unannounce_lost` and the resource
-manager's heartbeat `coordinator.heartbeat_lapse`.
+port has not taken yet (buffer donation and the timeline: ROADMAP
+items 15 and 16) stays listed, as in the reference, and is hooked
+where that module arrives. The statement tier hooks
+`statement.execute`, the dispatcher `dispatcher.admit`, the batching
+executor `dispatcher.batch_collapse` (exec/batching.py), the runner
+`fusion.demote` (exec/runner.py), the worker's drain
+`worker.drain_stall`, the announcer's goodbye
+`discovery.unannounce_lost` and the resource manager's heartbeat
+`coordinator.heartbeat_lapse`.
 """
 
 from __future__ import annotations

@@ -13,10 +13,12 @@ nodes run inside the plan's execution, whose per-operator device times
 the ledgers do not separate, so they carry the planner's row estimate
 and a `fused` marker, as in the reference.
 
-There is no `-- regions --` tail and no `[region=...]` tag: the
-reference cuts a plan into XLA programs (its exec/regions.py) and
-reports how; the port lowers a plan to closures that launch their
-kernels one by one, and forms no regions to report.
+With `regions=True` (the statement tier's EXPLAIN) and in EXPLAIN
+ANALYZE each node carries the pipeline region it runs in
+(`[region=R0]`, exec/regions.py) and a `-- regions --` tail lists the
+regions: operators, why each ends, fingerprint, the static estimate of
+its intermediates, a demotion, and after a materialised run its device
+microseconds.
 """
 
 from __future__ import annotations
@@ -78,18 +80,27 @@ def _keys(keys) -> str:
                      for c, d, nl in keys)
 
 
-def explain(root: N.PlanNode, *, session=None, sf: float = 0.01,
-            mesh=None, prepare: bool = False) -> str:
+def explain(root: N.PlanNode, *, regions: bool = False, session=None,
+            sf: float = 0.01, mesh=None, prepare: bool = False) -> str:
     """Single-plan tree rendering (EXPLAIN (TYPE LOGICAL) analog), each
     node with its planner row estimate. With ``prepare=True`` the plan
     is first shaped as execution shapes it (prepare_plan under
-    `session`), which the statement tier's EXPLAIN does: the
-    reference's ``explain(..., regions=True)`` shapes it the same way
-    before it adds its region tags."""
+    `session`); ``regions=True`` shapes it so too, then tags each node
+    with its pipeline region and adds the `-- regions --` tail, as the
+    reference's ``explain(..., regions=True)`` does. A write root is
+    never partitioned (it runs on the host; its inner SELECT is cut
+    when it runs)."""
     from ..exec.accuracy import est_rows_of
-    if prepare and not _is_write_root(root):
+    node_region: dict = {}
+    rplan = None
+    if (prepare or regions) and not _is_write_root(root):
         from ..exec.runner import prepare_plan
         root = prepare_plan(root, sf=sf, mesh=mesh, session=session)
+        if regions:
+            from ..exec.regions import partition_regions
+            rplan = partition_regions(root, session=session, sf=sf,
+                                      mesh=mesh)
+            node_region = rplan.node_region
     lines: List[str] = []
 
     def walk(n: N.PlanNode, depth: int):
@@ -99,11 +110,15 @@ def explain(root: N.PlanNode, *, session=None, sf: float = 0.01,
         est = est_rows_of(n, sf)
         if est is not None:
             tag += f"  estRows={est:.0f}"
+        if id(n) in node_region:
+            tag += f"  [region=R{node_region[id(n)]}]"
         lines.append("    " * depth + "- " + _node_line(n) + tag)
         for s in n.sources:
             walk(s, depth + 1)
 
     walk(root, 0)
+    if rplan is not None:
+        lines.extend(_region_lines(rplan, None, sf))
     return "\n".join(lines)
 
 
@@ -112,6 +127,37 @@ def _is_write_root(root: N.PlanNode) -> bool:
     when the writer re-enters run_query."""
     inner = root.source if isinstance(root, N.OutputNode) else root
     return isinstance(inner, N.WRITE_ROOTS)
+
+
+def _region_lines(rplan, runtime_stats, sf: float) -> List[str]:
+    """The `-- regions --` tail: a line per pipeline region with its
+    operators, why it ends, its fingerprint, the static estimate of its
+    intermediates (and a measured footprint where one was noted), a
+    demotion, and, where the run went region by region, its device
+    microseconds; then its node chain."""
+    from ..exec.plan_cache import plan_fingerprint
+    from ..exec.regions import estimate_region_bytes, fusion_memory
+    lines = ["", f"-- regions ({len(rplan.regions)}, "
+                 f"fusion {'on' if rplan.fused else 'off'}) --"]
+    mem = fusion_memory()
+    for reg in rplan.regions:
+        fp = plan_fingerprint(reg.root)
+        extra = ""
+        measured = mem.footprint(fp)
+        if measured:
+            extra += f" k005Peak={_fmt_bytes(measured)}"
+        if mem.demoted(fp):
+            extra += " demoted"
+        if runtime_stats:
+            dev = runtime_stats.get(f"fusion_region_{reg.tag}_device_us")
+            if dev:
+                extra += f" device={int(dev)}us"
+        lines.append(f"{reg.tag}: ops={reg.ops} reason={reg.reason} "
+                     f"fingerprint={fp[:12]} "
+                     f"estPeak={_fmt_bytes(estimate_region_bytes(reg, sf))}"
+                     f"{extra}")
+        lines.append(f"    {reg.span}")
+    return lines
 
 
 def _fmt_bytes(n: int) -> str:
@@ -124,12 +170,14 @@ def _fmt_bytes(n: int) -> str:
     return f"{n}B"
 
 
-def _annotated_tree(root: N.PlanNode, qs, sf: float) -> str:
+def _annotated_tree(root: N.PlanNode, qs, sf: float,
+                    node_region=None) -> str:
     from ..exec.planner import scan_leaves
     from .stats import estimate_rows
 
     scan_index = {id(n): i for i, n in enumerate(scan_leaves(root))}
     ops = qs.operators if qs is not None else {}
+    node_region = node_region or {}
     lines: List[str] = []
     seen = set()
 
@@ -163,7 +211,9 @@ def _annotated_tree(root: N.PlanNode, qs, sf: float) -> str:
             lines.append(line + "  [shared subtree]")
             return
         seen.add(id(n))
-        lines.append(line + annotate(n, is_root))
+        tag = f"  [region=R{node_region[id(n)]}]" \
+            if id(n) in node_region else ""
+        lines.append(line + annotate(n, is_root) + tag)
         for s in n.sources:
             walk(s, depth + 1, False)
 
@@ -184,7 +234,19 @@ def explain_analyze(root: N.PlanNode, sf: float = 0.01, **kwargs) -> str:
     res = run_query(executed, sf=sf, session=session, prepared=True,
                     **kwargs)
     qs = res.query_stats
-    lines = [_annotated_tree(executed, qs, sf)]
+    # the regions, partitioned again under the same session and kernel
+    # mode: what ran (a demotion this very run noted shows in the tail
+    # and in the next run)
+    rplan = None
+    if not _is_write_root(executed):
+        from ..exec.regions import partition_regions
+        rplan = partition_regions(executed, session=session, sf=sf,
+                                  mesh=mesh)
+    lines = [_annotated_tree(executed, qs, sf,
+                             node_region=rplan.node_region
+                             if rplan else None)]
+    if rplan is not None:
+        lines.extend(_region_lines(rplan, res.stats, sf))
     if qs is not None:
         lines += ["", "-- stages --"]
         for name in ("staging", "compile", "execute", "exchange", "fetch"):

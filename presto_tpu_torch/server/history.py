@@ -177,9 +177,8 @@ class QueryHistoryArchive:
             "narrowed_bytes_saved": int(
                 (qs.counters if qs is not None else {}).get(
                     "narrowed_bytes_saved", 0)),
-            # runs that paid a compile stage; the port lowers every
-            # run's plan (no plan cache until ROADMAP queue 1 item
-            # 12.4), so every run that executed counts 1
+            # runs that paid a compile stage: a miss of the compiled-
+            # plan cache (exec/plan_cache.py) or a kernel build
             "retraces": int(qs.compile_us > 0) if qs is not None else 0,
             "spill_bytes": int(
                 (qs.counters if qs is not None else {}).get(

@@ -1,10 +1,9 @@
 """Prometheus text-format metrics: the one emitter both tiers share.
 
 Counterpart of presto_tpu/server/metrics.py: the same families,
-names and exposition. Four of the reference's builders have no source
-in the port yet and are left out: the plan cache and batching
-(ROADMAP queue 1 item 12.4), the kernel audit and buffer donation
-(item 16).
+names and exposition. Two of the reference's builders have no source
+in the port yet and are left out: the kernel audit and buffer donation
+(ROADMAP item 16).
 
 Reference surface: the native worker's PrometheusStatsReporter
 (presto_cpp/main/PrometheusStatsReporter.cpp) and PrestoServer's
@@ -50,6 +49,7 @@ __all__ = ["MetricFamily", "Histogram", "DEFAULT_BUCKETS",
            "render_prometheus", "parse_prometheus",
            "negotiate_exposition", "CONTENT_TYPE_OPENMETRICS",
            "narrowing_families", "uptime_family",
+           "plan_cache_families", "batching_families",
            "record_suppressed", "suppressed_error_families",
            "suppressed_error_totals", "tracing_families",
            "flight_recorder_families", "timeline_families",
@@ -336,6 +336,10 @@ _DECLARED_HISTOGRAMS: Dict[str, Tuple[str, Tuple[Dict[str, str], ...]]] = {
         tuple({"group": g} for g in
               ("global", "global.interactive", "global.dashboard",
                "global.batch"))),
+    "presto_tpu_batch_occupancy_queries": (
+        "queries served per batched dispatch (exec/batching.py "
+        "formation outcomes; solo serial dispatches do not observe)",
+        ({},)),
     "presto_tpu_stage_seconds": (
         "per-query host-visible stage wall (exec/stats.py stages)",
         tuple({"stage": s} for s in
@@ -440,9 +444,50 @@ def reset_histograms() -> None:
         _HISTOGRAMS.clear()
 
 
-# The compiled-plan cache and batching families (the reference's
-# plan_cache_families and batching_families) wait for their sources,
-# ROADMAP queue 1 item 12.4.
+def plan_cache_families() -> List[MetricFamily]:
+    """The compiled-plan cache's families (exec/plan_cache.py), which
+    both tiers export from this one builder."""
+    from ..exec.plan_cache import cache_stats
+    st = cache_stats()
+    return [
+        MetricFamily("presto_tpu_plan_cache_entries", "gauge",
+                     "compiled-plan cache entries").add(st["entries"]),
+        MetricFamily("presto_tpu_plan_cache_hits_total", "counter",
+                     "compiled-plan cache hits").add(st["hits"]),
+        MetricFamily("presto_tpu_plan_cache_misses_total", "counter",
+                     "compiled-plan cache misses").add(st["misses"]),
+    ]
+
+
+def batching_families() -> List[MetricFamily]:
+    """Concurrent-query batching totals (exec/batching.py), exported by
+    both tiers with a stable zero shape: batches against the queries
+    they served, collapses by reason, and the occupancy of the last
+    formed batch, which /v1/cluster mirrors."""
+    from ..exec.batching import COLLAPSE_REASONS, batching_totals
+    t = batching_totals()
+    fam_c = MetricFamily("presto_tpu_batch_collapses_total", "counter",
+                         "formed batches collapsed back to serial "
+                         "dispatch, by reason")
+    for r in COLLAPSE_REASONS:
+        fam_c.add(t["collapses"].get(r, 0), {"reason": r})
+    return [
+        MetricFamily("presto_tpu_batch_dispatches_total", "counter",
+                     "batched dispatches executed (one run of the "
+                     "template per member, one flag read and one fetch "
+                     "per batch)").add(t["batches"]),
+        MetricFamily("presto_tpu_batched_queries_total", "counter",
+                     "queries served by a batched dispatch").add(
+                         t["batched_queries"]),
+        MetricFamily("presto_tpu_batch_solo_dispatches_total", "counter",
+                     "batch-of-1 dispatches on an already lowered "
+                     "template (no co-batching, no fresh "
+                     "lowering)").add(t.get("solo_dispatches", 0)),
+        fam_c,
+        MetricFamily("presto_tpu_batch_occupancy", "gauge",
+                     "queries per dispatch of the last formed "
+                     "batch").add(t["last_batch_size"]),
+    ]
 
 
 def datapath_families() -> List[MetricFamily]:

@@ -13,8 +13,10 @@ Queries admit through the Dispatcher (resource groups and events),
 run in a transaction of the TransactionManager, move through a
 QueryStateMachine, and execute on a thread of their own through the
 port's `sql()` on the server's device (CUDA unless the caller passes
-device="cpu"), serially: the reference's batching of concurrent
-statements is item 12.4. Results page out `page_rows` rows a nextUri
+device="cpu"). A statement first offers itself to the batching
+executor (exec/batching.py): co-batchable statements that form a batch
+run as one batched dispatch on the same device, and the rest run
+serially. Results page out `page_rows` rows a nextUri
 hop, rendered by the reference's JSON conventions (decimals, dates and
 timestamps as strings).
 
@@ -35,8 +37,9 @@ timestamps as strings).
   GET    /ui, /ui/query/{id}                   the web pages
   GET, POST, DELETE /v1/failpoint              the failpoint admin
 
-EXPLAIN renders the plan as execution shapes it, EXPLAIN ANALYZE runs
-it and annotates it (plan/explain.py), each as one varchar column. A
+EXPLAIN renders the plan as execution shapes it, each node tagged with
+its pipeline region and the regions listed after it, EXPLAIN ANALYZE
+runs it and annotates it (plan/explain.py), each as one varchar column. A
 statement carries a trace: the client's `X-Presto-Trace` context when
 one came, else the query id; the query's root span, its state spans,
 the engine's stage spans and the client's fetch span hang in it. The
@@ -174,6 +177,8 @@ class _Query:
         self.clear_txn = False
         # the resource group the dispatcher routed the query to
         self.resource_group = ""
+        # the size of the batch that served it (0: it ran serially)
+        self.batch_size = 0
 
 
 _SESSION_STMT = re.compile(
@@ -295,6 +300,19 @@ class StatementServer:
         ctx = self._trace_ctx_of(query_id)
         if ctx is not None:
             kwargs["trace_id"] = ctx
+        # co-batchable statements that form a batch come back from the
+        # batching executor; the rest (not batchable, batching off, no
+        # batch formed) run the serial path below
+        from ..exec.batching import get_batching_executor
+        res = get_batching_executor().try_execute(
+            pre.text, sf=sf, session=session, query_id=query_id,
+            trace_id=kwargs.get("trace_id"),
+            max_groups=kwargs.get("max_groups"),
+            join_capacity=kwargs.get("join_capacity"),
+            catalog=session_values.get("catalog", "tpch"),
+            device=self.device)
+        if res is not None:
+            return res
         return run_sql(pre.text, sf=sf, device=self.device, session=session,
                        query_id=query_id, **kwargs)
 
@@ -436,13 +454,22 @@ class StatementServer:
         """Archive the terminal statement (server/history.py), after
         the flight-dump check so a failed or slow dump keeps the
         query's one dump."""
+        from ..exec.batching import template_fp_of
         from .history import QueryHistoryArchive, get_history_archive
         session = dict(q.session_values)
         session.setdefault("sf", self.sf)
-        get_history_archive().add(QueryHistoryArchive.record_of(
+        record = QueryHistoryArchive.record_of(
             q.id, q.machine.state, q.user, q.text, q.machine.elapsed_ms(),
             q.trace_ctx.trace_id, query_stats=q.result_stats,
-            session=session))
+            session=session)
+        # the batch template's fingerprint rides the record, so that the
+        # archive's count of it seeds the formation window's hotness
+        # after a restart
+        bfp = template_fp_of(q.id)
+        if bfp:
+            record["batchFingerprint"] = bfp
+            record["batchSize"] = q.batch_size
+        get_history_archive().add(record)
 
     def _account_query(self, q: _Query) -> None:
         """Roll the terminal statement into the /v1/metrics totals, once,
@@ -526,6 +553,8 @@ class StatementServer:
                     res.row_count == 1:
                 q.update_count = int(res.columns[0][0])
         q.result_stats = getattr(res, "query_stats", None)
+        from ..exec.batching import batch_size_of
+        q.batch_size = batch_size_of(q.id)
         q.runtime_stats = {k: (v.item() if hasattr(v, "item") else v)
                            for k, v in (getattr(res, "stats", None)
                                         or {}).items()}
@@ -551,8 +580,8 @@ class StatementServer:
                                    device=self.device, query_id=q.id,
                                    trace_id=q.trace_ctx)
         else:
-            text = explain(plan_sql(inner), session=session, sf=sf,
-                           prepare=True)
+            text = explain(plan_sql(inner), regions=True, session=session,
+                           sf=sf)
         q.columns = [{"name": "Query Plan", "type": "varchar"}]
         q.rows = [[line] for line in text.splitlines()]
         q.machine.to_finishing()
@@ -717,7 +746,7 @@ class StatementServer:
                 "elapsedTimeMillis": q.machine.elapsed_ms(),
                 "errorInfo": q.machine.error,
                 "resourceGroup": q.resource_group,
-                "batchSize": 0,  # every statement runs serially
+                "batchSize": q.batch_size,
                 "progress": self._progress_doc(q),
                 "queryStats": q.result_stats.to_json()
                 if q.result_stats is not None else None,
@@ -775,10 +804,10 @@ class StatementServer:
         analog), in the reference's shape: live queries with their
         progress, one /v1/status row per worker of `profile_workers`
         (DEAD where it does not answer), throughput, resource-group
-        queues, the watchdog's total and the ledgers' cheap summaries.
-        The port runs every statement serially, so its `batching` entry
-        is the reference's idle shape (ROADMAP queue 1 item 12.4)."""
+        queues, the batching executor's live snapshot, the watchdog's
+        total and the ledgers' cheap summaries."""
         from ..exec.accuracy import accuracy_summary
+        from ..exec.batching import batching_snapshot
         from ..exec.datapath import staging_summary
         from ..exec.progress import live_snapshots, live_task_count
         from ..exec.timeline import timeline_summary
@@ -844,8 +873,7 @@ class StatementServer:
             "totals": {"rows": totals["rows"], "bytes": totals["bytes"],
                        "wallSeconds": round(totals["wall_us"] / 1e6, 3)},
             "resourceGroups": groups,
-            "batching": {"batchingEnabled": False, "occupancy": 0,
-                         "forming": {}},
+            "batching": batching_snapshot(),
             "workers": workers,
             "workersAlive": alive,
             "workersConfigured": len(all_urls),
@@ -868,7 +896,7 @@ class StatementServer:
 
     def metric_families(self):
         """The coordinator's /v1/metrics families, in the reference's
-        order, less the four whose sources are not ported (see
+        order, less the two whose sources are not ported (see
         server/metrics.py)."""
         from . import metrics as M
         MF = M.MetricFamily
@@ -914,8 +942,9 @@ class StatementServer:
         fams.extend(M.live_introspection_families(
             workers_alive=self._workers_alive_view()))
         fams.extend(M.fleet_families(workers_draining=draining))
-        for build in (M.narrowing_families, M.datapath_families,
-                      M.accuracy_families, M.suppressed_error_families,
+        for build in (M.plan_cache_families, M.narrowing_families,
+                      M.datapath_families, M.accuracy_families,
+                      M.batching_families, M.suppressed_error_families,
                       M.tracing_families, M.flight_recorder_families,
                       M.failpoint_families, M.timeline_families,
                       M.lock_families, M.query_history_families,

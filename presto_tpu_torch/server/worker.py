@@ -905,7 +905,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _metric_families(self):
         """The worker's /v1/metrics families, in the reference's order,
-        less the four whose sources are not ported (server/metrics.py)."""
+        less the two whose sources are not ported (server/metrics.py)."""
         from . import metrics as M
         MF = M.MetricFamily
         m = self.manager
@@ -939,7 +939,8 @@ class _Handler(BaseHTTPRequestHandler):
                 continue
             fams.append(MF(f"presto_tpu_{k}_total", "counter",
                            f"lifetime {k}").add(counters[k]))
-        for build in (M.narrowing_families, M.datapath_families,
+        for build in (M.plan_cache_families, M.narrowing_families,
+                      M.batching_families, M.datapath_families,
                       M.accuracy_families, M.suppressed_error_families,
                       M.tracing_families, M.flight_recorder_families,
                       M.failpoint_families, M.timeline_families,

@@ -9,9 +9,9 @@ The cases of tests/test_dbapi.py, test_transaction.py,
 test_system_tables.py, test_access_resource_groups.py and
 test_dispatcher_events_metrics.py, through the port. Where a case runs
 SQL, the reference runs the same statement and the rows must be equal.
-The system tables fed by the observability ledgers answer with the
-reference's columns; `plan_cache` refuses, naming ROADMAP queue 1 item
-12.4 (the compiled-plan cache).
+The system tables fed by the observability ledgers and the compiled-
+plan cache answer with the reference's columns; `plan_cache`'s one row
+is the cache's counts.
 """
 
 import threading
@@ -314,16 +314,14 @@ def test_live_tasks_lists_queries_that_have_not_ended():
                                    "cardinality", "occupancy",
                                    "query_history"])
 def test_ledger_tables_answer_in_the_reference_columns(table):
-    """The five ledger tables have the reference's columns and answer
-    a scan (after a query has fed the ledgers); plan_cache refuses,
-    naming ROADMAP queue 1 item 12.4."""
+    """The five ledger tables and plan_cache have the reference's
+    columns and answer a scan (after a query has fed the ledgers);
+    plan_cache's row is the compiled-plan cache's entries, hits and
+    misses as they stood when the scan staged."""
     from presto_tpu.connectors.system import SCHEMA as REF_SCHEMA
 
     from presto_tpu_torch.connectors.system import SCHEMA
-    if table == "plan_cache":
-        with pytest.raises(NotImplementedError, match="item 12.4"):
-            port(f"SELECT * FROM system.{table}")
-        return
+    from presto_tpu_torch.exec.plan_cache import cache_stats
     assert [(k, str(v)) for k, v in SCHEMA[table].items()] == \
         [(k, str(v)) for k, v in REF_SCHEMA[table].items()]
     from presto_tpu_torch.server.history import get_history_archive
@@ -333,9 +331,14 @@ def test_ledger_tables_answer_in_the_reference_columns(table):
         execute(s.url, "SELECT count(*) FROM nation")
     assert get_history_archive().size() > 0
     cols = ", ".join(SCHEMA[table])
+    before = cache_stats()
     res = port(f"SELECT {cols} FROM system.{table}")
     assert res.names == list(SCHEMA[table])
     assert res.row_count > 0
+    if table == "plan_cache":
+        assert res.rows() == [(before["entries"], before["hits"],
+                               before["misses"])]
+        assert before["entries"] > 0
 
 
 # ---- access control (tests/test_access_resource_groups.py) ----------------

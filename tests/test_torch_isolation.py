@@ -72,7 +72,9 @@ def test_sources_found():
                    "exec/plan_cache.py", "exec/perfgate.py",
                    "server/flight_recorder.py", "server/history.py",
                    "server/metrics.py", "server/watchdog.py",
-                   "plan/explain.py", "traceview.py"):
+                   "plan/explain.py", "traceview.py",
+                   # concurrent-query batching and pipeline regions
+                   "exec/batching.py", "exec/regions.py"):
         assert os.path.join("presto_tpu_torch", *module.split("/")) in names
 
 

@@ -7,9 +7,10 @@ elements, NULL predicates, K from 1 to 8, a lambda inside a lambda,
 and reduce states that change type between steps. Results are held
 exactly, doubles bit for bit.
 
-Also the lambda wire format (`lambda`, `lambdavar`), and the refusal
-of the reference's batch parameter (`param`), which belongs to
-exec/batching.py.
+Also the lambda wire format (`lambda`, `lambdavar`) and the batch
+parameter's (`param`), which reads as the reference writes it and
+evaluates only inside a bound_params scope, which exec/batching.py
+opens.
 """
 
 import pytest
@@ -146,7 +147,18 @@ def test_lambda_json_is_the_reference_json():
 
 
 def test_param_is_refused_naming_batching():
+    """A `param` reads as the reference's JSON; evaluated outside a
+    bound_params scope it is refused, naming exec/batching.py, as the
+    reference refuses it; inside one it is the bound value."""
+    from presto_tpu_torch.block import Batch
+    from presto_tpu_torch.expr.compile import bound_params, evaluate
     j = RIR.to_json(RIR.BatchParam(B, 0))
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1 item 12\b.*batching"):
-        PIR.from_json(j)
+    p = PIR.from_json(j)
+    assert isinstance(p, PIR.BatchParam) and p.index == 0
+    assert PIR.to_json(p) == j
+    batch = Batch((), torch.ones(4, dtype=torch.bool))
+    with pytest.raises(RuntimeError, match=r"exec/batching\.py"):
+        evaluate(p, batch)
+    with bound_params([(torch.tensor(7), torch.tensor(False))]):
+        col = evaluate(p, batch)
+    assert col.values.tolist() == [7] * 4 and not col.nulls.any()

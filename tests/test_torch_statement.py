@@ -257,17 +257,16 @@ def test_cancel(server):
 
 
 def test_remote_explain_equals_the_reference(server):
-    """The remote EXPLAIN is the plan as execution shapes it, one line
-    a row, as the reference's explain(..., regions=False) renders the
-    reference's shaped plan."""
-    from presto_tpu.exec.runner import prepare_plan as ref_prepare
+    """The remote EXPLAIN is the plan as execution shapes it with its
+    pipeline regions, one line a row, as the reference's statement
+    server renders it (explain(..., regions=True))."""
     from presto_tpu.plan import explain as ref_explain
     from presto_tpu.sql import plan_sql as ref_plan_sql
     text = "SELECT count(*) AS n FROM nation WHERE regionkey < 3"
     c = execute(server.url, f"EXPLAIN {text}", session={"sf": str(SF)})
     assert c.columns == [{"name": "Query Plan", "type": "varchar"}]
-    want = ref_explain(ref_prepare(ref_plan_sql(text), sf=SF),
-                       regions=False, sf=SF)
+    want = ref_explain(ref_plan_sql(text), regions=True,
+                       session={"sf": str(SF)}, sf=SF)
     assert [r[0] for r in c.data] == want.splitlines()
     c = execute(server.url, f"EXPLAIN ANALYZE {text}",
                 session={"sf": str(SF)})
@@ -291,9 +290,8 @@ def test_ledger_routes_answer_in_the_reference_shape(server, ref_server,
                                                       route):
     """Each route answers as the reference's: the same top-level keys
     (/v1/trace of an unknown id: 404 in both), and /v1/metrics every
-    family of the reference's but the four whose sources are not
-    ported (plan cache and batching: item 12.4; kernel audit and
-    donation: item 16)."""
+    family of the reference's but the two whose sources are not
+    ported (kernel audit and donation: item 16)."""
     from presto_tpu.server.metrics import parse_prometheus
     execute(server.url, "SELECT count(*) FROM region",
             session={"sf": str(SF)})
@@ -307,8 +305,7 @@ def test_ledger_routes_answer_in_the_reference_shape(server, ref_server,
     _, ref_ctype, ref_body = _get_doc(f"{ref_server.url}/v1/{route}")
     assert status == 200 and ctype == ref_ctype
     if route == "metrics":
-        left_out = ("presto_tpu_plan_cache_", "presto_tpu_batch",
-                    "presto_tpu_kernel_audit_", "presto_tpu_donat",
+        left_out = ("presto_tpu_kernel_audit_", "presto_tpu_donat",
                     "presto_tpu_donation")
         got = set(parse_prometheus(body.decode()))
         want = {f for f in parse_prometheus(ref_body.decode())

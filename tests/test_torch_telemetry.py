@@ -42,11 +42,12 @@ def test_a_kernel_build_inside_a_dispatch_is_compile_time(monkeypatch,
     """A dispatch that builds a kernel (ops/kernels.py's BUILD_SECONDS
     grows inside it) pays that build as the query's compile time,
     which the runner reads around the dispatch, and marks the
-    profiler's row retraced."""
-    from presto_tpu_torch.exec import runner
+    profiler's row retraced. The plan is lowered afresh (an empty
+    compiled-plan cache), through the lowering patched here."""
+    from presto_tpu_torch.exec import plan_cache
     from presto_tpu_torch.exec.profiler import profile_snapshot
     from presto_tpu_torch.ops import kernels
-    real = runner.compile_plan
+    real = plan_cache.compile_plan
 
     def building(*a, **kw):
         plan = real(*a, **kw)
@@ -58,7 +59,8 @@ def test_a_kernel_build_inside_a_dispatch_is_compile_time(monkeypatch,
         plan.fn = first_use
         return plan
 
-    monkeypatch.setattr(runner, "compile_plan", building)
+    monkeypatch.setattr(plan_cache, "compile_plan", building)
+    plan_cache.clear_plan_cache()
     res = port_sql(GROUP_BY)
     qs = res.query_stats
     assert qs.stages["compile"].compile_us >= \
@@ -69,6 +71,8 @@ def test_a_kernel_build_inside_a_dispatch_is_compile_time(monkeypatch,
 
 
 def test_compile_stage_keeps_the_cost_keys_at_zero():
+    from presto_tpu_torch.exec.plan_cache import clear_plan_cache
+    clear_plan_cache()  # a lowering: the compile stage is there
     qs = port_sql("SELECT sum(quantity) FROM lineitem").query_stats
     st = qs.stages["compile"]
     assert st.compile_us > 0 and st.flops == 0.0 and \
