@@ -142,6 +142,18 @@ PyTorch version at the shapes of its path:
   a batch of three dashboard statements formed by the statement
   server's threads, and the dashboard with fusion off through the
   region executor;
+* the kernel audit and buffer donation (phase_audit,
+  scripts/audit_phase.py): q1 at SF1 with `kernel_audit` on (the
+  audit's seconds on a memo miss and a hit, rows equal to the
+  unaudited run's, fused_limb_sums launched by the audit's run and by
+  the dispatch, no finding), q1's closure traced under torch's sync
+  debug mode (K002's host round trips equal to the syncs it counts;
+  K005's estimate at most the allocator's peak), the corpus gate over
+  the 22 TPC-H queries at sf 0.1 on both tiers against the committed
+  baseline, and the phase_batching dashboard and TPC-H q10 with fusion
+  off, buffer donation on against off in turns (equal rows, peak MB);
+* with the lock-order witness (utils/locks.py) armed around both and
+  0 violations required:
 * the worker tier (phase_cluster): a DiscoveryServer and two
   HTTP workers (presto_tpu_torch.server.TpuWorkerServer) on the card,
   the Coordinator scheduling plan fragments on the workers discovery
@@ -4981,6 +4993,38 @@ def phase_batching(seed):
     return batching_phase.phase_batching(sys.modules[__name__], seed)
 
 
+def phase_audit():
+    """The kernel audit and buffer donation on the card:
+    scripts/audit_phase.py::phase_audit over this module's host tables
+    and helpers. Returns its report and seconds."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import audit_phase
+    return audit_phase.phase_audit(sys.modules[__name__])
+
+
+def witnessed(fn, *a, **kw):
+    """fn(*a, **kw) with the lock-order witness armed (utils/locks.py):
+    every OrderedLock acquire of the port's server and exec tiers
+    checks the order; any inversion raises after fn returns. Returns
+    fn's result."""
+    from presto_tpu_torch.utils import locks
+    locks.reset_witness()
+    locks.arm_witness()
+    try:
+        out = fn(*a, **kw)
+    finally:
+        locks.disarm_witness()
+    violations = locks.witness_violations()
+    print(f"lock-order witness over {fn.__name__}: {len(violations)} "
+          f"violations, {sum(map(len, locks.witness_edges().values()))} "
+          f"ordered pairs seen")
+    if violations:
+        raise AssertionError(f"lock-order inversions in {fn.__name__}: "
+                             f"{violations}")
+    return out
+
+
 def phase_statement():
     """The statement tier on the card: a StatementServer on cuda:0
     (port 0) answering statement_q1, q6 through a DB-API cursor against
@@ -5181,8 +5225,9 @@ def run_phases(args, start_cpu_workers) -> int:
     statement = timed("statement", phase_statement)
     observe = timed("observe", phase_observe)
     batching = timed("batching", phase_batching, args.seed)
-    cluster = timed("cluster", phase_cluster)
-    fleet = timed("fleet", phase_fleet)
+    audit = timed("audit", phase_audit)
+    cluster = timed("cluster", witnessed, phase_cluster)
+    fleet = timed("fleet", witnessed, phase_fleet)
 
     gpu = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
@@ -5192,7 +5237,8 @@ def run_phases(args, start_cpu_workers) -> int:
               "functions": functions, "nested": nested, "tpcds": tpcds,
               "exec": exec_, "sql": sql_, "files": files,
               "statement": statement, "observe": observe,
-              "batching": batching, "cluster": cluster, "fleet": fleet,
+              "batching": batching, "audit": audit, "cluster": cluster,
+              "fleet": fleet,
               "build_s": build_s, "phase_s": phase_s,
               "host_generation_s": GEN_S, "gpu": gpu,
               "torch": torch.__version__, "cuda": torch.version.cuda,

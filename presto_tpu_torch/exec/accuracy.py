@@ -11,9 +11,8 @@ Model -- three layers, one merge law (the datapath template):
 
   * ``NodeAccuracy`` -- one mergeable estimate-vs-actual record per
     plan node, in one of two units: ``rows`` (cardinality) or
-    ``bytes`` (a footprint estimate vs the MemoryPool's measured
-    peak; the port has no footprint estimator yet, item 16's audit
-    in the reference, so its records are rows). The
+    ``bytes`` (the kernel audit's K005 footprint estimate,
+    audit/staged.py, vs the MemoryPool's measured peak). The
     merge law mirrors ``QueryStats.merge``: estimates max (each worker
     stamps the SAME per-fragment estimate, so max is idempotent),
     row actuals add (worker slices partition the stream), byte actuals
@@ -53,6 +52,8 @@ import dataclasses
 import threading
 import uuid
 from typing import Dict, List, Optional
+
+from ..utils.locks import OrderedLock
 
 
 __all__ = ["UNITS", "NodeAccuracy", "AccuracyLedger", "recording",
@@ -198,7 +199,7 @@ class AccuracyLedger:
 
     def __init__(self):
         self.records: Dict[str, NodeAccuracy] = {}
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("accuracy.AccuracyLedger._lock")
 
     def record(self, node: str, node_type: str = "",
                unit: str = "rows", est: Optional[float] = None,
@@ -320,7 +321,7 @@ def est_rows_of(node, sf: float) -> Optional[float]:
 # request handlers (/v1/accuracy, system tables), engine threads
 # (finalize_query after each run) and the flight recorder all touch
 # these
-_LOCK = threading.RLock()
+_LOCK = OrderedLock("accuracy._LOCK")
 # query id -> node record map (the flight-dump cross-link AND the
 # /v1/accuracy payload); bounded like datapath's query ledgers
 _QUERY_RECORDS: "collections.OrderedDict[str, Dict[str, NodeAccuracy]]" \

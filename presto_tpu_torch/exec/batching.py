@@ -77,6 +77,7 @@ from .. import types as T
 from ..block import Batch, RowColumn, decoded
 from ..expr import ir as E
 from ..plan import nodes as N
+from ..utils.locks import OrderedLock
 
 __all__ = ["BATCHING_ENV", "batching_enabled", "parameterize_plan",
            "BatchingExecutor", "get_batching_executor",
@@ -263,7 +264,7 @@ def parameterize_plan(root: N.PlanNode
 # process totals (server/metrics.py::batching_families reads these)
 # ---------------------------------------------------------------------------
 
-_TOTALS_LOCK = threading.RLock()
+_TOTALS_LOCK = OrderedLock("batching._TOTALS_LOCK")
 _TOTALS = {"batches": 0, "batched_queries": 0, "last_batch_size": 0,
            "max_batch_size": 0, "solo_dispatches": 0}
 _COLLAPSES = {r: 0 for r in COLLAPSE_REASONS}
@@ -451,7 +452,7 @@ class BatchingExecutor:
         # run, a forming batch keeps collecting (occupancy adapts to
         # the load; the window bounds only the idle case)
         self.max_inflight = max_inflight
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("batching.BatchingExecutor._lock")
         self._forming: Dict[tuple, _Forming] = {}
         self._inflight: Dict[tuple, int] = {}
         # fingerprint -> recent submission times (hotness)
@@ -1060,7 +1061,7 @@ def _trace_str(trace_id, query_id: str) -> str:
     return str(trace_id or query_id)
 
 
-_EXEC_LOCK = threading.RLock()
+_EXEC_LOCK = OrderedLock("batching._EXEC_LOCK")
 _EXECUTOR: Optional[BatchingExecutor] = None
 
 

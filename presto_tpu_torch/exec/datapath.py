@@ -61,6 +61,8 @@ import time
 import uuid
 from typing import Dict, List, Optional
 
+from ..utils.locks import OrderedLock
+
 
 __all__ = ["HOPS", "CEILING_KEYS", "HOP_CEILING", "HopStats",
            "DatapathLedger", "recording", "record_hop", "timed_hop",
@@ -185,7 +187,7 @@ class DatapathLedger:
         # fetch to resolve them: (hop, bytes, start event, end event,
         # split id, compile seconds paid inside the pair)
         self.pending: List[tuple] = []
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("datapath.DatapathLedger._lock")
 
     def record(self, hop: str, nbytes: int, wall_us: int) -> None:
         with self._lock:
@@ -235,7 +237,7 @@ class recording:
 # request handlers (/v1/datapath, system tables), engine threads
 # (record_hop on the staging/serde hot paths) and the flight recorder
 # all touch these
-_LOCK = threading.RLock()
+_LOCK = OrderedLock("datapath._LOCK")
 _PROCESS: Dict[str, HopStats] = {}
 # query id -> hop map (the flight-dump cross-link); bounded like the
 # profiler's query->fingerprint table

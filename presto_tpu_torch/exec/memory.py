@@ -186,6 +186,19 @@ class MemoryPool:
                 return self._query_peak.pop(query_id, 0)
             return self._query_peak.get(query_id, 0)
 
+    def note_audit_estimate(self, query_id: str, bytes_: int) -> bool:
+        """Fold the kernel audit's K005 peak estimate
+        (audit/passes/footprint.py) into the query's high-water mark:
+        the scan reservation covers the staged inputs only, the
+        estimate also the closure's intermediates, so the larger of the
+        two is the better QueryStats peak. Returns True when the
+        estimate alone exceeds the pool's capacity: this plan cannot
+        fit even an empty pool."""
+        with self._lock:
+            cur = self._query_peak.get(query_id, 0)
+            self._query_peak[query_id] = max(cur, int(bytes_))
+        return int(bytes_) > self.capacity
+
 
 @dataclasses.dataclass
 class MemoryContext:

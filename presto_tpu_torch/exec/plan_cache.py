@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import threading
 from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
@@ -49,6 +48,7 @@ import numpy as np
 
 from ..plan import nodes as N
 from .planner import CompiledPlan, compile_plan
+from ..utils.locks import OrderedLock
 
 __all__ = ["plan_fingerprint", "cached_compile", "cache_stats",
            "clear_plan_cache", "KERNEL_MODE_ENVS"]
@@ -59,18 +59,24 @@ __all__ = ["plan_fingerprint", "cached_compile", "cache_stats",
 # baselines apart (PRESTO_TPU_NARROW: narrow-width staging; the two
 # ledger gates leave the result alone but change the host work a run
 # pays; PRESTO_TPU_FUSION: exec/regions.py, which regions a plan is cut
-# into; PRESTO_TPU_BATCHING: exec/batching.py, part of every batch key)
+# into; PRESTO_TPU_KERNEL_AUDIT: audit/staged.py, which keys its memo
+# with this mode, so clearing the cache and the memo stay in step;
+# PRESTO_TPU_BATCHING: exec/batching.py, part of every batch key;
+# PRESTO_TPU_DONATION: exec/donation.py, which hands a region its dead
+# inputs)
 KERNEL_MODE_ENVS: Tuple[Tuple[str, str], ...] = (
     ("PRESTO_TPU_NARROW", "1"),
     ("PRESTO_TPU_FUSION", "1"),
+    ("PRESTO_TPU_KERNEL_AUDIT", "0"),
     ("PRESTO_TPU_PROFILE", "1"),
     ("PRESTO_TPU_BATCHING", "1"),
+    ("PRESTO_TPU_DONATION", "0"),
     ("PRESTO_TPU_TIMELINE", "1"),
 )
 
 _MAX_ENTRIES = 64
 
-_lock = threading.RLock()
+_lock = OrderedLock("plan_cache._lock")
 _cache: "OrderedDict[tuple, _Entry]" = OrderedDict()
 _hits = 0
 _misses = 0
@@ -79,7 +85,7 @@ _misses = 0
 @dataclasses.dataclass
 class _Entry:
     plan: CompiledPlan
-    call_lock: threading.RLock
+    call_lock: OrderedLock
 
 # port-only dataclass fields -> the default at which the reference's
 # node (which lacks the field) hashes the same
@@ -178,7 +184,7 @@ def _sharing_key(root: N.PlanNode) -> Tuple[int, ...]:
 def cached_compile(root: N.PlanNode, mesh=None,
                    default_join_capacity: int = 1 << 16,
                    exchange_slot_scale: int = 1, limb_form: str = "narrow"
-                   ) -> Tuple[CompiledPlan, threading.RLock, bool]:
+                   ) -> Tuple[CompiledPlan, OrderedLock, bool]:
     """(CompiledPlan, per-entry dispatch lock, hit) for this plan,
     lowering it at most once per key. The batches a cached closure
     takes are positional (compile_plan's scan order), so it runs any
@@ -197,7 +203,7 @@ def cached_compile(root: N.PlanNode, mesh=None,
         _misses += 1
     plan = compile_plan(root, limb_form, default_join_capacity, mesh=mesh,
                         exchange_slot_scale=exchange_slot_scale)
-    entry = _Entry(plan, threading.RLock())
+    entry = _Entry(plan, OrderedLock("plan_cache._Entry.call_lock"))
     with _lock:
         have = _cache.get(key)
         if have is not None:  # lost a race: keep the first
@@ -214,11 +220,13 @@ def cache_stats() -> dict:
 
 
 def clear_plan_cache() -> None:
-    """Drop every entry and zero the counts. The reference also drops
-    its kernel-audit memo here, which keys on the same identity; the
-    port has no kernel audit yet (ROADMAP item 16)."""
+    """Drop every entry and zero the counts, and the kernel-audit memo
+    (audit/staged.py), which keys on the same identity: a cleared
+    cache means the next submission lowers afresh, and re-audits."""
     global _hits, _misses
     with _lock:
         _cache.clear()
         _hits = 0
         _misses = 0
+    from ..audit.staged import clear_audit_memo
+    clear_audit_memo()

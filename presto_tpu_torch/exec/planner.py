@@ -48,6 +48,7 @@ from ..parallel.exchange import (any_flag, broadcast_build, exchange_by_hash,
                                  exchange_by_range, gather_to_root)
 from ..plan import nodes as N
 from ..plan.stats import capacity_nodes
+from .donation import Handoff
 
 __all__ = ["compile_plan", "CompiledPlan", "scan_leaves"]
 
@@ -178,8 +179,14 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
         return min(base * exchange_slot_scale, max(sender_capacity, 1))
 
     def run(scan_batches: Sequence):
+        # a batch handed over by the region executor (exec/donation.py)
+        # is taken out of its holder by the one node that reads it, so
+        # this closure keeps no reference to it past that read
+        handoffs = {n.id: b for n, b in zip(scans, scan_batches)
+                    if isinstance(b, Handoff)}
         inputs = {n.id: list(b) if dist else [b]
-                  for n, b in zip(scans, scan_batches)}
+                  for n, b in zip(scans, scan_batches)
+                  if n.id not in handoffs}
         # a shared subtree runs once; its output is kept until its last
         # parent has read it: node id -> [output, reads left]
         shared = {}
@@ -201,6 +208,8 @@ def compile_plan(root: N.PlanNode, limb_form: str = "narrow",
             return entry[0]
 
         def lower_node(node: N.PlanNode) -> List[Batch]:
+            if node.id in handoffs:
+                return [handoffs.pop(node.id).take()]
             if isinstance(node, N.FilterNode):
                 f = compile_filter(node.predicate)
                 return [f(b) for b in lower(node.source)]

@@ -14,8 +14,9 @@ for the same plan JSON.
 Each entry accumulates calls, device time, rows/bytes in and out,
 retrace count (runs that paid a kernel build: the port lowers every
 run's plan afresh, so a lowering marks no cold run) and plan-node provenance (a compact node-chain label +
-scanned tables). ``footprint_bytes`` stays 0: it is the reference's
-footprint audit (ROADMAP queue 1 item 16).
+scanned tables). ``footprint_bytes`` is the kernel audit's K005
+estimate of the plan's peak live bytes (:func:`note_footprint`, fed by
+the runner when ``kernel_audit`` is on).
 
 Surfaces:
   * ``GET /v1/profile`` on a worker: this process's slice
@@ -37,9 +38,10 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import threading
 import uuid
 from typing import Dict, List, Optional
+
+from ..utils.locks import OrderedLock
 
 
 __all__ = ["profiling_enabled", "record_call", "note_footprint",
@@ -118,7 +120,7 @@ class KernelProfile:
 
 # engine threads (run_query), request handlers (/v1/profile, system
 # tables) and the flight recorder all touch the registry
-_LOCK = threading.RLock()
+_LOCK = OrderedLock("profiler._LOCK")
 _REGISTRY: "collections.OrderedDict[str, KernelProfile]" = \
     collections.OrderedDict()
 _MAX_ENTRIES = 512

@@ -43,9 +43,10 @@ polls still resolve) and evicted oldest-first past the capacity.
 from __future__ import annotations
 
 import collections
-import threading
 import time
 from typing import Dict, Iterable, List, Optional
+
+from ..utils.locks import OrderedLock
 
 
 __all__ = ["TaskProgress", "begin", "get_progress", "note_remote",
@@ -90,7 +91,7 @@ class TaskProgress:
         self.final_state: Optional[str] = None
         self._depth = 1           # re-entrant begin() nesting (writes)
         self._pct = 0.0           # high-water percent (monotonic)
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("progress.TaskProgress._lock")
 
     # -- producer side --------------------------------------------------
 
@@ -221,7 +222,7 @@ class TaskProgress:
 # entries keyed by query/task id, bounded; finished entries linger so a
 # final poll still resolves, evicted oldest-first past capacity (done
 # entries first -- a live entry is only evicted when everything is live)
-_LOCK = threading.RLock()
+_LOCK = OrderedLock("progress._LOCK")
 _ENTRIES: "collections.OrderedDict[str, TaskProgress]" = \
     collections.OrderedDict()
 _CAPACITY = 2048

@@ -38,21 +38,21 @@ the session's `kernel_audit_budget_bytes`), `demoted` (the profiler's
 device spans showed the fused span slower than the same span run
 materialised, by the perfgate band, exec/perfgate.py), `footprint` (a
 measured footprint over the budget), `mesh`. The measured footprint
-is the reference's kernel audit (its K005 pass) fed back through
-`FusionMemory.note_footprint`; the port has no kernel audit yet
-(ROADMAP item 16), so nothing calls it outside tests and the refusal
-reads the static estimate alone.
+is the kernel audit's K005 estimate (audit/passes/footprint.py): with
+`kernel_audit` on, the runner feeds each audited fused span's peak
+through `FusionMemory.note_footprint`, and a span over the budget is
+refused on its next submission.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-import threading
 from typing import Dict, List, Optional
 
 from ..plan import nodes as N
 from .perfgate import MetricSpec, compare
+from ..utils.locks import OrderedLock
 
 __all__ = ["FUSION_ENV", "fusion_enabled", "RegionInput", "PipelineRegion",
            "RegionPlan", "partition_regions", "fusion_memory",
@@ -180,7 +180,7 @@ class FusionMemory:
     MIN_SAMPLES = 3
 
     def __init__(self):
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("regions.FusionMemory._lock")
         self._footprint: "collections.OrderedDict[str, int]" = \
             collections.OrderedDict()
         self._fused: "collections.OrderedDict[str, collections.deque]" = \

@@ -51,6 +51,7 @@ from ..plan.widths import checked_physical_dtypes
 from ..utils.config import session_flag, session_value
 from .dynfilter import apply_dynamic_filters, collect_dynamic_filters
 from .datapath import device_hop, now_us, record_hop, timed_hop
+from .donation import Handoff
 from .memory import MemoryPool, batch_bytes
 from .planner import compile_plan, scan_leaves
 from .stats import QueryStats, StatsCollector, collecting, \
@@ -447,34 +448,19 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence,
     `staged_bytes` (datapath.device_hop: CUDA events, resolved after
     the fetch), its hop object appended to `hops`, and `prog` advances
     per dispatch."""
-    fp = _fingerprint(root)
-    if mesh is not None:
-        # a fitted capacity is per worker: its memo is per mesh size
-        fp = f"{fp}@{mesh.size}"
-    ids = [n.id for n in capacity_nodes(root)]
+    fp, ids, factors = _fitted_capacities(root, mesh)
     above = _joins_above(root, ids)
-    factors = list(_CAPACITY_FEEDBACK.get(fp, (1,) * len(ids)))
+    factors = list(factors)
     reruns = slot_reruns = lowered = 0
     slot_scale = 1
     collector = current_collector()
     device = mesh.devices[0] if mesh is not None else \
         _batches_device(batches)
     while True:
-        t0 = time.perf_counter()
-        scaled = scale_capacities(root, dict(zip(ids, factors)),
-                                  default_join_capacity)
-        if use_cache:
-            from .plan_cache import cached_compile
-            plan, _lock, hit = cached_compile(
-                scaled, mesh, default_join_capacity, slot_scale, limb_form)
-        else:
-            plan, hit = compile_plan(scaled, limb_form, mesh=mesh,
-                                     exchange_slot_scale=slot_scale), False
+        plan, hit = _lower(root, ids, factors, mesh, limb_form,
+                           default_join_capacity, slot_scale, use_cache)
         if not hit:
             lowered += 1
-            if collector is not None:  # a lowering is at least 1 us
-                collector.add_compile_seconds(
-                    max(time.perf_counter() - t0, 1e-6))
         built0 = _build_seconds()
         with device_hop("kernel", staged_bytes, device) as hop:
             if mesh is None:
@@ -519,10 +505,44 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence,
         slot_scale = 1
 
 
+def _fitted_capacities(root: N.PlanNode, mesh=None
+                       ) -> Tuple[str, List[str], Tuple[int, ...]]:
+    """(capacity memo key, capacity node ids, the factors the ladder
+    last found to fit them: all 1 where it has not run)."""
+    fp = _fingerprint(root)
+    if mesh is not None:
+        # a fitted capacity is per worker: its memo is per mesh size
+        fp = f"{fp}@{mesh.size}"
+    ids = [n.id for n in capacity_nodes(root)]
+    return fp, ids, tuple(_CAPACITY_FEEDBACK.get(fp, (1,) * len(ids)))
+
+
+def _lower(root: N.PlanNode, ids: List[str], factors: Sequence[int], mesh,
+           limb_form: str, default_join_capacity: int, slot_scale: int = 1,
+           use_cache: bool = False):
+    """(CompiledPlan, cache hit) of one ladder rung: the plan at these
+    capacity factors, lowered through the compiled-plan cache with
+    `use_cache`; a lowering is compile time of the ambient collector."""
+    t0 = time.perf_counter()
+    scaled = scale_capacities(root, dict(zip(ids, factors)),
+                              default_join_capacity)
+    if use_cache:
+        from .plan_cache import cached_compile
+        plan, _lock, hit = cached_compile(
+            scaled, mesh, default_join_capacity, slot_scale, limb_form)
+    else:
+        plan, hit = compile_plan(scaled, limb_form, mesh=mesh,
+                                 exchange_slot_scale=slot_scale), False
+    collector = current_collector()
+    if not hit and collector is not None:  # a lowering is at least 1 us
+        collector.add_compile_seconds(max(time.perf_counter() - t0, 1e-6))
+    return plan, hit
+
+
 def _batches_device(batches: Sequence):
     """The device of the first staged batch (None without one)."""
     for b in batches:
-        return b.active.device
+        return b.device if isinstance(b, Handoff) else b.active.device
     return None
 
 
@@ -799,24 +819,41 @@ def run_query(root: N.PlanNode, sf: float = 0.01, device=None,
             staged = sum(batch_bytes(b) for b in flat)
             stats["staged_bytes"] = staged
             _note_narrowed(flat, stats, collector, query_id)
+            inst = _Instruments(session, collector, stats, memory_pool,
+                                query_id, prof_on)
+            if inst.audit_on and not multi_region:
+                # the plan as its first dispatch will run it, audited
+                # once more over the staged batches (audit/staged.py)
+                with collecting(collector):
+                    _, ids, factors = _fitted_capacities(root, mesh)
+                    plan, hit = _lower(root, ids, factors, mesh, limb_form,
+                                       default_join_capacity, 1,
+                                       not fragment)
+                lowered += not hit
+                from .plan_cache import plan_fingerprint
+                inst.audit(plan, batches, plan_fingerprint(root), mesh=mesh,
+                           fused_span=rplan.fused and mesh is None
+                           and rplan.regions[0].ops > 1)
             t1 = time.perf_counter()
             prog.advance(stage="execute")
             adaptive = session_flag(session, "adaptive_capacity", True)
             with collecting(collector), collector.stage("execute"):
                 if multi_region:
-                    out, scale, reruns, lowered = _execute_regions(
+                    out, scale, reruns, lw = _execute_regions(
                         rplan, scan_nodes, batches, limb_form,
                         default_join_capacity, adaptive, staged,
-                        region_hops, prog)
+                        region_hops, prog, inst)
+                    lowered += lw
                     slot_reruns = 0
                     hops = [h for _reg, hs, _lw in region_hops for h in hs]
                 else:
-                    out, scale, reruns, slot_reruns, lowered = \
+                    out, scale, reruns, slot_reruns, lw = \
                         _dispatch_ladder(
                             root, batches, limb_form, default_join_capacity,
                             adaptive=adaptive, mesh=mesh,
                             staged_bytes=staged, hops=hops, prog=prog,
                             use_cache=not fragment)
+                    lowered += lw
             del batches, flat
             if mesh is not None:
                 out = gather_outputs(out, mesh)
@@ -899,18 +936,116 @@ def _partition(root: N.PlanNode, session, sf: float, mesh, stats: Dict,
     return rplan
 
 
+class _Instruments:
+    """One run_query's kernel audit (audit/staged.py, with the session's
+    `kernel_audit` on) and buffer donation (exec/donation.py, with
+    `buffer_donation` on): the books both report into."""
+
+    def __init__(self, session, collector: StatsCollector, stats: Dict,
+                 memory_pool, query_id: str, prof_on: bool):
+        from ..audit.staged import kernel_audit_enabled
+        from .donation import donation_enabled
+        self.session = session
+        self.audit_on = kernel_audit_enabled(session)
+        self.donate = donation_enabled(session)
+        self.collector = collector
+        self.stats = stats
+        self.memory_pool = memory_pool
+        self.query_id = query_id
+        self.prof_on = prof_on
+
+    def audit(self, plan, batches: Sequence, fp: str, mesh=None,
+              fused_span: bool = False, donate: Sequence[int] = ()) -> None:
+        """Audit one closure over its staged batches; its K005 estimate
+        becomes the footprint accuracy record, the profiler row's
+        footprint, and, for a fused span, the fusion choice's measured
+        footprint (exec/regions.py: over the budget, the span is refused
+        on its next submission)."""
+        from ..audit.staged import audit_staged_query
+        t0 = time.perf_counter()
+        built0 = _build_seconds()
+        report = audit_staged_query(
+            plan, batches, mesh=mesh, query_id=self.query_id,
+            session=self.session, collector=self.collector,
+            stats=self.stats, memory_pool=self.memory_pool, plan_fp=fp,
+            donate=donate)
+        # a kernel the audited run built first is compile time
+        self.collector.add_compile_seconds(_build_seconds() - built0)
+        _add(self.stats, "kernel_audit_s", time.perf_counter() - t0)
+        est = (report or {}).get("peak_bytes_estimate")
+        if not est:
+            return
+        from .accuracy import record_node
+        record_node("footprint", "MemoryPool", unit="bytes", est=float(est))
+        if fused_span:
+            from .regions import fusion_memory
+            fusion_memory().note_footprint(fp, est)
+        if self.prof_on:
+            from .profiler import note_footprint
+            note_footprint(fp, est)
+
+    def prepare_donation(self, reg, rbatches: Sequence, consumers: Dict,
+                         rfp: str):
+        """The region's handoff plan (exec/donation.py), or None: the
+        region-kind inputs whose last consumer this region is, read once
+        here, if its root is overflow-incapable. An error before the
+        handoff is a fallback to the undonated dispatch."""
+        from .donation import note_fallback, prepare_donation
+        if not self.donate:
+            return None
+        uses: Dict[int, int] = {}
+        for i in reg.inputs:
+            if i.kind == "region":
+                uses[i.region] = uses.get(i.region, 0) + 1
+        dead = [k for k, i in enumerate(reg.inputs)
+                if i.kind == "region" and consumers[i.region] == 1
+                and uses[i.region] == 1]
+        if not dead:
+            return None
+        try:
+            return prepare_donation(rfp, reg.root, rbatches, dead)
+        except Exception as e:  # noqa: BLE001 - any injected error class
+            from ..server.flight_recorder import record_event
+            note_fallback()
+            _add(self.stats, "donation_fallbacks", 1)
+            self.collector.note("donation_fallbacks")
+            record_event("donation_fallback", query_id=self.query_id,
+                         region=reg.tag, reason=str(e)[:200])
+            return None
+
+    def note_donation(self, reg, prep) -> None:
+        from ..server.flight_recorder import record_event
+        from .donation import note_donation
+        note_donation(prep.donated_bytes, len(prep.donate_idx))
+        _add(self.stats, "donations", 1)
+        _add(self.stats, "donated_bytes", prep.donated_bytes)
+        self.collector.note("donations")
+        self.collector.note("donated_bytes", prep.donated_bytes)
+        record_event("buffer_donation", query_id=self.query_id,
+                     region=reg.tag, bytes=prep.donated_bytes,
+                     inputs=len(prep.donate_idx))
+
+
 def _execute_regions(rplan, scan_nodes: Sequence, batches: Sequence,
                      limb_form: str, default_join_capacity: int,
                      adaptive: bool, staged_bytes: int,
-                     region_hops: List, prog) -> Tuple[Batch, int, int, int]:
+                     region_hops: List, prog, inst: _Instruments
+                     ) -> Tuple[Batch, int, int, int]:
     """The region executor (the reference's `_execute_regions`): each
     region's root lowered alone through the compiled-plan cache and run
     through the overflow ladder in producer order, its cut children fed
     as remote-source inputs: their output batches, which stay on the
     device (a materialised handoff, no host round trip), and are dropped
-    after their last consumer ran. Appends (region, its dispatch hops,
-    the lowerings it paid) to `region_hops`. Returns (the last region's output, the largest
-    capacity factor, the capacity reruns, the lowerings paid)."""
+    after their last consumer ran. With `kernel_audit` on, each region's
+    closure is audited before its dispatch; with `buffer_donation` on, a
+    region of an overflow-incapable root is handed the dead
+    intermediates it is the last reader of (exec/donation.py): the
+    executor drops its own references to them first, so what the region
+    does not pass through frees while it runs. Appends (region, its
+    dispatch hops, the lowerings it paid) to `region_hops`. Returns (the
+    last region's output, the largest capacity factor, the capacity
+    reruns, the lowerings paid)."""
+    from .plan_cache import plan_fingerprint
     staged_by_id = {id(n): b for n, b in zip(scan_nodes, batches)}
     outputs: Dict[int, Batch] = {}
     consumers: Dict[int, int] = {}
@@ -922,14 +1057,32 @@ def _execute_regions(rplan, scan_nodes: Sequence, batches: Sequence,
     for reg in rplan.regions:
         rbatches = [staged_by_id[id(i.node)] if i.kind == "scan"
                     else outputs[i.region] for i in reg.inputs]
+        rfp = plan_fingerprint(reg.root) \
+            if inst.audit_on or inst.donate else ""
+        prep = inst.prepare_donation(reg, rbatches, consumers, rfp)
+        if inst.audit_on:
+            _, ids, factors = _fitted_capacities(reg.root)
+            plan, hit = _lower(reg.root, ids, factors, None, limb_form,
+                               default_join_capacity, 1, True)
+            lowered += not hit
+            inst.audit(plan, rbatches, rfp, fused_span=True,
+                       donate=prep.donate_idx if prep is not None else ())
+        if prep is not None:
+            rbatches = prep.handoff(rbatches)
+            for k in prep.donate_idx:
+                outputs.pop(reg.inputs[k].region)
+            inst.note_donation(reg, prep)
         hops: List = []
-        out, k, r, _slots, lw = _dispatch_ladder(
+        # no local name may keep an input alive through the dispatch
+        res = _dispatch_ladder(
             reg.root, rbatches, limb_form, default_join_capacity,
             adaptive=adaptive, staged_bytes=staged_bytes, hops=hops,
             prog=prog, use_cache=True)
+        del rbatches
+        outputs[reg.index], k, r, _slots, lw = res
+        del res
         region_hops.append((reg, hops, lw))
         scale, reruns, lowered = max(scale, k), reruns + r, lowered + lw
-        outputs[reg.index] = out
         for i in reg.inputs:  # drop intermediates past their last use
             if i.kind == "region":
                 consumers[i.region] -= 1
@@ -1120,6 +1273,11 @@ def _finalize_query_stats(collector: StatsCollector, res: QueryResult,
                        unit="rows", est=est_rows_of(root, sf),
                        actual=float(res.row_count))
         recs = acc.snapshot_records()
+        if "footprint" in recs and qs.peak_memory_bytes:
+            # the K005 estimate's actual: the pool's measured peak
+            acc.record("footprint", node_type="MemoryPool", unit="bytes",
+                       actual=float(qs.peak_memory_bytes))
+            recs = acc.snapshot_records()
         if recs:
             qs.accuracy = merge_record_maps(qs.accuracy, recs)
             acc_finalize(collector.query_id, recs)

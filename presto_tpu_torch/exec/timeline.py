@@ -71,6 +71,7 @@ from typing import Dict, List, Optional, Tuple
 
 from .. import failpoints
 from .datapath import HOPS, now_us
+from ..utils.locks import OrderedLock
 
 __all__ = ["LANES", "LANE_OF", "TIMELINE_ENV", "MAX_INTERVALS",
            "Interval", "TimelineSlice", "TimelineLedger", "recording",
@@ -226,7 +227,7 @@ class TimelineLedger:
         self.dropped = 0
         self.totals: Dict[str, Dict[str, int]] = {}
         self.degraded = False
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("timeline.TimelineLedger._lock")
 
     def record(self, hop: str, nbytes: int, t0_us: int, t1_us: int,
                split_id: int = -1) -> None:
@@ -540,7 +541,7 @@ def ascii_gantt(intervals, width: int = 48) -> List[str]:
 # request handlers (/v1/timeline, system tables), engine threads
 # (note_query after each run, record_interval's degradation counter)
 # and the flight recorder all touch these
-_LOCK = threading.RLock()
+_LOCK = OrderedLock("timeline._LOCK")
 # query id -> merged slice (the flight-dump cross-link AND the
 # /v1/timeline payload); bounded like datapath's query ledgers
 _QUERY_SLICES: "collections.OrderedDict[str, TimelineSlice]" = \

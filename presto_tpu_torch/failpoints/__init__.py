@@ -39,11 +39,11 @@ from __future__ import annotations
 
 import os
 import random
-import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 from .sites import SITES, sites_by_layer
+from ..utils.locks import OrderedLock
 
 __all__ = ["ARMED", "hit", "arm", "disarm", "disarm_all", "configure",
            "active", "failpoint_totals", "armed_count", "session_scope",
@@ -284,7 +284,7 @@ class FailpointRegistry:
         self._armed: Dict[str, _Armed] = {}
         # lifetime (site, action-kind) -> fired count
         self._totals: Dict[Tuple[str, str], int] = {}
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("failpoints.FailpointRegistry._lock")
 
     def arm(self, site: str, spec: str) -> None:
         action, trigger = parse_spec(site, spec)

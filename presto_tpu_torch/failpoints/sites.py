@@ -2,13 +2,12 @@
 
 Counterpart of presto_tpu/failpoints/sites.py. Each row is a
 ``<layer>.<verb>`` name with its layer and what it injects; the admin
-document of ``GET /v1/failpoint`` serves it. A site whose module the
-port has not taken yet (buffer donation and the timeline: ROADMAP
-items 15 and 16) stays listed, as in the reference, and is hooked
-where that module arrives. The statement tier hooks
+document of ``GET /v1/failpoint`` serves it. Every site is hooked
+where its module is. The statement tier hooks
 `statement.execute`, the dispatcher `dispatcher.admit`, the batching
 executor `dispatcher.batch_collapse` (exec/batching.py), the runner
-`fusion.demote` (exec/runner.py), the worker's drain
+`fusion.demote` (exec/runner.py), buffer donation `donation.apply`
+(exec/donation.py::prepare_donation), the worker's drain
 `worker.drain_stall`, the announcer's goodbye
 `discovery.unannounce_lost` and the resource manager's heartbeat
 `coordinator.heartbeat_lapse`.

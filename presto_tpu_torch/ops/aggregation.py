@@ -1010,8 +1010,11 @@ def _group_by_sorted(batch: Batch, key_channels: Sequence[int],
         pair_first[1:] |= sw[1:] != sw[:-1]
 
     n_act = s_active.sum()
+    # the last active row's segment, read by index_select: indexing with
+    # a 0-d tensor would read the index on the host
+    last = (n_act - 1).clamp(0, max(n - 1, 0)).reshape(1)
     num_groups = torch.where(n_act > 0,
-                             seg[(n_act - 1).clamp(0, max(n - 1, 0))] + 1, 0)
+                             seg.index_select(0, last).reshape(()) + 1, 0)
     overflow = num_groups > max_groups
 
     # per-slot [start, end) ranges; inactive rows get a sentinel segment

@@ -13,7 +13,10 @@ and splits the limbs inside the kernel (the narrow form, the default).
 A wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version only for CPU tensors; there is no fallback from a
 failed launch. Each wrapper counts its launches in a module-level
-integer, so a run can show that it went through the kernel.
+integer, so a run can show that it went through the kernel, and hands
+each launch to `TRACE_HOOK` when one is set: the kernel audit
+(audit/core.py) records a launch, which never reaches the PyTorch
+dispatcher, as one op of its trace.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ __all__ = ["limb_partial_sums", "limb_partial_sums_reference",
            "fused_limb_sums", "fused_limb_sums_reference", "LimbRequest",
            "source_field", "limb_count", "contains_bytes",
            "contains_bytes_reference", "build_library", "KERNELS",
-           "SUM_TILE", "FUSED_MAX_ROWS_PER_BLOCK", "LAUNCHES"]
+           "SUM_TILE", "FUSED_MAX_ROWS_PER_BLOCK", "LAUNCHES", "TRACE_HOOK"]
 
 SUM_TILE = 1024
 MAX_GROUPS = 64
@@ -43,6 +46,10 @@ MAX_GROUPS = 64
 # launches of each kernel since the counts were last set to 0
 LAUNCHES: Dict[str, int] = {"limb_partial_sums": 0, "fused_limb_sums": 0,
                             "contains_bytes": 0}
+
+# hook(kernel name, tensors read, tensors written) called after each
+# launch; None (the default) costs one truth test per launch
+TRACE_HOOK = None
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -186,6 +193,8 @@ def limb_partial_sums(ids: torch.Tensor, limbs: torch.Tensor,
         raise RuntimeError(f"limb_partial_sums launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["limb_partial_sums"] += 1
+    if TRACE_HOOK is not None:
+        TRACE_HOOK("limb_partial_sums", (ids, limbs), (out,))
     return out
 
 
@@ -401,6 +410,8 @@ def fused_limb_sums(ids: torch.Tensor, sources: Sequence[Source],
         raise RuntimeError(f"fused_limb_sums launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["fused_limb_sums"] += 1
+    if TRACE_HOOK is not None:
+        TRACE_HOOK("fused_limb_sums", (ids, *lanes), (out,))
     return _recombine(out)
 
 
@@ -492,6 +503,8 @@ def contains_bytes(chars: torch.Tensor, lengths: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"contains_bytes launch failed: CUDA error {err}")
     LAUNCHES["contains_bytes"] += 1
+    if TRACE_HOOK is not None:
+        TRACE_HOOK("contains_bytes", (chars, lengths), (out,))
     return out
 
 

@@ -24,8 +24,9 @@ the statement server and the worker enforce one policy.
 from __future__ import annotations
 
 import re
-import threading
 from typing import Dict, List, Optional
+
+from ..utils.locks import OrderedLock
 
 __all__ = ["AccessDeniedException", "AccessControlManager",
            "set_access_control", "get_access_control"]
@@ -131,7 +132,7 @@ class AccessControlManager:
         walk(root)
 
 
-_lock = threading.Lock()
+_lock = OrderedLock("access._lock")
 _manager: Optional[AccessControlManager] = None
 
 

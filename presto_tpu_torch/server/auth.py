@@ -10,9 +10,8 @@ signing key is the SHA-256 of the secret, as in the reference, and the
 token bytes are the reference's for the same secret, payload and clock,
 so either package's nodes authenticate to the other's. The secret
 comes from the caller, else `set_shared_secret`, else the
-PRESTO_TPU_INTERNAL_SECRET environment variable. The reference's locks
-are `OrderedLock`s, whose order witness is ROADMAP queue 1 item 16;
-plain `threading.RLock`s stand in here.
+PRESTO_TPU_INTERNAL_SECRET environment variable. The locks are
+`OrderedLock`s under the reference's names (utils/locks.py).
 """
 
 from __future__ import annotations
@@ -22,9 +21,10 @@ import hashlib
 import hmac
 import json
 import os
-import threading
 import time
 from typing import Optional
+
+from ..utils.locks import OrderedLock
 
 
 __all__ = ["AuthError", "InternalAuthenticator", "INTERNAL_BEARER_HEADER",
@@ -34,7 +34,7 @@ __all__ = ["AuthError", "InternalAuthenticator", "INTERNAL_BEARER_HEADER",
 
 INTERNAL_BEARER_HEADER = "X-Presto-Internal-Bearer"
 
-_shared_secret_lock = threading.RLock()
+_shared_secret_lock = OrderedLock("auth._shared_secret_lock")
 _shared_secret: Optional[str] = None
 
 
@@ -119,7 +119,7 @@ class InternalAuthenticator:
         self.secret = secret
         self.node_id = node_id
         self.ttl_s = ttl_s
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("auth.InternalAuthenticator._lock")
         self._token: Optional[str] = None
         self._token_exp = 0.0
 

@@ -28,6 +28,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 
 from .. import types as T
+from ..utils.locks import OrderedLock
 
 __all__ = ["CatalogServer", "RemoteCatalogProxy", "register_remote_catalog",
            "unregister_remote_catalog"]
@@ -121,7 +122,7 @@ class RemoteCatalogProxy:
         self.timeout = timeout
         self.cache_ttl_s = cache_ttl_s
         self._cache: Dict[str, tuple] = {}
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("catalog_server.RemoteCatalogProxy._lock")
         self.SCHEMA = _RemoteSchema(self)
 
     def _get(self, path: str) -> dict:

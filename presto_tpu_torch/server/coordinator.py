@@ -54,12 +54,13 @@ from .discovery import alive_nodes
 from .flight_recorder import record_event
 from .metrics import record_suppressed
 from .tracing import TraceContext, emit_span, new_span_id, trace_context
+from ..utils.locks import OrderedLock
 
 __all__ = ["Coordinator", "speculation_totals", "reset_speculation_totals"]
 
 # speculative attempts launched, won (the copy finished first) and
 # lost (the original did), process-wide
-_SPEC_LOCK = threading.Lock()
+_SPEC_LOCK = OrderedLock("coordinator._SPEC_LOCK")
 _SPEC = {"launched": 0, "wins": 0, "losses": 0}
 
 ENV_SPECULATION_MS = "PRESTO_TPU_SPECULATION_MS"

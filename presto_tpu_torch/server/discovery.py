@@ -38,15 +38,15 @@ from typing import Dict, List, Optional
 from .. import failpoints
 from ..utils.backoff import Backoff
 from .auth import authorize_request, bearer_headers, make_authenticator
+from ..utils.locks import OrderedLock
 
 __all__ = ["DiscoveryServer", "Announcer", "HeartbeatProber", "alive_nodes",
            "fleet_membership_totals", "announce_retry_totals",
            "note_unannounced", "clear_unannounced", "recently_unannounced",
            "reset_fleet_state"]
 
-# the process-wide fleet membership, under one lock (the reference's
-# OrderedLock; ROADMAP queue 1 item 16 brings its witness)
-_FLEET_LOCK = threading.RLock()
+# the process-wide fleet membership, under one lock
+_FLEET_LOCK = OrderedLock("discovery._FLEET_LOCK")
 _FLEET = {"joined": 0, "left": 0, "announce_retries": 0}
 # url -> the time of its goodbye; cleared when the node announces again
 # and forgotten after the ttl, so that a new process reusing the port
@@ -113,7 +113,7 @@ class _Handler(BaseHTTPRequestHandler):
     # delayed ACK (~40 ms a request on Linux)
     disable_nagle_algorithm = True
     nodes: Dict[str, dict] = {}  # set per server on the bound subclass
-    lock = threading.Lock()
+    lock = OrderedLock("discovery._Handler.lock")
     authenticator = None  # an InternalAuthenticator when a secret is set
 
     def log_message(self, fmt, *args):
@@ -188,7 +188,7 @@ class DiscoveryServer:
     def __init__(self, port: int = 0, shared_secret: Optional[str] = None,
                  tls: Optional[tuple] = None):
         handler = type("BoundDiscovery", (_Handler,), {
-            "nodes": {}, "lock": threading.Lock(),
+            "nodes": {}, "lock": OrderedLock("discovery._Handler.lock"),
             "authenticator": make_authenticator(shared_secret,
                                                 "discovery")})
         self.httpd = ThreadingHTTPServer(("127.0.0.1", port), handler)
@@ -319,7 +319,7 @@ class HeartbeatProber:
         self.threshold = threshold
         self.probe_timeout = probe_timeout_s
         self._rates: Dict[str, float] = {}
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("discovery.HeartbeatProber._lock")
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 

@@ -29,6 +29,7 @@ from typing import Callable, Dict, List, Optional
 from .. import failpoints
 from ..utils.config import parse_size
 from .events import event_listeners
+from ..utils.locks import OrderedLock
 
 __all__ = ["ResourceGroup", "Dispatcher", "QueryRejected",
            "LATENCY_CLASSES", "latency_class_groups",
@@ -67,7 +68,7 @@ class ResourceGroup:
         self._mem_used = 0
         self.parent: Optional["ResourceGroup"] = None
         self.children: Dict[str, "ResourceGroup"] = {}
-        self._cv = threading.Condition(threading.RLock())
+        self._cv = threading.Condition(OrderedLock("dispatcher.ResourceGroup._cv"))
         self._waiters: List[tuple] = []  # (ticket, leaf, mem), at the root
         self._ticket = 0
 

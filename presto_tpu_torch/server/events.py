@@ -12,9 +12,10 @@ is counted in `listener_errors` and as a suppressed error of
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Callable, Dict, List
+
+from ..utils.locks import OrderedLock
 
 __all__ = ["EventListenerManager", "event_listeners"]
 
@@ -22,7 +23,7 @@ __all__ = ["EventListenerManager", "event_listeners"]
 class EventListenerManager:
     def __init__(self):
         self._listeners: List[Callable[[str, Dict], None]] = []
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("events.EventListenerManager._lock")
         self.listener_errors = 0
 
     def register(self, listener: Callable[[str, Dict], None]):

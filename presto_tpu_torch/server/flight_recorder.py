@@ -24,9 +24,10 @@ from __future__ import annotations
 import collections
 import json
 import os
-import threading
 import time
 from typing import Dict, List, Optional
+
+from ..utils.locks import OrderedLock
 
 
 __all__ = ["FlightRecorder", "get_flight_recorder", "set_flight_recorder",
@@ -34,7 +35,7 @@ __all__ = ["FlightRecorder", "get_flight_recorder", "set_flight_recorder",
 
 # -- process-lifetime counters (survive recorder swaps; /v1/metrics) ----
 
-_COUNTERS_LOCK = threading.RLock()
+_COUNTERS_LOCK = OrderedLock("flight_recorder._COUNTERS_LOCK")
 _EVENTS_TOTAL = {"count": 0}
 _DUMPS_TOTAL: Dict[str, int] = {}  # reason -> count
 _EVICTED_TOTAL = {"count": 0}      # dump files deleted by retention
@@ -83,7 +84,7 @@ class FlightRecorder:
                 max_dump_dir_files = 256
         self.max_dump_dir_files = int(max_dump_dir_files)
         self._dumped: Dict[str, str] = {}  # key -> dump path ('' = capped)
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("flight_recorder.FlightRecorder._lock")
 
     # -- recording ------------------------------------------------------
 
@@ -291,7 +292,7 @@ class FlightRecorder:
 
 
 _recorder: Optional[FlightRecorder] = None
-_recorder_lock = threading.RLock()
+_recorder_lock = OrderedLock("flight_recorder._recorder_lock")
 
 
 def get_flight_recorder() -> FlightRecorder:

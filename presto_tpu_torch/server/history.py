@@ -29,11 +29,11 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import threading
 import time
 from typing import Dict, List, Optional
 
 from ..exec.perfgate import SENTINEL_SPECS, RollingBaseline
+from ..utils.locks import OrderedLock
 
 __all__ = ["QueryHistoryArchive", "get_history_archive",
            "set_history_archive", "history_totals",
@@ -58,7 +58,7 @@ def _process_id() -> str:
 
 # -- process-lifetime counters (survive archive swaps; /v1/metrics) -----
 
-_COUNTERS_LOCK = threading.RLock()
+_COUNTERS_LOCK = OrderedLock("history._COUNTERS_LOCK")
 _RECORDS_TOTAL = {"count": 0}
 _REGRESSIONS_TOTAL: Dict[str, int] = {}  # metric -> breaches
 
@@ -146,8 +146,8 @@ class QueryHistoryArchive:
         self._batch_fp_counts: Dict[str, int] = {}
         self._file_index = 0
         self._file_lines = 0
-        self._lock = threading.RLock()
-        self._plock = threading.RLock()
+        self._lock = OrderedLock("history.QueryHistoryArchive._lock")
+        self._plock = OrderedLock("history.QueryHistoryArchive._plock")
         if self.history_dir:
             self.load()
 
@@ -525,7 +525,7 @@ def cluster_history_doc(worker_urls=(), timeout: float = 3.0) -> dict:
 
 
 _archive: Optional[QueryHistoryArchive] = None
-_archive_lock = threading.RLock()
+_archive_lock = OrderedLock("history._archive_lock")
 
 
 def get_history_archive() -> QueryHistoryArchive:

@@ -1,9 +1,7 @@
 """Prometheus text-format metrics: the one emitter both tiers share.
 
 Counterpart of presto_tpu/server/metrics.py: the same families,
-names and exposition. Two of the reference's builders have no source
-in the port yet and are left out: the kernel audit and buffer donation
-(ROADMAP item 16).
+names and exposition.
 
 Reference surface: the native worker's PrometheusStatsReporter
 (presto_cpp/main/PrometheusStatsReporter.cpp) and PrestoServer's
@@ -36,9 +34,10 @@ from __future__ import annotations
 
 import bisect
 import logging
-import threading
 import time as _time
 from typing import Dict, List, Optional, Tuple, Union
+
+from ..utils.locks import OrderedLock
 
 
 __all__ = ["MetricFamily", "Histogram", "DEFAULT_BUCKETS",
@@ -53,6 +52,7 @@ __all__ = ["MetricFamily", "Histogram", "DEFAULT_BUCKETS",
            "record_suppressed", "suppressed_error_families",
            "suppressed_error_totals", "tracing_families",
            "flight_recorder_families", "timeline_families",
+           "kernel_audit_families", "donation_families",
            "failpoint_families", "query_history_families",
            "live_introspection_families", "fleet_families",
            "lock_families", "CONTENT_TYPE"]
@@ -123,7 +123,7 @@ class Histogram:
         # per-bucket (trace_id, value, ts_us) of the max observation
         self.exemplars: List[Optional[Tuple[str, float, int]]] = \
             [None] * (len(self.buckets) + 1)
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("metrics.Histogram._lock")
 
     def observe(self, value: float,
                 trace_id: Optional[str] = None) -> None:
@@ -316,7 +316,7 @@ def _num(v: Union[int, float]) -> str:
 # /v1/metrics carry a stable histogram shape from the first request on;
 # undeclared names observed at runtime export too.
 
-_HIST_LOCK = threading.RLock()
+_HIST_LOCK = OrderedLock("metrics._HIST_LOCK")
 _HISTOGRAMS: Dict[Tuple[str, Tuple[Tuple[str, str], ...]], Histogram] = {}
 
 # name -> (help text, preset label sets rendered even before any
@@ -571,7 +571,7 @@ def narrowing_families() -> List[MetricFamily]:
 # /v1/metrics by both tiers. "Swallowed but counted" is observable;
 # "swallowed" is a silent outage.
 
-_SUPPRESSED_LOCK = threading.RLock()
+_SUPPRESSED_LOCK = OrderedLock("metrics._SUPPRESSED_LOCK")
 _SUPPRESSED: Dict[Tuple[str, str], int] = {}
 _log = logging.getLogger("presto_tpu_torch.server")
 
@@ -688,9 +688,52 @@ def query_history_families() -> List[MetricFamily]:
     ]
 
 
-# The kernel-audit and buffer-donation families (the reference's
-# kernel_audit_families and donation_families) wait for their sources,
-# ROADMAP queue 1 item 16.
+def kernel_audit_families() -> List[MetricFamily]:
+    """Staging-time kernel-audit totals (audit/staged.py), exported by
+    BOTH tiers: findings per IR pass plus kernels audited. Every
+    registered pass code gets a sample (zeros included) so the scrape
+    shape is stable from the first request on."""
+    from ..audit.core import all_passes
+    from ..audit.staged import kernel_audit_totals
+    t = kernel_audit_totals()
+    findings = t["findings"]
+    fam = MetricFamily(
+        "presto_tpu_kernel_audit_findings_total", "counter",
+        "IR-audit findings surfaced to queries, by pass "
+        "(kernaudit; see DESIGN.md 'Kernel IR auditing')")
+    codes = {p.code for p in all_passes()} | set(findings)
+    for code in sorted(codes):
+        fam.add(findings.get(code, 0), {"pass": code})
+    return [
+        fam,
+        MetricFamily("presto_tpu_kernel_audit_kernels_total", "counter",
+                     "staged kernels traced and audited (memo hits "
+                     "excluded)").add(t["kernels"]),
+    ]
+
+
+def donation_families() -> List[MetricFamily]:
+    """Proven-safe buffer-donation totals (exec/donation.py), exported
+    by BOTH tiers with a stable zero shape: donated dispatches, HBM
+    bytes aliased in place of fresh output allocations, and donation
+    -path errors that collapsed to the undonated dispatch."""
+    from ..exec.donation import donation_totals
+    t = donation_totals()
+    return [
+        MetricFamily("presto_tpu_donations_total", "counter",
+                     "region dispatches that ran the donating form "
+                     "(K006-proven donate_argnums wrapper)").add(
+                         t["donations"]),
+        MetricFamily("presto_tpu_donated_bytes_total", "counter",
+                     "HBM bytes aliased input-to-output by proven-safe "
+                     "buffer donation instead of freshly allocated "
+                     "(see DESIGN.md 'Buffer donation')").add(
+                         t["donated_bytes"]),
+        MetricFamily("presto_tpu_donation_fallbacks_total", "counter",
+                     "donation-path errors that fell back to the "
+                     "normal undonated dispatch (fallback, never "
+                     "failure)").add(t["fallbacks"]),
+    ]
 
 
 def timeline_families() -> List[MetricFamily]:
@@ -831,17 +874,22 @@ def failpoint_families() -> List[MetricFamily]:
 
 
 def lock_families() -> List[MetricFamily]:
-    """The lock-order witness families: the port has no witness yet
-    (the reference's utils/locks.py, ROADMAP queue 1 item 16), so it
-    reports what that means, no inversion seen and the witness off."""
+    """Lock-order witness accounting (utils/locks.py), exported by BOTH
+    tiers: the process-lifetime inversion counter plus the armed gauge,
+    so a scrape shows whether zero means "clean under watch" or
+    "witness off"."""
+    from ..utils import locks as _locks
     return [
         MetricFamily(
             "presto_tpu_lock_order_violations_total", "counter",
             "lock-order inversions detected at acquire time by the "
-            "runtime witness").add(0),
+            "runtime witness (utils/locks.py; see DESIGN.md "
+            "'Concurrency auditing')").add(
+                _locks.witness_violations_total()),
         MetricFamily(
             "presto_tpu_lock_witness_armed", "gauge",
-            "1 while the lock-order witness is armed").add(0),
+            "1 while the lock-order witness is armed").add(
+                1 if _locks.ARMED else 0),
     ]
 
 

@@ -14,6 +14,8 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from ..utils.locks import OrderedLock
+
 __all__ = ["QueryState", "QueryStateMachine", "TERMINAL_STATES"]
 
 
@@ -38,7 +40,7 @@ class QueryStateMachine:
 
     def __init__(self, query_id: str):
         self.query_id = query_id
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("query_state.QueryStateMachine._lock")
         self._state = QueryState.QUEUED
         self._entered: Dict[str, float] = {QueryState.QUEUED: time.time()}
         self._listeners: List[Callable[[str, str], None]] = []

@@ -23,8 +23,8 @@ that N coordinators enforce cluster-wide resource-group limits):
                               in-flight statements, once
   * failover_totals        -- the failovers of this process
 
-The reference's locks are `OrderedLock`s (their witness is ROADMAP
-queue 1 item 16; `threading.RLock`s here). A failover is a
+The locks are `OrderedLock`s under the reference's names
+(utils/locks.py). A failover is a
 `coordinator_failover` flight event and counts in the
 `presto_tpu_coordinator_failovers_total` family; survived errors are
 counted (server/metrics.py::record_suppressed).
@@ -40,13 +40,14 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
 
 from .. import failpoints
+from ..utils.locks import OrderedLock
 
 __all__ = ["ResourceManager", "ClusterStateSender", "remote_group_load",
            "StandbyCoordinator", "failover_totals",
            "reset_failover_totals"]
 
 # failovers, process-wide (metrics.fleet_families exports them)
-_FAILOVER_LOCK = threading.RLock()
+_FAILOVER_LOCK = OrderedLock("resource_manager._FAILOVER_LOCK")
 _FAILOVER = {"count": 0}
 
 
@@ -66,7 +67,7 @@ class _State:
     under `lock`."""
 
     def __init__(self, heartbeat_ttl_s: float):
-        self.lock = threading.RLock()
+        self.lock = OrderedLock("resource_manager._State.lock")
         self.ttl = heartbeat_ttl_s
         # coordinator_id -> {"at": ts, "groups": {name: stats}}
         self.coordinators: Dict[str, dict] = {}
@@ -258,7 +259,7 @@ class StandbyCoordinator:
         self._seen_primary = False
         self._fired = False
         # guards _manifest, _seen_primary, _fired and is_primary
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("resource_manager.StandbyCoordinator._lock")
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 

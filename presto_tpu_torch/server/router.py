@@ -26,6 +26,8 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, List, Optional
 
+from ..utils.locks import OrderedLock
+
 
 __all__ = ["RouterServer", "tpu_plan_checker"]
 
@@ -57,7 +59,7 @@ class RouterServer:
         self.checker = checker if checker is not None else tpu_plan_checker
         self.health_ttl = health_ttl_s
         self._health: Dict[str, tuple] = {}  # url -> (ok, checked_at)
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("router.RouterServer._lock")
         self._httpd = ThreadingHTTPServer(("127.0.0.1", port),
                                           _make_handler(self))
         self.port = self._httpd.server_address[1]

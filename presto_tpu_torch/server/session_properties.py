@@ -16,8 +16,9 @@ defaults:
 from __future__ import annotations
 
 import re
-import threading
 from typing import Dict, List, Optional
+
+from ..utils.locks import OrderedLock
 
 __all__ = ["SessionPropertyManager", "set_session_property_manager",
            "get_session_property_manager"]
@@ -47,7 +48,7 @@ class SessionPropertyManager:
         return out
 
 
-_lock = threading.Lock()
+_lock = OrderedLock("session_properties._lock")
 _manager: Optional[SessionPropertyManager] = None
 
 

@@ -77,6 +77,7 @@ from .dispatcher import Dispatcher, QueryRejected
 from .flight_recorder import get_flight_recorder, record_event
 from .query_state import TERMINAL_STATES, QueryState, QueryStateMachine
 from .tracing import TraceContext, new_span_id
+from ..utils.locks import OrderedLock
 
 __all__ = ["StatementServer", "render_value"]
 
@@ -227,10 +228,10 @@ class StatementServer:
         self.transactions = TransactionManager()
         self._executor = executor or self._default_executor
         self._queries: Dict[str, _Query] = {}
-        self._qlock = threading.RLock()
+        self._qlock = OrderedLock("statement.StatementServer._qlock")
         self._started_at = time.time()
         # lifetime roll-ups of terminal queries for /v1/metrics
-        self._metrics_lock = threading.Lock()
+        self._metrics_lock = OrderedLock("statement.StatementServer._metrics_lock")
         self._queries_by_state: Dict[str, int] = {}
         self._totals = {"rows": 0, "bytes": 0, "wall_us": 0,
                         "compile_us": 0, "execute_us": 0,
@@ -947,6 +948,7 @@ class StatementServer:
                       M.batching_families, M.suppressed_error_families,
                       M.tracing_families, M.flight_recorder_families,
                       M.failpoint_families, M.timeline_families,
+                      M.kernel_audit_families, M.donation_families,
                       M.lock_families, M.query_history_families,
                       M.histogram_families):
             fams.extend(build())

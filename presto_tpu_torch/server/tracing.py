@@ -37,6 +37,8 @@ import time
 import uuid
 from typing import Dict, List, Optional
 
+from ..utils.locks import OrderedLock
+
 
 __all__ = ["RecordingTracer", "set_tracer", "get_tracer",
            "spans_from_state_timings", "TraceContext", "TRACE_HEADER",
@@ -93,7 +95,7 @@ def parse_traceparent(value: Optional[str]) -> Optional[TraceContext]:
 
 # -- process-lifetime counters (exported on /v1/metrics, both tiers) ----
 
-_COUNTERS_LOCK = threading.RLock()
+_COUNTERS_LOCK = OrderedLock("tracing._COUNTERS_LOCK")
 _COUNTERS = {"spans": 0, "evicted": 0, "dropped": 0}
 
 
@@ -128,7 +130,7 @@ class RecordingTracer:
         # hot (never the LRU victim), so per-trace growth needs its own
         # bound; overflow is counted as dropped
         self.max_spans_per_trace = max_spans_per_trace
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("tracing.RecordingTracer._lock")
 
     def span(self, trace_id: str, name: str, start_s: float, end_s: float,
              attributes: Optional[dict] = None,

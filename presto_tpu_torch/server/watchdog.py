@@ -35,6 +35,8 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from ..utils.locks import OrderedLock
+
 
 __all__ = ["StuckCandidate", "StuckProgressWatchdog", "stuck_totals",
            "resolve_stuck_threshold_ms", "reset_stuck_totals"]
@@ -43,7 +45,7 @@ ENV_STUCK_MS = "PRESTO_TPU_STUCK_MS"
 
 # process-lifetime firing counter (both tiers' watchdogs share it, like
 # the flight-recorder totals next door)
-_TOTALS_LOCK = threading.RLock()
+_TOTALS_LOCK = OrderedLock("watchdog._TOTALS_LOCK")
 _STUCK_TOTAL = {"count": 0}
 
 
@@ -106,7 +108,7 @@ class StuckProgressWatchdog:
         self.poll_floor_s = poll_floor_s
         self.poll_cap_s = poll_cap_s
         self._fired: Dict[str, float] = {}  # key -> fire ts (bounded)
-        self._lock = threading.RLock()
+        self._lock = OrderedLock("watchdog.StuckProgressWatchdog._lock")
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 

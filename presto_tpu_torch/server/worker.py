@@ -87,6 +87,7 @@ from .auth import authorize_request, make_authenticator
 from .buffers import SpoolingOutputBuffer
 from .events import event_listeners
 from .flight_recorder import record_event
+from ..utils.locks import OrderedLock
 
 __all__ = ["TpuWorkerServer", "TaskManager", "FragmentResultCache"]
 
@@ -159,7 +160,7 @@ class FragmentResultCache:
         self.max_bytes = max_bytes
         self._entries = collections.OrderedDict()
         self._bytes = 0
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("worker.FragmentResultCache._lock")
         self.hits = 0
         self.misses = 0
 
@@ -254,7 +255,7 @@ class _Task:
         self.stats: Dict[str, object] = {}
         # the adopting peer's url once a drain migrated the pages
         self.moved_to: Optional[str] = None
-        self.lock = threading.Lock()
+        self.lock = OrderedLock("worker._Task.lock")
 
     def _new_buffer(self) -> SpoolingOutputBuffer:
         return SpoolingOutputBuffer(self._spool_threshold, self._spool_dir)
@@ -316,14 +317,14 @@ class TaskManager:
         self.output_spool_threshold_bytes = output_spool_threshold_bytes
         self.output_spool_dir = output_spool_dir
         self._exec_slots = threading.BoundedSemaphore(self.task_concurrency)
-        self._tasks_lock = threading.Lock()
+        self._tasks_lock = OrderedLock("worker.TaskManager._tasks_lock")
         self.fragment_cache = FragmentResultCache()
         self.counters: Dict[str, int] = {
             "tasks_created": 0, "tasks_finished": 0, "tasks_failed": 0,
             "tasks_aborted": 0, "tasks_adopted": 0, "pages_migrated": 0,
             "rows_produced": 0, "exchange_bytes": 0, "compile_us": 0,
             "execute_us": 0}
-        self._counters_lock = threading.Lock()
+        self._counters_lock = OrderedLock("worker.TaskManager._counters_lock")
         from ..connectors.system import register_task_manager
         register_task_manager(self)  # system.tasks
 
@@ -944,6 +945,7 @@ class _Handler(BaseHTTPRequestHandler):
                       M.accuracy_families, M.suppressed_error_families,
                       M.tracing_families, M.flight_recorder_families,
                       M.failpoint_families, M.timeline_families,
+                      M.kernel_audit_families, M.donation_families,
                       M.lock_families, M.query_history_families):
             fams.extend(build())
         # a worker's alive view is itself; its draining gauge its own
@@ -1212,7 +1214,7 @@ class TpuWorkerServer:
         from .discovery import clear_unannounced
         clear_unannounced(self.url)
         self._shared_secret = shared_secret  # the migration hop's
-        self._drain_lock = threading.Lock()
+        self._drain_lock = OrderedLock("worker.TpuWorkerServer._drain_lock")
         self._drain_thread: Optional[threading.Thread] = None
         self._drain_migrated = 0
         self._stop_drain = threading.Event()
