@@ -148,12 +148,16 @@ PyTorch version at the shapes of its path:
   unaudited run's, fused_limb_sums launched by the audit's run and by
   the dispatch, no finding), q1's closure traced under torch's sync
   debug mode (K002's host round trips equal to the syncs it counts;
-  K005's estimate at most the allocator's peak), the corpus gate over
+  K005's estimate at most the allocator's peak; every K002 site, and
+  agg_hash's exit-flag read, a site of the static lint's H001), the
+  corpus gate over
   the 22 TPC-H queries at sf 0.1 on both tiers against the committed
   baseline, and the phase_batching dashboard and TPC-H q10 with fusion
   off, buffer donation on against off in turns (equal rows, peak MB);
-* with the lock-order witness (utils/locks.py) armed around both and
-  0 violations required:
+* with the lock-order witness (utils/locks.py) armed around both, 0
+  violations required, and every ordered pair it sees an edge of the
+  static lock graph (presto_tpu_torch/lint/LOCK_ORDER.json, the lint's
+  C002 artifact):
 * the worker tier (phase_cluster): a DiscoveryServer and two
   HTTP workers (presto_tpu_torch.server.TpuWorkerServer) on the card,
   the Coordinator scheduling plan fragments on the workers discovery
@@ -5006,8 +5010,11 @@ def phase_audit():
 def witnessed(fn, *a, **kw):
     """fn(*a, **kw) with the lock-order witness armed (utils/locks.py):
     every OrderedLock acquire of the port's server and exec tiers
-    checks the order; any inversion raises after fn returns. Returns
-    fn's result."""
+    checks the order; any inversion raises after fn returns, and so
+    does an ordered pair the witness saw that is not an edge of the
+    static graph (presto_tpu_torch/lint/LOCK_ORDER.json, the lint's
+    C002 artifact). Returns fn's result."""
+    from presto_tpu_torch.lint.lockgraph import DEFAULT_ARTIFACT
     from presto_tpu_torch.utils import locks
     locks.reset_witness()
     locks.arm_witness()
@@ -5016,12 +5023,24 @@ def witnessed(fn, *a, **kw):
     finally:
         locks.disarm_witness()
     violations = locks.witness_violations()
+    t0 = time.perf_counter()
+    pairs = sorted((a_, b_) for a_, bs in locks.witness_edges().items()
+                   for b_ in bs)
+    with open(DEFAULT_ARTIFACT, encoding="utf-8") as f:
+        edges = {(e["from"], e["to"]) for e in json.load(f)["edges"]}
+    unknown = [p for p in pairs if p not in edges]
     print(f"lock-order witness over {fn.__name__}: {len(violations)} "
-          f"violations, {sum(map(len, locks.witness_edges().values()))} "
-          f"ordered pairs seen")
+          f"violations, {len(pairs)} ordered pairs seen "
+          f"{[' -> '.join(p) for p in pairs]}; {len(unknown)} outside "
+          f"LOCK_ORDER.json's {len(edges)} edges (checked in "
+          f"{time.perf_counter() - t0:.4f} s)")
     if violations:
         raise AssertionError(f"lock-order inversions in {fn.__name__}: "
                              f"{violations}")
+    if unknown:
+        raise AssertionError(
+            f"{fn.__name__}: ordered pairs the witness saw that the static "
+            f"lock graph lacks: {[' -> '.join(p) for p in unknown]}")
     return out
 
 

@@ -30,10 +30,10 @@ import argparse
 import json
 import os
 import sys
-from typing import Callable, List, Optional
+from typing import List, Optional
 
 from ..lint.baseline import run_scoped_baseline
-from ..lint.core import github_annotation
+from ..lint.cli import JSON_SCHEMA_VERSION, emit_report
 from .core import KernelTrace, all_passes, run_audit
 
 __all__ = ["main", "DEFAULT_BASELINE", "DEFAULT_FOOTPRINT_BUDGET",
@@ -42,7 +42,6 @@ __all__ = ["main", "DEFAULT_BASELINE", "DEFAULT_FOOTPRINT_BUDGET",
 
 DEFAULT_BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "baseline.json")
-JSON_SCHEMA_VERSION = 1
 
 # the reference's K005 budget for the corpus gate: far above the sf
 # 0.01 corpus's peaks, low enough that a runaway intermediate fails
@@ -162,51 +161,6 @@ def corpus_kernels(qnums: List[int], sf: float, tier: str, device,
     return kernels
 
 
-def emit_report(new, stale, *, baselined: int, suppressed: int,
-                pass_codes, unit_count: int, as_json: bool, fmt: str,
-                github_site: Callable) -> None:
-    """One gate run in the reference's output contract: the schema-v1
-    ``--json`` document, ``--format github`` annotations, or the human
-    report and its summary line."""
-    if as_json:
-        doc = {
-            "version": JSON_SCHEMA_VERSION,
-            "passes": list(pass_codes),
-            "filesScanned": unit_count,
-            "findings": [f.to_json() for f in new],
-            "baselined": baselined,
-            "suppressed": suppressed,
-            "staleBaseline": stale,
-        }
-        print(json.dumps(doc, indent=2, sort_keys=True))
-    elif fmt == "github":
-        for f in new:
-            path, line = github_site(f)
-            print(github_annotation(path, line,
-                                    f"kernaudit {f.code} [{f.path}]",
-                                    f.message))
-        for s in stale:
-            print(github_annotation(
-                "presto_tpu_torch/audit/baseline.json", 1,
-                f"kernaudit stale-baseline {s['fingerprint']}",
-                f"expected {s['countExpected']}, found "
-                f"{s['countFound']} -- debt paid, run "
-                f"--update-baseline"))
-    else:
-        for f in new:
-            print(f.render())
-        for s in stale:
-            print(f"stale baseline entry {s['fingerprint']} "
-                  f"({s['code']} {s['path']}): expected "
-                  f"{s['countExpected']}, found {s['countFound']} -- "
-                  f"debt paid, run --update-baseline")
-        summary = (f"{len(new)} finding(s), {baselined} baselined, "
-                   f"{suppressed} suppressed, {len(stale)} stale "
-                   f"baseline entr(ies) across "
-                   f"{unit_count} kernel(s) [{','.join(pass_codes)}]")
-        print(("FAIL " if (new or stale) else "ok ") + summary)
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
 
@@ -269,8 +223,12 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     emit_report(new, stale, baselined=baselined,
                 suppressed=result.suppressed, pass_codes=result.pass_codes,
-                unit_count=result.kernels_audited, as_json=args.as_json,
-                fmt=args.format, github_site=github_site)
+                unit_count=result.kernels_audited, unit_noun="kernel",
+                as_json=args.as_json, fmt=args.format, tool="kernaudit",
+                github_site=github_site,
+                github_title=lambda f: f"kernaudit {f.code} [{f.path}]",
+                stale_github_file=lambda s:
+                "presto_tpu_torch/audit/baseline.json")
     return 1 if (new or stale) else 0
 
 

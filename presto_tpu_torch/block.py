@@ -494,7 +494,9 @@ def _decode_strings(chars: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     live = np.arange(w) < lengths[:, None]
     text = np.where(live, chars, 0).astype(np.uint8)
     if n and w and text.max() < 128 and not (live & (text == 0)).any():
-        return text.view(f"S{w}").ravel().astype(str).astype(object)
+        # each fixed-width row decodes straight to a Python str in the
+        # object array: one conversion, no intermediate unicode array
+        return np.frompyfunc(bytes.decode, 1, 1)(text.view(f"S{w}").ravel())
     return np.array([chars[i, :lengths[i]].tobytes().decode("utf-8",
                                                             "replace")
                      for i in range(n)], dtype=object)

@@ -196,6 +196,11 @@ def _live_task_rows() -> List[tuple]:
 
 
 def _history_rows() -> List[tuple]:
+    # M001: system tables surface CAPPED registries -- the history
+    # archive is retention-capped -- so one snapshot list per
+    # request is bounded
+    _BOUNDED_BY = {"out": "capped registry snapshot (history "
+                          "retention / profiler entry caps)"}
     from ..server.history import get_history_archive
     out = []
     for r in get_history_archive().records():

@@ -196,6 +196,7 @@ class AccuracyLedger:
     future pipelined staging path record from worker threads while
     the driver thread records the root."""
 
+    _GUARDED_BY = {"_lock": ("records",)}
 
     def __init__(self):
         self.records: Dict[str, NodeAccuracy] = {}
@@ -318,6 +319,8 @@ def est_rows_of(node, sf: float) -> Optional[float]:
 
 # -- process registry ----------------------------------------------------
 
+_GUARDED_BY = {"_LOCK": ("_QUERY_RECORDS", "_TOTALS")}
+
 # request handlers (/v1/accuracy, system tables), engine threads
 # (finalize_query after each run) and the flight recorder all touch
 # these
@@ -362,6 +365,8 @@ def finalize_query(query_id: str,
     into the process totals, the ``presto_tpu_q_error`` histogram,
     and the bounded per-query registry. Never raises -- the runner
     calls this on every exit path."""
+    # M001: one record per PLAN NODE of one query, not per row
+    _BOUNDED_BY = {"observed": "one q-error sample per plan node"}
     try:
         note_query(query_id, records)
         observed = []
@@ -460,6 +465,8 @@ def misestimate_verdict(records,
     identical records always name the same node. None when no record
     has both sides. Deterministic tiebreak: q-error desc, node key
     asc."""
+    # M001: one candidate per PLAN NODE of one query
+    _BOUNDED_BY = {"rows": "one verdict candidate per plan node"}
     rows = []
     for node, r in dict(records).items():
         f = _as_fields(node, r)

@@ -264,6 +264,12 @@ def parameterize_plan(root: N.PlanNode
 # process totals (server/metrics.py::batching_families reads these)
 # ---------------------------------------------------------------------------
 
+# tpulint C001: module-global write barrier (the process-counter
+# idiom; _EXECUTOR is the singleton swap under its own lock)
+_GUARDED_BY = {"_TOTALS_LOCK": ("_TOTALS", "_COLLAPSES",
+                                "_QUERY_BATCH", "_QUERY_TEMPLATE"),
+               "_EXEC_LOCK": ("_EXECUTOR",)}
+
 _TOTALS_LOCK = OrderedLock("batching._TOTALS_LOCK")
 _TOTALS = {"batches": 0, "batched_queries": 0, "last_batch_size": 0,
            "max_batch_size": 0, "solo_dispatches": 0}
@@ -436,6 +442,11 @@ class BatchingExecutor:
     size, the scans it staged (0 on a staged-cache hit) and the host
     walls in ms of its staging, execute (the parameter copies, the
     members' runs and the one flag read) and fetch."""
+
+    # tpulint C001: formation/inflight/template registries are shared
+    # across every statement _run thread
+    _GUARDED_BY = {"_lock": ("_forming", "_inflight", "_recent",
+                             "_shape_recent", "_staged")}
 
     def __init__(self, window_ms: float = 5.0, max_batch: int = 64,
                  hot_min: int = 2, hot_window_s: float = 30.0,

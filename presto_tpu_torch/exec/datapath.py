@@ -180,6 +180,7 @@ class DatapathLedger:
     Thread-safe: a future pipelined staging path records from host
     prefetch threads while the dispatch thread records the kernel."""
 
+    _GUARDED_BY = {"_lock": ("hops",)}
 
     def __init__(self):
         self.hops: Dict[str, HopStats] = {}
@@ -233,6 +234,9 @@ class recording:
 
 
 # -- process registry ----------------------------------------------------
+
+_GUARDED_BY = {"_LOCK": ("_PROCESS", "_QUERY_LEDGERS", "_CEILINGS",
+                         "_PROBING")}
 
 # request handlers (/v1/datapath, system tables), engine threads
 # (record_hop on the staging/serde hot paths) and the flight recorder

@@ -104,6 +104,9 @@ class Handoff:
 
 # -- process totals (/v1/metrics presto_tpu_donation* families) ---------
 
+# tpulint C001: dispatch threads bump, scrape threads read
+_TOTALS_GUARDED_BY = {"_TOTALS_LOCK": ("_TOTALS",)}
+
 _TOTALS_LOCK = OrderedLock("donation._TOTALS_LOCK")
 _TOTALS = {"donations": 0, "donated_bytes": 0, "fallbacks": 0}
 
@@ -125,6 +128,8 @@ def donation_totals() -> Dict[str, int]:
 
 
 # -- the static half of the proof, memoized per region fingerprint ------
+
+_MEMO_GUARDED_BY = {"_MEMO_LOCK": ("_MEMO",)}
 
 _MEMO_LOCK = OrderedLock("donation._MEMO_LOCK")
 _MEMO: "collections.OrderedDict[str, bool]" = collections.OrderedDict()

@@ -139,7 +139,7 @@ def _mesh_key(mesh) -> Optional[tuple]:
 def _kernel_mode() -> str:
     """The cache-key component built from KERNEL_MODE_ENVS."""
     import os
-    return "|".join(os.environ.get(name, default)
+    return "|".join(os.environ.get(name, default)  # tpulint: disable=R001
                     for name, default in KERNEL_MODE_ENVS)
 
 

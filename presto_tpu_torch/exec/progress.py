@@ -65,6 +65,12 @@ _STAGING_SPAN = (5.0, 60.0)  # staging interpolates splits over this band
 class TaskProgress:
     """Monotonic progress counters for one in-flight query or task."""
 
+    # request-handler threads snapshot while the runner thread
+    # advances; every mutable field rides the entry lock
+    _GUARDED_BY = {"_lock": ("stage", "splits_planned", "splits_done",
+                             "rows", "bytes", "peak_memory_bytes",
+                             "last_advance", "done", "final_state",
+                             "_depth", "_pct")}
 
     def __init__(self, key: str, kind: str = "query",
                  query: Optional[str] = None,

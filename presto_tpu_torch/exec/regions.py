@@ -170,6 +170,11 @@ class FusionMemory:
 
     Bounded maps of bounded sample windows, under one lock."""
 
+    # tpulint C001: the runner's hot path appends samples from every
+    # dispatch thread; the partitioner reads across them
+    _GUARDED_BY = {"_lock": ("_footprint", "_fused", "_unfused",
+                             "_demoted")}
+
     _WINDOW = 16
     _MAX_KEYS = 512
     # device time regresses upward; a fused span must lose to its

@@ -95,6 +95,9 @@ class QueryResult:
     def canonical_rows(self, digits: int = 6) -> List[tuple]:
         """Order-independent, stringified rows for oracle comparison
         (floats rounded so summation order cannot flip a digit)."""
+        # M001: the final result's rows, already fetched
+        _BOUNDED_BY = {"out": "final result rows (oracle "
+                              "canonicalization)"}
         out = []
         for i in range(self.row_count):
             row = []
@@ -475,10 +478,13 @@ def _dispatch_ladder(root: N.PlanNode, batches: Sequence,
             hops.append(hop)
         if prog is not None:  # each dispatch advances
             prog.advance()
-        if mesh is None:
-            read = flags.tolist()
-        else:
-            read = torch.cat([flags, slots.reshape(1)]).tolist()
+        # the ladder's overflow flags, one per capacity node (and the
+        # exchange slots' on a mesh), not a relation: one read a
+        # dispatch, the only way to learn a capacity overflowed
+        if mesh is not None:
+            flags = torch.cat([flags, slots.reshape(1)])
+        read = flags.tolist()  # tpulint: disable=M002
+        if mesh is not None:
             slots = read.pop()
         over = [k for k, o in enumerate(read) if o]
         if not over and (mesh is None or not slots):

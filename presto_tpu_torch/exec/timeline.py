@@ -217,6 +217,8 @@ class TimelineLedger:
     (the session-property gate); ``degraded`` is the sticky totals-only
     floor a failed record path drops to."""
 
+    _GUARDED_BY = {"_lock": ("intervals", "dropped", "totals",
+                             "degraded")}
 
     def __init__(self, query_id: str = "", enabled: bool = True,
                  max_intervals: int = MAX_INTERVALS):
@@ -537,6 +539,9 @@ def ascii_gantt(intervals, width: int = 48) -> List[str]:
 
 
 # -- process registry ----------------------------------------------------
+
+_GUARDED_BY = {"_LOCK": ("_QUERY_SLICES", "_QUERY_TRACE", "_TOTALS",
+                         "_LAST")}
 
 # request handlers (/v1/timeline, system tables), engine threads
 # (note_query after each run, record_interval's degradation counter)

@@ -1551,18 +1551,24 @@ def _int_range(ty: T.Type):
 # result back to their device.
 # ---------------------------------------------------------------------------
 
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    """One argument lane of a host-row kernel, copied to the host: the
+    sync the reference's jax.pure_callback pays too."""
+    return t.cpu().numpy()  # tpulint: disable=H001
+
+
 def _host_values(block) -> list:
     """A block's rows as Python values on the host (strings as bytes),
     None for NULL."""
-    nulls = block.nulls.cpu().numpy().tolist()
+    nulls = _fetch(block.nulls).tolist()
     if isinstance(block, StringColumn):
-        chars = np.ascontiguousarray(block.chars.cpu().numpy())
+        chars = np.ascontiguousarray(_fetch(block.chars))
         w = chars.shape[1]
         buf = chars.tobytes()
         vals = [buf[i * w:i * w + ln] for i, ln in
-                enumerate(block.lengths.cpu().numpy().tolist())]
+                enumerate(_fetch(block.lengths).tolist())]
     else:
-        vals = block.values.cpu().numpy().tolist()
+        vals = _fetch(block.values).tolist()
     return [None if null else v for v, null in zip(vals, nulls)]
 
 
@@ -2021,8 +2027,10 @@ def _row_pack(ret, *fields):
 @register("row_field")
 def _row_field(ret, r, idx: Column):
     """0-based field access; a NULL row nulls the field. `evaluate`
-    takes the index from the plan; here it is the column's first lane."""
-    return gather_block(r.field(int(idx.values[0])),
+    takes the index from the plan (compile.py); a direct call of this
+    entry reads it from the column's first lane, on the host."""
+    i = int(idx.values[0])  # tpulint: disable=H001
+    return gather_block(r.field(i),
                         torch.arange(len(r), device=r.nulls.device), ~r.nulls)
 
 

@@ -278,6 +278,10 @@ class FailpointRegistry:
     counter never decreases); trigger state resets on re-arm."""
 
     # request handlers, task threads and engine threads all evaluate
+    # concurrently; every write rides the one lock (tpulint C001)
+    _GUARDED_BY = {"_lock": ("_armed", "_totals")}
+
+    # request handlers, task threads and engine threads all evaluate
     # concurrently; every write rides the one lock
 
     def __init__(self):

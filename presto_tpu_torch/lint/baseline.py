@@ -5,7 +5,10 @@ sequence of presto_tpu/lint/cli.py (`run_scoped_baseline`), with the
 reference's file format, so either package reads and rewrites the
 other's file. The file maps fingerprints (line-independent, see
 core.Finding.fingerprint) to ``{code, path, context, message, count,
-reason}``.
+reason}``. The port's lint keeps its baseline at
+``presto_tpu_torch/lint/baseline.json`` (``DEFAULT_BASELINE``), with no
+entry: its findings are fixed or suppressed at their line; the kernel
+audit keeps its own (audit/baseline.json).
 
 Semantics:
 
@@ -29,10 +32,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from .core import Finding
 
-__all__ = ["BASELINE_VERSION", "load_baseline", "save_baseline",
-           "apply_baseline", "build_baseline", "run_scoped_baseline"]
+__all__ = ["BASELINE_VERSION", "DEFAULT_BASELINE", "load_baseline",
+           "save_baseline", "apply_baseline", "build_baseline",
+           "run_scoped_baseline"]
 
 BASELINE_VERSION = 1
+DEFAULT_BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "baseline.json")
 
 
 def load_baseline(path: str) -> Dict[str, dict]:

@@ -206,7 +206,8 @@ def _group_ids_small(words, active: torch.Tensor, max_groups: int):
 
 def _hash_words(words: Sequence[torch.Tensor]) -> torch.Tensor:
     """splitmix64 over the key words, as int64 bit patterns."""
-    h = torch.full(words[0].shape, GOLD, dtype=torch.int64,
+    # W001: a 64-bit hash word is the hash table's contract
+    h = torch.full(words[0].shape, GOLD, dtype=torch.int64,  # tpulint: disable=W001
                    device=words[0].device)
     for w in words:
         h = mix64(h ^ w)
@@ -228,9 +229,11 @@ def _group_ids_hash(words, active: torch.Tensor, max_groups: int):
     dev = active.device
     m = max(1024, 1 << int(max(2 * max_groups - 1, 1)).bit_length())
     h = _hash_words(words)
-    rows = torch.arange(n, dtype=torch.int64, device=dev)
-    rep = torch.full((m,), n, dtype=torch.int64, device=dev)
-    slot_of = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    # W001: row positions, slot owners and group slots are int64
+    # index lanes: torch's gather, scatter and indexing take them
+    rows = torch.arange(n, dtype=torch.int64, device=dev)  # tpulint: disable=W001
+    rep = torch.full((m,), n, dtype=torch.int64, device=dev)  # tpulint: disable=W001
+    slot_of = torch.full((n,), -1, dtype=torch.int64, device=dev)  # tpulint: disable=W001
     rounds = checks = 0
     for r in range(_MAX_PROBES):
         unres = active & (slot_of < 0)
@@ -253,14 +256,14 @@ def _group_ids_hash(words, active: torch.Tensor, max_groups: int):
 
     occupied = rep < n
     num_groups = occupied.sum().to(torch.int32)
-    dense = torch.cumsum(occupied.to(torch.int64), dim=0) - 1
+    dense = torch.cumsum(occupied.to(torch.int64), dim=0) - 1  # tpulint: disable=W001
     resolved = active & (slot_of >= 0)
     overflow = (num_groups > max_groups) | (active & ~resolved).any()
     gid = dense[slot_of.clamp(0, m - 1)].clamp(0, max_groups - 1)
     ids = torch.where(resolved, gid, max_groups - 1)
     slot_gid = torch.where(occupied, dense.clamp(0, max_groups - 1),
                            max_groups - 1)
-    perm_first = torch.zeros(max_groups, dtype=torch.int64,
+    perm_first = torch.zeros(max_groups, dtype=torch.int64,  # tpulint: disable=W001
                              device=dev).scatter_reduce(
         0, slot_gid, torch.where(occupied, rep.clamp(0, max(n - 1, 0)), 0),
         "amax")
@@ -369,10 +372,11 @@ def _fused_limb_sums(ids: torch.Tensor, requests, max_groups: int,
         limb_cols.extend(limbs_of_i64(x, limb_bits, nl) if nl > 1 else [x])
     lm = torch.stack([l.to(torch.float32) for l in limb_cols], dim=1)
     part = K.limb_partial_sums(ids, lm, max_groups)
-    tot = part.to(torch.int64).sum(dim=0)  # (G, L)
+    # W001: exact limb sums accumulate in int64, (G, L)
+    tot = part.to(torch.int64).sum(dim=0)  # tpulint: disable=W001
     # limb weights 2^(13 k), made on the device (no host copy)
     shifts = limb_bits * torch.arange(max(nl for _, nl in spans),
-                                      dtype=torch.int64, device=tot.device)
+                                      dtype=torch.int64, device=tot.device)  # tpulint: disable=W001
     weights = torch.ones_like(shifts) << shifts
     return [(tot[:, start:start + nl] * weights[:nl]).sum(dim=1)
             for start, nl in spans]
@@ -550,7 +554,8 @@ def _clz64(w: torch.Tensor) -> torch.Tensor:
     n = torch.zeros_like(w)
     for s in (32, 16, 8, 4, 2, 1):
         top_zero = _lshr(w, 64 - s) == 0
-        n = n + top_zero.to(torch.int64) * s
+        # W001: a count over 64-bit words, at the words' width
+        n = n + top_zero.to(torch.int64) * s  # tpulint: disable=W001
         w = torch.where(top_zero, w << s, w)
     return n
 
@@ -564,7 +569,8 @@ def _hll_registers_from_values(col: Block, live: torch.Tensor,
     reg = _lshr(h, 64 - _HLL_P)
     w = h << _HLL_P
     rank = torch.where(w == 0, 64 - _HLL_P + 1, _clz64(w) + 1)
-    flat = torch.where(live, ids.to(torch.int64) * _HLL_M + reg, g * _HLL_M)
+    # W001: register slots are int64 index lanes (scatter positions)
+    flat = torch.where(live, ids.to(torch.int64) * _HLL_M + reg, g * _HLL_M)  # tpulint: disable=W001
     regs = torch.zeros(g * _HLL_M + 1, dtype=torch.int32,
                        device=h.device).scatter_reduce(
         0, flat, torch.where(live, rank, 0).to(torch.int32), "amax")
@@ -578,7 +584,8 @@ def _hll_registers_merge(col: ArrayColumn, live: torch.Tensor,
     if not isinstance(col, ArrayColumn):
         raise TypeError(f"hll_merge reads register arrays, not {col.type}")
     contrib = torch.where(live[:, None], col.elements.to(torch.int32), 0)
-    safe = torch.where(live, ids.to(torch.int64), g)
+    # W001: group slots are int64 index lanes (scatter positions)
+    safe = torch.where(live, ids.to(torch.int64), g)  # tpulint: disable=W001
     regs = torch.zeros((g + 1, _HLL_M), dtype=torch.int32,
                        device=contrib.device).scatter_reduce(
         0, safe[:, None].expand(-1, _HLL_M), contrib, "amax")
@@ -599,13 +606,14 @@ def hll_estimate(regs: torch.Tensor) -> torch.Tensor:
     """Registers (g, m) -> int64 estimates: the HLL estimator, linear
     counting in the small range."""
     m = float(_HLL_M)
-    z = torch.exp2(-regs.to(torch.float64)).sum(dim=1)
+    # W001: the estimator's double arithmetic, a BIGINT result
+    z = torch.exp2(-regs.to(torch.float64)).sum(dim=1)  # tpulint: disable=W001
     alpha = 0.7213 / (1 + 1.079 / m)
     e = alpha * m * m / z
     v = (regs == 0).sum(dim=1)
-    lin = m * torch.log(m / v.clamp(min=1).to(torch.float64))
+    lin = m * torch.log(m / v.clamp(min=1).to(torch.float64))  # tpulint: disable=W001
     est = torch.where((e <= 2.5 * m) & (v > 0), lin, e)
-    return torch.round(est).to(torch.int64)
+    return torch.round(est).to(torch.int64)  # tpulint: disable=W001
 
 
 # ---------------------------------------------------------------------------
@@ -737,7 +745,8 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
         return [count, lambda: Column(slog, nn() == 0, T.DOUBLE)]
     if name == "arbitrary":
         n = len(col)
-        rows = torch.arange(n, dtype=torch.int64, device=dev)
+        # W001: row positions, an int64 index lane
+        rows = torch.arange(n, dtype=torch.int64, device=dev)  # tpulint: disable=W001
         row = _seg_reduce(ids, torch.where(live, rows, n), g, n, True)
         idx = row.clamp(max=max(n - 1, 0))
         return [lambda: Column(v[idx], row >= n, spec.output_type)]
@@ -780,16 +789,18 @@ def _percentile(spec: AggSpec, col: Column, live: torch.Tensor,
     n = len(col)
     dev = live.device
     vwords = key_words([col])[1:]  # dead rows sink by the lead word
-    perm = lex_permutation([(~live).to(torch.int64), ids,
+    # W001: lex_permutation sorts int64 words; positions and targets
+    # are int64 index lanes, the fraction's product a double
+    perm = lex_permutation([(~live).to(torch.int64), ids,  # tpulint: disable=W001
                             *(w ^ SIGN for w in vwords)])
-    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    pos = torch.arange(n, dtype=torch.int64, device=dev)  # tpulint: disable=W001
     sorted_ids = torch.where(live[perm], ids[perm], g)
     start = _seg_reduce(sorted_ids.clamp(max=g - 1),
                         torch.where(sorted_ids < g, pos, n), g, n, True)
 
     def build() -> Block:
         cnt = nn()
-        target = start + torch.floor((cnt - 1).to(torch.float64)
+        target = start + torch.floor((cnt - 1).to(torch.float64)  # tpulint: disable=W001
                                      * float(spec.parameter)).to(torch.int64)
         rows = perm[target.clamp(0, max(n - 1, 0))]
         return Column(col.values[rows], cnt == 0, spec.output_type)
@@ -845,7 +856,8 @@ def group_by(batch: Batch, key_channels: Sequence[int],
                                                        max_groups)
     if not key_channels:
         num_groups = torch.clamp(num_groups, min=1)
-    slot = torch.arange(max_groups, device=batch.active.device)
+    slot = torch.arange(max_groups, dtype=torch.int64,
+                        device=batch.active.device)
     slot_active = slot < torch.clamp(num_groups, max=max_groups)
     out_cols: List[Block] = [gather_block(k, perm_first, slot_active)
                              for k in keys]
@@ -1147,7 +1159,8 @@ def merge_partials(partials: Batch, num_keys: int, aggs: Sequence[AggSpec],
 def finalize_pair_moments(c: str, n, sy, sx, syy, sxx, sxy):
     """(n, sy, sx, syy, sxx, sxy) -> (value, nulls) for the two-input
     statistics. Population co-moments: cxy = sxy - sx * sy / n."""
-    nf = n.to(torch.float64)
+    # W001: the statistics are DOUBLE
+    nf = n.to(torch.float64)  # tpulint: disable=W001
     safe_n = nf.clamp(min=1.0)
     cxy = sxy - sx * sy / safe_n
     cxx = (sxx - sx * sx / safe_n).clamp(min=0.0)
@@ -1173,7 +1186,8 @@ def finalize_variance(spec: AggSpec, count: torch.Tensor, s: torch.Tensor,
     var = (sumsq - sum^2 / n) / (n - ddof), floored at 0."""
     c = spec.canonical
     ddof = 1 if c in ("var_samp", "stddev_samp") else 0
-    n = count.to(torch.float64)
+    # W001: the variance family is DOUBLE
+    n = count.to(torch.float64)  # tpulint: disable=W001
     var = (s2 - s * s / n.clamp(min=1.0)) / (n - ddof).clamp(min=1.0)
     var = var.clamp(min=0.0)
     if c.startswith("stddev"):
@@ -1206,7 +1220,8 @@ def finalize_states(table: Batch, num_keys: int, aggs: Sequence[AggSpec]
             cols.append(Column(v, nulls, T.DOUBLE))
         elif c == "geometric_mean":
             cnt, slog = states
-            n = cnt.values.to(torch.float64).clamp(min=1.0)
+            # W001: geometric_mean is DOUBLE
+            n = cnt.values.to(torch.float64).clamp(min=1.0)  # tpulint: disable=W001
             cols.append(Column(torch.exp(slog.values / n), cnt.values == 0,
                                T.DOUBLE))
         elif c == "approx_distinct":

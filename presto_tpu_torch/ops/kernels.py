@@ -66,7 +66,10 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    # read when a kernel builds, not when a plan lowers: it picks the
+    # toolkit, and a build is keyed by its source's hash
+    cuda_home = os.environ.get("CUDA_HOME",  # tpulint: disable=R001
+                               "/usr/local/cuda")
     return os.path.join(cuda_home, "bin", "nvcc")
 
 

@@ -35,7 +35,8 @@ def lex_permutation(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     """Stable permutation sorting rows by the tuple of int64 `keys`
     (first key most significant, each compared signed): one stable sort
     per key, least significant first."""
-    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
+    perm = torch.arange(keys[0].shape[0], dtype=torch.int64,
+                        device=keys[0].device)
     for k in reversed(keys):
         perm = perm[torch.sort(k[perm], stable=True).indices]
     return perm

@@ -122,7 +122,10 @@ def window(batch: Batch, partition_channels: Sequence[int],
     owords: List[torch.Tensor] = []
     for ch, desc, nulls_last in order_keys:
         owords.extend(_column_words(batch.column(ch), desc, nulls_last))
-    lead = (~batch.active).to(torch.int64)
+    # W001: sort words, positions, segment ids and ranks are int64 (the
+    # sort's words and torch's index lanes), counts are BIGINT, and
+    # percent_rank, cume_dist, avg and float frames are DOUBLE
+    lead = (~batch.active).to(torch.int64)  # tpulint: disable=W001
     perm = lex_permutation([w ^ SIGN for w in [lead, *pwords, *owords]])
     s_active = batch.active[perm]
     s_pwords = [w[perm] for w in pwords]
@@ -137,7 +140,7 @@ def window(batch: Batch, partition_channels: Sequence[int],
     run_bound = part_bound | (_seg_positions(s_owords) if s_owords
                               else torch.zeros_like(part_bound))
 
-    spos = torch.arange(n, dtype=torch.int64, device=dev)
+    spos = torch.arange(n, dtype=torch.int64, device=dev)  # tpulint: disable=W001
     part_start = torch.cummax(torch.where(part_bound, spos, 0), 0).values
     run_start = torch.cummax(torch.where(run_bound, spos, 0), 0).values
     # partition (peer run) end: the first boundary after i, less one
@@ -151,7 +154,7 @@ def window(batch: Batch, partition_channels: Sequence[int],
     row_number = spos - part_start + 1
     rank = run_start - part_start + 1
     # dense rank: count of run boundaries in (part_start, pos]
-    rb = torch.cumsum(run_bound.to(torch.int64), 0)
+    rb = torch.cumsum(run_bound.to(torch.int64), 0)  # tpulint: disable=W001
     dense = rb - rb[part_start] + 1
     part_rows = part_end - part_start + 1
 
@@ -174,13 +177,13 @@ def window(batch: Batch, partition_channels: Sequence[int],
             "RANGE value frame over unsupported order-key column"
         o_nulls_sorted = (ocol.nulls | ~batch.active)[perm]
         if ocol.type.is_floating:
-            ov = ocol.values[perm].to(torch.float64)
+            ov = ocol.values[perm].to(torch.float64)  # tpulint: disable=W001
             sent = float("inf") if nulls_last else float("-inf")
         else:
-            ov = ocol.values[perm].to(torch.int64)
+            ov = ocol.values[perm].to(torch.int64)  # tpulint: disable=W001
             sent = _I64_MAX if nulls_last else _I64_MIN
         o_vals_sorted = torch.where(o_nulls_sorted, sent, ov)
-        seg_id = torch.cumsum(part_bound.to(torch.int64), 0)
+        seg_id = torch.cumsum(part_bound.to(torch.int64), 0)  # tpulint: disable=W001
 
     def frame_bounds(frame):
         return _frame_bounds(frame, spos, part_start, part_end, run_end,
@@ -199,13 +202,13 @@ def window(batch: Batch, partition_channels: Sequence[int],
             vals_sorted = dense
             nulls_sorted = ~s_active
         elif name == "percent_rank":
-            denom = torch.clamp(part_rows - 1, min=1).to(torch.float64)
+            denom = torch.clamp(part_rows - 1, min=1).to(torch.float64)  # tpulint: disable=W001
             vals_sorted = torch.where(part_rows == 1, 0.0,
-                                      (rank - 1).to(torch.float64) / denom)
+                                      (rank - 1).to(torch.float64) / denom)  # tpulint: disable=W001
             nulls_sorted = ~s_active
         elif name == "cume_dist":
-            vals_sorted = (run_end - part_start + 1).to(torch.float64) / \
-                part_rows.to(torch.float64)
+            vals_sorted = ((run_end - part_start + 1).to(torch.float64)  # tpulint: disable=W001
+                           / part_rows.to(torch.float64))  # tpulint: disable=W001
             nulls_sorted = ~s_active
         elif name == "ntile":
             k = spec.ntile_buckets
@@ -286,7 +289,7 @@ def window(batch: Batch, partition_channels: Sequence[int],
                 sv = v_sorted.to(torch.float64 if col.type.is_floating
                                  else torch.int64)
                 wsum = frame_total(torch.where(nn_sorted, sv, 0))
-                wcnt = frame_total(nn_sorted.to(torch.int64))
+                wcnt = frame_total(nn_sorted.to(torch.int64))  # tpulint: disable=W001
                 if name == "sum":
                     vals_sorted = wsum
                     nulls_sorted = (wcnt == 0) | ~s_active
@@ -294,8 +297,8 @@ def window(batch: Batch, partition_channels: Sequence[int],
                     vals_sorted = wcnt
                     nulls_sorted = ~s_active
                 else:
-                    vals_sorted = wsum.to(torch.float64) / \
-                        torch.clamp(wcnt, min=1).to(torch.float64)
+                    vals_sorted = (wsum.to(torch.float64)  # tpulint: disable=W001
+                                   / torch.clamp(wcnt, min=1).to(torch.float64))  # tpulint: disable=W001
                     if not spec.output_type.is_floating:
                         # decimal-typed avg: scaled float mean -> scaled int
                         vals_sorted = torch.round(vals_sorted)
@@ -304,10 +307,10 @@ def window(batch: Batch, partition_channels: Sequence[int],
                 minimize = name == "min"
                 v_sorted = col.values[perm]
                 if col.type.is_floating:
-                    v_sorted = v_sorted.to(torch.float64)
+                    v_sorted = v_sorted.to(torch.float64)  # tpulint: disable=W001
                     ident = float("inf") if minimize else float("-inf")
                 else:
-                    v_sorted = v_sorted.to(torch.int64)
+                    v_sorted = v_sorted.to(torch.int64)  # tpulint: disable=W001
                     ident = _I64_MAX if minimize else _I64_MIN
                 sv = torch.where(nn_sorted, v_sorted, ident)
                 if _is_bounded(spec.frame) and spec.frame[1] is not None:
@@ -327,7 +330,7 @@ def window(batch: Batch, partition_channels: Sequence[int],
                     # segmented running scan answers any end bound
                     op = torch.minimum if minimize else torch.maximum
                     vals_sorted = _segmented_scan(sv, part_bound, op)[f_hi_c]
-                wcnt = frame_total(nn_sorted.to(torch.int64))
+                wcnt = frame_total(nn_sorted.to(torch.int64))  # tpulint: disable=W001
                 nulls_sorted = (wcnt == 0) | empty_frame | ~s_active
         else:
             raise NotImplementedError(name)
@@ -355,13 +358,13 @@ def _window128(spec: WindowSpec, col: Int128Column, perm, inv, nn_sorted,
         h_s = torch.where(nn_sorted, col.hi[perm], ih)
         l_s = torch.where(nn_sorted, col.lo[perm], il)
         sh, sl = _segmented_extreme128(h_s, l_s, part_bound, minimize)
-        wcnt = frame_total(nn_sorted.to(torch.int64))
+        wcnt = frame_total(nn_sorted.to(torch.int64))  # tpulint: disable=W001
         empty = (wcnt == 0) | empty_frame | ~s_active
         return Int128Column(sh[f_hi_c][inv], sl[f_hi_c][inv], empty[inv],
                             spec.output_type)
     if name not in ("sum", "avg", "count"):
         raise NotImplementedError(f"window {name} over long decimals")
-    wcnt = frame_total(nn_sorted.to(torch.int64))
+    wcnt = frame_total(nn_sorted.to(torch.int64))  # tpulint: disable=W001
     if name == "count":
         return Column(wcnt[inv], (~s_active)[inv], spec.output_type)
     totals = [frame_total(torch.where(nn_sorted, limb[perm], 0))
@@ -458,7 +461,8 @@ def _range_extreme(sv, lo, hi, ident, minimize: bool, max_len=None):
     # floor(log2(length)) seeded by f32 log2, then corrected one step in
     # each direction: f32 rounding is off by at most 1 (e.g. log2 of
     # 2^21 - 1 rounds UP to exactly 21.0)
-    kk = torch.floor(torch.log2(length.to(torch.float32))).to(torch.int64)
+    # W001: a sparse-table level indexes the table, an int64 index lane
+    kk = torch.floor(torch.log2(length.to(torch.float32))).to(torch.int64)  # tpulint: disable=W001
     kk = torch.clamp(kk, 0, len(levels) - 1)
     kk = torch.where((1 << kk) > length, kk - 1, kk)
     kk = torch.where((kk + 1 < len(levels)) & ((1 << (kk + 1)) <= length),

@@ -26,6 +26,13 @@ class SpoolingOutputBuffer:
     """A list of pages whose entries past the memory budget live in the
     spool file. Not thread-safe by itself: callers hold the task lock."""
 
+    # tpulint C001: the caller-holds-the-task-lock contract, declared
+    # (writes through self in here are the contract body; any OTHER
+    # receiver mutating these fields must hold SOME lock)
+    _GUARDED_BY = {"<caller>": ("_entries", "_mem_bytes",
+                                "_spooled_bytes", "_file",
+                                "_file_path")}
+
     def __init__(self, memory_threshold_bytes: int = 64 << 20,
                  spool_dir: Optional[str] = None):
         self.memory_threshold = memory_threshold_bytes
@@ -133,5 +140,6 @@ class SpoolingOutputBuffer:
     def __del__(self):  # best-effort spool reclamation
         try:
             self.clear()
-        except Exception:  # interpreter teardown
+        except Exception:  # tpulint: disable=S001 - interpreter
+            # teardown: logging/metrics modules may already be gone
             pass

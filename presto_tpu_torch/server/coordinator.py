@@ -58,6 +58,9 @@ from ..utils.locks import OrderedLock
 
 __all__ = ["Coordinator", "speculation_totals", "reset_speculation_totals"]
 
+# tpulint C001: module-global write barrier
+_GUARDED_BY = {"_SPEC_LOCK": ("_SPEC",)}
+
 # speculative attempts launched, won (the copy finished first) and
 # lost (the original did), process-wide
 _SPEC_LOCK = OrderedLock("coordinator._SPEC_LOCK")
@@ -419,8 +422,10 @@ class Coordinator:
                             src, min(timeout, 5.0)).task_info(tid)["state"]
                         if state in ("FINISHED", "PLANNED", "RUNNING"):
                             continue  # its pages are or will be there
-                    except Exception:  # noqa: BLE001 - a dead worker:
-                        pass  # re-run the producer below
+                    except Exception as e:  # noqa: BLE001 - dead worker:
+                        # fall through to re-running the producer below
+                        record_suppressed("coordinator",
+                                          "probe_upstream", e)
                     if tid not in origin:
                         continue
                     fid, w = origin[tid]

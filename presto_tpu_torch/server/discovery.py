@@ -107,6 +107,8 @@ def reset_fleet_state() -> None:
 
 
 class _Handler(BaseHTTPRequestHandler):
+    _GUARDED_BY = {"lock": ("nodes",)}  # tpulint C001
+
     protocol_version = "HTTP/1.1"
     # TCP_NODELAY: a response's headers and body go out in two writes,
     # and with Nagle's algorithm the second waits for the client's
@@ -306,6 +308,8 @@ class HeartbeatProber:
     each node's /v1/info every `interval_s` and keeps an exponentially
     decayed failure rate per node; healthy() is the subset at or below
     `threshold`. It notices a wedged worker that still announces."""
+
+    _GUARDED_BY = {"_lock": ("_rates",)}  # tpulint C001
 
     def __init__(self, urls_fn, interval_s: float = 0.5,
                  decay: float = 0.7, threshold: float = 0.5,

@@ -55,6 +55,14 @@ class ResourceGroup:
     release wakes all waiters (notify_all): a waiter that timed out may
     have taken a single notify without taking the slot, and a
     differently shaped waiter may fit now."""
+
+    # tpulint C001: admission state is written through WHATEVER
+    # receiver walks the tree (g/root/leaf) while holding the ONE
+    # per-tree condition -- _cv is a shared lock, any receiver counts
+    _GUARDED_BY = {"_cv": ("_running", "_queued", "_mem_used",
+                           "_ticket", "_waiters")}
+    _GUARDED_BY_SHARED = ("_cv",)
+
     name: str
     hard_concurrency_limit: int = 4
     max_queued: int = 16

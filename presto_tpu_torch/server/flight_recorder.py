@@ -58,6 +58,9 @@ class FlightRecorder:
     ring drops oldest-first at capacity (a dump therefore shows the
     most recent window, which is the one that matters post-mortem)."""
 
+    # request-handler, task, and engine threads all append; dump
+    # bookkeeping shares the same lock
+    _GUARDED_BY = {"_lock": ("_dumped",)}
 
     def __init__(self, capacity: int = 4096,
                  dump_dir: Optional[str] = None,

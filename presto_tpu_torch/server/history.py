@@ -126,6 +126,12 @@ class QueryHistoryArchive:
     performance memory survives a restart.
     """
 
+    # query threads append; request handlers snapshot. The persistence
+    # ring's rotation state rides its OWN lock so file I/O (a slow or
+    # full disk) never stalls /v1/metrics and /v1/history readers of
+    # the in-memory archive.
+    _GUARDED_BY = {"_lock": ("_records", "_batch_fp_counts"),
+                   "_plock": ("_file_index", "_file_lines")}
 
     def __init__(self, capacity: int = 512,
                  history_dir: Optional[str] = None,
@@ -489,6 +495,11 @@ def merge_history_docs(docs: List[dict], capacity: int = 512
     one process serve the same archive -- the in-process test
     topology), and records dedup by queryId (a query the coordinator
     archived is not re-counted from a worker that also saw it)."""
+    # M001: every input slice is itself a retention-capped archive
+    # dump, and the merged list truncates to `capacity` below
+    _BOUNDED_BY = {"seen_queries": "union of retention-capped "
+                                   "archive slices",
+                   "out": "truncated to capacity on return"}
     seen_processes = set()
     seen_queries = set()
     out: List[dict] = []

@@ -109,6 +109,7 @@ class Histogram:
     latency band links to its distributed trace.
     """
 
+    _GUARDED_BY = {"_lock": ("counts", "sum", "count", "exemplars")}
 
     def __init__(self, buckets: Tuple[float, ...] = DEFAULT_BUCKETS):
         self.buckets = tuple(float(b) for b in buckets)
@@ -587,7 +588,7 @@ def record_suppressed(component: str, site: str,
         try:
             _log.debug("suppressed error in %s.%s: %s: %s",
                        component, site, type(exc).__name__, exc)
-        except Exception:  # noqa: BLE001 - logging teardown
+        except Exception:  # tpulint: disable=S001 - logging teardown
             pass
 
 

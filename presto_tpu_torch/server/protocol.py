@@ -244,6 +244,10 @@ def _window_frame(fj: dict, fname: str):
 
 def translate_node(j: dict) -> Tuple[N.PlanNode, List[Tuple[str, T.Type]]]:
     """Reference plan-node JSON -> (engine node, output layout)."""
+    # M001: VALUES literals are PLAN TEXT (the SQL carried them),
+    # not relation data -- bounded by the statement size
+    _BOUNDED_BY = {"rows": "VALUES literals inline in the plan "
+                           "JSON (statement-sized)"}
     kind = _node_kind(j)
 
     if kind == "TableScanNode":
@@ -787,6 +791,11 @@ def parse_task_update_request(j: dict) -> dict:
     from protocol_vocab.json -- the presto_protocol_core.yml codegen
     approach); plan-node translation stays in this module. Raises
     ProtocolUnsupported outside the slice."""
+    # M001: one entry per scheduled split in ONE task-update
+    # request body -- bounded by the coordinator's assignment
+    # batch, not by the relation
+    _BOUNDED_BY = {"splits": "scheduled splits in one request "
+                             "body"}
     from .protocol_structs import Split as _Split
     from .protocol_structs import TaskUpdateRequest as _TUR
     req = _TUR.from_dict(j)

@@ -38,6 +38,11 @@ TERMINAL_STATES = (QueryState.FINISHED, QueryState.FAILED,
 class QueryStateMachine:
     """A query's lifecycle with listeners and per-state entry times."""
 
+    # transition state is written only under the machine lock; listener
+    # CALLS happen outside it by contract (tpulint C001 checks writes)
+    _GUARDED_BY = {"_lock": ("_state", "_entered", "_listeners",
+                             "_error")}
+
     def __init__(self, query_id: str):
         self.query_id = query_id
         self._lock = OrderedLock("query_state.QueryStateMachine._lock")

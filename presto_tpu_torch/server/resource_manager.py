@@ -66,6 +66,8 @@ class _State:
     """Each coordinator's last heartbeat; `coordinators` is written
     under `lock`."""
 
+    _GUARDED_BY = {"lock": ("coordinators",)}  # tpulint C001
+
     def __init__(self, heartbeat_ttl_s: float):
         self.lock = OrderedLock("resource_manager._State.lock")
         self.ttl = heartbeat_ttl_s
@@ -244,6 +246,9 @@ class StandbyCoordinator:
 
     Driven either by start() (background thread) or check_once() (the
     deterministic test/chaos surface, like the watchdog's)."""
+
+    _GUARDED_BY = {"_lock": ("_manifest", "_seen_primary", "_fired",
+                             "is_primary")}
 
     def __init__(self, rm_url: str, primary_id: str, statement_server,
                  ttl_s: float = 3.0, poll_s: float = 0.5,

@@ -200,6 +200,13 @@ class StatementServer:
     `sql()` on `device`. The server binds 127.0.0.1:`port` (0: a free
     port) and serves from a thread of its own after `start()`."""
 
+    # request-handler threads share the query registry and the metrics
+    # roll-ups; writes go through these locks (tpulint C001)
+    _GUARDED_BY = {"_qlock": ("_queries",),
+                   "_metrics_lock": ("_queries_by_state", "_totals",
+                                     "_workers_alive",
+                                     "_workers_draining")}
+
     def __init__(self, port: int = 0, sf: float = 0.01,
                  dispatcher: Optional[Dispatcher] = None,
                  executor=None, page_rows: int = 1024,

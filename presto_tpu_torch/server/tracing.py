@@ -119,6 +119,8 @@ class RecordingTracer:
     the one idle longest -- not whichever dict order happened to yield
     (a trace created early but still active used to be evictable)."""
 
+    # span appends/evictions race across request-handler + task threads
+    _GUARDED_BY = {"_lock": ("traces",)}
 
     def __init__(self, max_traces: int = 256,
                  max_spans_per_trace: int = 4096):

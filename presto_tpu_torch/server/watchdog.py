@@ -99,6 +99,7 @@ class StuckProgressWatchdog:
     semantics); the watchdog owns pacing, exactly-once firing, and the
     counter/flight/dump side effects."""
 
+    _GUARDED_BY = {"_lock": ("_fired",)}
 
     def __init__(self, scan: Callable[[], List[StuckCandidate]],
                  tier: str, poll_floor_s: float = 0.05,

@@ -156,6 +156,9 @@ class FragmentResultCache:
     `data_version`, a remote source or a write is not cached. An LRU
     bounded by bytes."""
 
+    # write-barrier contract, enforced statically (tpulint C001)
+    _GUARDED_BY = {"_lock": ("_entries", "_bytes", "hits", "misses")}
+
     def __init__(self, max_bytes: int = 256 << 20):
         self.max_bytes = max_bytes
         self._entries = collections.OrderedDict()
@@ -233,6 +236,13 @@ class _Task:
     """One task's state; every field the HTTP threads and the task
     thread share is written under `lock`."""
 
+    # every field the HTTP threads and the execution thread share is
+    # written under the task lock (tpulint C001 enforces this, module-
+    # wide: TaskManager's writes through `task.` are checked too)
+    _GUARDED_BY = {"lock": ("state", "error", "buffers", "first_token",
+                            "no_more_pages", "stats", "finished_at",
+                            "spans", "moved_to")}
+
     def __init__(self, task_id: str, spool_threshold: int = 64 << 20,
                  spool_dir: Optional[str] = None, session_stuck_ms=None):
         self.task_id = task_id
@@ -294,6 +304,12 @@ class TaskManager:
     from one MemoryPool. `draining` and `drained` change under the
     tasks lock, so that refusing a new task is atomic with creating
     one."""
+
+    # `draining`/`drained` ride the tasks lock: create_or_update reads
+    # them under _tasks_lock to make the refuse-new-tasks decision
+    # atomic with task creation (write paths: drain(), mark_drained())
+    _GUARDED_BY = {"_tasks_lock": ("tasks", "draining", "drained"),
+                   "_counters_lock": ("counters",)}
 
     def __init__(self, sf: float = 0.01, mesh=None, device=None,
                  memory_bytes: int = 12 << 30,
@@ -1181,6 +1197,10 @@ class TpuWorkerServer:
     every `announce_interval_s`. `shared_secret` requires the internal
     bearer on every route and carries it on the drain's migration hop;
     `tls=(cert, key)` serves https."""
+
+    # drain lifecycle state shared between the drain thread and the
+    # HTTP handlers (tpulint C001)
+    _GUARDED_BY = {"_drain_lock": ("_drain_thread", "_drain_migrated")}
 
     def __init__(self, port: int = 0, sf: float = 0.01, mesh=None,
                  device=None, node_id: Optional[str] = None,

@@ -5,16 +5,17 @@ Counterpart of presto_tpu/utils/locks.py, pure Python and the same
 records. Every lock of the port's server and exec tiers that the
 reference makes an OrderedLock is one here, under the reference's
 name, so the two packages' witnesses speak one node language. The
-static proof that the declared order is acyclic (the reference's
-tpulint C002 over LOCK_ORDER.json) is ROADMAP item 16b; this module
-proves the *executed* order stays consistent at runtime -- the TSan
-lock-order algorithm: every thread carries its held-set, every armed
-acquire of lock B while holding A records the directed edge A -> B
-into a process-wide order graph, and an acquire that would close a
-cycle (B is already ordered before A somewhere else in the process's
-history) is an inversion -- the interleaving that deadlocks under
-load, caught deterministically on the FIRST inconsistent acquisition,
-no unlucky schedule required.
+static proof that the declared order is acyclic is the port's lint
+(C002, presto_tpu_torch/lint/LOCK_ORDER.json, the same node names);
+this module proves the *executed* order stays consistent at runtime,
+and chip_smoke.py holds every pair it sees to an edge of that graph.
+The algorithm is TSan's lock-order one: every thread carries its
+held-set, every armed acquire of lock B while holding A records the
+directed edge A -> B into a process-wide order graph, and an acquire
+that would close a cycle (B is already ordered before A somewhere
+else in the process's history) is an inversion -- the interleaving
+that deadlocks under load, caught deterministically on the FIRST
+inconsistent acquisition, no unlucky schedule required.
 
 Contract (mirrors failpoints.ARMED exactly):
 

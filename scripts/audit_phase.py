@@ -24,6 +24,11 @@ witness around phase_cluster and phase_fleet. On `cuda:0`:
   footprint  K005's estimate against torch.cuda.max_memory_allocated of
              that traced run, after reset_peak_memory_stats: above 1.0
              is a fault of the pass.
+  h001       every K002 site of those two traces (source file and line)
+             against the static lint's H001 sites over the port
+             (lint/passes/host_sync.py::sites): each must be one,
+             reported, suppressed or whitelisted; the H001 scan's
+             seconds are printed.
   corpus     the gate over the 22 TPC-H queries, local and mesh tiers,
              at `--corpus-sf` (0.1: q1 runs at SF1 above) against
              presto_tpu_torch/audit/baseline.json: no new finding, no
@@ -132,6 +137,7 @@ def _sync_check(label, kernel, syncs, sites) -> dict:
     trips = [r for r in kernel.records if is_host_round_trip(r)]
     out = {"ops": len(kernel.records), "k002_sites": len(trips),
            "k002_at": sorted({f"{r.src}:{r.line} {r.op}" for r in trips}),
+           "k002_lines": sorted({(r.src, r.line) for r in trips}),
            "syncs": syncs, "sync_sites": sites}
     print(f"audit trace {label}: {out['ops']} ops; K002 host round trips "
           f"{len(trips)} {out['k002_at']} against {syncs} syncs counted "
@@ -178,6 +184,30 @@ def _trace_q1(C):
         raise AssertionError("the audited run changed HASH_STATS")
     del kernel
     torch.cuda.empty_cache()
+    return out
+
+
+def _h001_check(trace) -> dict:
+    """Every K002 site of the traced closures is an H001 site of the
+    port's static lint (reported, suppressed or whitelisted)."""
+    from presto_tpu_torch.lint.passes.host_sync import sites
+    t0 = time.perf_counter()
+    h001 = sites()
+    seconds = time.perf_counter() - t0
+    k002 = sorted(set(trace["k002_lines"]) |
+                  set(trace["agg_hash"]["k002_lines"]))
+    standing = {f"{src}:{line}": [s["standing"] for s in h001[(src, line)]]
+                for src, line in k002 if (src, line) in h001}
+    missing = [f"{src}:{line}" for src, line in k002
+               if (src, line) not in h001]
+    out = {"h001_s": seconds, "h001_sites": len(h001), "k002": standing,
+           "missing": missing}
+    print(f"audit h001: the static H001 scan took {seconds:.3f} s and "
+          f"found {len(h001)} sites; the traces' K002 sites {standing}; "
+          f"{len(missing)} not among them")
+    if missing:
+        raise AssertionError(f"K002 sites that H001 does not find: "
+                             f"{missing}")
     return out
 
 
@@ -256,7 +286,9 @@ def phase_audit(C, corpus_sf=CORPUS_SF):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import batching_phase
     t0 = time.perf_counter()
-    out = {"q1": _q1(C), "trace": _trace_q1(C), "corpus": _corpus(corpus_sf)}
+    out = {"q1": _q1(C), "trace": _trace_q1(C)}
+    out["h001"] = _h001_check(out["trace"])
+    out["corpus"] = _corpus(corpus_sf)
     oracles = batching_phase.Oracles(C)
     key = batching_phase._keys(np.random.default_rng(0), oracles)[
         "dashboard"][0]

@@ -331,6 +331,51 @@ def test_failover_with_run_task_armed(cluster):
     assert any(".r" in t["task"] for t in coord.last_task_stats)
 
 
+def test_a_dead_producer_counts_its_probe(cluster, monkeypatch):
+    """The pull of the final task fails because the worker that ran one
+    of its upstream tasks died: recover_upstreams' probe of the dead
+    producer fails and counts as presto_tpu_suppressed_errors_total
+    {component="coordinator", site="probe_upstream"}, as the reference
+    counts it, and the producer re-runs on the live worker: the rows do
+    not change."""
+    from presto_tpu_torch.server import coordinator as C
+    from presto_tpu_torch.server.metrics import (parse_prometheus,
+                                                 render_prometheus,
+                                                 suppressed_error_families,
+                                                 suppressed_error_totals)
+    port_urls, _ = cluster
+    want, _ = Coordinator(port_urls).execute(
+        distribute_simple_agg(plan_sql(Q1, max_groups=16)), sf=SF)
+    doomed = TpuWorkerServer(sf=SF, device="cpu").start()
+    key = ("coordinator", "probe_upstream")
+    before = suppressed_error_totals().get(key, 0)
+    fetch = C.WorkerClient.fetch_results
+    alive = [True]
+
+    def producer_dies_first(self, *a, **kw):
+        if alive[0]:
+            alive[0] = False
+            doomed.stop()
+            raise ConnectionError(f"{doomed.url} is gone")
+        return fetch(self, *a, **kw)
+
+    monkeypatch.setattr(C.WorkerClient, "fetch_results",
+                        producer_dies_first)
+    try:
+        got, _ = Coordinator([port_urls[0], doomed.url]).execute(
+            distribute_simple_agg(plan_sql(Q1, max_groups=16)), sf=SF,
+            timeout=30.0)
+    finally:
+        if alive[0]:
+            doomed.stop()
+    same(rows(got), rows(want))
+    assert suppressed_error_totals()[key] >= before + 1
+    fams = parse_prometheus(
+        render_prometheus(suppressed_error_families()).decode())
+    assert fams["presto_tpu_suppressed_errors_total"][
+        '{component="coordinator",site="probe_upstream"}'] >= 1
+
+
 def test_speculative_copy_of_a_straggler(cluster):
     port_urls, _ = cluster
     reset_speculation_totals()

@@ -3,17 +3,21 @@ its OrderedLock sites, held against the reference's.
 
 The reference's own cases (tests/test_lockwatch.py) run over the port's
 modules through tests/_torch_ledger_common.py, less two: the
-LOCK_ORDER.json case, which needs the static lint of ROADMAP item 16b,
-and the scrape-script case, which drives the reference's
-scripts/scrape_metrics.py. Then: every OrderedLock site of the reference
-has its counterpart in the port under the same name (an AST scan of
-both packages); the two witnesses give the same violation records for
-the same inversions; and an armed cluster of two port workers behind
-the port's coordinator runs TPC-H q1 at sf 0.01 through the statement
-tier's protocol and the coordinator's fragments with 0 violations.
+scrape-script case, which drives the reference's
+scripts/scrape_metrics.py, and the LOCK_ORDER.json case, which reads
+the reference's root artifact and is written here over the port's own
+(presto_tpu_torch/lint/LOCK_ORDER.json, the port's lint C002). Then:
+every OrderedLock site of the reference has its counterpart in the port
+under the same name (an AST scan of both packages); the two witnesses
+give the same violation records for the same inversions; and an armed
+cluster of two port workers behind the port's coordinator runs TPC-H
+q1 at sf 0.01 through the statement tier's protocol and the
+coordinator's fragments with 0 violations, every ordered pair it sees
+an edge of the static graph.
 """
 
 import ast
+import json
 import os
 import threading
 
@@ -73,6 +77,52 @@ def test_every_ordered_lock_of_the_reference_has_its_counterpart():
     assert len(ref) >= 50
     assert ref <= mine, sorted(ref - mine)
     assert {name for _rel, name in mine} == {name for _rel, name in ref}
+
+
+# The reference's LOCK_ORDER.json has 7 edges; the port's graph has each
+# of them but this one: the reference's TaskManager.abort records the
+# ABORTED flight-recorder event while it holds the task lock, and the
+# port's abort records no event, so it takes no recorder lock there.
+_REFERENCE_ONLY_EDGES = {
+    ("worker._Task.lock", "flight_recorder._recorder_lock"),
+}
+
+
+def test_lock_order_artifact_matches_source_and_is_cycle_free(tmp_path):
+    """The port's LOCK_ORDER.json is the reviewed acquisition-order
+    graph: the source regenerates the same locks and ordered pairs, with
+    no cycle (`python -m presto_tpu_torch.lint.lockgraph --check`); its
+    nodes are the reference's 56 names, and its edges the reference's
+    less the one listed above."""
+    from presto_tpu_torch.lint.lockgraph import (DEFAULT_ARTIFACT,
+                                                 build_doc, main)
+    doc = build_doc()
+    assert doc["cycles"] == [], doc["cycles"]
+    with open(DEFAULT_ARTIFACT, encoding="utf-8") as f:
+        committed = json.load(f)
+    nodes = {n["id"] for n in doc["nodes"]}
+    edges = {(e["from"], e["to"]) for e in doc["edges"]}
+    assert {n["id"] for n in committed["nodes"]} == nodes
+    assert {(e["from"], e["to"]) for e in committed["edges"]} == edges
+    with open(os.path.join(REPO, "LOCK_ORDER.json"), encoding="utf-8") as f:
+        ref = json.load(f)
+    assert len(nodes) == 56
+    assert nodes == {n["id"] for n in ref["nodes"]}
+    ref_edges = {(e["from"], e["to"]) for e in ref["edges"]}
+    assert len(ref_edges) == 7
+    assert edges == ref_edges - _REFERENCE_ONLY_EDGES
+    assert all(e["file"].startswith("presto_tpu_torch/")
+               for e in doc["edges"])
+    assert main(["--check"]) == 0
+    dot = tmp_path / "g.dot"
+    assert main(["--dot", str(dot)]) == 0
+    text = dot.read_text()
+    assert text.startswith("digraph lock_order {")
+    assert all(f'"{a}" -> "{b}"' in text for a, b in edges)
+    drifted = tmp_path / "old.json"
+    drifted.write_text(json.dumps({**committed,
+                                   "edges": committed["edges"][1:]}))
+    assert main(["--check", "--artifact", str(drifted)]) == 1
 
 
 def _inversions(locks_mod):
@@ -174,4 +224,9 @@ def test_armed_port_cluster_runs_q1_with_zero_violations():
     assert locks.witness_violations_total() == base, \
         locks.witness_violations()
     assert locks.witness_edges(), "the armed run took no nested locks"
+    from presto_tpu_torch.lint.lockgraph import DEFAULT_ARTIFACT
+    with open(DEFAULT_ARTIFACT, encoding="utf-8") as f:
+        static = {(e["from"], e["to"]) for e in json.load(f)["edges"]}
+    seen = {(a, b) for a, bs in locks.witness_edges().items() for b in bs}
+    assert seen <= static, sorted(seen - static)
     locks.reset_witness()
