@@ -9,7 +9,10 @@ PyTorch version at the shapes of its path:
 * limb_partial_sums (the per-tile kernel) at TPC-H q1's shapes, and
   fused_limb_sums (limb split and per-group sums in one pass) on every
   lane kind, a ragged n with ids outside [0, G), G = 2, 16 and 64, and
-  the worst case at the kernel's row limit;
+  the worst case at the kernel's row limit; its batched entry
+  fused_limb_sums_batched (the vmapped kernel's member grid axis) at
+  B = 1, 3 and 64, lanes shared and per member, a member with no row,
+  and its refusals of a bad B or stride by return code;
 * q1 (in both limb forms: narrow takes fused_limb_sums, wide the
   per-tile kernel) and q6 at scale factor 1 (6,000,000 lineitem rows)
   through `presto_tpu_torch.exec.run_query`; fused_limb_sums again on
@@ -132,16 +135,21 @@ PyTorch version at the shapes of its path:
   equal); EXPLAIN
   ANALYZE of q1 and q3 from their text at SF1, every section present;
 * concurrent-query batching (phase_batching, scripts/batching_phase.py):
-  the lookup, dashboard and lineitem families of scripts/loadgen.py at
-  SF1 as formed batches of 5 and 64 through
-  BatchingExecutor.bench_dispatch, every member against a numpy oracle,
-  four a family against their serial run_query bit for bit,
-  fused_limb_sums launched once per dashboard member (its first call
-  against the plain version), no error or overflow collapse, the scans
-  staged once a batch, the host syncs of a batch equal at both sizes;
-  a batch of three dashboard statements formed by the statement
-  server's threads, and the dashboard with fusion off through the
-  region executor;
+  the lookup, dashboard and lineitem families of scripts/loadgen.py and
+  a dashboard grouped and ordered by a DOUBLE (price bands, the
+  hash-slot group-by) at SF1 as formed batches of 5 and 64 through
+  BatchingExecutor.bench_dispatch, each batch ONE program over a
+  member axis (torch.func.vmap of the template), every member against a
+  numpy oracle, four a family against their serial run_query bit for
+  bit, fused_limb_sums_batched launched once per dashboard and lineitem
+  batch and fused_limb_sums never (each batch of 5's launch against the
+  plain version), no error or overflow collapse, the scans staged once
+  a batch, the host syncs of a batch equal at both sizes, the batch's
+  device ops and memory peak; a batch of three dashboard statements
+  formed by the statement server's threads, and the dashboard with
+  fusion off through the region executor; then the kernel row of
+  fused_limb_sums_batched on the lanes of the dashboard's batch of 64
+  (against its plain version and 64 fused_limb_sums launches);
 * the kernel audit and buffer donation (phase_audit,
   scripts/audit_phase.py): q1 at SF1 with `kernel_audit` on (the
   audit's seconds on a memo miss and a hit, rows equal to the
@@ -151,9 +159,11 @@ PyTorch version at the shapes of its path:
   K005's estimate at most the allocator's peak; every K002 site, and
   agg_hash's exit-flag read, a site of the static lint's H001), the
   corpus gate over
-  the 22 TPC-H queries at sf 0.1 on both tiers against the committed
-  baseline, and the phase_batching dashboard and TPC-H q10 with fusion
-  off, buffer donation on against off in turns (equal rows, peak MB);
+  the 22 TPC-H queries at sf 0.1 on the local, mesh and batch tiers
+  against the committed baseline (q1's batch trace records the
+  fused_limb_sums_batched launch), and the phase_batching dashboard
+  and TPC-H q10 with fusion off, buffer donation on against off in
+  turns (equal rows, peak MB);
 * with the lock-order witness (utils/locks.py) armed around both, 0
   violations required, and every ordered pair it sees an edge of the
   static lock graph (presto_tpu_torch/lint/LOCK_ORDER.json, the lint's
@@ -835,11 +845,92 @@ def check_fused(ids, sources, reqs, groups, what, **kw):
     return err
 
 
+def _member_lanes(ids, sources, groups, batch, gen, empty=None):
+    """The lanes of _fused_lanes as a batch of `batch` members: the ids,
+    the int64 lane and the mask per member ((batch, n), each member's
+    own draw), the other lanes shared ((n,)); member `empty`, if any,
+    has no row in [0, G) and a mask that is all False."""
+    import torch
+    n, dev = ids.shape[0], ids.device
+    ids_b = torch.randint(-2, groups + 2, (batch, n), generator=gen,
+                          device=dev, dtype=torch.int32)
+    i64 = torch.randint(-(1 << 63), (1 << 63) - 1, (batch, n),
+                        generator=gen, device=dev)
+    mask = torch.rand((batch, n), generator=gen, device=dev) < 0.6
+    if empty is not None:
+        ids_b[empty] = -1
+        mask[empty] = False
+    out = list(sources)
+    out[3], out[5] = i64, mask
+    return ids_b, out
+
+
+def check_fused_batched(ids, sources, reqs, groups, batch, what, **kw):
+    """fused_limb_sums_batched against its plain version (the members'
+    plain versions, stacked), bit for bit; returns the max abs error
+    (0)."""
+    import torch
+    from presto_tpu_torch.ops import kernels as K
+    got = K.fused_limb_sums_batched(ids, sources, reqs, groups, batch, **kw)
+    want = K.fused_limb_sums_batched_reference(ids, sources, reqs, groups,
+                                               batch)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()[:8].tolist()
+        raise AssertionError(f"fused_limb_sums_batched {what} {kw}: differs "
+                             f"at (member, group, request) {bad}")
+    print(f"fused_limb_sums_batched exact: {what} {kw}")
+    return err
+
+
+def check_batched_refusals(groups=16):
+    """The batched C entry refuses, by its return code and before any
+    launch, a batch outside [1, 65535], a negative member stride and
+    strides that misalign a member's rows."""
+    import ctypes
+    import torch
+    from presto_tpu_torch.ops import kernels as K
+    lib = K._library("fused_limb_sums")
+    n = 4096
+    ids = torch.zeros(n, dtype=torch.int32, device="cuda")
+    v = torch.zeros(n, dtype=torch.int32, device="cuda")
+    out = torch.zeros((4, groups, 1, 5), dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(batch, ids_stride, lane_stride):
+        ptrs = (ctypes.c_void_p * 2)(v.data_ptr(), v.data_ptr())
+        strides = (ctypes.c_longlong * 2)(lane_stride, 0)
+        return lib.fused_limb_sums_batched(
+            ids.data_ptr(), ids_stride, n, groups, 1, ptrs, strides,
+            (ctypes.c_int * 1)(3), 1, (ctypes.c_int * 5)(0, -1, 0, 32, 1),
+            5, batch, out.data_ptr(), 0, stream)
+
+    cases = {"batch 0": (call(0, 0, 0), -1),
+             "batch 65536": (call(65536, 0, 0), -1),
+             "a negative lane stride": (call(2, 0, -n), -1),
+             "an ids stride of one row (4 bytes)": (call(2, 1, 0), -3),
+             "a lane stride of 3 rows (12 bytes)": (call(2, 0, 3), -3)}
+    for what, (got, want) in cases.items():
+        if got != want:
+            raise AssertionError(f"fused_limb_sums_batched with {what}: "
+                                 f"returned {got}, not {want}")
+    torch.cuda.synchronize()
+    if out.any():
+        raise AssertionError("a refused batched call wrote its output")
+    print(f"fused_limb_sums_batched refuses by return code: "
+          f"{ {k: g for k, (g, _w) in cases.items()} }")
+
+
 def phase_fused(seed):
     """fused_limb_sums against its plain version on the card: every
     lane kind at a ragged n with ids outside [0, G) for G = 2, 16 and
     64, and the worst case: every row in one group, every lane at its
-    extreme, one block summing the kernel's row limit."""
+    extreme, one block summing the kernel's row limit. Then its batched
+    entry, fused_limb_sums_batched, against its plain version: B = 1, 3
+    and 64, lanes shared and per member (a ragged n, whose per-member
+    lanes the wrapper pads to aligned member strides), a member with no
+    row, shared ids; and its refusals by return code."""
     import torch
     from presto_tpu_torch.ops import kernels as K
     dev = torch.device("cuda")
@@ -862,6 +953,20 @@ def phase_fused(seed):
                     f"{n} rows in group 63, one block", blocks=1)
     del ids, sources
     torch.cuda.empty_cache()
+    for batch, n, groups in ((1, 1_000_003, 16), (3, 1_000_003, 64),
+                             (64, 100_003, 5)):
+        ids, sources, reqs = _fused_lanes(n, groups, gen, dev)
+        ids_b, member = _member_lanes(ids, sources, groups, batch, gen,
+                                      empty=batch // 2)
+        check_fused_batched(ids_b, member, reqs, groups, batch,
+                            f"B={batch} n={n} G={groups}, ids, int64 lane "
+                            f"and mask per member, member {batch // 2} "
+                            "empty")
+        check_fused_batched(ids, member, reqs, groups, batch,
+                            f"B={batch} n={n} G={groups}, shared ids")
+    del ids, ids_b, sources, member
+    torch.cuda.empty_cache()
+    check_batched_refusals()
 
 
 def _unfused_narrow(ids, contribs, groups):
@@ -941,6 +1046,84 @@ def fused_row(call, launches, query="q1"):
     print(f"fused_limb_sums on {query}'s lanes: kernel {ms:.4f} ms (device), "
           f"wrapper call {call_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, unfused stand-in {standin_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def batched_row(call, launches, what="the dashboard's batch of 64"):
+    """Time fused_limb_sums_batched on the lanes `what` handed it on the
+    main path (phase_batching), beside its plain version and the
+    per-member form it replaces (B launches of fused_limb_sums, one a
+    member, as the batched dispatch ran before it was one program); the
+    kernel table's row."""
+    import torch
+    from presto_tpu_torch.ops import kernels as K
+    ids, sources, reqs, groups, batch = call
+    err = check_fused_batched(ids, sources, reqs, groups, batch,
+                              f"{what}'s own lanes")
+
+    def member(t, m):
+        return t[m] if t.dim() == 2 else t
+
+    members = [(member(ids, m),
+                [tuple(member(t, m) for t in s) if isinstance(s, tuple)
+                 else member(s, m) for s in sources]) for m in range(batch)]
+
+    def per_member():
+        return [K.fused_limb_sums(i, srcs, reqs, groups)
+                for i, srcs in members]
+
+    want = K.fused_limb_sums_batched(ids, sources, reqs, groups, batch)
+    if not torch.equal(torch.stack(per_member()), want):
+        raise AssertionError("the per-member launches disagree with the "
+                             "batched entry")
+    ms = device_ms(lambda: K.fused_limb_sums_batched(ids, sources, reqs,
+                                                     groups, batch),
+                   "fused_limb_sums_kernel")
+    call_ms = cuda_ms(lambda: K.fused_limb_sums_batched(
+        ids, sources, reqs, groups, batch))
+    plain_ms = cuda_ms(lambda: K.fused_limb_sums_batched_reference(
+        ids, sources, reqs, groups, batch), repeats=3, warmup=0)
+    standin_ms = cuda_ms(per_member)
+    lanes = [ids] + [t for s in sources
+                     for t in (s if isinstance(s, tuple) else (s,))]
+    shared = [t for t in lanes if t.dim() == 1]
+    J = max(K.limb_count(r.bits) for r in reqs)
+    n = ids.shape[-1]
+    # every lane read once: a shared lane once for all members
+    nbytes = sum(t.numel() * t.element_size() for t in lanes) + \
+        batch * groups * len(reqs) * J * 8
+    L = sum(K.limb_count(r.bits) for r in reqs)
+    ops = 2 * batch * n * (16 * -(-groups // 16)) * (8 * -(-L // 8))
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+    row = {
+        "name": "fused_limb_sums_batched",
+        "form": f"batched (the vmapped kernel's member grid axis), {what}",
+        "route": "cuda",
+        "source": "presto_tpu_torch/ops/csrc/fused_limb_sums.cu",
+        "replaces": "presto_tpu/ops/pallas_kernels.py:163",
+        "launches": launches, "max_abs_err": err, "exact": err == 0.0,
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= ops / INT8_OPS_PER_S else "operations",
+        "library_ms": None, "standin_ms": standin_ms, "call_ms": call_ms,
+        "timing": "ms: the kernel's device time (torch.profiler); "
+                  "call_ms: CUDA events around the wrapper call; plain_ms "
+                  "(the members' plain versions) and standin_ms (B "
+                  "fused_limb_sums launches, one a member): CUDA events",
+        "library": "none: no single PyTorch call splits limbs and sums "
+                   "them per group and member; standin_ms is the "
+                   "per-member form this entry replaces",
+        "shape": {"B": batch, "n": n, "G": groups, "requests": len(reqs),
+                  "L": L, "sources": len(sources),
+                  "shared_lanes": len(shared),
+                  "member_lanes": len(lanes) - len(shared)},
+        "bytes": nbytes, "int8_ops": ops}
+    print(f"fused_limb_sums_batched on {what}'s lanes (B={batch}, n={n}, "
+          f"G={groups}, {len(reqs)} requests): kernel {ms:.4f} ms "
+          f"(device), wrapper call {call_ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, {batch} fused_limb_sums launches {standin_ms:.4f} ms, bound "
           f"{bound:.4f} ms ({row['bound_by']})")
     return row
 
@@ -5244,6 +5427,11 @@ def run_phases(args, start_cpu_workers) -> int:
     statement = timed("statement", phase_statement)
     observe = timed("observe", phase_observe)
     batching = timed("batching", phase_batching, args.seed)
+    kernel_rows.insert(2, batched_row(
+        batching.pop("dashboard_call"),
+        batching["families"]["dashboard"]["B64"]["launches"][
+            "fused_limb_sums_batched"]))
+    torch.cuda.empty_cache()
     audit = timed("audit", phase_audit)
     cluster = timed("cluster", witnessed, phase_cluster)
     fleet = timed("fleet", witnessed, phase_fleet)

@@ -17,7 +17,13 @@ The corpus is the 22 TPC-H queries of presto_tpu_torch/queries/
 tpch_sf1.json (their SQL texts and capacity hints), planned by the
 port's own planner, staged at ``--sf`` on ``--device`` (CUDA unless
 named) and each lowered closure run once under the recorder: the local
-tier as one device, the mesh tier on a one-worker mesh of that device.
+tier as one device, the mesh tier on a one-worker mesh of that device,
+and the batch tier as the batched dispatch runs it, the query's
+template as one program over a member axis (exec/batching.py, two
+members with the query's own parameters), where the group-by's sums
+are a launch of fused_limb_sums_batched. `--tier both` stages the
+local and mesh tiers, as the reference's does; `--tier all` (the
+default) stages the three.
 
     python -m presto_tpu_torch.audit --device cpu --queries 1,3,6,9
     python -m presto_tpu_torch.audit --device cpu --json
@@ -47,6 +53,10 @@ DEFAULT_BASELINE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # 0.01 corpus's peaks, low enough that a runaway intermediate fails
 DEFAULT_FOOTPRINT_BUDGET = 1 << 30
 
+# the corpus tiers: the reference's both/local/mesh, and the batch tier
+# beside them; all stages local, mesh and batch
+TIERS = ("all", "both", "local", "mesh", "batch")
+
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -58,9 +68,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--queries", metavar="NUMS",
                    help="corpus subset, e.g. 1,5-7,22 or q1,q3 "
                         "(default: 1-22)")
-    p.add_argument("--tier", choices=("both", "local", "mesh"),
-                   default="both",
-                   help="which corpus tiers to stage (default both)")
+    p.add_argument("--tier", choices=TIERS,
+                   default="all",
+                   help="which corpus tiers to stage (default all)")
     p.add_argument("--sf", type=float, default=0.01,
                    help="corpus staging scale factor (default 0.01)")
     p.add_argument("--device", default=None,
@@ -137,12 +147,14 @@ def corpus_kernels(qnums: List[int], sf: float, tier: str, device,
     from ..sql import plan_sql
     from .staged import trace_closure
 
+    if tier not in TIERS:
+        raise ValueError(f"unknown corpus tier {tier!r}; one of {TIERS}")
     dev = resolve_device(device)
     queries = corpus_queries()
     meshes = []
-    if tier in ("both", "local"):
+    if tier in ("all", "both", "local"):
         meshes.append(None)
-    if tier in ("both", "mesh"):
+    if tier in ("all", "both", "mesh"):
         meshes.append(make_mesh(1, devices=(str(dev),)))
     kernels: List[KernelTrace] = []
     for mesh in meshes:
@@ -158,6 +170,16 @@ def corpus_kernels(qnums: List[int], sf: float, tier: str, device,
             label = f"tpch/q{n:02d}" + (".mesh" if mesh is not None else "")
             kernels.append(trace_closure(plan.fn, batches, label, mesh=mesh,
                                          budget=budget))
+    if tier in ("all", "batch"):
+        from ..exec.batching import BatchingExecutor
+        ex = BatchingExecutor()
+        for n in qnums:
+            text, max_groups, join_capacity = queries[n]
+            fn, batches = ex.program([text, text], sf=sf, device=dev,
+                                     max_groups=max_groups,
+                                     join_capacity=join_capacity)
+            kernels.append(trace_closure(fn, batches, f"tpch/q{n:02d}.batch",
+                                         budget=budget, members=2))
     return kernels
 
 
@@ -195,7 +217,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     # partial runs only ratchet the entries whose (pass, kernel) was
     # audited: the reference's scoped staleness
     partial = bool(args.select) or bool(args.queries) or \
-        args.tier != "both"
+        args.tier != "all"
 
     def in_scope(entry: dict) -> bool:
         if not partial:

@@ -226,12 +226,15 @@ class KernelTrace:
     where any copy between devices is a finding); `footprint_budget_
     bytes` gates K005 (0 = report only). `notes` carries what the
     passes observe (`peak_bytes_estimate`, `donation_plan`, ...) to the
-    staging hook."""
+    staging hook. `members` is the member axis of a batch's one program
+    (exec/batching.py), 1 for a closure of one query."""
 
     def __init__(self, label: str, *, device=None,
                  exchange_devices: Iterable = (),
-                 footprint_budget_bytes: int = 0, repo: str = REPO):
+                 footprint_budget_bytes: int = 0, repo: str = REPO,
+                 members: int = 1):
         self.label = label
+        self.members = int(members)
         self.device = torch.device(device) if device is not None else None
         self.exchange_devices = frozenset(str(torch.device(d))
                                           for d in exchange_devices)

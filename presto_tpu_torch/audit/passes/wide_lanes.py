@@ -22,7 +22,10 @@ Two things differ from the reference's IR:
     a factory the pass already judged; launches are skipped.
   * an output of at most one element is a scalar, not a lane (torch
     wraps each Python number an op takes in a 0-d int64 or float64
-    tensor, and a literal's block holds one element).
+    tensor, and a literal's block holds one element); in the trace of a
+    batch's one program (exec/batching.py, `KernelTrace.members`
+    members) a scalar is one element a member, and the member index
+    vmap's batching rules make for a gather is such a lane too.
 
 Most of the port's sanctioned sites are index lanes: torch's gather,
 scatter, sort and advanced indexing take int64 positions, where XLA's
@@ -96,6 +99,13 @@ WIDE_OK_SITES: Dict[str, Dict[str, str]] = {
                            "kernel's output)",
         "fused_limb_sums_reference": "exact limb sums accumulate in int64 "
                                      "(the kernel's plain version)",
+        "fused_limb_sums_op": "exact limb sums accumulate in int64 (the "
+                              "custom op the group-by enters the kernel "
+                              "through)",
+        "fused_limb_sums_batched": "exact limb sums accumulate in int64 "
+                                   "(the batched entry's output)",
+        "_launch_fused": "exact limb sums accumulate in int64 (the "
+                         "kernel's output)",
         "source_field": "a limb field is cut from its lane widened to "
                         "int64",
         "_recombine": "limb sums recombine into exact int64 totals",
@@ -179,7 +189,8 @@ class WideLaneEscapePass(AuditPass):
             if exempt is None:
                 continue
             wide = [m.dtype for k, m in enumerate(rec.outputs)
-                    if _is_wide(m.dtype) and _numel(m.shape) > 1
+                    if _is_wide(m.dtype)
+                    and _numel(m.shape) > kernel.members
                     and k not in exempt]
             if not wide:
                 continue

@@ -89,9 +89,11 @@ def _budget(session) -> int:
 
 
 def trace_closure(fn, batches: Sequence, label: str, *, mesh=None,
-                  budget: int = 0, donate: Sequence[int] = ()):
+                  budget: int = 0, donate: Sequence[int] = (),
+                  members: int = 1):
     """Run a lowered closure once under the recorder, apart from the
-    query's books (module docstring), and return its KernelTrace."""
+    query's books (module docstring), and return its KernelTrace
+    (`members`: a batch's one program, exec/batching.py)."""
     from ..exec.stats import collecting
     from ..ops import aggregation
     from ..parallel import exchange
@@ -105,7 +107,7 @@ def trace_closure(fn, batches: Sequence, label: str, *, mesh=None,
                 fn, batches, label, donate=donate,
                 device=mesh.devices[0] if mesh is not None else None,
                 exchange_devices=mesh.devices if mesh is not None else (),
-                footprint_budget_bytes=budget)
+                footprint_budget_bytes=budget, members=members)
     finally:
         aggregation.HASH_STATS.clear()
         aggregation.HASH_STATS.update(hash_stats)

@@ -24,29 +24,30 @@ plan alone. Batching shares that cost among the queries of one shape.
     plus its records in the query-history archive
     (server/history.py::batch_fingerprint_count), so a dashboard is hot
     from its first poll after a restart.
-  * The batched dispatch. The reference traces the template once and
-    runs `jax.jit(jax.vmap(...))` over the parameter axis. The port
-    lowers a plan to Python closures (exec/planner.py), which hold no
-    program to vmap, and its group-by scatters into unbatched buffers,
-    so the port's dispatch is this: the template's scans are staged
-    once for the batch (replayed from the staged cache while every
-    leaf's connector reports the same `data_version`); the stacked
-    parameters are copied to the device in one copy each, a [P, B]
-    values tensor (int64; a floating value as its float64's bit
-    pattern) and a [P, B] nulls tensor, B padded to a power of two; the
-    cached template closure (exec/plan_cache.py) runs once for each
-    real member, back to back on one stream under the entry's lock,
-    each run binding its own column of the parameters
-    (expr/compile.py::bound_params) with no host read between members
-    (padded columns run nothing); each member's capacity flags and
-    active-row count are reduced on the device and all B are read in
-    ONE sync; the members' active rows are gathered on the device one
-    member after another (a member's output has its plan's capacity,
-    150,000 rows for a lookup on SF1 customer, of which one is active)
-    and fetched to the host once, one copy per tensor of the output
-    batch, then fanned out by each member's count. The host syncs of a
-    batch do not grow with B. Every member's rows are bit-identical to
-    its serial run.
+  * The batched dispatch: one program over a member axis. The
+    reference wraps the template as `jax.jit(jax.vmap(fn, in_axes=
+    (None, 0)))`; here the cached template closure (exec/plan_cache.py)
+    runs ONCE under `torch.func.vmap` over the stacked parameters, the
+    staged scans closed over and so shared (the reference's
+    `in_axes=None`). The template's scans are staged once for the batch
+    (replayed from the staged cache while every leaf's connector
+    reports the same `data_version`); the parameters are copied to the
+    device in one copy each, a [B, P] values tensor (int64; a floating
+    value as its float64's bit pattern) and a [B, P] nulls tensor, B
+    the real members. Each BatchParam then reads a batched 0-d value
+    (expr/compile.py::bound_params), every value it reaches carries the
+    member axis, and every operator runs once for all members: the
+    group-by's sums reach ops/kernels.py's custom op, whose vmap rule
+    launches fused_limb_sums_batched once for the batch. The vmapped
+    callable is kept beside the template (an LRU of 64, as the
+    reference keeps `_vmapped`). The [B] capacity flags and active-row
+    counts are reduced on the device and read in ONE sync; the active
+    rows of the [B, capacity] output are gathered in one pass (a
+    member's output has its plan's capacity, 150,000 rows for a lookup
+    on SF1 customer, of which one is active) and fetched to the host
+    once, one copy per tensor of the output batch, then fanned out by
+    each member's count. The host syncs of a batch do not grow with B.
+    Every member's rows are bit-identical to its serial run.
   * Collapse: an overflow flag, the `dispatcher.batch_collapse`
     failpoint or an error of the batched dispatch runs every member
     through the serial `run_query` (counted per reason on
@@ -74,7 +75,7 @@ import numpy as np
 import torch
 
 from .. import types as T
-from ..block import Batch, RowColumn, decoded
+from ..block import Batch
 from ..expr import ir as E
 from ..plan import nodes as N
 from ..utils.locks import OrderedLock
@@ -333,54 +334,26 @@ def clear_batching() -> None:
 
 
 # ---------------------------------------------------------------------------
-# the batched output: the members' active rows, gathered on the device
-# one member after another and fetched once
+# the batched output: the members' active rows, gathered in one pass and
+# fetched once
 # ---------------------------------------------------------------------------
 
 
-def _cat(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """The members' row tensors one after another, each zero-padded to
-    the widest trailing shape (a wider string lane: the padded bytes lie
-    past each string's length)."""
-    tail = [max(t.shape[d] for t in tensors)
-            for d in range(1, tensors[0].dim())]
-    padded = []
-    for t in tensors:
-        if list(t.shape[1:]) != tail:
-            z = t.new_zeros([t.shape[0], *tail])
-            z[tuple(slice(0, s) for s in t.shape)] = t
-            t = z
-        padded.append(t)
-    return torch.cat(padded)
-
-
-def _gather_blocks(blocks: List, rows: List[torch.Tensor]):
-    blocks = [decoded(b) for b in blocks]
-    b0 = blocks[0]
-    if isinstance(b0, RowColumn):
-        return RowColumn(tuple(_gather_blocks([b.fields[k] for b in blocks],
-                                              rows)
-                               for k in range(len(b0.fields))),
-                         _cat([b.nulls.index_select(0, r)
-                               for b, r in zip(blocks, rows)]), b0.type)
-    return dataclasses.replace(b0, **{
-        f.name: _cat([getattr(b, f.name).index_select(0, r)
-                      for b, r in zip(blocks, rows)])
-        for f in dataclasses.fields(b0) if f.name != "type"})
-
-
-def _gather_active(outs: List[Batch], counts: List[int]) -> Batch:
-    """One batch of every member's active rows in row order, member
-    after member (`counts[i]` of member i, read on the host already), so
-    that nothing is synchronized here: a stable sort of each active mask
-    puts its rows first."""
-    act = torch.stack([o.active for o in outs])
-    order = torch.argsort((~act).to(torch.uint8), dim=1, stable=True)
-    rows = [order[i, :c] for i, c in enumerate(counts)]
-    return Batch(tuple(_gather_blocks([o.columns[c] for o in outs], rows)
-                       for c in range(outs[0].num_columns)),
-                 torch.ones(sum(counts), dtype=torch.bool,
-                            device=act.device))
+def _gather_active(out: Batch, total: int) -> Batch:
+    """One batch of every member's active rows of the [B, capacity]
+    output, in row order, member after member. `total`, the active rows
+    of all members, was read on the host already, so nothing is
+    synchronized here: each active row's place is its exclusive running
+    count over the flattened [B * capacity] mask."""
+    nb, cap = out.active.shape
+    flat = out.active.reshape(-1)
+    dest = torch.where(flat, torch.cumsum(flat, 0) - 1, total)
+    rows = torch.zeros(total + 1, dtype=torch.int64,
+                       device=flat.device).scatter(
+        0, dest, torch.arange(nb * cap, dtype=torch.int64,
+                              device=flat.device))[:total]
+    member, row = rows // cap, rows % cap
+    return _map_tensors(out, lambda t: t[member, row])
 
 
 def _map_tensors(b: Batch, fn) -> Batch:
@@ -423,12 +396,65 @@ class _Forming:
 @dataclasses.dataclass
 class _Template:
     """What a batch key compiles and runs: the template plan, its
-    parameters' types, and once lowered its CompiledPlan and the plan
-    cache entry's dispatch lock."""
+    parameters' types, and once lowered its CompiledPlan, the plan
+    cache entry's dispatch lock and the vmapped program
+    (`_vmapped_program`)."""
     template: N.PlanNode
     types: List[T.Type]
     plan: object = None
     lock: object = None
+    vmapped: object = None
+
+
+def _leaves(out: Batch) -> Tuple[list, List[torch.Tensor]]:
+    """A batch's dictionary-decoded columns with their tensors taken
+    out (the skeleton) and those tensors in order."""
+    from ..parallel.exchange import map_block
+    found: List[torch.Tensor] = []
+
+    def take(t):
+        found.append(t)
+
+    return [map_block(c, take) for c in out.columns], found
+
+
+def _rebuild(skeleton: list, tensors: List[torch.Tensor],
+             active: torch.Tensor) -> Batch:
+    from ..parallel.exchange import map_block
+    it = iter(tensors)
+    return Batch(tuple(map_block(c, lambda _t: next(it)) for c in skeleton),
+                 active)
+
+
+def _vmapped_program(plan, types: List[T.Type]):
+    """The template as one program over a member axis: (staged batches,
+    [B, P] values, [B, P] nulls) -> (the members' output batch, every
+    tensor [B, capacity, ...], its [B] overflow flags, its [B] active
+    counts). The closure runs once under torch.func.vmap with the
+    batches shared, as the reference's jax.vmap(fn, in_axes=(None,
+    0)). A floating parameter's int64 bit pattern is read as its
+    float64 before the vmap (a dtype view has no batching rule in
+    every torch)."""
+    from ..expr.compile import bound_params
+    floating = [np.dtype(ty.to_dtype()).kind == "f" for ty in types]
+
+    def program(batches, vals, nulls):
+        skeleton: list = []
+
+        def member(v, fv, nl):
+            with bound_params([(fv[i] if f else v[i], nl[i])
+                               for i, f in enumerate(floating)]):
+                out, flags = plan.fn(batches)
+            skel, tensors = _leaves(out)
+            skeleton.append(skel)
+            return (tensors, out.active, flags.any(),
+                    out.active.sum())
+
+        tensors, active, flags, counts = torch.func.vmap(
+            member, in_dims=(0, 0, 0))(vals, vals.view(torch.float64), nulls)
+        return _rebuild(skeleton[0], tensors, active), flags, counts
+
+    return program
 
 
 class BatchingExecutor:
@@ -439,9 +465,10 @@ class BatchingExecutor:
     formed). Thread-safe: the statement threads are its callers.
 
     `last_dispatch` holds the last batched dispatch's accounting: its
-    size, the scans it staged (0 on a staged-cache hit) and the host
-    walls in ms of its staging, execute (the parameter copies, the
-    members' runs and the one flag read) and fetch."""
+    size, the scans it staged (0 on a staged-cache hit), the host walls
+    in ms of its staging, execute (the parameter copies, the one
+    program and the one flag read) and fetch, the programs it ran (1)
+    and its kernel launches by kernel."""
 
     # tpulint C001: formation/inflight/template registries are shared
     # across every statement _run thread
@@ -701,20 +728,59 @@ class BatchingExecutor:
         return len(sizes)
 
     def bench_dispatch(self, texts: List[str], *, sf: float,
-                       session: Optional[Dict] = None, device=None):
+                       session: Optional[Dict] = None, device=None,
+                       max_groups: Optional[int] = None,
+                       join_capacity: Optional[int] = None):
         """Run co-batchable `texts` as ONE batched dispatch with no
         formation window and return their QueryResults in order: the
         dispatch path alone (benchmarks and white-box tests). Raises
         ValueError where the texts do not share a batch key."""
         from ..block import resolve_device
-        sess = dict(session or {})
         dev = resolve_device(device)
+        key, entries = self._entries(texts, sf, session, dev, max_groups,
+                                     join_capacity)
+        self._execute_batch(key, entries, sf=sf, join_capacity=key[3],
+                            device=dev)
+        for m in entries:
+            if m.error is not None:
+                raise m.error
+        return [m.result for m in entries]
+
+    def program(self, texts: List[str], *, sf: float, device=None,
+                max_groups: Optional[int] = None,
+                join_capacity: Optional[int] = None):
+        """(fn, staged batches) of co-batchable `texts`: fn(batches)
+        runs their batch's one program (the vmapped template over their
+        stacked parameters) and returns its output, [B] overflow flags
+        and [B] active counts, with no fan-out. The kernel audit traces
+        it (audit/cli.py's batch tier)."""
+        from ..block import resolve_device
+        from ..expr.compile import shared_constants
+        dev = resolve_device(device)
+        key, entries = self._entries(texts, sf, None, dev, max_groups,
+                                     join_capacity)
+        tpl = self._compiled(key, key[3])
+        vals_np, nulls_np = self._stack_params(entries, tpl.types)
+        vals = torch.from_numpy(vals_np).to(dev)
+        nulls = torch.from_numpy(nulls_np).to(dev)
+
+        def fn(batches):
+            with tpl.lock, shared_constants():
+                return tpl.vmapped(batches, vals, nulls)
+        return fn, self._stage_inputs(key, tpl.plan, sf, dev)
+
+    def _entries(self, texts: List[str], sf: float, session, device,
+                 max_groups: Optional[int], join_capacity: Optional[int]):
+        """(batch key, a member for each text), planned and
+        parameterized; ValueError where a text is not batchable or the
+        texts do not share a key."""
+        sess = dict(session or {})
         entries: List[_Pending] = []
         key0 = None
         for i, text in enumerate(texts):
             prepared, template, values, key = self._prepare(
-                text, sf=sf, session=sess, max_groups=None,
-                join_capacity=None, catalog=None, device=dev)
+                text, sf=sf, session=sess, max_groups=max_groups,
+                join_capacity=join_capacity, catalog=None, device=device)
             if template is None:
                 raise ValueError(f"not batchable: {text!r}")
             if key0 is None:
@@ -723,12 +789,7 @@ class BatchingExecutor:
                 raise ValueError("texts do not share a batch key")
             entries.append(_Pending(values, prepared, sess,
                                     f"bench-{i}", None))
-        self._execute_batch(key0, entries, sf=sf, join_capacity=key0[3],
-                            device=dev)
-        for m in entries:
-            if m.error is not None:
-                raise m.error
-        return [m.result for m in entries]
+        return key0, entries
 
     def _prepare(self, text: str, *, sf: float, session: Dict,
                  max_groups: Optional[int], join_capacity: Optional[int],
@@ -811,9 +872,10 @@ class BatchingExecutor:
             from .plan_cache import cached_compile
             plan, lock, _hit = cached_compile(tpl.template, None,
                                               join_capacity)
+            program = _vmapped_program(plan, tpl.types)
             with self._lock:
                 if tpl.plan is None:
-                    tpl.plan, tpl.lock = plan, lock
+                    tpl.plan, tpl.lock, tpl.vmapped = plan, lock, program
         return tpl
 
     # -- the batched dispatch ------------------------------------------
@@ -874,7 +936,8 @@ class BatchingExecutor:
         self.last_dispatch = {"size": nbatch, "stage_ms": stage_ms,
                               "scans_staged": self.scans_staged - staged0,
                               **walls}
-        self._fan_out(host, tpl.template, entries, device_us)
+        self._fan_out(host, tpl.template, entries, device_us,
+                      sum(walls["launches"].values()))
         self._account(key, entries, device_us)
 
     def _stage_inputs(self, key, plan, sf: float, device) -> list:
@@ -918,69 +981,68 @@ class BatchingExecutor:
 
     def _stack_params(self, entries: List[_Pending],
                       types: List[T.Type]) -> Tuple[np.ndarray, np.ndarray]:
-        """The members' parameter vectors as [P, B] int64 values (a
-        floating value as its float64's bit pattern) and [P, B] nulls,
-        B padded to a power of two (at least 2) with copies of member
-        0, as the reference pads its buckets. A parameterless batch
-        (identical literal-free statements) gets one zero row."""
-        nbatch = len(entries)
-        padded = 2
-        while padded < nbatch:
-            padded *= 2
+        """The members' parameter vectors as [B, P] int64 values (a
+        floating value as its float64's bit pattern) and [B, P] nulls,
+        one row per real member. A parameterless batch (identical
+        literal-free statements) gets one zero column."""
         nparams = max(len(types), 1)
-        vals = np.zeros((nparams, padded), dtype=np.int64)
-        nulls = np.zeros((nparams, padded), dtype=bool)
+        vals = np.zeros((len(entries), nparams), dtype=np.int64)
+        nulls = np.zeros((len(entries), nparams), dtype=bool)
         for pi, ty in enumerate(types):
             floating = np.dtype(ty.to_dtype()).kind == "f"
-            for b in range(padded):
-                v, null = entries[b if b < nbatch else 0].values[pi]
+            for b, m in enumerate(entries):
+                v, null = m.values[pi]
                 if floating:
-                    vals[pi, b] = np.float64(v).view(np.int64)
+                    vals[b, pi] = np.float64(v).view(np.int64)
                 else:
-                    vals[pi, b] = int(v)
-                nulls[pi, b] = bool(null)
+                    vals[b, pi] = int(v)
+                nulls[b, pi] = bool(null)
         return vals, nulls
 
     def _dispatch(self, key, tpl: _Template, batches: list,
                   entries: List[_Pending], device):
-        """Run the template once per real member over the shared staged
-        batches; returns ((the members' active rows on the host, each
-        member's count), whether any member overflowed, {execute_ms,
-        fetch_ms}). The host syncs: the two parameter copies, one read
-        of all B flags and counts, one copy per tensor of the output."""
-        from ..expr.compile import bound_params, shared_constants
+        """Run the template ONCE for all members, as the vmapped program
+        over the shared staged batches; returns ((the members' active
+        rows on the host, each member's count), whether any member
+        overflowed, {execute_ms, fetch_ms}). The host syncs: the two
+        parameter copies, one read of all B flags and counts, one copy
+        per tensor of the output."""
+        from ..expr.compile import shared_constants
+        from ..ops.kernels import thread_launches
         t0 = time.perf_counter()
         vals_np, nulls_np = self._stack_params(entries, tpl.types)
         vals = torch.from_numpy(vals_np).to(device)
         nulls = torch.from_numpy(nulls_np).to(device)
-        nparams = len(tpl.types)
-        outs, flags, counts = [], [], []
         with tpl.lock, shared_constants():
-            for b in range(len(entries)):
-                with bound_params([(vals[i, b], nulls[i, b])
-                                   for i in range(nparams)]):
-                    out, f = tpl.plan.fn(batches)
-                outs.append(out)
-                flags.append(f.any().to(torch.int64))
-                counts.append(out.active.sum())
+            mine = thread_launches()
+            before = dict(mine)
+            out, flags, counts = tpl.vmapped(batches, vals, nulls)
+            # the program's kernel launches: this thread's own, so that
+            # queries on other threads meanwhile do not count
+            launches = {k: v - before[k] for k, v in mine.items()
+                        if v != before[k]}
             # every member's overflow flag and active-row count: one read
-            read = torch.stack([torch.stack(flags),
-                                torch.stack(counts)]).tolist()
+            read = torch.stack([flags.to(torch.int64), counts]).tolist()
         overflow, counts = any(read[0]), read[1]
         t1 = time.perf_counter()
         host = None
         if not overflow:
-            host = _map_tensors(_gather_active(outs, counts),
+            host = _map_tensors(_gather_active(out, sum(counts)),
                                 lambda t: t.cpu())
         walls = {"execute_ms": (t1 - t0) * 1e3,
-                 "fetch_ms": (time.perf_counter() - t1) * 1e3}
+                 "fetch_ms": (time.perf_counter() - t1) * 1e3,
+                 "programs": 1, "launches": launches}
         return (host, counts), overflow, walls
 
     def _fan_out(self, fetched, template: N.PlanNode,
-                 entries: List[_Pending], device_us: int) -> None:
+                 entries: List[_Pending], device_us: int,
+                 launches: int) -> None:
         """Member i takes its own rows of the fetched batch (its count of
         them, after the members before it); its result is built from
-        them as the serial fetch builds it from its active rows."""
+        them as the serial fetch builds it from its active rows. Its
+        stats say that the batch ran as one program, and the
+        hand-written kernel launches of that program (the batch's, not
+        a share of them)."""
         from .runner import _batch_to_result
         from .stats import QueryStats
         host, counts = fetched
@@ -996,8 +1058,12 @@ class BatchingExecutor:
             qs.output_rows = res.row_count
             qs.counters["batched_queries"] = 1
             qs.counters["batch_size"] = nbatch
+            qs.counters["batch_programs"] = 1
+            qs.counters["batch_kernel_launches"] = launches
             res.query_stats = qs
-            res.stats = {"batch_size": nbatch, "batch_device_us": device_us}
+            res.stats = {"batch_size": nbatch, "batch_device_us": device_us,
+                         "batch_programs": 1,
+                         "batch_kernel_launches": launches}
             m.result = res
             _note_query(_QUERY_BATCH, m.query_id, nbatch)
 

@@ -25,13 +25,12 @@ does.
 A template plan of exec/batching.py carries BatchParam leaves where the
 plan had literals: `evaluate` reads slot `index` of the parameter
 vector bound on this thread by `bound_params`, and refuses outside one,
-as the reference does. The batching executor binds, for each member of
-a batch, 0-d tensor views of its column of the batch's [P, B] values
-and nulls tensors, already on the device: a parameter block is a view
-of one element expanded to the batch's capacity, with no read on the
-host. Inside `shared_constants` the broadcast blocks of literals are
-built once and reused, so that the members of a batch do not each
-copy a string literal to the device.
+as the reference does. The batching executor binds, under
+torch.func.vmap over the batch's members, batched 0-d tensors: each
+member's value and null of the batch's [B, P] tensors, already on the
+device. A parameter block is its one value expanded to the capacity,
+with no read on the host. Inside `shared_constants` the broadcast
+blocks of literals are built once and reused.
 """
 
 from __future__ import annotations
@@ -66,7 +65,7 @@ def bound_params(values: Sequence):
     """Bind the parameter vector that BatchParam leaves read on this
     thread: a sequence of (value, is_null) pairs, each a Python scalar
     or a 0-d tensor on the batch's device (a value of a floating type
-    as the int64 bit pattern of its float64, see exec/batching.py)."""
+    as a float64 tensor, see exec/batching.py)."""
     prev = getattr(_SCOPE, "params", None)
     _SCOPE.params = values
     try:
@@ -96,10 +95,7 @@ def _param_block(p: BatchParam, capacity: int, device) -> Block:
     v, null = params[p.index]
     dt = torch_dtype(p.type.to_dtype())
     if isinstance(v, torch.Tensor):
-        v = v.reshape(1).to(device)
-        if dt.is_floating_point:
-            v = v.view(torch.float64)  # the float64's bit pattern
-        values = v.to(dt)
+        values = v.reshape(1).to(device).to(dt)
     else:
         values = torch.full((1,), v, dtype=dt, device=device)
     nulls = null.reshape(1).to(device) if isinstance(null, torch.Tensor) \

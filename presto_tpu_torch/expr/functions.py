@@ -47,6 +47,7 @@ from ..block import (ArrayColumn, Column, Int128Column, MapColumn,
                      RowColumn, StringColumn, gather_block, pad_chars,
                      torch_dtype)
 from ..ops import kernels as K
+from ..ops.keys import double_bits
 
 Block = Union[Column, StringColumn, Int128Column]
 
@@ -128,9 +129,16 @@ _POW10 = [10 ** i for i in range(19)]
 
 
 def rescale_decimal(values, from_scale: int, to_scale: int):
-    """Exact int64 rescale, rounding half away from zero on downscale."""
+    """Exact int64 rescale, rounding half away from zero on downscale.
+    A broadcast lane (a literal's or a batch parameter's block, one
+    value expanded to the rows) is rescaled on its one value and
+    expanded again: under exec/batching.py's vmap it would otherwise
+    become a [B, rows] int64 tensor."""
     if to_scale == from_scale:
         return values
+    if values.dim() == 1 and values.shape[0] > 1 and values.stride(0) == 0:
+        return rescale_decimal(values[:1], from_scale,
+                               to_scale).expand(values.shape[0])
     if to_scale > from_scale:
         return values * _POW10[to_scale - from_scale]
     f = _POW10[from_scale - to_scale]
@@ -1958,7 +1966,7 @@ def hash64_block(b: Block) -> torch.Tensor:
             f = v.to(torch.float64)
             f = torch.where(f == 0.0, 0.0, f)
             f = torch.where(torch.isnan(f), float("nan"), f)
-            v = f.view(torch.int64)
+            v = double_bits(f)
         h = mix64(v.to(torch.int64))
     return torch.where(b.nulls, GOLD, h)
 

@@ -184,24 +184,34 @@ def _group_ids_small(words, active: torch.Tensor, max_groups: int):
     max_groups distinct keys: overflow (they park in the last slot)."""
     n = active.shape[0]
     dev = active.device
-    rows = torch.arange(n, dtype=torch.int64, device=dev)
     ids = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    first = torch.zeros(max_groups, dtype=torch.int64, device=dev)
+    firsts = []
     num_groups = torch.zeros((), dtype=torch.int32, device=dev)
     for g in range(max_groups):
         unres = active & (ids < 0)
-        i = torch.where(unres, rows, n).min()
-        found = i < n
-        i_safe = i.clamp(0, max(n - 1, 0)).reshape(1)
+        # the first unresolved row (argmax takes the first maximum),
+        # found where there is one; over bytes, so that no row-wide
+        # int64 lane is made (one per member under a batch)
+        found = unres.any()
+        i = torch.argmax(unres.to(torch.uint8)) if n else \
+            torch.zeros((), dtype=torch.int64, device=dev)
+        i_safe = torch.where(found, i, 0).reshape(1)
         match = unres
         for w in words:
             match = match & (w == w.index_select(0, i_safe))
         ids = ids.masked_fill(match, g)
-        first[g] = torch.where(found, i_safe[0], 0)
+        firsts.append(i_safe[0])
         num_groups = num_groups + found.to(torch.int32)
+    first = torch.stack(firsts)
     overflow = (active & (ids < 0)).any()
     ids = torch.where(active & (ids >= 0), ids, max_groups - 1)
     return ids, first, num_groups, overflow
+
+
+def _batched(t: torch.Tensor) -> bool:
+    """Whether `t` carries a member axis of torch.func.vmap: a value
+    the host cannot read, one for every member."""
+    return torch._C._functorch.is_batchedtensor(t)
 
 
 def _hash_words(words: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -221,7 +231,10 @@ def _group_ids_hash(words, active: torch.Tensor, max_groups: int):
     resolve there if its owner's key words equal theirs. The
     reference's loop exits when every active row is resolved; a round
     after that changes nothing, so here the exit flag is read on the
-    host only every _HASH_CHECK_EVERY rounds. Occupied slots take dense
+    host only every _HASH_CHECK_EVERY rounds, and not at all where the
+    flag is a batched value (a member axis of exec/batching.py's
+    torch.func.vmap): then every round runs, as _group_ids_small runs
+    all of its rounds. Occupied slots take dense
     ids in slot order; rows left after _MAX_PROBES rounds, or more
     occupied slots than max_groups, overflow (such rows park in the
     last slot)."""
@@ -237,7 +250,7 @@ def _group_ids_hash(words, active: torch.Tensor, max_groups: int):
     rounds = checks = 0
     for r in range(_MAX_PROBES):
         unres = active & (slot_of < 0)
-        if r % _HASH_CHECK_EVERY == 0 and r:
+        if r % _HASH_CHECK_EVERY == 0 and r and not _batched(unres):
             checks += 1
             if not bool(unres.any()):
                 break
@@ -292,6 +305,11 @@ class _Request:
         x = K.source_field(self.source, self.shift, self.bits,
                            self.remainder)
         return x if self.mask is None else torch.where(self.mask, x, 0)
+
+
+def _batched_request(r: _Request) -> bool:
+    lanes = list(r.source) if isinstance(r.source, tuple) else [r.source]
+    return any(map(_batched, lanes + ([] if r.mask is None else [r.mask])))
 
 
 def _as_request(r) -> _Request:
@@ -359,8 +377,8 @@ def _fused_limb_sums(ids: torch.Tensor, requests, max_groups: int,
                                    -1 if r.mask is None else slot(r.mask),
                                    r.shift, r.bits, r.remainder)
                      for r in chunk]
-            out += K.fused_limb_sums(ids, sources, kreqs,
-                                     max_groups).unbind(1)
+            out += K.fused_limb_sums_op(ids, sources, kreqs,
+                                        max_groups).unbind(-1)
         return out
     limb_bits = 13
     limb_cols = []
@@ -386,13 +404,14 @@ class _SegSumPool:
     """Batches every integer per-group sum of one group_by call. `add`
     queues a descriptor and returns its handle; `compute` runs them all
     (a plain reduction per request for the single group of a global
-    aggregation, one fused kernel launch for 1 < G <= SMALL_G, an int64
-    `index_add_` per request for the hash path's larger tables);
+    aggregation, or the fused kernel where its lanes carry a member
+    axis; one fused kernel launch for 1 < G <= SMALL_G; an int64
+    `index_add` per request for the hash path's larger tables);
     `result` then reads a handle's (G,) int64 totals."""
 
     def __init__(self, ids: torch.Tensor, max_groups: int, limb_form: str):
         self.ids = ids
-        self.ids64 = ids.to(torch.int64)
+        self._ids64: Optional[torch.Tensor] = None
         self.g = max_groups
         self.limb_form = limb_form
         self.requests: List[_Request] = []
@@ -403,7 +422,13 @@ class _SegSumPool:
         return len(self.requests) - 1
 
     def compute(self) -> None:
-        if self.g == 1:
+        if self.g == 1 and any(map(_batched_request, self.requests)):
+            # a keyless sum over rows that carry a member axis: the
+            # plain reduction would materialise a [B, n] int64 field per
+            # request, so the batched kernel sums them (G = 1, the
+            # shared value lanes read in place, a mask lane per member)
+            self.results = _fused_limb_sums(self.ids, self.requests, 1)
+        elif self.g == 1:
             self.results = [r.materialize().sum().reshape(1)
                             for r in self.requests]
         elif not self.requests:
@@ -414,12 +439,20 @@ class _SegSumPool:
         else:
             self.results = [torch.zeros(
                 self.g, dtype=torch.int64, device=self.ids.device
-            ).index_add_(0, self.ids64, r.materialize())
+            ).index_add(0, self.ids64, r.materialize())
                 for r in self.requests]
         self.requests = []
 
     def result(self, handle: int) -> torch.Tensor:
         return self.results[handle]
+
+    @property
+    def ids64(self) -> torch.Tensor:
+        """The ids as int64 (index_add's index), made once where a sum
+        needs them: the fused kernel reads the int32 ids."""
+        if self._ids64 is None:
+            self._ids64 = self.ids.to(torch.int64)
+        return self._ids64
 
     def fsum(self, values: torch.Tensor, live: torch.Tensor
              ) -> torch.Tensor:
@@ -428,7 +461,7 @@ class _SegSumPool:
         if self.g == 1:
             return contrib.sum().reshape(1)
         return torch.zeros(self.g, dtype=torch.float64,
-                           device=contrib.device).index_add_(
+                           device=contrib.device).index_add(
             0, self.ids64, contrib)
 
 
@@ -641,7 +674,6 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
     (one tensor per (input, mask) pair, so that the pool passes it to
     the kernel once)."""
     g = pool.g
-    ids = pool.ids64
     dev = active.device
     no_nulls = torch.zeros(g, dtype=torch.bool, device=dev)
     name = spec.canonical
@@ -665,10 +697,10 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
         h = _seg_count(pool, mark_distinct(pairs, [0, 1]))
         return [lambda: Column(pool.result(h), no_nulls, T.BIGINT)]
     if name == "approx_distinct":
-        regs = _hll_registers_from_values(col, live, ids, g)
+        regs = _hll_registers_from_values(col, live, pool.ids64, g)
         return [lambda: _hll_state_column(regs)]
     if name == "hll_merge":
-        regs = _hll_registers_merge(col, live, ids, g)
+        regs = _hll_registers_merge(col, live, pool.ids64, g)
         return [lambda: _hll_state_column(regs)]
     if name == "checksum":
         # a wrapping int64 sum of the rows' hashes; a NULL row adds GOLD
@@ -681,7 +713,8 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
 
     if isinstance(col, StringColumn):
         if name in ("min", "max"):
-            return [lambda: _extreme(spec, col, ids, live, g, nn() == 0)]
+            return [lambda: _extreme(spec, col, pool.ids64, live, g,
+                                     nn() == 0)]
         raise NotImplementedError(f"{spec.name} over strings")
     if isinstance(col, Int128Column) or (name in ("sum", "avg")
                                          and col.type.is_decimal):
@@ -696,7 +729,7 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
                 return Int128Column(hi, lo, nn() == 0, sum_ty)
             return [total] if name == "sum" else [total, count]
         if name in ("min", "max"):
-            return [lambda: _extreme(spec, col, ids, live, g, nn() == 0)]
+            return [lambda: _extreme(spec, col, pool.ids64, live, g, nn() == 0)]
         raise NotImplementedError(f"{spec.name} over long decimals")
 
     v = col.values
@@ -714,10 +747,10 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
                 return Column(pool.result(h), nn() == 0, sum_ty)
         return [total] if name == "sum" else [total, count]
     if name in ("min", "max"):
-        return [lambda: _extreme(spec, col, ids, live, g, nn() == 0)]
+        return [lambda: _extreme(spec, col, pool.ids64, live, g, nn() == 0)]
     if name in ("bool_and", "bool_or"):
         ident = 1 if name == "bool_and" else 0
-        m = _seg_reduce(ids, torch.where(live, v.to(torch.int32), ident), g,
+        m = _seg_reduce(pool.ids64, torch.where(live, v.to(torch.int32), ident), g,
                         ident, name == "bool_and")
         return [lambda: Column(m.to(torch.bool), nn() == 0, T.BOOLEAN)]
     if name in _VARIANCE_AGGS:
@@ -747,13 +780,13 @@ def _acc_columns(spec: AggSpec, col: Optional[Block], active: torch.Tensor,
         n = len(col)
         # W001: row positions, an int64 index lane
         rows = torch.arange(n, dtype=torch.int64, device=dev)  # tpulint: disable=W001
-        row = _seg_reduce(ids, torch.where(live, rows, n), g, n, True)
+        row = _seg_reduce(pool.ids64, torch.where(live, rows, n), g, n, True)
         idx = row.clamp(max=max(n - 1, 0))
         return [lambda: Column(v[idx], row >= n, spec.output_type)]
     if name in ("min_by", "max_by"):
-        return _min_by(spec, col, active, ids, g, batch)
+        return _min_by(spec, col, active, pool.ids64, g, batch)
     if name == "approx_percentile":
-        return [_percentile(spec, col, live, ids, g, nn)]
+        return [_percentile(spec, col, live, pool.ids64, g, nn)]
     raise NotImplementedError(f"aggregate function {spec.name!r}")
 
 
@@ -1010,16 +1043,21 @@ def _group_by_sorted(batch: Batch, key_channels: Sequence[int],
                             *(w ^ SIGN for w in words + pair_words)])
     s_active = batch.active[perm]
 
-    diffs = torch.zeros(n, dtype=torch.bool, device=dev)
+    # row i > 0 starts a new segment where a key word differs from row
+    # i - 1's; built out of place (the rows' words may carry a member
+    # axis under exec/batching.py's vmap)
+    changed = torch.zeros(max(n - 1, 0), dtype=torch.bool, device=dev)
     for w in words:
         sw = w[perm]
-        diffs[1:] |= sw[1:] != sw[:-1]
+        changed = changed | (sw[1:] != sw[:-1])
+    diffs = torch.cat([torch.zeros(min(n, 1), dtype=torch.bool,
+                                   device=dev), changed])
     seg = torch.cumsum(diffs.to(torch.int64), dim=0)
-    pair_first = diffs.clone()
-    pair_first[:1] = True
     for w in pair_words:
         sw = w[perm]
-        pair_first[1:] |= sw[1:] != sw[:-1]
+        changed = changed | (sw[1:] != sw[:-1])
+    pair_first = torch.cat([torch.ones(min(n, 1), dtype=torch.bool,
+                                       device=dev), changed])
 
     n_act = s_active.sum()
     # the last active row's segment, read by index_select: indexing with

@@ -64,6 +64,16 @@
 // device buffer, no host copy. Each block copies the part the split reads
 // into shared memory once.
 //
+// Batched form (fused_limb_sums_batched): the kernel of a vmapped
+// pallas_call, whose batching rule gives the grid a leading member axis.
+// Here the grid's y axis is the member: block (x, m) walks its chunk range
+// of member m, each lane read at its base plus m times the lane's member
+// stride (0 for a lane every member shares, the scan's own columns; the
+// lane's row count for a per-member lane, a filter mask or ids that a
+// parameter touched), and adds into member m's (G, R, J) table. A shared
+// lane is read again for every member: reading it once for all members is
+// a later redesign.
+//
 // What holds it back (scripts/fused_limb_sums_phases.py): the split. Each
 // warp walks every request of its 128 rows as a short chain of dependent
 // shared-memory loads, shifts and stores, and with 8 warps a SM (the
@@ -131,8 +141,9 @@ __host__ __device__ constexpr int lanes_of(int kind) { return kind == kI128 ? 2 
 // A lane to stage: ids first, then every lane of every source.
 struct Lane {
   const unsigned char* ptr;
-  int smem;   // byte offset in a stage
-  int esize;  // bytes a row
+  uint32_t bstride;  // bytes from one member's rows to the next (0: shared)
+  int smem : 24;     // byte offset in a stage
+  int esize : 8;     // bytes a row
 };
 
 struct Source {
@@ -204,7 +215,8 @@ __device__ __forceinline__ void stage_chunk(unsigned char* st, const Table& T, l
   const int lane = threadIdx.x & 31;
   for (int l = threadIdx.x >> 5; l < T.nlanes; l += kWarps) {
     const Lane& ln = T.lane[l];
-    const unsigned char* from = ln.ptr + row0 * ln.esize;
+    const unsigned char* from =
+        ln.ptr + static_cast<long long>(blockIdx.y) * ln.bstride + row0 * ln.esize;
     const int nbytes = rows * ln.esize;
     for (int i = lane * 16; i < nbytes; i += 32 * 16)
       cp_async16(st + ln.smem + i, from + i, min(16, nbytes - i));
@@ -424,7 +436,7 @@ template <int MT>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_limb_sums_kernel(long long n, int groups, long long per_block,
                        const __grid_constant__ Table T,
-                       unsigned long long* __restrict__ out) {
+                       unsigned long long* __restrict__ out, long long out_member) {
   extern __shared__ uint4 smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_raw);
   unsigned char* tile = smem + T.tile_smem;
@@ -524,14 +536,15 @@ fused_limb_sums_kernel(long long n, int groups, long long per_block,
         const int col = (warp + kWarps * i) * 8 + 2 * tq + (e & 1);
         const int32_t v = acc[m][i][e];
         if (row < groups && col < T.L && v != 0)
-          atomicAdd(out + static_cast<long long>(row) * T.row_stride + T.out_col[col],
+          atomicAdd(out + blockIdx.y * out_member + static_cast<long long>(row) * T.row_stride +
+                        T.out_col[col],
                     static_cast<unsigned long long>(static_cast<long long>(v)));
       }
 }
 
 template <int MT>
-int launch(long long n, int groups, const Table& T, size_t smem,
-           int blocks, unsigned long long* out, cudaStream_t stream) {
+int launch(long long n, int groups, const Table& T, size_t smem, int blocks, int batch,
+           unsigned long long* out, cudaStream_t stream) {
   auto kernel = fused_limb_sums_kernel<MT>;
   // The attribute and the blocks the card holds depend only on the kernel,
   // its shared memory and the device: query them again only when those
@@ -552,48 +565,78 @@ int launch(long long n, int groups, const Table& T, size_t smem,
     seen_smem = static_cast<int>(smem);
     seen_grid = sms * (per_sm > 0 ? per_sm : 1);
   }
+  // the blocks the card holds at once, shared among the members: each
+  // member takes the whole number of them that keeps the grid to one
+  // wave, or as many more as keep a block within its row limit
   const long long nchunks = (n + kChunk - 1) / kChunk;
-  long long grid = blocks > 0 ? blocks : seen_grid;
+  const long long chunks_cap = kMaxRowsPerBlock / kChunk;
+  long long grid = blocks > 0 ? blocks
+                              : max(static_cast<long long>(max(1, seen_grid / batch)),
+                                    (nchunks + chunks_cap - 1) / chunks_cap);
   grid = min(grid, nchunks);
   const long long per_block = (nchunks + grid - 1) / grid;
   if (min(per_block * kChunk, n) > kMaxRowsPerBlock) return kTooManyRows;
   grid = (nchunks + per_block - 1) / per_block;
-  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(n, groups, per_block, T, out);
+  const long long out_member = static_cast<long long>(groups) * T.row_stride;
+  const dim3 dims(static_cast<unsigned>(grid), static_cast<unsigned>(batch));
+  kernel<<<dims, kThreads, smem, stream>>>(n, groups, per_block, T, out, out_member);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_mt(int mt, long long n, int groups, const Table& T, size_t smem,
-              int blocks, unsigned long long* out, cudaStream_t stream) {
+int launch_mt(int mt, long long n, int groups, const Table& T, size_t smem, int blocks,
+              int batch, unsigned long long* out, cudaStream_t stream) {
   switch (mt) {
-    case 1: return launch<1>(n, groups, T, smem, blocks, out, stream);
-    case 2: return launch<2>(n, groups, T, smem, blocks, out, stream);
-    case 3: return launch<3>(n, groups, T, smem, blocks, out, stream);
-    default: return launch<4>(n, groups, T, smem, blocks, out, stream);
+    case 1: return launch<1>(n, groups, T, smem, blocks, batch, out, stream);
+    case 2: return launch<2>(n, groups, T, smem, blocks, batch, out, stream);
+    case 3: return launch<3>(n, groups, T, smem, blocks, batch, out, stream);
+    default: return launch<4>(n, groups, T, smem, blocks, batch, out, stream);
   }
+}
+
+constexpr int kMaxBatch = 65535;  // the grid's y extent
+
+// The member stride of a lane, given in rows, as bytes: 0 (shared) or a
+// positive multiple of 16 bytes below 2^32; -1 if it is out of range, -2 if
+// it would misalign a member's rows.
+long long member_bytes(long long stride, int esize) {
+  if (stride < 0 || stride >= (1LL << 32) || stride * esize >= (1LL << 32)) return -1;
+  if ((stride * esize) & 15) return -2;
+  return stride * esize;
 }
 
 }  // namespace
 
-// ids: (n,) int32. Source s has kinds[s] (0 bool, 1 int8, 2 int16, 3 int32,
-// 4 int64, 5 int128) and lanes[2s] (values, or lo), lanes[2s + 1] (hi of
-// an int128, else unused). Request r is reqs[5r..5r+4] = (source, mask
-// source or -1, shift, bits, remainder). out: (G, R, J) int64, zeroed;
-// J >= every request's ceil(bits / 7). blocks: the grid size, or 0 for as
-// many blocks as the card holds at once.
-// Returns 0, a CUDA error code, or a negative code: kBadArgs, kTooMany
-// (sources, requests or limbs), kMisaligned (a lane not 16-byte aligned),
-// kTooMuchSmem, kTooManyRows (a block would sum more than 2^24 rows).
-extern "C" int fused_limb_sums(const void* ids, long long n, int groups, int nsrc,
-                               const void* const* lanes, const int* kinds, int nreq,
-                               const int* reqs, int J, void* out, int blocks, void* stream) {
-  if (n < 0 || groups < 1 || groups > 64 || nsrc < 1 || nreq < 1 || J < 1 || blocks < 0)
+// The one entry, members m in [0, batch); a lone call is batch 1 with every
+// stride 0. ids: (n,) int32. Source s has kinds[s] (0 bool, 1 int8, 2
+// int16, 3 int32, 4 int64, 5 int128) and lanes[2s] (values, or lo),
+// lanes[2s + 1] (hi of an int128, else unused). Member m's ids are ids +
+// m * ids_stride rows and its lane l lanes[l] + m * strides[l] rows
+// (strides[2s], strides[2s + 1]: a source's lanes, as `lanes`); a stride of
+// 0 is a lane every member shares. Request r is reqs[5r..5r+4] = (source,
+// mask source or -1, shift, bits, remainder). out: (batch, G, R, J) int64,
+// zeroed; J >= every request's ceil(bits / 7). blocks: the grid size a
+// member, or 0 for as many blocks as the card holds at once.
+// Returns 0, a CUDA error code, or a negative code: kBadArgs (a batch
+// outside [1, 65535], a negative stride), kTooMany (sources, requests or
+// limbs), kMisaligned (a lane or a stride that does not keep every member's
+// rows 16-byte aligned), kTooMuchSmem, kTooManyRows (a block would sum more
+// than 2^24 rows).
+extern "C" int fused_limb_sums_batched(const void* ids, long long ids_stride, long long n,
+                                       int groups, int nsrc, const void* const* lanes,
+                                       const long long* strides, const int* kinds, int nreq,
+                                       const int* reqs, int J, int batch, void* out,
+                                       int blocks, void* stream) {
+  if (n < 0 || groups < 1 || groups > 64 || nsrc < 1 || nreq < 1 || J < 1 || blocks < 0 ||
+      batch < 1 || batch > kMaxBatch)
     return kBadArgs;
   if (nsrc > kMaxSources || nreq > kMaxRequests) return kTooMany;
   Table T;
   memset(&T, 0, sizeof(T));
   T.row_stride = nreq * J;
   if (reinterpret_cast<uintptr_t>(ids) & 15) return kMisaligned;
-  T.lane[0] = {static_cast<const unsigned char*>(ids), 0, 4};  // the ids first
+  long long b = member_bytes(ids_stride, 4);
+  if (b < 0) return b == -1 ? kBadArgs : kMisaligned;
+  T.lane[0] = {static_cast<const unsigned char*>(ids), static_cast<uint32_t>(b), 0, 4};
   T.nlanes = 1;
   int off = 4 * kChunk;
   for (int s = 0; s < nsrc; ++s) {
@@ -603,8 +646,11 @@ extern "C" int fused_limb_sums(const void* ids, long long n, int groups, int nsr
       const void* p = lanes[2 * s + l];
       if (p == nullptr) return kBadArgs;
       if (reinterpret_cast<uintptr_t>(p) & 15) return kMisaligned;
+      b = member_bytes(strides[2 * s + l], lane_bytes(kinds[s]));
+      if (b < 0) return b == -1 ? kBadArgs : kMisaligned;
       T.src[s].smem[l] = off;
-      T.lane[T.nlanes++] = {static_cast<const unsigned char*>(p), off, lane_bytes(kinds[s])};
+      T.lane[T.nlanes++] = {static_cast<const unsigned char*>(p), static_cast<uint32_t>(b), off,
+                            lane_bytes(kinds[s])};
       off += lane_bytes(kinds[s]) * kChunk;
     }
   }
@@ -665,5 +711,6 @@ extern "C" int fused_limb_sums(const void* ids, long long n, int groups, int nsr
   const int mt = (groups + 15) / 16;
   auto* o = static_cast<unsigned long long*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  return launch_mt(mt, n, groups, T, smem, blocks, o, st);
+  return launch_mt(mt, n, groups, T, smem, blocks, batch, o, st);
 }
+

@@ -10,6 +10,15 @@ its literal port (per-tile sums of a stacked limb matrix, the group-by's
 wide form), and fused_limb_sums, which takes the aggregates' own lanes
 and splits the limbs inside the kernel (the narrow form, the default).
 
+fused_limb_sums also has a batched entry, fused_limb_sums_batched: the
+kernel of the reference's vmapped pallas_call, with the member axis as
+the grid's y axis (exec/batching.py runs a batch as one program under
+torch.func.vmap). The group-by reaches both through one custom op,
+`presto_tpu_torch::fused_limb_sums` (`fused_limb_sums_op`): called
+plainly it runs fused_limb_sums; under vmap its rule launches the
+batched entry once, each lane's vmap dimension turned into a member
+stride (0 for a lane every member shares).
+
 A wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version only for CPU tensors; there is no fallback from a
 failed launch. Each wrapper counts its launches in a module-level
@@ -35,17 +44,40 @@ import torch
 from ..int128 import _lshr, limbs_of_i64
 
 __all__ = ["limb_partial_sums", "limb_partial_sums_reference",
-           "fused_limb_sums", "fused_limb_sums_reference", "LimbRequest",
+           "fused_limb_sums", "fused_limb_sums_reference",
+           "fused_limb_sums_batched", "fused_limb_sums_batched_reference",
+           "fused_limb_sums_op", "LimbRequest",
            "source_field", "limb_count", "contains_bytes",
            "contains_bytes_reference", "build_library", "KERNELS",
-           "SUM_TILE", "FUSED_MAX_ROWS_PER_BLOCK", "LAUNCHES", "TRACE_HOOK"]
+           "SUM_TILE", "FUSED_MAX_ROWS_PER_BLOCK", "LAUNCHES", "TRACE_HOOK",
+           "thread_launches"]
 
 SUM_TILE = 1024
 MAX_GROUPS = 64
 
 # launches of each kernel since the counts were last set to 0
 LAUNCHES: Dict[str, int] = {"limb_partial_sums": 0, "fused_limb_sums": 0,
+                            "fused_limb_sums_batched": 0,
                             "contains_bytes": 0}
+
+# each thread's own launches, beside the process-wide LAUNCHES: a caller
+# that counts only its own launches (a batch's program while other
+# queries run on other threads) reads the difference around its work
+_THREAD = threading.local()
+
+
+def thread_launches() -> Dict[str, int]:
+    """This thread's launches of each kernel so far."""
+    counts = getattr(_THREAD, "launches", None)
+    if counts is None:
+        counts = _THREAD.launches = {k: 0 for k in LAUNCHES}
+    return counts
+
+
+def _count(name: str) -> None:
+    LAUNCHES[name] += 1
+    thread_launches()[name] += 1
+
 
 # hook(kernel name, tensors read, tensors written) called after each
 # launch; None (the default) costs one truth test per launch
@@ -111,7 +143,8 @@ _SIGNATURES = {
         "limb_partial_sums_f32": [_P, _P, _P, _LL, _I, _I, _I, _P],
     },
     "fused_limb_sums": {
-        "fused_limb_sums": [_P, _LL, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P],
+        "fused_limb_sums_batched": [_P, _LL, _LL, _I, _I, _P, _P, _P, _I, _P,
+                                    _I, _I, _P, _I, _P],
     },
     "contains_bytes": {
         "contains_bytes_u8": [_P, _P, ctypes.c_char_p, _I, _P, _LL, _I, _P],
@@ -195,7 +228,7 @@ def limb_partial_sums(ids: torch.Tensor, limbs: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"limb_partial_sums launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["limb_partial_sums"] += 1
+    _count("limb_partial_sums")
     if TRACE_HOOK is not None:
         TRACE_HOOK("limb_partial_sums", (ids, limbs), (out,))
     return out
@@ -368,6 +401,71 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _member_lane(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """A lane as the batched entry takes it, and its member stride in
+    rows: a shared (n,) lane with stride 0, or a per-member (B, n) lane
+    whose members start a multiple of 16 bytes apart (zero-padded to
+    such a row stride where n rows are not)."""
+    if t.dim() == 1:
+        return _aligned(t), 0
+    nb, n = t.shape
+    unit = 16 // t.element_size()
+    stride = -(-n // unit) * unit
+    if stride != n:
+        padded = t.new_zeros((nb, stride))
+        padded[:, :n] = t
+        return padded, stride
+    return _aligned(t), stride
+
+
+def _launch_fused(ids: torch.Tensor, sources: Sequence[Source],
+                  requests: Sequence[LimbRequest], groups: int,
+                  batch: int, blocks: int, name: str) -> torch.Tensor:
+    """One launch of the batched entry (ids and every lane (n,) shared
+    or (batch, n) per member); the (batch, G, R, J) int64 limb totals.
+    `name` is the count it adds to: fused_limb_sums for a lone call
+    (batch 1, every lane shared), fused_limb_sums_batched under vmap."""
+    n = ids.shape[-1]
+    J = max(limb_count(r.bits) for r in requests)
+    out = torch.zeros((batch, groups, len(requests), J),
+                      dtype=torch.int64, device=ids.device)
+    ids, ids_stride = _member_lane(ids)
+    lanes: List[torch.Tensor] = []
+    strides: List[int] = []
+    kinds = []
+    for s in sources:
+        if isinstance(s, tuple):
+            hi, lo = s
+            pair = [_member_lane(lo), _member_lane(hi)]  # lo first
+            kinds.append(_INT128)
+        else:
+            pair = [_member_lane(s), (s, 0)]  # the second lane unused
+            kinds.append(_KINDS[s.dtype])
+        lanes += [t for t, _ in pair]
+        strides += [st for _, st in pair]
+    ptrs = (ctypes.c_void_p * len(lanes))(*[t.data_ptr() for t in lanes])
+    kind_arr = (ctypes.c_int * len(kinds))(*kinds)
+    fields = [v for r in requests
+              for v in (r.source, r.mask, r.shift, r.bits, int(r.remainder))]
+    req_arr = (ctypes.c_int * len(fields))(*fields)
+    stride_arr = (ctypes.c_longlong * len(strides))(*strides)
+    lib = _library("fused_limb_sums")
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream(ids.device).cuda_stream
+        err = lib.fused_limb_sums_batched(
+            ids.data_ptr(), ids_stride, n, groups, len(sources), ptrs,
+            stride_arr, kind_arr, len(requests), req_arr, J, batch,
+            out.data_ptr(), blocks, stream)
+    if err < 0:
+        raise ValueError(f"{name} refused: {_FUSED_REFUSED[err]}")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    _count(name)
+    if TRACE_HOOK is not None:
+        TRACE_HOOK(name, (ids, *lanes), (out,))
+    return out
+
+
 def fused_limb_sums(ids: torch.Tensor, sources: Sequence[Source],
                     requests: Sequence[LimbRequest], groups: int,
                     blocks: int = 0) -> torch.Tensor:
@@ -381,41 +479,8 @@ def fused_limb_sums(ids: torch.Tensor, sources: Sequence[Source],
         return fused_limb_sums_reference(ids, sources, requests, groups)
     if ids.device.type != "cuda":
         raise ValueError(f"no kernel for device {ids.device}")
-    J = max(limb_count(r.bits) for r in requests)
-    out = torch.zeros((groups, len(requests), J), dtype=torch.int64,
-                      device=ids.device)
-    ids = _aligned(ids)
-    lanes: List[torch.Tensor] = []
-    kinds = []
-    for s in sources:
-        if isinstance(s, tuple):
-            hi, lo = s
-            lanes += [_aligned(lo), _aligned(hi)]  # the C entry takes lo first
-            kinds.append(_INT128)
-        else:
-            lanes += [_aligned(s), s]
-            kinds.append(_KINDS[s.dtype])
-    ptrs = (ctypes.c_void_p * len(lanes))(*[t.data_ptr() for t in lanes])
-    kind_arr = (ctypes.c_int * len(kinds))(*kinds)
-    fields = [v for r in requests
-              for v in (r.source, r.mask, r.shift, r.bits, int(r.remainder))]
-    req_arr = (ctypes.c_int * len(fields))(*fields)
-    lib = _library("fused_limb_sums")
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream(ids.device).cuda_stream
-        err = lib.fused_limb_sums(
-            ids.data_ptr(), ids.shape[0], groups, len(sources), ptrs,
-            kind_arr, len(requests), req_arr, J, out.data_ptr(), blocks,
-            stream)
-    if err < 0:
-        raise ValueError(f"fused_limb_sums refused: {_FUSED_REFUSED[err]}")
-    if err != 0:
-        raise RuntimeError(f"fused_limb_sums launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["fused_limb_sums"] += 1
-    if TRACE_HOOK is not None:
-        TRACE_HOOK("fused_limb_sums", (ids, *lanes), (out,))
-    return _recombine(out)
+    return _recombine(_launch_fused(ids, sources, requests, groups, 1,
+                                    blocks, "fused_limb_sums")[0])
 
 
 def fused_limb_sums_reference(ids: torch.Tensor, sources: Sequence[Source],
@@ -427,18 +492,161 @@ def fused_limb_sums_reference(ids: torch.Tensor, sources: Sequence[Source],
     J = max(limb_count(r.bits) for r in requests)
     idx = torch.where((ids >= 0) & (ids < groups), ids, groups).to(
         torch.int64)
-    tot = torch.zeros((groups + 1, len(requests), J), dtype=torch.int64,
-                      device=ids.device)
-    for ri, r in enumerate(requests):
+    zero = torch.zeros(groups + 1, dtype=torch.int64, device=ids.device)
+    per_request = []
+    for r in requests:
         x = source_field(sources[r.source], r.shift, r.bits, r.remainder)
         if r.mask != -1:
             x = torch.where(sources[r.mask], x, 0)
-        nl = limb_count(r.bits)
-        for j, limb in enumerate(limbs_of_i64(x, LIMB_BITS, nl)):
-            tot[:, ri, j] = torch.zeros(
-                groups + 1, dtype=torch.int64, device=ids.device).index_add_(
-                    0, idx, limb.to(torch.int8).to(torch.int64))
-    return _recombine(tot[:groups])
+        limbs = limbs_of_i64(x, LIMB_BITS, limb_count(r.bits))
+        sums = [zero.index_add(0, idx, limb.to(torch.int8).to(torch.int64))
+                for limb in limbs]
+        per_request.append(torch.stack(sums + [zero] * (J - len(sums)),
+                                       dim=1))
+    return _recombine(torch.stack(per_request, dim=1)[:groups])
+
+
+# the grid's member axis (y) holds at most this many members
+FUSED_MAX_BATCH = 65535
+
+
+def _member(t: torch.Tensor, m: int) -> torch.Tensor:
+    return t if t.dim() == 1 else t[m]
+
+
+def _member_sources(sources: Sequence[Source], m: int) -> List[Source]:
+    return [tuple(_member(t, m) for t in s) if isinstance(s, tuple)
+            else _member(s, m) for s in sources]
+
+
+def _check_batched_args(ids: torch.Tensor, sources: Sequence[Source],
+                        requests: Sequence[LimbRequest], groups: int,
+                        batch: int):
+    if not 1 <= batch <= FUSED_MAX_BATCH:
+        raise ValueError(f"batch must lie in [1, {FUSED_MAX_BATCH}], got "
+                         f"{batch}")
+    for t in [ids] + [t for s in sources for t in _source_lanes(s)]:
+        if t.dim() == 2 and t.shape[0] != batch or t.dim() not in (1, 2):
+            raise ValueError(f"a lane of shape {tuple(t.shape)}: (n,) is "
+                             f"shared, ({batch}, n) per member")
+    # member 0 as one unbatched call: the same checks and limits
+    _check_fused_args(_member(ids, 0), _member_sources(sources, 0),
+                      requests, groups)
+
+
+def fused_limb_sums_batched(ids: torch.Tensor, sources: Sequence[Source],
+                            requests: Sequence[LimbRequest], groups: int,
+                            batch: int) -> torch.Tensor:
+    """(B, G, R) int64: fused_limb_sums of every member m < B in ONE
+    launch, the blocks the card holds at once shared among the members.
+    ids and each lane are (n,), shared by every member, or (B, n),
+    member m's at row m."""
+    _check_batched_args(ids, sources, requests, groups, batch)
+    if ids.device.type == "cpu":
+        return fused_limb_sums_batched_reference(ids, sources, requests,
+                                                 groups, batch)
+    if ids.device.type != "cuda":
+        raise ValueError(f"no kernel for device {ids.device}")
+    tot = _launch_fused(ids, sources, requests, groups, batch, 0,
+                        "fused_limb_sums_batched")
+    return _recombine(tot.flatten(0, 1)).unflatten(0, (batch, groups))
+
+
+def fused_limb_sums_batched_reference(
+        ids: torch.Tensor, sources: Sequence[Source],
+        requests: Sequence[LimbRequest], groups: int,
+        batch: int) -> torch.Tensor:
+    """Plain PyTorch version: fused_limb_sums_reference of each member,
+    stacked."""
+    return torch.stack([fused_limb_sums_reference(
+        _member(ids, m), _member_sources(sources, m), requests, groups)
+        for m in range(batch)])
+
+
+# -- the custom op: the group-by's one entry, plain and under vmap -------
+
+def _op_args(sources: Sequence[Source], requests: Sequence[LimbRequest]):
+    """(lanes, kinds, request fields) of the op: a 128-bit source is two
+    lanes, (hi, lo)."""
+    lanes: List[torch.Tensor] = []
+    kinds: List[int] = []
+    for s in sources:
+        lanes += _source_lanes(s)
+        kinds.append(_INT128 if isinstance(s, tuple) else _KINDS[s.dtype])
+    fields = [v for r in requests
+              for v in (r.source, r.mask, r.shift, r.bits, int(r.remainder))]
+    return lanes, kinds, fields
+
+
+def _op_sources(lanes: Sequence[torch.Tensor], kinds: Sequence[int]):
+    out: List[Source] = []
+    i = 0
+    for k in kinds:
+        if k == _INT128:
+            out.append((lanes[i], lanes[i + 1]))
+            i += 2
+        else:
+            out.append(lanes[i])
+            i += 1
+    return out
+
+
+def _op_requests(fields: Sequence[int]) -> List[LimbRequest]:
+    return [LimbRequest(*fields[i:i + 4], bool(fields[i + 4]))
+            for i in range(0, len(fields), 5)]
+
+
+# The op is defined through torch.library.Library, not the custom_op
+# decorator, whose first call imports torch._dynamo: seconds of host
+# time in the first query of a process. Its fake and vmap rules are
+# registered as a custom_op's are.
+_LIB = torch.library.Library("presto_tpu_torch", "DEF")
+_LIB.define("fused_limb_sums(Tensor ids, Tensor[] lanes, int[] kinds, "
+            "int[] requests, int groups) -> Tensor")
+
+
+def _fused_op(ids, lanes, kinds, requests, groups):
+    return fused_limb_sums(ids, _op_sources(lanes, kinds),
+                           _op_requests(requests), groups)
+
+
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("fused_limb_sums", _fused_op, _key)
+
+
+@torch.library.register_fake("presto_tpu_torch::fused_limb_sums")
+def _fused_op_fake(ids, lanes, kinds, requests, groups):
+    return ids.new_empty((groups, len(requests) // 5), dtype=torch.int64)
+
+
+def _fused_op_vmap(info, in_dims, ids, lanes, kinds, requests, groups):
+    """The batch rule: each mapped input's vmap dimension becomes its
+    leading member axis (a member stride), each unmapped one is shared
+    (stride 0), and the batched entry runs once for all members."""
+    ids_dim, lane_dims = in_dims[0], in_dims[1]
+
+    def lead(t, d):
+        return t if d is None else t.movedim(d, 0)
+
+    sources = _op_sources([lead(t, d) for t, d in zip(lanes, lane_dims)],
+                          kinds)
+    return fused_limb_sums_batched(lead(ids, ids_dim), sources,
+                                   _op_requests(requests), groups,
+                                   info.batch_size), 0
+
+
+torch.library.register_vmap("presto_tpu_torch::fused_limb_sums",
+                            _fused_op_vmap)
+
+
+def fused_limb_sums_op(ids: torch.Tensor, sources: Sequence[Source],
+                       requests: Sequence[LimbRequest],
+                       groups: int) -> torch.Tensor:
+    """fused_limb_sums through the custom op: (G, R) int64, or under
+    torch.func.vmap the batched entry's one launch for all members."""
+    lanes, kinds, fields = _op_args(sources, requests)
+    return torch.ops.presto_tpu_torch.fused_limb_sums(ids, lanes, kinds,
+                                                      fields, groups)
 
 
 # ---------------------------------------------------------------------------
@@ -505,7 +713,7 @@ def contains_bytes(chars: torch.Tensor, lengths: torch.Tensor,
                          f"{_CONTAINS_REFUSED[err]}{limit}")
     if err != 0:
         raise RuntimeError(f"contains_bytes launch failed: CUDA error {err}")
-    LAUNCHES["contains_bytes"] += 1
+    _count("contains_bytes")
     if TRACE_HOOK is not None:
         TRACE_HOOK("contains_bytes", (chars, lengths), (out,))
     return out

@@ -25,7 +25,40 @@ from ..block import Block, Column, Int128Column, StringColumn, decoded
 
 SIGN = -(1 << 63)  # int64 bit pattern of the reference's uint64 1 << 63
 
-__all__ = ["key_words", "string_words", "SIGN"]
+__all__ = ["key_words", "string_words", "double_bits", "SIGN"]
+
+# The float64 -> int64 bit cast as an op of its own, with a vmap rule
+# that casts the tensor under the member axis: Tensor.view(dtype) has no
+# vmap rule in every torch this port runs on, and a template that casts
+# a double key (exec/batching.py's torch.func.vmap) must not fail there.
+_LIB = torch.library.Library("presto_tpu_torch", "FRAGMENT")
+_LIB.define("double_bits(Tensor x) -> Tensor")
+
+
+def _double_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int64).clone()  # an op's output aliases no input
+
+
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("double_bits", _double_bits, _key)
+
+
+@torch.library.register_fake("presto_tpu_torch::double_bits")
+def _double_bits_fake(x):
+    # W001: a double's 64 bits are the key word's contract
+    return torch.empty_like(x, dtype=torch.int64)  # tpulint: disable=W001
+
+
+torch.library.register_vmap(
+    "presto_tpu_torch::double_bits",
+    lambda info, in_dims, x: (double_bits(x), in_dims[0]))
+
+
+def double_bits(x: torch.Tensor) -> torch.Tensor:
+    """A float64 tensor's IEEE bits as int64, under torch.func.vmap too."""
+    if x.dtype != torch.float64:
+        raise TypeError(f"double_bits takes float64, got {x.dtype}")
+    return torch.ops.presto_tpu_torch.double_bits(x)
 
 
 def _fixed_words(col: Column) -> List[torch.Tensor]:
@@ -38,7 +71,7 @@ def _fixed_words(col: Column) -> List[torch.Tensor]:
         return [v.to(torch.int64)]
     if v.is_floating_point():
         f = v.to(torch.float64)
-        bits = torch.where(f == 0.0, 0.0, f).view(torch.int64)
+        bits = double_bits(torch.where(f == 0.0, 0.0, f))
         w = torch.where(bits < 0, ~bits, bits ^ SIGN)
         return [torch.where(torch.isnan(f), -1, w)]  # NaN: all ones
     return [v.to(torch.int64) ^ SIGN]

@@ -833,6 +833,8 @@ class TaskManager:
         with task.lock:
             if task.state not in ("FINISHED", "FAILED"):
                 task.state = "ABORTED"
+                record_event("task_state", query_id=task_id,
+                             state="ABORTED")
             for b in task.buffers.values():
                 b.clear()
             task.buffers = {0: task._new_buffer()}

@@ -29,10 +29,13 @@ witness around phase_cluster and phase_fleet. On `cuda:0`:
              (lint/passes/host_sync.py::sites): each must be one,
              reported, suppressed or whitelisted; the H001 scan's
              seconds are printed.
-  corpus     the gate over the 22 TPC-H queries, local and mesh tiers,
-             at `--corpus-sf` (0.1: q1 runs at SF1 above) against
+  corpus     the gate over the 22 TPC-H queries, local, mesh and batch
+             tiers, at `--corpus-sf` (0.1: q1 runs at SF1 above) against
              presto_tpu_torch/audit/baseline.json: no new finding, no
-             stale entry.
+             stale entry; q1's batch trace (its template as one program
+             of two members) holds the launch of
+             fused_limb_sums_batched as a record, and none of
+             fused_limb_sums.
   donation   the dashboard of phase_batching with fusion off (4 regions)
              and TPC-H q10 with fusion off, each with donation on and
              off in turns: rows equal, the peak MB of each, the
@@ -212,16 +215,23 @@ def _h001_check(trace) -> dict:
 
 
 def _corpus(sf):
-    """The gate over the 22 queries, both tiers, against the committed
-    baseline."""
+    """The gate over the 22 queries, all three tiers, against the
+    committed baseline; q1's batch trace records the batched launch."""
     from presto_tpu_torch.audit.cli import (DEFAULT_BASELINE,
                                             DEFAULT_FOOTPRINT_BUDGET,
                                             corpus_kernels)
     from presto_tpu_torch.audit.core import run_audit
     from presto_tpu_torch.lint.baseline import apply_baseline, load_baseline
     t0 = time.perf_counter()
-    kernels = corpus_kernels(list(range(1, 23)), sf, "both", DEVICE,
+    kernels = corpus_kernels(list(range(1, 23)), sf, "all", DEVICE,
                              DEFAULT_FOOTPRINT_BUDGET)
+    q1_batch = next(k for k in kernels if k.label == "tpch/q01.batch")
+    ops = {r.base for r in q1_batch.records}
+    if "kernel.fused_limb_sums_batched" not in ops or \
+            "kernel.fused_limb_sums" in ops:
+        raise AssertionError("q1's batch trace does not record one "
+                             "fused_limb_sums_batched launch: "
+                             f"{sorted(o for o in ops if 'kernel' in o)}")
     result = run_audit(kernels)
     new, baselined, stale = apply_baseline(result.findings,
                                            load_baseline(DEFAULT_BASELINE))

@@ -1,19 +1,26 @@
 """chip_smoke.py's phase_batching: concurrent-query batching on one CUDA
-card, at SF1.
+card, at SF1, each batch ONE program over a member axis.
 
     python3 scripts/batching_phase.py [--seed N] [--out PATH] [--profile]
+                                      [--op-overhead]
+    python3 scripts/batching_phase.py --against DIR [--out PATH]
 
 Alone it builds the kernels (chip_smoke.phase_environment) first;
 chip_smoke.py runs `phase_batching(chip_smoke_module, seed)` after
-phase_observe. The three families of scripts/loadgen.py's workload, on
-`cuda:0`:
+phase_observe. The three families of scripts/loadgen.py's workload and
+a dashboard keyed by a DOUBLE, on `cuda:0`:
 
   lookup     SELECT custkey, name, acctbal FROM customer
              WHERE custkey = k                    (150,000 rows)
   dashboard  SELECT orderpriority, count(*), sum(totalprice) FROM orders
              WHERE custkey = k GROUP BY orderpriority
              ORDER BY orderpriority               (1,500,000 rows, 5
-                                                   groups: fused_limb_sums)
+                                                   groups)
+  bands      SELECT floor(CAST(totalprice AS double) / 100000) AS band,
+             count(*), sum(totalprice) FROM orders WHERE custkey = k
+             GROUP BY band ORDER BY band          (1,500,000 rows, up
+                                                   to 6 bands; the
+                                                   hash-slot group-by)
   batch      SELECT sum(extendedprice * discount) FROM lineitem WHERE
              discount BETWEEN 0.05 AND 0.07
              AND quantity < k                     (6,000,000 rows)
@@ -21,24 +28,45 @@ phase_observe. The three families of scripts/loadgen.py's workload, on
 Keys are drawn from the seed; one dashboard key is one that no order
 has (its member has no rows). Each family is warmed once
 (BatchingExecutor.precompile), then runs as formed batches through
-`bench_dispatch` at B = 5 (padded to 8) and B = 64 (the default
-batch_max_size), the staged cache emptied before each so that each
-batch stages the template's scans once, with the serial run_query of
-four members of the B = 5 batch timed in turns between them. Checks:
-every member's rows equal a numpy oracle; the four members equal their
-serial run_query bit for bit; fused_limb_sums launches exactly B times
-per dashboard batch and its first call equals its plain version; no
-`error` or `overflow` collapse; each batch stages its scans once; the
-host syncs of a batch are equal at B = 5 and B = 64. Then one batch of
-three dashboard statements formed by the statement server's threads
-(`try_execute`, a 400 ms window, batch_hot_min 1), and the dashboard
-with fusion off (the region executor: rows equal to the fused ones,
-one fused_limb_sums launch). Prints, per family and B, the staging ms,
-the batch's execute and fetch ms, ms per member and the serial
-run_query ms; the plan cache's hits and misses; the region counts.
+`bench_dispatch` at B = 5 and B = 64 (the default batch_max_size), the
+staged cache emptied before each so that each batch stages the
+template's scans once, with the serial run_query of four members of
+the B = 5 batch timed in turns between them. A batch is one vmapped
+program (exec/batching.py): the dashboard's group-by and the batch
+family's keyless sum launch fused_limb_sums_batched ONCE per batch and
+fused_limb_sums never, the lookup and the bands (their sums are
+index_add over the hash slots) neither. Checks: every member's rows
+equal a numpy oracle; the four members equal their serial run_query
+bit for bit; the launches above, the batched launch of each B = 5
+batch equal to its plain version; one program per dispatch; no `error` or
+`overflow` collapse; each batch stages its scans once; the host syncs
+of a batch are equal at B = 5 and B = 64. Then, per family, one
+torch.profiler window over one more (warm) batch of each size: the
+batch's device ops. Then one batch of three dashboard statements formed
+by the statement server's threads (`try_execute`, a 400 ms window,
+batch_hot_min 1), and the dashboard with fusion off (the region
+executor: rows equal to the fused ones, one fused_limb_sums launch).
+Prints, per family and B, the staging ms, the batch's execute and fetch
+ms, ms per member, the serial run_query ms, device ops, host syncs and
+the device memory peak; the plan cache's hits and misses; the region
+counts. The dashboard's B = 64 batched call comes back under
+`dashboard_call` (chip_smoke.py's kernel row for the batched entry).
+
 With --profile, alone, it then profiles one warm dashboard batch of 64
 (torch.profiler): device events, their summed and union ms, against
-the batch's execute wall.
+the batch's execute wall. With --op-overhead, alone, it then times
+TPC-H q1's execute at SF1 with the group-by entering fused_limb_sums
+through the custom op (as it does) and through a direct call of the
+wrapper, in turns (op, direct, direct, op).
+
+--against DIR (DIR: an unpacked `git archive` of another commit, in a
+git-ignored directory such as `.archive/`) times the four families at
+B = 5 and 64 through each checkout's own BatchingExecutor in turns, one
+process a turn: DIR, this, this, DIR. Each process (`--side ROOT`)
+imports ROOT's presto_tpu_torch, builds its kernels, warms each family
+and prints, per family and B, the median ms a member over three
+batches, the host syncs and the device memory peak, each batch's rows
+against the numpy oracle.
 """
 
 import argparse
@@ -62,10 +90,18 @@ DASH = ("SELECT orderpriority, count(*) AS orders, sum(totalprice) AS s "
         "GROUP BY orderpriority ORDER BY orderpriority")
 BATCH = ("SELECT sum(extendedprice * discount) FROM lineitem "
          "WHERE discount BETWEEN 0.05 AND 0.07 AND quantity < {}")
+# a dashboard whose GROUP BY and ORDER BY key is a DOUBLE (a customer's
+# orders in price bands of 100,000), with no capacity hint: the hash-slot
+# group-by over key words that are IEEE bit casts of values carrying the
+# member axis
+BANDS = ("SELECT floor(CAST(totalprice AS double) / 100000) AS band, "
+         "count(*) AS c, sum(totalprice) AS s FROM orders "
+         "WHERE custkey = {} "
+         "GROUP BY floor(CAST(totalprice AS double) / 100000) ORDER BY band")
 
 
 class Oracles:
-    """numpy answers of the three families on the host tables."""
+    """numpy answers of the families on the host tables."""
 
     def __init__(self, C):
         cu = C.host_columns("customer", SF, ["custkey", "name", "acctbal"])
@@ -100,6 +136,21 @@ class Oracles:
         return [[str(p), int((prio == p).sum()), int(price[prio == p].sum())]
                 for p in sorted(set(prio.tolist()))]
 
+    def bands(self, k):
+        lo = np.searchsorted(self.o_key, k, "left")
+        hi = np.searchsorted(self.o_key, k, "right")
+        price = self.o_price[lo:hi]
+        band = np.floor(price / 100.0 / 100000.0)
+        return [[float(b).hex(), int((band == b).sum()),
+                 int(price[band == b].sum())] for b in np.unique(band)]
+
+    def families(self):
+        """Each family's template and oracle, in the order they run."""
+        return {"lookup": (LOOKUP, self.lookup),
+                "dashboard": (DASH, self.dashboard),
+                "bands": (BANDS, self.bands),
+                "batch": (BATCH, self.batch)}
+
     def batch(self, k):
         n = np.searchsorted(self.l_qty, 100 * k, "left")
         return [[int(self.l_cum[n - 1]) if n else None]]
@@ -119,60 +170,135 @@ def _keys(rng, oracles):
     dash[3] = oracles.missing_custkey(int(dash[3]))
     return {"lookup": rng.integers(1, n_cust + 1, size=max(SIZES)).tolist(),
             "dashboard": dash,
+            "bands": rng.integers(1, n_cust + 1, size=max(SIZES)).tolist(),
             "batch": rng.integers(1, 51, size=max(SIZES)).tolist()}
 
 
-def _first_fused_call():
-    """A wrapper of ops.kernels.fused_limb_sums that keeps its first
-    call on the card (the check against the plain version) and no
-    other: the batch's members would hold B sets of lanes."""
+def _first_batched_call():
+    """A wrapper of ops.kernels.fused_limb_sums_batched that keeps its
+    first call on the card (the check against the plain version, and
+    the kernel row's lanes) and no other."""
     from presto_tpu_torch.ops import kernels as K
-    real, first = K.fused_limb_sums, []
+    real, first = K.fused_limb_sums_batched, []
 
-    def recording(ids, sources, requests, groups, **kw):
+    def recording(ids, sources, requests, groups, batch, **kw):
         if ids.is_cuda and not first:
-            first.append((ids, sources, requests, groups))
-        return real(ids, sources, requests, groups, **kw)
+            first.append((ids, sources, requests, groups, batch))
+        return real(ids, sources, requests, groups, batch, **kw)
     return real, recording, first
 
 
-def _batch(C, ex, family, texts, want, dev):
+# batched launches a batch of each family makes: the dashboard's
+# group-by and the batch family's keyless sum, one each (the bands'
+# hash-slot group-by sums by index_add)
+BATCHED_LAUNCHES = {"lookup": 0, "dashboard": 1, "bands": 0, "batch": 1}
+
+
+def _batch(C, ex, family, texts, want, dev, keep_call=False, check=True):
     """One timed batch of `texts` through bench_dispatch: rows against
-    the oracle, launches, syncs, the dispatch's walls."""
+    the oracle, launches, syncs, the device memory peak, the dispatch's
+    walls; with `check`, the batched entry's call against its plain
+    version; with keep_call, that call comes back too."""
     import torch
     from presto_tpu_torch.ops import kernels as K
     ex._staged.clear()  # the batch stages its scans itself, once
-    real, recording, first = _first_fused_call()
+    real, recording, first = _first_batched_call()
     C._reset_launches()
-    K.fused_limb_sums = recording
+    K.fused_limb_sums_batched = recording
+    peak = {}
     try:
-        t0 = time.perf_counter()
-        results, syncs = C._count_syncs(lambda: ex.bench_dispatch(
-            texts, sf=SF, device=dev))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        launches = K.LAUNCHES["fused_limb_sums"]
-        err = C.check_fused(*first[0], f"batched {family}") if first \
-            else None
+        with C._peak_mb(peak):
+            t0 = time.perf_counter()
+            results, syncs = C._count_syncs(lambda: ex.bench_dispatch(
+                texts, sf=SF, device=dev))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(K.LAUNCHES)
     finally:
-        K.fused_limb_sums = real
-        del first[:]
+        K.fused_limb_sums_batched = real
+    err = C.check_fused_batched(*first[0], f"batched {family}") \
+        if first and check else None
+    call = first[0] if keep_call and first else None
+    del first[:]
     got = [C._exact_rows(r) for r in results]
     if got != want:
         bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
         raise AssertionError(f"batched {family}[{len(texts)}] member {bad}: "
                              f"{got[bad]} != {want[bad]}")
     d = dict(ex.last_dispatch)
-    if d.get("size") != len(texts) or d.get("scans_staged") != 1:
+    if d.get("size") != len(texts) or d.get("scans_staged") != 1 or \
+            d.get("programs") != 1:
         raise AssertionError(f"batched {family}[{len(texts)}]: {d}")
-    if family == "dashboard" and (launches != len(texts) or err != 0.0):
-        raise AssertionError(f"batched dashboard[{len(texts)}] launched "
-                             f"fused_limb_sums {launches} times")
+    want_launches = BATCHED_LAUNCHES[family]
+    if launches["fused_limb_sums_batched"] != want_launches or \
+            launches["fused_limb_sums"] != 0 or err not in (None, 0.0) or \
+            (want_launches and check and err is None):
+        raise AssertionError(f"batched {family}[{len(texts)}] launched "
+                             f"{launches}, not fused_limb_sums_batched "
+                             f"{want_launches} times and fused_limb_sums "
+                             f"never (max abs err {err})")
     return {"B": len(texts), "syncs": syncs, "launches": launches,
-            "fused_max_abs_err": err, "stage_ms": d["stage_ms"],
+            "batched_max_abs_err": err, "stage_ms": d["stage_ms"],
             "execute_ms": d["execute_ms"], "fetch_ms": d["fetch_ms"],
-            "wall_ms": wall_ms, "ms_per_member": wall_ms / len(texts)}, \
-        results
+            "wall_ms": wall_ms, "ms_per_member": wall_ms / len(texts),
+            "peak_mb": peak["peak_mb"]}, results, call
+
+
+def _device_ops(fns, tries=3):
+    """Device ops of each fn() (its kernels and memsets on the card,
+    host <-> device copies left out), all in one torch.profiler window,
+    split at marker kernels (torch.cuda._sleep's spin_kernel) as
+    chip_smoke.device_times splits, the window opened with two
+    unmeasured calls and closed with one (a trace that is starting can
+    miss a kernel): [(count, union ms), ...]. Up to `tries` windows are
+    taken for one that shows every marker."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def mark():
+        torch.cuda.synchronize()
+        time.sleep(0.002)
+        torch.cuda._sleep(1000)
+
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fns[0]()
+            fns[0]()
+            for fn in fns:
+                mark()
+                fn()
+            mark()
+            fns[-1]()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "HtoD" not in e.name and "DtoH" not in e.name),
+                        key=lambda e: e.time_range.start)
+        groups, markers = None, 0
+        for e in events:
+            if "spin_kernel" in e.name:
+                markers += 1
+                groups = [] if groups is None else groups
+                groups.append([])
+            elif groups is not None:
+                groups[-1].append(e)
+        seen.append(markers)
+        if markers != len(fns) + 1:
+            continue
+        out = []
+        for g in groups[:len(fns)]:
+            union_us, end = 0, None
+            for e in g:
+                t0, t1 = e.time_range.start, e.time_range.end
+                if end is None or t0 > end:
+                    union_us, end = union_us + t1 - t0, t1
+                elif t1 > end:
+                    union_us, end = union_us + t1 - end, t1
+            out.append((len(g), union_us / 1e3))
+        return out
+    raise AssertionError(f"{tries} profiler windows showed {seen} markers, "
+                         f"not {len(fns) + 1}")
 
 
 def _serial(C, texts, batched, dev):
@@ -275,9 +401,7 @@ def phase_batching(C, seed=0):
     clear_batching()
     cache0 = cache_stats()
     ex = BatchingExecutor()
-    families = {"lookup": (LOOKUP, oracles.lookup),
-                "dashboard": (DASH, oracles.dashboard),
-                "batch": (BATCH, oracles.batch)}
+    families = oracles.families()
     out = {"families": {}}
     for family, (template, oracle) in families.items():
         ks = keys[family]
@@ -288,25 +412,42 @@ def phase_batching(C, seed=0):
         for i, B in enumerate(SIZES):
             texts = [template.format(k) for k in ks[:B]]
             want = [oracle(k) for k in ks[:B]]
-            rep[f"B{B}"], results = _batch(C, ex, family, texts, want, dev)
+            keep = family == "dashboard" and B == max(SIZES)
+            # the plain version of B = 64 members costs seconds: the
+            # batch of 5 is held to it here, the dashboard's batch of 64
+            # by chip_smoke.batched_row, every batch by its rows
+            rep[f"B{B}"], results, call = _batch(C, ex, family, texts, want,
+                                                 dev, keep_call=keep,
+                                                 check=i == 0)
+            if keep:
+                out["dashboard_call"] = call
             if i == 0:  # in turns: the serial members between the sizes
                 rep["serial_ms"] = _serial(
                     C, texts[:SERIAL_MEMBERS], results[:SERIAL_MEMBERS],
                     dev)
-            del results
+            del results, call
         if rep["B5"]["syncs"] != rep["B64"]["syncs"]:
             raise AssertionError(f"batched {family}: host syncs "
                                  f"{rep['B5']['syncs']} at B = 5, "
                                  f"{rep['B64']['syncs']} at B = 64")
+        # the device ops of one more batch of each size (warm: the scans
+        # staged by the B = 64 batch serve both sizes' key)
+        ops = _device_ops([
+            lambda B=B: ex.bench_dispatch(
+                [template.format(k) for k in ks[:B]], sf=SF, device=dev)
+            for B in SIZES])
         serial = statistics.mean(rep["serial_ms"])
-        for B in SIZES:
+        for B, (n_ops, union_ms) in zip(SIZES, ops):
             r = rep[f"B{B}"]
-            print(f"batching {family} B={B}: staging {r['stage_ms']:.2f} ms "
-                  f"(scans staged once), execute {r['execute_ms']:.2f} ms, "
-                  f"fetch {r['fetch_ms']:.2f} ms, {r['ms_per_member']:.3f} "
-                  f"ms per member against serial run_query "
-                  f"{serial:.2f} ms; {r['syncs']} host syncs, "
-                  f"fused_limb_sums launches {r['launches']}")
+            r["device_ops"], r["device_union_ms"] = n_ops, union_ms
+            print(f"batching {family} B={B}: one program, {n_ops} device "
+                  f"ops ({union_ms:.3f} ms of device work), staging "
+                  f"{r['stage_ms']:.2f} ms (scans staged once), execute "
+                  f"{r['execute_ms']:.2f} ms, fetch {r['fetch_ms']:.2f} ms, "
+                  f"{r['ms_per_member']:.3f} ms per member against serial "
+                  f"run_query {serial:.2f} ms; {r['syncs']} host syncs, "
+                  f"peak {r['peak_mb']:.1f} MB, launches "
+                  f"{ {k: v for k, v in r['launches'].items() if v} }")
         out["families"][family] = rep
     torch.cuda.empty_cache()
     out["statement"] = statement_batch(C, keys["dashboard"][5:8], oracles)
@@ -370,28 +511,192 @@ def profile_dashboard(C, keys, dev):
     return out
 
 
+def op_overhead(C, repeats=10):
+    """TPC-H q1's execute at SF1 (the staged batches run_query stages,
+    narrow limbs) with the group-by entering fused_limb_sums through the
+    custom op and through a direct call of the wrapper, in turns: op,
+    direct, direct, op, each the median host wall of `repeats`
+    executes. The outputs of both forms are equal."""
+    import torch
+    from presto_tpu_torch.exec.runner import execute
+    from presto_tpu_torch.parallel.exchange import map_block
+    from presto_tpu_torch.ops import kernels as K
+    from presto_tpu_torch.plan.widths import annotate_widths
+    root = annotate_widths(C.q1_plan(), SF)
+    batches = C.run_query_batches(root, SF)
+    op = K.fused_limb_sums_op
+
+    def direct(ids, sources, requests, groups):
+        return K.fused_limb_sums(ids, sources, requests, groups)
+
+    def tensors(batch):
+        found = []
+        for c in batch.columns:
+            map_block(c, lambda t: found.append(t.cpu()) or t)
+        return found + [batch.active.cpu()]
+
+    def run(form):
+        K.fused_limb_sums_op = op if form == "op" else direct
+        try:
+            out = tensors(execute(root, batches))
+            return C.wall_ms(lambda: execute(root, batches),
+                             repeats=repeats), out
+        finally:
+            K.fused_limb_sums_op = op
+
+    turns = [(form, *run(form)) for form in ("op", "direct", "direct", "op")]
+    first = turns[0][2]
+    if any(len(out) != len(first) or not all(map(torch.equal, out, first))
+           for _f, _ms, out in turns):
+        raise AssertionError("q1's output differs between the op and the "
+                             "direct call")
+    out = {"turns_ms": [(f, ms) for f, ms, _r in turns],
+           "op_ms": statistics.mean(ms for f, ms, _r in turns if f == "op"),
+           "direct_ms": statistics.mean(ms for f, ms, _r in turns
+                                        if f == "direct")}
+    print(f"batching op overhead: q1 execute at SF1 {out['op_ms']:.3f} ms "
+          f"through the custom op, {out['direct_ms']:.3f} ms through the "
+          f"wrapper directly (in turns {out['turns_ms']})")
+    return out
+
+
+def side_run(C, seed, batches=3):
+    """One turn of --against, in a process whose presto_tpu_torch is the
+    checkout under test: the four families at each B, `batches`
+    batches each after one warm batch; per family and B the median ms a
+    member, the host syncs and the device memory peak."""
+    import torch
+    from presto_tpu_torch.exec.batching import BatchingExecutor
+    oracles = Oracles(C)
+    keys = _keys(np.random.default_rng(seed), oracles)
+    ex = BatchingExecutor()
+    families = oracles.families()
+    out = {}
+    for family, (template, oracle) in families.items():
+        ks = keys[family]
+        ex.precompile(template.format(ks[0]), sf=SF, device=DEVICE)
+        for B in SIZES:
+            texts = [template.format(k) for k in ks[:B]]
+            want = [oracle(k) for k in ks[:B]]
+            ex.bench_dispatch(texts, sf=SF, device=DEVICE)  # warm
+            walls, peak = [], {}
+            for _ in range(batches):
+                with C._peak_mb(peak):
+                    t0 = time.perf_counter()
+                    results, syncs = C._count_syncs(
+                        lambda: ex.bench_dispatch(texts, sf=SF,
+                                                  device=DEVICE))
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                if [C._exact_rows(r) for r in results] != want:
+                    raise AssertionError(f"{family}[{B}]: rows differ from "
+                                         "the oracle")
+                del results
+            out[f"{family}/B{B}"] = {
+                "ms_per_member": statistics.median(walls) / B,
+                "syncs": syncs, "peak_mb": peak["peak_mb"]}
+        torch.cuda.empty_cache()
+    return out
+
+
+def against(dirs, out_dir):
+    """--against: the side runs in turns, DIR, this, this, DIR, one
+    process each; the medians of each side's two turns."""
+    import subprocess
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    order = [dirs, here, here, dirs]
+    turns = []
+    os.makedirs(out_dir, exist_ok=True)
+    for i, root in enumerate(order):
+        path = os.path.join(out_dir, f"batching_side_{i}.json")
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--side", root, "--out", path],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"side run {i} ({root}) failed:\n"
+                               f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        with open(path) as f:
+            turns.append(json.load(f)["side"])
+    out = {"turns": [{"root": r, **t} for r, t in zip(order, turns)]}
+    for cell in turns[0]:
+        mine = [turns[1][cell], turns[2][cell]]
+        theirs = [turns[0][cell], turns[3][cell]]
+        row = {k: (statistics.mean(t[k] for t in mine),
+                   statistics.mean(t[k] for t in theirs))
+               for k in ("ms_per_member", "syncs", "peak_mb")}
+        out[cell] = row
+        mine_ms, theirs_ms = row["ms_per_member"]
+        print(f"batching against {cell}: ms a member {mine_ms:.3f} (this) "
+              f"against {theirs_ms:.3f} (DIR); "
+              f"host syncs {row['syncs'][0]} against {row['syncs'][1]}; peak "
+              f"{row['peak_mb'][0]:.1f} MB against {row['peak_mb'][1]:.1f} "
+              f"MB; turns ms a member "
+              f"{[round(t[cell]['ms_per_member'], 4) for t in turns]}")
+    return out
+
+
+def _load_chip_smoke():
+    """This checkout's chip_smoke.py as a module (a side run's
+    presto_tpu_torch may be another checkout's)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the report here")
     ap.add_argument("--profile", action="store_true",
                     help="then profile one warm dashboard batch of 64")
+    ap.add_argument("--op-overhead", action="store_true",
+                    help="then time q1's execute through the custom op "
+                         "and the direct call, in turns")
+    ap.add_argument("--against", metavar="DIR",
+                    help="time the families of DIR's checkout and this "
+                         "one's in turns, one process a turn")
+    ap.add_argument("--side", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("batching_phase: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    import chip_smoke as C
+    if args.against:
+        out_dir = os.path.dirname(os.path.abspath(args.out)) if args.out \
+            else os.getcwd()
+        rep = against(os.path.abspath(args.against), out_dir)
+        gpu = _load_chip_smoke()._run(["nvidia-smi",
+                                       "--query-gpu=name,power.limit",
+                                       "--format=csv,noheader"])
+        print(gpu)
+        rep["gpu"] = gpu
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(rep, f, indent=1, default=str)
+        return 0
+    root = os.path.abspath(args.side) if args.side else \
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    C = _load_chip_smoke()
     t0 = time.perf_counter()
     C.install_host_cache()
     C.phase_environment()
-    rep = phase_batching(C, args.seed)
-    if args.profile:
-        oracles = Oracles(C)
-        keys = _keys(np.random.default_rng(args.seed), oracles)
-        rep["profile"] = profile_dashboard(C, keys["dashboard"], DEVICE)
+    if args.side:
+        rep = {"side": side_run(C, args.seed)}
+    else:
+        rep = phase_batching(C, args.seed)
+        rep.pop("dashboard_call", None)
+        if args.profile:
+            oracles = Oracles(C)
+            keys = _keys(np.random.default_rng(args.seed), oracles)
+            rep["profile"] = profile_dashboard(C, keys["dashboard"], DEVICE)
+        if args.op_overhead:
+            rep["op_overhead"] = op_overhead(C)
     gpu = C._run(["nvidia-smi", "--query-gpu=name,power.limit",
                   "--format=csv,noheader"])
     print(gpu)
@@ -401,8 +706,9 @@ def main() -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(rep, f, indent=1, default=str)
-    print(f"batching phase {rep['s']:.1f} s; host generation {C.GEN_S}; "
-          f"TOTAL {rep['total_s']:.1f} s")
+    if "s" in rep:
+        print(f"batching phase {rep['s']:.1f} s; host generation "
+              f"{C.GEN_S}; TOTAL {rep['total_s']:.1f} s")
     return 0
 
 

@@ -33,6 +33,8 @@ def _launch_names():
             and not n.endswith("_reference")} | {"limb_partial_sums_i16",
                                                  "limb_partial_sums_f32",
                                                  "fused_limb_sums",
+                                                 "fused_limb_sums_batched",
+                                                 "_launch_fused",
                                                  "contains_bytes_u8"}
 
 

@@ -379,14 +379,15 @@ def test_metric_families_equal_the_reference():
 
 
 def test_corpus_gate_is_clean_on_q1_q3_q6_q9(tmp_path):
-    """The four queries on both tiers pass against the committed
+    """The four queries on all three tiers (local, mesh, and the batch
+    tier's one program of two members) pass against the committed
     baseline; every committed entry carries a reason."""
     from presto_tpu_torch.audit.cli import DEFAULT_BASELINE
     from presto_tpu_torch.lint.baseline import load_baseline
     rc, out = _cli(["--device", "cpu", "--queries", "1,3,6,9", "--json"])
     assert rc == 0, out
     doc = json.loads(out)
-    assert doc["filesScanned"] == 8 and doc["findings"] == []
+    assert doc["filesScanned"] == 12 and doc["findings"] == []
     assert set(doc) == {"version", "passes", "filesScanned", "findings",
                         "baselined", "suppressed", "staleBaseline"}
     for e in load_baseline(DEFAULT_BASELINE).values():
@@ -412,6 +413,23 @@ def test_cli_contract(tmp_path):
     rc, out = _cli(["--device", "cpu", "--queries", "6", "--tier", "local",
                     "--baseline", bl, "--format", "github"])
     assert rc == 0 and out == ""
+
+
+@pytest.mark.parametrize("tier,labels", [
+    ("both", ["tpch/q06", "tpch/q06.mesh"]),
+    ("batch", ["tpch/q06.batch"]),
+    ("all", ["tpch/q06", "tpch/q06.mesh", "tpch/q06.batch"])])
+def test_corpus_tiers_stage_their_closures(tier, labels):
+    """`both` is the reference's local and mesh tiers, `batch` the
+    template as one program, `all` the three; a tier no one knows is
+    refused, not traced as nothing."""
+    from presto_tpu_torch.audit.cli import (DEFAULT_FOOTPRINT_BUDGET,
+                                            corpus_kernels)
+    got = corpus_kernels([6], 0.01, tier, "cpu", DEFAULT_FOOTPRINT_BUDGET)
+    assert [k.label for k in got] == labels
+    with pytest.raises(ValueError, match="unknown corpus tier"):
+        corpus_kernels([6], 0.01, tier + "x", "cpu",
+                       DEFAULT_FOOTPRINT_BUDGET)
 
 
 # -- the live query -----------------------------------------------------

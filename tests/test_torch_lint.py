@@ -325,8 +325,10 @@ def test_h001_holds_every_k002_site_of_the_cpu_traces():
     from presto_tpu_torch.lint.passes.host_sync import sites
     from presto_tpu_torch.queries import load_corpus
     from presto_tpu_torch.sql import plan_sql
-    k002 = _k002_lines(corpus_kernels([1, 3, 6, 9], 0.01, "both", "cpu",
-                                      DEFAULT_FOOTPRINT_BUDGET))
+    traced = corpus_kernels([1, 3, 6, 9], 0.01, "both", "cpu",
+                            DEFAULT_FOOTPRINT_BUDGET)
+    assert len(traced) == 8
+    k002 = _k002_lines(traced)
     agg = load_corpus()["agg_hash"]
     root = prepare_plan(plan_sql(agg["sql"], max_groups=agg["max_groups"]),
                         sf=0.01)

@@ -79,13 +79,41 @@ def test_every_ordered_lock_of_the_reference_has_its_counterpart():
     assert {name for _rel, name in mine} == {name for _rel, name in ref}
 
 
-# The reference's LOCK_ORDER.json has 7 edges; the port's graph has each
-# of them but this one: the reference's TaskManager.abort records the
-# ABORTED flight-recorder event while it holds the task lock, and the
-# port's abort records no event, so it takes no recorder lock there.
-_REFERENCE_ONLY_EDGES = {
-    ("worker._Task.lock", "flight_recorder._recorder_lock"),
-}
+# The reference's LOCK_ORDER.json has 7 edges, and the port's graph has
+# each of them: both TaskManager.abort methods record the ABORTED
+# flight-recorder event while they hold the task lock.
+_REFERENCE_ONLY_EDGES: set = set()
+
+
+def test_task_abort_records_aborted_as_the_reference_does():
+    """A PLANNED task aborted in each package's TaskManager: one
+    `task_state` ABORTED flight event for it, and the task ABORTED with
+    its buffers dropped; a FINISHED task aborted records none."""
+    from presto_tpu.server import flight_recorder as RF
+    from presto_tpu.server import worker as RW
+
+    from presto_tpu_torch.server import flight_recorder as PF
+    from presto_tpu_torch.server import worker as PW
+    seen = {}
+    for fr, wk, kw in ((RF, RW, {}), (PF, PW, {"device": "cpu"})):
+        fr.set_flight_recorder(fr.FlightRecorder())
+        try:
+            tm = wk.TaskManager(sf=SF, **kw)
+            with tm._tasks_lock:
+                for tid in ("t-abort", "t-done"):
+                    tm.tasks[tid] = wk._Task(tid)
+            tm.tasks["t-done"].state = "FINISHED"
+            tm.abort("t-abort")
+            tm.abort("t-done")
+            events = fr.get_flight_recorder().events(kind="task_state")
+            seen[wk.__name__] = [(e["queryId"], e["state"]) for e in events]
+            task = tm.tasks["t-abort"]
+            assert task.state == "ABORTED"
+            assert list(task.buffers) == [0] and task.finished_at
+        finally:
+            fr.set_flight_recorder(None)
+    assert seen[PW.__name__] == seen[RW.__name__] == [("t-abort",
+                                                       "ABORTED")]
 
 
 def test_lock_order_artifact_matches_source_and_is_cycle_free(tmp_path):
@@ -93,7 +121,7 @@ def test_lock_order_artifact_matches_source_and_is_cycle_free(tmp_path):
     graph: the source regenerates the same locks and ordered pairs, with
     no cycle (`python -m presto_tpu_torch.lint.lockgraph --check`); its
     nodes are the reference's 56 names, and its edges the reference's
-    less the one listed above."""
+    (less any listed above)."""
     from presto_tpu_torch.lint.lockgraph import (DEFAULT_ARTIFACT,
                                                  build_doc, main)
     doc = build_doc()
