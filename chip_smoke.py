@@ -10,9 +10,13 @@ PyTorch version at the shapes of its path:
   fused_limb_sums (limb split and per-group sums in one pass) on every
   lane kind, a ragged n with ids outside [0, G), G = 2, 16 and 64, and
   the worst case at the kernel's row limit; its batched entry
-  fused_limb_sums_batched (the vmapped kernel's member grid axis) at
-  B = 1, 3 and 64, lanes shared and per member, a member with no row,
-  and its refusals of a bad B or stride by return code;
+  fused_limb_sums_batched (the vmapped kernel's member axis, a tile of
+  members a block) at B = 1, 3, 64, the tile's M - 1 and M + 1, and 65,
+  G = 1, 5, 16 and 64, lanes shared and per member and the sources
+  mixed (a per-member 128-bit pair, a per-member source under a shared
+  mask, shared sources under member masks), a member with no row, two
+  members at the row limit in one block each, and its refusals of a bad
+  B or stride by return code;
 * q1 (in both limb forms: narrow takes fused_limb_sums, wide the
   per-tile kernel) and q6 at scale factor 1 (6,000,000 lineitem rows)
   through `presto_tpu_torch.exec.run_query`; fused_limb_sums again on
@@ -147,9 +151,10 @@ PyTorch version at the shapes of its path:
   a batch, the host syncs of a batch equal at both sizes, the batch's
   device ops and memory peak; a batch of three dashboard statements
   formed by the statement server's threads, and the dashboard with
-  fusion off through the region executor; then the kernel row of
-  fused_limb_sums_batched on the lanes of the dashboard's batch of 64
-  (against its plain version and 64 fused_limb_sums launches);
+  fusion off through the region executor; then the kernel rows of
+  fused_limb_sums_batched on the lanes of the dashboard's and of the
+  lineitem family's batches of 64 (against their plain versions and 64
+  fused_limb_sums launches);
 * the kernel audit and buffer donation (phase_audit,
   scripts/audit_phase.py): q1 at SF1 with `kernel_audit` on (the
   audit's seconds on a memo miss and a hit, rows equal to the
@@ -865,6 +870,57 @@ def _member_lanes(ids, sources, groups, batch, gen, empty=None):
     return ids_b, out
 
 
+def _mixed_member_lanes(ids, sources, reqs, groups, batch, gen, empty=None,
+                        member_pair=True):
+    """The lanes of _fused_lanes as a batch whose sources mix the ways
+    the batched entry takes them: the ids, the int32 lane and (with
+    `member_pair`) the 128-bit pair per member, the int8, int16 and
+    int64 lanes, the mask (and the pair) shared, and a second mask per
+    member (a seventh source); the
+    requests of _fused_lanes (so a per-member source under the shared
+    mask) and more under the member mask: a count of it, shared sources
+    and the shared pair's fields under it. Member `empty`, if any, has
+    no row in [0, G) and a member mask that is all False."""
+    import torch
+    from presto_tpu_torch.ops import kernels as K
+    R = K.LimbRequest
+    n, dev = ids.shape[0], ids.device
+    ids_b = torch.randint(-2, groups + 2, (batch, n), generator=gen,
+                          device=dev, dtype=torch.int32)
+    i32 = torch.randint(-(1 << 31), (1 << 31) - 1, (batch, n),
+                        generator=gen, device=dev).to(torch.int32)
+    hi = torch.randint(-(1 << 62), 1 << 62, (batch, n), generator=gen,
+                       device=dev)
+    lo = torch.randint(-(1 << 63), (1 << 63) - 1, (batch, n),
+                       generator=gen, device=dev)
+    mask2 = torch.rand((batch, n), generator=gen, device=dev) < 0.4
+    if empty is not None:
+        ids_b[empty] = -1
+        mask2[empty] = False
+    out = list(sources)
+    out[2] = i32
+    if member_pair:
+        out[4] = (hi, lo)
+    out.append(mask2)
+    more = [R(6, -1, 0, 1, True), R(0, 6, 0, 8, True),
+            R(3, 6, 13, 13, False), R(3, 6, 52, 12, True),
+            R(1, 6, 0, 16, True), R(4, 6, 64, 13, False),
+            R(4, 6, 117, 11, True)]
+    return ids_b, out, list(reqs) + more
+
+
+def fused_plan():
+    """What the last launch of fused_limb_sums.cu chose: members a tile,
+    tiles, items a warp, work items, shared memory, blocks an SM, chunk
+    ranges, classes of shared columns."""
+    import ctypes
+    from presto_tpu_torch.ops import kernels as K
+    got = (ctypes.c_int * 8)()
+    K._library("fused_limb_sums").fused_limb_sums_last_plan(got)
+    return dict(zip(("members", "tiles", "items_a_warp", "items", "smem",
+                     "blocks_per_sm", "chunk_ranges", "classes"), list(got)))
+
+
 def check_fused_batched(ids, sources, reqs, groups, batch, what, **kw):
     """fused_limb_sums_batched against its plain version (the members'
     plain versions, stacked), bit for bit; returns the max abs error
@@ -880,7 +936,8 @@ def check_fused_batched(ids, sources, reqs, groups, batch, what, **kw):
         bad = (got != want).nonzero()[:8].tolist()
         raise AssertionError(f"fused_limb_sums_batched {what} {kw}: differs "
                              f"at (member, group, request) {bad}")
-    print(f"fused_limb_sums_batched exact: {what} {kw}")
+    print(f"fused_limb_sums_batched exact: {what} {kw}; plan "
+          f"{fused_plan()}")
     return err
 
 
@@ -930,7 +987,12 @@ def phase_fused(seed):
     entry, fused_limb_sums_batched, against its plain version: B = 1, 3
     and 64, lanes shared and per member (a ragged n, whose per-member
     lanes the wrapper pads to aligned member strides), a member with no
-    row, shared ids; and its refusals by return code."""
+    row, shared ids; the sources mixed (_mixed_member_lanes: a
+    per-member 128-bit pair, a per-member source under a shared mask,
+    shared sources under a member mask) at B = 64 (G 64), M - 1 and
+    M + 1 (G 16; M the members of the kernel's tile at B = 64) and 65
+    (G 1); two members at the row limit in one block each; and its
+    refusals by return code."""
     import torch
     from presto_tpu_torch.ops import kernels as K
     dev = torch.device("cuda")
@@ -964,6 +1026,46 @@ def phase_fused(seed):
                             "empty")
         check_fused_batched(ids, member, reqs, groups, batch,
                             f"B={batch} n={n} G={groups}, shared ids")
+    del ids, ids_b, sources, member
+    torch.cuda.empty_cache()
+    # the sources mixed, B around the kernel's tile of members
+    n = 100_003
+    ids, sources, reqs = _fused_lanes(n, 16, gen, dev)
+    ids_b, member, mreqs = _mixed_member_lanes(ids, sources, reqs, 16, 64,
+                                               gen, empty=5,
+                                               member_pair=False)
+    check_fused_batched(ids_b, member, mreqs, 16, 64,
+                        f"B=64 n={n} G=16, sources mixed, member 5 empty")
+    m = fused_plan()["members"]
+    for batch, groups, n, pair in ((max(m - 1, 1), 16, 300_007, False),
+                                   (m + 1, 16, 300_007, False),
+                                   (64, 64, 100_003, True),
+                                   (65, 1, 100_003, False)):
+        ids, sources, reqs = _fused_lanes(n, groups, gen, dev)
+        ids_b, member, mreqs = _mixed_member_lanes(
+            ids, sources, reqs, groups, batch, gen, empty=batch // 2,
+            member_pair=pair)
+        check_fused_batched(ids_b, member, mreqs, groups, batch,
+                            f"B={batch} n={n} G={groups}, sources mixed"
+                            f"{', the pair per member' if pair else ''}, "
+                            f"member {batch // 2} empty (tile of {m} at "
+                            "B=64, G=16)")
+        check_fused_batched(ids, member, mreqs, groups, batch,
+                            f"B={batch} n={n} G={groups}, sources mixed, "
+                            "shared ids")
+    del ids, ids_b, sources, member
+    torch.cuda.empty_cache()
+    # two members at the row limit, one block each: every row in group
+    # 63, the shared lanes at their maximum, the member lanes at theirs
+    n = K.FUSED_MAX_ROWS_PER_BLOCK
+    ids, sources, reqs = _fused_lanes(n, 64, gen, dev, 1)
+    ids_b = ids.expand(2, n).contiguous()
+    member = list(sources)
+    member[3] = sources[3].expand(2, n).contiguous()
+    member[5] = sources[5].expand(2, n).contiguous()
+    check_fused_batched(ids_b, member, reqs, 64, 2,
+                        f"worst case max: 2 members of {n} rows in group "
+                        "63, one block each", blocks=1)
     del ids, ids_b, sources, member
     torch.cuda.empty_cache()
     check_batched_refusals()
@@ -1050,12 +1152,14 @@ def fused_row(call, launches, query="q1"):
     return row
 
 
-def batched_row(call, launches, what="the dashboard's batch of 64"):
+def batched_row(call, launches, what="the dashboard's batch of 64",
+                plain_repeats=3):
     """Time fused_limb_sums_batched on the lanes `what` handed it on the
-    main path (phase_batching), beside its plain version and the
-    per-member form it replaces (B launches of fused_limb_sums, one a
-    member, as the batched dispatch ran before it was one program); the
-    kernel table's row."""
+    main path (phase_batching), beside its plain version (`plain_repeats`
+    event-timed runs, no warm-up: the members' plain versions cost
+    seconds) and the per-member form it replaces (B launches of
+    fused_limb_sums, one a member, as the batched dispatch ran before it
+    was one program); the kernel table's row."""
     import torch
     from presto_tpu_torch.ops import kernels as K
     ids, sources, reqs, groups, batch = call
@@ -1082,8 +1186,9 @@ def batched_row(call, launches, what="the dashboard's batch of 64"):
                    "fused_limb_sums_kernel")
     call_ms = cuda_ms(lambda: K.fused_limb_sums_batched(
         ids, sources, reqs, groups, batch))
+    plan = fused_plan()  # what the batched entry chose for these lanes
     plain_ms = cuda_ms(lambda: K.fused_limb_sums_batched_reference(
-        ids, sources, reqs, groups, batch), repeats=3, warmup=0)
+        ids, sources, reqs, groups, batch), repeats=plain_repeats, warmup=0)
     standin_ms = cuda_ms(per_member)
     lanes = [ids] + [t for s in sources
                      for t in (s if isinstance(s, tuple) else (s,))]
@@ -1098,7 +1203,8 @@ def batched_row(call, launches, what="the dashboard's batch of 64"):
     bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
     row = {
         "name": "fused_limb_sums_batched",
-        "form": f"batched (the vmapped kernel's member grid axis), {what}",
+        "form": f"batched (the vmapped kernel's member axis, tiles of "
+                f"members a block), {what}",
         "route": "cuda",
         "source": "presto_tpu_torch/ops/csrc/fused_limb_sums.cu",
         "replaces": "presto_tpu/ops/pallas_kernels.py:163",
@@ -1110,8 +1216,10 @@ def batched_row(call, launches, what="the dashboard's batch of 64"):
         "library_ms": None, "standin_ms": standin_ms, "call_ms": call_ms,
         "timing": "ms: the kernel's device time (torch.profiler); "
                   "call_ms: CUDA events around the wrapper call; plain_ms "
-                  "(the members' plain versions) and standin_ms (B "
-                  "fused_limb_sums launches, one a member): CUDA events",
+                  f"(the members' plain versions, median of {plain_repeats} "
+                  "runs, no warm-up) and standin_ms (B fused_limb_sums "
+                  "launches, one a member): CUDA events",
+        "plan": plan,
         "library": "none: no single PyTorch call splits limbs and sums "
                    "them per group and member; standin_ms is the "
                    "per-member form this entry replaces",
@@ -5431,6 +5539,12 @@ def run_phases(args, start_cpu_workers) -> int:
         batching.pop("dashboard_call"),
         batching["families"]["dashboard"]["B64"]["launches"][
             "fused_limb_sums_batched"]))
+    torch.cuda.empty_cache()
+    kernel_rows.insert(3, batched_row(
+        batching.pop("lineitem_call"),
+        batching["families"]["batch"]["B64"]["launches"][
+            "fused_limb_sums_batched"], "the lineitem batch of 64",
+        plain_repeats=2))
     torch.cuda.empty_cache()
     audit = timed("audit", phase_audit)
     cluster = timed("cluster", witnessed, phase_cluster)

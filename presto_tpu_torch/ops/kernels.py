@@ -11,13 +11,15 @@ wide form), and fused_limb_sums, which takes the aggregates' own lanes
 and splits the limbs inside the kernel (the narrow form, the default).
 
 fused_limb_sums also has a batched entry, fused_limb_sums_batched: the
-kernel of the reference's vmapped pallas_call, with the member axis as
-the grid's y axis (exec/batching.py runs a batch as one program under
-torch.func.vmap). The group-by reaches both through one custom op,
-`presto_tpu_torch::fused_limb_sums` (`fused_limb_sums_op`): called
-plainly it runs fused_limb_sums; under vmap its rule launches the
-batched entry once, each lane's vmap dimension turned into a member
-stride (0 for a lane every member shares).
+kernel of the reference's vmapped pallas_call, whose grid's y axis is a
+tile of members (exec/batching.py runs a batch as one program under
+torch.func.vmap): a block stages each lane every member shares once for
+its tile's members and splits it once, and applies the members' masks
+at the tensor-core operand. The group-by reaches both through one
+custom op, `presto_tpu_torch::fused_limb_sums` (`fused_limb_sums_op`):
+called plainly it runs fused_limb_sums; under vmap its rule launches
+the batched entry once, each lane's vmap dimension turned into a
+member stride (0 for a lane every member shares).
 
 A wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version only for CPU tensors; there is no fallback from a
@@ -317,12 +319,13 @@ def _source_lanes(source: Source) -> List[torch.Tensor]:
 
 # one launch's limits, as ops/csrc/fused_limb_sums.cu checks them: its
 # sources, requests and 7-bit limbs, and the shared memory of its
-# descriptors (2,880 bytes), two stages of 1,024 rows (the int32 ids
-# and every source lane) and the limb tile (a 1,040-byte column per limb,
-# 8 a tile, and one spare)
+# descriptors and the stages' two barriers (3,552 bytes), two stages of
+# 1,024 rows (the int32 ids and every source lane), the limb tile (a
+# 1,040-byte column per limb, counted here in whole tiles of 8 and one
+# more) and the ids as bytes
 FUSED_MAX_SOURCES, FUSED_MAX_REQUESTS, FUSED_MAX_LIMBS = 16, 128, 256
 _FUSED_MAX_SMEM, _FUSED_CHUNK, _FUSED_COLUMN, _FUSED_DESC = \
-    232448, 1024, 1040, 2880
+    232448, 1024, 1040, 3552
 
 
 def source_bytes(source: Source) -> int:
@@ -536,18 +539,20 @@ def _check_batched_args(ids: torch.Tensor, sources: Sequence[Source],
 
 def fused_limb_sums_batched(ids: torch.Tensor, sources: Sequence[Source],
                             requests: Sequence[LimbRequest], groups: int,
-                            batch: int) -> torch.Tensor:
+                            batch: int, blocks: int = 0) -> torch.Tensor:
     """(B, G, R) int64: fused_limb_sums of every member m < B in ONE
-    launch, the blocks the card holds at once shared among the members.
-    ids and each lane are (n,), shared by every member, or (B, n),
-    member m's at row m."""
+    launch, the blocks the card holds at once shared among the kernel's
+    tiles of members. ids and each lane are (n,), shared by every
+    member, or (B, n), member m's at row m. `blocks` sets the chunk
+    ranges of each tile of members (0: as many as keep the grid to the
+    blocks the card holds at once)."""
     _check_batched_args(ids, sources, requests, groups, batch)
     if ids.device.type == "cpu":
         return fused_limb_sums_batched_reference(ids, sources, requests,
                                                  groups, batch)
     if ids.device.type != "cuda":
         raise ValueError(f"no kernel for device {ids.device}")
-    tot = _launch_fused(ids, sources, requests, groups, batch, 0,
+    tot = _launch_fused(ids, sources, requests, groups, batch, blocks,
                         "fused_limb_sums_batched")
     return _recombine(tot.flatten(0, 1)).unflatten(0, (batch, groups))
 

@@ -49,8 +49,9 @@ executor: rows equal to the fused ones, one fused_limb_sums launch).
 Prints, per family and B, the staging ms, the batch's execute and fetch
 ms, ms per member, the serial run_query ms, device ops, host syncs and
 the device memory peak; the plan cache's hits and misses; the region
-counts. The dashboard's B = 64 batched call comes back under
-`dashboard_call` (chip_smoke.py's kernel row for the batched entry).
+counts. The dashboard's and the lineitem family's B = 64 batched calls
+come back under `dashboard_call` and `lineitem_call` (chip_smoke.py's
+two kernel rows of the batched entry).
 
 With --profile, alone, it then profiles one warm dashboard batch of 64
 (torch.profiler): device events, their summed and union ms, against
@@ -192,6 +193,10 @@ def _first_batched_call():
 # group-by and the batch family's keyless sum, one each (the bands'
 # hash-slot group-by sums by index_add)
 BATCHED_LAUNCHES = {"lookup": 0, "dashboard": 1, "bands": 0, "batch": 1}
+
+# the families whose batched call of B = 64 comes back for chip_smoke's
+# kernel rows, and under which key
+KEPT_CALLS = {"dashboard": "dashboard_call", "batch": "lineitem_call"}
 
 
 def _batch(C, ex, family, texts, want, dev, keep_call=False, check=True):
@@ -412,15 +417,16 @@ def phase_batching(C, seed=0):
         for i, B in enumerate(SIZES):
             texts = [template.format(k) for k in ks[:B]]
             want = [oracle(k) for k in ks[:B]]
-            keep = family == "dashboard" and B == max(SIZES)
+            keep = family in KEPT_CALLS and B == max(SIZES)
             # the plain version of B = 64 members costs seconds: the
-            # batch of 5 is held to it here, the dashboard's batch of 64
-            # by chip_smoke.batched_row, every batch by its rows
+            # batch of 5 is held to it here, the dashboard's and the
+            # lineitem's batches of 64 by chip_smoke.batched_row, every
+            # batch by its rows
             rep[f"B{B}"], results, call = _batch(C, ex, family, texts, want,
                                                  dev, keep_call=keep,
                                                  check=i == 0)
             if keep:
-                out["dashboard_call"] = call
+                out[KEPT_CALLS[family]] = call
             if i == 0:  # in turns: the serial members between the sizes
                 rep["serial_ms"] = _serial(
                     C, texts[:SERIAL_MEMBERS], results[:SERIAL_MEMBERS],
@@ -690,7 +696,8 @@ def main() -> int:
         rep = {"side": side_run(C, args.seed)}
     else:
         rep = phase_batching(C, args.seed)
-        rep.pop("dashboard_call", None)
+        for key in KEPT_CALLS.values():
+            rep.pop(key, None)
         if args.profile:
             oracles = Oracles(C)
             keys = _keys(np.random.default_rng(args.seed), oracles)
